@@ -1,0 +1,144 @@
+"""Command-line interface of the PyTorch port (subset of
+llama_gguf_tpu/cli.py): ``info`` and ``run``.
+
+    python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
+    python -m llama_gguf_tpu_torch info MODEL.gguf [--tensors] [--json]
+
+``run`` loads onto CUDA unless ``--device cpu`` is given. The TOML config
+file, the speculative, grammar and LoRA flags and the other subcommands are
+ROADMAP queue 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="llama-gguf-tpu-torch",
+        description="GGUF LLM inference engine, PyTorch/CUDA port.")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("info", help="show GGUF metadata and tensor inventory")
+    p.add_argument("model")
+    p.add_argument("--tensors", action="store_true", help="list all tensors")
+    p.add_argument("--json", dest="json_out", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
+
+    p = sub.add_parser("run", help="generate text from a prompt")
+    p.add_argument("model", help="path to .gguf model")
+    p.add_argument("--ctx", type=int, default=None, help="max context length")
+    p.add_argument("--weight-mode", choices=["quant", "dequant"],
+                   default="quant")
+    p.add_argument("--kv-cache-type", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
+    p.add_argument("-p", "--prompt", default=None)
+    p.add_argument("--no-stream", action="store_true")
+    p.add_argument("-n", "--max-tokens", type=int, default=512)
+    p.add_argument("-t", "--temperature", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--min-p", type=float, default=0.0)
+    p.add_argument("--repeat-penalty", type=float, default=1.1)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--stop", action="append", default=None)
+    p.add_argument("-v", "--verbose", action="store_true")
+    return ap
+
+
+def cmd_info(args) -> int:
+    from .gguf.reader import GGUFFile
+
+    g = GGUFFile.open(args.model)
+    try:
+        by_type: dict[str, int] = {}
+        total_bytes = 0
+        for info in g.tensors.values():
+            by_type[info.ggml_type.name] = by_type.get(info.ggml_type.name, 0) + 1
+            total_bytes += info.nbytes
+        if args.json_out:
+            meta = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                    for k, v in g.metadata.items()
+                    if not k.startswith("tokenizer.")}
+            print(json.dumps({
+                "path": args.model, "version": g.version,
+                "tensor_count": len(g.tensors), "data_bytes": total_bytes,
+                "types": by_type, "metadata": meta,
+            }, default=str))
+            return 0
+        print(f"GGUF v{g.version}  {args.model}")
+        arch = g.metadata.get("general.architecture", "?")
+        print(f"  architecture : {arch}")
+        for key in ("general.name", f"{arch}.block_count",
+                    f"{arch}.embedding_length", f"{arch}.attention.head_count",
+                    f"{arch}.attention.head_count_kv", f"{arch}.context_length",
+                    f"{arch}.feed_forward_length", "general.file_type"):
+            if key in g.metadata:
+                print(f"  {key.split('.', 1)[1]:<28}: {g.metadata[key]}")
+        print(f"  tensors      : {len(g.tensors)} "
+              f"({total_bytes / 1e6:.1f} MB) {by_type}")
+        if args.tensors:
+            for name in g.tensor_order:
+                info = g.tensors[name]
+                print(f"  {name:<48} {info.ggml_type.name:<8} "
+                      f"{list(info.shape)}")
+        return 0
+    finally:
+        g.close()
+
+
+def cmd_run(args) -> int:
+    from .engine.engine import Engine, EngineConfig
+    from .sampling.sampler import SamplerConfig
+
+    if not os.path.exists(args.model):
+        sys.exit(f"error: model not found: {args.model}")
+    engine = Engine.load(
+        args.model,
+        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
+                     kv_format=args.kv_cache_type, seed=args.seed),
+        device=args.device)
+    prompt = args.prompt if args.prompt is not None else sys.stdin.read()
+    sampler = SamplerConfig(
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        min_p=args.min_p, repetition_penalty=args.repeat_penalty,
+        seed=args.seed)
+    if args.no_stream:
+        print(engine.generate(prompt, max_tokens=args.max_tokens,
+                              sampler=sampler, stop=args.stop))
+    else:
+        for piece in engine.generate_streaming(prompt,
+                                               max_tokens=args.max_tokens,
+                                               sampler=sampler,
+                                               stop=args.stop):
+            print(piece, end="", flush=True)
+        print()
+    s = engine.stats
+    print(f"[prefill {s.prompt_tokens} tok @ {s.prefill_tps:.1f} tok/s | "
+          f"decode {s.generated_tokens} tok @ {s.decode_tps:.1f} tok/s]",
+          file=sys.stderr)
+    return 0
+
+
+COMMANDS = {"info": cmd_info, "run": cmd_run}
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if getattr(args, "verbose", False) else logging.INFO,
+        format="%(levelname)s %(name)s: %(message)s")
+    try:
+        return COMMANDS[args.command](args)
+    except KeyboardInterrupt:
+        return 130
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+"""Carry weights and KV caches across from the JAX package.
+
+``params_from_numpy`` turns llama_gguf_tpu's params into the port's. The
+caller converts the JAX tree to numpy first (for example
+``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
+nothing of JAX or of the JAX package: QuantLinear-, DenseLinear- and
+QuantEmbedding-like leaves are recognised by their attributes.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .ops.linear import DenseLinear, QuantEmbedding, QuantLinear
+
+
+def _tensor(a, device) -> torch.Tensor | None:
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """Convert a numpy-leaved llama_gguf_tpu params tree to the port's."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    if hasattr(tree, "packed") and hasattr(tree, "vocab"):
+        return QuantEmbedding(
+            _tensor(tree.packed, device), _tensor(tree.scales, device),
+            _tensor(tree.mins, device), fmt=tree.fmt, group=tree.group,
+            vocab=tree.vocab, hidden=tree.hidden)
+    if hasattr(tree, "packed") and hasattr(tree, "splits"):
+        return QuantLinear(
+            _tensor(tree.packed, device), _tensor(tree.scales, device),
+            _tensor(tree.mins, device), _tensor(tree.bias, device),
+            fmt=tree.fmt, group=tree.group, k=tree.k, n=tree.n,
+            source_type=tree.source_type, splits=tree.splits)
+    if hasattr(tree, "weight") and hasattr(tree, "splits"):
+        return DenseLinear(_tensor(tree.weight, device),
+                           _tensor(tree.bias, device), splits=tree.splits)
+    if isinstance(tree, np.ndarray):
+        return _tensor(tree, device)
+    if isinstance(tree, (int, float, str, bool)):
+        return tree
+    raise TypeError(f"params_from_numpy: unsupported leaf {type(tree).__name__}")
+
+
+def kv_from_numpy(kv: dict, device="cpu") -> dict:
+    """Convert a numpy-leaved f32/bf16 llama_gguf_tpu KV cache ({"k": L x
+    [B, S, H, D], "v": ...}) to the port's layout, which carries one extra
+    drop slot per buffer (models/kv.py)."""
+    if set(kv) != {"k", "v"}:
+        raise NotImplementedError(
+            f"kv_from_numpy: only plain f32/bf16 caches are ported, got keys "
+            f"{sorted(kv)}")
+
+    def pad(a):
+        t = _tensor(a, device)
+        return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+
+    return {key: [pad(a) for a in kv[key]] for key in ("k", "v")}

@@ -1,0 +1,269 @@
+"""GGUF -> PyTorch params (port of llama_gguf_tpu/models/loader.py, dense
+decoders of the llama and qwen2 families).
+
+The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
+norm dicts, consumed by models/transformer.forward. Two weight modes:
+
+  * "dequant": weights dequantized to f32 on the host (the oracle path;
+               matmuls run as torch.matmul);
+  * "quant":   matmul weights repacked to the kernel layouts
+               (quant/repack.py) with f32 scale panels; norms and biases stay
+               dense; the embedding table stays quantized.
+
+The JAX package's repack sidecar cache is not ported (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..gguf.constants import GGMLType
+from ..gguf.reader import GGUFFile
+from ..ops.linear import DenseLinear, QuantEmbedding, QuantLinear, fuse_linears
+from ..quant.dequant import dequantize
+from ..quant.repack import repack, repack_rows
+from .config import ModelConfig, parse_config
+
+# formats kept quantized on the device (the ones quant/repack.py handles)
+_QUANTIZED_KEEP = {GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K}
+
+
+def resolve_device(device) -> torch.device:
+    """The device to load onto; CUDA requested and absent raises (no
+    fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    return dev
+
+
+class ModelLoader:
+    def __init__(self, gguf: GGUFFile, mode: str = "quant",
+                 device="cuda", scale_dtype: str = "float32"):
+        """mode: "quant" keeps matmul weights in the kernel layouts;
+        "dequant" materializes everything as dense f32 tensors.
+        ``scale_dtype``: only "float32" is ported (bf16 scale panels are
+        ROADMAP queue 1)."""
+        if mode not in ("quant", "dequant"):
+            raise ValueError(f"unknown weight mode {mode!r}")
+        if scale_dtype != "float32":
+            raise NotImplementedError("bf16 scale panels are not ported yet "
+                                      "(ROADMAP queue 1)")
+        self.gguf = gguf
+        self.mode = mode
+        self.device = resolve_device(device)
+        self.config = parse_config(gguf.metadata, gguf.tensors)
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:  # a view into the GGUF mmap
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(self.device)
+
+    # -- tensor access -------------------------------------------------------
+
+    def has(self, name: str) -> bool:
+        return name in self.gguf.tensors
+
+    def dense(self, name: str) -> np.ndarray:
+        """Dequantized f32 numpy tensor in np (row-major) shape."""
+        info = self.gguf.tensors[name]
+        return dequantize(self.gguf.tensor_bytes(name), info.ggml_type,
+                          shape=info.np_shape)
+
+    def norm(self, prefix: str, required: bool = True,
+             unit_ok: bool = False) -> dict | None:
+        wname = f"{prefix}.weight"
+        if not self.has(wname):
+            if unit_ok and self.config.non_parametric_norm:
+                ones = np.ones(self.config.hidden_size, np.float32)
+                return {"weight": self._put(ones)}
+            if required:
+                raise KeyError(f"missing tensor {wname}")
+            return None
+        out = {"weight": self._put(self.dense(wname))}
+        bname = f"{prefix}.bias"
+        if self.has(bname):
+            out["bias"] = self._put(self.dense(bname))
+        return out
+
+    def _keep_quantized(self, name: str) -> bool:
+        info = self.gguf.tensors[name]
+        return (self.mode == "quant" and info.ggml_type in _QUANTIZED_KEEP
+                and len(info.np_shape) == 2 and info.np_shape[1] % 32 == 0)
+
+    def linear(self, name: str, bias_name: str | None = None,
+               required: bool = True):
+        """Load a matmul weight as DenseLinear or QuantLinear. GGUF stores W
+        as [N_out, K_in] (np shape); the result is the [K, N] layout."""
+        wname = f"{name}.weight"
+        if not self.has(wname):
+            if required:
+                raise KeyError(f"missing tensor {wname}")
+            return None
+        info = self.gguf.tensors[wname]
+        bias = None
+        bname = bias_name or f"{name}.bias"
+        if self.has(bname):
+            bias = self._put(self.dense(bname).astype(np.float32))
+        if self._keep_quantized(wname):
+            rw = repack(self.gguf.tensor_bytes(wname), info.ggml_type,
+                        info.np_shape)
+            return self._quant_linear(rw, info.ggml_type.name, bias)
+        w = self.dense(wname)
+        if w.ndim != 2:
+            raise ValueError(f"{wname}: expected 2D, got {w.shape}")
+        return DenseLinear(self._put(np.ascontiguousarray(w.T)), bias)
+
+    def _quant_linear(self, rw, source_type: str, bias=None) -> QuantLinear:
+        """Device-place a RepackedWeight as a QuantLinear (f32 panels)."""
+        return QuantLinear(
+            packed=self._put(rw.packed),
+            scales=self._put(rw.scales),
+            mins=self._put(rw.mins) if rw.mins is not None else None,
+            bias=bias, fmt=rw.fmt, group=rw.group, k=rw.k, n=rw.n,
+            source_type=source_type)
+
+    # -- model building ------------------------------------------------------
+
+    def layer_kind(self, i: int) -> str:
+        """Classify layer i by tensor presence, as the JAX loader does; only
+        "attn" is ported."""
+        p = f"blk.{i}"
+        if (self.has(f"{p}.ssm_beta.weight") or self.has(f"{p}.ssm_ba.weight")
+                or self.has(f"{p}.ssm_in.weight")):
+            return "deltanet"
+        if self.has(f"{p}.ssm_a.weight") or self.has(f"{p}.ssm_a"):
+            return "mamba"
+        if self.has(f"{p}.shortconv.in_proj.weight"):
+            return "shortconv"
+        return "attn"
+
+    def load_layer(self, i: int, cfg: ModelConfig) -> dict:
+        p = f"blk.{i}"
+        kind = self.layer_kind(i)
+        if kind != "attn":
+            raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                      "yet (ROADMAP queue 1)")
+        if self.has(f"{p}.attn_kv_a_mqa.weight") or \
+                self.has(f"{p}.attn_qkv.weight") or \
+                self.has(f"{p}.ffn_gate_inp.weight"):
+            raise NotImplementedError(
+                "MLA, combined-QKV and MoE layers are not ported yet "
+                "(ROADMAP queue 1)")
+        layer: dict[str, Any] = {}
+        attn_norm = self.norm(f"{p}.attn_norm", required=False, unit_ok=True)
+        if attn_norm is not None:
+            layer["attn_norm"] = attn_norm
+        attn: dict[str, Any] = {
+            "wq": self.linear(f"{p}.attn_q"),
+            "wk": self.linear(f"{p}.attn_k"),
+            "wv": self.linear(f"{p}.attn_v"),
+            "wo": self.linear(f"{p}.attn_output"),
+        }
+        for key, tname in (("q_norm", "attn_q_norm"), ("k_norm", "attn_k_norm"),
+                           ("sinks", "attn_sinks"),
+                           ("sub_norm", "attn_sub_norm")):
+            if self.has(f"{p}.{tname}.weight"):
+                attn[key] = self._put(self.dense(f"{p}.{tname}.weight"))
+        if self.has(f"{p}.attn_gate.weight"):
+            attn["gate"] = self.linear(f"{p}.attn_gate")
+        self._fuse_attn(attn)
+        layer["attn"] = attn
+
+        ffn_norm = self.norm(f"{p}.ffn_norm", required=False, unit_ok=True)
+        if ffn_norm is not None:
+            layer["ffn_norm"] = ffn_norm
+        layer["ffn"] = self._load_ffn(i, cfg)
+        post_attn = self.norm(f"{p}.post_attention_norm", required=False)
+        if post_attn is not None:
+            layer["post_attn_norm"] = post_attn
+        post_ffw = self.norm(f"{p}.post_ffw_norm", required=False)
+        if post_ffw is not None:
+            layer["post_ffn_norm"] = post_ffw
+        return layer
+
+    @staticmethod
+    def _fuse_attn(attn: dict) -> None:
+        """Fuse q/k/v into one wide matmul (ops.linear.fuse_linears)."""
+        fused = fuse_linears([attn.get("wq"), attn.get("wk"), attn.get("wv")])
+        if fused is not None:
+            attn["wqkv"] = fused  # slice boundaries live in fused.splits
+            del attn["wq"], attn["wk"], attn["wv"]
+
+    @staticmethod
+    def _fuse_ffn(ffn: dict) -> None:
+        if "gate" in ffn and "up" in ffn:
+            fused = fuse_linears([ffn["gate"], ffn["up"]])
+            if fused is not None:
+                ffn["gate_up"] = fused
+                del ffn["gate"], ffn["up"]
+
+    def _load_ffn(self, i: int, cfg: ModelConfig) -> dict:
+        p = f"blk.{i}"
+        ffn: dict[str, Any] = {}
+        if cfg.has_ffn_gate and self.has(f"{p}.ffn_gate.weight"):
+            ffn["gate"] = self.linear(f"{p}.ffn_gate")
+        ffn["up"] = self.linear(f"{p}.ffn_up")
+        ffn["down"] = self.linear(f"{p}.ffn_down")
+        if self.has(f"{p}.ffn_sub_norm.weight"):  # BitNet pre-down norm
+            ffn["sub_norm"] = self._put(self.dense(f"{p}.ffn_sub_norm.weight"))
+        self._fuse_ffn(ffn)
+        return ffn
+
+    def build(self) -> tuple[dict, ModelConfig]:
+        cfg = self.config
+        params: dict[str, Any] = {}
+        emb_name = "token_embd.weight"
+        emb_info = self.gguf.tensors[emb_name]
+        if self._keep_quantized(emb_name):
+            # the table stays quantized on the device; lookups gather packed
+            # rows and dequantize them (ops.linear.embedding_lookup)
+            v, h = emb_info.np_shape
+            packed, scales, mins, fmt, group = repack_rows(
+                self.gguf.tensor_bytes(emb_name), emb_info.ggml_type, (v, h))
+            params["embed"] = QuantEmbedding(
+                packed=self._put(packed), scales=self._put(scales),
+                mins=self._put(mins) if mins is not None else None,
+                fmt=fmt, group=group, vocab=v, hidden=h)
+        else:
+            params["embed"] = self._put(self.dense(emb_name))
+        if self.has("position_embd.weight"):  # learned positions (gpt2...)
+            params["position_embed"] = self._put(
+                self.dense("position_embd.weight"))
+        embed_norm = self.norm("token_embd_norm", required=False)
+        if embed_norm is not None:
+            params["embed_norm"] = embed_norm
+        params["layers"] = [self.load_layer(i, cfg)
+                            for i in range(cfg.num_layers)]
+        cfg.layer_kinds = tuple(
+            self.layer_kind(i) for i in range(cfg.num_layers))
+        params["final_norm"] = self.norm("output_norm", unit_ok=True)
+        if self.has("output.weight"):
+            params["output"] = self.linear("output")
+        else:
+            cfg.tie_word_embeddings = True
+            if self._keep_quantized(emb_name):
+                # tied embeddings in quant mode: the output head is a
+                # QuantLinear built from the same quantized embedding data
+                rw = repack(self.gguf.tensor_bytes(emb_name),
+                            emb_info.ggml_type, emb_info.np_shape)
+                params["output"] = self._quant_linear(
+                    rw, emb_info.ggml_type.name)
+            else:
+                params["output"] = None  # dense tied table used directly
+        return params, cfg
+
+
+def load_model(path: str, mode: str = "quant", device="cuda",
+               scale_dtype: str = "float32"
+               ) -> tuple[dict, ModelConfig, GGUFFile]:
+    gguf = GGUFFile.open(path)
+    params, cfg = ModelLoader(gguf, mode=mode, device=device,
+                              scale_dtype=scale_dtype).build()
+    return params, cfg, gguf

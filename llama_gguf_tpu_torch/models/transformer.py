@@ -1,0 +1,254 @@
+"""Decoder-only transformer forward, dense path (port of
+llama_gguf_tpu/models/transformer.py).
+
+    forward(params, cfg, tokens[B,T], positions[B,T], kv, lengths) ->
+        (logits[B,T,V], kv)
+
+T=1 is the decode step; larger T is (bucketed) prefill. The KV cache is
+updated in place. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
+RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
+kernel, parallel residual, post norms, tied embeddings. Layer kinds other than
+"attn", MLA, MoE and the tiered read bound are ROADMAP queue 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import linear as L
+from ..ops.attention import attention_scores
+from ..ops.norms import apply_norm, rms_norm
+from ..ops.qmatmul import glu_combine, qmatmul_glu
+from ..ops.rope import apply_rope, rope_cos_sin
+from . import kv as KV
+from .config import Activation, ModelConfig
+
+
+def _act(x: torch.Tensor, act: Activation) -> torch.Tensor:
+    if act == Activation.GELU:  # tanh approximation (ggml_gelu)
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    if act == Activation.RELU:
+        return torch.relu(x)
+    if act == Activation.RELU2:
+        return torch.square(torch.relu(x))
+    return torch.nn.functional.silu(x)
+
+
+def _glu(g: torch.Tensor, u: torch.Tensor, act: Activation) -> torch.Tensor:
+    """Combine gate/up projections into the gated activation (f32)."""
+    if act == Activation.SWIGLU_OAI:
+        return glu_combine(g, u, "swiglu_oai")
+    return _act(g, act) * u
+
+
+def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, kv: dict, layer_idx: int,
+              lengths: torch.Tensor,
+              read_bound: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Attention with KV cache. x [B, T, H]; positions [B, T]; lengths [B]
+    (valid cache length AFTER this step's tokens are written);
+    ``read_bound``: cap on cache positions to read (every valid position <
+    read_bound)."""
+    if "kv_a" in layer:
+        raise NotImplementedError("MLA attention is not ported yet "
+                                  "(ROADMAP queue 1)")
+    if isinstance(read_bound, tuple):
+        raise NotImplementedError("tiered read bounds come with the batched "
+                                  "engine (ROADMAP queue 1)")
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    vd = cfg.value_length or hd
+
+    if "wqkv" in layer:  # fused projection (loader._fuse_attn)
+        nq, nk, _ = layer["wqkv"].splits
+        qkv = L.apply(layer["wqkv"], x)
+        q = qkv[..., :nq]
+        k = qkv[..., nq: nq + nk]
+        v = qkv[..., nq + nk:]
+    else:
+        q = L.apply(layer["wq"], x)
+        k = L.apply(layer["wk"], x)
+        v = L.apply(layer["wv"], x)
+
+    if cfg.clamp_kqv > 0:
+        c = cfg.clamp_kqv
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+
+    if "q_norm" in layer and layer["q_norm"].shape[-1] == nh * hd:
+        # olmo2: QK RMSNorm over the flat projection (all heads at once)
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    q = q.reshape(b, t, nh, hd)
+    k = k.reshape(b, t, nkv, hd)
+    v = v.reshape(b, t, nkv, vd)
+
+    per_head_qk = "q_norm" in layer and layer["q_norm"].shape[-1] == hd
+    if per_head_qk and not cfg.qk_norm_post_rope:
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+
+    window = cfg.sliding_window if cfg.layer_is_swa(layer_idx) else 0
+    if window and cfg.swa_chunked:
+        window = -window  # chunked-attention encoding (ops/attention)
+    rope_cfg = cfg.layer_rope(layer_idx)  # None = NoPE layer
+    if rope_cfg is not None:
+        cos, sin = rope_cos_sin(positions, rope_cfg)  # [B, T, nd/2]
+        q = apply_rope(q, cos, sin, rope_cfg)
+        k = apply_rope(k, cos, sin, rope_cfg)
+        if cfg.use_qk_l2norm:  # llama4: weightless L2 norm after rope
+            def l2n(a):
+                af = a.float()
+                return (af * torch.rsqrt(
+                    torch.mean(af * af, -1, keepdim=True) + 1e-6)).to(a.dtype)
+
+            q, k = l2n(q), l2n(k)
+    if per_head_qk and cfg.qk_norm_post_rope:
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    if cfg.attn_temp_scale > 0.0 and rope_cfg is None:
+        pf = positions.float() + 1.0
+        tsc = (torch.log1p(torch.floor(pf / cfg.attn_temp_floor))
+               * cfg.attn_temp_scale + 1.0)
+        q = (q.float() * tsc[:, :, None, None]).to(q.dtype)
+
+    KV.write(kv, layer_idx, k, v, positions)
+
+    rep = nh // nkv
+    qg = q.reshape(b, t, nkv, rep, hd).float()
+    sinks = None
+    if "sinks" in layer:  # attention sinks (gpt-oss): extra logit per head
+        sinks = layer["sinks"].reshape(nkv, rep).float()
+    keys, vals = KV.read(kv, layer_idx, bound=read_bound)
+    ctx = attention_scores(qg, keys, vals, positions, lengths,
+                           scale=cfg.attention_scale or hd ** -0.5,
+                           softcap=cfg.attn_logit_softcap,
+                           sliding_window=window, sinks=sinks,
+                           alibi=cfg.uses_alibi)
+    ctx = ctx.reshape(b, t, nh * vd).to(x.dtype)
+
+    if "sub_norm" in layer:  # BitNet: RMSNorm on attn output before o_proj
+        ctx = rms_norm(ctx, layer["sub_norm"], cfg.norm_eps).to(x.dtype)
+    if "gate" in layer:  # Qwen3Next sigmoid attention gate
+        g = L.apply(layer["gate"], x)
+        ctx = ctx * torch.sigmoid(g.float()).to(ctx.dtype)
+    return L.apply(layer["wo"], ctx), kv
+
+
+def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    def down(act):
+        if "sub_norm" in ffn:  # BitNet: RMSNorm before down_proj
+            act = rms_norm(act, ffn["sub_norm"], cfg.norm_eps)
+        return L.apply(ffn["down"], act.to(x.dtype))
+
+    if "gate_up" in ffn:  # fused projection (loader._fuse_ffn)
+        gu_lin = ffn["gate_up"]
+        if isinstance(gu_lin, L.QuantLinear):
+            # GLU epilogue inside the fused kernel: the [B*T, 2F]
+            # intermediate never reaches device memory
+            lead = x.shape[:-1]
+            y = qmatmul_glu(x.reshape(-1, x.shape[-1]).float(), gu_lin,
+                            cfg.hidden_act.value)
+            if y is not None:
+                return down(y.reshape(*lead, -1))
+        gu = L.apply(gu_lin, x).float()
+        half = gu_lin.splits[0]
+        return down(_glu(gu[..., :half], gu[..., half:], cfg.hidden_act))
+    if "gate" in ffn:
+        g = L.apply(ffn["gate"], x).float()
+        u = L.apply(ffn["up"], x).float()
+        return down(_glu(g, u, cfg.hidden_act))
+    if "xielu" in ffn:
+        raise NotImplementedError("xIELU FFN is not ported yet "
+                                  "(ROADMAP queue 1)")
+    u = L.apply(ffn["up"], x).float()
+    return down(_act(u, cfg.hidden_act))
+
+
+def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, kv: dict, layer_idx: int,
+                      lengths: torch.Tensor,
+                      read_bound: int | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+    if "router" in layer["ffn"]:
+        raise NotImplementedError("MoE layers are not ported yet "
+                                  "(ROADMAP queue 1)")
+
+    def norm(p, xx):
+        return apply_norm(xx, p, cfg.norm_eps, cfg.uses_layer_norm)
+
+    h = norm(layer["attn_norm"], x) if layer.get("attn_norm") else x
+    attn_out, kv = attention(layer["attn"], cfg, h, positions, kv, layer_idx,
+                             lengths, read_bound)
+    if "post_attn_norm" in layer:  # Gemma2/3: norm applied to attn output
+        attn_out = norm(layer["post_attn_norm"], attn_out)
+
+    if cfg.use_parallel_residual:
+        return x + attn_out + feed_forward(layer["ffn"], cfg, h), kv
+
+    rs = cfg.residual_scale  # Granite residual_multiplier
+    if rs != 1.0:
+        attn_out = attn_out * rs
+    x = x + attn_out
+    h2 = norm(layer["ffn_norm"], x) if layer.get("ffn_norm") else x
+    ffn_out = feed_forward(layer["ffn"], cfg, h2)
+    if "post_ffn_norm" in layer:
+        ffn_out = norm(layer["post_ffn_norm"], ffn_out)
+    if rs != 1.0:
+        ffn_out = ffn_out * rs
+    return x + ffn_out, kv
+
+
+def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    x = L.embedding_lookup(params["embed"], tokens)
+    if params.get("position_embed") is not None and positions is not None:
+        # learned absolute positions; out-of-range padding positions clamp
+        # to a valid row, whose contribution is masked downstream
+        idx = positions.clamp(0, params["position_embed"].shape[0] - 1).long()
+        x = x + params["position_embed"][idx]
+    if params.get("embed_norm") is not None:
+        x = apply_norm(x, params["embed_norm"], cfg.norm_eps,
+                       cfg.uses_layer_norm)
+    if cfg.embedding_scale != 1.0:
+        x = x * cfg.embedding_scale
+    return x
+
+
+def compute_logits(params: dict, cfg: ModelConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(x, params["final_norm"], cfg.norm_eps, cfg.uses_layer_norm)
+    if params.get("output") is not None:
+        logits = L.apply(params["output"], x)
+    else:  # tied embeddings: contraction against the dense [V, H] table
+        logits = torch.matmul(x, params["embed"].to(x.dtype).t())
+    logits = logits.float()
+    if cfg.logit_scale != 1.0:  # Cohere family
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap > 0.0:
+        c = cfg.final_logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, kv: dict, lengths: torch.Tensor,
+            read_bound: int | None = None,
+            logit_positions: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Full forward. tokens/positions: [B, T]; lengths: [B] valid KV length
+    after writing this step. ``read_bound``: cap on KV positions attention
+    reads; None reads the whole cache. ``logit_positions``: optional [B]
+    per-row T-index; the LM head then runs on that one hidden state per row
+    and the result is [B, 1, V]."""
+    kinds = cfg.layer_kinds or ("attn",) * len(params["layers"])
+    x = embed(params, cfg, tokens, positions)
+    for i, layer in enumerate(params["layers"]):
+        if kinds[i] != "attn":
+            raise NotImplementedError(f"layer kind {kinds[i]!r} is not "
+                                      "ported yet (ROADMAP queue 1)")
+        x, kv = transformer_layer(layer, cfg, x, positions, kv, i, lengths,
+                                  read_bound)
+    if logit_positions is not None and x.shape[1] > 1:
+        idx = logit_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    return compute_logits(params, cfg, x), kv

@@ -1,0 +1,178 @@
+"""Linear layers over dense or repacked quantized weights (PyTorch port of
+llama_gguf_tpu/ops/linear.py).
+
+Weights are repacked at load time (quant/repack.py) into two layouts:
+
+  * "q4": nibbles packed two per byte, uint8 [K/2, N], group-local split
+          order (within each scale group, byte j holds elements j and
+          j + group/2);
+  * "q8": int8 [K, N];
+
+plus per-group scale (and optional min) panels [K/group, N]:
+
+    W[k, n] = s[k // group, n] * q[k, n] - m[k // group, n]
+
+``apply`` sends a QuantLinear to ops.qmatmul.qmatmul, which launches the
+hand-written CUDA kernel for a CUDA tensor and runs the plain dequantize-then-
+matmul version (``dequantize_weight``) for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class QuantLinear:
+    """Quantized weight for y = x @ W with W logically [K, N] (in, out)."""
+
+    packed: torch.Tensor  # uint8 [K/2, N] for q4; int8 [K, N] for q8
+    scales: torch.Tensor  # [K/group, N] float32
+    mins: torch.Tensor | None  # [K/group, N] or None (symmetric)
+    bias: torch.Tensor | None
+    fmt: str = "q8"  # q4 | q8
+    group: int = 32
+    k: int = 0
+    n: int = 0
+    source_type: str = ""
+    # output-slice boundaries of a fused projection
+    splits: tuple | None = None
+
+    @property
+    def shape(self):
+        return (self.k, self.n)
+
+
+@dataclass
+class DenseLinear:
+    """Dense weight [K, N] (+ optional bias [N])."""
+
+    weight: torch.Tensor
+    bias: torch.Tensor | None = None
+    splits: tuple | None = None
+
+    @property
+    def shape(self):
+        return tuple(self.weight.shape)
+
+
+@dataclass
+class QuantEmbedding:
+    """Token embedding table kept quantized on the device, dequantized per
+    row on gather. Row-major: q4 packed uint8 [V, H/2] (group-split within
+    each row's scale groups) or q8 int8 [V, H], plus scales/mins [V, H/g]."""
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    mins: torch.Tensor | None
+    fmt: str = "q8"
+    group: int = 32
+    vocab: int = 0
+    hidden: int = 0
+
+    @property
+    def shape(self):
+        return (self.vocab, self.hidden)
+
+
+def _cat_bias(lins, widths, dtype, device):
+    biases = [l.bias for l in lins]
+    if all(b is None for b in biases):
+        return None
+    return torch.cat([b if b is not None else torch.zeros(w, dtype=dtype,
+                                                           device=device)
+                      for b, w in zip(biases, widths)])
+
+
+def fuse_linears(lins: list):
+    """Fuse same-input linears into one wide matmul (concat along N), as
+    llama_gguf_tpu.ops.linear.fuse_linears. Returns None when the weights
+    are not compatible (mixed formats / groups / K)."""
+    if any(l is None for l in lins) or len(lins) < 2:
+        return None
+    if all(isinstance(l, DenseLinear) for l in lins):
+        w = torch.cat([l.weight for l in lins], dim=1)
+        widths = [l.weight.shape[1] for l in lins]
+        return DenseLinear(w, _cat_bias(lins, widths, w.dtype, w.device),
+                           splits=tuple(widths))
+    if not all(isinstance(l, QuantLinear) for l in lins):
+        return None
+    first = lins[0]
+    if any(l.fmt != first.fmt or l.group != first.group or l.k != first.k
+           for l in lins):
+        return None
+    has_mins = [l.mins is not None for l in lins]
+    if any(has_mins) != all(has_mins):
+        return None
+    widths = [l.n for l in lins]
+    return QuantLinear(
+        torch.cat([l.packed for l in lins], dim=1),
+        torch.cat([l.scales for l in lins], dim=1),
+        torch.cat([l.mins for l in lins], dim=1) if all(has_mins) else None,
+        _cat_bias(lins, widths, torch.float32, first.packed.device),
+        first.fmt, first.group, first.k, sum(widths), first.source_type,
+        splits=tuple(widths))
+
+
+def _unpack_q4_last(p: torch.Tensor, group: int) -> torch.Tensor:
+    """Group-split nibbles along the LAST axis [..., H/2] -> [..., H]."""
+    h = group // 2
+    p3 = p.reshape(*p.shape[:-1], p.shape[-1] // h, h)
+    return torch.cat([p3 & 0x0F, p3 >> 4], dim=-1).reshape(
+        *p.shape[:-1], 2 * p.shape[-1])
+
+
+def embedding_lookup(emb, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [...] int -> [..., H] float32. Dense tables gather directly;
+    a QuantEmbedding gathers packed rows and dequantizes them."""
+    tokens = tokens.long()
+    if not isinstance(emb, QuantEmbedding):
+        return emb[tokens]
+    g = emb.group
+    rows_p = emb.packed[tokens]
+    if emb.fmt == "q4":
+        q = _unpack_q4_last(rows_p, g).float()
+    else:
+        q = rows_p.float()
+    w = q * emb.scales[tokens].float().repeat_interleave(g, dim=-1)
+    if emb.mins is not None:
+        w = w - emb.mins[tokens].float().repeat_interleave(g, dim=-1)
+    return w
+
+
+def unpack_q4(ql: QuantLinear) -> torch.Tensor:
+    """Unpack group-split nibbles to integer values [K, N] (uint8, 0..15)."""
+    k2, n = ql.packed.shape
+    h = ql.group // 2
+    p3 = ql.packed.reshape(k2 // h, h, n)
+    return torch.cat([p3 & 0x0F, p3 >> 4], dim=1).reshape(2 * k2, n)
+
+
+def dequantize_weight(ql: QuantLinear) -> torch.Tensor:
+    """Materialize the dequantized weight [K, N] in float32 (the plain
+    oracle of the dequant-matmul kernels)."""
+    q = unpack_q4(ql).float() if ql.fmt == "q4" else ql.packed.float()
+    w = q * ql.scales.float().repeat_interleave(ql.group, dim=0)
+    if ql.mins is not None:
+        w = w - ql.mins.float().repeat_interleave(ql.group, dim=0)
+    return w
+
+
+def apply(lin, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W (+ bias). x: [..., K] -> [..., N]."""
+    if isinstance(lin, DenseLinear):
+        y = torch.matmul(x, lin.weight.to(x.dtype))
+        if lin.bias is not None:
+            y = y + lin.bias.to(y.dtype)
+        return y
+    if not isinstance(lin, QuantLinear):
+        raise TypeError(f"apply: unsupported linear {type(lin).__name__}")
+    from .qmatmul import qmatmul
+
+    lead = x.shape[:-1]
+    y = qmatmul(x.reshape(-1, x.shape[-1]).float(), lin).to(x.dtype)
+    if lin.bias is not None:
+        y = y + lin.bias.to(y.dtype)
+    return y.reshape(*lead, y.shape[-1])

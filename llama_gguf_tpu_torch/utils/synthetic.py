@@ -1,0 +1,125 @@
+"""Synthetic GGUF model builder (random weights, real configs).
+
+A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense presets only; the
+port never imports the JAX package). The same preset, quant and seed give the
+same file byte for byte as the JAX package's builder. Q4_K_M convention:
+embeddings and LM head Q6_K (Q8_0 when the row does not divide the 256-element
+super-block), attention and gate/up Q4_K, ffn_down Q6_K.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..gguf.constants import GGMLType, type_traits
+from ..gguf.writer import GGUFWriter
+from ..quant.quantize import quantize
+
+PRESETS = {
+    # name: (arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie)
+    "tiny": ("qwen2", 512, 128, 2, 4, 2, 256, 256, False),
+    "tiny-tied": ("qwen2", 512, 128, 2, 4, 2, 256, 256, True),
+    "small": ("qwen2", 2048, 256, 4, 8, 2, 512, 512, False),
+    "qwen2.5-0.5b": ("qwen2", 151936, 896, 24, 14, 2, 4864, 32768, True),
+    "llama3-8b": ("llama", 128256, 4096, 32, 32, 8, 14336, 8192, False),
+    "tinyllama-1.1b": ("llama", 32000, 2048, 22, 32, 4, 5632, 2048, False),
+}
+
+
+def build_synthetic_gguf(
+    path: str,
+    preset: str = "tiny",
+    quant: GGMLType = GGMLType.Q4_K,
+    seed: int = 0,
+    max_ctx: int | None = None,
+) -> str:
+    """Write a synthetic model if not already cached; returns path."""
+    if os.path.exists(path):
+        return path
+    arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
+    if max_ctx:
+        ctx = min(ctx, max_ctx)
+    head_dim = hidden // heads
+    rng = np.random.default_rng(seed)
+
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", arch)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    w.add_metadata(f"{arch}.embedding_length", hidden)
+    w.add_metadata(f"{arch}.block_count", layers)
+    w.add_metadata(f"{arch}.attention.head_count", heads)
+    w.add_metadata(f"{arch}.attention.head_count_kv", kv_heads)
+    w.add_metadata(f"{arch}.feed_forward_length", ffn)
+    w.add_metadata(f"{arch}.context_length", ctx)
+    w.add_metadata(f"{arch}.attention.layer_norm_rms_epsilon", 1e-6)
+    w.add_metadata(f"{arch}.rope.freq_base", 1000000.0 if arch == "qwen2" else 10000.0)
+    w.add_metadata(f"{arch}.vocab_size", vocab)
+    _add_tokenizer(w, vocab)
+
+    scale = 0.02
+
+    def rw(*shape):
+        return (rng.standard_normal(shape).astype(np.float32) * scale)
+
+    def addq(name, arr, q=quant):
+        k = arr.shape[-1]
+        if q != GGMLType.F32 and k % type_traits(q).block_size != 0 \
+                and k % 32 == 0:
+            # llama.cpp falls back to a legacy 32-block format when a
+            # K-quant's 256-superblock doesn't divide the row
+            q = GGMLType.Q5_1
+        if q != GGMLType.F32 and k % type_traits(q).block_size == 0:
+            raw = quantize(arr, q)
+            w.add_tensor_raw(name, tuple(reversed(arr.shape)), q, raw.tobytes())
+        else:
+            w.add_tensor_np(name, arr)
+
+    if quant == GGMLType.F32:
+        emb_q = GGMLType.F32
+    elif hidden % 256 == 0:
+        emb_q = GGMLType.Q6_K
+    else:
+        emb_q = GGMLType.Q8_0
+    addq("token_embd.weight", rw(vocab, hidden), emb_q)
+    for i in range(layers):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        addq(f"{p}.attn_q.weight", rw(heads * head_dim, hidden))
+        addq(f"{p}.attn_k.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_v.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_output.weight", rw(hidden, heads * head_dim))
+        if arch == "qwen2":
+            w.add_tensor_np(f"{p}.attn_q.bias", rw(heads * head_dim))
+            w.add_tensor_np(f"{p}.attn_k.bias", rw(kv_heads * head_dim))
+            w.add_tensor_np(f"{p}.attn_v.bias", rw(kv_heads * head_dim))
+        w.add_tensor_np(f"{p}.ffn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        addq(f"{p}.ffn_gate.weight", rw(ffn, hidden))
+        addq(f"{p}.ffn_up.weight", rw(ffn, hidden))
+        addq(f"{p}.ffn_down.weight", rw(hidden, ffn),
+             GGMLType.Q6_K if quant != GGMLType.F32 else GGMLType.F32)
+    w.add_tensor_np("output_norm.weight", np.ones(hidden, np.float32) + rw(hidden))
+    if not tie:
+        addq("output.weight", rw(vocab, hidden), emb_q)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _add_tokenizer(w: GGUFWriter, vocab: int) -> None:
+    """Minimal byte-fallback SPM tokenizer metadata."""
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    ttypes = [2, 3, 3] + [6] * 256
+    while len(toks) < min(vocab, 4096):
+        toks.append(f"tok{len(toks)}")
+        ttypes.append(1)
+    w.add_metadata("tokenizer.ggml.model", "llama")
+    w.add_metadata("tokenizer.ggml.tokens", toks)
+    w.add_metadata("tokenizer.ggml.scores", np.zeros(len(toks), np.float32))
+    w.add_metadata("tokenizer.ggml.token_type", np.array(ttypes, np.int32))
+    w.add_metadata("tokenizer.ggml.bos_token_id", 1)
+    w.add_metadata("tokenizer.ggml.eos_token_id", 2)
+    w.add_metadata("tokenizer.ggml.unknown_token_id", 0)

@@ -1,0 +1,118 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, its entry points default to CUDA and raise without it, and
+chip_smoke.py refuses to run without a card."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "llama_gguf_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for f in sorted(PORT.rglob("*.py")):
+        rel = f.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        if parts[-1] != "__main__":
+            mods.append(".".join(parts))
+    return mods
+
+
+def test_every_module_imports_without_jax():
+    """Each module imports in a fresh interpreter where importing jax or
+    llama_gguf_tpu fails."""
+    mods = _port_modules()
+    assert "llama_gguf_tpu_torch.ops.qmatmul" in mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['llama_gguf_tpu'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    for name in _imported_names(path):
+        top = name.split(".")[0]
+        assert top != "jax", f"{path}: imports {name}"
+        assert top != "llama_gguf_tpu", f"{path}: imports {name}"
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from llama_gguf_tpu_torch.engine.engine import Engine
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.gguf.constants import GGMLType
+    from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
+
+    path = build_synthetic_gguf(str(tmp_path / "m.gguf"), preset="tiny",
+                                quant=GGMLType.Q8_0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine.load(path)  # default device is CUDA: no silent CPU fallback
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRunner({}, None)
+    from llama_gguf_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["run", path, "-p", "hi", "-n", "2"])
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card chip_smoke.py exits non-zero and prints no result;
+    alone in a directory (no port beside it) it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=240, env=env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240,
+                         env=env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+
+    lin = QuantLinear(torch.zeros(16, 8, dtype=torch.uint8),
+                      torch.zeros(1, 8), None, None, "q4", 32, 32, 8)
+    x = torch.zeros(1, 32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        Q.qmatmul(x, lin)
