@@ -1,37 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
-   CUDA kernels from llama_gguf_tpu_torch/csrc/ with nvcc (sm_90a).
-2. Model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full width
-   and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random weights
-   from a seed), cached under .cache/chip_smoke/, and loads it with
+   CUDA kernels from llama_gguf_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc
+   process per source, all at once. A child process builds phase 6's GGUF
+   meanwhile.
+2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
+   width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
+   weights from a seed), cached under .cache/chip_smoke/, and loads it with
    Engine.load on CUDA in "quant" mode (kernels) and in "dequant" mode
    (dense f32 torch.matmul).
-3. Kernels: each kernel's wrapper on the card, on the loaded model's own
-   weights (the main path's shapes) at 1, 8 and 512 rows, against its plain
-   PyTorch version (limit: max |y - y_plain| <= 2e-4 * max |y_plain|; f32
-   with another order of summation). Times, L2 flushed before every launch:
-   the kernel, its plain version, and torch.matmul on the pre-dequantized
-   f32 weight (a yardstick the port never calls); plus the least time the
-   card could take for the same work (bytes over the memory rate, f32
-   operations over the CUDA-core peak).
-4. Main path: launch counters set to 0, then Engine.generate (about 100
-   prompt tokens, 32 new tokens, greedy); each kernel must have launched
+3. Dense kernels: each of the q4, q8 and GLU kernels' wrappers on the card,
+   on the loaded model's own weights (the main path's shapes) at 1, 8 and 512
+   rows, against its plain PyTorch version (limit: max |y - y_plain| <= 2e-4
+   * max |y_plain|; f32 with another order of summation). Times, L2 flushed
+   before every launch: the kernel, its plain version, and torch.matmul on
+   the pre-dequantized f32 weight (a yardstick the port never calls); plus
+   the least time the card could take for the same work (bytes over the
+   memory rate, f32 operations over the CUDA-core peak).
+4. Dense main path: launch counters set to 0, then Engine.generate (about
+   100 prompt tokens, 32 new tokens, greedy); each kernel must have launched
    exactly its per-step count (q4 44, GLU 22, q8 23) times the steps run.
    Tokens and text must equal the dequant-mode engine's and the prefill
    logits must agree within 1e-3.
-5. Where the time goes: torch.profiler over 16 decode steps (wall and
-   device time per step, the device's idle share, device time by kernel).
+5. Where the dense decode step's time goes: torch.profiler over 16 decode
+   steps (wall and device time per step, the device's idle share, device
+   time by kernel).
+6. Sparse MoE: builds Mixtral-8x7B at full width cut to 2 of 32 layers
+   ("mixtral-8x7b-l2": hidden 4096, 32/8 heads, 8 experts of ffn 14336,
+   top-2; Q4_K attention and gate/up experts, Q6_K down experts, embedding
+   and LM head), loads it in both modes, and holds the q4 and q8 kernels
+   against their plain versions on this path's own projections (layer 0's
+   fused QKV and o_proj, the LM head) at 1 and 128 rows, and the three MoE
+   kernels on layer 0's own expert stacks: slot-major at 2 slots (two
+   experts, and one expert twice), grouped and grouped GLU at the 256 slots
+   of the prompt's own routing and at an imbalanced routing (one expert
+   takes half of the slots, one none). Times as in phase 3; the MoE
+   yardstick is torch.bmm over each routed expert's pre-dequantized f32
+   weight once, its own slots' rows padded to the busiest expert's count.
+   Then the MoE main path: counters set to 0, Engine.generate as in phase 4,
+   exact launch counts (MOE_PER_LAYER), tokens, text and prefill logits
+   against the dequant-mode engine, and a decode profile as in phase 5.
 
-Prints, on lines before the last: the card's name and power limit, the
-prefill and decode rates, {"decode_profile": {...}} and one JSON object
-{"kernels": [...]}. The last
-line is {"ok": true, "device": {...}}.
+Prints, on lines before the last: the card's name and power limit, each
+path's prefill and decode rates, the decode profiles and one JSON object
+{"kernels": [...]}. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -48,8 +65,22 @@ SEED = 0
 PROMPT = "The quick brown fox jumps over the lazy dog while five wizards jump."
 NEW_TOKENS = 32
 PER_STEP = {"qmatmul_q4": 44, "qmatmul_glu": 22, "qmatmul_q8": 23}
+# Launches per MoE layer, from models/transformer.moe_layer and the dispatch
+# rule of ops/qmatmul.moe_dims. A decode step routes S = 2 slots (top-2):
+# below 32, so moe_qmatmul_glu declines and gate, up and down each run the
+# slot-major kernel. The prefill pads the prompt to bucket 128, S = 256
+# slots, C = 256, G = 1 + 8 = 9 < S: the grouped GLU (gate|up) and the
+# grouped kernel (down). Fused QKV and o_proj (Q4_K) run the q4 kernel in
+# either; the LM head (Q6_K) runs the q8 kernel once per step.
+MOE_PER_LAYER = {
+    "decode": {"moe_slot": 3, "qmatmul_q4": 2},
+    "prefill": {"moe_glu_grouped": 1, "moe_grouped": 1, "qmatmul_q4": 2},
+}
+MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
+                 num_experts=8, num_experts_per_token=2)
 REL_LIMIT = 2e-4
 ROWS = (1, 8, 512)
+MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 
 # The card's memory rate and f32 CUDA-core peak (NVIDIA data sheets), by name
 CARD_RATES = (  # (name fragment, bytes/s, f32 FLOP/s)
@@ -61,14 +92,29 @@ CARD_RATES = (  # (name fragment, bytes/s, f32 FLOP/s)
 
 KERNELS = {
     "qmatmul_q4": dict(
+        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:309 (_qmatmul_call with "
                  "_q4_kernel:138)"),
     "qmatmul_q8": dict(
+        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:309 (_qmatmul_call with "
                  "_q8_kernel:164)"),
     "qmatmul_glu": dict(
+        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:500 (_qmatmul_glu_call with "
                  "_glu_kernel:198)"),
+    "moe_slot": dict(
+        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        replaces="llama_gguf_tpu/ops/qmatmul.py:564 (_moe_qmatmul_call, "
+                 "pallas_call :642)"),
+    "moe_grouped": dict(
+        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        replaces="llama_gguf_tpu/ops/qmatmul.py:671 "
+                 "(_moe_qmatmul_grouped_call, pallas_call :736)"),
+    "moe_glu_grouped": dict(
+        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        replaces="llama_gguf_tpu/ops/qmatmul.py:804 (_moe_glu_grouped_call, "
+                 "pallas_call :861)"),
 }
 
 
@@ -86,6 +132,42 @@ def card_rates(name: str) -> tuple[float, float]:
         if frag in name:
             return bw, flops
     raise SystemExit(f"chip_smoke: FAILED: no memory rate known for {name!r}")
+
+
+class Timer:
+    """Kernel timing with CUDA events: median of ``iters`` launches, each
+    after a 256 MB write that evicts the 50 MB L2 (decode reads its weights
+    cold)."""
+
+    def __init__(self):
+        import torch
+
+        self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8,
+                                     device="cuda")
+
+    def ms(self, fn, iters: int = 10) -> float:
+        import torch
+
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return sorted(times)[len(times) // 2]
+
+
+def kernel_key(name: str) -> str:
+    for k in ("qmatmul_kernel", "moe_slot_kernel", "moe_grouped_kernel"):
+        if k in name:
+            return k
+    return name[:60]
 
 
 def profile_decode(engine, ids, steps: int = 16) -> dict:
@@ -118,7 +200,7 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        key = "qmatmul_kernel" if "qmatmul_kernel" in e.key else e.key[:60]
+        key = kernel_key(e.key)
         by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3 / steps
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:10]
@@ -133,79 +215,111 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
         device_ms_per_step_by_kernel=dict(top))
 
 
-def main() -> int:
-    import torch
-
-    # -- 1. device ------------------------------------------------------------
-    check(torch.cuda.is_available(), "CUDA is not available")
-    sys.path.insert(0, ROOT)
-    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+def build_model(preset: str, **kw) -> str:
+    """The synthetic GGUF at the Q4_K_M mix, built once into .cache/."""
     from llama_gguf_tpu_torch.gguf.constants import GGMLType
-    from llama_gguf_tpu_torch.ops import qmatmul as Q
-    from llama_gguf_tpu_torch.ops.linear import dequantize_weight
-    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
-    from llama_gguf_tpu_torch.utils import cuda_build
     from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    bw, f32_peak = card_rates(kind)
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    cuda_build.build_all(["qmatmul"])
-    log(f"kernels built in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc: {cuda_build.BUILD_SECONDS})")
-
-    # -- 2. model -------------------------------------------------------------
     path = os.path.join(ROOT, ".cache", "chip_smoke",
-                        f"tinyllama-1.1b-q4k-s{SEED}.gguf")
+                        f"{preset}-q4k-s{SEED}.gguf")
     if not os.path.exists(path):
         t0 = time.perf_counter()
         tmp = path + f".{os.getpid()}.tmp"
-        build_synthetic_gguf(tmp, preset="tinyllama-1.1b", quant=GGMLType.Q4_K,
-                             seed=SEED)
+        build_synthetic_gguf(tmp, preset=preset, quant=GGMLType.Q4_K,
+                             seed=SEED, **kw)
         os.replace(tmp, path)
         log(f"built {path} in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    quant = Engine.load(path, EngineConfig(weight_mode="quant"), device="cuda")
-    log(f"quant engine loaded in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    deq = Engine.load(path, EngineConfig(weight_mode="dequant"), device="cuda")
-    log(f"dequant engine loaded in {time.perf_counter() - t0:.1f}s")
-    cfg = quant.runner.cfg
-    check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
-          (22, 2048, 32000), f"unexpected model shape {cfg}")
+    return path
 
-    # -- 3. kernels against their plain versions -------------------------------
-    layer = quant.runner.params["layers"][0]
-    projections = [  # (kernel, projection, weight)
-        ("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
-        ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
-        ("qmatmul_glu", "gate|up", layer["ffn"]["gate_up"]),
-        ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
-        ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
-    ]
-    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def time_ms(fn, iters=10):
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(iters):
-            flush_buf.zero_()  # evict the 50 MB L2: decode reads weights cold
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return sorted(times)[len(times) // 2]  # median
+def load_both(path: str):
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+
+    engines = []
+    for mode in ("quant", "dequant"):
+        t0 = time.perf_counter()
+        engines.append(Engine.load(path, EngineConfig(weight_mode=mode),
+                                   device="cuda"))
+        log(f"{os.path.basename(path)}: {mode} engine loaded in "
+            f"{time.perf_counter() - t0:.1f}s")
+    return engines
+
+
+def run_main_path(quant, deq, card: str, label: str, on_differ=None):
+    """Engine.generate with the launch counters set to 0 just before and
+    read just after; then quant against dequant: text, greedy tokens and
+    prefill logits. Returns (launches, decode steps, the prompt's ids)."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0)
+    ids = quant.tokenizer.encode(PROMPT)
+    check(90 <= len(ids) <= 128, f"prompt is {len(ids)} tokens")
+    quant.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up, uncounted
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    text = quant.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+    torch.cuda.synchronize()
+    launches = dict(Q.LAUNCHES)
+    stats = quant.stats
+    check(stats.generated_tokens >= 1, f"{label}: nothing generated")
+    print(f"{label} main path: prefill {stats.prompt_tokens} tok @ "
+          f"{stats.prefill_tps:.1f} tok/s, decode {stats.generated_tokens} "
+          f"tok @ {stats.decode_tps:.1f} tok/s, launches {launches} over "
+          f"1 prefill + {stats.generated_tokens} decode steps | {card}",
+          flush=True)
+
+    want_text = deq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+    toks = quant.greedy_tokens(ids, NEW_TOKENS)
+    want_toks = deq.greedy_tokens(ids, NEW_TOKENS)
+    if toks != want_toks and on_differ is not None:
+        on_differ(ids, toks, want_toks)
+    check(text == want_text,
+          f"{label}: quant text {text!r} != dequant {want_text!r}")
+    check(toks == want_toks,
+          f"{label}: greedy tokens differ between quant and dequant modes")
+    logits = [e.runner.prefill(ids, e.runner.init_kv())[0]
+              for e in (quant, deq)]
+    check(tuple(logits[0].shape) == (quant.runner.cfg.vocab_size,),
+          f"{label}: logits shape")
+    check(bool(torch.isfinite(logits[0]).all()), f"{label}: non-finite logits")
+    diff = (logits[0] - logits[1]).abs().max().item()
+    check(diff <= 1e-3, f"{label}: prefill logits differ by {diff}")
+    log(f"{label}: quant == dequant: {len(toks)} tokens, logits max diff "
+        f"{diff:.2e}")
+    return launches, stats.generated_tokens, ids
+
+
+def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
+            bw, f32_peak, **extra) -> dict:
+    """Hold a kernel's result against its plain version and time all three."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"{name} {case}: non-finite")
+    abs_err = (y - y_plain).abs().max().item()
+    rel_err = abs_err / y_plain.abs().max().item()
+    check(rel_err <= REL_LIMIT, f"{name} {case}: rel err {rel_err:.3g}")
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
+    m = dict(name=name, case=case, **extra, max_abs_err=abs_err,
+             max_rel_err=rel_err, ms=timer.ms(kern), plain_ms=timer.ms(plain),
+             library_ms=timer.ms(library), bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes=nbytes, ops=ops)
+    log(f"{name:15s} {case:34s} rel_err={rel_err:.2e} ms={m['ms']:.4f} "
+        f"bound_ms={m['bound_ms']:.4f} plain_ms={m['plain_ms']:.4f} "
+        f"library_ms={m['library_ms']:.4f}")
+    return m
+
+
+def projection_checks(projections, rows_list, timer: Timer, bw: float,
+                      f32_peak: float, path: str) -> list[dict]:
+    """Kernels 1-3 on a path's own projections (kernel, projection name,
+    QuantLinear) at each row count of ``rows_list``, through compare()."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import dequantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     measurements = []
@@ -218,7 +332,7 @@ def main() -> int:
                       for t in (lin.packed, lin.scales, lin.mins)
                       if t is not None)
         n_out = lin.splits[0] if glu else lin.n
-        for rows in ROWS:
+        for rows in rows_list:
             x = torch.randn(rows, lin.k, device="cuda", generator=gen)
             if glu:
                 def kern(): return Q.qmatmul_glu(x, lin, "silu")
@@ -226,82 +340,273 @@ def main() -> int:
             else:
                 def kern(): return Q.qmatmul(x, lin)
                 def plain(): return Q.qmatmul_plain(x, lin)
-            y, y_plain = kern(), plain()
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(y).all()), f"{name} {proj}: non-finite")
-            abs_err = (y - y_plain).abs().max().item()
-            rel_err = abs_err / y_plain.abs().max().item()
-            check(rel_err <= REL_LIMIT,
-                  f"{name} {proj} rows={rows}: rel err {rel_err:.3g}")
-            nbytes = w_bytes + 4 * rows * (lin.k + n_out)
-            ops = 2 * rows * lin.k * lin.n
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
-            measurements.append(dict(
-                name=name, projection=proj, rows=rows, k=lin.k, n=lin.n,
-                max_abs_err=abs_err, max_rel_err=rel_err,
-                ms=time_ms(kern), plain_ms=time_ms(plain),
-                library_ms=time_ms(lambda: torch.matmul(x, w_deq)),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops))
-            log(f"{name:12s} {proj:8s} rows={rows:3d} rel_err={rel_err:.2e} "
-                f"ms={measurements[-1]['ms']:.4f} "
-                f"bound_ms={measurements[-1]['bound_ms']:.4f}")
+            measurements.append(compare(
+                name, f"{path} {proj} rows={rows}", kern(), plain(), timer,
+                kern, plain, lambda: torch.matmul(x, w_deq),
+                w_bytes + 4 * rows * (lin.k + n_out), 2 * rows * lin.k * lin.n,
+                bw, f32_peak, path=path, projection=proj, rows=rows, k=lin.k,
+                n=lin.n))
         del w_deq
-    del flush_buf
+    return measurements
 
-    # -- 4. the main path, counted --------------------------------------------
-    greedy = SamplerConfig(temperature=0.0)
-    ids = quant.tokenizer.encode(PROMPT)
-    check(90 <= len(ids) <= 128, f"prompt is {len(ids)} tokens")
-    quant.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up, uncounted
-    torch.cuda.synchronize()
-    Q.reset_launches()
-    text = quant.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
-    torch.cuda.synchronize()
-    launches = dict(Q.LAUNCHES)
-    stats = quant.stats
-    steps = 1 + stats.generated_tokens  # the prefill + one decode per token
+
+def dense_path(card: str, timer: Timer, bw: float, f32_peak: float):
+    """Phases 2-5 on TinyLlama-1.1B. Returns (measurements, launches)."""
+    quant, deq = load_both(build_model("tinyllama-1.1b"))
+    cfg = quant.runner.cfg
+    check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
+          (22, 2048, 32000), f"unexpected model shape {cfg}")
+
+    layer = quant.runner.params["layers"][0]
+    measurements = projection_checks([  # (kernel, projection, weight)
+        ("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
+        ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
+        ("qmatmul_glu", "gate|up", layer["ffn"]["gate_up"]),
+        ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
+        ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
+    ], ROWS, timer, bw, f32_peak, "TinyLlama-1.1B")
+
+    launches, decoded, ids = run_main_path(quant, deq, card, "TinyLlama-1.1B")
+    steps = 1 + decoded  # the prefill + one decode per token
     for name, per in PER_STEP.items():
         check(launches[name] == per * steps,
               f"{name}: {launches[name]} launches, expected {per} x {steps}")
-    check(stats.generated_tokens >= 1, "nothing generated")
-    print(f"main path: prefill {stats.prompt_tokens} tok @ "
-          f"{stats.prefill_tps:.1f} tok/s, decode {stats.generated_tokens} "
-          f"tok @ {stats.decode_tps:.1f} tok/s, launches {launches} over "
-          f"{steps} steps | {card}", flush=True)
-
-    want_text = deq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
-    check(text == want_text, f"quant text {text!r} != dequant {want_text!r}")
-    toks = quant.greedy_tokens(ids, NEW_TOKENS)
-    check(toks == deq.greedy_tokens(ids, NEW_TOKENS),
-          "greedy tokens differ between quant and dequant modes")
-    logits = [e.runner.prefill(ids, e.runner.init_kv())[0]
-              for e in (quant, deq)]
-    check(tuple(logits[0].shape) == (32000,), "logits shape")
-    check(bool(torch.isfinite(logits[0]).all()), "non-finite logits")
-    diff = (logits[0] - logits[1]).abs().max().item()
-    check(diff <= 1e-3, f"prefill logits differ by {diff}")
-    log(f"quant == dequant: {len(toks)} tokens, logits max diff {diff:.2e}")
-
-    # -- 5. where the decode step's time goes ---------------------------------
     print(json.dumps({"decode_profile": profile_decode(quant, ids)}),
           flush=True)
+    return measurements, launches
+
+
+def expert_bytes(stack, experts: int) -> int:
+    """Bytes of ``experts`` experts of a stack (packed, scales, mins)."""
+    return experts * sum(t[0].numel() * t.element_size()
+                         for t in (stack.packed, stack.scales, stack.mins)
+                         if t is not None)
+
+
+def routing_margins(engine, ids, steps: int) -> list[float]:
+    """The smallest top-2 vs third router probability margin over the
+    layers, for each step of engine.greedy_tokens(ids, steps) (step 0: the
+    prefill's prompt rows)."""
+    import torch
+    from llama_gguf_tpu_torch.models import transformer as T
+    from llama_gguf_tpu_torch.ops.linear import apply
+
+    rows = []
+    route = T.route
+
+    def record(ffn, cfg, xf):
+        p = torch.softmax(apply(ffn["router"], xf).float(), -1)
+        p = torch.sort(p, descending=True).values
+        rows.append((p[:, 1] - p[:, 2])[:len(ids)].min().item())
+        return route(ffn, cfg, xf)
+
+    T.route = record
+    engine.greedy_tokens(ids, steps)
+    T.route = route
+    n_layers = engine.runner.cfg.num_layers
+    return [min(rows[j:j + n_layers]) for j in range(0, len(rows), n_layers)]
+
+
+def moe_path(card: str, timer: Timer, bw: float, f32_peak: float,
+             gguf: str):
+    """Phase 6 on mixtral-8x7b-l2 (``gguf``). Returns (measurements,
+    launches)."""
+    import torch
+    from llama_gguf_tpu_torch.models import transformer as T
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import dequantize_expert
+
+    quant, deq = load_both(gguf)
+    cfg = quant.runner.cfg
+    layer0 = quant.runner.params["layers"][0]
+    ex = layer0["ffn"]["experts"]
+    shape = dict(num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
+                 expert_ffn=ex["gate"].n, num_experts=cfg.num_experts,
+                 num_experts_per_token=cfg.num_experts_per_token)
+    check(shape == MOE_SHAPE, f"unexpected MoE model shape {shape}")
+    check((ex["gate"].fmt, ex["up"].fmt, ex["down"].fmt, ex["down"].group)
+          == ("q4", "q4", "q8", 16), "unexpected expert layouts")
+
+    # the q4 and q8 kernels at this path's own shapes: decode (1 row) and
+    # the prefill bucket (128 rows)
+    measurements = projection_checks([
+        ("qmatmul_q4", "qkv", layer0["attn"]["wqkv"]),
+        ("qmatmul_q4", "o_proj", layer0["attn"]["wo"]),
+        ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
+    ], MOE_ROWS, timer, bw, f32_peak, "Mixtral-8x7B-l2")
+
+    # layer 0's router on the prompt: the main path's inputs and routing
+    ffn0 = quant.runner.params["layers"][0]["ffn"]
+    seen = []
+    route = T.route
+
+    def record(ffn, cfg_, xf):
+        topv, topi = route(ffn, cfg_, xf)
+        if ffn is ffn0:
+            seen.append((xf, topi))
+        return topv, topi
+
+    T.route = record
+    ids = quant.tokenizer.encode(PROMPT)
+    quant.runner.prefill(ids, quant.runner.init_kv())
+    T.route = route
+    xf, topi = seen[0]
+    k = cfg.num_experts_per_token
+    idx = topi.reshape(-1).to(torch.int32)                   # [256]
+    xr = xf.float().repeat_interleave(k, dim=0)              # [256, 4096]
+    e_num = ex["gate"].packed.shape[0]
+    imbalanced = idx.clone()
+    imbalanced[0::2] = 0                 # expert 0 takes half of the slots
+    imbalanced[imbalanced == 1] = 2      # expert 1 none
+    last = len(ids) - 1
+    cases = {  # case: (slot ids, input rows)
+        "decode, 2 experts": (idx[k * last: k * last + 2], xr[k * last:
+                                                              k * last + 2]),
+        "decode, 1 expert twice": (idx[k * last].repeat(2),
+                                   xr[k * last: k * last + 2]),
+        "prefill, router's routing": (idx, xr),
+        "prefill, imbalanced": (imbalanced, xr),
+    }
+    w_all = {key: torch.stack([dequantize_expert(ex[key], e)
+                               for e in range(e_num)]) for key in ex}
+    for case, (sid, x) in cases.items():
+        s_slots = sid.shape[0]
+        act = Q.moe_qmatmul_glu_plain(x, ex["gate"], ex["up"], sid, "silu")
+        _, _, grouped = Q.moe_dims(s_slots, e_num)
+        # the yardstick's batch: each routed expert once, its own slots'
+        # rows padded with zero rows to the busiest expert's count
+        used = torch.unique(sid.long())
+        members = [torch.nonzero(sid == e)[:, 0] for e in used.tolist()]
+        depth = max(len(m) for m in members)
+        n_exp = len(members)
+
+        def batch(rows_in):  # [S, K] -> [experts used, depth, K]
+            out = rows_in.new_zeros(n_exp, depth, rows_in.shape[1])
+            for j, m in enumerate(members):
+                out[j, :len(m)] = rows_in[m]
+            return out
+
+        # (kernel, projection, input rows, the yardstick's batched input
+        # and its experts' f32 weights)
+        if grouped:
+            products = [
+                ("moe_glu_grouped", "gate|up", x, batch(x),
+                 torch.cat([w_all["gate"][used], w_all["up"][used]], dim=2)),
+                ("moe_grouped", "down", act, batch(act), w_all["down"][used])]
+        else:
+            products = [
+                ("moe_slot", "gate", x, batch(x), w_all["gate"][used]),
+                ("moe_slot", "down", act, batch(act), w_all["down"][used])]
+        for name, proj, xin, xin_g, w_g in products:
+            if name == "moe_glu_grouped":
+                def kern(): return Q.moe_qmatmul_glu(
+                    xin, ex["gate"], ex["up"], sid, "silu")
+                def plain(): return Q.moe_qmatmul_glu_plain(
+                    xin, ex["gate"], ex["up"], sid, "silu")
+                stacks = (ex["gate"], ex["up"])
+            else:
+                st = ex["gate" if proj == "gate" else "down"]
+                def kern(): return Q.moe_qmatmul(xin, st, sid)
+                def plain(): return Q.moe_qmatmul_plain(xin, st, sid)
+                stacks = (st,)
+            kdim, n = stacks[0].k, stacks[0].n
+            nbytes = (sum(expert_bytes(st_, n_exp) for st_ in stacks)
+                      + 4 * s_slots * (kdim + n + 1))
+            ops = 2 * s_slots * kdim * n * len(stacks)
+            measurements.append(compare(
+                name, f"{proj} S={s_slots} {case}", kern(), plain(), timer,
+                kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes, ops, bw,
+                f32_peak, path="Mixtral-8x7B-l2", projection=proj,
+                slots=s_slots, experts_read=n_exp, library_rows=n_exp * depth,
+                k=kdim, n=n))
+    del w_all, products
+
+    def on_differ(ids_, toks, want):
+        i = next(j for j, (a, b) in enumerate(zip(toks, want)) if a != b)
+        margin = routing_margins(quant, ids_, len(toks))[i]
+        log(f"Mixtral: quant and dequant tokens first differ at step {i}; "
+            f"smallest top-2 vs third router margin there: {margin:.3g}")
+
+    launches, decoded, ids = run_main_path(quant, deq, card,
+                                           "Mixtral-8x7B-l2", on_differ)
+    n_layers = cfg.num_layers
+    for name in Q.LAUNCHES:
+        want = n_layers * (decoded * MOE_PER_LAYER["decode"].get(name, 0)
+                           + MOE_PER_LAYER["prefill"].get(name, 0))
+        if name == "qmatmul_q8":
+            want = 1 + decoded  # the LM head
+        check(launches[name] == want,
+              f"Mixtral {name}: {launches[name]} launches, expected {want}")
+    print(json.dumps({"moe_decode_profile": profile_decode(quant, ids)}),
+          flush=True)
+    return measurements, launches
+
+
+def main() -> int:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    sys.path.insert(0, ROOT)
+    # the Mixtral GGUF (host numpy work, minutes) builds in a child process
+    # while the dense path runs; leaving the block waits for the child
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        moe_gguf = pool.submit(build_model, "mixtral-8x7b-l2", max_ctx=2048)
+        return run(moe_gguf)
+
+
+def run(moe_gguf) -> int:
+    import torch
+    from llama_gguf_tpu_torch.utils import cuda_build
+
+    # -- 1. device ------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    bw, f32_peak = card_rates(kind)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda_build.build_all(["qmatmul", "moe_qmatmul"])
+    log(f"kernels built in {time.perf_counter() - t0:.1f}s "
+        f"(nvcc: {cuda_build.BUILD_SECONDS})")
+    timer = Timer()
+
+    # -- 2-5. the dense path, then 6. the MoE path ----------------------------
+    t0 = time.perf_counter()
+    dense, dense_launches = dense_path(card, timer, bw, f32_peak)
+    log(f"dense path done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gguf = moe_gguf.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for the Mixtral GGUF")
+    t0 = time.perf_counter()
+    moe, moe_launches = moe_path(card, timer, bw, f32_peak, gguf)
+    log(f"MoE path done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in measurements if m["name"] == name]
-        head = mine[0]  # the first projection at one row (decode)
+        mine = [m for m in dense + moe if m["name"] == name]
+        head = mine[0]  # the first path's first shape (decode, or prefill)
+        by_path = {path: launched[name] for path, launched in (
+            ("TinyLlama-1.1B", dense_launches),
+            ("Mixtral-8x7B-l2", moe_launches)) if launched[name]}
         kernels.append(dict(
-            name=name, route="cuda",
-            source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
-            replaces=meta["replaces"], launches=launches[name],
-            launches_per_step=PER_STEP[name],
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            path=head["path"],
             max_abs_err=max(m["max_abs_err"] for m in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"],
-            at=f"{head['projection']} rows={head['rows']}",
+            library_ms=head["library_ms"], at=head["case"],
             measurements=mine))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

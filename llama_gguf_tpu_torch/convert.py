@@ -3,8 +3,9 @@
 ``params_from_numpy`` turns llama_gguf_tpu's params into the port's. The
 caller converts the JAX tree to numpy first (for example
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
-nothing of JAX or of the JAX package: QuantLinear-, DenseLinear- and
-QuantEmbedding-like leaves are recognised by their attributes.
+nothing of JAX or of the JAX package: QuantLinear-, DenseLinear-,
+QuantEmbedding- and QuantExpertStack-like leaves are recognised by their
+attributes.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from .ops.linear import DenseLinear, QuantEmbedding, QuantLinear
+from .ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
+                         QuantLinear)
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -36,6 +38,11 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
             _tensor(tree.packed, device), _tensor(tree.scales, device),
             _tensor(tree.mins, device), fmt=tree.fmt, group=tree.group,
             vocab=tree.vocab, hidden=tree.hidden)
+    if hasattr(tree, "packed") and not hasattr(tree, "splits"):
+        return QuantExpertStack(
+            _tensor(tree.packed, device), _tensor(tree.scales, device),
+            _tensor(tree.mins, device), fmt=tree.fmt, group=tree.group,
+            k=tree.k, n=tree.n)
     if hasattr(tree, "packed") and hasattr(tree, "splits"):
         return QuantLinear(
             _tensor(tree.packed, device), _tensor(tree.scales, device),

@@ -1,0 +1,210 @@
+// Sparse-MoE dequant-matmul kernels for Hopper (sm_90a): each routed slot's
+// input row times the quantized weight of the expert it was routed to, read
+// straight from the full expert stack by index (no gathered weight copy).
+//
+// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py:
+//   * slot-major  — _moe_qmatmul_call (entry moe_qmatmul, S < 32 slots or
+//                   when the grouped sweeps would not undercut S)
+//   * grouped     — _moe_qmatmul_grouped_call (plan _moe_group_plan)
+//   * grouped GLU — _moe_glu_grouped_call (entry moe_qmatmul_glu)
+//
+// Stacks (ops/linear.QuantExpertStack): packed uint8 [E, K/2, N] (q4) or
+// int8 [E, K, N] (q8), scales and mins float32 [E, K/group, N]; expert e's
+// slice is the q4/q8 layout of csrc/qdot.cuh, whose dequant-dot body all the
+// port's kernels share.
+//
+// What bounds them on this card:
+//   * slot-major, at decode (S = 2 slots per token at top-2): the routed
+//     experts' weight bytes, read once per slot from HBM. Design: one block
+//     per (slot, 32-column tile); the block reads idx[s] from device memory
+//     (the host never reads it) and offsets the packed, scale and min base
+//     pointers by e * expert stride, then runs the one-row body of qdot.cuh.
+//   * grouped, at prefill (hundreds of slots sorted by expert into G blocks
+//     of C rows, each block single-expert): the f32 multiply-adds on the CUDA
+//     cores. Design: one block per (group, 8-row block, 32-column tile); the
+//     block reads eg[g] and its rows' slot ids, gathers its input rows from x
+//     through those ids (no sorted copy of x), and skips a row block that
+//     holds padding only (the sentinel id S). Each row block re-reads its
+//     expert's column panel (from L2 when it is warm): the first cut, like
+//     csrc/qmatmul.cu at 512 rows. The output is the [G*C, N] blocked layout;
+//     padding rows are not written, and the caller reads back through the
+//     plan's inverse map. The GLU variant reads the gate and the up stack
+//     (two separate stacks) in the same pass and writes act(gate) * up, so
+//     the [G*C, 2F] intermediate never reaches device memory.
+// An expert id outside [0, E) reads nothing and writes NaN.
+
+#include "qdot.cuh"
+
+namespace {
+
+using namespace qdot;
+
+constexpr int RB_GROUPED = 8;  // rows per block of the grouped kernels; divides C
+
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fffffff); }
+
+__device__ __forceinline__ size_t packed_stride(int fmt, int K, int N) {
+    return (fmt == FMT_Q4 ? size_t(K / 2) : size_t(K)) * N;
+}
+
+__device__ __forceinline__ Panel expert_panel(const uint8_t* packed, const float* scales,
+                                              const float* mins, size_t pstride,
+                                              size_t sstride, int e, int n0) {
+    const size_t eo = size_t(e);
+    return {packed + eo * pstride + n0, scales + eo * sstride + n0,
+            mins != nullptr ? mins + eo * sstride + n0 : nullptr};
+}
+
+template <int FMT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+moe_slot_kernel(const float* __restrict__ x,        // [S, K]
+                const int* __restrict__ idx,        // [S] expert ids
+                const uint8_t* __restrict__ packed, // [E, K/2 | K, N]
+                const float* __restrict__ scales,   // [E, K/group, N]
+                const float* __restrict__ mins,     // [E, K/group, N] or null
+                float* __restrict__ y,              // [S, N]
+                int E, int K, int N, int group) {
+    const int s = blockIdx.y;
+    const int e = __ldg(idx + s);
+    const bool ok = e >= 0 && e < E;
+    const int n0 = blockIdx.x * COLS + 4 * threadIdx.x;
+    const float* xr[1] = {x + size_t(s) * K};
+    const Panel w[1] = {expert_panel(packed, scales, mins, packed_stride(FMT, K, N),
+                                     size_t(K / group) * N, ok ? e : 0, n0)};
+    float total[1];
+    dot_tile<FMT, 1, 1, VEC>(xr, w, K, N, group, ok ? N - n0 : 0, total);
+
+    const int tid = threadIdx.y * TX + threadIdx.x;
+    const int col = blockIdx.x * COLS + tid;
+    if (tid < COLS && col < N) y[size_t(s) * N + col] = ok ? total[0] : nan_f32();
+}
+
+// NW = 1: the grouped product over (p0, s0, m0). NW = 2: gate (p0, s0, m0)
+// and up (p1, s1, m1), combined by the GLU epilogue. VEC: see qdot::dot_tile.
+template <int FMT, int NW, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
+                   const int* __restrict__ rows,      // [G*C] slot ids, S = padding
+                   const int* __restrict__ eg,        // [G] expert of each group
+                   const uint8_t* __restrict__ p0, const float* __restrict__ s0,
+                   const float* __restrict__ m0,
+                   const uint8_t* __restrict__ p1, const float* __restrict__ s1,
+                   const float* __restrict__ m1,
+                   float* __restrict__ y,             // [G*C, N]
+                   int S, int E, int K, int N, int C, int group, int act) {
+    const int row0 = blockIdx.y * RB_GROUPED;  // in the [G*C] blocked layout
+    // a group's valid rows come first, so a row block that starts with
+    // padding holds nothing else: it exits before any synchronisation
+    const int first = __ldg(rows + row0);
+    if (first >= S) return;
+    const int e = __ldg(eg + row0 / C);
+    const bool ok = e >= 0 && e < E;
+    const int n0 = blockIdx.x * COLS + 4 * threadIdx.x;
+
+    const float* xr[RB_GROUPED];
+#pragma unroll
+    for (int r = 0; r < RB_GROUPED; ++r) {
+        const int sid = __ldg(rows + row0 + r);
+        xr[r] = x + size_t(sid < S ? sid : first) * K;
+    }
+    const size_t pstride = packed_stride(FMT, K, N), sstride = size_t(K / group) * N;
+    Panel w[NW];
+    w[0] = expert_panel(p0, s0, m0, pstride, sstride, ok ? e : 0, n0);
+    if constexpr (NW == 2) w[1] = expert_panel(p1, s1, m1, pstride, sstride, ok ? e : 0, n0);
+    float total[NW];
+    dot_tile<FMT, RB_GROUPED, NW, VEC>(xr, w, K, N, group, ok ? N - n0 : 0, total);
+
+    const int tid = threadIdx.y * TX + threadIdx.x;
+    if (tid < RB_GROUPED * COLS) {
+        const int row = row0 + tid / COLS;
+        const int col = blockIdx.x * COLS + tid % COLS;
+        if (__ldg(rows + row) < S && col < N) {
+            const float v = NW == 2 ? glu_combine(total[0], total[NW - 1], act) : total[0];
+            y[size_t(row) * N + col] = ok ? v : nan_f32();
+        }
+    }
+}
+
+dim3 tiles(int N, int nrows) { return dim3((N + COLS - 1) / COLS, nrows); }
+
+template <int FMT>
+void launch_slot(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* idx,
+                 const uint8_t* p, const float* scales, const float* mins, float* y, int E,
+                 int K, int N, int group) {
+    const dim3 block(TX, TY);
+    if (vec)
+        moe_slot_kernel<FMT, true><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
+    else
+        moe_slot_kernel<FMT, false><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
+}
+
+template <int FMT, int NW>
+void launch_grouped(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* rows,
+                    const int* eg, const uint8_t* p0, const float* s0, const float* m0,
+                    const uint8_t* p1, const float* s1, const float* m1, float* y, int S,
+                    int E, int K, int N, int C, int group, int act) {
+    const dim3 block(TX, TY);
+    if (vec)
+        moe_grouped_kernel<FMT, NW, true><<<grid, block, 0, st>>>(
+            x, rows, eg, p0, s0, m0, p1, s1, m1, y, S, E, K, N, C, group, act);
+    else
+        moe_grouped_kernel<FMT, NW, false><<<grid, block, 0, st>>>(
+            x, rows, eg, p0, s0, m0, p1, s1, m1, y, S, E, K, N, C, group, act);
+}
+
+}  // namespace
+
+// y[s] = x[s] @ W[idx[s]] for S slots. fmt: 0 = q4, 1 = q8; mins may be null.
+// vec: 1 when N % 4 == 0 and every pointer is 16-byte aligned.
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int moe_slot_launch(const float* x, const int* idx, const void* packed,
+                               const float* scales, const float* mins, float* y, int S,
+                               int E, int K, int N, int group, int fmt, int vec,
+                               void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint8_t* p = static_cast<const uint8_t*>(packed);
+    if (fmt == FMT_Q4)
+        launch_slot<FMT_Q4>(tiles(N, S), st, vec != 0, x, idx, p, scales, mins, y, E, K, N, group);
+    else
+        launch_slot<FMT_Q8>(tiles(N, S), st, vec != 0, x, idx, p, scales, mins, y, E, K, N, group);
+    return int(cudaGetLastError());
+}
+
+// y[G*C, N]: row r of group g = x[rows[g*C + r]] @ W[eg[g]], for the rows
+// whose slot id is below S (others are left unwritten). C % 8 == 0.
+extern "C" int moe_grouped_launch(const float* x, const int* rows, const int* eg,
+                                  const void* packed, const float* scales,
+                                  const float* mins, float* y, int S, int E, int K, int N,
+                                  int C, int G, int group, int fmt, int vec, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint8_t* p = static_cast<const uint8_t*>(packed);
+    const dim3 grid = tiles(N, G * C / RB_GROUPED);
+    if (fmt == FMT_Q4)
+        launch_grouped<FMT_Q4, 1>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
+                                  nullptr, nullptr, y, S, E, K, N, C, group, 0);
+    else
+        launch_grouped<FMT_Q8, 1>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
+                                  nullptr, nullptr, y, S, E, K, N, C, group, 0);
+    return int(cudaGetLastError());
+}
+
+// y[G*C, F] = act(x_r @ Wg[e]) * (x_r @ Wu[e]) over two separate stacks of
+// the same layout, with rows, eg and C as in moe_grouped_launch.
+// act: 0 silu, 1 gelu (tanh), 2 relu, 3 relu2, 4 swiglu_oai.
+extern "C" int moe_glu_grouped_launch(const float* x, const int* rows, const int* eg,
+                                      const void* pg, const float* sg, const float* mg,
+                                      const void* pu, const float* su, const float* mu,
+                                      float* y, int S, int E, int K, int F, int C, int G,
+                                      int group, int fmt, int act, int vec, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint8_t* g8 = static_cast<const uint8_t*>(pg);
+    const uint8_t* u8 = static_cast<const uint8_t*>(pu);
+    const dim3 grid = tiles(F, G * C / RB_GROUPED);
+    if (fmt == FMT_Q4)
+        launch_grouped<FMT_Q4, 2>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y,
+                                  S, E, K, F, C, group, act);
+    else
+        launch_grouped<FMT_Q8, 2>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y,
+                                  S, E, K, F, C, group, act);
+    return int(cudaGetLastError());
+}

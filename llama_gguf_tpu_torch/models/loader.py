@@ -1,5 +1,5 @@
 """GGUF -> PyTorch params (port of llama_gguf_tpu/models/loader.py, dense
-decoders of the llama and qwen2 families).
+decoders of the llama and qwen2 families and Mixtral-style sparse MoE).
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -7,8 +7,9 @@ norm dicts, consumed by models/transformer.forward. Two weight modes:
   * "dequant": weights dequantized to f32 on the host (the oracle path;
                matmuls run as torch.matmul);
   * "quant":   matmul weights repacked to the kernel layouts
-               (quant/repack.py) with f32 scale panels; norms and biases stay
-               dense; the embedding table stays quantized.
+               (quant/repack.py) with f32 scale panels, MoE experts as
+               QuantExpertStacks; norms and biases stay dense; the embedding
+               table stays quantized.
 
 The JAX package's repack sidecar cache is not ported (ROADMAP queue 1).
 """
@@ -22,7 +23,8 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
-from ..ops.linear import DenseLinear, QuantEmbedding, QuantLinear, fuse_linears
+from ..ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
+                          QuantLinear, fuse_linears)
 from ..quant.dequant import dequantize
 from ..quant.repack import repack, repack_rows
 from .config import ModelConfig, parse_config
@@ -151,10 +153,9 @@ class ModelLoader:
             raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                       "yet (ROADMAP queue 1)")
         if self.has(f"{p}.attn_kv_a_mqa.weight") or \
-                self.has(f"{p}.attn_qkv.weight") or \
-                self.has(f"{p}.ffn_gate_inp.weight"):
+                self.has(f"{p}.attn_qkv.weight"):
             raise NotImplementedError(
-                "MLA, combined-QKV and MoE layers are not ported yet "
+                "MLA and combined-QKV layers are not ported yet "
                 "(ROADMAP queue 1)")
         layer: dict[str, Any] = {}
         attn_norm = self.norm(f"{p}.attn_norm", required=False, unit_ok=True)
@@ -206,6 +207,20 @@ class ModelLoader:
 
     def _load_ffn(self, i: int, cfg: ModelConfig) -> dict:
         p = f"blk.{i}"
+        if self.has(f"{p}.ffn_gate_inp.weight"):  # MoE
+            unported = [f"{p}.{t}" for t in (
+                "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias",
+                "exp_probs_b.bias", "ffn_gate_shexp.weight")
+                if self.has(f"{p}.{t}")]
+            if unported:
+                raise NotImplementedError(
+                    f"MoE per-expert biases, routing biases and shared experts "
+                    f"are not ported yet (ROADMAP queue 1): {unported}")
+            return {
+                "router": self.linear(f"{p}.ffn_gate_inp"),
+                "experts": {key: self._expert_stack(f"{p}.ffn_{key}_exps.weight")
+                            for key in ("gate", "up", "down")},
+            }
         ffn: dict[str, Any] = {}
         if cfg.has_ffn_gate and self.has(f"{p}.ffn_gate.weight"):
             ffn["gate"] = self.linear(f"{p}.ffn_gate")
@@ -215,6 +230,30 @@ class ModelLoader:
             ffn["sub_norm"] = self._put(self.dense(f"{p}.ffn_sub_norm.weight"))
         self._fuse_ffn(ffn)
         return ffn
+
+    def _expert_stack(self, name: str):
+        """Stacked expert weights [E, in, out]. In quant mode the experts stay
+        compressed on the device (QuantExpertStack, each expert repacked as
+        ``linear`` repacks a matrix); in dequant mode a dense f32 tensor."""
+        info = self.gguf.tensors[name]
+        t = info.ggml_type
+        e, n_out, k_in = info.np_shape  # [E, out, in]
+        if self.mode == "quant" and t in _QUANTIZED_KEEP and k_in % 32 == 0:
+            raw = np.frombuffer(self.gguf.tensor_bytes(name), np.uint8)
+            per = raw.size // e
+            rws = [repack(raw[j * per: (j + 1) * per], t, (n_out, k_in))
+                   for j in range(e)]
+            return QuantExpertStack(
+                packed=self._put(np.stack([r.packed for r in rws])),
+                scales=self._put(np.stack([r.scales for r in rws])),
+                mins=(self._put(np.stack([r.mins for r in rws]))
+                      if rws[0].mins is not None else None),
+                fmt=rws[0].fmt, group=rws[0].group, k=k_in, n=n_out)
+        w = self.dense(name)
+        if w.ndim != 3:
+            raise ValueError(f"{name}: expected a 3D expert stack, got "
+                             f"{w.shape}")
+        return self._put(w).transpose(1, 2).contiguous()  # [E, in, out]
 
     def build(self) -> tuple[dict, ModelConfig]:
         cfg = self.config

@@ -1,4 +1,4 @@
-"""Decoder-only transformer forward, dense path (port of
+"""Decoder-only transformer forward, dense and sparse-MoE paths (port of
 llama_gguf_tpu/models/transformer.py).
 
     forward(params, cfg, tokens[B,T], positions[B,T], kv, lengths) ->
@@ -7,8 +7,10 @@ llama_gguf_tpu/models/transformer.py).
 T=1 is the decode step; larger T is (bucketed) prefill. The KV cache is
 updated in place. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
 RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
-kernel, parallel residual, post norms, tied embeddings. Layer kinds other than
-"attn", MLA, MoE and the tiered read bound are ROADMAP queue 1.
+kernel, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
+kernels, parallel residual, post norms, tied embeddings. Layer kinds other
+than "attn", MLA, the other MoE routings and the tiered read bound are ROADMAP
+queue 1.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from ..ops import linear as L
 from ..ops.attention import attention_scores
 from ..ops.norms import apply_norm, rms_norm
-from ..ops.qmatmul import glu_combine, qmatmul_glu
+from ..ops.qmatmul import (expert_matmul, glu_combine, moe_qmatmul,
+                           moe_qmatmul_glu, qmatmul_glu)
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import kv as KV
 from .config import Activation, ModelConfig
@@ -164,15 +167,72 @@ def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return down(_act(u, cfg.hidden_act))
 
 
+def route(ffn: dict, cfg: ModelConfig,
+          xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of tokens xf [N, H] -> (weights [N, k] f32, expert ids
+    [N, k]): softmax over the router logits, then top-k, with the optional
+    renormalisation (Mixtral) and routed scale of the JAX package's
+    softmax-before-top-k branch."""
+    if cfg.expert_gating_func in (2, 3) or cfg.moe_weight_before_ffn:
+        raise NotImplementedError(
+            "sigmoid (DeepSeek-V3) and sparsemixer (PhiMoE) routing and "
+            "input-scaled experts (llama4) are not ported yet "
+            "(ROADMAP queue 1)")
+    probs = torch.softmax(L.apply(ffn["router"], xf).float(), dim=-1)
+    topv, topi = torch.topk(probs, cfg.num_experts_per_token, dim=-1)
+    if cfg.expert_weights_norm:
+        topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.expert_weights_scale != 1.0:  # DeepSeek-V2 routed scale
+        topv = topv * cfg.expert_weights_scale
+    return topv, topi
+
+
+def _expert_mm(x_rows: torch.Tensor, stack,
+               idx: torch.Tensor) -> torch.Tensor:
+    """A quantized stack goes to the MoE kernels; a dense [E, K, N] stack
+    (dequant mode, or experts the loader could not keep quantized) loops over
+    its experts."""
+    if isinstance(stack, L.QuantExpertStack):
+        return moe_qmatmul(x_rows, stack, idx)
+    return expert_matmul(x_rows, stack, idx)
+
+
+def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mixture-of-experts FFN. Slots are token-major (slot s = token * k +
+    j). When gate and up are both quantized the grouped gate|up GLU kernel
+    is tried first; else, or below its threshold, the two products and the
+    GLU; then the down product and the routing-weighted sum. Each product
+    is dispatched on its own stack (``_expert_mm``)."""
+    b, t, h = x.shape
+    xf = x.reshape(b * t, h)
+    topv, topi = route(ffn, cfg, xf)
+    nt, k = topi.shape
+    ex = ffn["experts"]
+    idx = topi.reshape(-1).to(torch.int32)  # [N*k]
+    xr = xf.float()[:, None, :].expand(nt, k, h).reshape(-1, h)
+    act = None
+    if (isinstance(ex["gate"], L.QuantExpertStack)
+            and isinstance(ex["up"], L.QuantExpertStack)):
+        act = moe_qmatmul_glu(xr, ex["gate"], ex["up"], idx,
+                              cfg.hidden_act.value)
+    if act is None:
+        act = _glu(_expert_mm(xr, ex["gate"], idx),
+                   _expert_mm(xr, ex["up"], idx), cfg.hidden_act)
+    dn = _expert_mm(act, ex["down"], idx)
+    y = (dn.reshape(nt, k, h) * topv[:, :, None]).sum(dim=1)
+    return y.reshape(b, t, h).to(x.dtype)
+
+
+def _ffn(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return moe_layer(ffn, cfg, x) if "router" in ffn else \
+        feed_forward(ffn, cfg, x)
+
+
 def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, kv: dict, layer_idx: int,
                       lengths: torch.Tensor,
                       read_bound: int | None = None
                       ) -> tuple[torch.Tensor, dict]:
-    if "router" in layer["ffn"]:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP queue 1)")
-
     def norm(p, xx):
         return apply_norm(xx, p, cfg.norm_eps, cfg.uses_layer_norm)
 
@@ -183,14 +243,14 @@ def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         attn_out = norm(layer["post_attn_norm"], attn_out)
 
     if cfg.use_parallel_residual:
-        return x + attn_out + feed_forward(layer["ffn"], cfg, h), kv
+        return x + attn_out + _ffn(layer["ffn"], cfg, h), kv
 
     rs = cfg.residual_scale  # Granite residual_multiplier
     if rs != 1.0:
         attn_out = attn_out * rs
     x = x + attn_out
     h2 = norm(layer["ffn_norm"], x) if layer.get("ffn_norm") else x
-    ffn_out = feed_forward(layer["ffn"], cfg, h2)
+    ffn_out = _ffn(layer["ffn"], cfg, h2)
     if "post_ffn_norm" in layer:
         ffn_out = norm(layer["post_ffn_norm"], ffn_out)
     if rs != 1.0:

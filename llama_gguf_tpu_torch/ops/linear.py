@@ -12,6 +12,9 @@ plus per-group scale (and optional min) panels [K/group, N]:
 
     W[k, n] = s[k // group, n] * q[k, n] - m[k // group, n]
 
+An MoE FFN's experts stack the same layout along a leading expert axis
+(``QuantExpertStack``).
+
 ``apply`` sends a QuantLinear to ops.qmatmul.qmatmul, which launches the
 hand-written CUDA kernel for a CUDA tensor and runs the plain dequantize-then-
 matmul version (``dequantize_weight``) for a CPU tensor.
@@ -75,6 +78,34 @@ class QuantEmbedding:
     @property
     def shape(self):
         return (self.vocab, self.hidden)
+
+
+@dataclass
+class QuantExpertStack:
+    """Stacked quantized expert weights [E, K, N] of an MoE FFN, kept
+    compressed on the device; the MoE kernels (ops/qmatmul.moe_qmatmul*) read
+    only the routed experts' slices, by index."""
+
+    packed: torch.Tensor  # uint8 [E, K/2, N] (q4) or int8 [E, K, N] (q8)
+    scales: torch.Tensor  # [E, K/group, N] float32
+    mins: torch.Tensor | None  # [E, K/group, N] or None
+    fmt: str  # q4 | q8
+    group: int
+    k: int
+    n: int
+
+    @property
+    def shape(self):
+        return (self.packed.shape[0], self.k, self.n)
+
+
+def dequantize_expert(stack: QuantExpertStack, e: int) -> torch.Tensor:
+    """Expert ``e``'s dequantized weight [K, N] in float32 (the plain oracle
+    of the MoE kernels: one expert at a time, never one weight per slot)."""
+    return dequantize_weight(QuantLinear(
+        stack.packed[e], stack.scales[e],
+        stack.mins[e] if stack.mins is not None else None, None,
+        stack.fmt, stack.group, stack.k, stack.n))
 
 
 def _cat_bias(lins, widths, dtype, device):

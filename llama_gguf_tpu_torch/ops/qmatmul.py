@@ -1,5 +1,6 @@
 """Fused dequant-matmul: wrappers over the CUDA kernels of csrc/qmatmul.cu
-and their plain PyTorch versions (port of llama_gguf_tpu/ops/qmatmul.py).
+and csrc/moe_qmatmul.cu and their plain PyTorch versions (port of
+llama_gguf_tpu/ops/qmatmul.py).
 
   * ``qmatmul(x, lin)``          — y = x @ W for a q4 or q8 QuantLinear
                                     (kernels "qmatmul_q4" and "qmatmul_q8",
@@ -8,13 +9,24 @@ and their plain PyTorch versions (port of llama_gguf_tpu/ops/qmatmul.py).
   * ``qmatmul_glu(x, lin, act)`` — act(x @ W_gate) * (x @ W_up) over a fused
                                     [gate | up] QuantLinear (kernel
                                     "qmatmul_glu", replacing
-                                    _qmatmul_glu_call's _glu_kernel).
+                                    _qmatmul_glu_call's _glu_kernel);
+  * ``moe_qmatmul(x_rows, stack, idx)`` — y[s] = x[s] @ W[idx[s]] for routed
+                                    MoE slots over a QuantExpertStack:
+                                    slot-major (kernel "moe_slot", replacing
+                                    _moe_qmatmul_call) at decode-sized S,
+                                    else grouped by expert (kernel
+                                    "moe_grouped", replacing
+                                    _moe_qmatmul_grouped_call);
+  * ``moe_qmatmul_glu(x_rows, gate, up, idx, act)`` — the grouped gate/up
+                                    product with the GLU epilogue (kernel
+                                    "moe_glu_grouped", replacing
+                                    _moe_glu_grouped_call).
 
 A wrapper runs the plain version only when ``x`` lies on the CPU. For a CUDA
 tensor it launches the kernel or raises; there is no fallback. ``LAUNCHES``
 counts kernel launches, one per launch, so a run can show that its main path
 went through the kernels. What bounds each kernel on the card and how its
-design meets that is written at the top of csrc/qmatmul.cu.
+design meets that is written at the top of each CUDA source.
 """
 
 from __future__ import annotations
@@ -23,11 +35,19 @@ import ctypes
 
 import torch
 
-from .linear import QuantLinear, dequantize_weight
+from .linear import (QuantExpertStack, QuantLinear, dequantize_expert,
+                     dequantize_weight)
 
 GLU_ACTS = ("silu", "gelu", "relu", "relu2", "swiglu_oai")
 
-LAUNCHES = {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0}
+LAUNCHES = {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0,
+            "moe_slot": 0, "moe_grouped": 0, "moe_glu_grouped": 0}
+
+# Slot-major MoE kernel below this many slots; grouped above, when its
+# ceil(S/C) + E expert sweeps undercut the slot-major kernel's S sweeps (the
+# JAX package's rule: it counts expert sweeps, not TPU tiles).
+MOE_GROUPED_MIN_SLOTS = 32
+MOE_GROUP_ROWS = 256  # C: rows per single-expert block
 
 
 def reset_launches() -> None:
@@ -67,28 +87,121 @@ def qmatmul_glu_plain(x: torch.Tensor, lin: QuantLinear,
     return glu_combine(y[:, :f], y[:, f:], act)
 
 
+def expert_matmul(x_rows: torch.Tensor, stack,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """y[s] = x_rows[s] @ W[idx[s]] in f32, one expert at a time: each
+    expert's weight (a dense [E, K, N] stack's slice, or a QuantExpertStack's
+    expert dequantized by ``dequantize_expert``) meets only the rows routed to
+    it, so no weight is materialised per slot."""
+    quant = isinstance(stack, QuantExpertStack)
+    n = stack.n if quant else stack.shape[-1]
+    x = x_rows.float()
+    y = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for e in range(stack.shape[0]):
+        sel = torch.nonzero(idx == e)[:, 0]
+        if sel.numel():
+            w = dequantize_expert(stack, e) if quant else stack[e].float()
+            y[sel] = torch.matmul(x[sel], w)
+    return y
+
+
+def moe_qmatmul_plain(x_rows: torch.Tensor, stack: QuantExpertStack,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of the slot-major and grouped MoE kernels."""
+    return expert_matmul(x_rows, stack, idx)
+
+
+def moe_qmatmul_glu_plain(x_rows: torch.Tensor, gate: QuantExpertStack,
+                          up: QuantExpertStack, idx: torch.Tensor,
+                          act: str) -> torch.Tensor:
+    """Plain version of the grouped GLU MoE kernel."""
+    return glu_combine(expert_matmul(x_rows, gate, idx),
+                       expert_matmul(x_rows, up, idx), act)
+
+
+def moe_dims(s_slots: int, e_num: int) -> tuple[int, int, bool]:
+    """(C rows per group, G groups, grouped?) for S slots over E experts:
+    C = min(256, pow2 >= S, >= 8), G = ceil(S/C) + E, and the grouped kernels
+    run when S >= 32 and G < S (the JAX package's moe_qmatmul rule)."""
+    c_rows = min(MOE_GROUP_ROWS, max(8, 1 << (s_slots - 1).bit_length()))
+    g_blocks = -(-s_slots // c_rows) + e_num
+    return c_rows, g_blocks, (s_slots >= MOE_GROUPED_MIN_SLOTS
+                              and g_blocks < s_slots)
+
+
+def moe_group_plan(idx: torch.Tensor, e_num: int, c_rows: int,
+                   g_blocks: int):
+    """Static-shape dispatch plan of the grouped MoE kernels (port of
+    _moe_group_plan): sort slots by expert, cut each expert's run into C-row
+    blocks (the last one of each expert padded), and build the inverse map.
+    Exact routing; imbalance is absorbed by the E spare blocks in G. Runs on
+    the device with no host synchronisation. Returns int32 (eg [G] expert of
+    each block, dummy blocks on expert 0; rows [G, C] slot ids with S as the
+    padding sentinel; flat [S] index of each slot's row in the [G*C] blocked
+    output)."""
+    s = idx.shape[0]
+    dev = idx.device
+    idx = idx.long()
+    order = torch.argsort(idx, stable=True)
+    # bincount sizes its output from idx.max() on the host; a scatter-add
+    # into E counters does not
+    counts = torch.zeros(e_num, dtype=torch.long, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx))
+    starts = torch.cumsum(counts, 0) - counts
+    nb = (counts + c_rows - 1) // c_rows
+    bend = torch.cumsum(nb, 0)
+    bstart = bend - nb
+    gids = torch.arange(g_blocks, device=dev)
+    eg = torch.searchsorted(bend, gids, right=True)
+    live = eg < e_num
+    eg = torch.where(live, eg, 0)
+    bi = gids - bstart[eg]
+    pos = (starts[eg] + bi * c_rows)[:, None] + torch.arange(c_rows,
+                                                             device=dev)
+    valid = live[:, None] & (pos < (starts[eg] + counts[eg])[:, None])
+    rows = torch.where(valid, order[pos.clamp(0, s - 1)], s)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(s, device=dev))
+    off = rank - starts[idx]
+    flat = (bstart[idx] + off // c_rows) * c_rows + off % c_rows
+    return eg.int(), rows.int(), flat.int()
+
+
 # -- kernel launches ----------------------------------------------------------
 
-_ARGTYPES_SET = False
+_ARGTYPES_SET: set[str] = set()
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "qmatmul") -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built at first use."""
     from ..utils.cuda_build import load
 
-    global _ARGTYPES_SET
-    lib = load("qmatmul")
-    if not _ARGTYPES_SET:
+    lib = load(name)
+    if name not in _ARGTYPES_SET:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmatmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.qmatmul_launch.restype = i
-        lib.qmatmul_glu_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                           p]
-        lib.qmatmul_glu_launch.restype = i
-        _ARGTYPES_SET = True
+        signatures = {
+            "qmatmul": {
+                "qmatmul_launch": [p] * 5 + [i] * 6 + [p],
+                "qmatmul_glu_launch": [p] * 5 + [i] * 7 + [p],
+            },
+            "moe_qmatmul": {
+                "moe_slot_launch": [p] * 6 + [i] * 7 + [p],
+                "moe_grouped_launch": [p] * 7 + [i] * 9 + [p],
+                "moe_glu_grouped_launch": [p] * 10 + [i] * 10 + [p],
+            },
+        }[name]
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i
+        _ARGTYPES_SET.add(name)
     return lib
 
 
-def _check(x: torch.Tensor, lin: QuantLinear) -> None:
+def _check(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> None:
+    """Raise on what the kernels do not take: a QuantLinear's panels, or a
+    QuantExpertStack's, which carry a leading expert axis."""
+    lead = ((lin.packed.shape[0],) if isinstance(lin, QuantExpertStack)
+            else ())
     if lin.scales.dtype != torch.float32 or (
             lin.mins is not None and lin.mins.dtype != torch.float32):
         raise NotImplementedError(
@@ -104,28 +217,33 @@ def _check(x: torch.Tensor, lin: QuantLinear) -> None:
             raise ValueError(f"weight on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError("weight panels must be contiguous")
-    if lin.fmt not in ("q4", "q8") or lin.k % lin.group or lin.group % 2:
+    if lin.fmt not in ("q4", "q8") or lin.k % lin.group or lin.group % 16:
         raise ValueError(f"unsupported layout fmt={lin.fmt} k={lin.k} "
                          f"group={lin.group}")
-    packed = ((torch.uint8, (lin.k // 2, lin.n)) if lin.fmt == "q4"
-              else (torch.int8, (lin.k, lin.n)))
+    packed = ((torch.uint8, (*lead, lin.k // 2, lin.n)) if lin.fmt == "q4"
+              else (torch.int8, (*lead, lin.k, lin.n)))
     if (lin.packed.dtype, tuple(lin.packed.shape)) != packed:
         raise ValueError(f"packed must be {packed}, got {lin.packed.dtype} "
                          f"{tuple(lin.packed.shape)}")
-    panel = (lin.k // lin.group, lin.n)
+    panel = (*lead, lin.k // lin.group, lin.n)
     for t in tensors[1:]:
         if tuple(t.shape) != panel:
             raise ValueError(f"scale/min panels must be {panel}, got "
                              f"{tuple(t.shape)}")
 
 
-def _vec_ok(lin: QuantLinear, cols: int, out: torch.Tensor) -> int:
+def _vec_ok(lin: QuantLinear | QuantExpertStack, cols: int,
+            out: torch.Tensor) -> int:
     """1 when 4-column vector loads are legal: the column count is a
     multiple of 4 and every panel is 16-byte aligned."""
     ptrs = [lin.packed.data_ptr(), lin.scales.data_ptr(), out.data_ptr()]
     if lin.mins is not None:
         ptrs.append(lin.mins.data_ptr())
     return int(cols % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return t.data_ptr() if t is not None else None
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -153,7 +271,7 @@ def qmatmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     fmt = 0 if lin.fmt == "q4" else 1
     rc = _lib().qmatmul_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        lin.mins.data_ptr() if lin.mins is not None else None, y.data_ptr(),
+        _ptr(lin.mins), y.data_ptr(),
         b, lin.k, lin.n, lin.group, fmt, _vec_ok(lin, lin.n, y),
         _stream(x))
     _raise_on(rc, "qmatmul")
@@ -183,9 +301,121 @@ def qmatmul_glu(x: torch.Tensor, lin, act: str) -> torch.Tensor | None:
         return y
     rc = _lib().qmatmul_glu_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        lin.mins.data_ptr() if lin.mins is not None else None, y.data_ptr(),
+        _ptr(lin.mins), y.data_ptr(),
         b, lin.k, f, lin.group, 0 if lin.fmt == "q4" else 1,
         GLU_ACTS.index(act), _vec_ok(lin, f, y), _stream(x))
     _raise_on(rc, "qmatmul_glu")
     LAUNCHES["qmatmul_glu"] += 1
     return y
+
+
+def _check_moe(x: torch.Tensor, idx: torch.Tensor, stacks) -> None:
+    for st in stacks:
+        _check(x, st)
+    if idx.dtype != torch.int32 or idx.shape != (x.shape[0],) \
+            or idx.device != x.device or not idx.is_contiguous():
+        raise ValueError(f"idx must be contiguous int32 [{x.shape[0]}] on "
+                         f"{x.device}, got {idx.dtype} {tuple(idx.shape)} on "
+                         f"{idx.device}")
+
+
+def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
+                idx_flat: torch.Tensor) -> torch.Tensor:
+    """Routed MoE product: x_rows [S, K] (one input row per expert slot)
+    times the quantized weight of expert idx_flat[s] -> [S, N] float32. Only
+    the routed experts' packed bytes are read, straight from the stack.
+    Decode-sized S runs the slot-major kernel; larger S sorts the slots by
+    expert (moe_group_plan) and runs C-row single-expert blocks, so each
+    routed expert's weights stream about once instead of once per slot.
+    Unlike the JAX entry it never returns None: ragged N is computed."""
+    if x_rows.device.type == "cpu":
+        return moe_qmatmul_plain(x_rows, stack, idx_flat)
+    if x_rows.device.type != "cuda":
+        raise RuntimeError(f"moe_qmatmul: no kernel for device "
+                           f"{x_rows.device}")
+    x = x_rows.float().contiguous()
+    idx = idx_flat.to(torch.int32).contiguous()
+    _check_moe(x, idx, (stack,))
+    s_slots, n = x.shape[0], stack.n
+    e_num = stack.packed.shape[0]
+    c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
+    fmt = 0 if stack.fmt == "q4" else 1
+    if not grouped:
+        y = torch.empty((s_slots, n), dtype=torch.float32, device=x.device)
+        if s_slots == 0:
+            return y
+        if s_slots > 65535:
+            raise ValueError(f"moe_qmatmul: {s_slots} slot-major slots exceed "
+                             "the grid")
+        rc = _lib("moe_qmatmul").moe_slot_launch(
+            x.data_ptr(), idx.data_ptr(), stack.packed.data_ptr(),
+            stack.scales.data_ptr(), _ptr(stack.mins), y.data_ptr(), s_slots,
+            e_num, stack.k, n, stack.group, fmt, _vec_ok(stack, n, y),
+            _stream(x))
+        _raise_on(rc, "moe_slot")
+        LAUNCHES["moe_slot"] += 1
+        return y
+    eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
+    out = _grouped_out(g_blocks, c_rows, n, x.device)
+    rc = _lib("moe_qmatmul").moe_grouped_launch(
+        x.data_ptr(), rows.data_ptr(), eg.data_ptr(), stack.packed.data_ptr(),
+        stack.scales.data_ptr(), _ptr(stack.mins), out.data_ptr(), s_slots,
+        e_num, stack.k, n, c_rows, g_blocks, stack.group, fmt,
+        _vec_ok(stack, n, out), _stream(x))
+    _raise_on(rc, "moe_grouped")
+    LAUNCHES["moe_grouped"] += 1
+    return out[flat]
+
+
+def _grouped_out(g_blocks: int, c_rows: int, n: int,
+                 device: torch.device) -> torch.Tensor:
+    """The grouped kernels' [G*C, N] blocked output (padding rows are left
+    unwritten and never read back)."""
+    if g_blocks * c_rows // 8 > 65535:
+        raise ValueError(f"grouped MoE: {g_blocks} x {c_rows} rows exceed the "
+                         "grid")
+    return torch.empty((g_blocks * c_rows, n), dtype=torch.float32,
+                       device=device)
+
+
+def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
+                    up_stack: QuantExpertStack, idx_flat: torch.Tensor,
+                    act: str) -> torch.Tensor | None:
+    """act(x @ Wg[e]) * (x @ Wu[e]) for routed expert slots in one grouped
+    kernel, reading both stacks in one pass -> [S, F] float32. Returns None
+    where the JAX entry does: an unknown act, stacks that do not match, or
+    an S below the grouped rule (decode keeps the two slot-major calls);
+    the caller then takes the two-call path."""
+    g_st, u_st = gate_stack, up_stack
+    s_slots, k = x_rows.shape
+    if act not in GLU_ACTS:
+        return None
+    if (g_st.fmt != u_st.fmt or g_st.group != u_st.group
+            or g_st.k != k or u_st.k != k or g_st.n != u_st.n
+            or g_st.packed.shape[0] != u_st.packed.shape[0]
+            or (g_st.mins is None) != (u_st.mins is None)):
+        return None
+    e_num, f = g_st.packed.shape[0], g_st.n
+    c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
+    if not grouped:
+        return None
+    if x_rows.device.type == "cpu":
+        return moe_qmatmul_glu_plain(x_rows, g_st, u_st, idx_flat, act)
+    if x_rows.device.type != "cuda":
+        raise RuntimeError(f"moe_qmatmul_glu: no kernel for device "
+                           f"{x_rows.device}")
+    x = x_rows.float().contiguous()
+    idx = idx_flat.to(torch.int32).contiguous()
+    _check_moe(x, idx, (g_st, u_st))
+    eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
+    out = _grouped_out(g_blocks, c_rows, f, x.device)
+    rc = _lib("moe_qmatmul").moe_glu_grouped_launch(
+        x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
+        g_st.packed.data_ptr(), g_st.scales.data_ptr(), _ptr(g_st.mins),
+        u_st.packed.data_ptr(), u_st.scales.data_ptr(), _ptr(u_st.mins),
+        out.data_ptr(), s_slots, e_num, k, f, c_rows, g_blocks, g_st.group,
+        0 if g_st.fmt == "q4" else 1, GLU_ACTS.index(act),
+        min(_vec_ok(g_st, f, out), _vec_ok(u_st, f, out)), _stream(x))
+    _raise_on(rc, "moe_glu_grouped")
+    LAUNCHES["moe_glu_grouped"] += 1
+    return out[flat]

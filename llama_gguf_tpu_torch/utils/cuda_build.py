@@ -3,7 +3,8 @@
 Each source under llama_gguf_tpu_torch/csrc/ is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. Libraries are cached under ``.cache/torch_kernels/`` at the root
-of the checkout, keyed by a hash of the source and the flags, so a process
+of the checkout, keyed by a hash of the source, the shared headers and the
+flags, so a process
 builds a kernel at its first use only when no earlier process has.
 Nothing is built when a module is imported.
 """
@@ -43,7 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The cached library's path, keyed by the source, the shared headers
+    (csrc/*.cuh) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,10 +1,11 @@
 """Synthetic GGUF model builder (random weights, real configs).
 
-A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense presets only; the
-port never imports the JAX package). The same preset, quant and seed give the
-same file byte for byte as the JAX package's builder. Q4_K_M convention:
-embeddings and LM head Q6_K (Q8_0 when the row does not divide the 256-element
-super-block), attention and gate/up Q4_K, ffn_down Q6_K.
+A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense and Mixtral-style
+MoE presets; the port never imports the JAX package). The same preset, quant
+and seed give the same file byte for byte as the JAX package's builder. Q4_K_M
+convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
+not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
+Q6_K; a K-quant whose super-block does not divide the row falls back to Q5_1.
 """
 
 from __future__ import annotations
@@ -27,6 +28,21 @@ PRESETS = {
     "tinyllama-1.1b": ("llama", 32000, 2048, 22, 32, 4, 5632, 2048, False),
 }
 
+# Mixtral-style sparse-MoE presets (llama arch + expert_count, the GGUF
+# convention Mixtral converts to). "mixtral-8x7b" is the published geometry of
+# Mixtral-8x7B-v0.1; the -lN presets keep its per-layer widths and cut only
+# the depth, since every kernel shape is local to a layer.
+# name: (vocab, hidden, layers, heads, kv_heads, ffn, ctx, experts, topk)
+MOE_PRESETS = {
+    "tiny-moe": (512, 128, 2, 4, 2, 256, 256, 4, 2),
+    "mixtral-8x7b": (32000, 4096, 32, 32, 8, 14336, 32768, 8, 2),
+    "mixtral-8x7b-l8": (32000, 4096, 8, 32, 8, 14336, 32768, 8, 2),
+    # 2 of 32 layers: one layer takes one to two minutes to build on a CPU
+    # and over a minute to load in dequant mode, so two fit chip_smoke.py's
+    # time limit beside its other phases
+    "mixtral-8x7b-l2": (32000, 4096, 2, 32, 8, 14336, 32768, 8, 2),
+}
+
 
 def build_synthetic_gguf(
     path: str,
@@ -38,6 +54,8 @@ def build_synthetic_gguf(
     """Write a synthetic model if not already cached; returns path."""
     if os.path.exists(path):
         return path
+    if preset in MOE_PRESETS:
+        return _build_moe(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -64,17 +82,7 @@ def build_synthetic_gguf(
         return (rng.standard_normal(shape).astype(np.float32) * scale)
 
     def addq(name, arr, q=quant):
-        k = arr.shape[-1]
-        if q != GGMLType.F32 and k % type_traits(q).block_size != 0 \
-                and k % 32 == 0:
-            # llama.cpp falls back to a legacy 32-block format when a
-            # K-quant's 256-superblock doesn't divide the row
-            q = GGMLType.Q5_1
-        if q != GGMLType.F32 and k % type_traits(q).block_size == 0:
-            raw = quantize(arr, q)
-            w.add_tensor_raw(name, tuple(reversed(arr.shape)), q, raw.tobytes())
-        else:
-            w.add_tensor_np(name, arr)
+        _quant_put(w, name, arr, q)
 
     if quant == GGMLType.F32:
         emb_q = GGMLType.F32
@@ -104,6 +112,82 @@ def build_synthetic_gguf(
     w.add_tensor_np("output_norm.weight", np.ones(hidden, np.float32) + rw(hidden))
     if not tie:
         addq("output.weight", rw(vocab, hidden), emb_q)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _quant_put(w: GGUFWriter, name: str, arr: np.ndarray, q: GGMLType) -> None:
+    """Quantize (last-dim blocks) and add a 2D/3D tensor; f32 when the row
+    length does not divide the block size."""
+    k = arr.shape[-1]
+    if q != GGMLType.F32 and k % type_traits(q).block_size != 0 and k % 32 == 0:
+        # llama.cpp falls back to a legacy 32-block format when a K-quant's
+        # 256-superblock doesn't divide the row
+        q = GGMLType.Q5_1
+    if q != GGMLType.F32 and k % type_traits(q).block_size == 0:
+        raw = quantize(arr, q)
+        w.add_tensor_raw(name, tuple(reversed(arr.shape)), q, raw.tobytes())
+    else:
+        w.add_tensor_np(name, arr)
+
+
+def _build_moe(path: str, preset: str, quant: GGMLType, seed: int,
+               max_ctx: int | None) -> str:
+    """Mixtral-convention sparse MoE: llama arch + expert_count metadata and
+    stacked ffn_{gate,up,down}_exps expert tensors [E, out, in]."""
+    vocab, hidden, layers, heads, kv_heads, ffn, ctx, experts, topk = \
+        MOE_PRESETS[preset]
+    if max_ctx:
+        ctx = min(ctx, max_ctx)
+    head_dim = hidden // heads
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape):
+        return (rng.standard_normal(shape).astype(np.float32) * 0.02)
+
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", "llama")
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    w.add_metadata("llama.embedding_length", hidden)
+    w.add_metadata("llama.block_count", layers)
+    w.add_metadata("llama.attention.head_count", heads)
+    w.add_metadata("llama.attention.head_count_kv", kv_heads)
+    w.add_metadata("llama.feed_forward_length", ffn)
+    w.add_metadata("llama.context_length", ctx)
+    w.add_metadata("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    w.add_metadata("llama.rope.freq_base", 1000000.0)
+    w.add_metadata("llama.expert_count", experts)
+    w.add_metadata("llama.expert_used_count", topk)
+    w.add_metadata("llama.expert_weights_norm", True)
+    w.add_metadata("llama.vocab_size", vocab)
+    _add_tokenizer(w, vocab)
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    f32 = quant == GGMLType.F32
+    addq("token_embd.weight", rw(vocab, hidden),
+         GGMLType.F32 if f32 else GGMLType.Q6_K)
+    for i in range(layers):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        addq(f"{p}.attn_q.weight", rw(heads * head_dim, hidden))
+        addq(f"{p}.attn_k.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_v.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_output.weight", rw(hidden, heads * head_dim))
+        w.add_tensor_np(f"{p}.ffn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        w.add_tensor_np(f"{p}.ffn_gate_inp.weight", rw(experts, hidden))
+        addq(f"{p}.ffn_gate_exps.weight", rw(experts, ffn, hidden))
+        addq(f"{p}.ffn_up_exps.weight", rw(experts, ffn, hidden))
+        addq(f"{p}.ffn_down_exps.weight", rw(experts, hidden, ffn),
+             GGMLType.F32 if f32 else GGMLType.Q6_K)
+    w.add_tensor_np("output_norm.weight",
+                    np.ones(hidden, np.float32) + rw(hidden))
+    addq("output.weight", rw(vocab, hidden),
+         GGMLType.F32 if f32 else GGMLType.Q6_K)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

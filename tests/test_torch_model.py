@@ -14,6 +14,7 @@ from llama_gguf_tpu.engine.engine import EngineConfig as JConfig
 from llama_gguf_tpu.engine import runner as jrunner
 from llama_gguf_tpu.gguf.constants import GGMLType
 from llama_gguf_tpu.sampling.sampler import SamplerConfig as JSampler
+from llama_gguf_tpu.utils import synthetic as jsynthetic
 from llama_gguf_tpu.utils.synthetic import build_synthetic_gguf
 
 from llama_gguf_tpu_torch import cli
@@ -21,8 +22,10 @@ from llama_gguf_tpu_torch.convert import kv_from_numpy, params_from_numpy
 from llama_gguf_tpu_torch.engine import runner as trunner
 from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
 from llama_gguf_tpu_torch.models.transformer import forward
-from llama_gguf_tpu_torch.ops.linear import QuantEmbedding, QuantLinear
+from llama_gguf_tpu_torch.ops.linear import (DenseLinear, QuantEmbedding,
+                                             QuantExpertStack, QuantLinear)
 from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+from llama_gguf_tpu_torch.utils import synthetic as tsynthetic
 
 torch.set_num_threads(1)
 
@@ -36,7 +39,15 @@ VARIANTS = {
     # at 128), Q5_1 fallback for K=128, tied QuantLinear LM head
     "small": dict(preset="small"),
     "tiny-tied": dict(preset="tiny-tied"),
+    # sparse MoE (Mixtral convention, top-2): tiny-moe's hidden 128 makes
+    # gate/up Q5_1 (q8 with mins); moe-h256 has Q4_K gate/up experts (q4
+    # with mins) over 8 experts; Q6_K down (q8 without mins) in both
+    "tiny-moe": dict(preset="tiny-moe"),
+    "moe-h256": dict(preset="moe-h256"),
 }
+# written by both packages' MoE builders, registered for the build only
+# (vocab, hidden, layers, heads, kv_heads, ffn, ctx, experts, topk)
+TEST_MOE_PRESETS = {"moe-h256": (512, 256, 2, 4, 2, 512, 256, 8, 2)}
 # f32 through two layers with a reassociated product, logits of order 1
 LOGIT_ATOL = 1e-3
 
@@ -46,7 +57,12 @@ def pair(request, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("m") / f"{request.param}.gguf")
     kw = VARIANTS[request.param]
     if "preset" in kw:
-        build_synthetic_gguf(path, preset=kw["preset"], quant=GGMLType.Q4_K)
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (jsynthetic, tsynthetic):
+                for name, geometry in TEST_MOE_PRESETS.items():
+                    mp.setitem(mod.MOE_PRESETS, name, geometry)
+            build_synthetic_gguf(path, preset=kw["preset"],
+                                 quant=GGMLType.Q4_K)
     else:
         make_tiny_model(path, hidden=256, ffn=512, vocab=512, tokenizer=True,
                         **kw)
@@ -62,24 +78,37 @@ def _prefill_logits(eng, ids):
         else logits.numpy()
 
 
-LAYOUTS = {  # variant: (wqkv source type, embedding kind, LM head type)
-    "llama-q4k": ("Q4_K", None, "Q4_K"),
-    "llama-q6k": ("Q6_K", None, "Q6_K"),
-    "qwen2-q4k": ("Q4_K", None, "Q4_K"),
-    "small": ("Q4_K", "Q6_K", "Q6_K"),
-    "tiny-tied": ("Q5_1", "Q8_0", "Q8_0"),
+LAYOUTS = {  # variant: (wqkv source type, embedding kind, LM head type,
+    #          MoE (fmt, group, mins?) of gate/up and of down)
+    "llama-q4k": ("Q4_K", None, "Q4_K", None),
+    "llama-q6k": ("Q6_K", None, "Q6_K", None),
+    "qwen2-q4k": ("Q4_K", None, "Q4_K", None),
+    "small": ("Q4_K", "Q6_K", "Q6_K", None),
+    "tiny-tied": ("Q5_1", "Q8_0", "Q8_0", None),
+    "tiny-moe": ("Q5_1", "Q5_1", "Q5_1", (("q8", 32, True),
+                                         ("q8", 16, False))),
+    "moe-h256": ("Q4_K", "Q6_K", "Q6_K", (("q4", 32, True),
+                                         ("q8", 16, False))),
 }
 
 
 def test_loaded_layout(pair, request):
     _, _, teng = pair
-    qkv_type, emb_type, head_type = LAYOUTS[request.node.callspec.id]
+    qkv_type, emb_type, head_type, experts = LAYOUTS[request.node.callspec.id]
     params = teng.runner.params
     layer = params["layers"][0]
     assert isinstance(layer["attn"]["wqkv"], QuantLinear)
     assert layer["attn"]["wqkv"].source_type == qkv_type
-    assert isinstance(layer["ffn"]["gate_up"], QuantLinear)
-    assert len(set(layer["ffn"]["gate_up"].splits)) == 1
+    if experts is None:
+        assert isinstance(layer["ffn"]["gate_up"], QuantLinear)
+        assert len(set(layer["ffn"]["gate_up"].splits)) == 1
+    else:
+        assert isinstance(layer["ffn"]["router"], DenseLinear)
+        for key, want in zip(("gate", "up", "down"),
+                             (experts[0], experts[0], experts[1])):
+            st = layer["ffn"]["experts"][key]
+            assert isinstance(st, QuantExpertStack)
+            assert (st.fmt, st.group, st.mins is not None) == want
     assert isinstance(params["embed"], QuantEmbedding) == bool(emb_type)
     assert params["output"].source_type == head_type
 

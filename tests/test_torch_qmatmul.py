@@ -152,4 +152,6 @@ def test_cpu_path_does_not_count_launches():
     _, pl = make_pair(GGMLType.Q4_K, 128, 256, 7)
     Q.reset_launches()
     Q.qmatmul(torch.from_numpy(make_x(2, 256, 7)), pl)
-    assert Q.LAUNCHES == {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0}
+    assert Q.LAUNCHES == {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0,
+                          "moe_slot": 0, "moe_grouped": 0,
+                          "moe_glu_grouped": 0}
