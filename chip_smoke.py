@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, and no result line is printed):
+Phases (any failure exits non-zero, and no result line is printed). They run
+in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
-   CUDA kernels from llama_gguf_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc
-   process per source, all at once. A child process builds phase 6's GGUF
-   meanwhile.
+   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qmatmul.cu, moe_qmatmul.cu,
+   qmatmul_variants.cu) with nvcc (sm_90a), one nvcc process per source, all
+   at once. A child process builds phase 6's GGUF meanwhile.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -17,11 +18,15 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. Dense kernels: each of the q4, q8 and GLU kernels' wrappers on the card,
    on the loaded model's own weights (the main path's shapes) at 1, 8 and 512
    rows, against its plain PyTorch version (limit: max |y - y_plain| <= 2e-4
-   * max |y_plain|; f32 with another order of summation). Times, L2 flushed
-   before every launch: the kernel, its plain version, and torch.matmul on
-   the pre-dequantized f32 weight (a yardstick the port never calls); plus
-   the least time the card could take for the same work (bytes over the
-   memory rate, f32 operations over the CUDA-core peak).
+   * max |y_plain|; f32 with another order of summation); and again with the
+   same weights' panels rounded to bf16, in "default" precision (bf16
+   outputs; limit: |y - y_plain| <= one bf16 ulp of |y_plain| + 2e-4 * max
+   |y_plain|, since both round the same f32 sums, taken in another order,
+   once). Times, L2 flushed before every launch: the kernel, its plain
+   version, and torch.matmul on the pre-dequantized f32 weight (a yardstick
+   the port never calls); plus the least time the card could take for the
+   same work (bytes over the memory rate, f32 operations over the CUDA-core
+   peak).
 4. Dense main path: launch counters set to 0, then Engine.generate (about
    100 prompt tokens, 32 new tokens, greedy); each kernel must have launched
    exactly its per-step count (q4 44, GLU 22, q8 23) times the steps run.
@@ -39,12 +44,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernels on layer 0's own expert stacks: slot-major at 2 slots (two
    experts, and one expert twice), grouped and grouped GLU at the 256 slots
    of the prompt's own routing and at an imbalanced routing (one expert
-   takes half of the slots, one none). Times as in phase 3; the MoE
-   yardstick is torch.bmm over each routed expert's pre-dequantized f32
+   takes half of the slots, one none), in "highest" and in "default"
+   precision (bf16 outputs, limits as in phase 3). Times as in phase 3; the
+   MoE yardstick is torch.bmm over each routed expert's pre-dequantized f32
    weight once, its own slots' rows padded to the busiest expert's count.
    Then the MoE main path: counters set to 0, Engine.generate as in phase 4,
    exact launch counts (MOE_PER_LAYER), tokens, text and prefill logits
    against the dequant-mode engine, and a decode profile as in phase 5.
+7. The serving configuration: the same TinyLlama-1.1B GGUF through
+   load_model(scale_dtype="bfloat16") (bf16 scale and min panels) and
+   ModelRunner(matmul_precision="default", kv_format="bf16") into an Engine;
+   its weight bytes per decode step and their bound. Counters set to 0, then
+   Engine.generate as in phase 4 with exact launch counts. Oracle: the same
+   loaded weights with their panels upcast to f32 (exact) in "highest" with
+   an f32 KV cache. The logits of the prefill and of 31 decode steps, the
+   serving path fed the oracle's greedy tokens, each within the tolerance
+   of SERVING_ROUNDINGS_PER_LAYER (below); the serving path's own greedy
+   tokens equal the oracle's up to its first step whose top-2 margin is
+   under that tolerance. Prefill and decode rates and a decode profile as in phase 5.
+8. Kernel 7, the dequant-matmul variant probe
+   (llama_gguf_tpu_torch.scripts.bench_kernel_variants) for q4 and q8 at
+   its two Llama-3-8B FFN shapes: counters set to 0, the probe's own run
+   (its gates and its interleaved times), counts read; then every variant's
+   kernel against its plain version on the same inputs (v7, v9, v10 exactly:
+   integers written as f32; the others within 2e-4 * max |y_plain|, and v0,
+   v1 as phase 3's bf16 limit) with kernel, plain and library times.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles and one JSON object
@@ -81,15 +105,16 @@ MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
 REL_LIMIT = 2e-4
 ROWS = (1, 8, 512)
 MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
+# Phase 7's logit tolerance, relative to max |oracle logits|. The serving
+# configuration rounds to bf16 (relative error <= 2^-9 each) every kernel
+# output (4 per layer: QKV, o_proj, GLU, down), the k and v written to the
+# cache (2 per layer) and the logits (1): R = 6 * layers + 1 roundings per
+# forward. Taken as independent errors that reach the logits at the logits'
+# own scale, they add up like a random walk: 2^-9 * sqrt(R).
+SERVING_ROUNDINGS_PER_LAYER = 6
 
-# The card's memory rate and f32 CUDA-core peak (NVIDIA data sheets), by name
-CARD_RATES = (  # (name fragment, bytes/s, f32 FLOP/s)
-    ("H200", 4.8e12, 67e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),  # SXM5, HBM3
-)
-
+VARIANTS_SOURCE = "llama_gguf_tpu_torch/csrc/qmatmul_variants.cu"
+VARIANTS_HELPER = "scripts/bench_kernel_variants.py:124-131 (the pallas() helper"
 KERNELS = {
     "qmatmul_q4": dict(
         source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
@@ -115,6 +140,20 @@ KERNELS = {
         source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:804 (_moe_glu_grouped_call, "
                  "pallas_call :861)"),
+    "variant_f32": dict(
+        source=VARIANTS_SOURCE,
+        replaces=VARIANTS_HELPER + " with the bodies v2_noscale :282-289 and "
+                 "v5_minfold :159-188)"),
+    "variant_bf16": dict(
+        source=VARIANTS_SOURCE,
+        replaces=VARIANTS_HELPER + " with the body v6_bf16 :190-218)"),
+    "variant_int8": dict(
+        source=VARIANTS_SOURCE,
+        replaces=VARIANTS_HELPER + " with the bodies v7_int8 :220-247, "
+                 "v9_mulcost :397-410 and v10_4dot :412-427)"),
+    "variant_w4a8": dict(
+        source=VARIANTS_SOURCE,
+        replaces=VARIANTS_HELPER + " with the body v8_w4a8 :311-387)"),
 }
 
 
@@ -125,42 +164,6 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_rates(name: str) -> tuple[float, float]:
-    for frag, bw, flops in CARD_RATES:
-        if frag in name:
-            return bw, flops
-    raise SystemExit(f"chip_smoke: FAILED: no memory rate known for {name!r}")
-
-
-class Timer:
-    """Kernel timing with CUDA events: median of ``iters`` launches, each
-    after a 256 MB write that evicts the 50 MB L2 (decode reads its weights
-    cold)."""
-
-    def __init__(self):
-        import torch
-
-        self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8,
-                                     device="cuda")
-
-    def ms(self, fn, iters: int = 10) -> float:
-        import torch
-
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(iters):
-            self.flush_buf.zero_()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return sorted(times)[len(times) // 2]
 
 
 def kernel_key(name: str) -> str:
@@ -292,67 +295,111 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
 
 
 def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
-            bw, f32_peak, **extra) -> dict:
-    """Hold a kernel's result against its plain version and time all three."""
+            peaks, op_type="f32", exact=False, **extra) -> dict:
+    """Hold a kernel's result against its plain version and time all three
+    (``library`` may be None). Limits: ``exact``: equal; a bf16 output: one
+    bf16 ulp of |y_plain| plus REL_LIMIT * max |y_plain|; else REL_LIMIT *
+    max |y_plain|."""
     import torch
+    from llama_gguf_tpu_torch.ops.qmatmul import bf16_ulp
+    from llama_gguf_tpu_torch.utils.timing import bound_ms
 
     torch.cuda.synchronize()
+    check(y.shape == y_plain.shape and y.dtype == y_plain.dtype,
+          f"{name} {case}: {y.dtype} {tuple(y.shape)} against the plain "
+          f"{y_plain.dtype} {tuple(y_plain.shape)}")
     check(bool(torch.isfinite(y).all()), f"{name} {case}: non-finite")
-    abs_err = (y - y_plain).abs().max().item()
-    rel_err = abs_err / y_plain.abs().max().item()
-    check(rel_err <= REL_LIMIT, f"{name} {case}: rel err {rel_err:.3g}")
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
-    m = dict(name=name, case=case, **extra, max_abs_err=abs_err,
-             max_rel_err=rel_err, ms=timer.ms(kern), plain_ms=timer.ms(plain),
-             library_ms=timer.ms(library), bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations",
-             bytes=nbytes, ops=ops)
-    log(f"{name:15s} {case:34s} rel_err={rel_err:.2e} ms={m['ms']:.4f} "
-        f"bound_ms={m['bound_ms']:.4f} plain_ms={m['plain_ms']:.4f} "
-        f"library_ms={m['library_ms']:.4f}")
+    yf, pf = y.float(), y_plain.float()
+    abs_err = (yf - pf).abs().max().item()
+    scale = pf.abs().max().item()
+    rel_err = abs_err / scale
+    if exact:
+        check(torch.equal(yf, pf), f"{name} {case}: not equal, abs err "
+                                   f"{abs_err:.3g}")
+    elif y.dtype == torch.bfloat16:
+        excess = ((yf - pf).abs() - bf16_ulp(pf)).max().item()
+        check(excess <= REL_LIMIT * scale,
+              f"{name} {case}: {excess:.3g} beyond one bf16 ulp")
+    else:
+        check(rel_err <= REL_LIMIT, f"{name} {case}: rel err {rel_err:.3g}")
+    bound, bound_by = bound_ms(nbytes, ops, op_type, peaks)
+    m = dict(name=name, case=case, **extra, dtype=str(y.dtype)[6:],
+             max_abs_err=abs_err, max_rel_err=rel_err, ms=timer.ms(kern),
+             plain_ms=timer.ms(plain),
+             library_ms=timer.ms(library) if library is not None else None,
+             bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops)
+    lib = (f"{m['library_ms']:.4f}" if m["library_ms"] is not None
+           else "null")
+    log(f"{name:15s} {case:44s} rel_err={rel_err:.2e} ms={m['ms']:.4f} "
+        f"bound_ms={bound:.4f} plain_ms={m['plain_ms']:.4f} "
+        f"library_ms={lib}")
     return m
 
 
-def projection_checks(projections, rows_list, timer: Timer, bw: float,
-                      f32_peak: float, path: str) -> list[dict]:
+def bf16_panels(lin):
+    """The same weight with its scale and min panels rounded to bf16, as
+    load_model(scale_dtype="bfloat16") stores them."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(
+        lin, scales=lin.scales.to(torch.bfloat16),
+        mins=lin.mins.to(torch.bfloat16) if lin.mins is not None else None)
+
+
+def projection_checks(projections, rows_list, timer, peaks, path: str,
+                      serving: bool = False) -> list[dict]:
     """Kernels 1-3 on a path's own projections (kernel, projection name,
-    QuantLinear) at each row count of ``rows_list``, through compare()."""
+    QuantLinear) at each row count of ``rows_list``, through compare(); with
+    ``serving`` also with bf16 panels in "default" precision."""
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     measurements = []
-    for name, proj, lin in projections:
+    modes = [("highest", False)] + ([("default", True)] if serving else [])
+    for name, proj, lin32 in projections:
         glu = name == "qmatmul_glu"
-        check(lin.fmt == ("q8" if name == "qmatmul_q8" else "q4"),
-              f"{proj}: unexpected layout {lin.fmt}")
-        w_deq = dequantize_weight(lin)  # library yardstick's f32 weight
-        w_bytes = sum(t.numel() * t.element_size()
-                      for t in (lin.packed, lin.scales, lin.mins)
-                      if t is not None)
-        n_out = lin.splits[0] if glu else lin.n
-        for rows in rows_list:
-            x = torch.randn(rows, lin.k, device="cuda", generator=gen)
-            if glu:
-                def kern(): return Q.qmatmul_glu(x, lin, "silu")
-                def plain(): return Q.qmatmul_glu_plain(x, lin, "silu")
-            else:
-                def kern(): return Q.qmatmul(x, lin)
-                def plain(): return Q.qmatmul_plain(x, lin)
-            measurements.append(compare(
-                name, f"{path} {proj} rows={rows}", kern(), plain(), timer,
-                kern, plain, lambda: torch.matmul(x, w_deq),
-                w_bytes + 4 * rows * (lin.k + n_out), 2 * rows * lin.k * lin.n,
-                bw, f32_peak, path=path, projection=proj, rows=rows, k=lin.k,
-                n=lin.n))
-        del w_deq
+        check(lin32.fmt == ("q8" if name == "qmatmul_q8" else "q4"),
+              f"{proj}: unexpected layout {lin32.fmt}")
+        n_out = lin32.splits[0] if glu else lin32.n
+        for precision, bf16 in modes:
+            lin = bf16_panels(lin32) if bf16 else lin32
+            w_deq = dequantize_weight(lin)  # library yardstick's f32 weight
+            w_bytes = sum(t.numel() * t.element_size()
+                          for t in (lin.packed, lin.scales, lin.mins)
+                          if t is not None)
+            y_bytes = Q.out_dtype(precision).itemsize
+            label = " bf16 panels, default" if bf16 else ""
+            for rows in rows_list:
+                x = torch.randn(rows, lin.k, device="cuda", generator=gen)
+                if glu:
+                    def kern(): return Q.qmatmul_glu(x, lin, "silu", precision)
+                    def plain(): return Q.qmatmul_glu_plain(x, lin, "silu",
+                                                            precision)
+                else:
+                    def kern(): return Q.qmatmul(x, lin, precision)
+                    def plain(): return Q.qmatmul_plain(x, lin, precision)
+                measurements.append(compare(
+                    name, f"{path} {proj}{label} rows={rows}", kern(),
+                    plain(), timer, kern, plain,
+                    lambda: torch.matmul(x, w_deq),
+                    w_bytes + rows * (4 * lin.k + y_bytes * n_out),
+                    2 * rows * lin.k * lin.n, peaks, path=path,
+                    projection=proj, rows=rows, k=lin.k, n=lin.n,
+                    precision=precision,
+                    panels="bf16" if bf16 else "f32"))
+            del w_deq
     return measurements
 
 
-def dense_path(card: str, timer: Timer, bw: float, f32_peak: float):
-    """Phases 2-5 on TinyLlama-1.1B. Returns (measurements, launches)."""
-    quant, deq = load_both(build_model("tinyllama-1.1b"))
+def dense_path(card: str, timer, peaks: dict):
+    """Phases 2-5 on TinyLlama-1.1B. Returns (measurements, launches, the
+    GGUF's path)."""
+    gguf = build_model("tinyllama-1.1b")
+    quant, deq = load_both(gguf)
     cfg = quant.runner.cfg
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
           (22, 2048, 32000), f"unexpected model shape {cfg}")
@@ -364,7 +411,7 @@ def dense_path(card: str, timer: Timer, bw: float, f32_peak: float):
         ("qmatmul_glu", "gate|up", layer["ffn"]["gate_up"]),
         ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
         ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
-    ], ROWS, timer, bw, f32_peak, "TinyLlama-1.1B")
+    ], ROWS, timer, peaks, "TinyLlama-1.1B", serving=True)
 
     launches, decoded, ids = run_main_path(quant, deq, card, "TinyLlama-1.1B")
     steps = 1 + decoded  # the prefill + one decode per token
@@ -373,7 +420,7 @@ def dense_path(card: str, timer: Timer, bw: float, f32_peak: float):
               f"{name}: {launches[name]} launches, expected {per} x {steps}")
     print(json.dumps({"decode_profile": profile_decode(quant, ids)}),
           flush=True)
-    return measurements, launches
+    return measurements, launches, gguf
 
 
 def expert_bytes(stack, experts: int) -> int:
@@ -407,8 +454,7 @@ def routing_margins(engine, ids, steps: int) -> list[float]:
     return [min(rows[j:j + n_layers]) for j in range(0, len(rows), n_layers)]
 
 
-def moe_path(card: str, timer: Timer, bw: float, f32_peak: float,
-             gguf: str):
+def moe_path(card: str, timer, peaks: dict, gguf: str):
     """Phase 6 on mixtral-8x7b-l2 (``gguf``). Returns (measurements,
     launches)."""
     import torch
@@ -433,7 +479,7 @@ def moe_path(card: str, timer: Timer, bw: float, f32_peak: float,
         ("qmatmul_q4", "qkv", layer0["attn"]["wqkv"]),
         ("qmatmul_q4", "o_proj", layer0["attn"]["wo"]),
         ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
-    ], MOE_ROWS, timer, bw, f32_peak, "Mixtral-8x7B-l2")
+    ], MOE_ROWS, timer, peaks, "Mixtral-8x7B-l2")
 
     # layer 0's router on the prompt: the main path's inputs and routing
     ffn0 = quant.runner.params["layers"][0]["ffn"]
@@ -497,28 +543,33 @@ def moe_path(card: str, timer: Timer, bw: float, f32_peak: float,
             products = [
                 ("moe_slot", "gate", x, batch(x), w_all["gate"][used]),
                 ("moe_slot", "down", act, batch(act), w_all["down"][used])]
-        for name, proj, xin, xin_g, w_g in products:
+        for (name, proj, xin, xin_g, w_g), precision in (
+                (pr, prec) for pr in products
+                for prec in ("highest", "default")):
             if name == "moe_glu_grouped":
                 def kern(): return Q.moe_qmatmul_glu(
-                    xin, ex["gate"], ex["up"], sid, "silu")
+                    xin, ex["gate"], ex["up"], sid, "silu", precision)
                 def plain(): return Q.moe_qmatmul_glu_plain(
-                    xin, ex["gate"], ex["up"], sid, "silu")
+                    xin, ex["gate"], ex["up"], sid, "silu", precision)
                 stacks = (ex["gate"], ex["up"])
             else:
                 st = ex["gate" if proj == "gate" else "down"]
-                def kern(): return Q.moe_qmatmul(xin, st, sid)
-                def plain(): return Q.moe_qmatmul_plain(xin, st, sid)
+                def kern(): return Q.moe_qmatmul(xin, st, sid, precision)
+                def plain(): return Q.moe_qmatmul_plain(xin, st, sid,
+                                                        precision)
                 stacks = (st,)
             kdim, n = stacks[0].k, stacks[0].n
             nbytes = (sum(expert_bytes(st_, n_exp) for st_ in stacks)
-                      + 4 * s_slots * (kdim + n + 1))
+                      + 4 * s_slots * (kdim + 1)
+                      + Q.out_dtype(precision).itemsize * s_slots * n)
             ops = 2 * s_slots * kdim * n * len(stacks)
+            label = ", default" if precision == "default" else ""
             measurements.append(compare(
-                name, f"{proj} S={s_slots} {case}", kern(), plain(), timer,
-                kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes, ops, bw,
-                f32_peak, path="Mixtral-8x7B-l2", projection=proj,
+                name, f"{proj} S={s_slots} {case}{label}", kern(), plain(),
+                timer, kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes,
+                ops, peaks, path="Mixtral-8x7B-l2", projection=proj,
                 slots=s_slots, experts_read=n_exp, library_rows=n_exp * depth,
-                k=kdim, n=n))
+                k=kdim, n=n, precision=precision))
     del w_all, products
 
     def on_differ(ids_, toks, want):
@@ -542,6 +593,179 @@ def moe_path(card: str, timer: Timer, bw: float, f32_peak: float,
     return measurements, launches
 
 
+def upcast_panels(params):
+    """A copy of a params tree whose QuantLinear and QuantEmbedding panels
+    are float32 (exact from bf16); every other leaf is shared."""
+    import dataclasses
+
+    from llama_gguf_tpu_torch.ops.linear import QuantEmbedding, QuantLinear
+
+    if isinstance(params, dict):
+        return {k: upcast_panels(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [upcast_panels(v) for v in params]
+    if isinstance(params, (QuantLinear, QuantEmbedding)):
+        return dataclasses.replace(
+            params, scales=params.scales.float(),
+            mins=params.mins.float() if params.mins is not None else None)
+    return params
+
+
+def step_bytes(params) -> int:
+    """Weight bytes a decode step reads: every QuantLinear's packed data and
+    panels (the embedding table's one row per token is left out)."""
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+
+    if isinstance(params, dict):
+        return sum(step_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(step_bytes(v) for v in params)
+    if isinstance(params, QuantLinear):
+        return sum(t.numel() * t.element_size()
+                   for t in (params.packed, params.scales, params.mins)
+                   if t is not None)
+    return 0
+
+
+def step_logits(runner, ids, steps: int, tokens=None):
+    """The logits of a prefill and ``steps`` - 1 decode steps, and the tokens
+    fed: greedy from these logits, or ``tokens`` when given (the same
+    history for two runners)."""
+    import torch
+
+    logits, kv, pos = runner.prefill(ids, runner.init_kv())
+    toks, rows = [], []
+    for i in range(steps):
+        rows.append(logits.float())
+        toks.append(int(torch.argmax(logits)) if tokens is None
+                    else tokens[i])
+        if i + 1 < steps:
+            logits, kv = runner.decode_one(toks[-1], pos, kv)
+            pos += 1
+    return toks, rows
+
+
+def serving_path(card: str, gguf: str, peaks: dict):
+    """Phase 7: TinyLlama-1.1B in the serving configuration. Returns the
+    launches of its counted generate."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.models.loader import load_model
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+    from llama_gguf_tpu_torch.tokenizer.gguf_tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    params, cfg, gg = load_model(gguf, device="cuda", scale_dtype="bfloat16")
+    layer = params["layers"][0]
+    check(all(t.dtype == torch.bfloat16 for t in (
+        layer["attn"]["wqkv"].scales, layer["attn"]["wqkv"].mins,
+        layer["ffn"]["down"].scales, params["output"].scales,
+        params["embed"].scales)), "serving: panels are not bf16")
+    config = EngineConfig(matmul_precision="default", kv_format="bf16")
+    engine = Engine(ModelRunner(params, cfg, matmul_precision="default",
+                                kv_format="bf16", device="cuda"),
+                    Tokenizer.from_gguf(gg.metadata), config, gg)
+    oracle = ModelRunner(upcast_panels(params), cfg,
+                         matmul_precision="highest", kv_format="f32",
+                         device="cuda")
+    log(f"serving: loaded in {time.perf_counter() - t0:.1f}s")
+    nbytes = step_bytes(params)
+    print(f"TinyLlama-1.1B serving (bf16 panels, default, bf16 KV): "
+          f"{nbytes} weight bytes per decode step, bound "
+          f"{nbytes / peaks['bytes'] * 1e3:.4f} ms | {card}", flush=True)
+
+    greedy = SamplerConfig(temperature=0.0)
+    ids = engine.tokenizer.encode(PROMPT)
+    engine.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    engine.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+    torch.cuda.synchronize()
+    launches = dict(Q.LAUNCHES)
+    stats = engine.stats
+    steps = 1 + stats.generated_tokens
+    print(f"TinyLlama-1.1B serving main path: prefill {stats.prompt_tokens} "
+          f"tok @ {stats.prefill_tps:.1f} tok/s, decode "
+          f"{stats.generated_tokens} tok @ {stats.decode_tps:.1f} tok/s, "
+          f"launches {launches} over 1 prefill + {stats.generated_tokens} "
+          f"decode steps | {card}", flush=True)
+    for name, per in PER_STEP.items():
+        check(launches[name] == per * steps,
+              f"serving {name}: {launches[name]} launches, expected {per} x "
+              f"{steps}")
+
+    # the logits of every step, the serving runner fed the oracle's greedy
+    # tokens (one history for both), each within the tolerance
+    roundings = SERVING_ROUNDINGS_PER_LAYER * cfg.num_layers + 1
+    want_toks, want = step_logits(oracle, ids, NEW_TOKENS)
+    _, got = step_logits(engine.runner, ids, NEW_TOKENS, want_toks)
+    check(got[0].shape == want[0].shape == (cfg.vocab_size,)
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          "serving: logits")
+    tols = [2.0 ** -9 * roundings ** 0.5 * w.abs().max().item() for w in want]
+    diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    worst = max(range(NEW_TOKENS), key=lambda i: diffs[i] / tols[i])
+    log(f"serving: prefill logits max diff {diffs[0]:.4g} (tolerance "
+        f"{tols[0]:.4g} = 2^-9 * sqrt({roundings}) * max |logit|); over the "
+        f"{NEW_TOKENS} steps the largest share of the tolerance is "
+        f"{diffs[worst] / tols[worst]:.3f}, at step {worst}")
+    for i, (d, t) in enumerate(zip(diffs, tols)):
+        check(d <= t, f"serving: step {i} logits differ by {d:.4g} > {t:.4g}")
+    # the serving path's own greedy tokens, against the oracle's up to its
+    # first near tie (a top-2 margin under the tolerance)
+    toks, _ = step_logits(engine.runner, ids, NEW_TOKENS)
+    margins = [float(w.topk(2).values[0] - w.topk(2).values[1]) for w in want]
+    near = next((i for i, (m, t) in enumerate(zip(margins, tols)) if m < t),
+                None)
+    first_diff = next((i for i, (a, b) in enumerate(zip(toks, want_toks))
+                       if a != b), None)
+    print(f"serving: greedy tokens equal to the oracle's through step "
+          f"{first_diff - 1 if first_diff is not None else NEW_TOKENS - 1} "
+          f"of {NEW_TOKENS}; first step with an oracle top-2 margin under the "
+          f"tolerance: {near}; prefill logits max diff {diffs[0]:.4g} "
+          f"(tolerance {tols[0]:.4g}); largest share of the tolerance over "
+          f"{NEW_TOKENS} same-history steps {diffs[worst] / tols[worst]:.3f}",
+          flush=True)
+    check(first_diff is None or (near is not None and first_diff >= near),
+          f"serving: tokens differ at step {first_diff}, before the first "
+          f"near tie ({near})")
+    print(json.dumps({"serving_decode_profile": profile_decode(engine, ids)}),
+          flush=True)
+    return launches
+
+
+def variant_path(card: str, timer, peaks: dict):
+    """Phase 8: the probe (counted), then each variant's kernel against its
+    plain version with times. Returns (measurements, launches)."""
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul_variants as V
+    from llama_gguf_tpu_torch.scripts import bench_kernel_variants as P
+
+    V.reset_launches()
+    for fmt in ("q4", "q8"):
+        P.main([fmt])
+    torch.cuda.synchronize()
+    launches = dict(V.LAUNCHES)
+    log(f"probe launches: {launches}")
+    measurements = []
+    for fmt in ("q4", "q8"):
+        rng = np.random.default_rng(0)  # the probe's inputs, in its order
+        for k, n in P.SHAPES:
+            variants = P.build_variants(P.make_inputs(fmt, k, n, rng, "cuda"))
+            for tag, v in variants.items():
+                measurements.append(compare(
+                    v.kernel, f"{tag} {fmt} {k}x{n}", v.call(), v.plain(),
+                    timer, v.call, v.plain, v.library, v.nbytes, v.ops, peaks,
+                    op_type=v.op_type, exact=v.exact, path="probe",
+                    variant=tag, fmt=fmt, rows=P.B, k=k, n=n))
+            del variants
+            torch.cuda.empty_cache()
+    return measurements, launches
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -562,6 +786,7 @@ def main() -> int:
 def run(moe_gguf) -> int:
     import torch
     from llama_gguf_tpu_torch.utils import cuda_build
+    from llama_gguf_tpu_torch.utils.timing import Timer, card_peaks
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -570,34 +795,45 @@ def run(moe_gguf) -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
-    bw, f32_peak = card_rates(kind)
+    peaks = card_peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cuda_build.build_all(["qmatmul", "moe_qmatmul"])
+    cuda_build.build_all(["qmatmul", "moe_qmatmul", "qmatmul_variants"])
     log(f"kernels built in {time.perf_counter() - t0:.1f}s "
         f"(nvcc: {cuda_build.BUILD_SECONDS})")
     timer = Timer()
 
-    # -- 2-5. the dense path, then 6. the MoE path ----------------------------
+    # -- 2-5. the dense path, 7. serving, 8. the probe, then 6. MoE ----------
     t0 = time.perf_counter()
-    dense, dense_launches = dense_path(card, timer, bw, f32_peak)
+    dense, dense_launches, tinyllama = dense_path(card, timer, peaks)
     log(f"dense path done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_launches = serving_path(card, tinyllama, peaks)
+    log(f"serving path done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe, probe_launches = variant_path(card, timer, peaks)
+    log(f"probe done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gguf = moe_gguf.result()
     log(f"waited {time.perf_counter() - t0:.1f}s for the Mixtral GGUF")
     t0 = time.perf_counter()
-    moe, moe_launches = moe_path(card, timer, bw, f32_peak, gguf)
+    moe, moe_launches = moe_path(card, timer, peaks, gguf)
     log(f"MoE path done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in dense + moe if m["name"] == name]
+        mine = [m for m in dense + moe + probe if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
-        by_path = {path: launched[name] for path, launched in (
+        by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
-            ("Mixtral-8x7B-l2", moe_launches)) if launched[name]}
+            ("TinyLlama-1.1B serving", serving_launches),
+            ("Mixtral-8x7B-l2", moe_launches),
+            ("probe", probe_launches)) if launched.get(name, 0)}
+        check(bool(by_path), f"{name}: launched on no path")
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],

@@ -20,9 +20,16 @@ from .ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
 
 
 def _tensor(a, device) -> torch.Tensor | None:
+    """A numpy array as a tensor. The JAX package's bfloat16 arrays come
+    through numpy with the ml_dtypes ``bfloat16`` dtype, which torch cannot
+    read: their bits are carried over as uint16 and viewed as bfloat16."""
     if a is None:
         return None
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree: Any, device="cpu") -> Any:

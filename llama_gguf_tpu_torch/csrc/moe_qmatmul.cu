@@ -11,7 +11,9 @@
 // Stacks (ops/linear.QuantExpertStack): packed uint8 [E, K/2, N] (q4) or
 // int8 [E, K, N] (q8), scales and mins float32 [E, K/group, N]; expert e's
 // slice is the q4/q8 layout of csrc/qdot.cuh, whose dequant-dot body all the
-// port's kernels share.
+// port's kernels share. The output (OT) is float32, or bfloat16 in "default"
+// matmul precision (rounded once at the store, as the TPU kernels'
+// _out_dtype); the panels stay float32, as the loader keeps expert stacks.
 //
 // What bounds them on this card:
 //   * slot-major, at decode (S = 2 slots per token at top-2): the routed
@@ -47,41 +49,41 @@ __device__ __forceinline__ size_t packed_stride(int fmt, int K, int N) {
     return (fmt == FMT_Q4 ? size_t(K / 2) : size_t(K)) * N;
 }
 
-__device__ __forceinline__ Panel expert_panel(const uint8_t* packed, const float* scales,
-                                              const float* mins, size_t pstride,
-                                              size_t sstride, int e, int n0) {
+__device__ __forceinline__ Panel<float> expert_panel(const uint8_t* packed, const float* scales,
+                                                     const float* mins, size_t pstride,
+                                                     size_t sstride, int e, int n0) {
     const size_t eo = size_t(e);
     return {packed + eo * pstride + n0, scales + eo * sstride + n0,
             mins != nullptr ? mins + eo * sstride + n0 : nullptr};
 }
 
-template <int FMT, bool VEC>
+template <int FMT, bool VEC, class OT>
 __global__ void __launch_bounds__(THREADS)
 moe_slot_kernel(const float* __restrict__ x,        // [S, K]
                 const int* __restrict__ idx,        // [S] expert ids
                 const uint8_t* __restrict__ packed, // [E, K/2 | K, N]
                 const float* __restrict__ scales,   // [E, K/group, N]
                 const float* __restrict__ mins,     // [E, K/group, N] or null
-                float* __restrict__ y,              // [S, N]
+                OT* __restrict__ y,                 // [S, N]
                 int E, int K, int N, int group) {
     const int s = blockIdx.y;
     const int e = __ldg(idx + s);
     const bool ok = e >= 0 && e < E;
     const int n0 = blockIdx.x * COLS + 4 * threadIdx.x;
     const float* xr[1] = {x + size_t(s) * K};
-    const Panel w[1] = {expert_panel(packed, scales, mins, packed_stride(FMT, K, N),
+    const Panel<float> w[1] = {expert_panel(packed, scales, mins, packed_stride(FMT, K, N),
                                      size_t(K / group) * N, ok ? e : 0, n0)};
     float total[1];
     dot_tile<FMT, 1, 1, VEC>(xr, w, K, N, group, ok ? N - n0 : 0, total);
 
     const int tid = threadIdx.y * TX + threadIdx.x;
     const int col = blockIdx.x * COLS + tid;
-    if (tid < COLS && col < N) y[size_t(s) * N + col] = ok ? total[0] : nan_f32();
+    if (tid < COLS && col < N) store_out(y + size_t(s) * N + col, ok ? total[0] : nan_f32());
 }
 
 // NW = 1: the grouped product over (p0, s0, m0). NW = 2: gate (p0, s0, m0)
 // and up (p1, s1, m1), combined by the GLU epilogue. VEC: see qdot::dot_tile.
-template <int FMT, int NW, bool VEC>
+template <int FMT, int NW, bool VEC, class OT>
 __global__ void __launch_bounds__(THREADS)
 moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
                    const int* __restrict__ rows,      // [G*C] slot ids, S = padding
@@ -90,7 +92,7 @@ moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
                    const float* __restrict__ m0,
                    const uint8_t* __restrict__ p1, const float* __restrict__ s1,
                    const float* __restrict__ m1,
-                   float* __restrict__ y,             // [G*C, N]
+                   OT* __restrict__ y,                // [G*C, N]
                    int S, int E, int K, int N, int C, int group, int act) {
     const int row0 = blockIdx.y * RB_GROUPED;  // in the [G*C] blocked layout
     // a group's valid rows come first, so a row block that starts with
@@ -108,7 +110,7 @@ moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
         xr[r] = x + size_t(sid < S ? sid : first) * K;
     }
     const size_t pstride = packed_stride(FMT, K, N), sstride = size_t(K / group) * N;
-    Panel w[NW];
+    Panel<float> w[NW];
     w[0] = expert_panel(p0, s0, m0, pstride, sstride, ok ? e : 0, n0);
     if constexpr (NW == 2) w[1] = expert_panel(p1, s1, m1, pstride, sstride, ok ? e : 0, n0);
     float total[NW];
@@ -120,53 +122,78 @@ moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
         const int col = blockIdx.x * COLS + tid % COLS;
         if (__ldg(rows + row) < S && col < N) {
             const float v = NW == 2 ? glu_combine(total[0], total[NW - 1], act) : total[0];
-            y[size_t(row) * N + col] = ok ? v : nan_f32();
+            store_out(y + size_t(row) * N + col, ok ? v : nan_f32());
         }
     }
 }
 
 dim3 tiles(int N, int nrows) { return dim3((N + COLS - 1) / COLS, nrows); }
 
-template <int FMT>
+template <int FMT, class OT>
 void launch_slot(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* idx,
-                 const uint8_t* p, const float* scales, const float* mins, float* y, int E,
+                 const uint8_t* p, const float* scales, const float* mins, OT* y, int E,
                  int K, int N, int group) {
     const dim3 block(TX, TY);
     if (vec)
-        moe_slot_kernel<FMT, true><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
+        moe_slot_kernel<FMT, true, OT><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
     else
-        moe_slot_kernel<FMT, false><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
+        moe_slot_kernel<FMT, false, OT><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
 }
 
-template <int FMT, int NW>
+template <int FMT, int NW, class OT>
 void launch_grouped(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* rows,
                     const int* eg, const uint8_t* p0, const float* s0, const float* m0,
-                    const uint8_t* p1, const float* s1, const float* m1, float* y, int S,
+                    const uint8_t* p1, const float* s1, const float* m1, OT* y, int S,
                     int E, int K, int N, int C, int group, int act) {
     const dim3 block(TX, TY);
     if (vec)
-        moe_grouped_kernel<FMT, NW, true><<<grid, block, 0, st>>>(
+        moe_grouped_kernel<FMT, NW, true, OT><<<grid, block, 0, st>>>(
             x, rows, eg, p0, s0, m0, p1, s1, m1, y, S, E, K, N, C, group, act);
     else
-        moe_grouped_kernel<FMT, NW, false><<<grid, block, 0, st>>>(
+        moe_grouped_kernel<FMT, NW, false, OT><<<grid, block, 0, st>>>(
             x, rows, eg, p0, s0, m0, p1, s1, m1, y, S, E, K, N, C, group, act);
+}
+
+template <class OT>
+void slot_typed(cudaStream_t st, bool vec, const float* x, const int* idx, const uint8_t* p,
+                const float* scales, const float* mins, void* y, int S, int E, int K, int N,
+                int group, int fmt) {
+    OT* out = static_cast<OT*>(y);
+    if (fmt == FMT_Q4)
+        launch_slot<FMT_Q4>(tiles(N, S), st, vec, x, idx, p, scales, mins, out, E, K, N, group);
+    else
+        launch_slot<FMT_Q8>(tiles(N, S), st, vec, x, idx, p, scales, mins, out, E, K, N, group);
+}
+
+template <int NW, class OT>
+void grouped_typed(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* rows,
+                   const int* eg, const uint8_t* p0, const float* s0, const float* m0,
+                   const uint8_t* p1, const float* s1, const float* m1, void* y, int S, int E,
+                   int K, int N, int C, int group, int fmt, int act) {
+    OT* out = static_cast<OT*>(y);
+    if (fmt == FMT_Q4)
+        launch_grouped<FMT_Q4, NW>(grid, st, vec, x, rows, eg, p0, s0, m0, p1, s1, m1, out, S,
+                                   E, K, N, C, group, act);
+    else
+        launch_grouped<FMT_Q8, NW>(grid, st, vec, x, rows, eg, p0, s0, m0, p1, s1, m1, out, S,
+                                   E, K, N, C, group, act);
 }
 
 }  // namespace
 
 // y[s] = x[s] @ W[idx[s]] for S slots. fmt: 0 = q4, 1 = q8; mins may be null.
-// vec: 1 when N % 4 == 0 and every pointer is 16-byte aligned.
-// Returns the cudaError_t of the launch (0 = success).
+// out_bf16: y is bfloat16 (else float32). vec: 1 when N % 4 == 0 and every
+// pointer is 16-byte aligned. Returns the cudaError_t of the launch (0 = success).
 extern "C" int moe_slot_launch(const float* x, const int* idx, const void* packed,
-                               const float* scales, const float* mins, float* y, int S,
-                               int E, int K, int N, int group, int fmt, int vec,
+                               const float* scales, const float* mins, void* y, int S,
+                               int E, int K, int N, int group, int fmt, int out_bf16, int vec,
                                void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint8_t* p = static_cast<const uint8_t*>(packed);
-    if (fmt == FMT_Q4)
-        launch_slot<FMT_Q4>(tiles(N, S), st, vec != 0, x, idx, p, scales, mins, y, E, K, N, group);
+    if (out_bf16)
+        slot_typed<bf16>(st, vec != 0, x, idx, p, scales, mins, y, S, E, K, N, group, fmt);
     else
-        launch_slot<FMT_Q8>(tiles(N, S), st, vec != 0, x, idx, p, scales, mins, y, E, K, N, group);
+        slot_typed<float>(st, vec != 0, x, idx, p, scales, mins, y, S, E, K, N, group, fmt);
     return int(cudaGetLastError());
 }
 
@@ -174,17 +201,18 @@ extern "C" int moe_slot_launch(const float* x, const int* idx, const void* packe
 // whose slot id is below S (others are left unwritten). C % 8 == 0.
 extern "C" int moe_grouped_launch(const float* x, const int* rows, const int* eg,
                                   const void* packed, const float* scales,
-                                  const float* mins, float* y, int S, int E, int K, int N,
-                                  int C, int G, int group, int fmt, int vec, void* stream) {
+                                  const float* mins, void* y, int S, int E, int K, int N,
+                                  int C, int G, int group, int fmt, int out_bf16, int vec,
+                                  void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint8_t* p = static_cast<const uint8_t*>(packed);
     const dim3 grid = tiles(N, G * C / RB_GROUPED);
-    if (fmt == FMT_Q4)
-        launch_grouped<FMT_Q4, 1>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
-                                  nullptr, nullptr, y, S, E, K, N, C, group, 0);
+    if (out_bf16)
+        grouped_typed<1, bf16>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
+                               nullptr, nullptr, y, S, E, K, N, C, group, fmt, 0);
     else
-        launch_grouped<FMT_Q8, 1>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
-                                  nullptr, nullptr, y, S, E, K, N, C, group, 0);
+        grouped_typed<1, float>(grid, st, vec != 0, x, rows, eg, p, scales, mins, nullptr,
+                                nullptr, nullptr, y, S, E, K, N, C, group, fmt, 0);
     return int(cudaGetLastError());
 }
 
@@ -194,17 +222,18 @@ extern "C" int moe_grouped_launch(const float* x, const int* rows, const int* eg
 extern "C" int moe_glu_grouped_launch(const float* x, const int* rows, const int* eg,
                                       const void* pg, const float* sg, const float* mg,
                                       const void* pu, const float* su, const float* mu,
-                                      float* y, int S, int E, int K, int F, int C, int G,
-                                      int group, int fmt, int act, int vec, void* stream) {
+                                      void* y, int S, int E, int K, int F, int C, int G,
+                                      int group, int fmt, int act, int out_bf16, int vec,
+                                      void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint8_t* g8 = static_cast<const uint8_t*>(pg);
     const uint8_t* u8 = static_cast<const uint8_t*>(pu);
     const dim3 grid = tiles(F, G * C / RB_GROUPED);
-    if (fmt == FMT_Q4)
-        launch_grouped<FMT_Q4, 2>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y,
-                                  S, E, K, F, C, group, act);
+    if (out_bf16)
+        grouped_typed<2, bf16>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y, S,
+                               E, K, F, C, group, fmt, act);
     else
-        launch_grouped<FMT_Q8, 2>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y,
-                                  S, E, K, F, C, group, act);
+        grouped_typed<2, float>(grid, st, vec != 0, x, rows, eg, g8, sg, mg, u8, su, mu, y, S,
+                                E, K, F, C, group, fmt, act);
     return int(cudaGetLastError());
 }

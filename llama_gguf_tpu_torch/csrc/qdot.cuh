@@ -6,7 +6,8 @@
 //       g = r / (group/2) and holds element j = r % (group/2) of that group in
 //       its low nibble and element j + group/2 in its high nibble.
 //   q8: int8 [K, ldw].
-//   scales, mins: float32 [K/group, ldw]; W[k, n] = s[g, n] * q[k, n] - m[g, n].
+//   scales, mins: float32 or bfloat16 [K/group, ldw] (the panel type SP);
+//       W[k, n] = s[g, n] * q[k, n] - m[g, n].
 //
 // A block of TX x TY = 256 threads owns a tile of COLS = 32 output columns and
 // RB <= 8 rows and loops over all of K itself; nothing carries across blocks.
@@ -15,10 +16,13 @@
 // threads along K take the scale groups round-robin. Nibbles are unpacked in
 // registers straight from the group-split bytes. The min term is factored per
 // group as s * sum(x * q) - m * sum(x) (the TPU kernels' _min_dot). The 32
-// K-partials are summed through shared memory, in a fixed order.
+// K-partials are summed through shared memory, in a fixed order. All sums are
+// float32 whatever the panel type; a bfloat16 output is rounded once, at the
+// store (the TPU kernels' acc.astype(o_ref.dtype)).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,12 +36,16 @@ constexpr int THREADS = TX * TY;
 enum { FMT_Q4 = 0, FMT_Q8 = 1 };
 enum { ACT_SILU = 0, ACT_GELU = 1, ACT_RELU = 2, ACT_RELU2 = 3, ACT_SWIGLU_OAI = 4 };
 
+using bf16 = __nv_bfloat16;
+
 // One weight set as this thread sees it: each pointer already at the
 // thread's first column (and, for an expert stack, at the expert's slice).
+// SP: the scale/min panel type, float or bf16.
+template <class SP>
 struct Panel {
     const uint8_t* packed;
-    const float* scales;
-    const float* mins;  // null: no min term
+    const SP* scales;
+    const SP* mins;  // null: no min term
 };
 
 // Four consecutive bytes (columns n0..n0+3) as one word; missing columns read 0.
@@ -59,6 +67,25 @@ __device__ __forceinline__ void load_f4(const float* p, int nvalid, bool vec, fl
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[c] = c < nvalid ? __ldg(p + c) : 0.0f;
 }
+
+// Four bf16 panel values as float: one 8-byte load when vec (a panel row of
+// N % 4 == 0 bf16 values keeps every 4-column group 8-byte aligned).
+__device__ __forceinline__ void load_f4(const bf16* p, int nvalid, bool vec, float out[4]) {
+    if (vec) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+        out[0] = __low2float(lo); out[1] = __high2float(lo);
+        out[2] = __low2float(hi); out[3] = __high2float(hi);
+        return;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c] = c < nvalid ? __bfloat162float(__ldg(p + c)) : 0.0f;
+}
+
+// The output store: float as it is, bf16 rounded to nearest even.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
@@ -86,8 +113,8 @@ __device__ __forceinline__ float glu_combine(float g, float u, int act) {
 // block must call it (it synchronises). xr: the RB input rows; nvalid: the
 // columns left from this thread's first column (<= 0: none); ldw: the
 // panels' row stride in columns; group % 16 == 0. VEC (4-column vector
-// loads: N % 4 == 0 and 16-byte aligned panels) is a template parameter so
-// that the inner loops carry no branch on it.
+// loads: N % 4 == 0 and each panel aligned to 4 of its elements) is a
+// template parameter so that the inner loops carry no branch on it.
 //
 // At decode sizes (RB <= 4) a thread issues the weight loads of JC packed
 // rows (8, or 4 per set for two sets) before it uses the first: one load in
@@ -95,8 +122,8 @@ __device__ __forceinline__ float glu_combine(float g, float u, int act) {
 // 8 rows the FMAs hide the latency and the registers go to accumulators.
 // Row addresses: one set keeps a pointer per group, two sets share one
 // offset, the form ptxas schedules better for each.
-template <int FMT, int RB, int NW, bool VEC>
-__device__ __forceinline__ void dot_tile(const float* const (&xr)[RB], const Panel (&w)[NW],
+template <int FMT, int RB, int NW, bool VEC, class SP>
+__device__ __forceinline__ void dot_tile(const float* const (&xr)[RB], const Panel<SP> (&w)[NW],
                                          int K, int ldw, int group, int nvalid,
                                          float (&total)[NW]) {
     const int tx = threadIdx.x, ty = threadIdx.y;

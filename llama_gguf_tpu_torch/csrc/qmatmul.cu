@@ -9,15 +9,18 @@
 // MoE kernels of csrc/moe_qmatmul.cu.
 //
 // What bounds them on this card: at decode batch sizes (B <= 8) the weight
-// bytes (4.5 bits per weight plus the f32 scale/min panels) read once from
-// HBM; at prefill sizes (hundreds of rows) the f32 multiply-adds on the CUDA
-// cores (no tensor cores in this first cut).
+// bytes (4 or 8 bits per weight plus the f32 or bf16 scale/min panels) read
+// once from HBM; at prefill sizes (hundreds of rows) the f32 multiply-adds on
+// the CUDA cores (no tensor cores in this first cut).
 //
 // Design: a block owns a tile of 32 output columns and RB <= 8 rows and loops
 // over all of K (qdot::dot_tile). The GLU variant reads the gate columns and
 // the up columns (offset F in the fused weight) in the same pass and writes
 // act(gate) * up, so the [B, 2F] intermediate never reaches device memory.
-// Ragged N and rows are masked. Accumulation and output are float32.
+// Ragged N and rows are masked. Accumulation is float32. Panels (SP) and the
+// output (OT) are float or bf16, every combination instantiated: bf16 panels
+// halve the panel bytes, and a bf16 output ("default" matmul precision, the
+// TPU kernels' _out_dtype) is rounded once at the store.
 
 #include "qdot.cuh"
 
@@ -27,13 +30,13 @@ using namespace qdot;
 
 // NW weight column sets: 1 for a plain product, 2 (gate at column n, up at
 // column n + ncols of the fused weight) for the GLU. VEC: see qdot::dot_tile.
-template <int FMT, int RB, int NW, bool VEC>
+template <int FMT, int RB, int NW, bool VEC, class SP, class OT>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_kernel(const float* __restrict__ x,        // [B, K]
                const uint8_t* __restrict__ packed,  // q4 [K/2, ldw] / q8 [K, ldw]
-               const float* __restrict__ scales,    // [K/group, ldw]
-               const float* __restrict__ mins,      // [K/group, ldw] or null
-               float* __restrict__ y,               // [B, ncols]
+               const SP* __restrict__ scales,       // [K/group, ldw]
+               const SP* __restrict__ mins,         // [K/group, ldw] or null
+               OT* __restrict__ y,                  // [B, ncols]
                int B, int K, int ncols, int ldw, int group, int act) {
     const int n0 = blockIdx.x * COLS + 4 * threadIdx.x;
     const int row0 = blockIdx.y * RB;
@@ -41,7 +44,7 @@ qmatmul_kernel(const float* __restrict__ x,        // [B, K]
     const float* xr[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) xr[r] = x + size_t(min(row0 + r, B - 1)) * K;
-    Panel w[NW];
+    Panel<SP> w[NW];
 #pragma unroll
     for (int s = 0; s < NW; ++s) {
         const int off = n0 + s * ncols;
@@ -55,61 +58,92 @@ qmatmul_kernel(const float* __restrict__ x,        // [B, K]
         const int row = row0 + tid / COLS;
         const int col = blockIdx.x * COLS + tid % COLS;
         if (row < B && col < ncols)
-            y[size_t(row) * ncols + col] =
-                NW == 2 ? glu_combine(total[0], total[NW - 1], act) : total[0];
+            store_out(y + size_t(row) * ncols + col,
+                      NW == 2 ? glu_combine(total[0], total[NW - 1], act) : total[0]);
     }
 }
 
 int rows_per_block(int B) { return B >= 5 ? 8 : B >= 3 ? 4 : B == 2 ? 2 : 1; }
 
-template <int FMT, int RB, int NW>
-void launch_rb(dim3 grid, cudaStream_t stream, bool vec, const float* x, const uint8_t* p,
-               const float* scales, const float* mins, float* y, int B, int K, int ncols,
-               int ldw, int group, int act) {
+// One launch's arguments, typed: the entry points below pick SP and OT.
+template <class SP, class OT>
+struct Args {
+    const float* x;
+    const uint8_t* packed;
+    const SP* scales;
+    const SP* mins;
+    OT* y;
+    int B, K, ncols, ldw, group, act;
+};
+
+template <int FMT, int RB, int NW, class SP, class OT>
+void launch_rb(dim3 grid, cudaStream_t stream, bool vec, const Args<SP, OT>& a) {
     const dim3 block(TX, TY);
     if (vec)
-        qmatmul_kernel<FMT, RB, NW, true><<<grid, block, 0, stream>>>(x, p, scales, mins, y, B, K, ncols, ldw, group, act);
+        qmatmul_kernel<FMT, RB, NW, true, SP, OT><<<grid, block, 0, stream>>>(
+            a.x, a.packed, a.scales, a.mins, a.y, a.B, a.K, a.ncols, a.ldw, a.group, a.act);
     else
-        qmatmul_kernel<FMT, RB, NW, false><<<grid, block, 0, stream>>>(x, p, scales, mins, y, B, K, ncols, ldw, group, act);
+        qmatmul_kernel<FMT, RB, NW, false, SP, OT><<<grid, block, 0, stream>>>(
+            a.x, a.packed, a.scales, a.mins, a.y, a.B, a.K, a.ncols, a.ldw, a.group, a.act);
 }
 
-template <int FMT, int NW>
-int launch(const float* x, const void* packed, const float* scales, const float* mins,
-           float* y, int B, int K, int ncols, int ldw, int group, int act, int vec,
-           cudaStream_t stream) {
-    const int rb = rows_per_block(B);
-    const dim3 grid((ncols + COLS - 1) / COLS, (B + rb - 1) / rb);
-    const uint8_t* p = static_cast<const uint8_t*>(packed);
+template <int FMT, int NW, class SP, class OT>
+int launch(const Args<SP, OT>& a, bool vec, cudaStream_t stream) {
+    const int rb = rows_per_block(a.B);
+    const dim3 grid((a.ncols + COLS - 1) / COLS, (a.B + rb - 1) / rb);
     switch (rb) {
-    case 1: launch_rb<FMT, 1, NW>(grid, stream, vec != 0, x, p, scales, mins, y, B, K, ncols, ldw, group, act); break;
-    case 2: launch_rb<FMT, 2, NW>(grid, stream, vec != 0, x, p, scales, mins, y, B, K, ncols, ldw, group, act); break;
-    case 4: launch_rb<FMT, 4, NW>(grid, stream, vec != 0, x, p, scales, mins, y, B, K, ncols, ldw, group, act); break;
-    default: launch_rb<FMT, 8, NW>(grid, stream, vec != 0, x, p, scales, mins, y, B, K, ncols, ldw, group, act); break;
+    case 1: launch_rb<FMT, 1, NW>(grid, stream, vec, a); break;
+    case 2: launch_rb<FMT, 2, NW>(grid, stream, vec, a); break;
+    case 4: launch_rb<FMT, 4, NW>(grid, stream, vec, a); break;
+    default: launch_rb<FMT, 8, NW>(grid, stream, vec, a); break;
     }
     return int(cudaGetLastError());
+}
+
+template <int NW, class SP, class OT>
+int launch_typed(const float* x, const void* packed, const void* scales, const void* mins,
+                 void* y, int B, int K, int ncols, int ldw, int group, int fmt, int act,
+                 int vec, cudaStream_t stream) {
+    const Args<SP, OT> a{x, static_cast<const uint8_t*>(packed), static_cast<const SP*>(scales),
+                         static_cast<const SP*>(mins), static_cast<OT*>(y),
+                         B, K, ncols, ldw, group, act};
+    return fmt == FMT_Q4 ? launch<FMT_Q4, NW>(a, vec != 0, stream)
+                         : launch<FMT_Q8, NW>(a, vec != 0, stream);
+}
+
+// panel_bf16 / out_bf16: 0 = float32, 1 = bfloat16.
+template <int NW>
+int launch_any(const float* x, const void* packed, const void* scales, const void* mins,
+               void* y, int B, int K, int ncols, int ldw, int group, int fmt, int act,
+               int panel_bf16, int out_bf16, int vec, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (panel_bf16)
+        return out_bf16 ? launch_typed<NW, bf16, bf16>(x, packed, scales, mins, y, B, K, ncols, ldw, group, fmt, act, vec, s)
+                        : launch_typed<NW, bf16, float>(x, packed, scales, mins, y, B, K, ncols, ldw, group, fmt, act, vec, s);
+    return out_bf16 ? launch_typed<NW, float, bf16>(x, packed, scales, mins, y, B, K, ncols, ldw, group, fmt, act, vec, s)
+                    : launch_typed<NW, float, float>(x, packed, scales, mins, y, B, K, ncols, ldw, group, fmt, act, vec, s);
 }
 
 }  // namespace
 
 // y[B, N] = x[B, K] @ W[K, N]. fmt: 0 = q4, 1 = q8. mins may be null.
-// vec: 1 when N % 4 == 0 and every pointer is 16-byte aligned.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int qmatmul_launch(const float* x, const void* packed, const float* scales,
-                              const float* mins, float* y, int B, int K, int N, int group,
-                              int fmt, int vec, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return fmt == FMT_Q4
-        ? launch<FMT_Q4, 1>(x, packed, scales, mins, y, B, K, N, N, group, 0, vec, s)
-        : launch<FMT_Q8, 1>(x, packed, scales, mins, y, B, K, N, N, group, 0, vec, s);
+// panel_bf16: scales and mins are bfloat16 (else float32); out_bf16: y is
+// bfloat16 (else float32). vec: 1 when N % 4 == 0 and every panel is aligned
+// to 4 of its elements. Returns the cudaError_t of the launch (0 = success).
+extern "C" int qmatmul_launch(const float* x, const void* packed, const void* scales,
+                              const void* mins, void* y, int B, int K, int N, int group,
+                              int fmt, int panel_bf16, int out_bf16, int vec, void* stream) {
+    return launch_any<1>(x, packed, scales, mins, y, B, K, N, N, group, fmt, 0, panel_bf16,
+                         out_bf16, vec, stream);
 }
 
 // y[B, F] = act(x @ W[:, :F]) * (x @ W[:, F:]) over a fused [gate | up]
 // weight W[K, 2F]. act: 0 silu, 1 gelu (tanh), 2 relu, 3 relu2, 4 swiglu_oai.
-extern "C" int qmatmul_glu_launch(const float* x, const void* packed, const float* scales,
-                                  const float* mins, float* y, int B, int K, int F, int group,
-                                  int fmt, int act, int vec, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return fmt == FMT_Q4
-        ? launch<FMT_Q4, 2>(x, packed, scales, mins, y, B, K, F, 2 * F, group, act, vec, s)
-        : launch<FMT_Q8, 2>(x, packed, scales, mins, y, B, K, F, 2 * F, group, act, vec, s);
+// Types and vec as in qmatmul_launch.
+extern "C" int qmatmul_glu_launch(const float* x, const void* packed, const void* scales,
+                                  const void* mins, void* y, int B, int K, int F, int group,
+                                  int fmt, int act, int panel_bf16, int out_bf16, int vec,
+                                  void* stream) {
+    return launch_any<2>(x, packed, scales, mins, y, B, K, F, 2 * F, group, fmt, act,
+                         panel_bf16, out_bf16, vec, stream);
 }

@@ -52,13 +52,15 @@ class ModelRunner:
                  max_seq: int | None = None,
                  matmul_precision: str = "highest",
                  kv_format: str | None = None, device="cuda"):
-        """``matmul_precision``: only "highest" (f32 matmuls, no TF32) is
-        ported; "default" (bf16 passes) is ROADMAP queue 1.
+        """``matmul_precision``: "highest" (f32 throughout, no TF32) or
+        "default", in which the quantized kernels emit bf16 outputs, rounded
+        once from their f32 sums (the JAX package's _out_dtype). The port's
+        own torch matmuls (attention, router, dense weights) stay f32 in
+        "default", where the JAX package on a TPU takes one bf16 pass.
         ``kv_format``: f32 | bf16 KV-cache storage."""
-        if matmul_precision != "highest":
-            raise NotImplementedError(
-                f"matmul_precision={matmul_precision!r} is not ported yet "
-                "(ROADMAP queue 1); the port computes in f32")
+        if matmul_precision not in ("highest", "default"):
+            raise ValueError(f"unknown matmul_precision {matmul_precision!r}: "
+                             "'highest' or 'default'")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 parity: no TF32 in cuBLAS matmuls (dense and attention)
@@ -102,7 +104,8 @@ class ModelRunner:
               if logit_positions is not None and t > 1 else None)
         return forward(self.params, self.cfg, tokens,
                        self._tensor(positions), kv, self._tensor(lengths),
-                       read_bound=read_bound, logit_positions=lp)
+                       read_bound=read_bound, logit_positions=lp,
+                       precision=self.matmul_precision)
 
     @staticmethod
     def plan_segments(start: int, steps: int,
@@ -140,7 +143,8 @@ class ModelRunner:
             for _ in range(chunk):
                 p = pos + done
                 logits, kv = forward(self.params, self.cfg, toks[:, None],
-                                     p[:, None], kv, p + 1, read_bound=bound)
+                                     p[:, None], kv, p + 1, read_bound=bound,
+                                     precision=self.matmul_precision)
                 toks = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
                 outs.append(toks)
                 done += 1

@@ -7,9 +7,9 @@ norm dicts, consumed by models/transformer.forward. Two weight modes:
   * "dequant": weights dequantized to f32 on the host (the oracle path;
                matmuls run as torch.matmul);
   * "quant":   matmul weights repacked to the kernel layouts
-               (quant/repack.py) with f32 scale panels, MoE experts as
-               QuantExpertStacks; norms and biases stay dense; the embedding
-               table stays quantized.
+               (quant/repack.py) with scale panels in ``scale_dtype``, MoE
+               experts as QuantExpertStacks (f32 panels); norms and biases
+               stay dense; the embedding table stays quantized.
 
 The JAX package's repack sidecar cache is not ported (ROADMAP queue 1).
 """
@@ -49,13 +49,15 @@ class ModelLoader:
                  device="cuda", scale_dtype: str = "float32"):
         """mode: "quant" keeps matmul weights in the kernel layouts;
         "dequant" materializes everything as dense f32 tensors.
-        ``scale_dtype``: only "float32" is ported (bf16 scale panels are
-        ROADMAP queue 1)."""
+        ``scale_dtype``: "bfloat16" rounds the scale and min panels of
+        QuantLinear and QuantEmbedding weights to bf16 (half the panel
+        bytes); expert stacks keep f32 panels, as in the JAX package.
+        "float32" (default) is exact."""
         if mode not in ("quant", "dequant"):
             raise ValueError(f"unknown weight mode {mode!r}")
-        if scale_dtype != "float32":
-            raise NotImplementedError("bf16 scale panels are not ported yet "
-                                      "(ROADMAP queue 1)")
+        if scale_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown scale_dtype {scale_dtype!r}")
+        self.scale_dtype = getattr(torch, scale_dtype)
         self.gguf = gguf
         self.mode = mode
         self.device = resolve_device(device)
@@ -122,12 +124,19 @@ class ModelLoader:
             raise ValueError(f"{wname}: expected 2D, got {w.shape}")
         return DenseLinear(self._put(np.ascontiguousarray(w.T)), bias)
 
+    def _panel(self, arr: np.ndarray | None) -> torch.Tensor | None:
+        """A scale or min panel on the device, in scale_dtype."""
+        if arr is None:
+            return None
+        return self._put(arr).to(self.scale_dtype)
+
     def _quant_linear(self, rw, source_type: str, bias=None) -> QuantLinear:
-        """Device-place a RepackedWeight as a QuantLinear (f32 panels)."""
+        """Device-place a RepackedWeight as a QuantLinear (scale panels in
+        scale_dtype)."""
         return QuantLinear(
             packed=self._put(rw.packed),
-            scales=self._put(rw.scales),
-            mins=self._put(rw.mins) if rw.mins is not None else None,
+            scales=self._panel(rw.scales),
+            mins=self._panel(rw.mins),
             bias=bias, fmt=rw.fmt, group=rw.group, k=rw.k, n=rw.n,
             source_type=source_type)
 
@@ -267,8 +276,8 @@ class ModelLoader:
             packed, scales, mins, fmt, group = repack_rows(
                 self.gguf.tensor_bytes(emb_name), emb_info.ggml_type, (v, h))
             params["embed"] = QuantEmbedding(
-                packed=self._put(packed), scales=self._put(scales),
-                mins=self._put(mins) if mins is not None else None,
+                packed=self._put(packed), scales=self._panel(scales),
+                mins=self._panel(mins),
                 fmt=fmt, group=group, vocab=v, hidden=h)
         else:
             params["embed"] = self._put(self.dense(emb_name))

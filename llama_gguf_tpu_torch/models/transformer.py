@@ -5,7 +5,12 @@ llama_gguf_tpu/models/transformer.py).
         (logits[B,T,V], kv)
 
 T=1 is the decode step; larger T is (bucketed) prefill. The KV cache is
-updated in place. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
+updated in place. ``precision`` ("highest"/None or "default") reaches every
+quantized product: in "default" the kernels emit bfloat16, which is cast back
+to float32 exactly where the JAX package casts it (ops/linear.apply, the GLU
+input of the down projection, the MoE gate/up/act/down outputs). The port's
+own torch matmuls (attention, the router, dense weights) stay float32 in
+either mode. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
 RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
 kernel, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
 kernels, parallel residual, post norms, tied embeddings. Layer kinds other
@@ -46,8 +51,8 @@ def _glu(g: torch.Tensor, u: torch.Tensor, act: Activation) -> torch.Tensor:
 
 def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, kv: dict, layer_idx: int,
-              lengths: torch.Tensor,
-              read_bound: int | None = None) -> tuple[torch.Tensor, dict]:
+              lengths: torch.Tensor, read_bound: int | None = None,
+              precision: str | None = None) -> tuple[torch.Tensor, dict]:
     """Attention with KV cache. x [B, T, H]; positions [B, T]; lengths [B]
     (valid cache length AFTER this step's tokens are written);
     ``read_bound``: cap on cache positions to read (every valid position <
@@ -64,14 +69,14 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 
     if "wqkv" in layer:  # fused projection (loader._fuse_attn)
         nq, nk, _ = layer["wqkv"].splits
-        qkv = L.apply(layer["wqkv"], x)
+        qkv = L.apply(layer["wqkv"], x, precision)
         q = qkv[..., :nq]
         k = qkv[..., nq: nq + nk]
         v = qkv[..., nq + nk:]
     else:
-        q = L.apply(layer["wq"], x)
-        k = L.apply(layer["wk"], x)
-        v = L.apply(layer["wv"], x)
+        q = L.apply(layer["wq"], x, precision)
+        k = L.apply(layer["wk"], x, precision)
+        v = L.apply(layer["wv"], x, precision)
 
     if cfg.clamp_kqv > 0:
         c = cfg.clamp_kqv
@@ -132,16 +137,17 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     if "sub_norm" in layer:  # BitNet: RMSNorm on attn output before o_proj
         ctx = rms_norm(ctx, layer["sub_norm"], cfg.norm_eps).to(x.dtype)
     if "gate" in layer:  # Qwen3Next sigmoid attention gate
-        g = L.apply(layer["gate"], x)
+        g = L.apply(layer["gate"], x, precision)
         ctx = ctx * torch.sigmoid(g.float()).to(ctx.dtype)
-    return L.apply(layer["wo"], ctx), kv
+    return L.apply(layer["wo"], ctx, precision), kv
 
 
-def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
+                 precision: str | None = None) -> torch.Tensor:
     def down(act):
         if "sub_norm" in ffn:  # BitNet: RMSNorm before down_proj
             act = rms_norm(act, ffn["sub_norm"], cfg.norm_eps)
-        return L.apply(ffn["down"], act.to(x.dtype))
+        return L.apply(ffn["down"], act.to(x.dtype), precision)
 
     if "gate_up" in ffn:  # fused projection (loader._fuse_ffn)
         gu_lin = ffn["gate_up"]
@@ -150,20 +156,20 @@ def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             # intermediate never reaches device memory
             lead = x.shape[:-1]
             y = qmatmul_glu(x.reshape(-1, x.shape[-1]).float(), gu_lin,
-                            cfg.hidden_act.value)
+                            cfg.hidden_act.value, precision)
             if y is not None:
                 return down(y.reshape(*lead, -1))
-        gu = L.apply(gu_lin, x).float()
+        gu = L.apply(gu_lin, x, precision).float()
         half = gu_lin.splits[0]
         return down(_glu(gu[..., :half], gu[..., half:], cfg.hidden_act))
     if "gate" in ffn:
-        g = L.apply(ffn["gate"], x).float()
-        u = L.apply(ffn["up"], x).float()
+        g = L.apply(ffn["gate"], x, precision).float()
+        u = L.apply(ffn["up"], x, precision).float()
         return down(_glu(g, u, cfg.hidden_act))
     if "xielu" in ffn:
         raise NotImplementedError("xIELU FFN is not ported yet "
                                   "(ROADMAP queue 1)")
-    u = L.apply(ffn["up"], x).float()
+    u = L.apply(ffn["up"], x, precision).float()
     return down(_act(u, cfg.hidden_act))
 
 
@@ -187,17 +193,19 @@ def route(ffn: dict, cfg: ModelConfig,
     return topv, topi
 
 
-def _expert_mm(x_rows: torch.Tensor, stack,
-               idx: torch.Tensor) -> torch.Tensor:
+def _expert_mm(x_rows: torch.Tensor, stack, idx: torch.Tensor,
+               precision: str | None) -> torch.Tensor:
     """A quantized stack goes to the MoE kernels; a dense [E, K, N] stack
     (dequant mode, or experts the loader could not keep quantized) loops over
-    its experts."""
+    its experts. Float32 either way (a "default" kernel output is cast back,
+    as the JAX MoE layer does)."""
     if isinstance(stack, L.QuantExpertStack):
-        return moe_qmatmul(x_rows, stack, idx)
+        return moe_qmatmul(x_rows, stack, idx, precision).float()
     return expert_matmul(x_rows, stack, idx)
 
 
-def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
+              precision: str | None = None) -> torch.Tensor:
     """Mixture-of-experts FFN. Slots are token-major (slot s = token * k +
     j). When gate and up are both quantized the grouped gate|up GLU kernel
     is tried first; else, or below its threshold, the two products and the
@@ -214,43 +222,45 @@ def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if (isinstance(ex["gate"], L.QuantExpertStack)
             and isinstance(ex["up"], L.QuantExpertStack)):
         act = moe_qmatmul_glu(xr, ex["gate"], ex["up"], idx,
-                              cfg.hidden_act.value)
+                              cfg.hidden_act.value, precision)
     if act is None:
-        act = _glu(_expert_mm(xr, ex["gate"], idx),
-                   _expert_mm(xr, ex["up"], idx), cfg.hidden_act)
-    dn = _expert_mm(act, ex["down"], idx)
+        act = _glu(_expert_mm(xr, ex["gate"], idx, precision),
+                   _expert_mm(xr, ex["up"], idx, precision), cfg.hidden_act)
+    dn = _expert_mm(act.float(), ex["down"], idx, precision)
     y = (dn.reshape(nt, k, h) * topv[:, :, None]).sum(dim=1)
     return y.reshape(b, t, h).to(x.dtype)
 
 
-def _ffn(ffn: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return moe_layer(ffn, cfg, x) if "router" in ffn else \
-        feed_forward(ffn, cfg, x)
+def _ffn(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
+         precision: str | None) -> torch.Tensor:
+    return moe_layer(ffn, cfg, x, precision) if "router" in ffn else \
+        feed_forward(ffn, cfg, x, precision)
 
 
 def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, kv: dict, layer_idx: int,
                       lengths: torch.Tensor,
-                      read_bound: int | None = None
+                      read_bound: int | None = None,
+                      precision: str | None = None
                       ) -> tuple[torch.Tensor, dict]:
     def norm(p, xx):
         return apply_norm(xx, p, cfg.norm_eps, cfg.uses_layer_norm)
 
     h = norm(layer["attn_norm"], x) if layer.get("attn_norm") else x
     attn_out, kv = attention(layer["attn"], cfg, h, positions, kv, layer_idx,
-                             lengths, read_bound)
+                             lengths, read_bound, precision)
     if "post_attn_norm" in layer:  # Gemma2/3: norm applied to attn output
         attn_out = norm(layer["post_attn_norm"], attn_out)
 
     if cfg.use_parallel_residual:
-        return x + attn_out + _ffn(layer["ffn"], cfg, h), kv
+        return x + attn_out + _ffn(layer["ffn"], cfg, h, precision), kv
 
     rs = cfg.residual_scale  # Granite residual_multiplier
     if rs != 1.0:
         attn_out = attn_out * rs
     x = x + attn_out
     h2 = norm(layer["ffn_norm"], x) if layer.get("ffn_norm") else x
-    ffn_out = _ffn(layer["ffn"], cfg, h2)
+    ffn_out = _ffn(layer["ffn"], cfg, h2, precision)
     if "post_ffn_norm" in layer:
         ffn_out = norm(layer["post_ffn_norm"], ffn_out)
     if rs != 1.0:
@@ -274,11 +284,11 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def compute_logits(params: dict, cfg: ModelConfig,
-                   x: torch.Tensor) -> torch.Tensor:
+def compute_logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                   precision: str | None = None) -> torch.Tensor:
     x = apply_norm(x, params["final_norm"], cfg.norm_eps, cfg.uses_layer_norm)
     if params.get("output") is not None:
-        logits = L.apply(params["output"], x)
+        logits = L.apply(params["output"], x, precision)
     else:  # tied embeddings: contraction against the dense [V, H] table
         logits = torch.matmul(x, params["embed"].to(x.dtype).t())
     logits = logits.float()
@@ -293,13 +303,14 @@ def compute_logits(params: dict, cfg: ModelConfig,
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, kv: dict, lengths: torch.Tensor,
             read_bound: int | None = None,
-            logit_positions: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, dict]:
+            logit_positions: torch.Tensor | None = None,
+            precision: str | None = None) -> tuple[torch.Tensor, dict]:
     """Full forward. tokens/positions: [B, T]; lengths: [B] valid KV length
     after writing this step. ``read_bound``: cap on KV positions attention
     reads; None reads the whole cache. ``logit_positions``: optional [B]
     per-row T-index; the LM head then runs on that one hidden state per row
-    and the result is [B, 1, V]."""
+    and the result is [B, 1, V]. ``precision``: the matmul precision of the
+    quantized products (the runner's ``matmul_precision``)."""
     kinds = cfg.layer_kinds or ("attn",) * len(params["layers"])
     x = embed(params, cfg, tokens, positions)
     for i, layer in enumerate(params["layers"]):
@@ -307,8 +318,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             raise NotImplementedError(f"layer kind {kinds[i]!r} is not "
                                       "ported yet (ROADMAP queue 1)")
         x, kv = transformer_layer(layer, cfg, x, positions, kv, i, lengths,
-                                  read_bound)
+                                  read_bound, precision)
     if logit_positions is not None and x.shape[1] > 1:
         idx = logit_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    return compute_logits(params, cfg, x), kv
+    return compute_logits(params, cfg, x, precision), kv

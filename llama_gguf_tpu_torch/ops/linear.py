@@ -8,7 +8,8 @@ Weights are repacked at load time (quant/repack.py) into two layouts:
           j + group/2);
   * "q8": int8 [K, N];
 
-plus per-group scale (and optional min) panels [K/group, N]:
+plus per-group scale (and optional min) panels [K/group, N], float32 or
+bfloat16 (``ModelLoader(scale_dtype=)``; the dequantization upcasts them):
 
     W[k, n] = s[k // group, n] * q[k, n] - m[k // group, n]
 
@@ -32,8 +33,8 @@ class QuantLinear:
     """Quantized weight for y = x @ W with W logically [K, N] (in, out)."""
 
     packed: torch.Tensor  # uint8 [K/2, N] for q4; int8 [K, N] for q8
-    scales: torch.Tensor  # [K/group, N] float32
-    mins: torch.Tensor | None  # [K/group, N] or None (symmetric)
+    scales: torch.Tensor  # [K/group, N] float32 or bfloat16
+    mins: torch.Tensor | None  # [K/group, N], as scales, or None (symmetric)
     bias: torch.Tensor | None
     fmt: str = "q8"  # q4 | q8
     group: int = 32
@@ -65,7 +66,8 @@ class DenseLinear:
 class QuantEmbedding:
     """Token embedding table kept quantized on the device, dequantized per
     row on gather. Row-major: q4 packed uint8 [V, H/2] (group-split within
-    each row's scale groups) or q8 int8 [V, H], plus scales/mins [V, H/g]."""
+    each row's scale groups) or q8 int8 [V, H], plus scales/mins [V, H/g]
+    in float32 or bfloat16."""
 
     packed: torch.Tensor
     scales: torch.Tensor
@@ -87,7 +89,7 @@ class QuantExpertStack:
     only the routed experts' slices, by index."""
 
     packed: torch.Tensor  # uint8 [E, K/2, N] (q4) or int8 [E, K, N] (q8)
-    scales: torch.Tensor  # [E, K/group, N] float32
+    scales: torch.Tensor  # [E, K/group, N] float32 (any scale_dtype)
     mins: torch.Tensor | None  # [E, K/group, N] or None
     fmt: str  # q4 | q8
     group: int
@@ -191,8 +193,11 @@ def dequantize_weight(ql: QuantLinear) -> torch.Tensor:
     return w
 
 
-def apply(lin, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ bias). x: [..., K] -> [..., N]."""
+def apply(lin, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """y = x @ W (+ bias). x: [..., K] -> [..., N]. ``precision`` reaches the
+    quantized kernels (bfloat16 outputs in "default"), whose output is cast
+    back to x's type, as in the JAX package; a dense weight's torch.matmul
+    stays in x's type."""
     if isinstance(lin, DenseLinear):
         y = torch.matmul(x, lin.weight.to(x.dtype))
         if lin.bias is not None:
@@ -203,7 +208,8 @@ def apply(lin, x: torch.Tensor) -> torch.Tensor:
     from .qmatmul import qmatmul
 
     lead = x.shape[:-1]
-    y = qmatmul(x.reshape(-1, x.shape[-1]).float(), lin).to(x.dtype)
+    y = qmatmul(x.reshape(-1, x.shape[-1]).float(), lin,
+                precision).to(x.dtype)
     if lin.bias is not None:
         y = y + lin.bias.to(y.dtype)
     return y.reshape(*lead, y.shape[-1])

@@ -27,6 +27,14 @@ tensor it launches the kernel or raises; there is no fallback. ``LAUNCHES``
 counts kernel launches, one per launch, so a run can show that its main path
 went through the kernels. What bounds each kernel on the card and how its
 design meets that is written at the top of each CUDA source.
+
+Precision (``precision`` of each entry): "highest" or None gives float32
+outputs; "default" gives bfloat16 outputs, the f32 sums rounded once (the
+JAX package's ``_out_dtype``). The JAX entries resolve None from the ambient
+``jax.default_matmul_precision``; the port has no ambient setting, so its
+runner passes its ``matmul_precision`` down explicitly. Scale and min panels
+are float32 or bfloat16 (``ModelLoader(scale_dtype=)``); the MoE kernels take
+float32 panels only, as the loader keeps expert stacks.
 """
 
 from __future__ import annotations
@@ -50,9 +58,28 @@ MOE_GROUPED_MIN_SLOTS = 32
 MOE_GROUP_ROWS = 256  # C: rows per single-expert block
 
 
+PRECISIONS = (None, "highest", "default")
+
+
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def out_dtype(precision: str | None) -> torch.dtype:
+    """The kernels' output type: bfloat16 in "default" precision, float32
+    otherwise (mirrors _out_dtype of the JAX package)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    return torch.bfloat16 if precision == "default" else torch.float32
+
+
+def bf16_ulp(y: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each |y| (2^(e-8) for |y| = m 2^e, 0.5 <= m < 1):
+    the most that rounding an f32 sum to a "default"-precision output, or
+    summing in another order before rounding, moves it."""
+    _, e = torch.frexp(y.float())
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -74,17 +101,20 @@ def glu_combine(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
     return g * torch.sigmoid(g) * u  # silu
 
 
-def qmatmul_plain(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
-    """Plain version of the q4/q8 kernels: dequantize W, then x @ W in f32."""
-    return torch.matmul(x.float(), dequantize_weight(lin))
+def qmatmul_plain(x: torch.Tensor, lin: QuantLinear,
+                  precision: str | None = None) -> torch.Tensor:
+    """Plain version of the q4/q8 kernels: dequantize W, then x @ W in f32,
+    rounded to the output type once."""
+    return torch.matmul(x.float(), dequantize_weight(lin)).to(
+        out_dtype(precision))
 
 
-def qmatmul_glu_plain(x: torch.Tensor, lin: QuantLinear,
-                      act: str) -> torch.Tensor:
+def qmatmul_glu_plain(x: torch.Tensor, lin: QuantLinear, act: str,
+                      precision: str | None = None) -> torch.Tensor:
     """Plain version of the GLU kernel."""
     f = lin.splits[0]
     y = qmatmul_plain(x, lin)
-    return glu_combine(y[:, :f], y[:, f:], act)
+    return glu_combine(y[:, :f], y[:, f:], act).to(out_dtype(precision))
 
 
 def expert_matmul(x_rows: torch.Tensor, stack,
@@ -106,17 +136,19 @@ def expert_matmul(x_rows: torch.Tensor, stack,
 
 
 def moe_qmatmul_plain(x_rows: torch.Tensor, stack: QuantExpertStack,
-                      idx: torch.Tensor) -> torch.Tensor:
+                      idx: torch.Tensor,
+                      precision: str | None = None) -> torch.Tensor:
     """Plain version of the slot-major and grouped MoE kernels."""
-    return expert_matmul(x_rows, stack, idx)
+    return expert_matmul(x_rows, stack, idx).to(out_dtype(precision))
 
 
 def moe_qmatmul_glu_plain(x_rows: torch.Tensor, gate: QuantExpertStack,
-                          up: QuantExpertStack, idx: torch.Tensor,
-                          act: str) -> torch.Tensor:
+                          up: QuantExpertStack, idx: torch.Tensor, act: str,
+                          precision: str | None = None) -> torch.Tensor:
     """Plain version of the grouped GLU MoE kernel."""
     return glu_combine(expert_matmul(x_rows, gate, idx),
-                       expert_matmul(x_rows, up, idx), act)
+                       expert_matmul(x_rows, up, idx), act).to(
+                           out_dtype(precision))
 
 
 def moe_dims(s_slots: int, e_num: int) -> tuple[int, int, bool]:
@@ -169,44 +201,39 @@ def moe_group_plan(idx: torch.Tensor, e_num: int, c_rows: int,
 
 # -- kernel launches ----------------------------------------------------------
 
-_ARGTYPES_SET: set[str] = set()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "qmatmul": {
+        "qmatmul_launch": [_P] * 5 + [_I] * 8 + [_P],
+        "qmatmul_glu_launch": [_P] * 5 + [_I] * 9 + [_P],
+    },
+    "moe_qmatmul": {
+        "moe_slot_launch": [_P] * 6 + [_I] * 8 + [_P],
+        "moe_grouped_launch": [_P] * 7 + [_I] * 10 + [_P],
+        "moe_glu_grouped_launch": [_P] * 10 + [_I] * 11 + [_P],
+    },
+}
 
 
 def _lib(name: str = "qmatmul") -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built at first use."""
     from ..utils.cuda_build import load
 
-    lib = load(name)
-    if name not in _ARGTYPES_SET:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        signatures = {
-            "qmatmul": {
-                "qmatmul_launch": [p] * 5 + [i] * 6 + [p],
-                "qmatmul_glu_launch": [p] * 5 + [i] * 7 + [p],
-            },
-            "moe_qmatmul": {
-                "moe_slot_launch": [p] * 6 + [i] * 7 + [p],
-                "moe_grouped_launch": [p] * 7 + [i] * 9 + [p],
-                "moe_glu_grouped_launch": [p] * 10 + [i] * 10 + [p],
-            },
-        }[name]
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = i
-        _ARGTYPES_SET.add(name)
-    return lib
+    return load(name, SIGNATURES[name])
 
 
-def _check(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> None:
+def _check(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> int:
     """Raise on what the kernels do not take: a QuantLinear's panels, or a
-    QuantExpertStack's, which carry a leading expert axis."""
+    QuantExpertStack's, which carry a leading expert axis. Returns 1 for
+    bfloat16 panels, 0 for float32 ones."""
     lead = ((lin.packed.shape[0],) if isinstance(lin, QuantExpertStack)
             else ())
-    if lin.scales.dtype != torch.float32 or (
-            lin.mins is not None and lin.mins.dtype != torch.float32):
-        raise NotImplementedError(
-            "bf16 scale panels are not supported by the CUDA kernels yet "
-            "(ROADMAP queue 1); load with scale_dtype='float32'")
+    sdt = lin.scales.dtype
+    if sdt not in (torch.float32, torch.bfloat16) or (
+            lin.mins is not None and lin.mins.dtype != sdt):
+        raise ValueError(f"scale/min panels must both be float32 or both "
+                         f"bfloat16, got {sdt} and "
+                         f"{lin.mins.dtype if lin.mins is not None else None}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != lin.k:
         raise ValueError(f"x must be float32 [B, {lin.k}], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -230,16 +257,22 @@ def _check(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> None:
         if tuple(t.shape) != panel:
             raise ValueError(f"scale/min panels must be {panel}, got "
                              f"{tuple(t.shape)}")
+    return int(sdt == torch.bfloat16)
+
+
+def vec_ok(cols: int, *tensors: torch.Tensor | None) -> int:
+    """1 when 4-column vector loads are legal: the column count is a
+    multiple of 4 and each tensor is aligned to 4 of its elements (16 bytes
+    for float32, 8 for bfloat16, 4 for bytes), which keeps every 4-column
+    group of a row aligned."""
+    return int(cols % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0
+        for t in tensors if t is not None))
 
 
 def _vec_ok(lin: QuantLinear | QuantExpertStack, cols: int,
             out: torch.Tensor) -> int:
-    """1 when 4-column vector loads are legal: the column count is a
-    multiple of 4 and every panel is 16-byte aligned."""
-    ptrs = [lin.packed.data_ptr(), lin.scales.data_ptr(), out.data_ptr()]
-    if lin.mins is not None:
-        ptrs.append(lin.mins.data_ptr())
-    return int(cols % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    return vec_ok(cols, lin.packed, lin.scales, lin.mins, out)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -255,55 +288,60 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def qmatmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
-    """x [B, K] float32 @ quantized W [K, N] -> [B, N] float32 (bias NOT
-    applied)."""
+def qmatmul(x: torch.Tensor, lin: QuantLinear,
+            precision: str | None = None) -> torch.Tensor:
+    """x [B, K] float32 @ quantized W [K, N] -> [B, N] float32, or bfloat16
+    in "default" precision (bias NOT applied)."""
+    odt = out_dtype(precision)
     if x.device.type == "cpu":
-        return qmatmul_plain(x, lin)
+        return qmatmul_plain(x, lin, precision)
     if x.device.type != "cuda":
         raise RuntimeError(f"qmatmul: no kernel for device {x.device}")
     x = x.contiguous()
-    _check(x, lin)
+    panel_bf16 = _check(x, lin)
     b = x.shape[0]
-    y = torch.empty((b, lin.n), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, lin.n), dtype=odt, device=x.device)
     if b == 0:
         return y
     fmt = 0 if lin.fmt == "q4" else 1
     rc = _lib().qmatmul_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
         _ptr(lin.mins), y.data_ptr(),
-        b, lin.k, lin.n, lin.group, fmt, _vec_ok(lin, lin.n, y),
-        _stream(x))
+        b, lin.k, lin.n, lin.group, fmt, panel_bf16,
+        int(odt == torch.bfloat16), _vec_ok(lin, lin.n, y), _stream(x))
     _raise_on(rc, "qmatmul")
     LAUNCHES["qmatmul_q4" if fmt == 0 else "qmatmul_q8"] += 1
     return y
 
 
-def qmatmul_glu(x: torch.Tensor, lin, act: str) -> torch.Tensor | None:
+def qmatmul_glu(x: torch.Tensor, lin, act: str,
+                precision: str | None = None) -> torch.Tensor | None:
     """act(x @ W_gate) * (x @ W_up) for a FUSED gate/up QuantLinear (equal
-    splits). Returns None where the JAX qmatmul_glu does (unknown act, a
-    bias, no equal two-way split): the caller then takes the two-step
-    path."""
+    splits), float32 or, in "default" precision, bfloat16. Returns None where
+    the JAX qmatmul_glu does (unknown act, a bias, no equal two-way split):
+    the caller then takes the two-step path."""
     if act not in GLU_ACTS or lin.bias is not None:
         return None
     splits = getattr(lin, "splits", None)
     if not splits or len(splits) != 2 or splits[0] != splits[1]:
         return None
+    odt = out_dtype(precision)
     if x.device.type == "cpu":
-        return qmatmul_glu_plain(x, lin, act)
+        return qmatmul_glu_plain(x, lin, act, precision)
     if x.device.type != "cuda":
         raise RuntimeError(f"qmatmul_glu: no kernel for device {x.device}")
     x = x.contiguous()
-    _check(x, lin)
+    panel_bf16 = _check(x, lin)
     b, f = x.shape[0], splits[0]
-    y = torch.empty((b, f), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, f), dtype=odt, device=x.device)
     if b == 0:
         return y
     rc = _lib().qmatmul_glu_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
         _ptr(lin.mins), y.data_ptr(),
         b, lin.k, f, lin.group, 0 if lin.fmt == "q4" else 1,
-        GLU_ACTS.index(act), _vec_ok(lin, f, y), _stream(x))
+        GLU_ACTS.index(act), panel_bf16, int(odt == torch.bfloat16),
+        _vec_ok(lin, f, y), _stream(x))
     _raise_on(rc, "qmatmul_glu")
     LAUNCHES["qmatmul_glu"] += 1
     return y
@@ -311,7 +349,9 @@ def qmatmul_glu(x: torch.Tensor, lin, act: str) -> torch.Tensor | None:
 
 def _check_moe(x: torch.Tensor, idx: torch.Tensor, stacks) -> None:
     for st in stacks:
-        _check(x, st)
+        if _check(x, st):  # instantiated for float32 panels only
+            raise ValueError("the MoE kernels take float32 scale panels only "
+                             "(the loader keeps expert stacks in float32)")
     if idx.dtype != torch.int32 or idx.shape != (x.shape[0],) \
             or idx.device != x.device or not idx.is_contiguous():
         raise ValueError(f"idx must be contiguous int32 [{x.shape[0]}] on "
@@ -320,16 +360,19 @@ def _check_moe(x: torch.Tensor, idx: torch.Tensor, stacks) -> None:
 
 
 def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
-                idx_flat: torch.Tensor) -> torch.Tensor:
+                idx_flat: torch.Tensor,
+                precision: str | None = None) -> torch.Tensor:
     """Routed MoE product: x_rows [S, K] (one input row per expert slot)
-    times the quantized weight of expert idx_flat[s] -> [S, N] float32. Only
+    times the quantized weight of expert idx_flat[s] -> [S, N] float32 (or
+    bfloat16 in "default" precision). Only
     the routed experts' packed bytes are read, straight from the stack.
     Decode-sized S runs the slot-major kernel; larger S sorts the slots by
     expert (moe_group_plan) and runs C-row single-expert blocks, so each
     routed expert's weights stream about once instead of once per slot.
     Unlike the JAX entry it never returns None: ragged N is computed."""
+    odt = out_dtype(precision)
     if x_rows.device.type == "cpu":
-        return moe_qmatmul_plain(x_rows, stack, idx_flat)
+        return moe_qmatmul_plain(x_rows, stack, idx_flat, precision)
     if x_rows.device.type != "cuda":
         raise RuntimeError(f"moe_qmatmul: no kernel for device "
                            f"{x_rows.device}")
@@ -340,8 +383,9 @@ def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
     e_num = stack.packed.shape[0]
     c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
     fmt = 0 if stack.fmt == "q4" else 1
+    out_bf16 = int(odt == torch.bfloat16)
     if not grouped:
-        y = torch.empty((s_slots, n), dtype=torch.float32, device=x.device)
+        y = torch.empty((s_slots, n), dtype=odt, device=x.device)
         if s_slots == 0:
             return y
         if s_slots > 65535:
@@ -350,39 +394,40 @@ def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
         rc = _lib("moe_qmatmul").moe_slot_launch(
             x.data_ptr(), idx.data_ptr(), stack.packed.data_ptr(),
             stack.scales.data_ptr(), _ptr(stack.mins), y.data_ptr(), s_slots,
-            e_num, stack.k, n, stack.group, fmt, _vec_ok(stack, n, y),
-            _stream(x))
+            e_num, stack.k, n, stack.group, fmt, out_bf16,
+            _vec_ok(stack, n, y), _stream(x))
         _raise_on(rc, "moe_slot")
         LAUNCHES["moe_slot"] += 1
         return y
     eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
-    out = _grouped_out(g_blocks, c_rows, n, x.device)
+    out = _grouped_out(g_blocks, c_rows, n, odt, x.device)
     rc = _lib("moe_qmatmul").moe_grouped_launch(
         x.data_ptr(), rows.data_ptr(), eg.data_ptr(), stack.packed.data_ptr(),
         stack.scales.data_ptr(), _ptr(stack.mins), out.data_ptr(), s_slots,
-        e_num, stack.k, n, c_rows, g_blocks, stack.group, fmt,
+        e_num, stack.k, n, c_rows, g_blocks, stack.group, fmt, out_bf16,
         _vec_ok(stack, n, out), _stream(x))
     _raise_on(rc, "moe_grouped")
     LAUNCHES["moe_grouped"] += 1
     return out[flat]
 
 
-def _grouped_out(g_blocks: int, c_rows: int, n: int,
+def _grouped_out(g_blocks: int, c_rows: int, n: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     """The grouped kernels' [G*C, N] blocked output (padding rows are left
     unwritten and never read back)."""
     if g_blocks * c_rows // 8 > 65535:
         raise ValueError(f"grouped MoE: {g_blocks} x {c_rows} rows exceed the "
                          "grid")
-    return torch.empty((g_blocks * c_rows, n), dtype=torch.float32,
-                       device=device)
+    return torch.empty((g_blocks * c_rows, n), dtype=dtype, device=device)
 
 
 def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
                     up_stack: QuantExpertStack, idx_flat: torch.Tensor,
-                    act: str) -> torch.Tensor | None:
+                    act: str, precision: str | None = None
+                    ) -> torch.Tensor | None:
     """act(x @ Wg[e]) * (x @ Wu[e]) for routed expert slots in one grouped
-    kernel, reading both stacks in one pass -> [S, F] float32. Returns None
+    kernel, reading both stacks in one pass -> [S, F] float32 (bfloat16 in
+    "default" precision). Returns None
     where the JAX entry does: an unknown act, stacks that do not match, or
     an S below the grouped rule (decode keeps the two slot-major calls);
     the caller then takes the two-call path."""
@@ -399,8 +444,10 @@ def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
     c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
     if not grouped:
         return None
+    odt = out_dtype(precision)
     if x_rows.device.type == "cpu":
-        return moe_qmatmul_glu_plain(x_rows, g_st, u_st, idx_flat, act)
+        return moe_qmatmul_glu_plain(x_rows, g_st, u_st, idx_flat, act,
+                                     precision)
     if x_rows.device.type != "cuda":
         raise RuntimeError(f"moe_qmatmul_glu: no kernel for device "
                            f"{x_rows.device}")
@@ -408,13 +455,14 @@ def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
     idx = idx_flat.to(torch.int32).contiguous()
     _check_moe(x, idx, (g_st, u_st))
     eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
-    out = _grouped_out(g_blocks, c_rows, f, x.device)
+    out = _grouped_out(g_blocks, c_rows, f, odt, x.device)
     rc = _lib("moe_qmatmul").moe_glu_grouped_launch(
         x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
         g_st.packed.data_ptr(), g_st.scales.data_ptr(), _ptr(g_st.mins),
         u_st.packed.data_ptr(), u_st.scales.data_ptr(), _ptr(u_st.mins),
         out.data_ptr(), s_slots, e_num, k, f, c_rows, g_blocks, g_st.group,
         0 if g_st.fmt == "q4" else 1, GLU_ACTS.index(act),
+        int(odt == torch.bfloat16),
         min(_vec_ok(g_st, f, out), _vec_ok(u_st, f, out)), _stream(x))
     _raise_on(rc, "moe_glu_grouped")
     LAUNCHES["moe_glu_grouped"] += 1

@@ -84,11 +84,16 @@ def build_all(names) -> None:
             fut.result()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+def load(name: str, signatures: dict[str, list] | None = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use.
+    ``signatures`` ({function: argtypes}) are bound when the library is first
+    loaded; every function returns an int (a cudaError_t)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in (signatures or {}).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
         return lib

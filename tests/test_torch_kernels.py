@@ -12,6 +12,7 @@ import torch
 
 from llama_gguf_tpu_torch.gguf.constants import GGMLType
 from llama_gguf_tpu_torch.ops import qmatmul as Q
+from llama_gguf_tpu_torch.ops import qmatmul_variants as V
 from llama_gguf_tpu_torch.ops.linear import QuantExpertStack, QuantLinear
 from llama_gguf_tpu_torch.quant.quantize import quantize
 from llama_gguf_tpu_torch.quant.repack import repack
@@ -46,6 +47,25 @@ def make_x(b, k, seed, dev):
 
 def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def within_bf16(got, want):
+    """bf16 outputs of the same f32 sums taken in another order: at most one
+    bf16 ulp apart, plus the f32 limit (REL_LIMIT * max |want|)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    limit = Q.bf16_ulp(w) + REL_LIMIT * w.abs().max()
+    return bool(((g - w).abs() <= limit).all())
+
+
+def to_bf16_panels(lin):
+    """The same weight with its scale and min panels rounded to bf16 (as
+    ModelLoader(scale_dtype="bfloat16") stores them)."""
+    return QuantLinear(lin.packed, lin.scales.to(torch.bfloat16),
+                       lin.mins.to(torch.bfloat16)
+                       if lin.mins is not None else None, None, lin.fmt,
+                       lin.group, lin.k, lin.n, lin.source_type,
+                       splits=lin.splits)
 
 
 @pytest.mark.cuda
@@ -178,10 +198,160 @@ def test_moe_group_plan_on_card_matches_cpu(cuda, s):
 
 @pytest.mark.cuda
 def test_kernel_refuses_bf16_scales(cuda):
+    """The MoE kernels are built for f32 panels only (the loader keeps expert
+    stacks in f32); a QuantLinear's panels must agree in type."""
+    stack = make_stack(GGMLType.Q4_K, 4, 128, 256, 3, cuda)
+    stack.scales = stack.scales.to(torch.bfloat16)
+    stack.mins = stack.mins.to(torch.bfloat16)
+    x, idx = make_x(2, 256, 3, cuda), make_idx(2, 4, 3, cuda)
+    with pytest.raises(ValueError, match="float32 scale panels only"):
+        Q.moe_qmatmul(x, stack, idx)
     lin = make_lin(GGMLType.Q4_K, 128, 256, 3, cuda)
     lin.scales = lin.scales.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="both be float32 or both"):
         Q.qmatmul(make_x(1, 256, 3, cuda), lin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 3, 8, 37])
+@pytest.mark.parametrize("t,n", [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 200),
+                                 (GGMLType.Q8_0, 131)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_kernel_panel_and_output_types(cuda, t, n, b, panels, precision):
+    """Every instantiated panel x output type of the q4/q8 kernels (ragged N:
+    byte loads and masked columns)."""
+    lin = make_lin(t, n, 512, 11, cuda)
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(b, 512, 11, cuda)
+    got = Q.qmatmul(x, lin, precision)
+    want = Q.qmatmul_plain(x, lin, precision)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n) and got.dtype == Q.out_dtype(precision)
+    if precision == "default":
+        assert within_bf16(got, want)
+    else:
+        assert rel_err(got, want) < REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("t,f", [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 96)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_glu_kernel_panel_and_output_types(cuda, t, f, panels, precision):
+    lin = make_lin(t, 2 * f, 512, 12, cuda, splits=(f, f))
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(5, 512, 12, cuda)
+    got = Q.qmatmul_glu(x, lin, "silu", precision)
+    want = Q.qmatmul_glu_plain(x, lin, "silu", precision)
+    torch.cuda.synchronize()
+    assert got.dtype == Q.out_dtype(precision)
+    if precision == "default":
+        assert within_bf16(got, want)
+    else:
+        assert rel_err(got, want) < REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 45])
+@pytest.mark.parametrize("t,n", MOE_FORMATS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_moe_kernels_default_precision(cuda, t, n, s):
+    """Kernels 4-6 with bf16 outputs: slot-major at 2 slots, grouped and
+    grouped GLU at 45."""
+    stack = make_stack(t, 4, n, 512, 13, cuda)
+    up = make_stack(t, 4, n, 512, 14, cuda)
+    x, idx = make_x(s, 512, 13, cuda), make_idx(s, 4, 13, cuda)
+    got = Q.moe_qmatmul(x, stack, idx, "default")
+    want = Q.moe_qmatmul_plain(x, stack, idx, "default")
+    assert got.shape == (s, n) and within_bf16(got, want)
+    glu = Q.moe_qmatmul_glu(x, stack, up, idx, "silu", "default")
+    if s >= Q.MOE_GROUPED_MIN_SLOTS:
+        want = Q.moe_qmatmul_glu_plain(x, stack, up, idx, "silu", "default")
+        assert within_bf16(glu, want)
+    else:
+        assert glu is None
+
+
+def make_probe_weight(fmt, k, n, seed, dev, mins=True):
+    """A QuantLinear with random packed bytes and bf16 panels, as the probe
+    draws them."""
+    rng = np.random.default_rng(seed)
+    if fmt == "q8":
+        packed = rng.integers(-127, 127, size=(k, n), dtype=np.int8)
+    else:
+        packed = rng.integers(0, 255, size=(k // 2, n), dtype=np.uint8)
+    s = (rng.normal(size=(k // 32, n)) * 0.01).astype(np.float32)
+    m = np.abs(rng.normal(size=(k // 32, n)) * 0.01).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    return QuantLinear(put(packed), put(s).to(torch.bfloat16),
+                       put(m).to(torch.bfloat16) if mins else None, None,
+                       fmt, 32, k, n, "probe")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 8])
+@pytest.mark.parametrize("n", [256, 200])
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+def test_variant_kernels_match_plain(cuda, fmt, n, b):
+    """Every variant kernel against its plain version: the integer variants
+    exactly, the float ones to f32 summation order."""
+    from llama_gguf_tpu_torch.scripts.bench_kernel_variants import (
+        quantize_rows, w4a8_panels)
+
+    k = 512
+    lin = make_probe_weight(fmt, k, n, 15, cuda)
+    x = make_x(b, k, 15, cuda)
+    xi = torch.from_numpy(np.random.default_rng(16).integers(
+        -127, 127, size=(b, k), dtype=np.int8)).to(cuda)
+    xg = V.group_sums(x, 32)
+    V.reset_launches()
+    cases = {  # name: (kernel, plain, exact)
+        "v5": (lambda: V.v5_minfold(x, xg, lin),
+               lambda: V.v5_minfold_plain(x, xg, lin), False),
+        "v6": (lambda: V.v6_bf16(x, xg, lin),
+               lambda: V.v6_bf16_plain(x, xg, lin), False),
+        "v7": (lambda: V.v7_int8(xi, lin),
+               lambda: V.v7_int8_plain(xi, lin), True),
+    }
+    if fmt == "q8":
+        cases["v2"] = (lambda: V.v2_noscale(x, lin),
+                       lambda: V.v2_noscale_plain(x, lin), False)
+    else:
+        s_col, u, m2 = w4a8_panels(lin)
+        _, xq, xg2 = quantize_rows(x)
+        cases["v8"] = (lambda: V.v8_w4a8(xq, xg2, lin, u, m2, s_col),
+                       lambda: V.v8_w4a8_plain(xq, xg2, lin, u, m2, s_col),
+                       False)
+        cases["v9"] = (lambda: V.v9_mulcost(xi, lin, u),
+                       lambda: V.v9_mulcost_plain(xi, lin, u), True)
+        cases["v10"] = (lambda: V.v10_4dot(xi, lin),
+                        lambda: V.v10_4dot_plain(xi, lin), True)
+    for name, (kern, plain, exact) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == (b, n) and got.dtype == torch.float32, name
+        if exact:
+            assert torch.equal(got, want), name
+        else:
+            assert rel_err(got, want) < REL_LIMIT, name
+    launched = {"q4": {"variant_f32": 1, "variant_bf16": 1,
+                       "variant_int8": 3, "variant_w4a8": 1},
+                "q8": {"variant_f32": 2, "variant_bf16": 1,
+                       "variant_int8": 1, "variant_w4a8": 0}}[fmt]
+    assert V.LAUNCHES == launched
+
+
+@pytest.mark.cuda
+def test_variant_v5_without_mins(cuda):
+    lin = make_probe_weight("q4", 512, 256, 17, cuda, mins=False)
+    x = make_x(8, 512, 17, cuda)
+    assert rel_err(V.v5_minfold(x, None, lin),
+                   V.v5_minfold_plain(x, None, lin)) < REL_LIMIT
 
 
 @pytest.mark.cuda
