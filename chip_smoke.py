@@ -7,17 +7,19 @@ Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
-   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qmatmul.cu, moe_qmatmul.cu,
-   qmatmul_variants.cu) with nvcc (sm_90a), one nvcc process per source, all
-   at once. A child process builds phase 6's GGUF meanwhile.
+   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu, qmatmul.cu,
+   moe_qmatmul.cu, qmatmul_variants.cu) with nvcc (sm_90a), one nvcc process
+   per source, all at once. A child process builds phase 6's GGUF meanwhile.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
    Engine.load on CUDA in "quant" mode (kernels) and in "dequant" mode
    (dense f32 torch.matmul).
 3. Dense kernels: each of the q4, q8 and GLU kernels' wrappers on the card,
-   on the loaded model's own weights (the main path's shapes) at 1, 8 and 512
-   rows, against its plain PyTorch version (limit: max |y - y_plain| <= 2e-4
+   on the loaded model's own weights (the main path's shapes) at 1, 8, 128
+   (the prompt's bucket) and 512 rows, the q4 and q8 kernels on the path
+   ops/qmatmul.qmatmul_plan picks (split-K or tensor cores), against its
+   plain PyTorch version (limit: max |y - y_plain| <= 2e-4
    * max |y_plain|; f32 with another order of summation); and again with the
    same weights' panels rounded to bf16, in "default" precision (bf16
    outputs; limit: |y - y_plain| <= one bf16 ulp of |y_plain| + 2e-4 * max
@@ -25,8 +27,12 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    once). Times, L2 flushed before every launch: the kernel, its plain
    version, and torch.matmul on the pre-dequantized f32 weight (a yardstick
    the port never calls); plus the least time the card could take for the
-   same work (bytes over the memory rate, f32 operations over the CUDA-core
-   peak).
+   same work: bytes over the memory rate, or the operations over the peak of
+   the units that run them (bf16 passes on the tensor cores for the
+   tensor-core path, three for f32 outputs and two for bf16 ones; f32 on
+   the CUDA cores otherwise; the f32 bound is kept
+   beside it for every q4/q8 case). The timer flushes L2 by a read and
+   sleeps on the device before its first event (utils/timing.py).
 4. Dense main path: launch counters set to 0, then Engine.generate (about
    100 prompt tokens, 32 new tokens, greedy); each kernel must have launched
    exactly its per-step count (q4 44, GLU 22, q8 23) times the steps run.
@@ -34,7 +40,7 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    logits must agree within 1e-3.
 5. Where the dense decode step's time goes: torch.profiler over 16 decode
    steps (wall and device time per step, the device's idle share, device
-   time by kernel).
+   time by kernel: kernels 1-2 by format and path apart from the GLU).
 6. Sparse MoE: builds Mixtral-8x7B at full width cut to 2 of 32 layers
    ("mixtral-8x7b-l2": hidden 4096, 32/8 heads, 8 experts of ffn 14336,
    top-2; Q4_K attention and gate/up experts, Q6_K down experts, embedding
@@ -103,7 +109,7 @@ MOE_PER_LAYER = {
 MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
                  num_experts=8, num_experts_per_token=2)
 REL_LIMIT = 2e-4
-ROWS = (1, 8, 512)
+ROWS = (1, 8, 128, 512)  # 128: the main path's own prefill bucket
 MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 # Phase 7's logit tolerance, relative to max |oracle logits|. The serving
 # configuration rounds to bf16 (relative error <= 2^-9 each) every kernel
@@ -117,11 +123,11 @@ VARIANTS_SOURCE = "llama_gguf_tpu_torch/csrc/qmatmul_variants.cu"
 VARIANTS_HELPER = "scripts/bench_kernel_variants.py:124-131 (the pallas() helper"
 KERNELS = {
     "qmatmul_q4": dict(
-        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:309 (_qmatmul_call with "
                  "_q4_kernel:138)"),
     "qmatmul_q8": dict(
-        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:309 (_qmatmul_call with "
                  "_q8_kernel:164)"),
     "qmatmul_glu": dict(
@@ -167,7 +173,17 @@ def check(cond: bool, msg: str) -> None:
 
 
 def kernel_key(name: str) -> str:
-    for k in ("qmatmul_kernel", "moe_slot_kernel", "moe_grouped_kernel"):
+    """A profiler kernel name -> its kernel and path: kernels 1-2 by format
+    and path (the first template argument of qgemm_tc / qgemm_splitk is the
+    format, 0 = q4), the GLU kernel (qmatmul_kernel, csrc/qmatmul.cu) and
+    the MoE kernels by name."""
+    for kern, path in (("qgemm_tc<", "tensor cores"), ("qgemm_splitk<", "split-K")):
+        if kern in name:
+            fmt = name.split(kern, 1)[1].split(",", 1)[0].strip()
+            return f"{'qmatmul_q4' if fmt == '0' else 'qmatmul_q8'} {path}"
+    if "qmatmul_kernel" in name:
+        return "qmatmul_glu"
+    for k in ("moe_slot_kernel", "moe_grouped_kernel"):
         if k in name:
             return k
     return name[:60]
@@ -206,7 +222,9 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
         key = kernel_key(e.key)
         by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3 / steps
     device_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:10]
+    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:12]
+    k12 = sum(v for key, v in by_kernel.items()
+              if key.startswith(("qmatmul_q4", "qmatmul_q8")))
     return dict(
         steps=steps, wall_ms_per_step=wall_ms / steps,
         device_ms_per_step=device_ms if device_ms > 0 else "not measured",
@@ -215,6 +233,7 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
         kernels_launched_per_step=sum(
             e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA) / steps,
+        kernels_1_2_ms_per_step=k12,
         device_ms_per_step_by_kernel=dict(top))
 
 
@@ -330,7 +349,8 @@ def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
              bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops)
     lib = (f"{m['library_ms']:.4f}" if m["library_ms"] is not None
            else "null")
-    log(f"{name:15s} {case:44s} rel_err={rel_err:.2e} ms={m['ms']:.4f} "
+    log(f"{name:15s} {case:44s} {extra.get('kernel_path', ''):12s} "
+        f"rel_err={rel_err:.2e} ms={m['ms']:.4f} "
         f"bound_ms={bound:.4f} plain_ms={m['plain_ms']:.4f} "
         f"library_ms={lib}")
     return m
@@ -356,8 +376,10 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_weight
+    from llama_gguf_tpu_torch.utils.timing import bound_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     measurements = []
     modes = [("highest", False)] + ([("default", True)] if serving else [])
     for name, proj, lin32 in projections:
@@ -375,6 +397,16 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
             label = " bf16 panels, default" if bf16 else ""
             for rows in rows_list:
                 x = torch.randn(rows, lin.k, device="cuda", generator=gen)
+                nbytes = w_bytes + rows * (4 * lin.k + y_bytes * n_out)
+                ops = 2 * rows * lin.k * lin.n
+                # kernels 1-2: the plan's path; its bound (tensor cores:
+                # three bf16 passes, two for bf16 outputs) beside the f32
+                # CUDA-core bound
+                plan = (None if glu else Q.qmatmul_plan(
+                    rows, lin.k, lin.n, lin.group, lin.fmt, sms))
+                kpath = dict(kernel_path=plan.path if plan else "cuda cores",
+                             splits=plan.splits if plan else 1,
+                             bound_f32_ms=bound_ms(nbytes, ops, "f32", peaks)[0])
                 if glu:
                     def kern(): return Q.qmatmul_glu(x, lin, "silu", precision)
                     def plain(): return Q.qmatmul_glu_plain(x, lin, "silu",
@@ -385,12 +417,12 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
                 measurements.append(compare(
                     name, f"{path} {proj}{label} rows={rows}", kern(),
                     plain(), timer, kern, plain,
-                    lambda: torch.matmul(x, w_deq),
-                    w_bytes + rows * (4 * lin.k + y_bytes * n_out),
-                    2 * rows * lin.k * lin.n, peaks, path=path,
+                    lambda: torch.matmul(x, w_deq), nbytes, ops, peaks,
+                    op_type=plan.op_type(precision) if plan else "f32",
+                    path=path,
                     projection=proj, rows=rows, k=lin.k, n=lin.n,
                     precision=precision,
-                    panels="bf16" if bf16 else "f32"))
+                    panels="bf16" if bf16 else "f32", **kpath))
             del w_deq
     return measurements
 
@@ -741,6 +773,7 @@ def variant_path(card: str, timer, peaks: dict):
     plain version with times. Returns (measurements, launches)."""
     import numpy as np
     import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops import qmatmul_variants as V
     from llama_gguf_tpu_torch.scripts import bench_kernel_variants as P
 
@@ -756,11 +789,14 @@ def variant_path(card: str, timer, peaks: dict):
         for k, n in P.SHAPES:
             variants = P.build_variants(P.make_inputs(fmt, k, n, rng, "cuda"))
             for tag, v in variants.items():
+                kpath = (Q.qmatmul_plan(P.B, k, n, P.GROUP, fmt).path
+                         if v.kernel.startswith("qmatmul") else "cuda cores")
                 measurements.append(compare(
                     v.kernel, f"{tag} {fmt} {k}x{n}", v.call(), v.plain(),
                     timer, v.call, v.plain, v.library, v.nbytes, v.ops, peaks,
                     op_type=v.op_type, exact=v.exact, path="probe",
-                    variant=tag, fmt=fmt, rows=P.B, k=k, n=n))
+                    variant=tag, fmt=fmt, rows=P.B, k=k, n=n,
+                    kernel_path=kpath))
             del variants
             torch.cuda.empty_cache()
     return measurements, launches
@@ -799,7 +835,8 @@ def run(moe_gguf) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cuda_build.build_all(["qmatmul", "moe_qmatmul", "qmatmul_variants"])
+    cuda_build.build_all(["qgemm", "qmatmul", "moe_qmatmul",
+                          "qmatmul_variants"])
     log(f"kernels built in {time.perf_counter() - t0:.1f}s "
         f"(nvcc: {cuda_build.BUILD_SECONDS})")
     timer = Timer()
@@ -834,11 +871,16 @@ def run(moe_gguf) -> int:
             ("Mixtral-8x7B-l2", moe_launches),
             ("probe", probe_launches)) if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
+        kpaths: dict[str, int] = {}  # the kernel's own paths, by case count
+        for m in mine:
+            kp = m.get("kernel_path", "cuda cores")
+            kpaths[kp] = kpaths.get(kp, 0) + 1
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path,
-            path=head["path"],
+            path=head["path"], kernel_paths=kpaths,
+            kernel_path=head.get("kernel_path", "cuda cores"),
             max_abs_err=max(m["max_abs_err"] for m in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -1,0 +1,604 @@
+// Dequant-matmul kernels 1 and 2 for Hopper (sm_90a): y = x @ W, W quantized
+// (q4 or q8), x float32 [B, K], y float32 or bfloat16 [B, N].
+//
+// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py
+// _qmatmul_call (pallas_call :309) with _q4_kernel (:138, "qmatmul_q4")
+// and with _q8_kernel (:164, "qmatmul_q8"). Both compute
+//     y = sum_g s[g] * (x_g @ q_g) - xs[g]^T m[g]    (f32 sums)
+// with xs[g] the group sums of x (the min term factored as in _min_dot),
+// rounded once to the output type at the store (_out_dtype). Layouts: see
+// csrc/qdot.cuh (q4 group-split nibbles [K/2, N], q8 [K, N], panels
+// [K/group, N] float32 or bfloat16). ops/qmatmul.qmatmul_plan picks the
+// path, the tile and the split of K; one launch per call either way.
+//
+// Tensor-core path ("tc", from ops/qmatmul.TC_MIN_ROWS = 5 rows on). Bound:
+// the operations, max(bytes / 3.35 TB/s, P * 2*B*K*N / 989 TFLOP/s), since
+// P = 3 bf16 products are the least an f32-accurate product costs on the
+// tensor cores (P = 2 for a bf16 output, see below). Design: a block of 4
+// warps owns BM = 16, 32 or 64 rows x 128
+// columns and walks its K slice 32 elements (one or two scale groups) per
+// stage through a ring of cp.async stages (x rows in f32, the packed bytes,
+// the scale and min rows), with one barrier per stage: while the warps run
+// stage i's products they already split stage i + 1's x. The block splits x
+// once into three bf16 parts hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+// hi - mid), which add back to x exactly (one paired conversion rounds two
+// values); q (0..15, or int8) is exact in bf16, so the products hi*q + mid*q
+// + lo*q (mma.sync m16n8k16, f32 accumulate) are x*q as f32 computes it.
+// "default" (bf16 outputs) drops lo: two passes, x kept to 16 bits, far
+// inside one bf16 ulp. Each warp converts its 32 columns' bytes straight
+// from shared memory into B fragments (nibbles or int8 -> bf16 in
+// registers; the columns of a warp are permuted so that one 32-bit word
+// gives a thread its column in each of the four n8 tiles) and folds each
+// group's product into f32: acc += s * C_g - m * xs_g. For Q4_K the low
+// nibbles of a group's 16 packed rows are one k16 step against x[k0 ..
+// k0+15], the high nibbles the next against x[k0+16 .. k0+31]. Within a k16
+// step the fragment's k order is permuted (physical k = t + 4i for fragment
+// rows 2t, 2t+1, 2t+8, 2t+9), the same for x and W, so every shared-memory
+// read is conflict-free.
+//
+// Split-K path ("splitk", 1 to 4 rows: decode). Bound: the weight bytes,
+// read once from HBM. A grid over columns alone leaves most of the 132 SMs
+// idle at one row (16 blocks of 128 columns for a 2048-column weight), so K
+// is cut into `splits` slices of whole scale groups and each block of 64
+// threads owns 128 columns x one row x one slice. Eight threads side by
+// side read 128 contiguous bytes of a packed row, each 16 columns; each
+// keeps 16 rows' 16-byte loads in flight before it uses the first, turns
+// bytes into floats with a byte permute and a subtraction (no integer
+// conversion), and folds s and m per chunk of 16 packed rows (linear, so
+// any cut of a group is exact). What bounds it at TinyLlama's 2048-wide q4
+// weights is latency, not bytes: by profiler device time
+// (scripts/bench_qmatmul.py attribute, H100 80GB HBM3, 700 W) an empty
+// kernel takes 2.0 us, a launch whose threads each load one chunk 7.0 us,
+// and the split sum adds 1.9 us, against 9.5 us for the whole qkv product
+// (3.9 MB with its panels; bytes bound 1.2 us), so no split of K brings it
+// much below the 9.0 us of the earlier unsplit 32-column kernel. The split
+// pays off with depth: ffn_down (K = 5632) takes 13.8 us, against 109 us
+// unsplit and 49.5 us for the earlier kernel.
+//
+// Threshold and splits: scripts/bench_qmatmul.py `paths` on an H100 80GB
+// HBM3 (700 W) timed both paths at 1-16, 32, 64, 128 and 512 rows at
+// TinyLlama-1.1B's, Mixtral-8x7B's and the probe's shapes: from 5 rows the
+// tensor cores were at least as fast as split-K at 7 of the 9 shapes (the
+// two 2048-column q4 weights cross at 7-9 rows, where both take under 25
+// us), and its sweeps of the split count set the slice rules of
+// qmatmul_plan.
+//
+// Both paths sum the partials of the K slices in a fixed order inside the
+// launch (qgemm::split_sum): each block of an output tile writes its partial
+// tile to a workspace the wrapper keeps per device, and the last of the
+// tile's blocks to arrive (a per-tile counter, reset by that block) adds
+// the partials in slice order, so two calls give the same bits. A thread
+// block cluster summing through distributed shared memory would need no
+// workspace, but on the H100 its launches ran slower back to back than the
+// kernels themselves.
+
+#include "qgemm.cuh"
+
+#include <type_traits>
+
+namespace {
+
+using namespace qgemm;
+
+// ---- split-K CUDA-core path ------------------------------------------------
+
+constexpr int SK_TX = 8;    // threads along N (16 columns each: 128 bytes of a row)
+constexpr int SK_TY = 8;    // threads along K
+constexpr int SK_CT = 16 * SK_TX;  // columns per block
+constexpr int SK_THREADS = SK_TX * SK_TY;
+
+template <bool VEC>
+__device__ __forceinline__ uint4 load16(const uint8_t* p, int nvalid) {
+    if (VEC) return __ldg(reinterpret_cast<const uint4*>(p));
+    uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+        if (c < nvalid) w[c / 4] |= uint32_t(__ldg(p + c)) << (8 * (c % 4));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_panel16(const float* p, int nvalid, float (&out)[16]) {
+    if (VEC) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+            out[4 * i] = v.x; out[4 * i + 1] = v.y; out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
+        }
+        return;
+    }
+#pragma unroll
+    for (int c = 0; c < 16; ++c) out[c] = c < nvalid ? __ldg(p + c) : 0.0f;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_panel16(const bf16* p, int nvalid, float (&out)[16]) {
+    if (VEC) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+                const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[h]);
+                out[8 * i + 2 * h] = __low2float(b);
+                out[8 * i + 2 * h + 1] = __high2float(b);
+            }
+        }
+        return;
+    }
+#pragma unroll
+    for (int c = 0; c < 16; ++c) out[c] = c < nvalid ? __bfloat162float(__ldg(p + c)) : 0.0f;
+}
+
+// Byte c of w as a float, exactly: the byte becomes the low byte of the
+// float 2^23 + byte (one byte permute), from which `bias` (2^23, or 2^23 +
+// 128 for a signed byte whose sign bit the caller flipped) is subtracted.
+// Two full-rate instructions where an integer-to-float conversion runs at a
+// quarter of the rate.
+__device__ __forceinline__ float byte_f32(uint32_t w, int c, float bias) {
+    return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | uint32_t(c))) - bias;
+}
+
+// Grid: (splits, B, ceil(N/128)): one row per block; ws/counters: see
+// split_sum.
+template <int FMT, bool VEC, class SP, class OT>
+__global__ void __launch_bounds__(SK_THREADS, 8)
+qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+             const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
+             float* __restrict__ ws, int* __restrict__ counters,
+             int B, int K, int N, int group, int splits) {
+    const int tid = threadIdx.x, tx = tid % SK_TX, ty = tid / SK_TX;
+    const int col = blockIdx.z * SK_CT + tx * 16;
+    const int nvalid = N - col;
+    const int row = blockIdx.y;
+    const float* xr = x + size_t(row) * K;
+
+    constexpr int SK_JC = 16;  // packed rows per chunk: 16-byte loads in flight
+    const int rows_g = FMT == FMT_Q4 ? group / 2 : group;  // packed rows per group
+    const int cpg = rows_g / SK_JC;                          // chunks per group
+    const int ngroups = K / group;
+    const int gb = int((long long)blockIdx.x * ngroups / splits);
+    const int ge = int((long long)(blockIdx.x + 1) * ngroups / splits);
+    const bool has_mins = mins != nullptr;
+
+    float acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] = 0.0f;
+
+    if (nvalid > 0) {
+        for (int ch = gb * cpg + ty; ch < ge * cpg; ch += SK_TY) {
+            const int g = ch / cpg, j0 = (ch % cpg) * SK_JC;
+            const uint8_t* prow = packed + (size_t(g) * rows_g + j0) * N + col;
+            uint4 wv[SK_JC];
+#pragma unroll
+            for (int j = 0; j < SK_JC; ++j) wv[j] = load16<VEC>(prow + size_t(j) * N, nvalid);
+            float qd[16], xs = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 16; ++c) qd[c] = 0.0f;
+            const int k0 = g * group + j0;
+#pragma unroll
+            for (int j = 0; j < SK_JC; ++j) {
+                const uint32_t wd[4] = {wv[j].x, wv[j].y, wv[j].z, wv[j].w};
+                const float xlo = __ldg(xr + k0 + j);
+                const float xhi = FMT == FMT_Q4 ? __ldg(xr + k0 + j + group / 2) : 0.0f;
+                xs += xlo + xhi;
+#pragma unroll
+                for (int w4 = 0; w4 < 4; ++w4) {
+                    if (FMT == FMT_Q4) {
+                        const uint32_t lo = wd[w4] & 0x0F0F0F0Fu, hi = (wd[w4] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+                        for (int c = 0; c < 4; ++c) {
+                            const float ql = byte_f32(lo, c, 8388608.0f);
+                            const float qh = byte_f32(hi, c, 8388608.0f);
+                            qd[4 * w4 + c] = fmaf(xhi, qh, fmaf(xlo, ql, qd[4 * w4 + c]));
+                        }
+                    } else {
+                        const uint32_t u = wd[w4] ^ 0x80808080u;  // int8 -> q + 128
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            qd[4 * w4 + c] = fmaf(xlo, byte_f32(u, c, 8388736.0f), qd[4 * w4 + c]);
+                    }
+                }
+            }
+            float sc[16];
+            load_panel16<VEC>(scales + size_t(g) * N + col, nvalid, sc);
+#pragma unroll
+            for (int c = 0; c < 16; ++c) acc[c] = fmaf(sc[c], qd[c], acc[c]);
+            if (has_mins) {
+                float mn[16];
+                load_panel16<VEC>(mins + size_t(g) * N + col, nvalid, mn);
+#pragma unroll
+                for (int c = 0; c < 16; ++c) acc[c] = fmaf(-mn[c], xs, acc[c]);
+            }
+        }
+    }
+
+    // the SK_TY partials of each column, summed in a fixed order
+    __shared__ float red[SK_TY][SK_CT];
+    __shared__ __align__(16) float part[SK_CT];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) red[ty][tx * 16 + c] = acc[c];
+    __syncthreads();
+    for (int e = tid; e < SK_CT; e += SK_THREADS) {
+        float t = 0.0f;
+#pragma unroll
+        for (int k = 0; k < SK_TY; ++k) t += red[k][e];
+        part[e] = t;
+    }
+    __syncthreads();
+    split_sum(part, SK_CT, ws, counters, splits, [&](int e, float v) {
+        const int c = blockIdx.z * SK_CT + e;
+        if (c < N) store_out(y + size_t(row) * N + c, v);
+    });
+}
+
+// ---- tensor-core path ------------------------------------------------------
+
+constexpr int TC_THREADS = 128;         // 4 warps side by side along N
+constexpr int TC_BN = 128;
+constexpr int TC_KS = 32;               // K elements per stage: 1 or 2 scale groups
+constexpr int TC_XSTRIDE = TC_KS + 8;   // floats per staged x row (conflict-free reads)
+constexpr int TC_WSTRIDE = TC_BN + 32;  // bytes per staged packed row (conflict-free reads)
+
+template <int FMT, int MT, class SP, class OT>
+struct Tc {
+    static constexpr int BM = 16 * MT;
+    static constexpr int WROWS = FMT == FMT_Q4 ? TC_KS / 2 : TC_KS;  // packed rows per stage
+    static constexpr int X_BYTES = BM * TC_XSTRIDE * 4;
+    static constexpr int W_BYTES = WROWS * TC_WSTRIDE;
+    static constexpr int P_BYTES = TC_BN * int(sizeof(SP));  // one panel row
+    static constexpr int STAGE = X_BYTES + W_BYTES + 4 * P_BYTES;  // scales, mins: <= 2 rows each
+    static constexpr int NSTAGE = MT == 1 ? 6 : MT == 2 ? 5 : 4;
+    static constexpr int RING = NSTAGE * STAGE > BM * TC_BN * 4 ? NSTAGE * STAGE : BM * TC_BN * 4;
+    static constexpr int PASSES = std::is_same<OT, bf16>::value ? 2 : 3;
+    static constexpr int PARTS = PASSES * 2 * BM * 16;  // bf16 [pass][kstep][BM][16], per buffer
+    static constexpr int SMEM = RING + 2 * PARTS * 2 + 2 * 2 * BM * 4;
+};
+
+// Grid: (splits, ceil(B/BM), ceil(N/128)); ws/counters: see split_sum;
+// dynamic shared memory Tc::SMEM. q4: group 32; q8: group 16 or 32; K %
+// 32 == 0, N % 16 == 0 and 16-byte aligned tensors (the plan sees to them).
+template <int FMT, int MT, class SP, class OT>
+__global__ void __launch_bounds__(TC_THREADS)
+qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+         const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
+         float* __restrict__ ws, int* __restrict__ counters,
+         int B, int K, int N, int group, int splits) {
+    using C = Tc<FMT, MT, SP, OT>;
+    constexpr int BM = C::BM;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* parts_buf = reinterpret_cast<bf16*>(smem + C::RING);            // [2][PARTS]
+    float* xsum_buf = reinterpret_cast<float*>(smem + C::RING + 4 * C::PARTS);  // [2][2][BM]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const int row0 = blockIdx.y * BM, col0 = blockIdx.z * TC_BN;
+    const int nst = K / TC_KS;
+    const int sb = int((long long)blockIdx.x * nst / splits);
+    const int n_it = int((long long)(blockIdx.x + 1) * nst / splits) - sb;
+    const int gps = TC_KS / group;  // scale groups per stage: 1 or 2
+    const bool has_mins = mins != nullptr;
+
+    // This thread's cp.async chunks, fixed for the whole loop: MT chunks of
+    // x (16 bytes each), WROWS / 16 of the packed bytes, <= 1 of the panels.
+    // Global offsets are those of stage 0 of the slice; stage s adds s times
+    // the stage stride.
+    size_t x_src[MT];
+    int x_dst[MT];
+    bool x_ok[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+        const int c = tid + TC_THREADS * i, r = c / 8, q = c % 8, row = row0 + r;
+        x_ok[i] = row < B;
+        x_src[i] = size_t(x_ok[i] ? row : 0) * K + size_t(sb) * TC_KS + 4 * q;
+        x_dst[i] = r * TC_XSTRIDE * 4 + 16 * q;
+    }
+    constexpr int WCH = C::WROWS / 16;
+    size_t w_src[WCH];
+    int w_dst[WCH];
+    bool w_ok;
+    {
+        const int q = tid % 8, col = col0 + 16 * q;
+        w_ok = col < N;
+#pragma unroll
+        for (int i = 0; i < WCH; ++i) {
+            const int r = tid / 8 + 16 * i;
+            w_src[i] = (size_t(sb) * C::WROWS + r) * N + (w_ok ? col : 0);
+            w_dst[i] = C::X_BYTES + r * TC_WSTRIDE + 16 * q;
+        }
+    }
+    constexpr int PE = 16 / int(sizeof(SP));  // panel values per chunk
+    constexpr int PC = TC_BN / PE;            // chunks per panel row
+    const int p_which = tid / PC;             // 0, 1: scale rows; 2, 3: min rows
+    const int p_col = col0 + PE * (tid % PC);
+    const bool p_ok = p_which < 2 * (has_mins ? 2 : 1) && (p_which & 1) < gps && tid < 4 * PC;
+    const SP* p_base = (p_which < 2 ? scales : mins);
+    const size_t p_src = (size_t(sb) * gps + (p_which & 1)) * N + (p_col < N ? p_col : 0);
+    const int p_dst = C::X_BYTES + C::W_BYTES + p_which * C::P_BYTES + 16 * (tid % PC);
+
+    auto load_stage = [&](int it) {
+        unsigned char* st = smem + (it % C::NSTAGE) * C::STAGE;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+            cp_async16(st + x_dst[i], x + x_src[i] + size_t(it) * TC_KS, x_ok[i]);
+#pragma unroll
+        for (int i = 0; i < WCH; ++i)
+            cp_async16(st + w_dst[i], packed + w_src[i] + size_t(it) * C::WROWS * N, w_ok);
+        if (p_ok)
+            cp_async16(st + p_dst, p_base + p_src + size_t(it) * gps * N, p_col < N);
+    };
+
+    // x of one stage -> parts[pass][kstep][row][pos] and the group sums
+    // xsum[group][row]. pos permutes a k16 step's 16 offsets p so that a
+    // thread's fragment values (p = t, t+4, t+8, t+12) lie side by side:
+    // pos = 4 (p % 4) + p / 4; so p and p + 4 (p % 8 < 4) share one 32-bit
+    // word, and each conversion rounds such a pair at once.
+    auto split_x = [&](int it) {
+        const float* xs = reinterpret_cast<const float*>(smem + (it % C::NSTAGE) * C::STAGE);
+        uint32_t* parts = reinterpret_cast<uint32_t*>(parts_buf + (it & 1) * C::PARTS);
+        float* xsum = xsum_buf + (it & 1) * 2 * BM;
+        constexpr int TPR = TC_THREADS / BM;  // threads per row
+        const int r = tid / TPR, sub = tid % TPR;
+        float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int pi = sub; pi < TC_KS / 8; pi += TPR) {  // p = 8 pi + i and 8 pi + i + 4
+            const float4 va = *reinterpret_cast<const float4*>(xs + r * TC_XSTRIDE + 8 * pi);
+            const float4 vb = *reinterpret_cast<const float4*>(xs + r * TC_XSTRIDE + 8 * pi + 4);
+            const float ea[4] = {va.x, va.y, va.z, va.w}, eb[4] = {vb.x, vb.y, vb.z, vb.w};
+            const int ks = pi >> 1;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int at = ((ks * BM + r) * 16 + 4 * i + 2 * (pi & 1)) / 2;  // in words
+                const __nv_bfloat162 hi = __floats2bfloat162_rn(ea[i], eb[i]);
+                const float ra = ea[i] - __low2float(hi), rb = eb[i] - __high2float(hi);
+                const __nv_bfloat162 mid = __floats2bfloat162_rn(ra, rb);
+                parts[at] = *reinterpret_cast<const uint32_t*>(&hi);
+                parts[BM * 16 + at] = *reinterpret_cast<const uint32_t*>(&mid);
+                if (C::PASSES == 3) {
+                    const __nv_bfloat162 lo = __floats2bfloat162_rn(ra - __low2float(mid),
+                                                                    rb - __high2float(mid));
+                    parts[2 * BM * 16 + at] = *reinterpret_cast<const uint32_t*>(&lo);
+                }
+                sum[ks] += ea[i] + eb[i];
+            }
+        }
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) {
+            sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], o);
+            sum[1] += __shfl_xor_sync(0xffffffffu, sum[1], o);
+        }
+        if (sub == 0) {
+            if (gps == 2) {
+                xsum[r] = sum[0];
+                xsum[BM + r] = sum[1];
+            } else {
+                xsum[r] = sum[0] + sum[1];
+            }
+        }
+    };
+
+    float acc[MT][4][4], cg_[MT][4][4];  // the sum; one group's product
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < C::NSTAGE - 1; ++s) {
+        if (s < n_it) load_stage(s);
+        cp_async_commit();
+    }
+    cp_async_wait<C::NSTAGE - 2>();
+    __syncthreads();
+    if (n_it > 0) split_x(0);
+
+    const int wc = warp * 32;  // the warp's first column in the tile
+    for (int it = 0; it < n_it; ++it) {
+        // stage it + 1 landed; parts[it & 1] complete; every warp is done
+        // with it - 1, so its ring slot and parts buffer are free
+        cp_async_wait<C::NSTAGE - 3>();
+        __syncthreads();
+        if (it + C::NSTAGE - 1 < n_it) load_stage(it + C::NSTAGE - 1);
+        cp_async_commit();
+        if (it + 1 < n_it) split_x(it + 1);
+
+        const unsigned char* ws_ = smem + (it % C::NSTAGE) * C::STAGE + C::X_BYTES;
+        const SP* ss = reinterpret_cast<const SP*>(ws_ + C::W_BYTES);
+        const SP* ms = ss + 2 * TC_BN;
+        const bf16* parts = parts_buf + (it & 1) * C::PARTS;
+        const float* xsum = xsum_buf + (it & 1) * 2 * BM;
+
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+            // B fragments of the four n8 tiles: tile j, fragment column g8
+            // is the warp's column 4 g8 + j; rows t4 + 4i of the step (q4:
+            // low nibbles for step 0, high nibbles for step 1).
+            const int wrow = FMT == FMT_Q4 ? 0 : 16 * ks;
+            uint32_t w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                w[i] = *reinterpret_cast<const uint32_t*>(ws_ + (wrow + t4 + 4 * i) * TC_WSTRIDE + wc + 4 * g8);
+            uint32_t b[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (FMT == FMT_Q4) {
+                    const uint32_t sel = uint32_t(j) | uint32_t(j) << 4 | uint32_t(4 + j) << 8 | uint32_t(4 + j) << 12;
+                    b[j][0] = nibbles_bf16x2(__byte_perm(w[0], w[1], sel) >> (4 * ks));
+                    b[j][1] = nibbles_bf16x2(__byte_perm(w[2], w[3], sel) >> (4 * ks));
+                } else {
+                    b[j][0] = int8_pair_bf16x2(w[0], w[1], j);
+                    b[j][1] = int8_pair_bf16x2(w[2], w[3], j);
+                }
+            }
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+#pragma unroll
+                for (int pass = C::PASSES - 1; pass >= 0; --pass) {  // smallest part first
+                    const bf16* pa = parts + ((pass * 2 + ks) * BM + 16 * m + g8) * 16 + 4 * t4;
+                    const uint2 r0 = *reinterpret_cast<const uint2*>(pa);           // row g8
+                    const uint2 r8 = *reinterpret_cast<const uint2*>(pa + 8 * 16);  // row g8 + 8
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        if (pass == C::PASSES - 1 && (gps == 2 || ks == 0))  // a group's first product
+                            mma_bf16_first(cg_[m][j], r0.x, r8.x, r0.y, r8.y, b[j][0], b[j][1]);
+                        else
+                            mma_bf16(cg_[m][j], r0.x, r8.x, r0.y, r8.y, b[j][0], b[j][1]);
+                    }
+                }
+            }
+            // a group ends: acc += s * C_g - m * xs_g; this thread's
+            // columns are wc + 8 t4 + q
+            if (gps == 2 || ks == 1) {
+                const int gi = gps == 2 ? ks : 0;
+                float sc[8];
+                load8(ss + gi * TC_BN + wc + 8 * t4, sc);
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            acc[m][j][e] = fmaf(sc[j + 4 * (e & 1)], cg_[m][j][e], acc[m][j][e]);
+                if (has_mins) {
+                    float mn[8];
+                    load8(ms + gi * TC_BN + wc + 8 * t4, mn);
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) {
+                        const float x0 = xsum[gi * BM + 16 * m + g8];
+                        const float x1 = xsum[gi * BM + 16 * m + g8 + 8];
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e)
+                                acc[m][j][e] = fmaf(-mn[j + 4 * (e & 1)], e < 2 ? x0 : x1, acc[m][j][e]);
+                    }
+                }
+            }
+        }
+    }
+
+    // the block's partial tile -> shared memory -> the fixed-order sum
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = reinterpret_cast<float*>(smem);  // [BM][TC_BN], over the ring
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                part[(16 * m + g8 + 8 * (e >> 1)) * TC_BN + wc + 8 * t4 + j + 4 * (e & 1)] = acc[m][j][e];
+    __syncthreads();
+    split_sum(part, BM * TC_BN, ws, counters, splits, [&](int e, float v) {
+        const int row = row0 + e / TC_BN, col = col0 + e % TC_BN;
+        if (row < B && col < N) store_out(y + size_t(row) * N + col, v);
+    });
+}
+
+// ---- launches --------------------------------------------------------------
+
+// Raise a kernel's dynamic shared memory limit once per device (the call
+// costs host time on every launch otherwise). Devices 0..63.
+template <auto Kern>
+cudaError_t allow_smem(int smem) {
+    static unsigned long long done = 0;  // one bit per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess || smem <= 48 * 1024 || (done >> dev & 1ull)) return e;
+    e = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) done |= 1ull << dev;
+    return e;
+}
+
+template <class... KArgs, class... Args>
+int launch(void (*kern)(KArgs...), dim3 grid, int threads, int smem, cudaStream_t stream,
+           Args... args) {
+    kern<<<grid, threads, smem, stream>>>(args...);
+    return int(cudaGetLastError());
+}
+
+struct Call {
+    const float* x;
+    const uint8_t* packed;
+    const void* scales;
+    const void* mins;
+    void* y;
+    float* ws;
+    int* counters;
+    int B, K, N, group, tile, splits, vec;
+    cudaStream_t stream;
+};
+
+template <int FMT, bool VEC, class SP, class OT>
+int splitk(const Call& c) {
+    const dim3 grid(c.splits, c.B, (c.N + SK_CT - 1) / SK_CT);
+    return launch(qgemm_splitk<FMT, VEC, SP, OT>, grid, SK_THREADS, 0, c.stream,
+                  c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
+                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits);
+}
+
+template <int FMT, int MT, class SP, class OT>
+int tc_mt(const Call& c) {
+    using T = Tc<FMT, MT, SP, OT>;
+    const cudaError_t e = allow_smem<qgemm_tc<FMT, MT, SP, OT>>(T::SMEM);
+    if (e != cudaSuccess) return int(e);
+    const dim3 grid(c.splits, (c.B + T::BM - 1) / T::BM, (c.N + TC_BN - 1) / TC_BN);
+    return launch(qgemm_tc<FMT, MT, SP, OT>, grid, TC_THREADS, T::SMEM, c.stream,
+                  c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
+                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits);
+}
+
+template <int FMT, class SP, class OT>
+int dispatch(const Call& c, int path) {
+    if (path == 1) {
+        switch (c.tile) {
+        case 1: return tc_mt<FMT, 1, SP, OT>(c);
+        case 2: return tc_mt<FMT, 2, SP, OT>(c);
+        case 4: return tc_mt<FMT, 4, SP, OT>(c);
+        default: return int(cudaErrorInvalidValue);
+        }
+    }
+    if (c.tile != 1) return int(cudaErrorInvalidValue);
+    return c.vec ? splitk<FMT, true, SP, OT>(c) : splitk<FMT, false, SP, OT>(c);
+}
+
+template <class SP, class OT>
+int dispatch_fmt(const Call& c, int fmt, int path) {
+    return fmt == FMT_Q4 ? dispatch<FMT_Q4, SP, OT>(c, path) : dispatch<FMT_Q8, SP, OT>(c, path);
+}
+
+}  // namespace
+
+// y[B, N] = x[B, K] @ W[K, N]. fmt: 0 = q4, 1 = q8; mins may be null.
+// panel_bf16 / out_bf16: scales and mins / y are bfloat16 (else float32).
+// path 0 = split-K (tile = rows per block: 1; vec = 1 when N % 16 == 0 and
+// every tensor is 16-byte aligned), path 1 = tensor cores (tile = MT,
+// 16-row tiles per block: 1, 2 or 4; needs vec, q4 group 32, q8 group 16 or
+// 32). splits: 1..32 K slices of whole groups. With splits > 1, ws holds
+// tiles x splits x (rows x columns of a block's tile) floats and counters
+// one int per output tile, all 0 (the kernel leaves them 0 again); tiles =
+// ceil(B / rows) x ceil(N / columns), the block tile as ops/qmatmul.py's
+// qmatmul_plan gives it.
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int qgemm_launch(const float* x, const void* packed, const void* scales,
+                            const void* mins, void* y, float* ws, int* counters,
+                            int B, int K, int N, int group, int fmt,
+                            int panel_bf16, int out_bf16, int path, int tile, int splits,
+                            int vec, void* stream) {
+    const int rows_g = fmt == FMT_Q4 ? group / 2 : group;
+    if (splits < 1 || splits > 32 || splits > K / group || group % 16 != 0 || K % group != 0 ||
+        rows_g % 16 != 0)
+        return int(cudaErrorInvalidValue);
+    if (path == 1 && (!vec || K % TC_KS != 0 || splits > K / TC_KS ||
+                      (fmt == FMT_Q4 ? group != 32 : group != 16 && group != 32)))
+        return int(cudaErrorInvalidValue);
+    if (splits > 1 && (ws == nullptr || counters == nullptr)) return int(cudaErrorInvalidValue);
+    const Call c{x, static_cast<const uint8_t*>(packed), scales, mins, y, ws, counters,
+                 B, K, N, group, tile, splits, vec, static_cast<cudaStream_t>(stream)};
+    if (panel_bf16)
+        return out_bf16 ? dispatch_fmt<bf16, bf16>(c, fmt, path) : dispatch_fmt<bf16, float>(c, fmt, path);
+    return out_bf16 ? dispatch_fmt<float, bf16>(c, fmt, path) : dispatch_fmt<float, float>(c, fmt, path);
+}

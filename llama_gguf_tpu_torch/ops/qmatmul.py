@@ -1,11 +1,13 @@
-"""Fused dequant-matmul: wrappers over the CUDA kernels of csrc/qmatmul.cu
-and csrc/moe_qmatmul.cu and their plain PyTorch versions (port of
+"""Fused dequant-matmul: wrappers over the CUDA kernels of csrc/qgemm.cu,
+csrc/qmatmul.cu and csrc/moe_qmatmul.cu and their plain PyTorch versions (port of
 llama_gguf_tpu/ops/qmatmul.py).
 
   * ``qmatmul(x, lin)``          — y = x @ W for a q4 or q8 QuantLinear
-                                    (kernels "qmatmul_q4" and "qmatmul_q8",
-                                    replacing _qmatmul_call's _q4_kernel and
-                                    _q8_kernel);
+                                    (kernels "qmatmul_q4" and "qmatmul_q8" of
+                                    csrc/qgemm.cu, replacing _qmatmul_call's
+                                    _q4_kernel and _q8_kernel; the path, tile
+                                    and split of K come from
+                                    ``qmatmul_plan``);
   * ``qmatmul_glu(x, lin, act)`` — act(x @ W_gate) * (x @ W_up) over a fused
                                     [gate | up] QuantLinear (kernel
                                     "qmatmul_glu", replacing
@@ -40,6 +42,8 @@ float32 panels only, as the loader keeps expert stacks.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -59,6 +63,119 @@ MOE_GROUP_ROWS = 256  # C: rows per single-expert block
 
 
 PRECISIONS = (None, "highest", "default")
+
+# Kernels 1-2 (csrc/qgemm.cu): the tensor-core path from this many rows on,
+# the split-K CUDA-core path below (see qmatmul_plan). From 5 rows the tensor
+# cores were at least as fast as split-K at 7 of 9 main-path shapes
+# (scripts/bench_qmatmul.py paths, H100 80GB HBM3, 700 W).
+TC_MIN_ROWS = 5
+TC_COLS = 128          # columns per tensor-core block (4 warps x 32)
+TC_STAGE = 32          # K elements per tensor-core stage (1 or 2 groups)
+SPLITK_COLS = 128      # columns per split-K block (8 threads x 16)
+MAX_SPLITS = 32        # K slices per output tile
+# The grid the split of K aims for, in blocks per SM: 64-thread split-K
+# blocks (8 fit an SM); 128-thread tensor-core blocks (2-3 fit), at most 2
+# per SM for 32- and 64-row tiles up to 128 rows, where longer slices won
+# the sweep of scripts/bench_qmatmul.py (H100 80GB HBM3, 700 W).
+BLOCKS_PER_SM = {"splitk": 8, "tc": 4, "tc prefill": 2}
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class QmatmulPlan:
+    """How one q4/q8 product is launched: ``path`` "tc" (tensor cores) or
+    "splitk" (CUDA cores, one row per block); a block owns ``rows`` x
+    ``cols`` of the output
+    and one of ``splits`` K slices of whole scale groups; ``grid`` is
+    (splits, row tiles, column tiles); ``vec``: 16-byte loads (N % 16 == 0
+    and aligned tensors). With splits > 1 each block writes its f32 partial
+    tile to a workspace of ``scratch_bytes`` and the last block of a tile
+    (one int counter per tile) adds them in slice order."""
+    path: str
+    rows: int
+    cols: int
+    splits: int
+    grid: tuple[int, int, int]
+    vec: bool
+
+    @property
+    def tiles(self) -> int:
+        return self.grid[1] * self.grid[2]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return (4 * self.tiles * self.splits * self.rows * self.cols
+                if self.splits > 1 else 0)
+
+    @property
+    def tile(self) -> int:
+        """The kernel's tile argument: 16-row tiles (tc) or rows (splitk)."""
+        return self.rows // 16 if self.path == "tc" else self.rows
+
+    def op_type(self, precision: str | None = None) -> str:
+        """The operations' type for utils/timing.bound_ms: bf16 tensor-core
+        passes, three for an f32 output and two for the bf16 output of
+        "default" (the kernel drops x's third part there); or f32 on the
+        CUDA cores."""
+        if self.path != "tc":
+            return "f32"
+        return "bf16x2" if out_dtype(precision) == torch.bfloat16 else "bf16x3"
+
+
+@functools.lru_cache(maxsize=1024)
+def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
+                 sms: int = H100_SMS, aligned: bool = True,
+                 path: str | None = None, splits: int | None = None,
+                 tile_rows: int | None = None) -> QmatmulPlan:
+    """The launch of kernels 1-2 for x [b, k] @ W [k, n]. Tensor cores from
+    TC_MIN_ROWS rows on, where the layout allows them (q4 group 32, q8 group
+    16 or 32, 16-byte loads); BM = 16 rows x 128 columns up to 16 rows, 32
+    up to 64 rows or below 4096 columns, else 64. Below, the split-K
+    kernel: one row x 128 columns. Either way K is cut into up to
+    MAX_SPLITS slices of whole groups (whole 32-element stages on the tensor
+    cores, 8 of them per slice at least, for the cp.async ring; split-K: 6
+    chunks of 16 packed rows at least) until the grid holds BLOCKS_PER_SM
+    blocks per SM: rounded up, or down for the tensor cores' 32- and 64-row
+    tiles up to 128 rows. ``path``, ``splits`` and ``tile_rows`` (tc: 16,
+    32 or 64) override the choice (measurements and tests); a path the
+    layout does not allow raises. Cached: decode asks for the same few
+    plans at every step."""
+    if (fmt not in ("q4", "q8") or group % (32 if fmt == "q4" else 16)
+            or k % group or b < 1):
+        raise ValueError(f"qmatmul_plan: fmt={fmt} k={k} group={group} b={b}")
+    vec = aligned and n % 16 == 0
+    tc_ok = (vec and k % TC_STAGE == 0
+             and group in ((32,) if fmt == "q4" else (16, 32)))
+    if path is None:
+        path = "tc" if tc_ok and b >= TC_MIN_ROWS else "splitk"
+    if path == "tc" and tc_ok:
+        cols, slices_max = TC_COLS, k // TC_STAGE // 8
+        rows = tile_rows or (16 if b <= 16 else 32 if b <= 64 or n < 4096
+                             else 64)
+        if rows not in (16, 32, 64):
+            raise ValueError(f"qmatmul_plan: tile_rows={rows}")
+    elif path == "splitk":
+        cols, rows = SPLITK_COLS, 1
+        slices_max = max(1, k // (32 if fmt == "q4" else 16) // 6)
+    else:
+        raise ValueError(f"qmatmul_plan: no {path!r} path for fmt={fmt} "
+                         f"group={group} n={n} aligned={aligned}")
+    row_tiles, col_tiles = -(-b // rows), -(-n // cols)
+    if splits is None:
+        tiles = row_tiles * col_tiles
+        if path == "tc" and rows >= 32 and b <= 128:
+            want = BLOCKS_PER_SM["tc prefill"] * sms // tiles
+        else:
+            want = -(-BLOCKS_PER_SM[path] * sms // tiles)
+        splits = max(1, min(MAX_SPLITS, slices_max, want))
+    if not 1 <= splits <= min(MAX_SPLITS, k // group if path == "splitk"
+                              else k // TC_STAGE):
+        raise ValueError(f"qmatmul_plan: {splits} splits of {k // group} "
+                         "groups")
+    if row_tiles > 65535 or col_tiles > 65535:
+        raise ValueError(f"qmatmul_plan: {b} x {n} exceeds the grid")
+    return QmatmulPlan(path, rows, cols, splits, (splits, row_tiles, col_tiles),
+                       vec)
 
 
 def reset_launches() -> None:
@@ -203,10 +320,8 @@ def moe_group_plan(idx: torch.Tensor, e_num: int, c_rows: int,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "qmatmul": {
-        "qmatmul_launch": [_P] * 5 + [_I] * 8 + [_P],
-        "qmatmul_glu_launch": [_P] * 5 + [_I] * 9 + [_P],
-    },
+    "qgemm": {"qgemm_launch": [_P] * 7 + [_I] * 11 + [_P]},
+    "qmatmul": {"qmatmul_glu_launch": [_P] * 5 + [_I] * 9 + [_P]},
     "moe_qmatmul": {
         "moe_slot_launch": [_P] * 6 + [_I] * 8 + [_P],
         "moe_grouped_launch": [_P] * 7 + [_I] * 10 + [_P],
@@ -288,10 +403,42 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
+_SMS: dict[int, int] = {}
+_SCRATCH: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, plan: QmatmulPlan) -> tuple[int, int]:
+    """Pointers to the device's split-K workspace and tile counters, grown
+    to the plan's need (counters start at 0, and the kernels leave them
+    0). One per device, for launches on one stream at a time."""
+    if plan.splits == 1:
+        return 0, 0
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    ws, cnt = _SCRATCH.get(idx, (None, None))
+    if ws is None or ws.numel() * 4 < plan.scratch_bytes:
+        ws = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                         device=dev)
+    if cnt is None or cnt.numel() < plan.tiles:
+        cnt = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
+    _SCRATCH[idx] = (ws, cnt)
+    return ws.data_ptr(), cnt.data_ptr()
+
+
+def _sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def qmatmul(x: torch.Tensor, lin: QuantLinear,
-            precision: str | None = None) -> torch.Tensor:
+            precision: str | None = None, *, path: str | None = None,
+            splits: int | None = None,
+            tile_rows: int | None = None) -> torch.Tensor:
     """x [B, K] float32 @ quantized W [K, N] -> [B, N] float32, or bfloat16
-    in "default" precision (bias NOT applied)."""
+    in "default" precision (bias NOT applied). ``path``, ``splits`` and
+    ``tile_rows`` override ``qmatmul_plan``'s choice (for measurements);
+    the plan is always made for the call's own shapes and alignment."""
     odt = out_dtype(precision)
     if x.device.type == "cpu":
         return qmatmul_plain(x, lin, precision)
@@ -303,12 +450,20 @@ def qmatmul(x: torch.Tensor, lin: QuantLinear,
     y = torch.empty((b, lin.n), dtype=odt, device=x.device)
     if b == 0:
         return y
+    # y is a fresh allocation, and the caching allocator aligns those to
+    # 512 bytes
+    aligned = all(t.data_ptr() % 16 == 0 for t in (
+        x, lin.packed, lin.scales, lin.mins) if t is not None)
+    plan = qmatmul_plan(b, lin.k, lin.n, lin.group, lin.fmt, _sms(x.device),
+                        aligned, path, splits, tile_rows)
     fmt = 0 if lin.fmt == "q4" else 1
-    rc = _lib().qmatmul_launch(
+    ws, counters = _scratch(x.device, plan)
+    rc = _lib("qgemm").qgemm_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        _ptr(lin.mins), y.data_ptr(),
+        _ptr(lin.mins), y.data_ptr(), ws, counters,
         b, lin.k, lin.n, lin.group, fmt, panel_bf16,
-        int(odt == torch.bfloat16), _vec_ok(lin, lin.n, y), _stream(x))
+        int(odt == torch.bfloat16), int(plan.path == "tc"), plan.tile,
+        plan.splits, int(plan.vec), _stream(x))
     _raise_on(rc, "qmatmul")
     LAUNCHES["qmatmul_q4" if fmt == 0 else "qmatmul_q8"] += 1
     return y

@@ -143,6 +143,8 @@ def build_variants(inp: dict) -> dict:
     panels = (full.scales, full.mins)
 
     out: dict[str, Variant] = {}
+    # kernels 1-2's path, with the bf16 output of "default"
+    v0_ops = Q.qmatmul_plan(B, k, n, GROUP, fmt).op_type("default")
     for tag, lin, w in (("v0_full", full, w_full),
                         ("v1_nomin", nomin, dequantize_weight(nomin))):
         out[tag] = Variant(
@@ -152,7 +154,7 @@ def build_variants(inp: dict) -> dict:
             library=lambda w=w: torch.matmul(x, w),
             kernel=f"qmatmul_{fmt}",
             nbytes=_nbytes(lin.packed, lin.scales, lin.mins, x) + ybf,
-            ops=fma, op_type="f32")
+            ops=fma, op_type=v0_ops)
     if fmt == "q8":
         out["v2_noscale"] = Variant(
             run=lambda: V.v2_noscale(x, full),

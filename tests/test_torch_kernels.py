@@ -419,3 +419,89 @@ def test_mixed_stack_moe_layer_launches_kernels(cuda, tmp_path, dense):
     want = {"moe_glu_grouped": 1} if dense == "down" else {"moe_grouped": 2}
     assert {k: v for k, v in Q.LAUNCHES.items() if v} == want
     assert rel_err(got, T.moe_layer(ffn, eng.runner.cfg, x)) < REL_LIMIT
+
+
+# -- kernels 1-2 (csrc/qgemm.cu): both paths, the plan's threshold, splits --
+
+QGEMM_ROWS = [1, 2, 3, 4, 5, 8, 15, 16, 17, 127, 128, 129, 512]
+
+
+def check_close(got, want, precision):
+    assert got.shape == want.shape and got.dtype == Q.out_dtype(precision)
+    if precision == "default":
+        assert within_bf16(got, want)
+    else:
+        assert rel_err(got, want) < REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", QGEMM_ROWS)
+@pytest.mark.parametrize("t,n", [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 208),
+                                 (GGMLType.Q8_0, 200)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemm_rows_around_threshold(cuda, t, n, b):
+    """The plan's own choice at every row count around TC_MIN_ROWS and the
+    tile heights: N = 208 leaves the second 128-column tensor-core tile half
+    masked; N = 200 (N % 16 != 0) takes split-K with byte loads."""
+    lin = make_lin(t, n, 768, 20, cuda)
+    x = make_x(b, 768, 20, cuda)
+    plan = Q.qmatmul_plan(b, 768, n, lin.group, lin.fmt)
+    assert plan.path == ("tc" if b >= Q.TC_MIN_ROWS and n % 16 == 0
+                         else "splitk")
+    key = "qmatmul_q4" if lin.fmt == "q4" else "qmatmul_q8"
+    before = Q.LAUNCHES[key]
+    got = Q.qmatmul(x, lin)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES[key] == before + 1
+    check_close(got, Q.qmatmul_plain(x, lin), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 5, 8])
+@pytest.mark.parametrize("path,b", [("splitk", 1), ("splitk", 3),
+                                    ("tc", 5), ("tc", 40)])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_1],
+                         ids=lambda v: v.name)
+def test_qgemm_forced_splits(cuda, t, path, b, splits):
+    """K = 1280 (40 groups of 32, 80 of 16): 3 slices hold unequal group
+    counts; the slices' partials are summed through the workspace."""
+    lin = make_lin(t, 384, 1280, 21, cuda)
+    x = make_x(b, 1280, 21, cuda)
+    check_close(Q.qmatmul(x, lin, path=path, splits=splits),
+                Q.qmatmul_plain(x, lin), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 2, 64])
+@pytest.mark.parametrize("t,mins", [(GGMLType.Q4_K, True),
+                                    (GGMLType.Q4_K, False),
+                                    (GGMLType.Q6_K, False),
+                                    (GGMLType.Q8_0, False),
+                                    (GGMLType.Q5_1, True)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemm_panel_and_output_types(cuda, t, mins, b, panels, precision):
+    """f32 and bf16 panels x f32 and bf16 outputs on both paths; q4 with and
+    without its min panel; q8 from Q6_K (group 16), Q8_0 and Q5_1 (32)."""
+    lin = make_lin(t, 256, 512, 22, cuda)
+    if not mins:
+        lin.mins = None
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(b, 512, 22, cuda)
+    check_close(Q.qmatmul(x, lin, precision),
+                Q.qmatmul_plain(x, lin, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 8, 128])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda v: v.name)
+def test_qgemm_bit_identical(cuda, t, b):
+    """The split-K partials are summed in a fixed order: two calls, the
+    same bits."""
+    lin = make_lin(t, 512, 2048, 23, cuda)
+    x = make_x(b, 2048, 23, cuda)
+    assert Q.qmatmul_plan(b, 2048, 512, lin.group, lin.fmt).splits > 1
+    assert torch.equal(Q.qmatmul(x, lin), Q.qmatmul(x, lin))
