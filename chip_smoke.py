@@ -7,9 +7,10 @@ Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
-   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu, qmatmul.cu,
-   moe_qmatmul.cu, qmatmul_variants.cu) with nvcc (sm_90a), one nvcc process
-   per source, all at once. A child process builds phase 6's GGUF meanwhile.
+   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu: kernels 1, 2, 3
+   and 5's tensor-core path; moe_qmatmul.cu; qmatmul_variants.cu) with nvcc
+   (sm_90a), one nvcc process per source, all at once, while the main
+   process builds phase 2's GGUF and a child process phase 6's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -17,8 +18,9 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    (dense f32 torch.matmul).
 3. Dense kernels: each of the q4, q8 and GLU kernels' wrappers on the card,
    on the loaded model's own weights (the main path's shapes) at 1, 8, 128
-   (the prompt's bucket) and 512 rows, the q4 and q8 kernels on the path
-   ops/qmatmul.qmatmul_plan picks (split-K or tensor cores), against its
+   (the prompt's bucket) and 512 rows, each on the path
+   ops/qmatmul.qmatmul_plan picks (split-K or tensor cores; the GLU's plan
+   with glu=True), against its
    plain PyTorch version (limit: max |y - y_plain| <= 2e-4
    * max |y_plain|; f32 with another order of summation); and again with the
    same weights' panels rounded to bf16, in "default" precision (bf16
@@ -31,7 +33,8 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    the units that run them (bf16 passes on the tensor cores for the
    tensor-core path, three for f32 outputs and two for bf16 ones; f32 on
    the CUDA cores otherwise; the f32 bound is kept
-   beside it for every q4/q8 case). The timer flushes L2 by a read and
+   beside it for every case of kernels 1-3), its share of the kernel's
+   time, and the path and split of K. The timer flushes L2 by a read and
    sleeps on the device before its first event (utils/timing.py).
 4. Dense main path: launch counters set to 0, then Engine.generate (about
    100 prompt tokens, 32 new tokens, greedy); each kernel must have launched
@@ -40,7 +43,7 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    logits must agree within 1e-3.
 5. Where the dense decode step's time goes: torch.profiler over 16 decode
    steps (wall and device time per step, the device's idle share, device
-   time by kernel: kernels 1-2 by format and path apart from the GLU).
+   time by kernel: kernels 1-2 by format and path, the GLU by path).
 6. Sparse MoE: builds Mixtral-8x7B at full width cut to 2 of 32 layers
    ("mixtral-8x7b-l2": hidden 4096, 32/8 heads, 8 experts of ffn 14336,
    top-2; Q4_K attention and gate/up experts, Q6_K down experts, embedding
@@ -51,7 +54,12 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    experts, and one expert twice), grouped and grouped GLU at the 256 slots
    of the prompt's own routing and at an imbalanced routing (one expert
    takes half of the slots, one none), in "highest" and in "default"
-   precision (bf16 outputs, limits as in phase 3). Times as in phase 3; the
+   precision (bf16 outputs, limits as in phase 3); the grouped kernel on
+   the path ops/qmatmul.moe_grouped_plan picks (tensor cores for the main
+   path's Q6_K down), which must be the tensor cores. Times as in phase 3
+   (the grouped kernel's bound on its path's units; its wrapper's time
+   includes the dispatch plan's torch ops, and the launch alone on that
+   plan is kept beside it as launch_ms); the
    MoE yardstick is torch.bmm over each routed expert's pre-dequantized f32
    weight once, its own slots' rows padded to the busiest expert's count.
    Then the MoE main path: counters set to 0, Engine.generate as in phase 4,
@@ -131,7 +139,7 @@ KERNELS = {
         replaces="llama_gguf_tpu/ops/qmatmul.py:309 (_qmatmul_call with "
                  "_q8_kernel:164)"),
     "qmatmul_glu": dict(
-        source="llama_gguf_tpu_torch/csrc/qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:500 (_qmatmul_glu_call with "
                  "_glu_kernel:198)"),
     "moe_slot": dict(
@@ -173,16 +181,19 @@ def check(cond: bool, msg: str) -> None:
 
 
 def kernel_key(name: str) -> str:
-    """A profiler kernel name -> its kernel and path: kernels 1-2 by format
-    and path (the first template argument of qgemm_tc / qgemm_splitk is the
-    format, 0 = q4), the GLU kernel (qmatmul_kernel, csrc/qmatmul.cu) and
-    the MoE kernels by name."""
+    """A profiler kernel name -> its kernel and path. csrc/qgemm.cu's
+    qgemm_tc / qgemm_splitk: the first template argument is the format (0 =
+    q4), the last the kind (0 kernels 1-2, 1 the GLU, 2 the grouped MoE
+    product). The CUDA-core MoE kernels by name."""
     for kern, path in (("qgemm_tc<", "tensor cores"), ("qgemm_splitk<", "split-K")):
         if kern in name:
-            fmt = name.split(kern, 1)[1].split(",", 1)[0].strip()
+            args = name.split(kern, 1)[1].split(">", 1)[0].split(",")
+            fmt, kind = args[0].strip(), args[-1].strip()
+            if kind == "1":
+                return f"qmatmul_glu {path}"
+            if kind == "2":
+                return f"moe_grouped {path}"
             return f"{'qmatmul_q4' if fmt == '0' else 'qmatmul_q8'} {path}"
-    if "qmatmul_kernel" in name:
-        return "qmatmul_glu"
     for k in ("moe_slot_kernel", "moe_grouped_kernel"):
         if k in name:
             return k
@@ -225,6 +236,8 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:12]
     k12 = sum(v for key, v in by_kernel.items()
               if key.startswith(("qmatmul_q4", "qmatmul_q8")))
+    k3 = {key: v for key, v in by_kernel.items()
+          if key.startswith("qmatmul_glu")}
     return dict(
         steps=steps, wall_ms_per_step=wall_ms / steps,
         device_ms_per_step=device_ms if device_ms > 0 else "not measured",
@@ -234,6 +247,7 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
             e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA) / steps,
         kernels_1_2_ms_per_step=k12,
+        kernel_3_ms_per_step=sum(k3.values()), kernel_3_by_path=k3,
         device_ms_per_step_by_kernel=dict(top))
 
 
@@ -347,12 +361,16 @@ def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
              plain_ms=timer.ms(plain),
              library_ms=timer.ms(library) if library is not None else None,
              bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops)
+    m["bound_share"] = bound / m["ms"]
     lib = (f"{m['library_ms']:.4f}" if m["library_ms"] is not None
            else "null")
-    log(f"{name:15s} {case:44s} {extra.get('kernel_path', ''):12s} "
+    path = extra.get("kernel_path", "")
+    if "splits" in extra:
+        path += f" x{extra['splits']}"
+    log(f"{name:15s} {case:44s} {path:16s} "
         f"rel_err={rel_err:.2e} ms={m['ms']:.4f} "
-        f"bound_ms={bound:.4f} plain_ms={m['plain_ms']:.4f} "
-        f"library_ms={lib}")
+        f"bound_ms={bound:.4f} ({bound_by}, {m['bound_share']:.1%}) "
+        f"plain_ms={m['plain_ms']:.4f} library_ms={lib}")
     return m
 
 
@@ -399,13 +417,13 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
                 x = torch.randn(rows, lin.k, device="cuda", generator=gen)
                 nbytes = w_bytes + rows * (4 * lin.k + y_bytes * n_out)
                 ops = 2 * rows * lin.k * lin.n
-                # kernels 1-2: the plan's path; its bound (tensor cores:
-                # three bf16 passes, two for bf16 outputs) beside the f32
-                # CUDA-core bound
-                plan = (None if glu else Q.qmatmul_plan(
-                    rows, lin.k, lin.n, lin.group, lin.fmt, sms))
-                kpath = dict(kernel_path=plan.path if plan else "cuda cores",
-                             splits=plan.splits if plan else 1,
+                # the wrapper's plan (its shapes and alignment); its bound
+                # (tensor cores: three bf16 passes, two for bf16 outputs)
+                # beside the f32 CUDA-core bound
+                plan = Q.qmatmul_plan(rows, lin.k, n_out, lin.group, lin.fmt,
+                                      sms, Q._aligned(x, lin), glu=glu)
+                kpath = dict(kernel_path=plan.path, splits=plan.splits,
+                             tile_rows=plan.rows,
                              bound_f32_ms=bound_ms(nbytes, ops, "f32", peaks)[0])
                 if glu:
                     def kern(): return Q.qmatmul_glu(x, lin, "silu", precision)
@@ -418,7 +436,7 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
                     name, f"{path} {proj}{label} rows={rows}", kern(),
                     plain(), timer, kern, plain,
                     lambda: torch.matmul(x, w_deq), nbytes, ops, peaks,
-                    op_type=plan.op_type(precision) if plan else "f32",
+                    op_type=plan.op_type(precision),
                     path=path,
                     projection=proj, rows=rows, k=lin.k, n=lin.n,
                     precision=precision,
@@ -427,10 +445,9 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
     return measurements
 
 
-def dense_path(card: str, timer, peaks: dict):
-    """Phases 2-5 on TinyLlama-1.1B. Returns (measurements, launches, the
-    GGUF's path)."""
-    gguf = build_model("tinyllama-1.1b")
+def dense_path(card: str, timer, peaks: dict, gguf: str):
+    """Phases 2-5 on TinyLlama-1.1B (``gguf``). Returns (measurements,
+    launches)."""
     quant, deq = load_both(gguf)
     cfg = quant.runner.cfg
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
@@ -452,7 +469,7 @@ def dense_path(card: str, timer, peaks: dict):
               f"{name}: {launches[name]} launches, expected {per} x {steps}")
     print(json.dumps({"decode_profile": profile_decode(quant, ids)}),
           flush=True)
-    return measurements, launches, gguf
+    return measurements, launches
 
 
 def expert_bytes(stack, experts: int) -> int:
@@ -493,7 +510,9 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
     from llama_gguf_tpu_torch.models import transformer as T
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_expert
+    from llama_gguf_tpu_torch.utils.timing import bound_ms
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     quant, deq = load_both(gguf)
     cfg = quant.runner.cfg
     layer0 = quant.runner.params["layers"][0]
@@ -596,12 +615,34 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
                       + Q.out_dtype(precision).itemsize * s_slots * n)
             ops = 2 * s_slots * kdim * n * len(stacks)
             label = ", default" if precision == "default" else ""
+            kpath, op_type = dict(kernel_path="cuda cores"), "f32"
+            if name == "moe_grouped":  # kernel 5: the wrapper's plan
+                plan = Q.moe_grouped_plan(s_slots, e_num, kdim, n,
+                                          st.group, st.fmt, sms,
+                                          Q._aligned(xin.float().contiguous(),
+                                                     st))
+                check(plan.path == "tc", f"moe_grouped {proj}: the main "
+                                         f"path's plan is {plan.path!r}")
+                # the launch alone, on the wrapper's own dispatch plan
+                c_rows, g_blocks, _ = Q.moe_dims(s_slots, e_num)
+                eg, rows, _ = Q.moe_group_plan(sid, e_num, c_rows, g_blocks)
+                kpath = dict(kernel_path=plan.path, splits=plan.splits,
+                             tile_rows=plan.rows,
+                             bound_f32_ms=bound_ms(nbytes, ops, "f32",
+                                                   peaks)[0],
+                             launch_ms=timer.ms(
+                                 lambda: Q.moe_grouped_blocked(
+                                     xin, st, eg, rows, precision)))
+                log(f"moe_grouped {proj} S={s_slots} {case}{label}: the "
+                    f"launch alone {kpath['launch_ms']:.4f} ms")
+                op_type = plan.op_type(precision)
             measurements.append(compare(
                 name, f"{proj} S={s_slots} {case}{label}", kern(), plain(),
                 timer, kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes,
-                ops, peaks, path="Mixtral-8x7B-l2", projection=proj,
-                slots=s_slots, experts_read=n_exp, library_rows=n_exp * depth,
-                k=kdim, n=n, precision=precision))
+                ops, peaks, op_type=op_type, path="Mixtral-8x7B-l2",
+                projection=proj, slots=s_slots, experts_read=n_exp,
+                library_rows=n_exp * depth, k=kdim, n=n,
+                precision=precision, **kpath))
     del w_all, products
 
     def on_differ(ids_, toks, want):
@@ -820,6 +861,8 @@ def main() -> int:
 
 
 def run(moe_gguf) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from llama_gguf_tpu_torch.utils import cuda_build
     from llama_gguf_tpu_torch.utils.timing import Timer, card_peaks
@@ -834,16 +877,21 @@ def run(moe_gguf) -> int:
     peaks = card_peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
+    # nvcc runs in its own processes: the dense path's GGUF (host numpy
+    # work) builds meanwhile
     t0 = time.perf_counter()
-    cuda_build.build_all(["qgemm", "qmatmul", "moe_qmatmul",
-                          "qmatmul_variants"])
-    log(f"kernels built in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc: {cuda_build.BUILD_SECONDS})")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        built = pool.submit(cuda_build.build_all,
+                            ["qgemm", "moe_qmatmul", "qmatmul_variants"])
+        tinyllama = build_model("tinyllama-1.1b")
+        built.result()
+    log(f"kernels and the TinyLlama GGUF built in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc: {cuda_build.BUILD_SECONDS})")
     timer = Timer()
 
     # -- 2-5. the dense path, 7. serving, 8. the probe, then 6. MoE ----------
     t0 = time.perf_counter()
-    dense, dense_launches, tinyllama = dense_path(card, timer, peaks)
+    dense, dense_launches = dense_path(card, timer, peaks, tinyllama)
     log(f"dense path done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

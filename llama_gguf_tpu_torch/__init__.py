@@ -2,8 +2,9 @@
 
 GGUF models load with ``Engine.load(path, device="cuda")`` and generate with
 ``Engine.generate``; the quantized matmuls run through hand-written CUDA
-kernels for Hopper (csrc/qmatmul.cu). The package imports torch and numpy,
-never jax and nothing of llama_gguf_tpu; module names mirror that package's.
+kernels for Hopper (csrc/qgemm.cu, csrc/moe_qmatmul.cu). The package
+imports torch and numpy, never jax and nothing of llama_gguf_tpu; module
+names mirror that package's.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,24 @@
-// Sparse-MoE dequant-matmul kernels for Hopper (sm_90a): each routed slot's
-// input row times the quantized weight of the expert it was routed to, read
-// straight from the full expert stack by index (no gathered weight copy).
+// Sparse-MoE dequant-matmul kernels for Hopper (sm_90a) on the CUDA cores:
+// each routed slot's input row times the quantized weight of the expert it
+// was routed to, read straight from the full expert stack by index (no
+// gathered weight copy).
 //
 // Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py:
 //   * slot-major  — _moe_qmatmul_call (entry moe_qmatmul, S < 32 slots or
 //                   when the grouped sweeps would not undercut S)
-//   * grouped     — _moe_qmatmul_grouped_call (plan _moe_group_plan)
+//   * grouped     — _moe_qmatmul_grouped_call (plan _moe_group_plan), for
+//                   the layouts the tensor-core grouped path of
+//                   csrc/qgemm.cu does not take (ragged N, q4 groups other
+//                   than 32, unaligned stacks; ops/qmatmul.moe_grouped_plan
+//                   chooses)
 //   * grouped GLU — _moe_glu_grouped_call (entry moe_qmatmul_glu)
 //
 // Stacks (ops/linear.QuantExpertStack): packed uint8 [E, K/2, N] (q4) or
 // int8 [E, K, N] (q8), scales and mins float32 [E, K/group, N]; expert e's
-// slice is the q4/q8 layout of csrc/qdot.cuh, whose dequant-dot body all the
-// port's kernels share. The output (OT) is float32, or bfloat16 in "default"
-// matmul precision (rounded once at the store, as the TPU kernels'
-// _out_dtype); the panels stay float32, as the loader keeps expert stacks.
+// slice is the q4/q8 layout of csrc/qdot.cuh. The output (OT) is float32, or
+// bfloat16 in "default" matmul precision (rounded once at the store, as the
+// TPU kernels' _out_dtype); the panels stay float32, as the loader keeps
+// expert stacks.
 //
 // What bounds them on this card:
 //   * slot-major, at decode (S = 2 slots per token at top-2): the routed
@@ -27,8 +32,8 @@
 //     block reads eg[g] and its rows' slot ids, gathers its input rows from x
 //     through those ids (no sorted copy of x), and skips a row block that
 //     holds padding only (the sentinel id S). Each row block re-reads its
-//     expert's column panel (from L2 when it is warm): the first cut, like
-//     csrc/qmatmul.cu at 512 rows. The output is the [G*C, N] blocked layout;
+//     expert's column panel (from L2 when it is warm). The output is the
+//     [G*C, N] blocked layout;
 //     padding rows are not written, and the caller reads back through the
 //     plan's inverse map. The GLU variant reads the gate and the up stack
 //     (two separate stacks) in the same pass and writes act(gate) * up, so

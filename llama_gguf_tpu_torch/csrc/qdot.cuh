@@ -1,5 +1,6 @@
-// Shared dequant-dot body of the port's kernels (csrc/qmatmul.cu and
-// csrc/moe_qmatmul.cu), so that all of them dequantize the same way.
+// Dequant-dot body of the CUDA-core MoE kernels (csrc/moe_qmatmul.cu):
+// the slot-major kernel 4, the grouped GLU kernel 6, and the grouped kernel
+// 5 for the layouts its tensor-core path (csrc/qgemm.cu) does not take.
 //
 // Layouts (quant/repack.py):
 //   q4: packed uint8 [K/2, ldw]; packed row r belongs to scale group
@@ -26,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "glu.cuh"
+
 namespace qdot {
 
 constexpr int TX = 8;
@@ -34,7 +37,6 @@ constexpr int COLS = 4 * TX;
 constexpr int THREADS = TX * TY;
 
 enum { FMT_Q4 = 0, FMT_Q8 = 1 };
-enum { ACT_SILU = 0, ACT_GELU = 1, ACT_RELU = 2, ACT_RELU2 = 3, ACT_SWIGLU_OAI = 4 };
 
 using bf16 = __nv_bfloat16;
 
@@ -87,25 +89,7 @@ __device__ __forceinline__ void load_f4(const bf16* p, int nvalid, bool vec, flo
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// Mirror of _glu_combine (llama_gguf_tpu/ops/qmatmul.py), f32 in and out.
-__device__ __forceinline__ float glu_combine(float g, float u, int act) {
-    switch (act) {
-    case ACT_SWIGLU_OAI: {
-        g = fminf(g, 7.0f);
-        u = fminf(fmaxf(u, -7.0f), 7.0f);
-        return (g * sigmoid(1.702f * g)) * (u + 1.0f);
-    }
-    case ACT_GELU: {
-        const float c = 0.7978845608028654f;
-        return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g))) * u;
-    }
-    case ACT_RELU: return fmaxf(g, 0.0f) * u;
-    case ACT_RELU2: { const float m = fmaxf(g, 0.0f); return m * m * u; }
-    default: return g * sigmoid(g) * u;
-    }
-}
+using glu::glu_combine;
 
 // total[s] = sum_k x_r[k] * W_s[k, c] for the NW weight sets of this block's
 // tile, where thread tid = ty * TX + tx < RB * COLS owns row r = tid / COLS

@@ -1,15 +1,33 @@
-// Dequant-matmul kernels 1 and 2 for Hopper (sm_90a): y = x @ W, W quantized
-// (q4 or q8), x float32 [B, K], y float32 or bfloat16 [B, N].
+// Dequant-matmul kernels 1, 2, 3 and 5 for Hopper (sm_90a): products of x
+// float32 [B, K] with a quantized weight W (q4 or q8), y float32 or
+// bfloat16.
 //
-// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py
-// _qmatmul_call (pallas_call :309) with _q4_kernel (:138, "qmatmul_q4")
-// and with _q8_kernel (:164, "qmatmul_q8"). Both compute
+// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py:
+//   * kernels 1-2, KIND_PLAIN: _qmatmul_call (pallas_call :309) with
+//     _q4_kernel (:138, "qmatmul_q4") and _q8_kernel (:164, "qmatmul_q8"):
+//     y[B, N] = x @ W[K, N];
+//   * kernel 3, KIND_GLU: _qmatmul_glu_call (pallas_call :500) with
+//     _glu_kernel (:198, "qmatmul_glu"): y[B, F] = act(x @ W[:, :F]) *
+//     (x @ W[:, F:]) over the fused gate|up weight W[K, 2F] (here N = F);
+//   * kernel 5, KIND_GROUPED: _moe_qmatmul_grouped_call (pallas_call :736,
+//     "moe_grouped"): the C-row single-expert blocks of the plan of
+//     _moe_group_plan (ops/qmatmul.moe_group_plan): row r of the blocked
+//     [G*C, N] output is x[rows[r]] @ W[eg[r / C]] over an expert stack.
+// All compute
 //     y = sum_g s[g] * (x_g @ q_g) - xs[g]^T m[g]    (f32 sums)
 // with xs[g] the group sums of x (the min term factored as in _min_dot),
 // rounded once to the output type at the store (_out_dtype). Layouts: see
 // csrc/qdot.cuh (q4 group-split nibbles [K/2, N], q8 [K, N], panels
-// [K/group, N] float32 or bfloat16). ops/qmatmul.qmatmul_plan picks the
-// path, the tile and the split of K; one launch per call either way.
+// [K/group, N] float32 or bfloat16; an expert stack is E of them, float32
+// panels). ops/qmatmul.qmatmul_plan and moe_grouped_plan pick the path, the
+// tile and the split of K; one launch per call either way.
+//
+// Every kind runs on the same two paths. A block owns 128 columns of the
+// weight: kernels 1, 2 and 5 128 output columns, the GLU 64 gate columns
+// and the 64 up columns that pair with them (F further on in the fused
+// weight, row stride 2F), so the tile, its loads, its fragments and its
+// workspace are the same for all. The GLU's partial tile is summed over the
+// K slices first and act(gate) * up taken after, never on partials.
 //
 // Tensor-core path ("tc", from ops/qmatmul.TC_MIN_ROWS = 5 rows on). Bound:
 // the operations, max(bytes / 3.35 TB/s, P * 2*B*K*N / 989 TFLOP/s), since
@@ -35,6 +53,16 @@
 // step the fragment's k order is permuted (physical k = t + 4i for fragment
 // rows 2t, 2t+1, 2t+8, 2t+9), the same for x and W, so every shared-memory
 // read is conflict-free.
+//
+// The grouped product (kernel 5) is this path with gathered rows: a BM-row
+// tile of the blocked layout lies inside one C-row group (BM divides C), so
+// it reads its expert e = eg[row0 / C] once and offsets the packed bytes and
+// panels by e times the expert's stride; its x rows arrive by cp.async from
+// x[rows[row0 + r]] (the padding id S zero-fills, no sorted copy of x is
+// made). A group's valid rows come first, so a tile whose first id is S is
+// padding only: every K slice of it exits before its first barrier. Padding
+// rows are not written. Bound: the routed experts' bytes, read once (each
+// expert's rows share a tile or two), against P bf16 passes.
 //
 // Split-K path ("splitk", 1 to 4 rows: decode). Bound: the weight bytes,
 // read once from HBM. A grid over columns alone leaves most of the 132 SMs
@@ -72,6 +100,7 @@
 // workspace, but on the H100 its launches ran slower back to back than the
 // kernels themselves.
 
+#include "glu.cuh"
 #include "qgemm.cuh"
 
 #include <type_traits>
@@ -80,12 +109,59 @@ namespace {
 
 using namespace qgemm;
 
+enum { KIND_PLAIN = 0, KIND_GLU = 1, KIND_GROUPED = 2 };
+
+constexpr int TILE = 128;  // weight columns per block, both paths
+
+// Tile column c (0..TILE-1) of column tile t: the output column it feeds
+// and the weight column it reads. KIND_GLU: c < H = TILE/2 are the gate
+// columns t*H + c of the fused [K, 2N] weight, c >= H the matching up
+// columns N + t*H + c - H; both feed output column t*H + c % H. Otherwise
+// both t*TILE + c.
+template <int KIND>
+__device__ __forceinline__ int out_col(int t, int c) {
+    return KIND == KIND_GLU ? t * (TILE / 2) + c % (TILE / 2) : t * TILE + c;
+}
+
+template <int KIND>
+__device__ __forceinline__ int weight_col(int t, int c, int N) {
+    return KIND == KIND_GLU && c >= TILE / 2 ? N + out_col<KIND>(t, c) : out_col<KIND>(t, c);
+}
+
+// The block's partial tile part[rows][TILE] (shared memory) through the
+// fixed-order split sum into y[., N], tile rows from row0 on: kernels 1, 2
+// and 5 store each sum; the GLU puts the sums back into part and then
+// writes act(part[r][c]) * part[r][c + TILE/2]. keep(r): tile row r is
+// written.
+template <int KIND, class OT, class Keep>
+__device__ __forceinline__ void finish(float* part, int rows, float* ws, int* counters,
+                                       int splits, OT* y, int row0, int N, int act, Keep keep) {
+    const int t = blockIdx.z;
+    const bool done = split_sum(part, rows * TILE, ws, counters, splits, [&](int e, float v) {
+        if (KIND == KIND_GLU) {
+            part[e] = v;
+            return;
+        }
+        const int r = e / TILE, col = out_col<KIND>(t, e % TILE);
+        if (col < N && keep(r)) store_out(y + size_t(row0 + r) * N + col, v);
+    });
+    if (KIND != KIND_GLU || !done) return;
+    constexpr int H = TILE / 2;
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows * H; e += blockDim.x) {
+        const int r = e / H, c = e % H, col = t * H + c;
+        if (col < N && keep(r))
+            store_out(y + size_t(row0 + r) * N + col,
+                      glu::glu_combine(part[r * TILE + c], part[r * TILE + H + c], act));
+    }
+}
+
 // ---- split-K CUDA-core path ------------------------------------------------
 
 constexpr int SK_TX = 8;    // threads along N (16 columns each: 128 bytes of a row)
 constexpr int SK_TY = 8;    // threads along K
-constexpr int SK_CT = 16 * SK_TX;  // columns per block
 constexpr int SK_THREADS = SK_TX * SK_TY;
+static_assert(16 * SK_TX == TILE, "a split-K block reads one tile's columns");
 
 template <bool VEC>
 __device__ __forceinline__ uint4 load16(const uint8_t* p, int nvalid) {
@@ -140,17 +216,19 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int c, float bias) {
     return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | uint32_t(c))) - bias;
 }
 
-// Grid: (splits, B, ceil(N/128)): one row per block; ws/counters: see
-// split_sum.
-template <int FMT, bool VEC, class SP, class OT>
+// Grid: (splits, B, column tiles: ceil(N/128), the GLU ceil(N/64)): one row
+// per block; ws/counters: see split_sum. KIND_PLAIN or KIND_GLU (act).
+template <int FMT, bool VEC, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(SK_THREADS, 8)
 qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
              const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
              float* __restrict__ ws, int* __restrict__ counters,
-             int B, int K, int N, int group, int splits) {
+             int B, int K, int N, int group, int splits, int act) {
+    static_assert(KIND != KIND_GROUPED, "the grouped product runs on the tensor cores");
     const int tid = threadIdx.x, tx = tid % SK_TX, ty = tid / SK_TX;
-    const int col = blockIdx.z * SK_CT + tx * 16;
-    const int nvalid = N - col;
+    const int ldw = KIND == KIND_GLU ? 2 * N : N;  // the weight's row stride
+    const int col = weight_col<KIND>(blockIdx.z, tx * 16, N);
+    const int nvalid = N - out_col<KIND>(blockIdx.z, tx * 16);
     const int row = blockIdx.y;
     const float* xr = x + size_t(row) * K;
 
@@ -169,10 +247,10 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     if (nvalid > 0) {
         for (int ch = gb * cpg + ty; ch < ge * cpg; ch += SK_TY) {
             const int g = ch / cpg, j0 = (ch % cpg) * SK_JC;
-            const uint8_t* prow = packed + (size_t(g) * rows_g + j0) * N + col;
+            const uint8_t* prow = packed + (size_t(g) * rows_g + j0) * ldw + col;
             uint4 wv[SK_JC];
 #pragma unroll
-            for (int j = 0; j < SK_JC; ++j) wv[j] = load16<VEC>(prow + size_t(j) * N, nvalid);
+            for (int j = 0; j < SK_JC; ++j) wv[j] = load16<VEC>(prow + size_t(j) * ldw, nvalid);
             float qd[16], xs = 0.0f;
 #pragma unroll
             for (int c = 0; c < 16; ++c) qd[c] = 0.0f;
@@ -202,12 +280,12 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                 }
             }
             float sc[16];
-            load_panel16<VEC>(scales + size_t(g) * N + col, nvalid, sc);
+            load_panel16<VEC>(scales + size_t(g) * ldw + col, nvalid, sc);
 #pragma unroll
             for (int c = 0; c < 16; ++c) acc[c] = fmaf(sc[c], qd[c], acc[c]);
             if (has_mins) {
                 float mn[16];
-                load_panel16<VEC>(mins + size_t(g) * N + col, nvalid, mn);
+                load_panel16<VEC>(mins + size_t(g) * ldw + col, nvalid, mn);
 #pragma unroll
                 for (int c = 0; c < 16; ++c) acc[c] = fmaf(-mn[c], xs, acc[c]);
             }
@@ -215,31 +293,28 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     }
 
     // the SK_TY partials of each column, summed in a fixed order
-    __shared__ float red[SK_TY][SK_CT];
-    __shared__ __align__(16) float part[SK_CT];
+    __shared__ float red[SK_TY][TILE];
+    __shared__ __align__(16) float part[TILE];
 #pragma unroll
     for (int c = 0; c < 16; ++c) red[ty][tx * 16 + c] = acc[c];
     __syncthreads();
-    for (int e = tid; e < SK_CT; e += SK_THREADS) {
+    for (int e = tid; e < TILE; e += SK_THREADS) {
         float t = 0.0f;
 #pragma unroll
         for (int k = 0; k < SK_TY; ++k) t += red[k][e];
         part[e] = t;
     }
     __syncthreads();
-    split_sum(part, SK_CT, ws, counters, splits, [&](int e, float v) {
-        const int c = blockIdx.z * SK_CT + e;
-        if (c < N) store_out(y + size_t(row) * N + c, v);
-    });
+    finish<KIND>(part, 1, ws, counters, splits, y, row, N, act, [](int) { return true; });
 }
 
 // ---- tensor-core path ------------------------------------------------------
 
-constexpr int TC_THREADS = 128;         // 4 warps side by side along N
-constexpr int TC_BN = 128;
+constexpr int TC_THREADS = 128;         // 4 warps side by side along N, 32 columns each
 constexpr int TC_KS = 32;               // K elements per stage: 1 or 2 scale groups
 constexpr int TC_XSTRIDE = TC_KS + 8;   // floats per staged x row (conflict-free reads)
-constexpr int TC_WSTRIDE = TC_BN + 32;  // bytes per staged packed row (conflict-free reads)
+constexpr int TC_WSTRIDE = TILE + 32;   // bytes per staged packed row (conflict-free reads)
+static_assert(TC_THREADS == TILE, "the 4 warps cover one tile's columns");
 
 template <int FMT, int MT, class SP, class OT>
 struct Tc {
@@ -247,24 +322,28 @@ struct Tc {
     static constexpr int WROWS = FMT == FMT_Q4 ? TC_KS / 2 : TC_KS;  // packed rows per stage
     static constexpr int X_BYTES = BM * TC_XSTRIDE * 4;
     static constexpr int W_BYTES = WROWS * TC_WSTRIDE;
-    static constexpr int P_BYTES = TC_BN * int(sizeof(SP));  // one panel row
+    static constexpr int P_BYTES = TILE * int(sizeof(SP));  // one panel row
     static constexpr int STAGE = X_BYTES + W_BYTES + 4 * P_BYTES;  // scales, mins: <= 2 rows each
     static constexpr int NSTAGE = MT == 1 ? 6 : MT == 2 ? 5 : 4;
-    static constexpr int RING = NSTAGE * STAGE > BM * TC_BN * 4 ? NSTAGE * STAGE : BM * TC_BN * 4;
+    static constexpr int RING = NSTAGE * STAGE > BM * TILE * 4 ? NSTAGE * STAGE : BM * TILE * 4;
     static constexpr int PASSES = std::is_same<OT, bf16>::value ? 2 : 3;
     static constexpr int PARTS = PASSES * 2 * BM * 16;  // bf16 [pass][kstep][BM][16], per buffer
     static constexpr int SMEM = RING + 2 * PARTS * 2 + 2 * 2 * BM * 4;
 };
 
-// Grid: (splits, ceil(B/BM), ceil(N/128)); ws/counters: see split_sum;
-// dynamic shared memory Tc::SMEM. q4: group 32; q8: group 16 or 32; K %
-// 32 == 0, N % 16 == 0 and 16-byte aligned tensors (the plan sees to them).
-template <int FMT, int MT, class SP, class OT>
+// Grid: (splits, ceil(B/BM), column tiles: ceil(N/128), the GLU
+// ceil(N/64)); ws/counters: see split_sum; dynamic shared memory Tc::SMEM.
+// q4: group 32; q8: group 16 or 32; K % 32 == 0, N % 16 == 0 and 16-byte
+// aligned tensors (the plan sees to them). KIND_GLU: act. KIND_GROUPED: B =
+// G * crows rows of the blocked layout, rows [B] slot ids (S: padding), eg
+// [G] expert ids, E experts in the stacks, BM dividing crows.
+template <int FMT, int MT, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(TC_THREADS)
 qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
          const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
          float* __restrict__ ws, int* __restrict__ counters,
-         int B, int K, int N, int group, int splits) {
+         const int* __restrict__ rows, const int* __restrict__ eg,
+         int B, int K, int N, int group, int splits, int act, int crows, int S, int E) {
     using C = Tc<FMT, MT, SP, OT>;
     constexpr int BM = C::BM;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -273,7 +352,28 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g8 = lane >> 2, t4 = lane & 3;
-    const int row0 = blockIdx.y * BM, col0 = blockIdx.z * TC_BN;
+    const int row0 = blockIdx.y * BM, t = blockIdx.z;
+    const int ldw = KIND == KIND_GLU ? 2 * N : N;  // the weight's row stride
+    if constexpr (KIND == KIND_GROUPED) {
+        // padding only: every slice exits before any barrier, and the
+        // tile's counter is never touched
+        if (__ldg(rows + row0) >= S) return;
+        const int e = __ldg(eg + row0 / crows);
+        if (e < 0 || e >= E) {  // reads nothing; slice 0 writes NaN
+            if (blockIdx.x == 0)
+                for (int i = tid; i < BM * TILE; i += TC_THREADS) {
+                    const int r = i / TILE, col = t * TILE + i % TILE;
+                    if (col < N && __ldg(rows + row0 + r) < S)
+                        store_out(y + size_t(row0 + r) * N + col, __int_as_float(0x7fffffff));
+                }
+            return;
+        }
+        const size_t pstride = size_t(FMT == FMT_Q4 ? K / 2 : K) * N;
+        const size_t sstride = size_t(K / group) * N;
+        packed += size_t(e) * pstride;
+        scales += size_t(e) * sstride;
+        if (mins != nullptr) mins += size_t(e) * sstride;
+    }
     const int nst = K / TC_KS;
     const int sb = int((long long)blockIdx.x * nst / splits);
     const int n_it = int((long long)(blockIdx.x + 1) * nst / splits) - sb;
@@ -289,8 +389,14 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     bool x_ok[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-        const int c = tid + TC_THREADS * i, r = c / 8, q = c % 8, row = row0 + r;
-        x_ok[i] = row < B;
+        const int c = tid + TC_THREADS * i, r = c / 8, q = c % 8;
+        int row = row0 + r;
+        if constexpr (KIND == KIND_GROUPED) {  // gathered: row r is slot rows[row0 + r]
+            row = __ldg(rows + row0 + r);
+            x_ok[i] = row < S;
+        } else {
+            x_ok[i] = row < B;
+        }
         x_src[i] = size_t(x_ok[i] ? row : 0) * K + size_t(sb) * TC_KS + 4 * q;
         x_dst[i] = r * TC_XSTRIDE * 4 + 16 * q;
     }
@@ -299,22 +405,24 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     int w_dst[WCH];
     bool w_ok;
     {
-        const int q = tid % 8, col = col0 + 16 * q;
-        w_ok = col < N;
+        const int q = tid % 8;
+        w_ok = out_col<KIND>(t, 16 * q) < N;
+        const int col = weight_col<KIND>(t, 16 * q, N);
 #pragma unroll
         for (int i = 0; i < WCH; ++i) {
             const int r = tid / 8 + 16 * i;
-            w_src[i] = (size_t(sb) * C::WROWS + r) * N + (w_ok ? col : 0);
+            w_src[i] = (size_t(sb) * C::WROWS + r) * ldw + (w_ok ? col : 0);
             w_dst[i] = C::X_BYTES + r * TC_WSTRIDE + 16 * q;
         }
     }
     constexpr int PE = 16 / int(sizeof(SP));  // panel values per chunk
-    constexpr int PC = TC_BN / PE;            // chunks per panel row
+    constexpr int PC = TILE / PE;             // chunks per panel row
     const int p_which = tid / PC;             // 0, 1: scale rows; 2, 3: min rows
-    const int p_col = col0 + PE * (tid % PC);
+    const bool p_col_ok = out_col<KIND>(t, PE * (tid % PC)) < N;
+    const int p_col = weight_col<KIND>(t, PE * (tid % PC), N);
     const bool p_ok = p_which < 2 * (has_mins ? 2 : 1) && (p_which & 1) < gps && tid < 4 * PC;
     const SP* p_base = (p_which < 2 ? scales : mins);
-    const size_t p_src = (size_t(sb) * gps + (p_which & 1)) * N + (p_col < N ? p_col : 0);
+    const size_t p_src = (size_t(sb) * gps + (p_which & 1)) * ldw + (p_col_ok ? p_col : 0);
     const int p_dst = C::X_BYTES + C::W_BYTES + p_which * C::P_BYTES + 16 * (tid % PC);
 
     auto load_stage = [&](int it) {
@@ -324,9 +432,9 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             cp_async16(st + x_dst[i], x + x_src[i] + size_t(it) * TC_KS, x_ok[i]);
 #pragma unroll
         for (int i = 0; i < WCH; ++i)
-            cp_async16(st + w_dst[i], packed + w_src[i] + size_t(it) * C::WROWS * N, w_ok);
+            cp_async16(st + w_dst[i], packed + w_src[i] + size_t(it) * C::WROWS * ldw, w_ok);
         if (p_ok)
-            cp_async16(st + p_dst, p_base + p_src + size_t(it) * gps * N, p_col < N);
+            cp_async16(st + p_dst, p_base + p_src + size_t(it) * gps * ldw, p_col_ok);
     };
 
     // x of one stage -> parts[pass][kstep][row][pos] and the group sums
@@ -407,7 +515,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 
         const unsigned char* ws_ = smem + (it % C::NSTAGE) * C::STAGE + C::X_BYTES;
         const SP* ss = reinterpret_cast<const SP*>(ws_ + C::W_BYTES);
-        const SP* ms = ss + 2 * TC_BN;
+        const SP* ms = ss + 2 * TILE;
         const bf16* parts = parts_buf + (it & 1) * C::PARTS;
         const float* xsum = xsum_buf + (it & 1) * 2 * BM;
 
@@ -454,7 +562,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             if (gps == 2 || ks == 1) {
                 const int gi = gps == 2 ? ks : 0;
                 float sc[8];
-                load8(ss + gi * TC_BN + wc + 8 * t4, sc);
+                load8(ss + gi * TILE + wc + 8 * t4, sc);
 #pragma unroll
                 for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -464,7 +572,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                             acc[m][j][e] = fmaf(sc[j + 4 * (e & 1)], cg_[m][j][e], acc[m][j][e]);
                 if (has_mins) {
                     float mn[8];
-                    load8(ms + gi * TC_BN + wc + 8 * t4, mn);
+                    load8(ms + gi * TILE + wc + 8 * t4, mn);
 #pragma unroll
                     for (int m = 0; m < MT; ++m) {
                         const float x0 = xsum[gi * BM + 16 * m + g8];
@@ -483,18 +591,20 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     // the block's partial tile -> shared memory -> the fixed-order sum
     cp_async_wait<0>();
     __syncthreads();
-    float* part = reinterpret_cast<float*>(smem);  // [BM][TC_BN], over the ring
+    float* part = reinterpret_cast<float*>(smem);  // [BM][TILE], over the ring
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                part[(16 * m + g8 + 8 * (e >> 1)) * TC_BN + wc + 8 * t4 + j + 4 * (e & 1)] = acc[m][j][e];
+                part[(16 * m + g8 + 8 * (e >> 1)) * TILE + wc + 8 * t4 + j + 4 * (e & 1)] = acc[m][j][e];
     __syncthreads();
-    split_sum(part, BM * TC_BN, ws, counters, splits, [&](int e, float v) {
-        const int row = row0 + e / TC_BN, col = col0 + e % TC_BN;
-        if (row < B && col < N) store_out(y + size_t(row) * N + col, v);
+    finish<KIND>(part, BM, ws, counters, splits, y, row0, N, act, [&](int r) {
+        if constexpr (KIND == KIND_GROUPED)
+            return __ldg(rows + row0 + r) < S;
+        else
+            return row0 + r < B;
     });
 }
 
@@ -528,77 +638,120 @@ struct Call {
     void* y;
     float* ws;
     int* counters;
-    int B, K, N, group, tile, splits, vec;
+    const int* rows;
+    const int* eg;
+    int B, K, N, group, tile, splits, vec, act, crows, S, E;
     cudaStream_t stream;
 };
 
-template <int FMT, bool VEC, class SP, class OT>
-int splitk(const Call& c) {
-    const dim3 grid(c.splits, c.B, (c.N + SK_CT - 1) / SK_CT);
-    return launch(qgemm_splitk<FMT, VEC, SP, OT>, grid, SK_THREADS, 0, c.stream,
-                  c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
-                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits);
+// Column tiles of the grid: TILE output columns, the GLU's TILE / 2.
+template <int KIND>
+int col_tiles(int N) {
+    constexpr int OC = KIND == KIND_GLU ? TILE / 2 : TILE;
+    return (N + OC - 1) / OC;
 }
 
-template <int FMT, int MT, class SP, class OT>
+template <int FMT, bool VEC, class SP, class OT, int KIND>
+int splitk(const Call& c) {
+    const dim3 grid(c.splits, c.B, col_tiles<KIND>(c.N));
+    return launch(qgemm_splitk<FMT, VEC, SP, OT, KIND>, grid, SK_THREADS, 0, c.stream,
+                  c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
+                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits,
+                  c.act);
+}
+
+template <int FMT, int MT, class SP, class OT, int KIND>
 int tc_mt(const Call& c) {
     using T = Tc<FMT, MT, SP, OT>;
-    const cudaError_t e = allow_smem<qgemm_tc<FMT, MT, SP, OT>>(T::SMEM);
+    const cudaError_t e = allow_smem<qgemm_tc<FMT, MT, SP, OT, KIND>>(T::SMEM);
     if (e != cudaSuccess) return int(e);
-    const dim3 grid(c.splits, (c.B + T::BM - 1) / T::BM, (c.N + TC_BN - 1) / TC_BN);
-    return launch(qgemm_tc<FMT, MT, SP, OT>, grid, TC_THREADS, T::SMEM, c.stream,
+    const dim3 grid(c.splits, (c.B + T::BM - 1) / T::BM, col_tiles<KIND>(c.N));
+    return launch(qgemm_tc<FMT, MT, SP, OT, KIND>, grid, TC_THREADS, T::SMEM, c.stream,
                   c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
-                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits);
+                  static_cast<OT*>(c.y), c.ws, c.counters, c.rows, c.eg, c.B, c.K, c.N, c.group,
+                  c.splits, c.act, c.crows, c.S, c.E);
 }
 
-template <int FMT, class SP, class OT>
+template <int FMT, class SP, class OT, int KIND>
 int dispatch(const Call& c, int path) {
     if (path == 1) {
         switch (c.tile) {
-        case 1: return tc_mt<FMT, 1, SP, OT>(c);
-        case 2: return tc_mt<FMT, 2, SP, OT>(c);
-        case 4: return tc_mt<FMT, 4, SP, OT>(c);
+        case 1: return tc_mt<FMT, 1, SP, OT, KIND>(c);
+        case 2: return tc_mt<FMT, 2, SP, OT, KIND>(c);
+        case 4: return tc_mt<FMT, 4, SP, OT, KIND>(c);
         default: return int(cudaErrorInvalidValue);
         }
     }
-    if (c.tile != 1) return int(cudaErrorInvalidValue);
-    return c.vec ? splitk<FMT, true, SP, OT>(c) : splitk<FMT, false, SP, OT>(c);
+    if constexpr (KIND == KIND_GROUPED) {
+        return int(cudaErrorInvalidValue);
+    } else {
+        if (c.tile != 1) return int(cudaErrorInvalidValue);
+        return c.vec ? splitk<FMT, true, SP, OT, KIND>(c) : splitk<FMT, false, SP, OT, KIND>(c);
+    }
+}
+
+template <class SP, class OT, int KIND>
+int dispatch_fmt(const Call& c, int fmt, int path) {
+    return fmt == FMT_Q4 ? dispatch<FMT_Q4, SP, OT, KIND>(c, path)
+                         : dispatch<FMT_Q8, SP, OT, KIND>(c, path);
 }
 
 template <class SP, class OT>
-int dispatch_fmt(const Call& c, int fmt, int path) {
-    return fmt == FMT_Q4 ? dispatch<FMT_Q4, SP, OT>(c, path) : dispatch<FMT_Q8, SP, OT>(c, path);
+int dispatch_kind(const Call& c, int fmt, int path) {
+    if (c.rows != nullptr) {
+        if constexpr (std::is_same<SP, float>::value)  // expert stacks keep f32 panels
+            return dispatch_fmt<SP, OT, KIND_GROUPED>(c, fmt, path);
+        return int(cudaErrorInvalidValue);
+    }
+    return c.act >= 0 ? dispatch_fmt<SP, OT, KIND_GLU>(c, fmt, path)
+                      : dispatch_fmt<SP, OT, KIND_PLAIN>(c, fmt, path);
 }
 
 }  // namespace
 
-// y[B, N] = x[B, K] @ W[K, N]. fmt: 0 = q4, 1 = q8; mins may be null.
+// y = x @ W, one launch. fmt: 0 = q4, 1 = q8; mins may be null.
 // panel_bf16 / out_bf16: scales and mins / y are bfloat16 (else float32).
-// path 0 = split-K (tile = rows per block: 1; vec = 1 when N % 16 == 0 and
-// every tensor is 16-byte aligned), path 1 = tensor cores (tile = MT,
-// 16-row tiles per block: 1, 2 or 4; needs vec, q4 group 32, q8 group 16 or
-// 32). splits: 1..32 K slices of whole groups. With splits > 1, ws holds
-// tiles x splits x (rows x columns of a block's tile) floats and counters
-// one int per output tile, all 0 (the kernel leaves them 0 again); tiles =
-// ceil(B / rows) x ceil(N / columns), the block tile as ops/qmatmul.py's
-// qmatmul_plan gives it.
+// What is computed:
+//   * act = -1, rows = null (kernels 1-2): y[B, N] = x[B, K] @ W[K, N];
+//   * act = 0..4 (the GLU, kernel 3; 0 silu, 1 gelu (tanh), 2 relu,
+//     3 relu2, 4 swiglu_oai): W is the fused [K, 2N] gate|up weight and
+//     y[B, N] = act(x @ W[:, :N]) * (x @ W[:, N:]);
+//   * rows, eg non-null (the grouped MoE product, kernel 5; act = -1, f32
+//     panels, tensor cores): W is a stack of E experts ([E, K/2 | K, N],
+//     panels [E, K/group, N]), B = G * crows rows of the blocked layout;
+//     row r of y[B, N] = x[rows[r]] @ W[eg[r / crows]] where rows[r] < S
+//     (the rest are not written); an expert id outside [0, E) writes NaN.
+// A block reads 128 weight columns. path 0 = split-K (tile = rows per
+// block: 1; vec = 1 when N % 16 == 0 and every tensor is 16-byte aligned),
+// path 1 = tensor cores (tile = MT, 16-row tiles per block: 1, 2 or 4;
+// needs vec, q4 group 32, q8 group 16 or 32). splits: 1..32 K slices of
+// whole groups. With splits > 1, ws holds tiles x splits x (rows x 128)
+// floats and counters one int per output tile, all 0 (the kernel leaves
+// them 0 again); tiles = ceil(B / rows) x column tiles (ceil(N / 128), the
+// GLU ceil(N / 64)), as ops/qmatmul.py's plans give them.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int qgemm_launch(const float* x, const void* packed, const void* scales,
                             const void* mins, void* y, float* ws, int* counters,
+                            const int* rows, const int* eg,
                             int B, int K, int N, int group, int fmt,
-                            int panel_bf16, int out_bf16, int path, int tile, int splits,
-                            int vec, void* stream) {
+                            int panel_bf16, int out_bf16, int path, int tile, int splits, int vec, int act, int crows, int S, int E,
+                            void* stream) {
     const int rows_g = fmt == FMT_Q4 ? group / 2 : group;
     if (splits < 1 || splits > 32 || splits > K / group || group % 16 != 0 || K % group != 0 ||
-        rows_g % 16 != 0)
+        rows_g % 16 != 0 || act < -1 || act > 4)
         return int(cudaErrorInvalidValue);
     if (path == 1 && (!vec || K % TC_KS != 0 || splits > K / TC_KS ||
                       (fmt == FMT_Q4 ? group != 32 : group != 16 && group != 32)))
         return int(cudaErrorInvalidValue);
+    if ((rows == nullptr) != (eg == nullptr) ||
+        (rows != nullptr && (path != 1 || act != -1 || panel_bf16 || E < 1 || S < 0 ||
+                             crows < 16 * tile || crows % (16 * tile) != 0 || B % crows != 0)))
+        return int(cudaErrorInvalidValue);
     if (splits > 1 && (ws == nullptr || counters == nullptr)) return int(cudaErrorInvalidValue);
     const Call c{x, static_cast<const uint8_t*>(packed), scales, mins, y, ws, counters,
-                 B, K, N, group, tile, splits, vec, static_cast<cudaStream_t>(stream)};
+                 rows, eg, B, K, N, group, tile, splits, vec, act, crows, S, E,
+                 static_cast<cudaStream_t>(stream)};
     if (panel_bf16)
-        return out_bf16 ? dispatch_fmt<bf16, bf16>(c, fmt, path) : dispatch_fmt<bf16, float>(c, fmt, path);
-    return out_bf16 ? dispatch_fmt<float, bf16>(c, fmt, path) : dispatch_fmt<float, float>(c, fmt, path);
+        return out_bf16 ? dispatch_kind<bf16, bf16>(c, fmt, path) : dispatch_kind<bf16, float>(c, fmt, path);
+    return out_bf16 ? dispatch_kind<float, bf16>(c, fmt, path) : dispatch_kind<float, float>(c, fmt, path);
 }

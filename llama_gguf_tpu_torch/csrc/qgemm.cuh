@@ -100,9 +100,10 @@ __device__ __forceinline__ void load8(const bf16* p, float (&out)[8]) {
 // 0, 1, ..., splits - 1 (so the result does not depend on which block is
 // last), hands each sum to emit(e, sum), and sets the counter back to 0 for
 // the next launch. With one slice, emit takes part directly. All threads of
-// the block call this.
+// the block call this; it returns true (to all of them) in the block that
+// emitted the sums.
 template <class Emit>
-__device__ __forceinline__ void split_sum(const float* part, int count, float* ws, int* counters,
+__device__ __forceinline__ bool split_sum(const float* part, int count, float* ws, int* counters,
                                           int splits, Emit emit) {
     const float4* p4 = reinterpret_cast<const float4*>(part);
     auto emit4 = [&](int e4, float4 v) {
@@ -111,7 +112,7 @@ __device__ __forceinline__ void split_sum(const float* part, int count, float* w
     const int n4 = count / 4;
     if (splits == 1) {
         for (int e = threadIdx.x; e < n4; e += blockDim.x) emit4(e, p4[e]);
-        return;
+        return true;
     }
     __shared__ int last;
     const int tile = blockIdx.y * gridDim.z + blockIdx.z;
@@ -122,7 +123,7 @@ __device__ __forceinline__ void split_sum(const float* part, int count, float* w
     __syncthreads();
     if (threadIdx.x == 0) last = atomicAdd(counters + tile, 1) == splits - 1;
     __syncthreads();
-    if (!last) return;
+    if (!last) return false;
     __threadfence();
     for (int e = threadIdx.x; e < n4; e += blockDim.x) {
         float4 v = __ldcg(slots + e);
@@ -133,6 +134,7 @@ __device__ __forceinline__ void split_sum(const float* part, int count, float* w
         emit4(e, v);
     }
     if (threadIdx.x == 0) counters[tile] = 0;
+    return true;
 }
 
 }  // namespace qgemm

@@ -13,8 +13,8 @@
 //   v10_4dot    :412-427  y = sum (x_lo+x_hi)(lo+hi)     (variant_int8, q4)
 //   v8_w4a8     :311-387  y = S * [sum_g u * (xi @ q)_g - xg2^T @ m2]
 //                                                        (variant_w4a8, q4)
-// v0_full and v1_nomin of the probe are the production kernels of
-// csrc/qmatmul.cu with bf16 panels in "default" precision, not kernels here.
+// v0_full and v1_nomin of the probe are the production kernels 1-2 of
+// csrc/qgemm.cu with bf16 panels in "default" precision, not kernels here.
 //
 // Layouts as csrc/qdot.cuh: q4 packed uint8 [K/2, N] group-split (packed row
 // r of group g holds element j = r % (group/2) in its low nibble and element

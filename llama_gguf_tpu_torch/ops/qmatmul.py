@@ -1,5 +1,5 @@
-"""Fused dequant-matmul: wrappers over the CUDA kernels of csrc/qgemm.cu,
-csrc/qmatmul.cu and csrc/moe_qmatmul.cu and their plain PyTorch versions (port of
+"""Fused dequant-matmul: wrappers over the CUDA kernels of csrc/qgemm.cu and
+csrc/moe_qmatmul.cu and their plain PyTorch versions (port of
 llama_gguf_tpu/ops/qmatmul.py).
 
   * ``qmatmul(x, lin)``          — y = x @ W for a q4 or q8 QuantLinear
@@ -10,15 +10,20 @@ llama_gguf_tpu/ops/qmatmul.py).
                                     ``qmatmul_plan``);
   * ``qmatmul_glu(x, lin, act)`` — act(x @ W_gate) * (x @ W_up) over a fused
                                     [gate | up] QuantLinear (kernel
-                                    "qmatmul_glu", replacing
-                                    _qmatmul_glu_call's _glu_kernel);
+                                    "qmatmul_glu" of csrc/qgemm.cu, replacing
+                                    _qmatmul_glu_call's _glu_kernel; planned
+                                    by ``qmatmul_plan(..., glu=True)``);
   * ``moe_qmatmul(x_rows, stack, idx)`` — y[s] = x[s] @ W[idx[s]] for routed
                                     MoE slots over a QuantExpertStack:
                                     slot-major (kernel "moe_slot", replacing
                                     _moe_qmatmul_call) at decode-sized S,
                                     else grouped by expert (kernel
                                     "moe_grouped", replacing
-                                    _moe_qmatmul_grouped_call);
+                                    _moe_qmatmul_grouped_call: the
+                                    tensor-core path of csrc/qgemm.cu, or
+                                    the CUDA-core kernel of
+                                    csrc/moe_qmatmul.cu for the layouts it
+                                    does not take; ``moe_grouped_plan``);
   * ``moe_qmatmul_glu(x_rows, gate, up, idx, act)`` — the grouped gate/up
                                     product with the GLU epilogue (kernel
                                     "moe_glu_grouped", replacing
@@ -64,7 +69,7 @@ MOE_GROUP_ROWS = 256  # C: rows per single-expert block
 
 PRECISIONS = (None, "highest", "default")
 
-# Kernels 1-2 (csrc/qgemm.cu): the tensor-core path from this many rows on,
+# Kernels 1-3 (csrc/qgemm.cu): the tensor-core path from this many rows on,
 # the split-K CUDA-core path below (see qmatmul_plan). From 5 rows the tensor
 # cores were at least as fast as split-K at 7 of 9 main-path shapes
 # (scripts/bench_qmatmul.py paths, H100 80GB HBM3, 700 W).
@@ -85,18 +90,26 @@ H100_SMS = 132
 class QmatmulPlan:
     """How one q4/q8 product is launched: ``path`` "tc" (tensor cores) or
     "splitk" (CUDA cores, one row per block); a block owns ``rows`` x
-    ``cols`` of the output
-    and one of ``splits`` K slices of whole scale groups; ``grid`` is
-    (splits, row tiles, column tiles); ``vec``: 16-byte loads (N % 16 == 0
-    and aligned tensors). With splits > 1 each block writes its f32 partial
-    tile to a workspace of ``scratch_bytes`` and the last block of a tile
-    (one int counter per tile) adds them in slice order."""
+    ``cols`` columns of the weight (``out_cols`` of the output: half of
+    them for the GLU, whose block reads 64 gate columns and their 64 up
+    columns) and one of ``splits`` K slices of whole scale groups; ``grid``
+    is (splits, row tiles, column tiles); ``vec``: 16-byte loads (N % 16
+    == 0 and aligned tensors). With splits > 1 each block writes its f32
+    partial tile to a workspace of ``scratch_bytes`` and the last block of
+    a tile (one int counter per tile) adds them in slice order. The grouped
+    MoE product's "cuda cores" path (csrc/moe_qmatmul.cu) sets its own tile
+    and grid: rows and cols 0, grid None, one slice."""
     path: str
     rows: int
     cols: int
     splits: int
-    grid: tuple[int, int, int]
+    grid: tuple[int, int, int] | None
     vec: bool
+    glu: bool = False
+
+    @property
+    def out_cols(self) -> int:
+        return self.cols // 2 if self.glu else self.cols
 
     @property
     def tiles(self) -> int:
@@ -116,51 +129,88 @@ class QmatmulPlan:
         """The operations' type for utils/timing.bound_ms: bf16 tensor-core
         passes, three for an f32 output and two for the bf16 output of
         "default" (the kernel drops x's third part there); or f32 on the
-        CUDA cores."""
+        CUDA cores (split-K, whose bound is the bytes at decode sizes)."""
         if self.path != "tc":
             return "f32"
         return "bf16x2" if out_dtype(precision) == torch.bfloat16 else "bf16x3"
+
+
+def _layout(k: int, n: int, group: int, fmt: str, aligned: bool
+            ) -> tuple[bool, bool]:
+    """(vec, tc_ok) of a q4/q8 weight of k rows and n output columns: the
+    16-byte loads need n % 16 == 0 and aligned tensors; the tensor cores
+    those, whole 32-element stages and q4 group 32 or q8 group 16 or 32.
+    Raises on what no kernel takes."""
+    if fmt not in ("q4", "q8") or group % (32 if fmt == "q4" else 16) \
+            or k % group:
+        raise ValueError(f"qmatmul_plan: fmt={fmt} k={k} group={group}")
+    vec = aligned and n % 16 == 0
+    return vec, (vec and k % TC_STAGE == 0
+                 and group in ((32,) if fmt == "q4" else (16, 32)))
+
+
+def _check_splits(splits: int, k: int, group: int, path: str) -> None:
+    if not 1 <= splits <= min(MAX_SPLITS, k // group if path == "splitk"
+                              else k // TC_STAGE):
+        raise ValueError(f"qmatmul_plan: {splits} splits of {k // group} "
+                         "groups")
 
 
 @functools.lru_cache(maxsize=1024)
 def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
                  sms: int = H100_SMS, aligned: bool = True,
                  path: str | None = None, splits: int | None = None,
-                 tile_rows: int | None = None) -> QmatmulPlan:
-    """The launch of kernels 1-2 for x [b, k] @ W [k, n]. Tensor cores from
+                 tile_rows: int | None = None, glu: bool = False
+                 ) -> QmatmulPlan:
+    """The launch of kernels 1-3 for x [b, k] @ W [k, n]; with ``glu``
+    (kernel 3) n is the output width F of the fused [k, 2F] gate|up weight,
+    and a block's 128 weight columns are 64 gate columns and their 64 up
+    columns (the grid has ceil(F / 64) column tiles; above 64 rows its
+    tiles are 64 rows high only where that grid still holds
+    BLOCKS_PER_SM["tc prefill"] blocks per SM: at TinyLlama's 128-row
+    prefill 32-row tiles took 0.126 ms against 0.149, bench_qmatmul paths,
+    H100 80GB HBM3, 700 W). Tensor cores from
     TC_MIN_ROWS rows on, where the layout allows them (q4 group 32, q8 group
     16 or 32, 16-byte loads); BM = 16 rows x 128 columns up to 16 rows, 32
     up to 64 rows or below 4096 columns, else 64. Below, the split-K
     kernel: one row x 128 columns. Either way K is cut into up to
     MAX_SPLITS slices of whole groups (whole 32-element stages on the tensor
     cores, 8 of them per slice at least, for the cp.async ring; split-K: 6
-    chunks of 16 packed rows at least) until the grid holds BLOCKS_PER_SM
-    blocks per SM: rounded up, or down for the tensor cores' 32- and 64-row
-    tiles up to 128 rows. ``path``, ``splits`` and ``tile_rows`` (tc: 16,
-    32 or 64) override the choice (measurements and tests); a path the
-    layout does not allow raises. Cached: decode asks for the same few
-    plans at every step."""
-    if (fmt not in ("q4", "q8") or group % (32 if fmt == "q4" else 16)
-            or k % group or b < 1):
-        raise ValueError(f"qmatmul_plan: fmt={fmt} k={k} group={group} b={b}")
-    vec = aligned and n % 16 == 0
-    tc_ok = (vec and k % TC_STAGE == 0
-             and group in ((32,) if fmt == "q4" else (16, 32)))
+    chunks of 16 packed rows at least, the GLU 8) until the grid holds
+    BLOCKS_PER_SM blocks per SM: rounded up, or down for the tensor cores'
+    32- and 64-row tiles up to 128 rows. ``path``, ``splits`` and
+    ``tile_rows`` (tc: 16, 32 or 64) override the choice (measurements and
+    tests); a path the layout does not allow raises.
+    Cached: decode asks for the same few plans at every step."""
+    if b < 1:
+        raise ValueError(f"qmatmul_plan: b={b}")
+    vec, tc_ok = _layout(k, n, group, fmt, aligned)
     if path is None:
         path = "tc" if tc_ok and b >= TC_MIN_ROWS else "splitk"
     if path == "tc" and tc_ok:
         cols, slices_max = TC_COLS, k // TC_STAGE // 8
-        rows = tile_rows or (16 if b <= 16 else 32 if b <= 64 or n < 4096
-                             else 64)
+        if glu:  # 64-row tiles only where their grid still fills the card
+            fill = (-(-b // 64) * -(-n // (cols // 2))
+                    >= BLOCKS_PER_SM["tc prefill"] * sms)
+            rows = tile_rows or (16 if b <= 16 else 64 if b > 64 and fill
+                                 else 32)
+        else:
+            rows = tile_rows or (16 if b <= 16 else 32 if b <= 64 or n < 4096
+                                 else 64)
         if rows not in (16, 32, 64):
             raise ValueError(f"qmatmul_plan: tile_rows={rows}")
     elif path == "splitk":
         cols, rows = SPLITK_COLS, 1
-        slices_max = max(1, k // (32 if fmt == "q4" else 16) // 6)
+        # chunks of 16 packed rows per slice: at least 6; the GLU's at
+        # least 8, one per thread along K (at TinyLlama's gate|up 8 slices
+        # took 0.0171-0.0174 ms, 10 took 0.0186-0.0190, bench_qmatmul
+        # paths, two calls, H100 80GB HBM3, 700 W)
+        slices_max = max(1, k // (32 if fmt == "q4" else 16) // (8 if glu
+                                                                 else 6))
     else:
         raise ValueError(f"qmatmul_plan: no {path!r} path for fmt={fmt} "
                          f"group={group} n={n} aligned={aligned}")
-    row_tiles, col_tiles = -(-b // rows), -(-n // cols)
+    row_tiles, col_tiles = -(-b // rows), -(-n // (cols // 2 if glu else cols))
     if splits is None:
         tiles = row_tiles * col_tiles
         if path == "tc" and rows >= 32 and b <= 128:
@@ -168,14 +218,60 @@ def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
         else:
             want = -(-BLOCKS_PER_SM[path] * sms // tiles)
         splits = max(1, min(MAX_SPLITS, slices_max, want))
-    if not 1 <= splits <= min(MAX_SPLITS, k // group if path == "splitk"
-                              else k // TC_STAGE):
-        raise ValueError(f"qmatmul_plan: {splits} splits of {k // group} "
-                         "groups")
+    _check_splits(splits, k, group, path)
     if row_tiles > 65535 or col_tiles > 65535:
         raise ValueError(f"qmatmul_plan: {b} x {n} exceeds the grid")
     return QmatmulPlan(path, rows, cols, splits, (splits, row_tiles, col_tiles),
-                       vec)
+                       vec, glu)
+
+
+@functools.lru_cache(maxsize=256)
+def moe_grouped_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
+                     fmt: str, sms: int = H100_SMS, aligned: bool = True,
+                     path: str | None = None, splits: int | None = None,
+                     tile_rows: int | None = None) -> QmatmulPlan:
+    """The launch of kernel 5 for S slots over E experts, where the grouped
+    rule of ``moe_dims`` holds (G groups of C rows). "tc": the tensor-core
+    path of csrc/qgemm.cu with gathered rows, where the layout allows it
+    (as for ``qmatmul_plan``); a block owns BM rows of the [G*C] blocked
+    layout x 128 columns x one K slice. BM (16, 32 or 64) follows
+    qmatmul_plan's rule at the mean slots per expert, at most C; both are
+    powers of two and C >= 32 here, so BM divides C and no tile straddles
+    two groups. Only the tiles that hold a slot work (at most ceil(S/BM) +
+    E: each expert's last tile may be part padding); the rest exit at
+    once, so the split of K aims the live tiles at BLOCKS_PER_SM["tc
+    prefill"] blocks per SM. Other layouts: "cuda cores", the grouped
+    kernel of csrc/moe_qmatmul.cu, which sets its own tile, grid and loads
+    (K unsplit). ``path``, ``splits`` and ``tile_rows`` override the
+    choice."""
+    c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
+    if not grouped:
+        raise ValueError(f"moe_grouped_plan: S={s_slots} over E={e_num} is "
+                         "not grouped")
+    vec, tc_ok = _layout(k, n, group, fmt, aligned)
+    if path is None:
+        path = "tc" if tc_ok else "cuda cores"
+    b = g_blocks * c_rows
+    if path == "cuda cores":
+        return QmatmulPlan(path, 0, 0, 1, None, False)
+    if path != "tc" or not tc_ok:
+        raise ValueError(f"moe_grouped_plan: no {path!r} path for fmt={fmt} "
+                         f"group={group} n={n} aligned={aligned}")
+    per_expert = -(-s_slots // e_num)
+    rows = tile_rows or min(c_rows, 16 if per_expert <= 16 else 32
+                            if per_expert <= 64 or n < 4096 else 64)
+    if rows not in (16, 32, 64) or c_rows % rows:
+        raise ValueError(f"moe_grouped_plan: tile_rows={rows} for C={c_rows}")
+    row_tiles, col_tiles = b // rows, -(-n // TC_COLS)
+    if splits is None:
+        live = min(row_tiles, -(-s_slots // rows) + e_num)
+        want = BLOCKS_PER_SM["tc prefill"] * sms // (live * col_tiles)
+        splits = max(1, min(MAX_SPLITS, k // TC_STAGE // 8, want))
+    _check_splits(splits, k, group, path)
+    if row_tiles > 65535 or col_tiles > 65535:
+        raise ValueError(f"moe_grouped_plan: {b} x {n} exceeds the grid")
+    return QmatmulPlan(path, rows, TC_COLS, splits,
+                       (splits, row_tiles, col_tiles), vec)
 
 
 def reset_launches() -> None:
@@ -320,8 +416,7 @@ def moe_group_plan(idx: torch.Tensor, e_num: int, c_rows: int,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "qgemm": {"qgemm_launch": [_P] * 7 + [_I] * 11 + [_P]},
-    "qmatmul": {"qmatmul_glu_launch": [_P] * 5 + [_I] * 9 + [_P]},
+    "qgemm": {"qgemm_launch": [_P] * 9 + [_I] * 15 + [_P]},
     "moe_qmatmul": {
         "moe_slot_launch": [_P] * 6 + [_I] * 8 + [_P],
         "moe_grouped_launch": [_P] * 7 + [_I] * 10 + [_P],
@@ -330,7 +425,7 @@ SIGNATURES = {
 }
 
 
-def _lib(name: str = "qmatmul") -> ctypes.CDLL:
+def _lib(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built at first use."""
     from ..utils.cuda_build import load
 
@@ -450,35 +545,54 @@ def qmatmul(x: torch.Tensor, lin: QuantLinear,
     y = torch.empty((b, lin.n), dtype=odt, device=x.device)
     if b == 0:
         return y
-    # y is a fresh allocation, and the caching allocator aligns those to
-    # 512 bytes
-    aligned = all(t.data_ptr() % 16 == 0 for t in (
-        x, lin.packed, lin.scales, lin.mins) if t is not None)
     plan = qmatmul_plan(b, lin.k, lin.n, lin.group, lin.fmt, _sms(x.device),
-                        aligned, path, splits, tile_rows)
-    fmt = 0 if lin.fmt == "q4" else 1
-    ws, counters = _scratch(x.device, plan)
-    rc = _lib("qgemm").qgemm_launch(
-        x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        _ptr(lin.mins), y.data_ptr(), ws, counters,
-        b, lin.k, lin.n, lin.group, fmt, panel_bf16,
-        int(odt == torch.bfloat16), int(plan.path == "tc"), plan.tile,
-        plan.splits, int(plan.vec), _stream(x))
-    _raise_on(rc, "qmatmul")
-    LAUNCHES["qmatmul_q4" if fmt == 0 else "qmatmul_q8"] += 1
+                        _aligned(x, lin), path, splits, tile_rows)
+    _qgemm(x, lin, y, plan, panel_bf16, "qmatmul")
+    LAUNCHES["qmatmul_q4" if lin.fmt == "q4" else "qmatmul_q8"] += 1
     return y
 
 
+def _aligned(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> bool:
+    """Every input 16-byte aligned (outputs are fresh allocations, which
+    the caching allocator aligns to 512 bytes)."""
+    return all(t.data_ptr() % 16 == 0 for t in (
+        x, lin.packed, lin.scales, lin.mins) if t is not None)
+
+
+def _qgemm(x: torch.Tensor, lin: QuantLinear | QuantExpertStack,
+           y: torch.Tensor, plan: QmatmulPlan, panel_bf16: int, what: str,
+           act: int = -1, rows: torch.Tensor | None = None,
+           eg: torch.Tensor | None = None, c_rows: int = 0) -> None:
+    """One launch of csrc/qgemm.cu into y [B, N] (B, N: y's shape) as
+    ``plan`` says: kernels 1-2; the GLU with ``act`` (an index into
+    GLU_ACTS); the grouped MoE product with ``rows``, ``eg`` and ``c_rows``
+    (a stack's E experts, x's S slots)."""
+    ws, counters = _scratch(x.device, plan)
+    rc = _lib("qgemm").qgemm_launch(
+        x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
+        _ptr(lin.mins), y.data_ptr(), ws, counters, _ptr(rows), _ptr(eg),
+        y.shape[0], lin.k, y.shape[1], lin.group,
+        0 if lin.fmt == "q4" else 1, panel_bf16,
+        int(y.dtype == torch.bfloat16), int(plan.path == "tc"), plan.tile,
+        plan.splits, int(plan.vec), act, c_rows, x.shape[0],
+        lin.packed.shape[0] if rows is not None else 0, _stream(x))
+    _raise_on(rc, what)
+
+
 def qmatmul_glu(x: torch.Tensor, lin, act: str,
-                precision: str | None = None) -> torch.Tensor | None:
+                precision: str | None = None, *, path: str | None = None,
+                splits: int | None = None,
+                tile_rows: int | None = None) -> torch.Tensor | None:
     """act(x @ W_gate) * (x @ W_up) for a FUSED gate/up QuantLinear (equal
     splits), float32 or, in "default" precision, bfloat16. Returns None where
     the JAX qmatmul_glu does (unknown act, a bias, no equal two-way split):
-    the caller then takes the two-step path."""
+    the caller then takes the two-step path. ``path``, ``splits`` and
+    ``tile_rows`` override ``qmatmul_plan(..., glu=True)`` as for
+    ``qmatmul``."""
     if act not in GLU_ACTS or lin.bias is not None:
         return None
-    splits = getattr(lin, "splits", None)
-    if not splits or len(splits) != 2 or splits[0] != splits[1]:
+    halves = getattr(lin, "splits", None)
+    if not halves or len(halves) != 2 or halves[0] != halves[1]:
         return None
     odt = out_dtype(precision)
     if x.device.type == "cpu":
@@ -487,26 +601,26 @@ def qmatmul_glu(x: torch.Tensor, lin, act: str,
         raise RuntimeError(f"qmatmul_glu: no kernel for device {x.device}")
     x = x.contiguous()
     panel_bf16 = _check(x, lin)
-    b, f = x.shape[0], splits[0]
+    b, f = x.shape[0], halves[0]
+    if 2 * f != lin.n:
+        raise ValueError(f"qmatmul_glu: splits {halves} of {lin.n} columns")
     y = torch.empty((b, f), dtype=odt, device=x.device)
     if b == 0:
         return y
-    rc = _lib().qmatmul_glu_launch(
-        x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        _ptr(lin.mins), y.data_ptr(),
-        b, lin.k, f, lin.group, 0 if lin.fmt == "q4" else 1,
-        GLU_ACTS.index(act), panel_bf16, int(odt == torch.bfloat16),
-        _vec_ok(lin, f, y), _stream(x))
-    _raise_on(rc, "qmatmul_glu")
+    plan = qmatmul_plan(b, lin.k, f, lin.group, lin.fmt, _sms(x.device),
+                        _aligned(x, lin), path, splits, tile_rows, True)
+    _qgemm(x, lin, y, plan, panel_bf16, "qmatmul_glu", GLU_ACTS.index(act))
     LAUNCHES["qmatmul_glu"] += 1
     return y
 
 
-def _check_moe(x: torch.Tensor, idx: torch.Tensor, stacks) -> None:
+def _check_moe(x: torch.Tensor, idx: torch.Tensor | None, stacks) -> None:
     for st in stacks:
         if _check(x, st):  # instantiated for float32 panels only
             raise ValueError("the MoE kernels take float32 scale panels only "
                              "(the loader keeps expert stacks in float32)")
+    if idx is None:
+        return
     if idx.dtype != torch.int32 or idx.shape != (x.shape[0],) \
             or idx.device != x.device or not idx.is_contiguous():
         raise ValueError(f"idx must be contiguous int32 [{x.shape[0]}] on "
@@ -537,8 +651,6 @@ def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
     s_slots, n = x.shape[0], stack.n
     e_num = stack.packed.shape[0]
     c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
-    fmt = 0 if stack.fmt == "q4" else 1
-    out_bf16 = int(odt == torch.bfloat16)
     if not grouped:
         y = torch.empty((s_slots, n), dtype=odt, device=x.device)
         if s_slots == 0:
@@ -549,21 +661,74 @@ def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
         rc = _lib("moe_qmatmul").moe_slot_launch(
             x.data_ptr(), idx.data_ptr(), stack.packed.data_ptr(),
             stack.scales.data_ptr(), _ptr(stack.mins), y.data_ptr(), s_slots,
-            e_num, stack.k, n, stack.group, fmt, out_bf16,
-            _vec_ok(stack, n, y), _stream(x))
+            e_num, stack.k, n, stack.group, 0 if stack.fmt == "q4" else 1,
+            int(odt == torch.bfloat16), _vec_ok(stack, n, y), _stream(x))
         _raise_on(rc, "moe_slot")
         LAUNCHES["moe_slot"] += 1
         return y
     eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
+    return _moe_grouped(x, stack, eg, rows, odt)[flat]
+
+
+def moe_grouped_blocked(x_rows: torch.Tensor, stack: QuantExpertStack,
+                        eg: torch.Tensor, rows: torch.Tensor,
+                        precision: str | None = None, *,
+                        path: str | None = None, splits: int | None = None,
+                        tile_rows: int | None = None) -> torch.Tensor:
+    """Kernel 5 alone on a dispatch plan given as its arrays, for
+    measurements and tests (``moe_qmatmul`` is the entry that plans and
+    reads back): ``moe_group_plan``'s eg [G] and rows [G, C] for S =
+    x_rows.shape[0] slots over the stack's E experts, where ``moe_dims``
+    says grouped. Returns the [G*C, N] blocked output, row g*C + c =
+    x_rows[rows[g, c]] @ W[eg[g]] for rows[g, c] < S; padding rows are left
+    unwritten, and an expert id outside [0, E) gives NaN rows. ``path``,
+    ``splits`` and ``tile_rows`` override ``moe_grouped_plan``. CUDA
+    tensors only: the plain version is ``moe_qmatmul_plain``."""
+    if x_rows.device.type != "cuda":
+        raise RuntimeError(f"moe_grouped_blocked: no kernel for device "
+                           f"{x_rows.device}")
+    x = x_rows.float().contiguous()
+    _check_moe(x, None, (stack,))
+    c_rows, g_blocks, grouped = moe_dims(x.shape[0], stack.packed.shape[0])
+    if not grouped or tuple(eg.shape) != (g_blocks,) \
+            or tuple(rows.shape) != (g_blocks, c_rows):
+        raise ValueError(f"moe_grouped_blocked: eg {tuple(eg.shape)} and rows "
+                         f"{tuple(rows.shape)} are not a grouped plan of "
+                         f"S={x.shape[0]}")
+    for t in (eg, rows):
+        if t.dtype != torch.int32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError("eg and rows must be contiguous int32 on "
+                             f"{x.device}")
+    return _moe_grouped(x, stack, eg, rows, out_dtype(precision), path,
+                        splits, tile_rows)
+
+
+def _moe_grouped(x: torch.Tensor, stack: QuantExpertStack, eg: torch.Tensor,
+                 rows: torch.Tensor, odt: torch.dtype, path: str | None = None,
+                 splits: int | None = None,
+                 tile_rows: int | None = None) -> torch.Tensor:
+    """One launch of kernel 5 on checked tensors (x float32 [S, K] on the
+    card, eg [G] and rows [G, C] int32): the [G*C, N] blocked output."""
+    s_slots, n, e_num = x.shape[0], stack.n, stack.packed.shape[0]
+    g_blocks, c_rows = rows.shape
     out = _grouped_out(g_blocks, c_rows, n, odt, x.device)
-    rc = _lib("moe_qmatmul").moe_grouped_launch(
-        x.data_ptr(), rows.data_ptr(), eg.data_ptr(), stack.packed.data_ptr(),
-        stack.scales.data_ptr(), _ptr(stack.mins), out.data_ptr(), s_slots,
-        e_num, stack.k, n, c_rows, g_blocks, stack.group, fmt, out_bf16,
-        _vec_ok(stack, n, out), _stream(x))
-    _raise_on(rc, "moe_grouped")
+    plan = moe_grouped_plan(s_slots, e_num, stack.k, n, stack.group,
+                            stack.fmt, _sms(x.device), _aligned(x, stack),
+                            path, splits, tile_rows)
+    if plan.path == "tc":
+        _qgemm(x, stack, out, plan, 0, "moe_grouped", rows=rows, eg=eg,
+               c_rows=c_rows)
+    else:
+        rc = _lib("moe_qmatmul").moe_grouped_launch(
+            x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
+            stack.packed.data_ptr(), stack.scales.data_ptr(),
+            _ptr(stack.mins), out.data_ptr(), s_slots, e_num, stack.k, n,
+            c_rows, g_blocks, stack.group, 0 if stack.fmt == "q4" else 1,
+            int(odt == torch.bfloat16), _vec_ok(stack, n, out), _stream(x))
+        _raise_on(rc, "moe_grouped")
     LAUNCHES["moe_grouped"] += 1
-    return out[flat]
+    return out
 
 
 def _grouped_out(g_blocks: int, c_rows: int, n: int, dtype: torch.dtype,

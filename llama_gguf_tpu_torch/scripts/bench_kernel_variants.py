@@ -194,10 +194,15 @@ def build_variants(inp: dict) -> dict:
             tt, xqq, xgg = quantize_rows(x)
             return V.v8_w4a8(xqq, xgg, full, u, m2, s_col) * tt[:, None]
 
+        # v8's function of (xq, xg2) as one product: [xq | xg2^T] @
+        # [q * u; -m2] * s_col, both operands made f32 beforehand
+        x8 = torch.cat([xq.float(), xg2.t().float()], dim=1)
+        w8 = torch.cat([(q * V.repeat_rows(u.to(torch.int32), GROUP)).float(),
+                        -m2.float()]) * s_col
         out["v8_w4a8"] = Variant(
             run=v8_chain, call=lambda: V.v8_w4a8(xq, xg2, full, u, m2, s_col),
             plain=lambda: V.v8_w4a8_plain(xq, xg2, full, u, m2, s_col),
-            library=None, kernel="variant_w4a8",
+            library=lambda: torch.matmul(x8, w8), kernel="variant_w4a8",
             nbytes=_nbytes(full.packed, u, m2, s_col, xq, xg2) + y32,
             ops=fma, op_type="int8")
         w9 = V._wrap8(q * V.repeat_rows(u.to(torch.int32), GROUP)).float()

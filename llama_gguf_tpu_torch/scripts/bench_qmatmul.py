@@ -4,22 +4,29 @@ the main paths' shapes; nothing is read from a GGUF).
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py paths [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py retime [--root DIR] [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py attribute [--root DIR] [--out F]
-    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py decode --gguf G [--root DIR] [--out F]
+    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py decode --gguf G [--moe-gguf M] [--root DIR] [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py compare F1 F2 ...
+    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py outputs [--root DIR] --out F.pt
+    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py same F1.pt F2.pt
 
-``paths``: kernels 1-2 (ops/qmatmul.qmatmul) on each of their two paths
-forced through ``qmatmul(path=...)``, at TinyLlama-1.1B's, Mixtral-8x7B's
-and the probe's shapes and 1-16, 32, 64, 128 and 512 rows (split-K to 128);
+``paths``: kernels 1-3 (ops/qmatmul.qmatmul, qmatmul_glu) on each of their
+two paths forced through ``path=``, at TinyLlama-1.1B's, Mixtral-8x7B's and
+the probe's shapes (the GLU at TinyLlama's gate|up and the probe's
+Llama-3-8B width) and 1-16, 32, 64, 128 and 512 rows (split-K to 128);
 each result held against the plain version (f32: 2e-4 * max |y|), then
 timed beside torch.matmul on the dequantized f32 weight; at 1 row the
 split-K path at 1-32 slices, from 32 rows the tensor cores' tile heights
-(and at 128 rows 1-16 slices). Prints the timer's floor (a 1-element
-fill), one JSON line per case and, per shape, the first row count from which
-the tensor cores are at least as fast as split-K (the threshold TC_MIN_ROWS
-rests on).
+(and at 128 rows 1-16 slices). Then kernel 5 (ops/qmatmul.
+moe_grouped_blocked) at Mixtral-8x7B's down (Q6_K-like q8, group 16) and
+gate (q4) expert stacks at 64, 256 and 1024 top-2 slots: the tensor-core
+path at each tile height and 1-4 slices, and the CUDA-core grouped kernel.
+Prints the timer's floor (a 1-element fill), one JSON line per case and,
+per shape, the first row count from which the tensor cores are at least
+as fast as split-K (the threshold TC_MIN_ROWS rests on).
 
 ``retime``: kernels 1-6 at the shapes of chip_smoke.py phases 3 and 6 (and
-the probe's v0), through the entries every version of the port has
+the probe's v0; the grouped kernel also at a skewed routing, and on the q4
+gate stack), through the entries every version of the port has
 (``qmatmul``, ``qmatmul_glu``, ``moe_qmatmul``, ``moe_qmatmul_glu``), with
 ``--root`` naming the checkout whose ``llama_gguf_tpu_torch`` is imported:
 so one command can time an export of an earlier commit (its own kernels,
@@ -43,8 +50,16 @@ times each in the f32 configuration (f32 panels, "highest", f32 KV) and the
 serving one (bf16 panels, "default", bf16 KV): decode and prefill tok/s
 (host clock around synchronized work); and the host's cost of one
 ``qmatmul`` call (2,000 back-to-back 1-row calls on the qkv weight, wall
-time over the count, the device then far from busy). Run it for two
-checkouts in turns (``--root``) to compare them end to end.
+time over the count, the device then far from busy). With ``--moe-gguf``
+(chip_smoke.py's mixtral-8x7b-l2) also that model in the f32
+configuration, three generates: its prefill runs the grouped kernels. Run
+it for two checkouts in turns (``--root``) to compare them end to end.
+
+``outputs``: kernels 4 and 6 (the slot-major and the grouped GLU MoE
+kernels) at Mixtral-8x7B's gate|up stacks, top-2 routing of 2 and 256
+slots, in "highest" and "default", their outputs saved with torch.save;
+``same`` says for each whether two such files hold the same bits (an
+earlier checkout's kernels against this one's, through ``--root``).
 
 Times: utils/timing.Timer (L2 flushed, a device-side sleep before the first
 event, median of 10). Card name and power limit are printed first.
@@ -72,6 +87,12 @@ MIXTRAL = [("Mixtral qkv", "q4", 32, 4096, 6144),
            ("Mixtral lm_head", "q8", 16, 4096, 32000)]
 PROBE = [("probe 4096x14336", "q4", 32, 4096, 14336),
          ("probe 14336x4096", "q4", 32, 14336, 4096)]
+# (label, fmt, group, K, F): the GLU's fused gate|up weights [K, 2F]
+GLU = [("TinyLlama gate|up", "q4", 32, 2048, 5632),
+       ("probe gate|up 4096x2x14336", "q4", 32, 4096, 14336)]
+# (label, fmt, group, K, N): Mixtral-8x7B's expert stacks (8 experts)
+GROUPED = [("Mixtral down", "q8", 16, 14336, 4096),
+           ("Mixtral gate", "q4", 32, 4096, 14336)]
 PATH_ROWS = list(range(1, 17)) + [32, 64, 128, 512]
 SPLITK_MAX_ROWS = 128  # split-K re-reads W per row: not timed beyond
 
@@ -117,36 +138,50 @@ def paths(timer, out):
         lambda: one.fill_(1.0)))
     print(json.dumps(floor), flush=True)
     results, first_tc = [floor], {}
-    for label, fmt, group, k, n in TINYLLAMA + MIXTRAL + PROBE:
-        lin = weight(fmt, group, k, n, gen)
+
+    def emit(r):
+        results.append(r)
+        print(json.dumps(r), flush=True)
+
+    products = ([(label, fmt, group, k, n, False)
+                 for label, fmt, group, k, n in TINYLLAMA + MIXTRAL + PROBE]
+                + [(label, fmt, group, k, f, True)
+                   for label, fmt, group, k, f in GLU])
+    for label, fmt, group, k, n, glu in products:
+        lin = weight(fmt, group, k, 2 * n if glu else n, gen)
+        if glu:
+            lin.splits = (n, n)
         w = Q.dequantize_weight(lin)
+
+        def kern(x, **kw):
+            if glu:
+                return Q.qmatmul_glu(x, lin, "silu", **kw)
+            return Q.qmatmul(x, lin, **kw)
+
         for b in PATH_ROWS:
             x = torch.randn(b, k, generator=gen, device="cuda")
-            want = Q.qmatmul_plain(x, lin)
+            want = (Q.qmatmul_glu_plain(x, lin, "silu") if glu
+                    else Q.qmatmul_plain(x, lin))
             ms = {"library": timer.ms(lambda: torch.matmul(x, w))}
             for path in ("splitk", "tc")[b > SPLITK_MAX_ROWS:]:
-                plan = Q.qmatmul_plan(b, k, n, group, fmt, path=path)
-                got = Q.qmatmul(x, lin, path=path)
+                plan = Q.qmatmul_plan(b, k, n, group, fmt, path=path, glu=glu)
+                got = kern(x, path=path)
                 torch.cuda.synchronize()
                 err = ((got - want).abs().max() / want.abs().max()).item()
                 if not err <= 2e-4:
                     raise SystemExit(f"{label} rows={b} {path}: rel err {err}")
-                ms[path] = timer.ms(lambda: Q.qmatmul(x, lin, path=path))
-                r = dict(case=label, rows=b, path=path, splits=plan.splits,
-                         grid=plan.grid, ms=ms[path], library_ms=ms["library"],
-                         rel_err=err)
-                results.append(r)
-                print(json.dumps(r), flush=True)
+                ms[path] = timer.ms(lambda: kern(x, path=path))
+                emit(dict(case=label, rows=b, path=path, splits=plan.splits,
+                          grid=plan.grid, ms=ms[path],
+                          library_ms=ms["library"], rel_err=err))
             if b == 1:  # the split of K at decode
                 for splits in (1, 2, 4, 8, 12, 16, 24, 32):
                     if splits > k // group:
                         continue
-                    r = dict(case=label, rows=b, path="splitk sweep",
-                             splits=splits, ms=timer.ms(
-                                 lambda: Q.qmatmul(x, lin, path="splitk",
-                                                   splits=splits)))
-                    results.append(r)
-                    print(json.dumps(r), flush=True)
+                    emit(dict(case=label, rows=b, path="splitk sweep",
+                              splits=splits, ms=timer.ms(
+                                  lambda: kern(x, path="splitk",
+                                               splits=splits))))
             if b >= 32:  # the tensor-core tile's height and split of K
                 for tile_rows in (16, 32, 64):
                     for splits in ((None, 1, 2, 4, 8, 16) if b == 128
@@ -155,19 +190,64 @@ def paths(timer, out):
                             continue
                         kw = dict(path="tc", tile_rows=tile_rows,
                                   splits=splits)
-                        plan = Q.qmatmul_plan(b, k, n, group, fmt, **kw)
-                        r = dict(case=label, rows=b, path="tc sweep",
-                                 tile_rows=tile_rows, splits=plan.splits,
-                                 planned=splits is None, ms=timer.ms(
-                                     lambda: Q.qmatmul(x, lin, **kw)))
-                        results.append(r)
-                        print(json.dumps(r), flush=True)
+                        plan = Q.qmatmul_plan(b, k, n, group, fmt, glu=glu,
+                                              **kw)
+                        emit(dict(case=label, rows=b, path="tc sweep",
+                                  tile_rows=tile_rows, splits=plan.splits,
+                                  planned=splits is None, ms=timer.ms(
+                                      lambda: kern(x, **kw))))
             if ms["tc"] <= ms.get("splitk", ms["tc"]) and label not in first_tc:
                 first_tc[label] = b
-        del w
+        del w, lin
+    grouped(timer, gen, emit)
     summary = {"tc_at_least_as_fast_from_rows": first_tc}
     print(json.dumps(summary), flush=True)
     _dump(out, results + [summary])
+
+
+def top2(s, gen):
+    """Top-2 routing of s // 2 tokens over 8 experts: two distinct experts
+    per token, uniformly at random."""
+    import torch
+
+    return torch.stack([torch.randperm(8, generator=gen, device="cuda")[:2]
+                        for _ in range(s // 2)]).reshape(-1).to(torch.int32)
+
+
+def grouped(timer, gen, emit):
+    """Kernel 5's paths, tile heights and splits at Mixtral's stacks."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    for label, fmt, group, k, n in GROUPED:
+        stack = weight(fmt, group, k, n, gen, experts=8, mins=fmt == "q4")
+        for s in (64, 256, 1024):
+            x = torch.randn(s, k, generator=gen, device="cuda")
+            idx = top2(s, gen)
+            c_rows, g_blocks, _ = Q.moe_dims(s, 8)
+            eg, rows, flat = Q.moe_group_plan(idx, 8, c_rows, g_blocks)
+            want = Q.moe_qmatmul_plain(x, stack, idx)
+            default = Q.moe_grouped_plan(s, 8, k, n, group, fmt)
+            runs = [dict(path="cuda cores")] + [
+                dict(path="tc", tile_rows=tr, splits=sp)
+                for tr in (16, 32, 64) if c_rows % tr == 0
+                for sp in (None, 1, 2, 4)]
+            for kw in runs:
+                plan = Q.moe_grouped_plan(s, 8, k, n, group, fmt, **kw)
+
+                def fn():
+                    return Q.moe_grouped_blocked(x, stack, eg, rows, **kw)
+
+                got = fn()[flat]
+                torch.cuda.synchronize()
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                if not err <= 2e-4:
+                    raise SystemExit(f"{label} S={s} {kw}: rel err {err}")
+                emit(dict(case=f"{label} S={s}", slots=s, path=plan.path,
+                          tile_rows=plan.rows, splits=plan.splits,
+                          planned=plan == default, ms=timer.ms(fn),
+                          rel_err=err))
+        del stack
 
 
 def retime(timer, out):
@@ -218,8 +298,7 @@ def retime(timer, out):
     up = weight("q4", 32, 4096, 14336, gen, experts=8)
     down = weight("q8", 16, 14336, 4096, gen, experts=8, mins=False)
     for s in (2, 256):
-        idx = torch.stack([torch.randperm(8, generator=gen, device="cuda")[:2]
-                           for _ in range(s // 2)]).reshape(-1).to(torch.int32)
+        idx = top2(s, gen)
         xg = torch.randn(s, 4096, generator=gen, device="cuda")
         xd = torch.randn(s, 14336, generator=gen, device="cuda")
         for prec in ("highest", "default"):
@@ -231,6 +310,13 @@ def retime(timer, out):
                     lambda: Q.moe_qmatmul_glu(xg, gate, up, idx, "silu", prec))
             run(f"moe_{'slot' if s == 2 else 'grouped'} down S={s} {prec}",
                 lambda: Q.moe_qmatmul(xd, down, idx, prec))
+        if s == 256:  # kernel 5 on the q4 gate stack, and skewed routing
+            run("moe_grouped gate (q4) S=256 highest",
+                lambda: Q.moe_qmatmul(xg, gate, idx, "highest"))
+            skew = idx.clone()
+            skew[0::2] = 0  # expert 0 takes half of the slots
+            run("moe_grouped down S=256 skewed highest",
+                lambda: Q.moe_qmatmul(xd, down, skew, "highest"))
     _dump(out, results)
 
 
@@ -297,7 +383,7 @@ def attribute(timer, out):
     _dump(out, results)
 
 
-def decode(gguf, out):
+def decode(gguf, out, moe_gguf=None):
     import torch
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.engine.runner import ModelRunner
@@ -346,7 +432,55 @@ def decode(gguf, out):
             print(json.dumps(r), flush=True)
         del engine
         torch.cuda.empty_cache()
+    if moe_gguf:
+        engine = Engine.load(moe_gguf, EngineConfig(), device="cuda")
+        engine.generate(prompt, max_tokens=2, sampler=greedy)  # warm-up
+        for rep in range(3):
+            engine.generate(prompt, max_tokens=32, sampler=greedy)
+            st = engine.stats
+            r = dict(case="Mixtral-8x7B-l2 f32", rep=rep,
+                     decode_tps=st.decode_tps, prefill_tps=st.prefill_tps,
+                     tokens=st.generated_tokens)
+            results.append(r)
+            print(json.dumps(r), flush=True)
+        del engine
+        torch.cuda.empty_cache()
     _dump(out, results)
+
+
+def outputs(out):
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gate = weight("q4", 32, 4096, 14336, gen, experts=8)
+    up = weight("q4", 32, 4096, 14336, gen, experts=8)
+    saved = {}
+    for s in (2, 256):
+        idx = top2(s, gen)
+        x = torch.randn(s, 4096, generator=gen, device="cuda")
+        for prec in ("highest", "default"):
+            if s == 2:
+                saved[f"moe_slot gate S=2 {prec}"] = Q.moe_qmatmul(
+                    x, gate, idx, prec)
+            else:
+                saved[f"moe_glu_grouped gate|up S=256 {prec}"] = \
+                    Q.moe_qmatmul_glu(x, gate, up, idx, "silu", prec)
+    torch.cuda.synchronize()
+    for key, t in saved.items():
+        print(json.dumps(dict(case=key, finite=bool(torch.isfinite(t).all()),
+                              shape=list(t.shape))), flush=True)
+    if out:
+        torch.save({k: v.cpu() for k, v in saved.items()}, out)
+
+
+def same(files):
+    import torch
+
+    a, b = (torch.load(f) for f in files)
+    for key in a:
+        same_bits = torch.equal(a[key], b[key])
+        print(f"{key}: {'bit-identical' if same_bits else 'DIFFERENT'}")
 
 
 def compare(files):
@@ -371,15 +505,17 @@ def _dump(out, results):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("cmd", choices=("paths", "retime", "attribute", "decode",
-                                    "compare"))
+                                    "compare", "outputs", "same"))
     ap.add_argument("files", nargs="*")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="checkout whose llama_gguf_tpu_torch is imported")
     ap.add_argument("--out", default=None)
     ap.add_argument("--gguf", default=None, help="the model of ``decode``")
+    ap.add_argument("--moe-gguf", default=None,
+                    help="an MoE model ``decode`` also runs")
     args = ap.parse_args(argv)
-    if args.cmd == "compare":
-        compare(args.files)
+    if args.cmd in ("compare", "same"):
+        (compare if args.cmd == "compare" else same)(args.files)
         return 0
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -393,14 +529,15 @@ def main(argv=None) -> int:
     print(card(), flush=True)
     print(f"package: {os.path.abspath(args.root)}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.build_all([n for n in ("qgemm", "qmatmul", "moe_qmatmul")
-                          if (cuda_build.CSRC / f"{n}.cu").exists()])
+    cuda_build.build_all(["qgemm", "moe_qmatmul"])
     print(f"built in {time.perf_counter() - t0:.1f}s "
           f"{cuda_build.BUILD_SECONDS}", flush=True)
     if args.cmd == "decode":
         if not args.gguf:
             raise SystemExit("bench_qmatmul decode: needs --gguf")
-        decode(args.gguf, args.out)
+        decode(args.gguf, args.out, args.moe_gguf)
+    elif args.cmd == "outputs":
+        outputs(args.out)
     else:
         timer = Timer()
         dict(paths=paths, retime=retime, attribute=attribute)[args.cmd](

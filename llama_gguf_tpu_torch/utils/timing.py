@@ -67,13 +67,16 @@ class Timer:
     warm-up calls."""
 
     def __init__(self, flush_bytes: int = 256 << 20,
-                 sleep_cycles: int = 1_000_000):
+                 sleep_cycles: int = 4_000_000):
         import torch
 
         self.flush_buf = torch.zeros(flush_bytes // 4, dtype=torch.float32,
                                      device="cuda")
-        # ~0.5 ms at the H100's 1.98 GHz boost clock: far longer than the
-        # host takes to enqueue one wrapper call
+        # ~2 ms at the H100's 1.98 GHz boost clock: longer than the host
+        # takes to enqueue one wrapper call. The grouped MoE wrappers run
+        # their dispatch plan's ~20 torch ops first; with ~0.5 ms the
+        # grouped product's wrapper timed 1.88 ms against 1.22 ms for its
+        # launch alone (chip_smoke.py, H100 80GB HBM3, 700 W)
         self.sleep_cycles = sleep_cycles
 
     def once(self, fn: Callable[[], object]) -> float:

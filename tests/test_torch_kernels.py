@@ -505,3 +505,200 @@ def test_qgemm_bit_identical(cuda, t, b):
     x = make_x(b, 2048, 23, cuda)
     assert Q.qmatmul_plan(b, 2048, 512, lin.group, lin.fmt).splits > 1
     assert torch.equal(Q.qmatmul(x, lin), Q.qmatmul(x, lin))
+
+
+# -- kernel 3 (the GLU) on csrc/qgemm.cu: both paths, splits, tiles, types --
+
+GLU_ROWS = [1, 2, 3, 4, 5, 6, 7, 8, 16, 128, 512]
+
+
+def misaligned(lin):
+    """The same weight with its packed bytes moved one byte off a 16-byte
+    boundary (still contiguous): the plan must take byte loads."""
+    buf = torch.empty(lin.packed.numel() + 1, dtype=lin.packed.dtype,
+                      device=lin.packed.device)
+    packed = buf[1:].view(lin.packed.shape)
+    packed.copy_(lin.packed)
+    return QuantLinear(packed, lin.scales, lin.mins, None, lin.fmt, lin.group,
+                       lin.k, lin.n, lin.source_type, splits=lin.splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", GLU_ROWS)
+@pytest.mark.parametrize("t,f", [(GGMLType.Q4_K, 320), (GGMLType.Q6_K, 192),
+                                 (GGMLType.Q8_0, 200)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_glu_rows_around_threshold(cuda, t, f, b):
+    """The plan's own path at every row count around TC_MIN_ROWS: F = 320
+    leaves the last 64-column GLU tile half masked; F = 200 (F % 16 != 0)
+    takes split-K with byte loads at any row count."""
+    lin = make_lin(t, 2 * f, 768, 30, cuda, splits=(f, f))
+    x = make_x(b, 768, 30, cuda)
+    plan = Q.qmatmul_plan(b, 768, f, lin.group, lin.fmt, glu=True)
+    assert plan.path == ("tc" if b >= Q.TC_MIN_ROWS and f % 16 == 0
+                         else "splitk")
+    before = Q.LAUNCHES["qmatmul_glu"]
+    got = Q.qmatmul_glu(x, lin, "silu")
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES["qmatmul_glu"] == before + 1
+    check_close(got, Q.qmatmul_glu_plain(x, lin, "silu"), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 5, 8])
+@pytest.mark.parametrize("path,b", [("splitk", 1), ("splitk", 3),
+                                    ("tc", 5), ("tc", 40)])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_1],
+                         ids=lambda v: v.name)
+def test_glu_forced_splits(cuda, t, path, b, splits):
+    """K = 1280: 3 slices hold unequal group counts; the gate and up
+    partials go through the workspace together and meet after the sum."""
+    lin = make_lin(t, 2 * 192, 1280, 31, cuda, splits=(192, 192))
+    x = make_x(b, 1280, 31, cuda)
+    check_close(Q.qmatmul_glu(x, lin, "silu", path=path, splits=splits),
+                Q.qmatmul_glu_plain(x, lin, "silu"), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [16, 32, 64])
+@pytest.mark.parametrize("b", [5, 100, 512])
+def test_glu_tile_rows(cuda, b, tile_rows):
+    lin = make_lin(GGMLType.Q4_K, 2 * 256, 1024, 32, cuda, splits=(256, 256))
+    x = make_x(b, 1024, 32, cuda)
+    check_close(Q.qmatmul_glu(x, lin, "gelu", path="tc", tile_rows=tile_rows),
+                Q.qmatmul_glu_plain(x, lin, "gelu"), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 8, 128])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda v: v.name)
+def test_glu_bit_identical(cuda, t, b):
+    lin = make_lin(t, 2 * 256, 2048, 33, cuda, splits=(256, 256))
+    x = make_x(b, 2048, 33, cuda)
+    assert Q.qmatmul_plan(b, 2048, 256, lin.group, lin.fmt,
+                          glu=True).splits > 1
+    assert torch.equal(Q.qmatmul_glu(x, lin, "silu"),
+                       Q.qmatmul_glu(x, lin, "silu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", Q.GLU_ACTS)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("t,mins", [(GGMLType.Q4_K, True),
+                                    (GGMLType.Q4_K, False),
+                                    (GGMLType.Q6_K, False),
+                                    (GGMLType.Q5_1, True)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_glu_types_and_activations(cuda, t, mins, b, panels, precision, act):
+    """Every panel x output type on both paths, every activation; q4 with
+    and without its min panel, q8 from Q6_K (group 16) and Q5_1 (32)."""
+    lin = make_lin(t, 2 * 128, 512, 34, cuda, splits=(128, 128))
+    if not mins:
+        lin.mins = None
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(b, 512, 34, cuda)
+    check_close(Q.qmatmul_glu(x, lin, act, precision),
+                Q.qmatmul_glu_plain(x, lin, act, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_glu_unaligned_takes_byte_loads(cuda, b):
+    lin = misaligned(make_lin(GGMLType.Q4_K, 2 * 256, 512, 35, cuda,
+                              splits=(256, 256)))
+    x = make_x(b, 512, 35, cuda)
+    plan = Q.qmatmul_plan(b, 512, 256, 32, "q4", aligned=False, glu=True)
+    assert plan.path == "splitk" and not plan.vec
+    check_close(Q.qmatmul_glu(x, lin, "silu"),
+                Q.qmatmul_glu_plain(x, lin, "silu"), "highest")
+
+
+# -- kernel 5 (grouped MoE) on the tensor-core path of csrc/qgemm.cu ---------
+
+
+def routing(kind, s, e, dev):
+    """uniform: slot s on expert s % E; skewed: make_idx (expert 2 every
+    other slot, expert 1 none); one: every slot on expert 1."""
+    if kind == "uniform":
+        idx = torch.arange(s, dtype=torch.int32) % e
+    elif kind == "skewed":
+        return make_idx(s, e, 40 + s, dev)
+    else:
+        idx = torch.ones(s, dtype=torch.int32)
+    return idx.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "one"])
+@pytest.mark.parametrize("s", [32, 64, 256, 257])
+@pytest.mark.parametrize("t,n", [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 128)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_moe_grouped_tensor_cores(cuda, t, n, s, kind, precision):
+    stack = make_stack(t, 4, n, 512, 41, cuda)
+    x, idx = make_x(s, 512, 41, cuda), routing(kind, s, 4, cuda)
+    plan = Q.moe_grouped_plan(s, 4, 512, n, stack.group, stack.fmt)
+    assert plan.path == "tc"
+    before = Q.LAUNCHES["moe_grouped"]
+    got = Q.moe_qmatmul(x, stack, idx, precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES["moe_grouped"] == before + 1
+    check_close(got, Q.moe_qmatmul_plain(x, stack, idx, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("tile_rows", [16, 32, 64])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_1],
+                         ids=lambda v: v.name)
+def test_moe_grouped_forced_tiles_and_splits(cuda, t, tile_rows, splits):
+    stack = make_stack(t, 4, 256, 1024, 42, cuda)
+    x, idx = make_x(100, 1024, 42, cuda), make_idx(100, 4, 42, cuda)
+    c_rows, g_blocks, _ = Q.moe_dims(100, 4)
+    eg, rows, flat = Q.moe_group_plan(idx, 4, c_rows, g_blocks)
+    got = Q.moe_grouped_blocked(x, stack, eg, rows, path="tc",
+                                splits=splits, tile_rows=tile_rows)[flat]
+    check_close(got, Q.moe_qmatmul_plain(x, stack, idx), "highest")
+    again = Q.moe_grouped_blocked(x, stack, eg, rows, path="tc",
+                                  splits=splits, tile_rows=tile_rows)[flat]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tc", "cuda cores"])
+def test_moe_grouped_bad_expert_writes_nan(cuda, path):
+    """An expert id outside [0, E) reads nothing and writes NaN to its
+    group's rows; the other groups are untouched by it."""
+    stack = make_stack(GGMLType.Q4_K, 4, 256, 512, 43, cuda)
+    x, idx = make_x(64, 512, 43, cuda), make_idx(64, 4, 43, cuda)
+    c_rows, g_blocks, _ = Q.moe_dims(64, 4)
+    eg, rows, flat = Q.moe_group_plan(idx, 4, c_rows, g_blocks)
+    bad = eg.clone()
+    bad[0] = 4  # group 0 holds expert 0's slots
+    got = Q.moe_grouped_blocked(x, stack, bad, rows, path=path,
+                                splits=1)[flat]
+    in_grp0 = flat < c_rows  # the slots whose rows lie in group 0
+    assert bool(in_grp0.any()) and bool(torch.isnan(got[in_grp0]).all())
+    want = Q.moe_qmatmul_plain(x, stack, idx)
+    assert rel_err(got[~in_grp0], want[~in_grp0]) < REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", MOE_FORMATS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_moe_grouped_path_follows_layout(cuda, t, n):
+    """q4 group 32 and q8 with N % 16 == 0 on the tensor cores; ragged N
+    (200, 131) on the CUDA-core grouped kernel; both counted."""
+    stack = make_stack(t, 4, n, 512, 44, cuda)
+    x, idx = make_x(96, 512, 44, cuda), make_idx(96, 4, 44, cuda)
+    plan = Q.moe_grouped_plan(96, 4, 512, n, stack.group, stack.fmt)
+    assert plan.path == ("tc" if n % 16 == 0 else "cuda cores")
+    before = Q.LAUNCHES["moe_grouped"]
+    got = Q.moe_qmatmul(x, stack, idx)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES["moe_grouped"] == before + 1
+    check_close(got, Q.moe_qmatmul_plain(x, stack, idx), "highest")

@@ -214,6 +214,16 @@ def test_v8_w4a8_matches_the_script():
     close(v8.call(), v8.plain(), exact=True)
 
 
+def test_v8_library_yardstick_computes_the_same_product():
+    """v8's library call (one f32 product over [xq | xg2^T]) computes the
+    function its kernel and plain version do."""
+    v8 = P.build_variants(inputs("q4")[0])["v8_w4a8"]
+    want = v8.plain()
+    got = v8.library()
+    assert got.shape == want.shape
+    assert ((got - want).abs().max() / want.abs().max()).item() < F32_TOL
+
+
 def test_w4a8_panels_and_row_quantization_match_the_script():
     inp, lin, j = inputs("q4")
     s_col, u, m2 = P.w4a8_panels(lin)
