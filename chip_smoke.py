@@ -7,8 +7,10 @@ Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
-   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu: kernels 1, 2, 3
-   and 5's tensor-core path; moe_qmatmul.cu; qmatmul_variants.cu) with nvcc
+   CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu: kernels 1-3,
+   kernel 4's split-K path, and the tensor-core path of kernels 5 and 6;
+   moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
+   with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
    process builds phase 2's GGUF and a child process phase 6's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
@@ -50,21 +52,25 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    and LM head), loads it in both modes, and holds the q4 and q8 kernels
    against their plain versions on this path's own projections (layer 0's
    fused QKV and o_proj, the LM head) at 1 and 128 rows, and the three MoE
-   kernels on layer 0's own expert stacks: slot-major at 2 slots (two
-   experts, and one expert twice), grouped and grouped GLU at the 256 slots
+   kernels on layer 0's own expert stacks: slot-major (kernel 4, split-K,
+   ops/qmatmul.moe_slot_plan) at 2 slots (two experts, and one expert
+   twice) on the gate and the down stack, grouped (kernel 5, down) and
+   grouped GLU (kernel 6, gate|up; moe_glu_grouped_plan) at the 256 slots
    of the prompt's own routing and at an imbalanced routing (one expert
    takes half of the slots, one none), in "highest" and in "default"
-   precision (bf16 outputs, limits as in phase 3); the grouped kernel on
-   the path ops/qmatmul.moe_grouped_plan picks (tensor cores for the main
-   path's Q6_K down), which must be the tensor cores. Times as in phase 3
-   (the grouped kernel's bound on its path's units; its wrapper's time
-   includes the dispatch plan's torch ops, and the launch alone on that
-   plan is kept beside it as launch_ms); the
-   MoE yardstick is torch.bmm over each routed expert's pre-dequantized f32
-   weight once, its own slots' rows padded to the busiest expert's count.
-   Then the MoE main path: counters set to 0, Engine.generate as in phase 4,
-   exact launch counts (MOE_PER_LAYER), tokens, text and prefill logits
-   against the dequant-mode engine, and a decode profile as in phase 5.
+   precision (bf16 outputs, limits as in phase 3); each on the path its
+   plan picks, which must be split-K for kernel 4 and the tensor cores for
+   kernels 5 and 6. Times as in phase 3 (the bound on the path's units,
+   the f32 CUDA-core bound beside it; a grouped wrapper's time includes
+   the dispatch plan's torch ops, and the launch alone on that plan is
+   kept beside it as launch_ms); the MoE yardstick is torch.bmm over each
+   routed expert's pre-dequantized f32 weight once, its own slots' rows
+   padded to the busiest expert's count. Then the MoE main path: counters
+   set to 0, Engine.generate as in phase 4, exact launch counts
+   (MOE_PER_LAYER), every launch of kernels 4-6 on the path named in
+   MOE_PATHS (the wrappers count launches by path), tokens, text and
+   prefill logits against the dequant-mode engine, and a decode profile as
+   in phase 5.
 7. The serving configuration: the same TinyLlama-1.1B GGUF through
    load_model(scale_dtype="bfloat16") (bf16 scale and min panels) and
    ModelRunner(matmul_precision="default", kv_format="bf16") into an Engine;
@@ -114,6 +120,10 @@ MOE_PER_LAYER = {
     "decode": {"moe_slot": 3, "qmatmul_q4": 2},
     "prefill": {"moe_glu_grouped": 1, "moe_grouped": 1, "qmatmul_q4": 2},
 }
+# The path every main-path launch of the MoE kernels takes (their plans:
+# ops/qmatmul.moe_slot_plan, moe_grouped_plan, moe_glu_grouped_plan)
+MOE_PATHS = {"moe_slot": "splitk", "moe_grouped": "tc",
+             "moe_glu_grouped": "tc"}
 MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
                  num_experts=8, num_experts_per_token=2)
 REL_LIMIT = 2e-4
@@ -143,15 +153,15 @@ KERNELS = {
         replaces="llama_gguf_tpu/ops/qmatmul.py:500 (_qmatmul_glu_call with "
                  "_glu_kernel:198)"),
     "moe_slot": dict(
-        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:564 (_moe_qmatmul_call, "
                  "pallas_call :642)"),
     "moe_grouped": dict(
-        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:671 "
                  "(_moe_qmatmul_grouped_call, pallas_call :736)"),
     "moe_glu_grouped": dict(
-        source="llama_gguf_tpu_torch/csrc/moe_qmatmul.cu",
+        source="llama_gguf_tpu_torch/csrc/qgemm.cu",
         replaces="llama_gguf_tpu/ops/qmatmul.py:804 (_moe_glu_grouped_call, "
                  "pallas_call :861)"),
     "variant_f32": dict(
@@ -180,23 +190,26 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# csrc/qgemm.cu's kinds (the last template argument): bit flags GLU 1,
+# GATHERED 2, SLOT 4
+QGEMM_KINDS = {"1": "qmatmul_glu", "2": "moe_grouped", "3": "moe_glu_grouped",
+               "4": "moe_slot"}
+
+
 def kernel_key(name: str) -> str:
     """A profiler kernel name -> its kernel and path. csrc/qgemm.cu's
     qgemm_tc / qgemm_splitk: the first template argument is the format (0 =
-    q4), the last the kind (0 kernels 1-2, 1 the GLU, 2 the grouped MoE
-    product). The CUDA-core MoE kernels by name."""
+    q4), the last the kind (QGEMM_KINDS; 0: kernels 1-2). The CUDA-core MoE
+    kernels by name."""
     for kern, path in (("qgemm_tc<", "tensor cores"), ("qgemm_splitk<", "split-K")):
         if kern in name:
             args = name.split(kern, 1)[1].split(">", 1)[0].split(",")
             fmt, kind = args[0].strip(), args[-1].strip()
-            if kind == "1":
-                return f"qmatmul_glu {path}"
-            if kind == "2":
-                return f"moe_grouped {path}"
+            if kind in QGEMM_KINDS:
+                return f"{QGEMM_KINDS[kind]} {path}"
             return f"{'qmatmul_q4' if fmt == '0' else 'qmatmul_q8'} {path}"
-    for k in ("moe_slot_kernel", "moe_grouped_kernel"):
-        if k in name:
-            return k
+    if "moe_grouped_kernel" in name:
+        return "moe_grouped_kernel"
     return name[:60]
 
 
@@ -298,13 +311,14 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
     text = quant.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
     torch.cuda.synchronize()
     launches = dict(Q.LAUNCHES)
+    by_path = dict(Q.LAUNCHES_BY_PATH)
     stats = quant.stats
     check(stats.generated_tokens >= 1, f"{label}: nothing generated")
     print(f"{label} main path: prefill {stats.prompt_tokens} tok @ "
           f"{stats.prefill_tps:.1f} tok/s, decode {stats.generated_tokens} "
           f"tok @ {stats.decode_tps:.1f} tok/s, launches {launches} over "
-          f"1 prefill + {stats.generated_tokens} decode steps | {card}",
-          flush=True)
+          f"1 prefill + {stats.generated_tokens} decode steps (by path: "
+          f"{by_path}) | {card}", flush=True)
 
     want_text = deq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
     toks = quant.greedy_tokens(ids, NEW_TOKENS)
@@ -324,7 +338,7 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
     check(diff <= 1e-3, f"{label}: prefill logits differ by {diff}")
     log(f"{label}: quant == dequant: {len(toks)} tokens, logits max diff "
         f"{diff:.2e}")
-    return launches, stats.generated_tokens, ids
+    return launches, by_path, stats.generated_tokens, ids
 
 
 def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
@@ -462,7 +476,8 @@ def dense_path(card: str, timer, peaks: dict, gguf: str):
         ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
     ], ROWS, timer, peaks, "TinyLlama-1.1B", serving=True)
 
-    launches, decoded, ids = run_main_path(quant, deq, card, "TinyLlama-1.1B")
+    launches, _, decoded, ids = run_main_path(quant, deq, card,
+                                              "TinyLlama-1.1B")
     steps = 1 + decoded  # the prefill + one decode per token
     for name, per in PER_STEP.items():
         check(launches[name] == per * steps,
@@ -615,27 +630,33 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
                       + Q.out_dtype(precision).itemsize * s_slots * n)
             ops = 2 * s_slots * kdim * n * len(stacks)
             label = ", default" if precision == "default" else ""
-            kpath, op_type = dict(kernel_path="cuda cores"), "f32"
-            if name == "moe_grouped":  # kernel 5: the wrapper's plan
+            # the wrapper's plan (its shapes and alignment), which must be
+            # the main path's: split-K for kernel 4, tensor cores for 5, 6
+            aligned = all(Q._aligned(xin.float().contiguous(), st_)
+                          for st_ in stacks)
+            if name == "moe_slot":
+                plan = Q.moe_slot_plan(s_slots, e_num, kdim, n, st.group,
+                                       st.fmt, sms, aligned)
+            else:
                 plan = Q.moe_grouped_plan(s_slots, e_num, kdim, n,
-                                          st.group, st.fmt, sms,
-                                          Q._aligned(xin.float().contiguous(),
-                                                     st))
-                check(plan.path == "tc", f"moe_grouped {proj}: the main "
-                                         f"path's plan is {plan.path!r}")
-                # the launch alone, on the wrapper's own dispatch plan
+                                          stacks[0].group, stacks[0].fmt, sms,
+                                          aligned, glu=len(stacks) == 2)
+            check(plan.path == MOE_PATHS[name], f"{name} {proj}: the plan's "
+                                                f"path is {plan.path!r}")
+            kpath = dict(kernel_path=plan.path, splits=plan.splits,
+                         tile_rows=plan.rows,
+                         bound_f32_ms=bound_ms(nbytes, ops, "f32", peaks)[0])
+            op_type = plan.op_type(precision)
+            if name != "moe_slot":  # the launch alone, on the wrapper's plan
                 c_rows, g_blocks, _ = Q.moe_dims(s_slots, e_num)
                 eg, rows, _ = Q.moe_group_plan(sid, e_num, c_rows, g_blocks)
-                kpath = dict(kernel_path=plan.path, splits=plan.splits,
-                             tile_rows=plan.rows,
-                             bound_f32_ms=bound_ms(nbytes, ops, "f32",
-                                                   peaks)[0],
-                             launch_ms=timer.ms(
-                                 lambda: Q.moe_grouped_blocked(
-                                     xin, st, eg, rows, precision)))
-                log(f"moe_grouped {proj} S={s_slots} {case}{label}: the "
-                    f"launch alone {kpath['launch_ms']:.4f} ms")
-                op_type = plan.op_type(precision)
+                glu = (dict(up=ex["up"], act="silu") if len(stacks) == 2
+                       else {})
+                kpath["launch_ms"] = timer.ms(
+                    lambda: Q.moe_grouped_blocked(xin, stacks[0], eg, rows,
+                                                  precision, **glu))
+                log(f"{name} {proj} S={s_slots} {case}{label}: the launch "
+                    f"alone {kpath['launch_ms']:.4f} ms")
             measurements.append(compare(
                 name, f"{proj} S={s_slots} {case}{label}", kern(), plain(),
                 timer, kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes,
@@ -651,8 +672,8 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
         log(f"Mixtral: quant and dequant tokens first differ at step {i}; "
             f"smallest top-2 vs third router margin there: {margin:.3g}")
 
-    launches, decoded, ids = run_main_path(quant, deq, card,
-                                           "Mixtral-8x7B-l2", on_differ)
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, "Mixtral-8x7B-l2", on_differ)
     n_layers = cfg.num_layers
     for name in Q.LAUNCHES:
         want = n_layers * (decoded * MOE_PER_LAYER["decode"].get(name, 0)
@@ -661,6 +682,11 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
             want = 1 + decoded  # the LM head
         check(launches[name] == want,
               f"Mixtral {name}: {launches[name]} launches, expected {want}")
+    for name, path in MOE_PATHS.items():  # counted where they launched
+        on_path = by_path.get(f"{name} {path}", 0)
+        check(on_path == launches[name] > 0,
+              f"Mixtral {name}: {on_path} of {launches[name]} launches on "
+              f"{path} ({by_path})")
     print(json.dumps({"moe_decode_profile": profile_decode(quant, ids)}),
           flush=True)
     return measurements, launches

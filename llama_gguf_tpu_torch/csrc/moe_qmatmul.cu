@@ -1,17 +1,17 @@
-// Sparse-MoE dequant-matmul kernels for Hopper (sm_90a) on the CUDA cores:
-// each routed slot's input row times the quantized weight of the expert it
-// was routed to, read straight from the full expert stack by index (no
-// gathered weight copy).
+// Sparse-MoE grouped dequant-matmul kernels for Hopper (sm_90a) on the CUDA
+// cores, for the layouts the tensor-core path of csrc/qgemm.cu does not
+// take (ragged N, q4 groups other than 32, unaligned stacks;
+// ops/qmatmul.moe_grouped_plan and moe_glu_grouped_plan choose). Each routed
+// slot's input row times the quantized weight of the expert it was routed
+// to, read straight from the full expert stack by index (no gathered
+// weight copy).
 //
-// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py:
-//   * slot-major  — _moe_qmatmul_call (entry moe_qmatmul, S < 32 slots or
-//                   when the grouped sweeps would not undercut S)
-//   * grouped     — _moe_qmatmul_grouped_call (plan _moe_group_plan), for
-//                   the layouts the tensor-core grouped path of
-//                   csrc/qgemm.cu does not take (ragged N, q4 groups other
-//                   than 32, unaligned stacks; ops/qmatmul.moe_grouped_plan
-//                   chooses)
+// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py, for those
+// layouts:
+//   * grouped     — _moe_qmatmul_grouped_call (plan _moe_group_plan)
 //   * grouped GLU — _moe_glu_grouped_call (entry moe_qmatmul_glu)
+// (kernel 4, the per-slot product, runs on qgemm.cu's split-K path for
+// every layout.)
 //
 // Stacks (ops/linear.QuantExpertStack): packed uint8 [E, K/2, N] (q4) or
 // int8 [E, K, N] (q8), scales and mins float32 [E, K/group, N]; expert e's
@@ -20,25 +20,18 @@
 // TPU kernels' _out_dtype); the panels stay float32, as the loader keeps
 // expert stacks.
 //
-// What bounds them on this card:
-//   * slot-major, at decode (S = 2 slots per token at top-2): the routed
-//     experts' weight bytes, read once per slot from HBM. Design: one block
-//     per (slot, 32-column tile); the block reads idx[s] from device memory
-//     (the host never reads it) and offsets the packed, scale and min base
-//     pointers by e * expert stride, then runs the one-row body of qdot.cuh.
-//   * grouped, at prefill (hundreds of slots sorted by expert into G blocks
-//     of C rows, each block single-expert): the f32 multiply-adds on the CUDA
-//     cores. Design: one block per (group, 8-row block, 32-column tile); the
-//     block reads eg[g] and its rows' slot ids, gathers its input rows from x
-//     through those ids (no sorted copy of x), and skips a row block that
-//     holds padding only (the sentinel id S). Each row block re-reads its
-//     expert's column panel (from L2 when it is warm). The output is the
-//     [G*C, N] blocked layout;
-//     padding rows are not written, and the caller reads back through the
-//     plan's inverse map. The GLU variant reads the gate and the up stack
-//     (two separate stacks) in the same pass and writes act(gate) * up, so
-//     the [G*C, 2F] intermediate never reaches device memory.
-// An expert id outside [0, E) reads nothing and writes NaN.
+// What bounds them on this card (hundreds of slots sorted by expert into G
+// blocks of C rows, each block single-expert): the f32 multiply-adds on the
+// CUDA cores. Design: one block per (group, 8-row block, 32-column tile);
+// the block reads eg[g] and its rows' slot ids, gathers its input rows from
+// x through those ids (no sorted copy of x), and skips a row block that
+// holds padding only (the sentinel id S). Each row block re-reads its
+// expert's column panel (from L2 when it is warm). The output is the [G*C,
+// N] blocked layout; padding rows are not written, and the caller reads back
+// through the plan's inverse map. The GLU variant reads the gate and the up
+// stack (two separate stacks) in the same pass and writes act(gate) * up, so
+// the [G*C, 2F] intermediate never reaches device memory. An expert id
+// outside [0, E) reads nothing and writes NaN.
 
 #include "qdot.cuh"
 
@@ -60,30 +53,6 @@ __device__ __forceinline__ Panel<float> expert_panel(const uint8_t* packed, cons
     const size_t eo = size_t(e);
     return {packed + eo * pstride + n0, scales + eo * sstride + n0,
             mins != nullptr ? mins + eo * sstride + n0 : nullptr};
-}
-
-template <int FMT, bool VEC, class OT>
-__global__ void __launch_bounds__(THREADS)
-moe_slot_kernel(const float* __restrict__ x,        // [S, K]
-                const int* __restrict__ idx,        // [S] expert ids
-                const uint8_t* __restrict__ packed, // [E, K/2 | K, N]
-                const float* __restrict__ scales,   // [E, K/group, N]
-                const float* __restrict__ mins,     // [E, K/group, N] or null
-                OT* __restrict__ y,                 // [S, N]
-                int E, int K, int N, int group) {
-    const int s = blockIdx.y;
-    const int e = __ldg(idx + s);
-    const bool ok = e >= 0 && e < E;
-    const int n0 = blockIdx.x * COLS + 4 * threadIdx.x;
-    const float* xr[1] = {x + size_t(s) * K};
-    const Panel<float> w[1] = {expert_panel(packed, scales, mins, packed_stride(FMT, K, N),
-                                     size_t(K / group) * N, ok ? e : 0, n0)};
-    float total[1];
-    dot_tile<FMT, 1, 1, VEC>(xr, w, K, N, group, ok ? N - n0 : 0, total);
-
-    const int tid = threadIdx.y * TX + threadIdx.x;
-    const int col = blockIdx.x * COLS + tid;
-    if (tid < COLS && col < N) store_out(y + size_t(s) * N + col, ok ? total[0] : nan_f32());
 }
 
 // NW = 1: the grouped product over (p0, s0, m0). NW = 2: gate (p0, s0, m0)
@@ -134,17 +103,6 @@ moe_grouped_kernel(const float* __restrict__ x,       // [S, K]
 
 dim3 tiles(int N, int nrows) { return dim3((N + COLS - 1) / COLS, nrows); }
 
-template <int FMT, class OT>
-void launch_slot(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* idx,
-                 const uint8_t* p, const float* scales, const float* mins, OT* y, int E,
-                 int K, int N, int group) {
-    const dim3 block(TX, TY);
-    if (vec)
-        moe_slot_kernel<FMT, true, OT><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
-    else
-        moe_slot_kernel<FMT, false, OT><<<grid, block, 0, st>>>(x, idx, p, scales, mins, y, E, K, N, group);
-}
-
 template <int FMT, int NW, class OT>
 void launch_grouped(dim3 grid, cudaStream_t st, bool vec, const float* x, const int* rows,
                     const int* eg, const uint8_t* p0, const float* s0, const float* m0,
@@ -157,17 +115,6 @@ void launch_grouped(dim3 grid, cudaStream_t st, bool vec, const float* x, const 
     else
         moe_grouped_kernel<FMT, NW, false, OT><<<grid, block, 0, st>>>(
             x, rows, eg, p0, s0, m0, p1, s1, m1, y, S, E, K, N, C, group, act);
-}
-
-template <class OT>
-void slot_typed(cudaStream_t st, bool vec, const float* x, const int* idx, const uint8_t* p,
-                const float* scales, const float* mins, void* y, int S, int E, int K, int N,
-                int group, int fmt) {
-    OT* out = static_cast<OT*>(y);
-    if (fmt == FMT_Q4)
-        launch_slot<FMT_Q4>(tiles(N, S), st, vec, x, idx, p, scales, mins, out, E, K, N, group);
-    else
-        launch_slot<FMT_Q8>(tiles(N, S), st, vec, x, idx, p, scales, mins, out, E, K, N, group);
 }
 
 template <int NW, class OT>
@@ -185,22 +132,6 @@ void grouped_typed(dim3 grid, cudaStream_t st, bool vec, const float* x, const i
 }
 
 }  // namespace
-
-// y[s] = x[s] @ W[idx[s]] for S slots. fmt: 0 = q4, 1 = q8; mins may be null.
-// out_bf16: y is bfloat16 (else float32). vec: 1 when N % 4 == 0 and every
-// pointer is 16-byte aligned. Returns the cudaError_t of the launch (0 = success).
-extern "C" int moe_slot_launch(const float* x, const int* idx, const void* packed,
-                               const float* scales, const float* mins, void* y, int S,
-                               int E, int K, int N, int group, int fmt, int out_bf16, int vec,
-                               void* stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const uint8_t* p = static_cast<const uint8_t*>(packed);
-    if (out_bf16)
-        slot_typed<bf16>(st, vec != 0, x, idx, p, scales, mins, y, S, E, K, N, group, fmt);
-    else
-        slot_typed<float>(st, vec != 0, x, idx, p, scales, mins, y, S, E, K, N, group, fmt);
-    return int(cudaGetLastError());
-}
 
 // y[G*C, N]: row r of group g = x[rows[g*C + r]] @ W[eg[g]], for the rows
 // whose slot id is below S (others are left unwritten). C % 8 == 0.

@@ -1,6 +1,7 @@
-// Dequant-dot body of the CUDA-core MoE kernels (csrc/moe_qmatmul.cu):
-// the slot-major kernel 4, the grouped GLU kernel 6, and the grouped kernel
-// 5 for the layouts its tensor-core path (csrc/qgemm.cu) does not take.
+// Dequant-dot body of the CUDA-core MoE kernels (csrc/moe_qmatmul.cu): the
+// grouped kernels 5 and 6 for the layouts their tensor-core path
+// (csrc/qgemm.cu) does not take; and of the probe's kernels
+// (csrc/qmatmul_variants.cu), which share its block layout and helpers.
 //
 // Layouts (quant/repack.py):
 //   q4: packed uint8 [K/2, ldw]; packed row r belongs to scale group
@@ -98,21 +99,15 @@ using glu::glu_combine;
 // columns left from this thread's first column (<= 0: none); ldw: the
 // panels' row stride in columns; group % 16 == 0. VEC (4-column vector
 // loads: N % 4 == 0 and each panel aligned to 4 of its elements) is a
-// template parameter so that the inner loops carry no branch on it.
-//
-// At decode sizes (RB <= 4) a thread issues the weight loads of JC packed
-// rows (8, or 4 per set for two sets) before it uses the first: one load in
-// flight per thread left the decode kernels waiting on HBM once per row. At
-// 8 rows the FMAs hide the latency and the registers go to accumulators.
-// Row addresses: one set keeps a pointer per group, two sets share one
-// offset, the form ptxas schedules better for each.
+// template parameter so that the inner loops carry no branch on it. Row
+// addresses: one set keeps a pointer per group, two sets share one offset,
+// the form ptxas schedules better for each.
 template <int FMT, int RB, int NW, bool VEC, class SP>
 __device__ __forceinline__ void dot_tile(const float* const (&xr)[RB], const Panel<SP> (&w)[NW],
                                          int K, int ldw, int group, int nvalid,
                                          float (&total)[NW]) {
     const int tx = threadIdx.x, ty = threadIdx.y;
     const bool has_mins = w[0].mins != nullptr;  // all sets alike
-    constexpr int JC = RB > 4 ? 1 : NW == 2 ? 4 : 8;
     float acc[NW][RB][4] = {};
 
     if (nvalid > 0) {
@@ -127,57 +122,49 @@ __device__ __forceinline__ void dot_tile(const float* const (&xr)[RB], const Pan
                 const uint8_t* prow[NW];
 #pragma unroll
                 for (int s = 0; s < NW; ++s) prow[s] = w[s].packed + (grow - off);
-                for (int j0 = 0; j0 < h; j0 += JC) {
-                    uint32_t wv[JC][NW];
+                for (int j = 0; j < h; ++j) {
+                    uint32_t wv[NW];
 #pragma unroll
-                    for (int j = 0; j < JC; ++j)
+                    for (int s = 0; s < NW; ++s)
+                        wv[s] = load_bytes4(prow[s] + off + size_t(j) * ldw, nvalid, VEC);
+#pragma unroll
+                    for (int r = 0; r < RB; ++r) {
+                        const float xlo = __ldg(xr[r] + k0 + j);
+                        const float xhi = __ldg(xr[r] + k0 + j + h);
+                        xs[r] += xlo + xhi;
 #pragma unroll
                         for (int s = 0; s < NW; ++s)
-                            wv[j][s] = load_bytes4(prow[s] + off + size_t(j0 + j) * ldw, nvalid, VEC);
 #pragma unroll
-                    for (int j = 0; j < JC; ++j)
-#pragma unroll
-                        for (int r = 0; r < RB; ++r) {
-                            const float xlo = __ldg(xr[r] + k0 + j0 + j);
-                            const float xhi = __ldg(xr[r] + k0 + j0 + j + h);
-                            xs[r] += xlo + xhi;
-#pragma unroll
-                            for (int s = 0; s < NW; ++s)
-#pragma unroll
-                                for (int c = 0; c < 4; ++c) {
-                                    const float lo = float((wv[j][s] >> (8 * c)) & 0xFu);
-                                    const float hi = float((wv[j][s] >> (8 * c + 4)) & 0xFu);
-                                    qd[s][r][c] = fmaf(xlo, lo, qd[s][r][c]);
-                                    qd[s][r][c] = fmaf(xhi, hi, qd[s][r][c]);
-                                }
-                        }
+                            for (int c = 0; c < 4; ++c) {
+                                const float lo = float((wv[s] >> (8 * c)) & 0xFu);
+                                const float hi = float((wv[s] >> (8 * c + 4)) & 0xFu);
+                                qd[s][r][c] = fmaf(xlo, lo, qd[s][r][c]);
+                                qd[s][r][c] = fmaf(xhi, hi, qd[s][r][c]);
+                            }
+                    }
                 }
             } else {
                 const size_t grow = size_t(k0) * ldw, off = NW == 1 ? 0 : grow;
                 const uint8_t* prow[NW];
 #pragma unroll
                 for (int s = 0; s < NW; ++s) prow[s] = w[s].packed + (grow - off);
-                for (int j0 = 0; j0 < group; j0 += JC) {
-                    uint32_t wv[JC][NW];
+                for (int j = 0; j < group; ++j) {
+                    uint32_t wv[NW];
 #pragma unroll
-                    for (int j = 0; j < JC; ++j)
+                    for (int s = 0; s < NW; ++s)
+                        wv[s] = load_bytes4(prow[s] + off + size_t(j) * ldw, nvalid, VEC);
+#pragma unroll
+                    for (int r = 0; r < RB; ++r) {
+                        const float xv = __ldg(xr[r] + k0 + j);
+                        xs[r] += xv;
 #pragma unroll
                         for (int s = 0; s < NW; ++s)
-                            wv[j][s] = load_bytes4(prow[s] + off + size_t(j0 + j) * ldw, nvalid, VEC);
 #pragma unroll
-                    for (int j = 0; j < JC; ++j)
-#pragma unroll
-                        for (int r = 0; r < RB; ++r) {
-                            const float xv = __ldg(xr[r] + k0 + j0 + j);
-                            xs[r] += xv;
-#pragma unroll
-                            for (int s = 0; s < NW; ++s)
-#pragma unroll
-                                for (int c = 0; c < 4; ++c) {
-                                    const float q = float(int8_t((wv[j][s] >> (8 * c)) & 0xFFu));
-                                    qd[s][r][c] = fmaf(xv, q, qd[s][r][c]);
-                                }
-                        }
+                            for (int c = 0; c < 4; ++c) {
+                                const float q = float(int8_t((wv[s] >> (8 * c)) & 0xFFu));
+                                qd[s][r][c] = fmaf(xv, q, qd[s][r][c]);
+                            }
+                    }
                 }
             }
 #pragma unroll

@@ -1,33 +1,43 @@
-// Dequant-matmul kernels 1, 2, 3 and 5 for Hopper (sm_90a): products of x
-// float32 [B, K] with a quantized weight W (q4 or q8), y float32 or
-// bfloat16.
+// Dequant-matmul kernels 1-6 for Hopper (sm_90a): products of x float32
+// [B, K] with a quantized weight W (q4 or q8) or a stack of E experts of
+// one, y float32 or bfloat16.
 //
-// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py:
-//   * kernels 1-2, KIND_PLAIN: _qmatmul_call (pallas_call :309) with
+// Replaces the Pallas kernels of llama_gguf_tpu/ops/qmatmul.py (the kind
+// is a template argument, see KIND_*):
+//   * kernels 1-2, kind 0: _qmatmul_call (pallas_call :309) with
 //     _q4_kernel (:138, "qmatmul_q4") and _q8_kernel (:164, "qmatmul_q8"):
 //     y[B, N] = x @ W[K, N];
 //   * kernel 3, KIND_GLU: _qmatmul_glu_call (pallas_call :500) with
 //     _glu_kernel (:198, "qmatmul_glu"): y[B, F] = act(x @ W[:, :F]) *
 //     (x @ W[:, F:]) over the fused gate|up weight W[K, 2F] (here N = F);
-//   * kernel 5, KIND_GROUPED: _moe_qmatmul_grouped_call (pallas_call :736,
-//     "moe_grouped"): the C-row single-expert blocks of the plan of
+//   * kernel 4, KIND_SLOT: _moe_qmatmul_call (pallas_call :642,
+//     "moe_slot"): y[s] = x[s] @ W[idx[s]] over an expert stack, one slot
+//     per row (decode: fewer than 32 slots);
+//   * kernel 5, KIND_GATHERED: _moe_qmatmul_grouped_call (pallas_call
+//     :736, "moe_grouped"): the C-row single-expert blocks of the plan of
 //     _moe_group_plan (ops/qmatmul.moe_group_plan): row r of the blocked
-//     [G*C, N] output is x[rows[r]] @ W[eg[r / C]] over an expert stack.
+//     [G*C, N] output is x[rows[r]] @ W[eg[r / C]] over an expert stack;
+//   * kernel 6, KIND_GLU | KIND_GATHERED: _moe_glu_grouped_call
+//     (pallas_call :861, "moe_glu_grouped"): kernel 5's rows with kernel
+//     3's epilogue over two stacks, act(x[rows[r]] @ Wg[e]) *
+//     (x[rows[r]] @ Wu[e]).
 // All compute
 //     y = sum_g s[g] * (x_g @ q_g) - xs[g]^T m[g]    (f32 sums)
 // with xs[g] the group sums of x (the min term factored as in _min_dot),
 // rounded once to the output type at the store (_out_dtype). Layouts: see
 // csrc/qdot.cuh (q4 group-split nibbles [K/2, N], q8 [K, N], panels
 // [K/group, N] float32 or bfloat16; an expert stack is E of them, float32
-// panels). ops/qmatmul.qmatmul_plan and moe_grouped_plan pick the path, the
-// tile and the split of K; one launch per call either way.
+// panels). ops/qmatmul.qmatmul_plan, moe_slot_plan, moe_grouped_plan and
+// moe_glu_grouped_plan pick the path, the tile and the split of K; one
+// launch per call either way.
 //
-// Every kind runs on the same two paths. A block owns 128 columns of the
-// weight: kernels 1, 2 and 5 128 output columns, the GLU 64 gate columns
-// and the 64 up columns that pair with them (F further on in the fused
-// weight, row stride 2F), so the tile, its loads, its fragments and its
-// workspace are the same for all. The GLU's partial tile is summed over the
-// K slices first and act(gate) * up taken after, never on partials.
+// Every kind runs on one of the same two paths. A block owns 128 columns
+// of the weight: kernels 1, 2, 4 and 5 128 output columns, the GLUs 64
+// gate columns and the 64 up columns that pair with them (F further on in
+// kernel 3's fused weight, row stride 2F; the same columns of the up stack
+// in kernel 6, row stride F), so the tile, its loads, its fragments and
+// its workspace are the same for all. A GLU's partial tile is summed over
+// the K slices first and act(gate) * up taken after, never on partials.
 //
 // Tensor-core path ("tc", from ops/qmatmul.TC_MIN_ROWS = 5 rows on). Bound:
 // the operations, max(bytes / 3.35 TB/s, P * 2*B*K*N / 989 TFLOP/s), since
@@ -54,15 +64,20 @@
 // rows 2t, 2t+1, 2t+8, 2t+9), the same for x and W, so every shared-memory
 // read is conflict-free.
 //
-// The grouped product (kernel 5) is this path with gathered rows: a BM-row
-// tile of the blocked layout lies inside one C-row group (BM divides C), so
-// it reads its expert e = eg[row0 / C] once and offsets the packed bytes and
-// panels by e times the expert's stride; its x rows arrive by cp.async from
-// x[rows[row0 + r]] (the padding id S zero-fills, no sorted copy of x is
-// made). A group's valid rows come first, so a tile whose first id is S is
-// padding only: every K slice of it exits before its first barrier. Padding
-// rows are not written. Bound: the routed experts' bytes, read once (each
-// expert's rows share a tile or two), against P bf16 passes.
+// The grouped products (kernels 5 and 6) are this path with gathered rows:
+// a BM-row tile of the blocked layout lies inside one C-row group (BM
+// divides C), so it reads its expert e = eg[row0 / C] once and offsets the
+// packed bytes and panels by e times the expert's stride; its x rows arrive
+// by cp.async from x[rows[row0 + r]] (the padding id S zero-fills, no
+// sorted copy of x is made). A group's valid rows come first, so a tile
+// whose first id is S is padding only: every K slice of it exits before its
+// first barrier. Padding rows are not written. Kernel 6's threads that
+// stage the up half of the tile (columns 64-127: the packed chunks q >= 4
+// and the panel chunks past 64) read the up stack, the others the gate
+// stack, so one pass over x meets both weights and the [G*C, 2F]
+// intermediate never reaches device memory. Bound: the routed experts'
+// bytes, read once (each expert's rows share a tile or two), against P bf16
+// passes.
 //
 // Split-K path ("splitk", 1 to 4 rows: decode). Bound: the weight bytes,
 // read once from HBM. A grid over columns alone leaves most of the 132 SMs
@@ -81,7 +96,13 @@
 // (3.9 MB with its panels; bytes bound 1.2 us), so no split of K brings it
 // much below the 9.0 us of the earlier unsplit 32-column kernel. The split
 // pays off with depth: ffn_down (K = 5632) takes 13.8 us, against 109 us
-// unsplit and 49.5 us for the earlier kernel.
+// unsplit and 49.5 us for the earlier kernel. Kernel 4 is this path with an
+// expert per row: block row s reads e = eg[s] from device memory (the host
+// never reads it) and offsets the packed bytes and panels by e times the
+// expert's stride; an invalid e makes every slice of the row leave before
+// the workspace and the counter, and slice 0 writes the row's NaN. Its
+// bound: the routed experts' bytes (Mixtral's 14336-wide gate and up: the
+// regime of the wide LM heads, where split-K reaches 66-79% of it).
 //
 // Threshold and splits: scripts/bench_qmatmul.py `paths` on an H100 80GB
 // HBM3 (700 W) timed both paths at 1-16, 32, 64, 128 and 512 rows at
@@ -109,23 +130,49 @@ namespace {
 
 using namespace qgemm;
 
-enum { KIND_PLAIN = 0, KIND_GLU = 1, KIND_GROUPED = 2 };
+// The kind of product: bit flags, the last template argument of both
+// kernels (the decode profiles key on it). 0: kernels 1-2; KIND_GLU: kernel
+// 3 (act(gate) * up); KIND_GATHERED: kernel 5 (rows gathered through the
+// plan's slot ids, the expert of each C-row group from eg; tensor cores);
+// KIND_GLU | KIND_GATHERED: kernel 6, whose gate and up are two stacks of
+// the same layout; KIND_SLOT: kernel 4 (the expert of each row from eg;
+// split-K).
+enum { KIND_PLAIN = 0, KIND_GLU = 1, KIND_GATHERED = 2, KIND_SLOT = 4 };
+
+__host__ __device__ constexpr bool is_glu(int kind) { return (kind & KIND_GLU) != 0; }
+__host__ __device__ constexpr bool is_gathered(int kind) { return (kind & KIND_GATHERED) != 0; }
+__host__ __device__ constexpr bool two_stacks(int kind) {
+    return is_glu(kind) && is_gathered(kind);
+}
 
 constexpr int TILE = 128;  // weight columns per block, both paths
 
 // Tile column c (0..TILE-1) of column tile t: the output column it feeds
-// and the weight column it reads. KIND_GLU: c < H = TILE/2 are the gate
-// columns t*H + c of the fused [K, 2N] weight, c >= H the matching up
-// columns N + t*H + c - H; both feed output column t*H + c % H. Otherwise
-// both t*TILE + c.
+// and the weight column it reads. GLU: c < H = TILE/2 are the gate columns
+// t*H + c, c >= H the matching up columns t*H + c - H, both feeding output
+// column t*H + c % H; in the fused [K, 2N] weight of kernel 3 the up
+// columns lie N further on, in kernel 6 they are those of the up stack
+// (in_up). Otherwise both t*TILE + c.
 template <int KIND>
 __device__ __forceinline__ int out_col(int t, int c) {
-    return KIND == KIND_GLU ? t * (TILE / 2) + c % (TILE / 2) : t * TILE + c;
+    return is_glu(KIND) ? t * (TILE / 2) + c % (TILE / 2) : t * TILE + c;
 }
 
 template <int KIND>
 __device__ __forceinline__ int weight_col(int t, int c, int N) {
-    return KIND == KIND_GLU && c >= TILE / 2 ? N + out_col<KIND>(t, c) : out_col<KIND>(t, c);
+    return is_glu(KIND) && !two_stacks(KIND) && c >= TILE / 2 ? N + out_col<KIND>(t, c)
+                                                               : out_col<KIND>(t, c);
+}
+
+template <int KIND>
+__device__ __forceinline__ bool in_up(int c) {
+    return two_stacks(KIND) && c >= TILE / 2;
+}
+
+// The weight's row stride: the fused gate|up weight's 2N, else N.
+template <int KIND>
+__device__ __forceinline__ int row_stride(int N) {
+    return is_glu(KIND) && !two_stacks(KIND) ? 2 * N : N;
 }
 
 // The block's partial tile part[rows][TILE] (shared memory) through the
@@ -138,14 +185,14 @@ __device__ __forceinline__ void finish(float* part, int rows, float* ws, int* co
                                        int splits, OT* y, int row0, int N, int act, Keep keep) {
     const int t = blockIdx.z;
     const bool done = split_sum(part, rows * TILE, ws, counters, splits, [&](int e, float v) {
-        if (KIND == KIND_GLU) {
+        if (is_glu(KIND)) {
             part[e] = v;
             return;
         }
         const int r = e / TILE, col = out_col<KIND>(t, e % TILE);
         if (col < N && keep(r)) store_out(y + size_t(row0 + r) * N + col, v);
     });
-    if (KIND != KIND_GLU || !done) return;
+    if (!is_glu(KIND) || !done) return;
     constexpr int H = TILE / 2;
     __syncthreads();
     for (int e = threadIdx.x; e < rows * H; e += blockDim.x) {
@@ -217,20 +264,40 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int c, float bias) {
 }
 
 // Grid: (splits, B, column tiles: ceil(N/128), the GLU ceil(N/64)): one row
-// per block; ws/counters: see split_sum. KIND_PLAIN or KIND_GLU (act).
+// per block; ws/counters: see split_sum. KIND_PLAIN, KIND_GLU (act) or
+// KIND_SLOT: W is a stack of E experts ([E, K/2 | K, N], panels [E,
+// K/group, N]) and row r reads expert eg[r]; an id outside [0, E) reads
+// nothing, and slice 0 writes the row's NaN.
 template <int FMT, bool VEC, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(SK_THREADS, 8)
 qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
              const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
-             float* __restrict__ ws, int* __restrict__ counters,
-             int B, int K, int N, int group, int splits, int act) {
-    static_assert(KIND != KIND_GROUPED, "the grouped product runs on the tensor cores");
+             float* __restrict__ ws, int* __restrict__ counters, const int* __restrict__ eg,
+             int B, int K, int N, int group, int splits, int act, int E) {
+    static_assert(!is_gathered(KIND), "the grouped products run on the tensor cores");
     const int tid = threadIdx.x, tx = tid % SK_TX, ty = tid / SK_TX;
-    const int ldw = KIND == KIND_GLU ? 2 * N : N;  // the weight's row stride
+    const int ldw = row_stride<KIND>(N);
     const int col = weight_col<KIND>(blockIdx.z, tx * 16, N);
     const int nvalid = N - out_col<KIND>(blockIdx.z, tx * 16);
     const int row = blockIdx.y;
     const float* xr = x + size_t(row) * K;
+    if constexpr ((KIND & KIND_SLOT) != 0) {
+        // the whole block (every slice of the row) leaves before the
+        // workspace and the tile's counter are touched
+        const int e = __ldg(eg + row);
+        if (e < 0 || e >= E) {
+            if (blockIdx.x == 0)
+                for (int c = tid; c < TILE; c += SK_THREADS) {
+                    const int oc = out_col<KIND>(blockIdx.z, c);
+                    if (oc < N) store_out(y + size_t(row) * N + oc, __int_as_float(0x7fffffff));
+                }
+            return;
+        }
+        const size_t sstride = size_t(K / group) * N;
+        packed += size_t(e) * (FMT == FMT_Q4 ? K / 2 : K) * N;
+        scales += size_t(e) * sstride;
+        if (mins != nullptr) mins += size_t(e) * sstride;
+    }
 
     constexpr int SK_JC = 16;  // packed rows per chunk: 16-byte loads in flight
     const int rows_g = FMT == FMT_Q4 ? group / 2 : group;  // packed rows per group
@@ -334,16 +401,21 @@ struct Tc {
 // Grid: (splits, ceil(B/BM), column tiles: ceil(N/128), the GLU
 // ceil(N/64)); ws/counters: see split_sum; dynamic shared memory Tc::SMEM.
 // q4: group 32; q8: group 16 or 32; K % 32 == 0, N % 16 == 0 and 16-byte
-// aligned tensors (the plan sees to them). KIND_GLU: act. KIND_GROUPED: B =
-// G * crows rows of the blocked layout, rows [B] slot ids (S: padding), eg
-// [G] expert ids, E experts in the stacks, BM dividing crows.
+// aligned tensors (the plan sees to them). GLU: act. KIND_GATHERED: B = G *
+// crows rows of the blocked layout, rows [B] slot ids (S: padding), eg [G]
+// expert ids, E experts in the stacks, BM dividing crows; with KIND_GLU the
+// up columns come from the second stack (packed2, scales2, mins2), which
+// has the first's layout.
 template <int FMT, int MT, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(TC_THREADS)
 qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-         const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
+         const SP* __restrict__ scales, const SP* __restrict__ mins,
+         const uint8_t* __restrict__ packed2, const SP* __restrict__ scales2,
+         const SP* __restrict__ mins2, OT* __restrict__ y,
          float* __restrict__ ws, int* __restrict__ counters,
          const int* __restrict__ rows, const int* __restrict__ eg,
          int B, int K, int N, int group, int splits, int act, int crows, int S, int E) {
+    static_assert((KIND & KIND_SLOT) == 0, "the per-slot product runs on split-K");
     using C = Tc<FMT, MT, SP, OT>;
     constexpr int BM = C::BM;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -353,16 +425,17 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g8 = lane >> 2, t4 = lane & 3;
     const int row0 = blockIdx.y * BM, t = blockIdx.z;
-    const int ldw = KIND == KIND_GLU ? 2 * N : N;  // the weight's row stride
-    if constexpr (KIND == KIND_GROUPED) {
+    const int ldw = row_stride<KIND>(N);
+    if constexpr (is_gathered(KIND)) {
         // padding only: every slice exits before any barrier, and the
         // tile's counter is never touched
         if (__ldg(rows + row0) >= S) return;
         const int e = __ldg(eg + row0 / crows);
         if (e < 0 || e >= E) {  // reads nothing; slice 0 writes NaN
+            constexpr int OC = is_glu(KIND) ? TILE / 2 : TILE;  // output columns
             if (blockIdx.x == 0)
-                for (int i = tid; i < BM * TILE; i += TC_THREADS) {
-                    const int r = i / TILE, col = t * TILE + i % TILE;
+                for (int i = tid; i < BM * OC; i += TC_THREADS) {
+                    const int r = i / OC, col = t * OC + i % OC;
                     if (col < N && __ldg(rows + row0 + r) < S)
                         store_out(y + size_t(row0 + r) * N + col, __int_as_float(0x7fffffff));
                 }
@@ -373,6 +446,11 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
         packed += size_t(e) * pstride;
         scales += size_t(e) * sstride;
         if (mins != nullptr) mins += size_t(e) * sstride;
+        if constexpr (two_stacks(KIND)) {
+            packed2 += size_t(e) * pstride;
+            scales2 += size_t(e) * sstride;
+            if (mins2 != nullptr) mins2 += size_t(e) * sstride;
+        }
     }
     const int nst = K / TC_KS;
     const int sb = int((long long)blockIdx.x * nst / splits);
@@ -391,7 +469,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     for (int i = 0; i < MT; ++i) {
         const int c = tid + TC_THREADS * i, r = c / 8, q = c % 8;
         int row = row0 + r;
-        if constexpr (KIND == KIND_GROUPED) {  // gathered: row r is slot rows[row0 + r]
+        if constexpr (is_gathered(KIND)) {  // row r is slot rows[row0 + r]
             row = __ldg(rows + row0 + r);
             x_ok[i] = row < S;
         } else {
@@ -404,9 +482,11 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     size_t w_src[WCH];
     int w_dst[WCH];
     bool w_ok;
+    const uint8_t* w_base;  // the stack this thread's 16 columns lie in
     {
         const int q = tid % 8;
         w_ok = out_col<KIND>(t, 16 * q) < N;
+        w_base = in_up<KIND>(16 * q) ? packed2 : packed;
         const int col = weight_col<KIND>(t, 16 * q, N);
 #pragma unroll
         for (int i = 0; i < WCH; ++i) {
@@ -421,7 +501,8 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     const bool p_col_ok = out_col<KIND>(t, PE * (tid % PC)) < N;
     const int p_col = weight_col<KIND>(t, PE * (tid % PC), N);
     const bool p_ok = p_which < 2 * (has_mins ? 2 : 1) && (p_which & 1) < gps && tid < 4 * PC;
-    const SP* p_base = (p_which < 2 ? scales : mins);
+    const SP* p_base = in_up<KIND>(PE * (tid % PC)) ? (p_which < 2 ? scales2 : mins2)
+                                                     : (p_which < 2 ? scales : mins);
     const size_t p_src = (size_t(sb) * gps + (p_which & 1)) * ldw + (p_col_ok ? p_col : 0);
     const int p_dst = C::X_BYTES + C::W_BYTES + p_which * C::P_BYTES + 16 * (tid % PC);
 
@@ -432,7 +513,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             cp_async16(st + x_dst[i], x + x_src[i] + size_t(it) * TC_KS, x_ok[i]);
 #pragma unroll
         for (int i = 0; i < WCH; ++i)
-            cp_async16(st + w_dst[i], packed + w_src[i] + size_t(it) * C::WROWS * ldw, w_ok);
+            cp_async16(st + w_dst[i], w_base + w_src[i] + size_t(it) * C::WROWS * ldw, w_ok);
         if (p_ok)
             cp_async16(st + p_dst, p_base + p_src + size_t(it) * gps * ldw, p_col_ok);
     };
@@ -601,7 +682,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                 part[(16 * m + g8 + 8 * (e >> 1)) * TILE + wc + 8 * t4 + j + 4 * (e & 1)] = acc[m][j][e];
     __syncthreads();
     finish<KIND>(part, BM, ws, counters, splits, y, row0, N, act, [&](int r) {
-        if constexpr (KIND == KIND_GROUPED)
+        if constexpr (is_gathered(KIND))
             return __ldg(rows + row0 + r) < S;
         else
             return row0 + r < B;
@@ -635,6 +716,9 @@ struct Call {
     const uint8_t* packed;
     const void* scales;
     const void* mins;
+    const uint8_t* packed2;  // kernel 6's up stack
+    const void* scales2;
+    const void* mins2;
     void* y;
     float* ws;
     int* counters;
@@ -647,7 +731,7 @@ struct Call {
 // Column tiles of the grid: TILE output columns, the GLU's TILE / 2.
 template <int KIND>
 int col_tiles(int N) {
-    constexpr int OC = KIND == KIND_GLU ? TILE / 2 : TILE;
+    constexpr int OC = is_glu(KIND) ? TILE / 2 : TILE;
     return (N + OC - 1) / OC;
 }
 
@@ -656,8 +740,8 @@ int splitk(const Call& c) {
     const dim3 grid(c.splits, c.B, col_tiles<KIND>(c.N));
     return launch(qgemm_splitk<FMT, VEC, SP, OT, KIND>, grid, SK_THREADS, 0, c.stream,
                   c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
-                  static_cast<OT*>(c.y), c.ws, c.counters, c.B, c.K, c.N, c.group, c.splits,
-                  c.act);
+                  static_cast<OT*>(c.y), c.ws, c.counters, c.eg, c.B, c.K, c.N, c.group,
+                  c.splits, c.act, c.E);
 }
 
 template <int FMT, int MT, class SP, class OT, int KIND>
@@ -668,21 +752,26 @@ int tc_mt(const Call& c) {
     const dim3 grid(c.splits, (c.B + T::BM - 1) / T::BM, col_tiles<KIND>(c.N));
     return launch(qgemm_tc<FMT, MT, SP, OT, KIND>, grid, TC_THREADS, T::SMEM, c.stream,
                   c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
-                  static_cast<OT*>(c.y), c.ws, c.counters, c.rows, c.eg, c.B, c.K, c.N, c.group,
-                  c.splits, c.act, c.crows, c.S, c.E);
+                  c.packed2, static_cast<const SP*>(c.scales2),
+                  static_cast<const SP*>(c.mins2), static_cast<OT*>(c.y), c.ws, c.counters,
+                  c.rows, c.eg, c.B, c.K, c.N, c.group, c.splits, c.act, c.crows, c.S, c.E);
 }
 
 template <int FMT, class SP, class OT, int KIND>
 int dispatch(const Call& c, int path) {
     if (path == 1) {
-        switch (c.tile) {
-        case 1: return tc_mt<FMT, 1, SP, OT, KIND>(c);
-        case 2: return tc_mt<FMT, 2, SP, OT, KIND>(c);
-        case 4: return tc_mt<FMT, 4, SP, OT, KIND>(c);
-        default: return int(cudaErrorInvalidValue);
+        if constexpr ((KIND & KIND_SLOT) != 0) {
+            return int(cudaErrorInvalidValue);
+        } else {
+            switch (c.tile) {
+            case 1: return tc_mt<FMT, 1, SP, OT, KIND>(c);
+            case 2: return tc_mt<FMT, 2, SP, OT, KIND>(c);
+            case 4: return tc_mt<FMT, 4, SP, OT, KIND>(c);
+            default: return int(cudaErrorInvalidValue);
+            }
         }
     }
-    if constexpr (KIND == KIND_GROUPED) {
+    if constexpr (is_gathered(KIND)) {
         return int(cudaErrorInvalidValue);
     } else {
         if (c.tile != 1) return int(cudaErrorInvalidValue);
@@ -698,9 +787,12 @@ int dispatch_fmt(const Call& c, int fmt, int path) {
 
 template <class SP, class OT>
 int dispatch_kind(const Call& c, int fmt, int path) {
-    if (c.rows != nullptr) {
-        if constexpr (std::is_same<SP, float>::value)  // expert stacks keep f32 panels
-            return dispatch_fmt<SP, OT, KIND_GROUPED>(c, fmt, path);
+    if (c.eg != nullptr) {  // an expert stack: f32 panels only, as the loader keeps them
+        if constexpr (std::is_same<SP, float>::value) {
+            if (c.rows == nullptr) return dispatch_fmt<SP, OT, KIND_SLOT>(c, fmt, path);
+            return c.act >= 0 ? dispatch_fmt<SP, OT, KIND_GATHERED | KIND_GLU>(c, fmt, path)
+                              : dispatch_fmt<SP, OT, KIND_GATHERED>(c, fmt, path);
+        }
         return int(cudaErrorInvalidValue);
     }
     return c.act >= 0 ? dispatch_fmt<SP, OT, KIND_GLU>(c, fmt, path)
@@ -712,15 +804,20 @@ int dispatch_kind(const Call& c, int fmt, int path) {
 // y = x @ W, one launch. fmt: 0 = q4, 1 = q8; mins may be null.
 // panel_bf16 / out_bf16: scales and mins / y are bfloat16 (else float32).
 // What is computed:
-//   * act = -1, rows = null (kernels 1-2): y[B, N] = x[B, K] @ W[K, N];
+//   * act = -1, rows = eg = null (kernels 1-2): y[B, N] = x[B, K] @ W[K, N];
 //   * act = 0..4 (the GLU, kernel 3; 0 silu, 1 gelu (tanh), 2 relu,
 //     3 relu2, 4 swiglu_oai): W is the fused [K, 2N] gate|up weight and
 //     y[B, N] = act(x @ W[:, :N]) * (x @ W[:, N:]);
-//   * rows, eg non-null (the grouped MoE product, kernel 5; act = -1, f32
-//     panels, tensor cores): W is a stack of E experts ([E, K/2 | K, N],
-//     panels [E, K/group, N]), B = G * crows rows of the blocked layout;
-//     row r of y[B, N] = x[rows[r]] @ W[eg[r / crows]] where rows[r] < S
-//     (the rest are not written); an expert id outside [0, E) writes NaN.
+//   * eg non-null: W is a stack of E experts ([E, K/2 | K, N], panels
+//     [E, K/group, N], f32 panels); an expert id outside [0, E) writes NaN:
+//     - rows null (the per-slot MoE product, kernel 4; act = -1, split-K):
+//       y[s] = x[s] @ W[eg[s]] for the B slots;
+//     - rows non-null (the grouped MoE products, tensor cores): B = G *
+//       crows rows of the blocked layout, row r reads x[rows[r]] and
+//       expert eg[r / crows] and is written where rows[r] < S. Kernel 5
+//       (act = -1): y[B, N] = x[rows] @ W[eg]; kernel 6 (act = 0..4, the
+//       up stack in packed2, scales2, mins2, of W's layout): y[B, N] =
+//       act(x[rows] @ W[eg]) * (x[rows] @ W2[eg]).
 // A block reads 128 weight columns. path 0 = split-K (tile = rows per
 // block: 1; vec = 1 when N % 16 == 0 and every tensor is 16-byte aligned),
 // path 1 = tensor cores (tile = MT, 16-row tiles per block: 1, 2 or 4;
@@ -731,7 +828,8 @@ int dispatch_kind(const Call& c, int fmt, int path) {
 // GLU ceil(N / 64)), as ops/qmatmul.py's plans give them.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int qgemm_launch(const float* x, const void* packed, const void* scales,
-                            const void* mins, void* y, float* ws, int* counters,
+                            const void* mins, const void* packed2, const void* scales2,
+                            const void* mins2, void* y, float* ws, int* counters,
                             const int* rows, const int* eg,
                             int B, int K, int N, int group, int fmt,
                             int panel_bf16, int out_bf16, int path, int tile, int splits, int vec, int act, int crows, int S, int E,
@@ -743,12 +841,19 @@ extern "C" int qgemm_launch(const float* x, const void* packed, const void* scal
     if (path == 1 && (!vec || K % TC_KS != 0 || splits > K / TC_KS ||
                       (fmt == FMT_Q4 ? group != 32 : group != 16 && group != 32)))
         return int(cudaErrorInvalidValue);
-    if ((rows == nullptr) != (eg == nullptr) ||
-        (rows != nullptr && (path != 1 || act != -1 || panel_bf16 || E < 1 || S < 0 ||
-                             crows < 16 * tile || crows % (16 * tile) != 0 || B % crows != 0)))
+    if ((rows != nullptr && eg == nullptr) || (eg != nullptr && (panel_bf16 || E < 1)) ||
+        (rows != nullptr && (path != 1 || S < 0 || crows < 16 * tile ||
+                             crows % (16 * tile) != 0 || B % crows != 0)) ||
+        (eg != nullptr && rows == nullptr && (path != 0 || act != -1)))
+        return int(cudaErrorInvalidValue);
+    // the up stack: kernel 6's alone, with the gate stack's min panels or none
+    const bool up = rows != nullptr && act >= 0;
+    if (up != (packed2 != nullptr) || up != (scales2 != nullptr) ||
+        (mins2 != nullptr) != (up && mins != nullptr))
         return int(cudaErrorInvalidValue);
     if (splits > 1 && (ws == nullptr || counters == nullptr)) return int(cudaErrorInvalidValue);
-    const Call c{x, static_cast<const uint8_t*>(packed), scales, mins, y, ws, counters,
+    const Call c{x, static_cast<const uint8_t*>(packed), scales, mins,
+                 static_cast<const uint8_t*>(packed2), scales2, mins2, y, ws, counters,
                  rows, eg, B, K, N, group, tile, splits, vec, act, crows, S, E,
                  static_cast<cudaStream_t>(stream)};
     if (panel_bf16)

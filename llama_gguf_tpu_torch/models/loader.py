@@ -27,7 +27,7 @@ from ..ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
                           QuantLinear, fuse_linears)
 from ..quant.dequant import dequantize
 from ..quant.repack import repack, repack_rows
-from .config import ModelConfig, parse_config
+from .config import Activation, ModelConfig, parse_config
 
 # formats kept quantized on the device (the ones quant/repack.py handles)
 _QUANTIZED_KEEP = {GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K}
@@ -235,6 +235,18 @@ class ModelLoader:
             ffn["gate"] = self.linear(f"{p}.ffn_gate")
         ffn["up"] = self.linear(f"{p}.ffn_up")
         ffn["down"] = self.linear(f"{p}.ffn_down")
+        if cfg.hidden_act == Activation.XIELU:
+            if not cfg.xielu_alpha_p:
+                # without them _act would have no xIELU to compute
+                raise ValueError(
+                    "xIELU architecture requires per-layer "
+                    f"{cfg.arch}.xielu.alpha_p/alpha_n metadata arrays")
+            # Apertus: per-layer learned activation constants (the
+            # effective post-softplus values from metadata)
+            ffn["xielu"] = (
+                float(cfg.xielu_alpha_p[i]), float(cfg.xielu_alpha_n[i]),
+                float(cfg.xielu_beta[i]) if cfg.xielu_beta else 0.5,
+                float(cfg.xielu_eps[i]) if cfg.xielu_eps else -1e-6)
         if self.has(f"{p}.ffn_sub_norm.weight"):  # BitNet pre-down norm
             ffn["sub_norm"] = self._put(self.dense(f"{p}.ffn_sub_norm.weight"))
         self._fuse_ffn(ffn)
@@ -266,6 +278,13 @@ class ModelLoader:
 
     def build(self) -> tuple[dict, ModelConfig]:
         cfg = self.config
+        info = cfg.arch_info
+        if info is not None and (info.name in ("t5", "t5encoder")
+                                 or info.is_encoder_only):
+            # the JAX engine sends these to models/t5.py and models/bert.py
+            raise NotImplementedError(
+                f"{info.name}: encoder-decoder and encoder-only models are "
+                "not ported yet (ROADMAP queue 1 item 11)")
         params: dict[str, Any] = {}
         emb_name = "token_embd.weight"
         emb_info = self.gguf.tensors[emb_name]

@@ -12,7 +12,7 @@ input of the down projection, the MoE gate/up/act/down outputs). The port's
 own torch matmuls (attention, the router, dense weights) stay float32 in
 either mode. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
 RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
-kernel, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
+kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
 kernels, parallel residual, post norms, tied embeddings. Layer kinds other
 than "attn", MLA, the other MoE routings and the tiered read bound are ROADMAP
 queue 1.
@@ -25,8 +25,9 @@ import torch
 from ..ops import linear as L
 from ..ops.attention import attention_scores
 from ..ops.norms import apply_norm, rms_norm
-from ..ops.qmatmul import (expert_matmul, glu_combine, moe_qmatmul,
-                           moe_qmatmul_glu, qmatmul_glu)
+from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
+                           moe_group_plan, moe_qmatmul, moe_qmatmul_glu,
+                           qmatmul_glu)
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import kv as KV
 from .config import Activation, ModelConfig
@@ -39,6 +40,9 @@ def _act(x: torch.Tensor, act: Activation) -> torch.Tensor:
         return torch.relu(x)
     if act == Activation.RELU2:
         return torch.square(torch.relu(x))
+    if act == Activation.XIELU:  # its constants live in ffn["xielu"]
+        raise ValueError("xIELU needs the per-layer constants the loader "
+                         "puts in ffn['xielu']")
     return torch.nn.functional.silu(x)
 
 
@@ -166,10 +170,12 @@ def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
         g = L.apply(ffn["gate"], x, precision).float()
         u = L.apply(ffn["up"], x, precision).float()
         return down(_glu(g, u, cfg.hidden_act))
-    if "xielu" in ffn:
-        raise NotImplementedError("xIELU FFN is not ported yet "
-                                  "(ROADMAP queue 1)")
     u = L.apply(ffn["up"], x, precision).float()
+    if "xielu" in ffn:  # Apertus per-layer xIELU constants
+        ap, an, beta, eps = ffn["xielu"]
+        return down(torch.where(
+            u > 0, ap * u * u + beta * u,
+            (torch.expm1(torch.clamp(u, max=eps)) - u) * an + beta * u))
     return down(_act(u, cfg.hidden_act))
 
 
@@ -194,13 +200,14 @@ def route(ffn: dict, cfg: ModelConfig,
 
 
 def _expert_mm(x_rows: torch.Tensor, stack, idx: torch.Tensor,
-               precision: str | None) -> torch.Tensor:
-    """A quantized stack goes to the MoE kernels; a dense [E, K, N] stack
-    (dequant mode, or experts the loader could not keep quantized) loops over
-    its experts. Float32 either way (a "default" kernel output is cast back,
-    as the JAX MoE layer does)."""
+               precision: str | None, plan=None) -> torch.Tensor:
+    """A quantized stack goes to the MoE kernels (``plan``: the layer's
+    grouped dispatch plan, or None); a dense [E, K, N] stack (dequant mode,
+    or experts the loader could not keep quantized) loops over its experts.
+    Float32 either way (a "default" kernel output is cast back, as the JAX
+    MoE layer does)."""
     if isinstance(stack, L.QuantExpertStack):
-        return moe_qmatmul(x_rows, stack, idx, precision).float()
+        return moe_qmatmul(x_rows, stack, idx, precision, plan=plan).float()
     return expert_matmul(x_rows, stack, idx)
 
 
@@ -210,7 +217,9 @@ def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
     j). When gate and up are both quantized the grouped gate|up GLU kernel
     is tried first; else, or below its threshold, the two products and the
     GLU; then the down product and the routing-weighted sum. Each product
-    is dispatched on its own stack (``_expert_mm``)."""
+    is dispatched on its own stack (``_expert_mm``). Where the slots are
+    many enough for the grouped kernels (``moe_dims``), the dispatch plan
+    is made once here and shared by the layer's quantized products."""
     b, t, h = x.shape
     xf = x.reshape(b * t, h)
     topv, topi = route(ffn, cfg, xf)
@@ -218,15 +227,21 @@ def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
     ex = ffn["experts"]
     idx = topi.reshape(-1).to(torch.int32)  # [N*k]
     xr = xf.float()[:, None, :].expand(nt, k, h).reshape(-1, h)
+    quant = {key: isinstance(st, L.QuantExpertStack)
+             for key, st in ex.items()}
+    plan = None
+    c_rows, g_blocks, grouped = moe_dims(idx.shape[0], ex["down"].shape[0])
+    if grouped and any(quant.values()):
+        plan = moe_group_plan(idx, ex["down"].shape[0], c_rows, g_blocks)
     act = None
-    if (isinstance(ex["gate"], L.QuantExpertStack)
-            and isinstance(ex["up"], L.QuantExpertStack)):
+    if quant["gate"] and quant["up"]:
         act = moe_qmatmul_glu(xr, ex["gate"], ex["up"], idx,
-                              cfg.hidden_act.value, precision)
+                              cfg.hidden_act.value, precision, plan=plan)
     if act is None:
-        act = _glu(_expert_mm(xr, ex["gate"], idx, precision),
-                   _expert_mm(xr, ex["up"], idx, precision), cfg.hidden_act)
-    dn = _expert_mm(act.float(), ex["down"], idx, precision)
+        act = _glu(_expert_mm(xr, ex["gate"], idx, precision, plan),
+                   _expert_mm(xr, ex["up"], idx, precision, plan),
+                   cfg.hidden_act)
+    dn = _expert_mm(act.float(), ex["down"], idx, precision, plan)
     y = (dn.reshape(nt, k, h) * topv[:, :, None]).sum(dim=1)
     return y.reshape(b, t, h).to(x.dtype)
 

@@ -16,7 +16,9 @@ llama_gguf_tpu/ops/qmatmul.py).
   * ``moe_qmatmul(x_rows, stack, idx)`` — y[s] = x[s] @ W[idx[s]] for routed
                                     MoE slots over a QuantExpertStack:
                                     slot-major (kernel "moe_slot", replacing
-                                    _moe_qmatmul_call) at decode-sized S,
+                                    _moe_qmatmul_call: the split-K path of
+                                    csrc/qgemm.cu with an expert per row;
+                                    ``moe_slot_plan``) at decode-sized S,
                                     else grouped by expert (kernel
                                     "moe_grouped", replacing
                                     _moe_qmatmul_grouped_call: the
@@ -27,13 +29,16 @@ llama_gguf_tpu/ops/qmatmul.py).
   * ``moe_qmatmul_glu(x_rows, gate, up, idx, act)`` — the grouped gate/up
                                     product with the GLU epilogue (kernel
                                     "moe_glu_grouped", replacing
-                                    _moe_glu_grouped_call).
+                                    _moe_glu_grouped_call: the same two
+                                    paths; ``moe_glu_grouped_plan``).
 
 A wrapper runs the plain version only when ``x`` lies on the CPU. For a CUDA
 tensor it launches the kernel or raises; there is no fallback. ``LAUNCHES``
 counts kernel launches, one per launch, so a run can show that its main path
-went through the kernels. What bounds each kernel on the card and how its
-design meets that is written at the top of each CUDA source.
+went through the kernels; ``LAUNCHES_BY_PATH`` counts the same launches by
+kernel and path ("moe_slot splitk", "moe_glu_grouped tc", ...). What bounds
+each kernel on the card and how its design meets that is written at the top
+of each CUDA source.
 
 Precision (``precision`` of each entry): "highest" or None gives float32
 outputs; "default" gives bfloat16 outputs, the f32 sums rounded once (the
@@ -59,6 +64,7 @@ GLU_ACTS = ("silu", "gelu", "relu", "relu2", "swiglu_oai")
 
 LAUNCHES = {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0,
             "moe_slot": 0, "moe_grouped": 0, "moe_glu_grouped": 0}
+LAUNCHES_BY_PATH: dict[str, int] = {}
 
 # Slot-major MoE kernel below this many slots; grouped above, when its
 # ceil(S/C) + E expert sweeps undercut the slot-major kernel's S sweeps (the
@@ -97,8 +103,8 @@ class QmatmulPlan:
     == 0 and aligned tensors). With splits > 1 each block writes its f32
     partial tile to a workspace of ``scratch_bytes`` and the last block of
     a tile (one int counter per tile) adds them in slice order. The grouped
-    MoE product's "cuda cores" path (csrc/moe_qmatmul.cu) sets its own tile
-    and grid: rows and cols 0, grid None, one slice."""
+    MoE products' "cuda cores" path (csrc/moe_qmatmul.cu) sets its own
+    tile and grid: rows and cols 0, grid None, one slice."""
     path: str
     rows: int
     cols: int
@@ -229,21 +235,24 @@ def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
 def moe_grouped_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
                      fmt: str, sms: int = H100_SMS, aligned: bool = True,
                      path: str | None = None, splits: int | None = None,
-                     tile_rows: int | None = None) -> QmatmulPlan:
-    """The launch of kernel 5 for S slots over E experts, where the grouped
-    rule of ``moe_dims`` holds (G groups of C rows). "tc": the tensor-core
-    path of csrc/qgemm.cu with gathered rows, where the layout allows it
-    (as for ``qmatmul_plan``); a block owns BM rows of the [G*C] blocked
-    layout x 128 columns x one K slice. BM (16, 32 or 64) follows
-    qmatmul_plan's rule at the mean slots per expert, at most C; both are
-    powers of two and C >= 32 here, so BM divides C and no tile straddles
-    two groups. Only the tiles that hold a slot work (at most ceil(S/BM) +
-    E: each expert's last tile may be part padding); the rest exit at
-    once, so the split of K aims the live tiles at BLOCKS_PER_SM["tc
-    prefill"] blocks per SM. Other layouts: "cuda cores", the grouped
-    kernel of csrc/moe_qmatmul.cu, which sets its own tile, grid and loads
-    (K unsplit). ``path``, ``splits`` and ``tile_rows`` override the
-    choice."""
+                     tile_rows: int | None = None,
+                     glu: bool = False) -> QmatmulPlan:
+    """The launch of kernel 5 (with ``glu``: kernel 6, n the output width F
+    of each of the gate and up stacks) for S slots over E experts, where the
+    grouped rule of ``moe_dims`` holds (G groups of C rows). "tc": the
+    tensor-core path of csrc/qgemm.cu with gathered rows, where the layout
+    allows it (as for ``qmatmul_plan``); a block owns BM rows of the [G*C]
+    blocked layout x 128 weight columns (kernel 6: 64 gate and their 64 up
+    columns, ceil(F/64) column tiles) x one K slice. BM (16, 32 or 64)
+    follows qmatmul_plan's rule at the mean slots per expert, at most C;
+    both are powers of two and C >= 32 here, so BM divides C and no tile
+    straddles two groups. Only the tiles that hold a slot work (at most
+    ceil(S/BM) + E: each expert's last tile may be part padding); the rest
+    exit at once, so the split of K aims the live tiles at
+    BLOCKS_PER_SM["tc prefill"] blocks per SM. Other layouts: "cuda cores",
+    the grouped kernels of csrc/moe_qmatmul.cu, which set their own tile,
+    grid and loads (K unsplit). ``path``, ``splits`` and ``tile_rows``
+    override the choice."""
     c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
     if not grouped:
         raise ValueError(f"moe_grouped_plan: S={s_slots} over E={e_num} is "
@@ -253,16 +262,20 @@ def moe_grouped_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
         path = "tc" if tc_ok else "cuda cores"
     b = g_blocks * c_rows
     if path == "cuda cores":
-        return QmatmulPlan(path, 0, 0, 1, None, False)
+        return QmatmulPlan(path, 0, 0, 1, None, False, glu)
     if path != "tc" or not tc_ok:
         raise ValueError(f"moe_grouped_plan: no {path!r} path for fmt={fmt} "
                          f"group={group} n={n} aligned={aligned}")
     per_expert = -(-s_slots // e_num)
+    # kernel 6 keeps 32-row tiles above 64 slots per expert: at Mixtral's
+    # gate|up and 1024 slots they took 4.42 ms against 4.69 for 64 rows
+    # (bench_qmatmul paths, H100 80GB HBM3, 700 W)
     rows = tile_rows or min(c_rows, 16 if per_expert <= 16 else 32
-                            if per_expert <= 64 or n < 4096 else 64)
+                            if per_expert <= 64 or n < 4096 or glu else 64)
     if rows not in (16, 32, 64) or c_rows % rows:
         raise ValueError(f"moe_grouped_plan: tile_rows={rows} for C={c_rows}")
-    row_tiles, col_tiles = b // rows, -(-n // TC_COLS)
+    row_tiles, col_tiles = b // rows, -(-n // (TC_COLS // 2 if glu
+                                               else TC_COLS))
     if splits is None:
         live = min(row_tiles, -(-s_slots // rows) + e_num)
         want = BLOCKS_PER_SM["tc prefill"] * sms // (live * col_tiles)
@@ -271,12 +284,63 @@ def moe_grouped_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
     if row_tiles > 65535 or col_tiles > 65535:
         raise ValueError(f"moe_grouped_plan: {b} x {n} exceeds the grid")
     return QmatmulPlan(path, rows, TC_COLS, splits,
-                       (splits, row_tiles, col_tiles), vec)
+                       (splits, row_tiles, col_tiles), vec, glu)
+
+
+def moe_glu_grouped_plan(s_slots: int, e_num: int, k: int, f: int,
+                         group: int, fmt: str, sms: int = H100_SMS,
+                         aligned: bool = True, path: str | None = None,
+                         splits: int | None = None,
+                         tile_rows: int | None = None) -> QmatmulPlan:
+    """The launch of kernel 6 over gate and up stacks of output width F:
+    ``moe_grouped_plan(..., glu=True)``."""
+    return moe_grouped_plan(s_slots, e_num, k, f, group, fmt, sms, aligned,
+                            path, splits, tile_rows, True)
+
+
+@functools.lru_cache(maxsize=256)
+def moe_slot_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
+                  fmt: str, sms: int = H100_SMS, aligned: bool = True,
+                  splits: int | None = None) -> QmatmulPlan:
+    """The launch of kernel 4 for S slots over E experts, where ``moe_dims``
+    says slot-major: the split-K path of csrc/qgemm.cu with an expert per
+    row, a block owning one slot x 128 columns x one K slice (at least 6
+    chunks of 16 packed rows, as ``qmatmul_plan``'s split-K). K is split
+    into as many slices as keep the grid of S x column tiles x splits
+    within one wave of BLOCKS_PER_SM["splitk"] blocks per SM: rounded down,
+    where kernels 1-2 round up. At Mixtral's 2 slots the rounded-up 5
+    slices (1,120 blocks over 1,056 resident) took 0.0606 ms on the gate
+    stack against 0.0453 for 4; on the down stack 17 slices 0.0689 against
+    0.0571 for 16 (bench_qmatmul paths, H100 80GB HBM3, 700 W). Every
+    layout ``qmatmul_plan`` takes: K % group == 0, q4 group 32 (or a
+    multiple), q8 group 16 or a multiple, ragged N masked, byte loads
+    where a tensor is not 16-byte aligned. ``splits`` overrides the
+    choice."""
+    if moe_dims(s_slots, e_num)[2]:
+        raise ValueError(f"moe_slot_plan: S={s_slots} over E={e_num} is "
+                         "grouped")
+    if s_slots > 65535:
+        raise ValueError(f"moe_slot_plan: {s_slots} slots exceed the grid")
+    if splits is None:
+        slices_max = max(1, k // (32 if fmt == "q4" else 16) // 6)
+        one_wave = BLOCKS_PER_SM["splitk"] * sms // (s_slots
+                                                     * -(-n // SPLITK_COLS))
+        splits = max(1, min(MAX_SPLITS, slices_max, one_wave))
+    return qmatmul_plan(s_slots, k, n, group, fmt, sms, aligned, "splitk",
+                        splits)
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    LAUNCHES_BY_PATH.clear()
+
+
+def _count(name: str, plan: QmatmulPlan) -> None:
+    """One launch of kernel ``name`` on ``plan``'s path."""
+    LAUNCHES[name] += 1
+    key = f"{name} {plan.path}"
+    LAUNCHES_BY_PATH[key] = LAUNCHES_BY_PATH.get(key, 0) + 1
 
 
 def out_dtype(precision: str | None) -> torch.dtype:
@@ -416,9 +480,8 @@ def moe_group_plan(idx: torch.Tensor, e_num: int, c_rows: int,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "qgemm": {"qgemm_launch": [_P] * 9 + [_I] * 15 + [_P]},
+    "qgemm": {"qgemm_launch": [_P] * 12 + [_I] * 15 + [_P]},
     "moe_qmatmul": {
-        "moe_slot_launch": [_P] * 6 + [_I] * 8 + [_P],
         "moe_grouped_launch": [_P] * 7 + [_I] * 10 + [_P],
         "moe_glu_grouped_launch": [_P] * 10 + [_I] * 11 + [_P],
     },
@@ -548,7 +611,7 @@ def qmatmul(x: torch.Tensor, lin: QuantLinear,
     plan = qmatmul_plan(b, lin.k, lin.n, lin.group, lin.fmt, _sms(x.device),
                         _aligned(x, lin), path, splits, tile_rows)
     _qgemm(x, lin, y, plan, panel_bf16, "qmatmul")
-    LAUNCHES["qmatmul_q4" if lin.fmt == "q4" else "qmatmul_q8"] += 1
+    _count("qmatmul_q4" if lin.fmt == "q4" else "qmatmul_q8", plan)
     return y
 
 
@@ -562,20 +625,25 @@ def _aligned(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> bool:
 def _qgemm(x: torch.Tensor, lin: QuantLinear | QuantExpertStack,
            y: torch.Tensor, plan: QmatmulPlan, panel_bf16: int, what: str,
            act: int = -1, rows: torch.Tensor | None = None,
-           eg: torch.Tensor | None = None, c_rows: int = 0) -> None:
+           eg: torch.Tensor | None = None, c_rows: int = 0,
+           up: QuantExpertStack | None = None) -> None:
     """One launch of csrc/qgemm.cu into y [B, N] (B, N: y's shape) as
     ``plan`` says: kernels 1-2; the GLU with ``act`` (an index into
-    GLU_ACTS); the grouped MoE product with ``rows``, ``eg`` and ``c_rows``
-    (a stack's E experts, x's S slots)."""
+    GLU_ACTS); over a stack of E experts (x's S slots): kernel 4 with
+    ``eg`` alone (the expert of each row), the grouped products with
+    ``rows``, ``eg`` and ``c_rows`` (kernel 5; kernel 6 with ``act`` and
+    the ``up`` stack)."""
     ws, counters = _scratch(x.device, plan)
     rc = _lib("qgemm").qgemm_launch(
         x.data_ptr(), lin.packed.data_ptr(), lin.scales.data_ptr(),
-        _ptr(lin.mins), y.data_ptr(), ws, counters, _ptr(rows), _ptr(eg),
+        _ptr(lin.mins), _ptr(up.packed if up else None),
+        _ptr(up.scales if up else None), _ptr(up.mins if up else None),
+        y.data_ptr(), ws, counters, _ptr(rows), _ptr(eg),
         y.shape[0], lin.k, y.shape[1], lin.group,
         0 if lin.fmt == "q4" else 1, panel_bf16,
         int(y.dtype == torch.bfloat16), int(plan.path == "tc"), plan.tile,
         plan.splits, int(plan.vec), act, c_rows, x.shape[0],
-        lin.packed.shape[0] if rows is not None else 0, _stream(x))
+        lin.packed.shape[0] if eg is not None else 0, _stream(x))
     _raise_on(rc, what)
 
 
@@ -610,7 +678,7 @@ def qmatmul_glu(x: torch.Tensor, lin, act: str,
     plan = qmatmul_plan(b, lin.k, f, lin.group, lin.fmt, _sms(x.device),
                         _aligned(x, lin), path, splits, tile_rows, True)
     _qgemm(x, lin, y, plan, panel_bf16, "qmatmul_glu", GLU_ACTS.index(act))
-    LAUNCHES["qmatmul_glu"] += 1
+    _count("qmatmul_glu", plan)
     return y
 
 
@@ -628,17 +696,36 @@ def _check_moe(x: torch.Tensor, idx: torch.Tensor | None, stacks) -> None:
                          f"{idx.device}")
 
 
+def _dispatch_plan(plan, idx: torch.Tensor, e_num: int, c_rows: int,
+                   g_blocks: int):
+    """The grouped products' dispatch plan (eg, rows, flat): ``plan`` as
+    given (``moe_layer`` makes one per layer for all of its products, from
+    the same routing) after a check of its shapes, or made here."""
+    if plan is None:
+        return moe_group_plan(idx, e_num, c_rows, g_blocks)
+    shapes = ((g_blocks,), (g_blocks, c_rows), (idx.shape[0],))
+    if any(tuple(t.shape) != sh or t.dtype != torch.int32
+           or t.device != idx.device or not t.is_contiguous()
+           for t, sh in zip(plan, shapes)):
+        raise ValueError("plan is not a moe_group_plan of this routing: "
+                         f"shapes {[tuple(t.shape) for t in plan]}, want "
+                         f"{list(shapes)} int32 on {idx.device}")
+    return plan
+
+
 def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
-                idx_flat: torch.Tensor,
-                precision: str | None = None) -> torch.Tensor:
+                idx_flat: torch.Tensor, precision: str | None = None, *,
+                plan=None, splits: int | None = None) -> torch.Tensor:
     """Routed MoE product: x_rows [S, K] (one input row per expert slot)
     times the quantized weight of expert idx_flat[s] -> [S, N] float32 (or
-    bfloat16 in "default" precision). Only
-    the routed experts' packed bytes are read, straight from the stack.
-    Decode-sized S runs the slot-major kernel; larger S sorts the slots by
-    expert (moe_group_plan) and runs C-row single-expert blocks, so each
-    routed expert's weights stream about once instead of once per slot.
-    Unlike the JAX entry it never returns None: ragged N is computed."""
+    bfloat16 in "default" precision). Only the routed experts' packed bytes
+    are read, straight from the stack. Decode-sized S runs the slot-major
+    kernel (``moe_slot_plan``; ``splits`` overrides its split of K, for
+    measurements); larger S sorts the slots by expert (``moe_group_plan``,
+    or the ``plan`` a caller made from the same routing) and runs C-row
+    single-expert blocks, so each routed expert's weights stream about once
+    instead of once per slot. Unlike the JAX entry it never returns None:
+    ragged N is computed."""
     odt = out_dtype(precision)
     if x_rows.device.type == "cpu":
         return moe_qmatmul_plain(x_rows, stack, idx_flat, precision)
@@ -655,40 +742,46 @@ def moe_qmatmul(x_rows: torch.Tensor, stack: QuantExpertStack,
         y = torch.empty((s_slots, n), dtype=odt, device=x.device)
         if s_slots == 0:
             return y
-        if s_slots > 65535:
-            raise ValueError(f"moe_qmatmul: {s_slots} slot-major slots exceed "
-                             "the grid")
-        rc = _lib("moe_qmatmul").moe_slot_launch(
-            x.data_ptr(), idx.data_ptr(), stack.packed.data_ptr(),
-            stack.scales.data_ptr(), _ptr(stack.mins), y.data_ptr(), s_slots,
-            e_num, stack.k, n, stack.group, 0 if stack.fmt == "q4" else 1,
-            int(odt == torch.bfloat16), _vec_ok(stack, n, y), _stream(x))
-        _raise_on(rc, "moe_slot")
-        LAUNCHES["moe_slot"] += 1
+        splan = moe_slot_plan(s_slots, e_num, stack.k, n, stack.group,
+                              stack.fmt, _sms(x.device), _aligned(x, stack),
+                              splits)
+        _qgemm(x, stack, y, splan, 0, "moe_slot", eg=idx)
+        _count("moe_slot", splan)
         return y
-    eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
+    eg, rows, flat = _dispatch_plan(plan, idx, e_num, c_rows, g_blocks)
     return _moe_grouped(x, stack, eg, rows, odt)[flat]
 
 
 def moe_grouped_blocked(x_rows: torch.Tensor, stack: QuantExpertStack,
                         eg: torch.Tensor, rows: torch.Tensor,
                         precision: str | None = None, *,
-                        path: str | None = None, splits: int | None = None,
+                        up: QuantExpertStack | None = None,
+                        act: str | None = None, path: str | None = None,
+                        splits: int | None = None,
                         tile_rows: int | None = None) -> torch.Tensor:
     """Kernel 5 alone on a dispatch plan given as its arrays, for
     measurements and tests (``moe_qmatmul`` is the entry that plans and
-    reads back): ``moe_group_plan``'s eg [G] and rows [G, C] for S =
-    x_rows.shape[0] slots over the stack's E experts, where ``moe_dims``
+    reads back); with the ``up`` stack and ``act``, kernel 6 (the entry
+    ``moe_qmatmul_glu``). ``moe_group_plan``'s eg [G] and rows [G, C] for S
+    = x_rows.shape[0] slots over the stack's E experts, where ``moe_dims``
     says grouped. Returns the [G*C, N] blocked output, row g*C + c =
-    x_rows[rows[g, c]] @ W[eg[g]] for rows[g, c] < S; padding rows are left
-    unwritten, and an expert id outside [0, E) gives NaN rows. ``path``,
-    ``splits`` and ``tile_rows`` override ``moe_grouped_plan``. CUDA
-    tensors only: the plain version is ``moe_qmatmul_plain``."""
+    x_rows[rows[g, c]] @ W[eg[g]] (kernel 6: act(x @ W[eg[g]]) * (x @
+    Wup[eg[g]])) for rows[g, c] < S; padding rows are left unwritten, and an
+    expert id outside [0, E) gives NaN rows. ``path``, ``splits`` and
+    ``tile_rows`` override ``moe_grouped_plan``. CUDA tensors only: the
+    plain versions are ``moe_qmatmul_plain`` and ``moe_qmatmul_glu_plain``."""
     if x_rows.device.type != "cuda":
         raise RuntimeError(f"moe_grouped_blocked: no kernel for device "
                            f"{x_rows.device}")
+    if (up is None) != (act is None) or (act is not None
+                                         and act not in GLU_ACTS):
+        raise ValueError(f"moe_grouped_blocked: up and act go together "
+                         f"(act {act!r} of {GLU_ACTS})")
     x = x_rows.float().contiguous()
-    _check_moe(x, None, (stack,))
+    _check_moe(x, None, (stack,) if up is None else (stack, up))
+    if up is not None and not _same_layout(stack, up):
+        raise ValueError("moe_grouped_blocked: the gate and up stacks differ "
+                         "in layout")
     c_rows, g_blocks, grouped = moe_dims(x.shape[0], stack.packed.shape[0])
     if not grouped or tuple(eg.shape) != (g_blocks,) \
             or tuple(rows.shape) != (g_blocks, c_rows):
@@ -701,33 +794,50 @@ def moe_grouped_blocked(x_rows: torch.Tensor, stack: QuantExpertStack,
             raise ValueError("eg and rows must be contiguous int32 on "
                              f"{x.device}")
     return _moe_grouped(x, stack, eg, rows, out_dtype(precision), path,
-                        splits, tile_rows)
+                        splits, tile_rows, up, act)
 
 
 def _moe_grouped(x: torch.Tensor, stack: QuantExpertStack, eg: torch.Tensor,
                  rows: torch.Tensor, odt: torch.dtype, path: str | None = None,
-                 splits: int | None = None,
-                 tile_rows: int | None = None) -> torch.Tensor:
-    """One launch of kernel 5 on checked tensors (x float32 [S, K] on the
-    card, eg [G] and rows [G, C] int32): the [G*C, N] blocked output."""
+                 splits: int | None = None, tile_rows: int | None = None,
+                 up: QuantExpertStack | None = None,
+                 act: str | None = None) -> torch.Tensor:
+    """One launch of kernel 5, or with ``up`` and ``act`` of kernel 6, on
+    checked tensors (x float32 [S, K] on the card, eg [G] and rows [G, C]
+    int32): the [G*C, N] blocked output."""
     s_slots, n, e_num = x.shape[0], stack.n, stack.packed.shape[0]
     g_blocks, c_rows = rows.shape
+    name = "moe_grouped" if up is None else "moe_glu_grouped"
     out = _grouped_out(g_blocks, c_rows, n, odt, x.device)
+    aligned = _aligned(x, stack) and (up is None or _aligned(x, up))
     plan = moe_grouped_plan(s_slots, e_num, stack.k, n, stack.group,
-                            stack.fmt, _sms(x.device), _aligned(x, stack),
-                            path, splits, tile_rows)
+                            stack.fmt, _sms(x.device), aligned, path, splits,
+                            tile_rows, up is not None)
     if plan.path == "tc":
-        _qgemm(x, stack, out, plan, 0, "moe_grouped", rows=rows, eg=eg,
-               c_rows=c_rows)
+        _qgemm(x, stack, out, plan, 0, name,
+               GLU_ACTS.index(act) if up is not None else -1, rows, eg,
+               c_rows, up)
     else:
-        rc = _lib("moe_qmatmul").moe_grouped_launch(
-            x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
-            stack.packed.data_ptr(), stack.scales.data_ptr(),
-            _ptr(stack.mins), out.data_ptr(), s_slots, e_num, stack.k, n,
-            c_rows, g_blocks, stack.group, 0 if stack.fmt == "q4" else 1,
-            int(odt == torch.bfloat16), _vec_ok(stack, n, out), _stream(x))
-        _raise_on(rc, "moe_grouped")
-    LAUNCHES["moe_grouped"] += 1
+        lib = _lib("moe_qmatmul")
+        common = (s_slots, e_num, stack.k, n, c_rows, g_blocks, stack.group,
+                  0 if stack.fmt == "q4" else 1)
+        if up is None:
+            rc = lib.moe_grouped_launch(
+                x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
+                stack.packed.data_ptr(), stack.scales.data_ptr(),
+                _ptr(stack.mins), out.data_ptr(), *common,
+                int(odt == torch.bfloat16), _vec_ok(stack, n, out),
+                _stream(x))
+        else:
+            rc = lib.moe_glu_grouped_launch(
+                x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
+                stack.packed.data_ptr(), stack.scales.data_ptr(),
+                _ptr(stack.mins), up.packed.data_ptr(), up.scales.data_ptr(),
+                _ptr(up.mins), out.data_ptr(), *common, GLU_ACTS.index(act),
+                int(odt == torch.bfloat16),
+                min(_vec_ok(stack, n, out), _vec_ok(up, n, out)), _stream(x))
+        _raise_on(rc, name)
+    _count(name, plan)
     return out
 
 
@@ -741,24 +851,28 @@ def _grouped_out(g_blocks: int, c_rows: int, n: int, dtype: torch.dtype,
     return torch.empty((g_blocks * c_rows, n), dtype=dtype, device=device)
 
 
+def _same_layout(g_st: QuantExpertStack, u_st: QuantExpertStack) -> bool:
+    """Gate and up stacks of one layout: format, group, shapes, experts and
+    min panels alike."""
+    return (g_st.fmt == u_st.fmt and g_st.group == u_st.group
+            and g_st.k == u_st.k and g_st.n == u_st.n
+            and g_st.packed.shape[0] == u_st.packed.shape[0]
+            and (g_st.mins is None) == (u_st.mins is None))
+
+
 def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
                     up_stack: QuantExpertStack, idx_flat: torch.Tensor,
-                    act: str, precision: str | None = None
+                    act: str, precision: str | None = None, *, plan=None
                     ) -> torch.Tensor | None:
     """act(x @ Wg[e]) * (x @ Wu[e]) for routed expert slots in one grouped
     kernel, reading both stacks in one pass -> [S, F] float32 (bfloat16 in
-    "default" precision). Returns None
+    "default" precision); ``plan``: as for ``moe_qmatmul``. Returns None
     where the JAX entry does: an unknown act, stacks that do not match, or
     an S below the grouped rule (decode keeps the two slot-major calls);
     the caller then takes the two-call path."""
     g_st, u_st = gate_stack, up_stack
     s_slots, k = x_rows.shape
-    if act not in GLU_ACTS:
-        return None
-    if (g_st.fmt != u_st.fmt or g_st.group != u_st.group
-            or g_st.k != k or u_st.k != k or g_st.n != u_st.n
-            or g_st.packed.shape[0] != u_st.packed.shape[0]
-            or (g_st.mins is None) != (u_st.mins is None)):
+    if act not in GLU_ACTS or g_st.k != k or not _same_layout(g_st, u_st):
         return None
     e_num, f = g_st.packed.shape[0], g_st.n
     c_rows, g_blocks, grouped = moe_dims(s_slots, e_num)
@@ -774,16 +888,5 @@ def moe_qmatmul_glu(x_rows: torch.Tensor, gate_stack: QuantExpertStack,
     x = x_rows.float().contiguous()
     idx = idx_flat.to(torch.int32).contiguous()
     _check_moe(x, idx, (g_st, u_st))
-    eg, rows, flat = moe_group_plan(idx, e_num, c_rows, g_blocks)
-    out = _grouped_out(g_blocks, c_rows, f, odt, x.device)
-    rc = _lib("moe_qmatmul").moe_glu_grouped_launch(
-        x.data_ptr(), rows.data_ptr(), eg.data_ptr(),
-        g_st.packed.data_ptr(), g_st.scales.data_ptr(), _ptr(g_st.mins),
-        u_st.packed.data_ptr(), u_st.scales.data_ptr(), _ptr(u_st.mins),
-        out.data_ptr(), s_slots, e_num, k, f, c_rows, g_blocks, g_st.group,
-        0 if g_st.fmt == "q4" else 1, GLU_ACTS.index(act),
-        int(odt == torch.bfloat16),
-        min(_vec_ok(g_st, f, out), _vec_ok(u_st, f, out)), _stream(x))
-    _raise_on(rc, "moe_glu_grouped")
-    LAUNCHES["moe_glu_grouped"] += 1
-    return out[flat]
+    eg, rows, flat = _dispatch_plan(plan, idx, e_num, c_rows, g_blocks)
+    return _moe_grouped(x, g_st, eg, rows, odt, up=u_st, act=act)[flat]

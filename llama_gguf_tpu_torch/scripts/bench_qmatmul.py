@@ -1,10 +1,10 @@
 """Time the port's dequant-matmul kernels on a CUDA card (random weights of
 the main paths' shapes; nothing is read from a GGUF).
 
-    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py paths [--out F]
+    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py paths [--moe-only] [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py retime [--root DIR] [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py attribute [--root DIR] [--out F]
-    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py decode --gguf G [--moe-gguf M] [--root DIR] [--out F]
+    python llama_gguf_tpu_torch/scripts/bench_qmatmul.py decode --gguf G [--moe-gguf M] [--moe-only] [--root DIR] [--out F]
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py compare F1 F2 ...
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py outputs [--root DIR] --out F.pt
     python llama_gguf_tpu_torch/scripts/bench_qmatmul.py same F1.pt F2.pt
@@ -18,8 +18,12 @@ timed beside torch.matmul on the dequantized f32 weight; at 1 row the
 split-K path at 1-32 slices, from 32 rows the tensor cores' tile heights
 (and at 128 rows 1-16 slices). Then kernel 5 (ops/qmatmul.
 moe_grouped_blocked) at Mixtral-8x7B's down (Q6_K-like q8, group 16) and
-gate (q4) expert stacks at 64, 256 and 1024 top-2 slots: the tensor-core
-path at each tile height and 1-4 slices, and the CUDA-core grouped kernel.
+gate (q4) expert stacks, and kernel 6 (the same entry with ``up``) at its
+gate|up stacks, at 64, 256 and 1024 top-2 slots: the tensor-core path at
+each tile height and 1-4 slices, and the CUDA-core grouped kernels; and
+kernel 4 (ops/qmatmul.moe_qmatmul, split-K) at Mixtral's gate and down
+stacks at 1 and 2 slots, at 1-32 slices of K. ``--moe-only``: these MoE
+sweeps alone.
 Prints the timer's floor (a 1-element fill), one JSON line per case and,
 per shape, the first row count from which the tensor cores are at least
 as fast as split-K (the threshold TC_MIN_ROWS rests on).
@@ -52,14 +56,18 @@ serving one (bf16 panels, "default", bf16 KV): decode and prefill tok/s
 ``qmatmul`` call (2,000 back-to-back 1-row calls on the qkv weight, wall
 time over the count, the device then far from busy). With ``--moe-gguf``
 (chip_smoke.py's mixtral-8x7b-l2) also that model in the f32
-configuration, three generates: its prefill runs the grouped kernels. Run
-it for two checkouts in turns (``--root``) to compare them end to end.
+configuration, three generates: its prefill runs the grouped kernels
+(``--moe-only``: that model alone). Run it for two checkouts in turns
+(``--root``) to compare them end to end.
 
 ``outputs``: kernels 4 and 6 (the slot-major and the grouped GLU MoE
-kernels) at Mixtral-8x7B's gate|up stacks, top-2 routing of 2 and 256
-slots, in "highest" and "default", their outputs saved with torch.save;
-``same`` says for each whether two such files hold the same bits (an
-earlier checkout's kernels against this one's, through ``--root``).
+kernels) at Mixtral-8x7B's stacks (kernel 4 on gate and down at 2 slots,
+kernel 6 on gate|up at 256), top-2 routing, in "highest" and "default",
+their outputs saved with torch.save; ``same`` says for each whether two
+such files hold the same bits (an earlier checkout's kernels against this
+one's, through ``--root``) and, where they differ, by how much: the
+largest difference relative to max |y|, and the share of elements that
+differ.
 
 Times: utils/timing.Timer (L2 flushed, a device-side sleep before the first
 event, median of 10). Card name and power limit are printed first.
@@ -128,7 +136,7 @@ def weight(fmt, group, k, n, gen, panels="f32", mins=True, experts=None):
     return QuantLinear(packed, s, m, None, fmt, group, k, n, "random")
 
 
-def paths(timer, out):
+def paths(timer, out, moe_only=False):
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
 
@@ -146,7 +154,7 @@ def paths(timer, out):
     products = ([(label, fmt, group, k, n, False)
                  for label, fmt, group, k, n in TINYLLAMA + MIXTRAL + PROBE]
                 + [(label, fmt, group, k, f, True)
-                   for label, fmt, group, k, f in GLU])
+                   for label, fmt, group, k, f in GLU]) if not moe_only else []
     for label, fmt, group, k, n, glu in products:
         lin = weight(fmt, group, k, 2 * n if glu else n, gen)
         if glu:
@@ -200,6 +208,7 @@ def paths(timer, out):
                 first_tc[label] = b
         del w, lin
     grouped(timer, gen, emit)
+    slot(timer, gen, emit)
     summary = {"tc_at_least_as_fast_from_rows": first_tc}
     print(json.dumps(summary), flush=True)
     _dump(out, results + [summary])
@@ -219,24 +228,33 @@ def grouped(timer, gen, emit):
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
 
-    for label, fmt, group, k, n in GROUPED:
+    for label, fmt, group, k, n in GROUPED + [("Mixtral gate|up", "q4", 32,
+                                               4096, 14336)]:
         stack = weight(fmt, group, k, n, gen, experts=8, mins=fmt == "q4")
+        glu = {}
+        if "gate|up" in label:  # kernel 6 over the gate and an up stack
+            glu = dict(up=weight(fmt, group, k, n, gen, experts=8),
+                       act="silu")
         for s in (64, 256, 1024):
             x = torch.randn(s, k, generator=gen, device="cuda")
             idx = top2(s, gen)
             c_rows, g_blocks, _ = Q.moe_dims(s, 8)
             eg, rows, flat = Q.moe_group_plan(idx, 8, c_rows, g_blocks)
-            want = Q.moe_qmatmul_plain(x, stack, idx)
-            default = Q.moe_grouped_plan(s, 8, k, n, group, fmt)
+            want = (Q.moe_qmatmul_glu_plain(x, stack, glu["up"], idx, "silu")
+                    if glu else Q.moe_qmatmul_plain(x, stack, idx))
+            default = Q.moe_grouped_plan(s, 8, k, n, group, fmt,
+                                         glu=bool(glu))
             runs = [dict(path="cuda cores")] + [
                 dict(path="tc", tile_rows=tr, splits=sp)
                 for tr in (16, 32, 64) if c_rows % tr == 0
                 for sp in (None, 1, 2, 4)]
             for kw in runs:
-                plan = Q.moe_grouped_plan(s, 8, k, n, group, fmt, **kw)
+                plan = Q.moe_grouped_plan(s, 8, k, n, group, fmt,
+                                          glu=bool(glu), **kw)
 
                 def fn():
-                    return Q.moe_grouped_blocked(x, stack, eg, rows, **kw)
+                    return Q.moe_grouped_blocked(x, stack, eg, rows, **glu,
+                                                 **kw)
 
                 got = fn()[flat]
                 torch.cuda.synchronize()
@@ -247,6 +265,35 @@ def grouped(timer, gen, emit):
                           tile_rows=plan.rows, splits=plan.splits,
                           planned=plan == default, ms=timer.ms(fn),
                           rel_err=err))
+        del stack, glu
+
+
+def slot(timer, gen, emit):
+    """Kernel 4's split of K at Mixtral's gate and down stacks, 1 and 2
+    slots (top-2 decode: 2)."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    for label, fmt, group, k, n in GROUPED:
+        stack = weight(fmt, group, k, n, gen, experts=8, mins=fmt == "q4")
+        for s in (1, 2):
+            x = torch.randn(s, k, generator=gen, device="cuda")
+            idx = top2(2, gen)[:s]
+            want = Q.moe_qmatmul_plain(x, stack, idx)
+            planned = Q.moe_slot_plan(s, 8, k, n, group, fmt).splits
+            for splits in sorted({1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 20, 24,
+                                  32, planned}):
+                got = Q.moe_qmatmul(x, stack, idx, splits=splits)
+                torch.cuda.synchronize()
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                if not err <= 2e-4:
+                    raise SystemExit(f"{label} S={s} splits={splits}: rel "
+                                     f"err {err}")
+                emit(dict(case=f"moe_slot {label} S={s}", slots=s,
+                          path="splitk sweep", splits=splits,
+                          planned=splits == planned, rel_err=err,
+                          ms=timer.ms(lambda: Q.moe_qmatmul(
+                              x, stack, idx, splits=splits))))
         del stack
 
 
@@ -383,7 +430,7 @@ def attribute(timer, out):
     _dump(out, results)
 
 
-def decode(gguf, out, moe_gguf=None):
+def decode(gguf, out, moe_gguf=None, moe_only=False):
     import torch
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.engine.runner import ModelRunner
@@ -396,7 +443,7 @@ def decode(gguf, out, moe_gguf=None):
               "wizards jump.")  # chip_smoke.PROMPT
     greedy = SamplerConfig(temperature=0.0)
     results = []
-    for cfg_name in ("f32", "serving"):
+    for cfg_name in ("f32", "serving")[2 * moe_only:]:
         if cfg_name == "f32":
             engine = Engine.load(gguf, EngineConfig(), device="cuda")
         else:
@@ -455,14 +502,18 @@ def outputs(out):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gate = weight("q4", 32, 4096, 14336, gen, experts=8)
     up = weight("q4", 32, 4096, 14336, gen, experts=8)
+    down = weight("q8", 16, 14336, 4096, gen, experts=8, mins=False)
     saved = {}
     for s in (2, 256):
         idx = top2(s, gen)
         x = torch.randn(s, 4096, generator=gen, device="cuda")
+        xd = torch.randn(s, 14336, generator=gen, device="cuda")
         for prec in ("highest", "default"):
             if s == 2:
                 saved[f"moe_slot gate S=2 {prec}"] = Q.moe_qmatmul(
                     x, gate, idx, prec)
+                saved[f"moe_slot down S=2 {prec}"] = Q.moe_qmatmul(
+                    xd, down, idx, prec)
             else:
                 saved[f"moe_glu_grouped gate|up S=256 {prec}"] = \
                     Q.moe_qmatmul_glu(x, gate, up, idx, "silu", prec)
@@ -479,8 +530,16 @@ def same(files):
 
     a, b = (torch.load(f) for f in files)
     for key in a:
-        same_bits = torch.equal(a[key], b[key])
-        print(f"{key}: {'bit-identical' if same_bits else 'DIFFERENT'}")
+        if key not in b:
+            print(f"{key}: only in {files[0]}")
+            continue
+        if torch.equal(a[key], b[key]):
+            print(f"{key}: bit-identical")
+            continue
+        x, y = a[key].float(), b[key].float()
+        print(f"{key}: DIFFERENT, max |a - b| / max |a| = "
+              f"{((x - y).abs().max() / x.abs().max()).item():.3g}, "
+              f"{(x != y).float().mean().item():.3f} of the elements differ")
 
 
 def compare(files):
@@ -513,6 +572,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gguf", default=None, help="the model of ``decode``")
     ap.add_argument("--moe-gguf", default=None,
                     help="an MoE model ``decode`` also runs")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="paths: the MoE kernels' sweeps alone; decode: the "
+                         "MoE model alone")
     args = ap.parse_args(argv)
     if args.cmd in ("compare", "same"):
         (compare if args.cmd == "compare" else same)(args.files)
@@ -533,15 +595,16 @@ def main(argv=None) -> int:
     print(f"built in {time.perf_counter() - t0:.1f}s "
           f"{cuda_build.BUILD_SECONDS}", flush=True)
     if args.cmd == "decode":
-        if not args.gguf:
+        if not (args.gguf or args.moe_only and args.moe_gguf):
             raise SystemExit("bench_qmatmul decode: needs --gguf")
-        decode(args.gguf, args.out, args.moe_gguf)
+        decode(args.gguf, args.out, args.moe_gguf, args.moe_only)
     elif args.cmd == "outputs":
         outputs(args.out)
+    elif args.cmd == "paths":
+        paths(Timer(), args.out, args.moe_only)
     else:
         timer = Timer()
-        dict(paths=paths, retime=retime, attribute=attribute)[args.cmd](
-            timer, args.out)
+        dict(retime=retime, attribute=attribute)[args.cmd](timer, args.out)
     print(f"done in {time.perf_counter() - t0:.1f}s", flush=True)
     return 0
 

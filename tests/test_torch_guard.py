@@ -116,3 +116,30 @@ def test_kernel_wrappers_refuse_other_devices():
     x = torch.zeros(1, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         Q.qmatmul(x, lin)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::qgemm_splitk<0, true, float, float, 0>"
+     "(const float *, ...)", "qmatmul_q4 split-K"),
+    ("void (anonymous namespace)::qgemm_tc<1, 2, float, float, 0>(...)",
+     "qmatmul_q8 tensor cores"),
+    ("void (anonymous namespace)::qgemm_splitk<0, true, float, float, 1>(...)",
+     "qmatmul_glu split-K"),
+    ("void (anonymous namespace)::qgemm_splitk<1, true, float, bf16, 4>(...)",
+     "moe_slot split-K"),
+    ("void (anonymous namespace)::qgemm_tc<1, 2, float, float, 2>(...)",
+     "moe_grouped tensor cores"),
+    ("void (anonymous namespace)::qgemm_tc<0, 2, float, float, 3>(...)",
+     "moe_glu_grouped tensor cores"),
+    ("void (anonymous namespace)::moe_grouped_kernel<0, 2, true, float>(...)",
+     "moe_grouped_kernel"),
+])
+def test_chip_smoke_profile_keys_name_each_kind(name, want):
+    """The decode profiles key csrc/qgemm.cu's launches by the kind, the last
+    template argument (bit flags GLU 1, GATHERED 2, SLOT 4), and the path."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.kernel_key(name) == want

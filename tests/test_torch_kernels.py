@@ -702,3 +702,240 @@ def test_moe_grouped_path_follows_layout(cuda, t, n):
     torch.cuda.synchronize()
     assert Q.LAUNCHES["moe_grouped"] == before + 1
     check_close(got, Q.moe_qmatmul_plain(x, stack, idx), "highest")
+
+
+# -- kernel 4 (slot-major MoE) on the split-K path of csrc/qgemm.cu ----------
+
+# q4 group 32; q8 group 16 (ragged N: the last tile masked, byte loads);
+# q8 group 32 (ragged, byte loads; and N % 16 == 0)
+SLOT_FORMATS = [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 200),
+                (GGMLType.Q8_0, 131), (GGMLType.Q5_1, 208)]
+
+
+def misaligned_stack(stack):
+    """The same stack with its packed bytes one byte off a 16-byte
+    boundary (still contiguous)."""
+    import dataclasses
+
+    buf = torch.empty(stack.packed.numel() + 1, dtype=stack.packed.dtype,
+                      device=stack.packed.device)
+    packed = buf[1:].view(stack.packed.shape)
+    packed.copy_(stack.packed)
+    return dataclasses.replace(stack, packed=packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("s", [1, 2, 3, 31])
+@pytest.mark.parametrize("t,n", SLOT_FORMATS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_moe_slot_split_k(cuda, t, n, s, precision):
+    stack = make_stack(t, 8, n, 512, 50, cuda)
+    x, idx = make_x(s, 512, 50, cuda), make_idx(s, 8, 50, cuda)
+    plan = Q.moe_slot_plan(s, 8, 512, n, stack.group, stack.fmt)
+    assert plan.path == "splitk" and plan.vec == (n % 16 == 0)
+    Q.reset_launches()
+    got = Q.moe_qmatmul(x, stack, idx, precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES_BY_PATH == {"moe_slot splitk": 1}
+    check_close(got, Q.moe_qmatmul_plain(x, stack, idx, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_moe_slot_one_expert_twice_and_bad_ids(cuda, precision):
+    """Expert 6 twice; ids 8 and -1 lie outside [0, 8): their rows read
+    nothing and are NaN, and the workspace and counters stay usable (a
+    second call gives the same bits)."""
+    stack = make_stack(GGMLType.Q4_K, 8, 384, 1024, 51, cuda)
+    x = make_x(4, 1024, 51, cuda)
+    idx = torch.tensor([6, 8, 6, -1], dtype=torch.int32, device=cuda)
+    got = Q.moe_qmatmul(x, stack, idx, precision)
+    assert bool(torch.isnan(got[1::2].float()).all())
+    ok = torch.tensor([0, 2], device=cuda)
+    check_close(got[ok], Q.moe_qmatmul_plain(x[ok], stack, idx[ok],
+                                             precision), precision)
+    again = Q.moe_qmatmul(x, stack, idx, precision)
+    assert torch.equal(got[ok], again[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 5])
+def test_moe_slot_unaligned_takes_byte_loads(cuda, s):
+    stack = misaligned_stack(make_stack(GGMLType.Q4_K, 4, 256, 512, 52,
+                                        cuda))
+    x, idx = make_x(s, 512, 52, cuda), make_idx(s, 4, 52, cuda)
+    assert not Q.moe_slot_plan(s, 4, 512, 256, 32, "q4", aligned=False).vec
+    check_close(Q.moe_qmatmul(x, stack, idx),
+                Q.moe_qmatmul_plain(x, stack, idx), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 7, 8, 12, 16, 17, 24, 32])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda v: v.name)
+def test_moe_slot_forced_splits(cuda, t, splits):
+    """Every split count the plan can pick (1..32 slices of whole groups),
+    each bit-identical call to call (the fixed-order split sum)."""
+    stack = make_stack(t, 4, 256, 1024, 53, cuda)
+    x, idx = make_x(3, 1024, 53, cuda), make_idx(3, 4, 53, cuda)
+    got = Q.moe_qmatmul(x, stack, idx, splits=splits)
+    check_close(got, Q.moe_qmatmul_plain(x, stack, idx), "highest")
+    assert torch.equal(got, Q.moe_qmatmul(x, stack, idx, splits=splits))
+
+
+# -- kernel 6 (grouped GLU MoE) on the tensor-core path of csrc/qgemm.cu -----
+
+# q4 group 32, q8 group 16 and q8 group 32 (F = 320: the last 64-column
+# tile half masked)
+GLU_GROUPED_FORMATS = [(GGMLType.Q4_K, 256), (GGMLType.Q6_K, 128),
+                       (GGMLType.Q8_0, 320)]
+
+
+def random_top2(s, e, seed, dev):
+    """Top-2 routing of s // 2 tokens: two distinct experts per token."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(e)[:2] for _ in range(s // 2)])
+    return torch.from_numpy(idx.reshape(-1).astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("kind", ["random", "skewed", "one"])
+@pytest.mark.parametrize("s", [64, 256, 1024])
+@pytest.mark.parametrize("t,f", GLU_GROUPED_FORMATS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_moe_glu_grouped_tensor_cores(cuda, t, f, s, kind, precision):
+    gate = make_stack(t, 4, f, 512, 54, cuda)
+    up = make_stack(t, 4, f, 512, 55, cuda)
+    x = make_x(s, 512, 54, cuda)
+    idx = (random_top2(s, 4, s, cuda) if kind == "random"
+           else routing(kind, s, 4, cuda))
+    assert Q.moe_glu_grouped_plan(s, 4, 512, f, gate.group,
+                                  gate.fmt).path == "tc"
+    Q.reset_launches()
+    got = Q.moe_qmatmul_glu(x, gate, up, idx, "silu", precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES_BY_PATH == {"moe_glu_grouped tc": 1}
+    check_close(got, Q.moe_qmatmul_glu_plain(x, gate, up, idx, "silu",
+                                             precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("act", Q.GLU_ACTS)
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda v: v.name)
+def test_moe_glu_grouped_activations(cuda, t, act, precision):
+    gate = make_stack(t, 8, 256, 512, 56, cuda)
+    up = make_stack(t, 8, 256, 512, 57, cuda)
+    x, idx = make_x(256, 512, 56, cuda), random_top2(256, 8, 56, cuda)
+    check_close(Q.moe_qmatmul_glu(x, gate, up, idx, act, precision),
+                Q.moe_qmatmul_glu_plain(x, gate, up, idx, act, precision),
+                precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("tile_rows", [16, 32, 64])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_1],
+                         ids=lambda v: v.name)
+def test_moe_glu_grouped_forced_tiles_and_splits(cuda, t, tile_rows, splits):
+    gate = make_stack(t, 4, 256, 1024, 58, cuda)
+    up = make_stack(t, 4, 256, 1024, 59, cuda)
+    x, idx = make_x(100, 1024, 58, cuda), make_idx(100, 4, 58, cuda)
+    c_rows, g_blocks, _ = Q.moe_dims(100, 4)
+    eg, rows, flat = Q.moe_group_plan(idx, 4, c_rows, g_blocks)
+
+    def run():
+        return Q.moe_grouped_blocked(x, gate, eg, rows, up=up, act="gelu",
+                                     path="tc", splits=splits,
+                                     tile_rows=tile_rows)[flat]
+
+    got = run()
+    check_close(got, Q.moe_qmatmul_glu_plain(x, gate, up, idx, "gelu"),
+                "highest")
+    assert torch.equal(got, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tc", "cuda cores"])
+def test_moe_glu_grouped_bad_expert_writes_nan(cuda, path):
+    """An expert id outside [0, E) in eg reads nothing and writes NaN to its
+    group's rows (all F columns); the other groups are untouched by it."""
+    gate = make_stack(GGMLType.Q4_K, 4, 320, 512, 60, cuda)
+    up = make_stack(GGMLType.Q4_K, 4, 320, 512, 61, cuda)
+    x, idx = make_x(64, 512, 60, cuda), make_idx(64, 4, 60, cuda)
+    c_rows, g_blocks, _ = Q.moe_dims(64, 4)
+    eg, rows, flat = Q.moe_group_plan(idx, 4, c_rows, g_blocks)
+    bad = eg.clone()
+    bad[0] = -1  # group 0 holds expert 0's slots
+    got = Q.moe_grouped_blocked(x, gate, bad, rows, up=up, act="silu",
+                                path=path, splits=1)[flat]
+    in_grp0 = flat < c_rows
+    assert bool(in_grp0.any()) and bool(torch.isnan(got[in_grp0]).all())
+    want = Q.moe_qmatmul_glu_plain(x, gate, up, idx, "silu")
+    assert rel_err(got[~in_grp0], want[~in_grp0]) < REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", ["Q4_K", "Q5_1 F=200", "Q6_K F=131",
+                                  "unaligned", "q4 group 64"])
+def test_moe_glu_grouped_cuda_cores_for_other_layouts(cuda, case, precision):
+    """The layouts the plan keeps on the CUDA-core grouped GLU kernel of
+    csrc/moe_qmatmul.cu (ragged F, an unaligned stack, q4 groups other than
+    32), counted on that path; Q4_K at F = 256 on the tensor cores."""
+    import dataclasses
+
+    t, f = {"Q5_1 F=200": (GGMLType.Q5_1, 200),
+            "Q6_K F=131": (GGMLType.Q6_K, 131)}.get(case, (GGMLType.Q4_K,
+                                                            256))
+    gate = make_stack(t, 4, f, 512, 62, cuda)
+    up = make_stack(t, 4, f, 512, 63, cuda)
+    if case == "unaligned":
+        up = misaligned_stack(up)
+    if case == "q4 group 64":  # the same levels, two groups' panels merged
+        gate, up = (dataclasses.replace(
+            st, group=64, scales=st.scales[:, ::2].contiguous(),
+            mins=st.mins[:, ::2].contiguous()) for st in (gate, up))
+    x, idx = make_x(96, 512, 62, cuda), make_idx(96, 4, 62, cuda)
+    want_path = "tc" if case == "Q4_K" else "cuda cores"
+    Q.reset_launches()
+    got = Q.moe_qmatmul_glu(x, gate, up, idx, "silu", precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES_BY_PATH == {f"moe_glu_grouped {want_path}": 1}
+    check_close(got, Q.moe_qmatmul_glu_plain(x, gate, up, idx, "silu",
+                                             precision), precision)
+
+
+@pytest.mark.cuda
+def test_moe_layer_makes_one_dispatch_plan(cuda, tmp_path, monkeypatch):
+    """A grouped MoE layer makes moe_group_plan once and its gate|up and
+    down kernels share it; a decode step makes none."""
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.models import transformer as T
+    from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
+
+    path = build_synthetic_gguf(str(tmp_path / "moe.gguf"), preset="tiny-moe",
+                                quant=GGMLType.Q4_K)
+    eng = Engine.load(path, EngineConfig(), device="cuda")
+    ffn = eng.runner.params["layers"][0]["ffn"]
+    calls, make_plan = [], Q.moe_group_plan
+
+    def counted(*args):
+        calls.append(args[0].shape[0])
+        return make_plan(*args)
+
+    monkeypatch.setattr(T, "moe_group_plan", counted)
+    monkeypatch.setattr(Q, "moe_group_plan", counted)
+    for tokens, plans in ((40, 1), (1, 0)):
+        calls.clear()
+        Q.reset_launches()
+        x = make_x(tokens, eng.runner.cfg.hidden_size, 64, cuda)[None]
+        T.moe_layer(ffn, eng.runner.cfg, x)
+        torch.cuda.synchronize()
+        assert len(calls) == plans
+        want = ({"moe_glu_grouped": 1, "moe_grouped": 1} if plans
+                else {"moe_slot": 3})
+        assert {k: v for k, v in Q.LAUNCHES.items() if v} == want

@@ -268,10 +268,10 @@ def test_mixed_stack_layer_sends_quantized_stacks_to_the_kernels(
     calls = []  # (wrapper, the experts keys of the stacks it was given)
 
     def spy(fn, name):
-        def wrapped(*args):
+        def wrapped(*args, **kw):  # kw: the layer's shared plan
             calls.append((name, {key for key in ex
                                  if any(a is ex[key] for a in args)}))
-            return fn(*args)
+            return fn(*args, **kw)
         return wrapped
 
     monkeypatch.setattr(T, "moe_qmatmul", spy(Q.moe_qmatmul, "moe_qmatmul"))
@@ -290,6 +290,53 @@ def test_mixed_stack_layer_sends_quantized_stacks_to_the_kernels(
     np.testing.assert_allclose(
         got.numpy(), T.moe_layer(ffn, teng.runner.cfg, x).numpy(),
         rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tokens,plans", [(40, 1), (1, 0)])
+def test_moe_layer_shares_one_dispatch_plan(tiny_moe, monkeypatch, tokens,
+                                            plans):
+    """A layer whose slots take the grouped kernels makes moe_group_plan
+    once and hands the same plan to its gate|up and down products; it
+    equals the plan each entry makes alone from the layer's routing. At a
+    decode step's 2 slots no plan is made."""
+    _, _, teng = tiny_moe
+    ffn, cfg = teng.runner.params["layers"][0]["ffn"], teng.runner.cfg
+    made, given, routed = [], [], []
+    make_plan, route = T.moe_group_plan, T.route
+
+    def counted(*args):
+        made.append(make_plan(*args))
+        return made[-1]
+
+    def spy(fn):
+        def wrapped(*args, plan=None, **kw):
+            given.append(plan)
+            return fn(*args, plan=plan, **kw)
+        return wrapped
+
+    def recorded(*args):
+        routed.append(route(*args))
+        return routed[-1]
+
+    monkeypatch.setattr(T, "moe_group_plan", counted)
+    monkeypatch.setattr(T, "route", recorded)
+    monkeypatch.setattr(T, "moe_qmatmul", spy(Q.moe_qmatmul))
+    monkeypatch.setattr(T, "moe_qmatmul_glu", spy(Q.moe_qmatmul_glu))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, tokens, cfg.hidden_size)).astype(np.float32))
+    T.moe_layer(ffn, cfg, x)
+    assert len(made) == plans
+    # grouped: the gate|up GLU and down; else the GLU declines, and gate, up
+    # and down go one by one
+    assert len(given) == (2 if plans else 4)
+    assert all(p is (made[0] if plans else None) for p in given)
+    if plans:
+        idx = routed[0][1].reshape(-1).to(torch.int32)
+        c_rows, g_blocks, grouped = Q.moe_dims(idx.shape[0], cfg.num_experts)
+        assert grouped
+        for got, want in zip(made[0], make_plan(idx, cfg.num_experts, c_rows,
+                                                g_blocks)):
+            assert torch.equal(got, want)
 
 
 def test_routing_matches_jax_with_a_margin(tiny_moe, monkeypatch):

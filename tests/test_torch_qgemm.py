@@ -1,6 +1,7 @@
 """The kernels of csrc/qgemm.cu on the CPU (kernels 1-2, the GLU kernel 3
-and the grouped MoE kernel 5): the launch plans (ops/qmatmul.qmatmul_plan,
-moe_grouped_plan) at the main paths' shapes, the exact three-part bf16 split
+and the MoE kernels 4-6): the launch plans (ops/qmatmul.qmatmul_plan,
+moe_slot_plan, moe_grouped_plan, moe_glu_grouped_plan) at the main paths'
+shapes, the exact three-part bf16 split
 of x the tensor-core path rests on, the tiles' arithmetic written in torch
 against the JAX Pallas kernels in interpret mode, and the bound of the
 tensor-core path. The kernels themselves run on a card only
@@ -16,6 +17,7 @@ from llama_gguf_tpu.gguf.constants import GGMLType
 from llama_gguf_tpu.ops.linear import QuantExpertStack as JStack
 from llama_gguf_tpu.ops.linear import QuantLinear as JQuantLinear
 from llama_gguf_tpu.ops.qmatmul import moe_qmatmul as jmoe_qmatmul
+from llama_gguf_tpu.ops.qmatmul import moe_qmatmul_glu as jmoe_qmatmul_glu
 from llama_gguf_tpu.ops.qmatmul import qmatmul as jqmatmul
 from llama_gguf_tpu.ops.qmatmul import qmatmul_glu as jqmatmul_glu
 from llama_gguf_tpu.quant.quantize import quantize
@@ -456,17 +458,28 @@ def both_stacks(t, e_num, n, k, seed):
     return js, ts
 
 
-def gathered_model(x: torch.Tensor, stack, idx: torch.Tensor,
-                   splits: int) -> torch.Tensor:
-    """Kernel 5's tensor-core path in torch: BM-row tiles of the blocked
-    [G*C] layout; a tile whose first id is S is skipped; else its expert is
-    eg[row0 // C], its rows are gathered from x (the padding id reads
-    zeros), the tile's product is sliced_product, and only its valid rows
-    are written; read back through the plan's inverse map."""
+def expert_linear(stack, e: int) -> QuantLinear:
+    """Expert e of a port stack as a QuantLinear (views, no copy)."""
+    return QuantLinear(stack.packed[e], stack.scales[e],
+                       stack.mins[e] if stack.mins is not None else None,
+                       None, stack.fmt, stack.group, stack.k, stack.n,
+                       "expert")
+
+
+def gathered_model(x: torch.Tensor, stack, idx: torch.Tensor, splits: int,
+                   up=None, act: str | None = None) -> torch.Tensor:
+    """Kernel 5's tensor-core path in torch (with ``up`` and ``act``, kernel
+    6's): BM-row tiles of the blocked [G*C] layout; a tile whose first id is
+    S is skipped; else its expert is eg[row0 // C], its rows are gathered
+    from x (the padding id reads zeros), the tile's product is
+    sliced_product (kernel 6: over each stack, then act(gate) * up after the
+    slice sum), and only its valid rows are written; read back through the
+    plan's inverse map."""
     s, k = x.shape
     e_num, n = stack.packed.shape[0], stack.n
     c_rows, g_blocks, _ = Q.moe_dims(s, e_num)
-    plan = Q.moe_grouped_plan(s, e_num, k, n, stack.group, stack.fmt)
+    plan = Q.moe_grouped_plan(s, e_num, k, n, stack.group, stack.fmt,
+                              glu=up is not None)
     bm = plan.rows
     eg, rows, flat = Q.moe_group_plan(idx, e_num, c_rows, g_blocks)
     rows = rows.reshape(-1)
@@ -478,10 +491,10 @@ def gathered_model(x: torch.Tensor, stack, idx: torch.Tensor,
             continue
         assert row0 // c_rows == (row0 + bm - 1) // c_rows
         e = int(eg[row0 // c_rows])
-        lin = QuantLinear(stack.packed[e], stack.scales[e],
-                          stack.mins[e] if stack.mins is not None else None,
-                          None, stack.fmt, stack.group, k, n, "expert")
-        y = sliced_product(xz[sid], lin, splits)
+        y = sliced_product(xz[sid], expert_linear(stack, e), splits)
+        if up is not None:
+            y = Q.glu_combine(y, sliced_product(xz[sid], expert_linear(up, e),
+                                                splits), act)
         live = torch.nonzero(sid < s)[:, 0]
         out[row0 + live] = y[live]
     return out[flat]
@@ -505,6 +518,155 @@ def test_gathered_row_model_matches_pallas(t, s, kind):
     assert not bool(torch.isnan(got).any())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["silu", "swiglu_oai"])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "one"])
+@pytest.mark.parametrize("s", [32, 64, 257])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+def test_gathered_glu_model_matches_pallas(t, s, kind, act):
+    """Kernel 6's tiles (gathered rows, the gate and the up stack, the GLU
+    after the slice sum) against the JAX package's moe_qmatmul_glu in
+    interpret mode; every slot's row is written."""
+    e_num, k, f = 4, 256, 128
+    js, ts = both_stacks(t, e_num, f, k, 64)
+    ju, tu = both_stacks(t, e_num, f, k, 65)
+    x = np.random.default_rng(66 + s).standard_normal((s, k)).astype(
+        np.float32)
+    idx = routing(kind, s, e_num)
+    want = jmoe_qmatmul_glu(jnp.asarray(x), js, ju, jnp.asarray(idx), act,
+                            interpret=True, precision="highest")
+    assert want is not None
+    got = gathered_model(torch.from_numpy(x), ts, torch.from_numpy(idx), 2,
+                         tu, act)
+    assert not bool(torch.isnan(got).any())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 31])
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_slot_model_matches_pallas(t, s):
+    """Kernel 4's split-K arithmetic, one slot per block row over its own
+    expert (idx[s]) at the plan's split of K, against the JAX package's
+    slot-major moe_qmatmul in interpret mode."""
+    e_num, k, n = 8, 512, 128
+    js, ts = both_stacks(t, e_num, n, k, 67)
+    x = np.random.default_rng(68 + s).standard_normal((s, k)).astype(
+        np.float32)
+    idx = np.random.default_rng(69 + s).integers(0, e_num, s).astype(
+        np.int32)
+    want = jmoe_qmatmul(jnp.asarray(x), js, jnp.asarray(idx), interpret=True,
+                        precision="highest")
+    plan = Q.moe_slot_plan(s, e_num, k, n, ts.group, ts.fmt)
+    assert plan.path == "splitk" and plan.grid[1] == s
+    xt = torch.from_numpy(x)
+    got = torch.cat([sliced_product(xt[r:r + 1],
+                                    expert_linear(ts, int(idx[r])),
+                                    plan.splits) for r in range(s)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+# (S, E, K, N, group, fmt, splits, grid): Mixtral-8x7B's gate (and up) and
+# down expert stacks at decode (top-2: 2 slots per token), and more slots
+SLOT_PLANS = [(2, 8, 4096, 14336, 32, "q4", 4, (4, 2, 112)),
+              (2, 8, 14336, 4096, 16, "q8", 16, (16, 2, 32)),
+              (1, 8, 4096, 14336, 32, "q4", 9, (9, 1, 112)),
+              (1, 8, 14336, 4096, 16, "q8", 32, (32, 1, 32)),
+              (31, 8, 14336, 4096, 16, "q8", 1, (1, 31, 32)),
+              (40, 64, 4096, 14336, 32, "q4", 1, (1, 40, 112))]
+
+
+@pytest.mark.parametrize("s,e,k,n,group,fmt,splits,grid", SLOT_PLANS)
+def test_slot_plan_at_main_path_shapes(s, e, k, n, group, fmt, splits, grid):
+    """Kernel 4 on split-K: one slot per block row, K split into the most
+    slices whose grid of S x column tiles x splits stays within one wave of
+    BLOCKS_PER_SM["splitk"] blocks per SM (at most 32 slices, and slices of
+    6 chunks of 16 packed rows at least); the workspace holds every tile's
+    slices."""
+    plan = Q.moe_slot_plan(s, e, k, n, group, fmt, SMS)
+    assert (plan.path, plan.rows, plan.cols, plan.vec) == ("splitk", 1, 128,
+                                                           True)
+    assert (plan.splits, plan.grid) == (splits, grid)
+    wave = Q.BLOCKS_PER_SM["splitk"] * SMS
+    tiles = s * grid[2]
+    assert tiles * splits <= wave or splits == 1
+    assert tiles * (splits + 1) > wave or splits == Q.MAX_SPLITS
+    assert plan.scratch_bytes == (4 * tiles * splits * 128
+                                  if splits > 1 else 0)
+    assert plan == Q.qmatmul_plan(s, k, n, group, fmt, SMS, path="splitk",
+                                  splits=splits)
+    assert plan.op_type() == "f32"
+
+
+def test_slot_plan_layouts_and_refusals():
+    """Every layout split-K takes: ragged N (byte loads), unaligned stacks,
+    q8 groups 16 and 32; forced splits within 1..min(32, groups); refused:
+    a grouped slot count, a q4 group of 16, K not a multiple of the group,
+    too many splits, more slots than the grid holds."""
+    assert not Q.moe_slot_plan(2, 8, 4096, 200, 16, "q8").vec
+    assert not Q.moe_slot_plan(2, 8, 4096, 4096, 16, "q8",
+                               aligned=False).vec
+    assert Q.moe_slot_plan(3, 8, 1024, 256, 32, "q8", splits=32).splits == 32
+    for args, kw in (((32, 8, 4096, 4096, 16, "q8"), {}),
+                     ((2, 8, 4096, 4096, 16, "q4"), {}),
+                     ((2, 8, 4100, 4096, 16, "q8"), {}),
+                     ((2, 8, 512, 256, 32, "q4"), dict(splits=17)),
+                     ((70000, 100000, 512, 256, 32, "q4"), {})):
+        with pytest.raises(ValueError):
+            Q.moe_slot_plan(*args, **kw)
+
+
+# (S, K, F, group, fmt, rows, grid): Mixtral-8x7B's gate|up stacks (K 4096,
+# F 14336, q4) over 8 experts; TinyLlama-like widths
+GLU_GROUPED_PLANS = [(64, 4096, 14336, 32, "q4", 16, (1, 36, 224)),
+                     (256, 4096, 14336, 32, "q4", 32, (1, 72, 224)),
+                     (1024, 4096, 14336, 32, "q4", 32, (1, 96, 224)),
+                     (256, 2048, 1024, 16, "q8", 32, (1, 72, 16))]
+
+
+@pytest.mark.parametrize("s,k,f,group,fmt,rows,grid", GLU_GROUPED_PLANS)
+def test_glu_grouped_plan_at_main_path_shapes(s, k, f, group, fmt, rows,
+                                              grid):
+    """Kernel 6 on the tensor cores: kernel 5's row tiles (but at most 32
+    rows) and split rule, with 64 output (64 gate + 64 up weight) columns
+    per block."""
+    plan = Q.moe_glu_grouped_plan(s, 8, k, f, group, fmt, SMS)
+    assert (plan.path, plan.rows, plan.grid) == ("tc", rows, grid)
+    assert plan.glu and plan.cols == 128 and plan.out_cols == 64
+    c_rows, g_blocks, _ = Q.moe_dims(s, 8)
+    assert plan.grid[1] * plan.rows == g_blocks * c_rows
+    assert plan.grid[2] == -(-f // 64)
+    five = Q.moe_grouped_plan(s, 8, k, f, group, fmt, SMS)
+    assert min(five.rows, 32) == plan.rows and five.grid[2] == -(-f // 128)
+    assert plan.op_type("highest") == "bf16x3"
+    assert plan.op_type("default") == "bf16x2"
+
+
+def test_glu_grouped_plan_layout_rule():
+    """Ragged F, unaligned stacks and q4 groups other than 32 keep the
+    CUDA-core grouped GLU kernel (its own tile and grid, K unsplit);
+    forcing the tensor cores on them raises, as do a slot count below the
+    grouped rule and a tile taller than C."""
+    for f, aligned, group, fmt in ((200, True, 16, "q8"),
+                                   (4096, False, 16, "q8"),
+                                   (4096, True, 64, "q4")):
+        plan = Q.moe_glu_grouped_plan(256, 8, 4096, f, group, fmt,
+                                      aligned=aligned)
+        assert plan.path == "cuda cores" and plan.grid is None and plan.glu
+        with pytest.raises(ValueError):
+            Q.moe_glu_grouped_plan(256, 8, 4096, f, group, fmt,
+                                   aligned=aligned, path="tc")
+    with pytest.raises(ValueError):
+        Q.moe_glu_grouped_plan(16, 8, 4096, 4096, 16, "q8")
+    with pytest.raises(ValueError):
+        Q.moe_glu_grouped_plan(32, 4, 4096, 4096, 16, "q8", tile_rows=64)
+    forced = Q.moe_glu_grouped_plan(256, 8, 4096, 4096, 32, "q4",
+                                    tile_rows=16, splits=4)
+    assert (forced.rows, forced.splits) == (16, 4)
 
 
 @pytest.mark.parametrize("s", [32, 257])
