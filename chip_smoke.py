@@ -5,6 +5,10 @@
 
 Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
+Phase 9 runs inside each of phases 4, 6 and 7, on that path's engine.
+Every step of the runner on its own cache replays a CUDA graph
+(engine/runner.py); a step on a cache it did not make runs eagerly, the
+plain version the graphs are held against.
 
 1. Device: requires CUDA; prints the card's name and power limit; builds the
    CUDA kernels from llama_gguf_tpu_torch/csrc/ (qgemm.cu: kernels 1-3,
@@ -38,14 +42,19 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    beside it for every case of kernels 1-3), its share of the kernel's
    time, and the path and split of K. The timer flushes L2 by a read and
    sleeps on the device before its first event (utils/timing.py).
-4. Dense main path: launch counters set to 0, then Engine.generate (about
-   100 prompt tokens, 32 new tokens, greedy); each kernel must have launched
-   exactly its per-step count (q4 44, GLU 22, q8 23) times the steps run.
-   Tokens and text must equal the dequant-mode engine's and the prefill
-   logits must agree within 1e-3.
+4. Dense main path: launch counters and the runner's count of eager steps
+   set to 0, then Engine.generate (about 100 prompt tokens, 32 new tokens,
+   greedy); no step may have run eagerly (every one replayed a graph, whose
+   launches the runner credits per replay), and each kernel must have
+   launched exactly its per-step count (q4 44, GLU 22, q8 23) times the
+   steps run. Tokens and text must equal the dequant-mode engine's (its
+   steps graphed too) and the prefill logits must agree within 1e-3.
 5. Where the dense decode step's time goes: torch.profiler over 16 decode
-   steps (wall and device time per step, the device's idle share, device
-   time by kernel: kernels 1-2 by format and path, the GLU by path).
+   steps (wall and device time per step, the device's idle share, kernels
+   and host launch calls per step, device time by kernel: kernels 1-2 by
+   format and path, the GLU by path), in three modes: the engine's loop on
+   graphs ("graphed"), the same loop eager ("eager"), and greedy_decode
+   ("greedy": replays chained on the device).
 6. Sparse MoE: builds Mixtral-8x7B at full width cut to 2 of 32 layers
    ("mixtral-8x7b-l2": hidden 4096, 32/8 heads, 8 experts of ffn 14336,
    top-2; Q4_K attention and gate/up experts, Q6_K down experts, embedding
@@ -68,20 +77,22 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    padded to the busiest expert's count. Then the MoE main path: counters
    set to 0, Engine.generate as in phase 4, exact launch counts
    (MOE_PER_LAYER), every launch of kernels 4-6 on the path named in
-   MOE_PATHS (the wrappers count launches by path), tokens, text and
-   prefill logits against the dequant-mode engine, and a decode profile as
-   in phase 5.
+   MOE_PATHS (the wrappers count launches by path), no eager step, tokens,
+   text and prefill logits against the dequant-mode engine, and decode
+   profiles as in phase 5.
 7. The serving configuration: the same TinyLlama-1.1B GGUF through
    load_model(scale_dtype="bfloat16") (bf16 scale and min panels) and
    ModelRunner(matmul_precision="default", kv_format="bf16") into an Engine;
    its weight bytes per decode step and their bound. Counters set to 0, then
-   Engine.generate as in phase 4 with exact launch counts. Oracle: the same
+   Engine.generate as in phase 4 with exact launch counts and no eager
+   step. Oracle: the same
    loaded weights with their panels upcast to f32 (exact) in "highest" with
    an f32 KV cache. The logits of the prefill and of 31 decode steps, the
    serving path fed the oracle's greedy tokens, each within the tolerance
    of SERVING_ROUNDINGS_PER_LAYER (below); the serving path's own greedy
    tokens equal the oracle's up to its first step whose top-2 margin is
-   under that tolerance. Prefill and decode rates and a decode profile as in phase 5.
+   under that tolerance. Prefill and decode rates and decode profiles as
+   in phase 5.
 8. Kernel 7, the dequant-matmul variant probe
    (llama_gguf_tpu_torch.scripts.bench_kernel_variants) for q4 and q8 at
    its two Llama-3-8B FFN shapes: counters set to 0, the probe's own run
@@ -89,10 +100,23 @@ in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
    kernel against its plain version on the same inputs (v7, v9, v10 exactly:
    integers written as f32; the others within 2e-4 * max |y_plain|, and v0,
    v1 as phase 3's bf16 limit) with kernel, plain and library times.
+9. Graphs against eager, on each of the three paths (phases 4, 6, 7): the
+   prefill and 32 decode steps replayed as graphs against the same steps
+   eager, greedy on each side's own logits (tokens equal, logits within
+   REL_LIMIT * max |logit|; the largest difference is printed); greedy_decode
+   of GREEDY_STEPS from the prompt, across the 256 read bucket, graphed
+   against eager (tokens equal); each runner's graph keys, capture seconds
+   and pool memory; and the CLI's bench (prefill and greedy-decode tok/s,
+   llama_gguf_tpu_torch.cli.bench). On TinyLlama-1.1B also a ragged batch:
+   B = 8, seven rows of the prompt and one of LONG_ROW tokens, 32 greedy
+   steps on the two-tier bound (256, 1024, 1) graphed against the same
+   batch eager at the single bound 1024; each row's tokens equal up to its
+   first step whose top-2 margin is under 1e-3 * max |logit|.
 
 Prints, on lines before the last: the card's name and power limit, each
-path's prefill and decode rates, the decode profiles and one JSON object
-{"kernels": [...]}. The last line is {"ok": true, "device": {...}}.
+path's prefill and decode rates, the decode profiles, phase 9's results,
+the bench lines and one JSON object {"kernels": [...]}. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -127,6 +151,8 @@ MOE_PATHS = {"moe_slot": "splitk", "moe_grouped": "tc",
 MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
                  num_experts=8, num_experts_per_token=2)
 REL_LIMIT = 2e-4
+GREEDY_STEPS = 200  # phase 9: from the 96-token prompt, across bucket 256
+LONG_ROW = 700  # phase 9: the long row of the B = 8 batch (bucket 1024)
 ROWS = (1, 8, 128, 512)  # 128: the main path's own prefill bucket
 MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 # Phase 7's logit tolerance, relative to max |oracle logits|. The serving
@@ -213,31 +239,71 @@ def kernel_key(name: str) -> str:
     return name[:60]
 
 
-def profile_decode(engine, ids, steps: int = 16) -> dict:
+def profile_decode(engine, ids, steps: int = 16, mode: str = "graphed"
+                   ) -> dict:
     """torch.profiler over ``steps`` single-token decode steps after a
-    prefill: wall time per step, device time per step (sum of kernel
-    times), the device's idle share, and device time by kernel."""
+    prefill (``summarize``). ``mode``: "graphed" (the engine's loop:
+    decode_one on the runner's cache, so each step replays a graph, and the
+    argmax comes back to the host), "eager" (the same loop on a cache the
+    runner did not make: every step eager), "greedy" (greedy_decode: graph
+    replays chained on the device)."""
+    import torch
+
+    r = engine.runner
+    kv = r._make_kv(1) if mode == "eager" else r.init_kv()
+    logits, kv, pos = r.prefill(ids, kv)
+    tok = int(torch.argmax(logits))
+    logits, kv = r.decode_one(tok, pos, kv)  # warm-up step
+    pos += 1
+    if mode == "greedy":  # warm-up: the graph of this bound
+        r.greedy_decode([tok], [pos], kv, 1)
+
+    def run():
+        nonlocal logits, kv, pos
+        if mode == "greedy":
+            r.greedy_decode([tok], [pos], kv, steps)
+            return
+        for _ in range(steps):
+            logits, kv = r.decode_one(int(torch.argmax(logits)), pos, kv)
+            pos += 1
+
+    return dict(mode=mode, **summarize(run, steps))
+
+
+def profile_prefill(engine, ids, reps: int = 4, eager: bool = False) -> dict:
+    """torch.profiler over ``reps`` prefills of the prompt (``summarize``),
+    graphed on the runner's cache or eager on a cache it did not make."""
+    r = engine.runner
+    kv = r._make_kv(1) if eager else r.init_kv()
+    r.prefill(ids, kv)  # warm-up (a capture on the runner's cache)
+    return dict(mode="prefill eager" if eager else "prefill graphed",
+                **summarize(lambda: [r.prefill(ids, kv)
+                                     for _ in range(reps)], reps))
+
+
+def summarize(run, steps: int) -> dict:
+    """Run ``run()`` (``steps`` steps) under torch.profiler: wall time per
+    step (the host clock, ended by a synchronize), device time per step (the
+    sum of kernel times), the device's idle share, kernels and host launch
+    calls (kernels and graphs) per step, the host's time per step in its
+    costliest calls (self CPU time: what fills the device's idle time when
+    the host is behind), and device time by kernel. The profiler's own
+    tracing adds host time to every call, so the wall time under it is
+    longer than in an unprofiled run (the bench and main-path lines)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    r = engine.runner
-    logits, kv, pos = r.prefill(ids, r.init_kv())
-    tok = int(torch.argmax(logits))
-    logits, kv = r.decode_one(tok, pos, kv)  # warm-up step
-    pos += 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            tok = int(torch.argmax(logits))
-            logits, kv = r.decode_one(tok, pos, kv)
-            pos += 1
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     by_kernel: dict[str, float] = {}
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -251,13 +317,20 @@ def profile_decode(engine, ids, steps: int = 16) -> dict:
               if key.startswith(("qmatmul_q4", "qmatmul_q8")))
     k3 = {key: v for key, v in by_kernel.items()
           if key.startswith("qmatmul_glu")}
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    host_top = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]
     return dict(
         steps=steps, wall_ms_per_step=wall_ms / steps,
+        host_launches_per_step=sum(
+            e.count for e in cpu
+            if "LaunchKernel" in e.key or "GraphLaunch" in e.key) / steps,
+        host_ms_per_step_by_call={
+            e.key: e.self_cpu_time_total / 1e3 / steps for e in host_top},
         device_ms_per_step=device_ms if device_ms > 0 else "not measured",
         device_idle_share=(1.0 - device_ms * steps / wall_ms
                            if device_ms > 0 else "not measured"),
         kernels_launched_per_step=sum(
-            e.count for e in prof.key_averages()
+            e.count for e in events
             if e.device_type == DeviceType.CUDA) / steps,
         kernels_1_2_ms_per_step=k12,
         kernel_3_ms_per_step=sum(k3.values()), kernel_3_by_path=k3,
@@ -295,9 +368,11 @@ def load_both(path: str):
 
 
 def run_main_path(quant, deq, card: str, label: str, on_differ=None):
-    """Engine.generate with the launch counters set to 0 just before and
-    read just after; then quant against dequant: text, greedy tokens and
-    prefill logits. Returns (launches, decode steps, the prompt's ids)."""
+    """Engine.generate with the launch counters and the runner's count of
+    eager steps set to 0 just before and read just after (every step must
+    have replayed a CUDA graph); then quant against dequant: text, greedy
+    tokens and prefill logits. Returns (launches, decode steps, the
+    prompt's ids)."""
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
@@ -308,12 +383,16 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
     quant.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up, uncounted
     torch.cuda.synchronize()
     Q.reset_launches()
+    quant.runner.eager_steps = 0
     text = quant.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
     torch.cuda.synchronize()
     launches = dict(Q.LAUNCHES)
     by_path = dict(Q.LAUNCHES_BY_PATH)
     stats = quant.stats
     check(stats.generated_tokens >= 1, f"{label}: nothing generated")
+    check(quant.runner.eager_steps == 0,
+          f"{label}: {quant.runner.eager_steps} steps of Engine.generate ran "
+          "eagerly")
     print(f"{label} main path: prefill {stats.prompt_tokens} tok @ "
           f"{stats.prefill_tps:.1f} tok/s, decode {stats.generated_tokens} "
           f"tok @ {stats.decode_tps:.1f} tok/s, launches {launches} over "
@@ -323,6 +402,8 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
     want_text = deq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
     toks = quant.greedy_tokens(ids, NEW_TOKENS)
     want_toks = deq.greedy_tokens(ids, NEW_TOKENS)
+    check(quant.runner.eager_steps == deq.runner.eager_steps == 0,
+          f"{label}: eager steps on the engines' own caches")
     if toks != want_toks and on_differ is not None:
         on_differ(ids, toks, want_toks)
     check(text == want_text,
@@ -339,6 +420,161 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None):
     log(f"{label}: quant == dequant: {len(toks)} tokens, logits max diff "
         f"{diff:.2e}")
     return launches, by_path, stats.generated_tokens, ids
+
+
+def decode_profiles(engine, ids) -> dict:
+    """Phases 5-7's decode profile in the three modes of profile_decode
+    (the graphed step beside the eager one, and greedy_decode), and the
+    prompt's prefill graphed and eager."""
+    out = {mode: profile_decode(engine, ids, mode=mode)
+           for mode in ("graphed", "eager", "greedy")}
+    for eager in (False, True):
+        p = profile_prefill(engine, ids, eager=eager)
+        out[p["mode"]] = p
+    return out
+
+
+def graph_against_eager(label: str, engine, ids, card: str) -> None:
+    """Phase 9 on one path: the prefill and NEW_TOKENS decode steps replayed
+    as graphs against the same steps run eagerly (a cache the runner did
+    not make), greedy on each side's own logits: tokens equal, logits
+    within REL_LIMIT * max |logit| (expected: equal); then greedy_decode of
+    GREEDY_STEPS from the prompt (across the 256 read bucket), graphed
+    against eager, tokens equal. Also prints the graphs' capture cost."""
+    import torch
+
+    r = engine.runner
+    want_toks, want = step_logits(r, ids, NEW_TOKENS + 1, eager=True)
+    eager0 = r.eager_steps
+    toks, got = step_logits(r, ids, NEW_TOKENS + 1)
+    check(r.eager_steps == eager0, f"{label}: a graphed step ran eagerly")
+    check(toks == want_toks, f"{label}: graphed tokens {toks} != eager "
+                             f"{want_toks}")
+    rel = [((g - w).abs().max() / w.abs().max()).item()
+           for g, w in zip(got, want)]
+    check(max(rel) <= REL_LIMIT, f"{label}: graphed logits differ from "
+                                 f"eager by {max(rel):.3g} of max |logit|")
+    logits, kv, pos = r.prefill(ids, r._make_kv(1))
+    first = torch.argmax(logits)[None].to(torch.int32)
+    want_g, _ = r.greedy_decode(first, [pos], kv, GREEDY_STEPS)
+    _, kv, _ = r.prefill(ids, r.init_kv())
+    got_g, _ = r.greedy_decode(first, [pos], kv, GREEDY_STEPS)
+    segments = r.plan_segments(pos, GREEDY_STEPS, r.max_seq)
+    check(r.eager_steps == eager0 + GREEDY_STEPS + 1,
+          f"{label}: greedy_decode on the runner's cache ran eagerly")
+    check(torch.equal(got_g, want_g),
+          f"{label}: graphed greedy_decode differs from eager at steps "
+          f"{torch.nonzero(got_g[0] != want_g[0])[:, 0].tolist()}")
+    # the host's time in one replay of the decode step's graph (its launch),
+    # from an empty queue: what the engine's loop pays per token
+    decode = r._graphs[(1, 1, 256, False)]
+    host_ms = []
+    for _ in range(16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r._replay(decode)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(json.dumps({"graph_against_eager": dict(
+        path=label, steps=1 + NEW_TOKENS, tokens_equal=True,
+        max_logit_diff_rel=max(rel), max_logit_diff_abs=max(
+            (g - w).abs().max().item() for g, w in zip(got, want)),
+        greedy_steps=GREEDY_STEPS, greedy_segments=segments,
+        greedy_tokens_equal=True,
+        replay_host_ms_median=sorted(host_ms)[len(host_ms) // 2],
+        card=card)}), flush=True)
+    print(json.dumps({"graphs": dict(
+        path=label, keys=len(r._graphs), pool_bytes=r.pool_bytes,
+        capture_seconds={str(k): v for k, v in r.capture_seconds.items()},
+        card=card)}), flush=True)
+
+
+def tiered_batch(quant, ids, card: str) -> None:
+    """Phase 9, the two-tier bound: TinyLlama-1.1B at B = 8, seven rows of
+    the prompt and one of LONG_ROW random tokens, prefilled in one step;
+    then NEW_TOKENS greedy steps tiered (256, 1024, 1) and graphed
+    (greedy_decode on a B = 8 runner over the same weights) against the same
+    batch eager at the single bound hi. Each row's tokens equal up to its
+    first step whose eager top-2 margin is under 1e-3 * max |logit|."""
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.engine.runner import (ModelRunner, bucket_len,
+                                                    pick_read_bound,
+                                                    read_bucket)
+
+    q = quant.runner
+    r = ModelRunner(q.params, q.cfg, max_batch=8, max_seq=q.max_seq,
+                    matmul_precision=q.matmul_precision,
+                    kv_format=q.kv_format, device=q.device)
+    rng = np.random.default_rng(SEED)
+    rows = [ids] * 7 + [rng.integers(3, q.cfg.vocab_size,
+                                     size=LONG_ROW).tolist()]
+    lens = np.asarray([len(x) for x in rows], np.int32)
+    t = bucket_len(int(lens.max()))
+    toks = np.zeros((8, t), np.int32)
+    pos = np.full((8, t), r.max_seq, np.int32)
+    for i, x in enumerate(rows):
+        toks[i, :len(x)] = x
+        pos[i, :len(x)] = np.arange(len(x))
+
+    def prefill(kv):
+        logits, kv = r.step(toks, pos, lens, kv,
+                            read_bound=read_bucket(int(lens.max()),
+                                                   r.max_seq),
+                            logit_positions=lens - 1)
+        return torch.argmax(logits[:, 0], -1).to(torch.int32), kv
+
+    bound = pick_read_bound(lens + NEW_TOKENS, r.max_seq)
+    check(bound == (256, 1024, 1), f"tier: pick_read_bound gave {bound}")
+    tok, kv = prefill(r._make_kv(8))
+    tok0 = tok.clone()
+    p = torch.from_numpy(lens).to(q.device)
+    want, margins = [], []
+    for _ in range(NEW_TOKENS):  # eager, every row at the single bound hi
+        logits, kv = r.step(tok[:, None], p[:, None], p + 1, kv,
+                            read_bound=bound[1])
+        top2 = logits[:, 0].topk(2, -1).values
+        margins.append((top2[:, 0] - top2[:, 1])
+                       / logits[:, 0].abs().amax(-1))
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        want.append(tok)
+        p = p + 1
+    want = torch.stack(want, 1).cpu()
+    margins = torch.stack(margins, 1).cpu()
+    tok_g, kv = prefill(r.init_kv())
+    check(torch.equal(tok_g, tok0), "tier: the graphed prefill's tokens")
+    eager0 = r.eager_steps
+    got, _ = r.greedy_decode(tok_g, lens, kv, NEW_TOKENS)
+    got = got.cpu()
+    check(r.eager_steps == eager0, "tier: greedy_decode ran eagerly")
+    check(("greedy", 8, (256, 1024, 1, 1)) in r._graphs,
+          f"tier: no tiered graph among {list(r._graphs)}")
+    report = []
+    for row in range(8):
+        near = next((i for i in range(NEW_TOKENS)
+                     if margins[row, i] < 1e-3), None)
+        diff = next((i for i in range(NEW_TOKENS)
+                     if got[row, i] != want[row, i]), None)
+        check(diff is None or (near is not None and diff >= near),
+              f"tier: row {row} differs at step {diff}, before its first "
+              f"near tie ({near})")
+        report.append(dict(row=row, length=int(lens[row]),
+                           first_diff=diff, first_near_tie=near))
+    print(json.dumps({"tiered_batch": dict(
+        path="TinyLlama-1.1B", batch=8, bound=list(bound),
+        steps=NEW_TOKENS, rows=report,
+        capture_seconds={str(k): v for k, v in r.capture_seconds.items()},
+        card=card)}), flush=True)
+    del r, kv
+
+
+def bench_json(label: str, engine, card: str) -> None:
+    """The CLI's bench (llama_gguf_tpu_torch.cli.bench) on a loaded engine:
+    prefill and graphed greedy decode tok/s at its defaults."""
+    from llama_gguf_tpu_torch.cli import bench
+
+    print(json.dumps({"bench": dict(path=label, **bench(engine), card=card)}),
+          flush=True)
 
 
 def compare(name, case, y, y_plain, timer, kern, plain, library, nbytes, ops,
@@ -482,8 +718,11 @@ def dense_path(card: str, timer, peaks: dict, gguf: str):
     for name, per in PER_STEP.items():
         check(launches[name] == per * steps,
               f"{name}: {launches[name]} launches, expected {per} x {steps}")
-    print(json.dumps({"decode_profile": profile_decode(quant, ids)}),
+    print(json.dumps({"decode_profile": decode_profiles(quant, ids)}),
           flush=True)
+    graph_against_eager("TinyLlama-1.1B", quant, ids, card)
+    tiered_batch(quant, ids, card)
+    bench_json("TinyLlama-1.1B", quant, card)
     return measurements, launches
 
 
@@ -496,8 +735,8 @@ def expert_bytes(stack, experts: int) -> int:
 
 def routing_margins(engine, ids, steps: int) -> list[float]:
     """The smallest top-2 vs third router probability margin over the
-    layers, for each step of engine.greedy_tokens(ids, steps) (step 0: the
-    prefill's prompt rows)."""
+    layers, for each of ``steps`` greedy steps (step 0: the prefill's
+    prompt rows)."""
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
     from llama_gguf_tpu_torch.ops.linear import apply
@@ -511,9 +750,17 @@ def routing_margins(engine, ids, steps: int) -> list[float]:
         rows.append((p[:, 1] - p[:, 2])[:len(ids)].min().item())
         return route(ffn, cfg, xf)
 
+    # eagerly, on a cache the runner did not make: a graph replay would
+    # not call route
+    r = engine.runner
     T.route = record
-    engine.greedy_tokens(ids, steps)
-    T.route = route
+    try:
+        logits, kv, pos = r.prefill(ids, r._make_kv(1))
+        for _ in range(steps - 1):
+            logits, kv = r.decode_one(int(torch.argmax(logits)), pos, kv)
+            pos += 1
+    finally:
+        T.route = route
     n_layers = engine.runner.cfg.num_layers
     return [min(rows[j:j + n_layers]) for j in range(0, len(rows), n_layers)]
 
@@ -560,7 +807,8 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
 
     T.route = record
     ids = quant.tokenizer.encode(PROMPT)
-    quant.runner.prefill(ids, quant.runner.init_kv())
+    # eager (a cache the runner did not make), so route sees the prompt
+    quant.runner.prefill(ids, quant.runner._make_kv(1))
     T.route = route
     xf, topi = seen[0]
     k = cfg.num_experts_per_token
@@ -687,8 +935,10 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
         check(on_path == launches[name] > 0,
               f"Mixtral {name}: {on_path} of {launches[name]} launches on "
               f"{path} ({by_path})")
-    print(json.dumps({"moe_decode_profile": profile_decode(quant, ids)}),
+    print(json.dumps({"moe_decode_profile": decode_profiles(quant, ids)}),
           flush=True)
+    graph_against_eager("Mixtral-8x7B-l2", quant, ids, card)
+    bench_json("Mixtral-8x7B-l2", quant, card)
     return measurements, launches
 
 
@@ -726,13 +976,15 @@ def step_bytes(params) -> int:
     return 0
 
 
-def step_logits(runner, ids, steps: int, tokens=None):
+def step_logits(runner, ids, steps: int, tokens=None, eager=False):
     """The logits of a prefill and ``steps`` - 1 decode steps, and the tokens
     fed: greedy from these logits, or ``tokens`` when given (the same
-    history for two runners)."""
+    history for two runners). The steps replay the runner's graphs, or with
+    ``eager`` run eagerly on a cache the runner did not make."""
     import torch
 
-    logits, kv, pos = runner.prefill(ids, runner.init_kv())
+    kv = runner._make_kv(1) if eager else runner.init_kv()
+    logits, kv, pos = runner.prefill(ids, kv)
     toks, rows = [], []
     for i in range(steps):
         rows.append(logits.float())
@@ -780,11 +1032,15 @@ def serving_path(card: str, gguf: str, peaks: dict):
     engine.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up
     torch.cuda.synchronize()
     Q.reset_launches()
+    engine.runner.eager_steps = 0
     engine.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
     torch.cuda.synchronize()
     launches = dict(Q.LAUNCHES)
     stats = engine.stats
     steps = 1 + stats.generated_tokens
+    check(engine.runner.eager_steps == 0,
+          f"serving: {engine.runner.eager_steps} steps of Engine.generate ran "
+          "eagerly")
     print(f"TinyLlama-1.1B serving main path: prefill {stats.prompt_tokens} "
           f"tok @ {stats.prefill_tps:.1f} tok/s, decode "
           f"{stats.generated_tokens} tok @ {stats.decode_tps:.1f} tok/s, "
@@ -830,8 +1086,11 @@ def serving_path(card: str, gguf: str, peaks: dict):
     check(first_diff is None or (near is not None and first_diff >= near),
           f"serving: tokens differ at step {first_diff}, before the first "
           f"near tie ({near})")
-    print(json.dumps({"serving_decode_profile": profile_decode(engine, ids)}),
+    print(json.dumps({"serving_decode_profile": decode_profiles(engine,
+                                                                ids)}),
           flush=True)
+    graph_against_eager("TinyLlama-1.1B serving", engine, ids, card)
+    bench_json("TinyLlama-1.1B serving", engine, card)
     return launches
 
 

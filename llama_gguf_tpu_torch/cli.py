@@ -1,12 +1,13 @@
 """Command-line interface of the PyTorch port (subset of
-llama_gguf_tpu/cli.py): ``info`` and ``run``.
+llama_gguf_tpu/cli.py): ``info``, ``run`` and ``bench``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
     python -m llama_gguf_tpu_torch info MODEL.gguf [--tensors] [--json]
+    python -m llama_gguf_tpu_torch bench MODEL.gguf [--json] [--profile DIR]
 
-``run`` loads onto CUDA unless ``--device cpu`` is given. The TOML config
-file, the speculative, grammar and LoRA flags and the other subcommands are
-ROADMAP queue 1.
+``run`` and ``bench`` load onto CUDA unless ``--device cpu`` is given. The
+TOML config file, the speculative, grammar and LoRA flags and the other
+subcommands are ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import json
 import logging
 import os
 import sys
+import tempfile
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,13 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
 
     p = sub.add_parser("run", help="generate text from a prompt")
-    p.add_argument("model", help="path to .gguf model")
-    p.add_argument("--ctx", type=int, default=None, help="max context length")
-    p.add_argument("--weight-mode", choices=["quant", "dequant"],
-                   default="quant")
-    p.add_argument("--kv-cache-type", choices=["f32", "bf16"], default="f32")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (plain PyTorch path)")
+    _add_model_flags(p)
     p.add_argument("-p", "--prompt", default=None)
     p.add_argument("--no-stream", action="store_true")
     p.add_argument("-n", "--max-tokens", type=int, default=512)
@@ -49,7 +45,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--stop", action="append", default=None)
     p.add_argument("-v", "--verbose", action="store_true")
+
+    p = sub.add_parser("bench", help="benchmark prefill/decode throughput")
+    _add_model_flags(p)
+    p.add_argument("--prompt-tokens", type=int, default=32)
+    p.add_argument("--gen-tokens", type=int, default=64)
+    p.add_argument("--batch", type=int, default=None,
+                   help="accepted as the JAX CLI accepts it; one stream")
+    p.add_argument("--json", dest="json_out", action="store_true")
+    p.add_argument("--profile", nargs="?", default=None,
+                   const=os.path.join(tempfile.gettempdir(),
+                                      "llama_gguf_tpu_torch_profile"),
+                   help="write a torch.profiler chrome trace to DIR")
+    p.add_argument("-v", "--verbose", action="store_true")
     return ap
+
+
+def _add_model_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model", help="path to .gguf model")
+    p.add_argument("--ctx", type=int, default=None, help="max context length")
+    p.add_argument("--weight-mode", choices=["quant", "dequant"],
+                   default="quant")
+    p.add_argument("--kv-cache-type", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch path)")
 
 
 def cmd_info(args) -> int:
@@ -126,7 +145,74 @@ def cmd_run(args) -> int:
     return 0
 
 
-COMMANDS = {"info": cmd_info, "run": cmd_run}
+def bench(engine, prompt_tokens: int = 32, gen_tokens: int = 64,
+          profile_dir: str | None = None) -> dict:
+    """The JAX CLI's bench on a loaded engine: a prefill of random prompt
+    ids (``default_rng(0)``), a 1-step greedy_decode warm-up, then a timed
+    greedy_decode ended by one host fetch of its tokens. The prefill's time
+    includes its graph's capture, as the JAX one includes its compile.
+    ``profile_dir``: write a torch.profiler chrome trace of the timed
+    decode there."""
+    import contextlib
+    import time
+
+    import numpy as np
+    import torch
+
+    r = engine.runner
+    ids = np.random.default_rng(0).integers(
+        0, r.cfg.vocab_size, size=prompt_tokens).tolist()
+    kv = r.init_kv()
+    t0 = time.time()
+    logits, kv, pos = r.prefill(ids, kv)
+    logits.cpu()
+    prefill_s = time.time() - t0
+    first = torch.argmax(logits)[None].to(torch.int32)
+    _, kv = r.greedy_decode(first, [pos], kv, steps=1)  # warm-up
+    prof = contextlib.nullcontext()
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if r.device.type == "cuda" else [])
+        prof = profile(activities=acts)
+    with prof:
+        t0 = time.time()
+        toks, kv = r.greedy_decode(first, [pos + 1], kv, steps=gen_tokens)
+        toks.cpu()
+        decode_s = time.time() - t0
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        logging.getLogger(__name__).info("profile trace written to %s",
+                                         profile_dir)
+    return {"prefill_tps": prompt_tokens / prefill_s,
+            "decode_tps": gen_tokens / decode_s,
+            "prompt_tokens": prompt_tokens, "gen_tokens": gen_tokens}
+
+
+def cmd_bench(args) -> int:
+    from .engine.engine import Engine, EngineConfig
+
+    if not os.path.exists(args.model):
+        sys.exit(f"error: model not found: {args.model}")
+    engine = Engine.load(
+        args.model,
+        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
+                     kv_format=args.kv_cache_type),
+        device=args.device)
+    result = bench(engine, args.prompt_tokens, args.gen_tokens, args.profile)
+    if args.json_out:
+        print(json.dumps(result))
+    else:
+        print(f"prefill: {result['prefill_tps']:.1f} tok/s "
+              f"({args.prompt_tokens} tok, incl. capture)")
+        print(f"decode:  {result['decode_tps']:.1f} tok/s "
+              f"({args.gen_tokens} tok)")
+    return 0
+
+
+COMMANDS = {"info": cmd_info, "run": cmd_run, "bench": cmd_bench}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -2,9 +2,10 @@
 llama_gguf_tpu/engine/engine.py, GGUF decoders only).
 
 Prefill runs the prompt through one bucketed forward; decode runs one forward
-per token with the KV cache updated in place on the device. Grammar-
-constrained decoding, the prompt cache, context shift and chat templates are
-ROADMAP queue 1.
+per token with the KV cache updated in place on the device. On CUDA both
+replay the runner's CUDA graphs, on the runner's own cache (``init_kv``):
+one request per engine runs at a time. Grammar-constrained decoding, the
+prompt cache, context shift and chat templates are ROADMAP queue 1.
 """
 
 from __future__ import annotations

@@ -3,25 +3,38 @@ llama_gguf_tpu/engine/runner.py).
 
     step(tokens[B,T], positions[B,T], lengths[B], kv) -> (logits, kv)
 
-PyTorch runs eagerly, so a step is one call of models/transformer.forward;
-the KV cache is updated in place. Prefill pads the prompt to a bucket length
-(padding tokens carry position max_seq and are dropped by the cache write),
-and attention reads the KV cache up to a power-of-two read bucket. Decode is
-one forward per token; greedy_decode keeps the argmax on the device and
-fetches the tokens once per call. CUDA graphs are ROADMAP queue 1.
+Prefill pads the prompt to a bucket length (padding tokens carry position
+max_seq and are dropped by the cache write), and attention reads the KV
+cache up to a power-of-two read bucket, or, for a ragged batch, two of them
+(``pick_read_bound``). Decode is one forward per token; ``greedy_decode``
+keeps the argmax on the device and fetches nothing.
+
+On CUDA a step runs as a CUDA graph, the counterpart of the JAX package's
+jitted steps: one graph per (batch, T, read bound, gathered logits), the JAX
+compile key, and one per (batch, read bound) for a greedy decode step, all
+captured after one eager warm-up run and sharing one memory pool. Each graph
+has static input buffers, so a call copies its inputs in and replays: one
+launch from the host where the eager step makes ~1,700. A graph is bound to
+the addresses of the cache it was captured on, so the runner owns one cache
+per batch size (``init_kv``); a cache it did not make runs eagerly and is
+counted in ``eager_steps``. On the CPU every step runs eagerly (the plain
+path).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
+import numpy as np
 import torch
 
 from ..models import kv as KV
 from ..models.config import ModelConfig
 from ..models.loader import resolve_device
 from ..models.transformer import forward
+from ..ops import qmatmul as Q
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -45,6 +58,70 @@ def read_bucket(n: int, max_seq: int) -> int:
     while b < n:
         b *= 2
     return min(b, max_seq)
+
+
+TIER_CAP_MAX = 8  # most rows the high tier will carry
+TIER_GAIN = 0.9  # tier only when it saves >=10% of attention reads
+TIER_HYSTERESIS = 1.3  # keep the previous config while within 1.3x optimum
+
+
+def pick_read_bound(lengths, max_seq: int, shards: int = 1,
+                    prev: int | tuple[int, int, int] | None = None,
+                    ) -> int | tuple[int, int, int]:
+    """Choose the decode-step KV read configuration for a ragged batch (the
+    JAX package's function). ``lengths``: per-row live context (0 = empty
+    slot). Returns a single bucket (every row reads it) or a two-tier
+    ``(lo, hi, cap)`` tuple for models/transformer.forward: all rows read
+    ``lo``, the <= ``cap`` longest rows re-run at ``hi``. Chosen by
+    minimising the modelled attention reads B*lo + shards*cap*hi over the
+    power-of-two lo buckets, so one long row in a batch stops taxing the
+    others. ``shards``: contiguous batch groups the tier is selected in
+    (``cap`` covers the worst group). ``prev``: the caller's previous pick,
+    kept while it is still correct for these lengths and within
+    TIER_HYSTERESIS of the optimum, so a serving loop does not hop between
+    graph keys."""
+    lens = [int(x) for x in lengths]
+    b = len(lens)
+    g = shards if shards > 1 and b % shards == 0 else 1
+    bl = b // g
+    hi = read_bucket(max(lens), max_seq)
+    best_cost = b * hi
+    best: int | tuple[int, int, int] = hi
+    lo = READ_BOUND_MIN
+    while lo < hi:
+        c = max(sum(1 for n in lens[i * bl:(i + 1) * bl] if n > lo)
+                for i in range(g))
+        if 0 < c <= TIER_CAP_MAX and g * c < b:
+            cap = min(1 << (c - 1).bit_length(), bl)
+            cost = b * lo + g * cap * hi
+            if cost < TIER_GAIN * best_cost:
+                best_cost, best = cost, (lo, hi, cap)
+        lo *= 2
+    if prev is not None and prev != best:
+        if isinstance(prev, tuple):
+            plo, phi, pcap = prev
+            over = max(sum(1 for n in lens[i * bl:(i + 1) * bl] if n > plo)
+                       for i in range(g))
+            if (max(lens) <= phi and over <= pcap <= bl
+                    and b * plo + g * pcap * phi
+                    <= TIER_HYSTERESIS * best_cost):
+                return prev
+        elif max(lens) <= prev <= max_seq \
+                and b * prev <= TIER_HYSTERESIS * best_cost:
+            return prev
+    return best
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured step: the graph, its static packed int32 inputs (None for
+    a greedy step, which reads the runner's token and position buffers),
+    its static output, and the kernel launches one replay makes
+    (ops/qmatmul.launch_counts)."""
+    graph: torch.cuda.CUDAGraph
+    inputs: torch.Tensor | None
+    out: torch.Tensor | None
+    launches: tuple[dict, dict]
 
 
 class ModelRunner:
@@ -72,15 +149,131 @@ class ModelRunner:
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_format = kv_format
         self.matmul_precision = matmul_precision
+        self._kv: dict[int, dict] = {}  # the runner's own cache per batch
+        self._graphs: dict[tuple, _Graph] = {}
+        self._greedy_io: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._pool = None  # the graphs' shared memory pool
+        self.eager_steps = 0  # CUDA steps run eagerly (a foreign cache)
+        # per graph key: seconds of its warm-up and capture; and the device
+        # memory the captures reserved (the pool's growth)
+        self.capture_seconds: dict[tuple, float] = {}
+        self.pool_bytes = 0
 
     # -- state ---------------------------------------------------------------
 
-    def init_kv(self, batch: int | None = None) -> dict:
+    def _make_kv(self, batch: int) -> dict:
+        """A new zeroed cache. The runner keeps none of these: a step on
+        one runs eagerly (the plain path the graphs are held against)."""
         return KV.init_cache(
-            self.cfg.num_layers, batch or self.max_batch, self.max_seq,
+            self.cfg.num_layers, batch, self.max_seq,
             self.cfg.cache_kv_heads, self.cfg.cache_k_dim,
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
             device=self.device)
+
+    def init_kv(self, batch: int | None = None) -> dict:
+        """The runner's own cache for ``batch`` rows, zeroed in place: the
+        same tensors at every call, so the graphs captured on them replay.
+        The JAX runner returns a new cache and donates it to each step; the
+        port's steps update the cache in place instead, and a new request
+        reuses (and clears) the previous one's, so one request per batch
+        size runs at a time."""
+        b = batch or self.max_batch
+        kv = self._kv.get(b)
+        if kv is None:
+            kv = self._kv[b] = self._make_kv(b)
+        else:
+            for t in kv["k"] + kv["v"]:
+                t.zero_()
+        return kv
+
+    def _graphed(self, kv: dict, b: int, steps: int = 1) -> bool:
+        """Whether steps on ``kv`` replay graphs: on CUDA, with the
+        runner's own cache. ``steps`` on a foreign cache on CUDA are
+        counted in ``eager_steps``."""
+        if self.device.type != "cuda":
+            return False
+        if kv is self._kv.get(b):
+            return True
+        self.eager_steps += steps
+        return False
+
+    # -- graphs --------------------------------------------------------------
+
+    def _capture(self, key: tuple, warm, body,
+                 inputs: torch.Tensor | None = None) -> _Graph:
+        """Run ``warm()`` (the step on dummy inputs whose cache writes all
+        go to the drop slot) eagerly on a side stream, so every kernel is
+        built and every workspace sized, then capture ``body()`` into the
+        runner's pool. The launches counted during the capture are taken
+        back (it launches nothing) and kept for crediting at each replay.
+        A failure raises: nothing falls back to the eager step."""
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm()
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = Q.launch_counts()
+        # the capture empties the allocator's cache first: so does this,
+        # and what is reserved after the capture is the pool's growth
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = body()
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        launches = Q.launch_counts(since=before)
+        Q.credit(launches, -1)
+        self.capture_seconds[key] = time.perf_counter() - t0
+        return _Graph(graph, inputs, out, launches)
+
+    def _replay(self, g: _Graph) -> None:
+        g.graph.replay()
+        Q.credit(g.launches)
+
+    def _norm_bound(self, read_bound):
+        """A read bound capped at max_seq; a tier whose lo reaches hi is the
+        single bound hi. Tuples get the shard count 1 (one device)."""
+        if isinstance(read_bound, tuple):
+            lo, hi, cap = read_bound[:3]
+            hi = min(hi, self.max_seq)
+            return (lo, hi, cap, 1) if lo < hi else hi
+        if read_bound is not None:
+            return min(read_bound, self.max_seq)
+        return None
+
+    def _forward(self, kv, read_bound, tokens, positions, lengths, lp=None):
+        logits, _ = forward(self.params, self.cfg, tokens, positions, kv,
+                            lengths, read_bound=read_bound,
+                            logit_positions=lp,
+                            precision=self.matmul_precision)
+        return logits
+
+    def _step_graph(self, b: int, t: int, read_bound, gather: bool,
+                    kv: dict) -> _Graph:
+        key = (b, t, read_bound, gather)
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        n = 2 * b * t + b + (b if gather else 0)
+        dev = self.device
+
+        def unpack(buf):
+            lp = buf[2 * b * t + b:].view(b) if gather else None
+            return (buf[:b * t].view(b, t), buf[b * t: 2 * b * t].view(b, t),
+                    buf[2 * b * t: 2 * b * t + b].view(b), lp)
+
+        dummy = torch.zeros(n, dtype=torch.int32, device=dev)
+        dummy[b * t: 2 * b * t] = self.max_seq  # every write dropped
+        inputs = dummy.clone()
+        g = self._graphs[key] = self._capture(
+            key, lambda: self._forward(kv, read_bound, *unpack(dummy)),
+            lambda: self._forward(kv, read_bound, *unpack(inputs)), inputs)
+        return g
 
     # -- steps ---------------------------------------------------------------
 
@@ -89,23 +282,32 @@ class ModelRunner:
 
     @torch.no_grad()
     def step(self, tokens, positions, lengths, kv: dict,
-             read_bound: int | None = None, logit_positions=None
+             read_bound=None, logit_positions=None
              ) -> tuple[torch.Tensor, dict]:
         """Run one step. tokens/positions [B, T], lengths [B] (int arrays or
         tensors). ``read_bound``: cap on KV positions attention reads (all
-        valid positions must be < read_bound); use read_bucket() to pick.
-        ``logit_positions``: optional [B] per-row T-index — the LM head runs
-        on that single position per row and logits come back [B, 1, V]."""
-        tokens = self._tensor(tokens)
-        t = tokens.shape[1]
-        if read_bound is not None:
-            read_bound = min(read_bound, self.max_seq)
-        lp = (self._tensor(logit_positions)
-              if logit_positions is not None and t > 1 else None)
-        return forward(self.params, self.cfg, tokens,
-                       self._tensor(positions), kv, self._tensor(lengths),
-                       read_bound=read_bound, logit_positions=lp,
-                       precision=self.matmul_precision)
+        valid positions must be < read_bound); use read_bucket() to pick, or
+        a ``(lo, hi, cap)`` tier from pick_read_bound. ``logit_positions``:
+        optional [B] per-row T-index — the LM head runs on that single
+        position per row and logits come back [B, 1, V]. The logits are
+        the caller's own (a copy of a graph's output)."""
+        b, t = np.shape(tokens)
+        read_bound = self._norm_bound(read_bound)
+        gather = logit_positions is not None and t > 1
+        parts = (tokens, positions, lengths) + (
+            (logit_positions,) if gather else ())
+        if not self._graphed(kv, b):
+            return self._forward(kv, read_bound,
+                                 *(self._tensor(p) for p in parts)), kv
+        g = self._step_graph(b, t, read_bound, gather, kv)
+        if any(torch.is_tensor(p) and p.device.type != "cpu" for p in parts):
+            g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
+                                      for p in parts]))
+        else:  # one copy from the host
+            g.inputs.copy_(torch.from_numpy(np.concatenate(
+                [np.asarray(p, np.int32).reshape(-1) for p in parts])))
+        self._replay(g)
+        return g.out.clone(), kv
 
     @staticmethod
     def plan_segments(start: int, steps: int,
@@ -128,27 +330,71 @@ class ModelRunner:
             done += chunk
         return plan
 
+    def _decode_body(self, tok: torch.Tensor, pos: torch.Tensor, kv: dict,
+                     read_bound) -> None:
+        """One greedy decode step on tok/pos [B] in place: the argmax token
+        replaces tok, and pos advances by one."""
+        logits = self._forward(kv, read_bound, tok[:, None], pos[:, None],
+                               pos + 1)
+        tok.copy_(torch.argmax(logits[:, 0, :], dim=-1))
+        pos.add_(1)
+
+    def _greedy_graph(self, b: int, read_bound, kv: dict) -> _Graph:
+        key = ("greedy", b, read_bound)
+        g = self._graphs.get(key)
+        if g is None:
+            tok, pos = self._greedy_io[b]
+            dtok = torch.zeros_like(tok)
+            dpos = torch.full_like(pos, self.max_seq)  # writes dropped
+            g = self._graphs[key] = self._capture(
+                key, lambda: self._decode_body(dtok, dpos, kv, read_bound),
+                lambda: self._decode_body(tok, pos, kv, read_bound))
+        return g
+
     @torch.no_grad()
     def greedy_decode(self, tokens0, pos0, kv, steps: int):
         """Run ``steps`` greedy decode steps. tokens0/pos0: [B] (the last
-        sampled token and its position per sequence). Returns (generated
-        [B, steps] int32 tensor on the device, kv). The argmax stays on the
-        device; the caller fetches the tokens once."""
-        toks = self._tensor(tokens0)
-        pos = self._tensor(pos0)
-        start = int(pos.max().item())
-        outs = []
+        sampled token and its position per sequence; pos0 from the host).
+        Returns (generated [B, steps] int32 tensor on the device, kv).
+
+        Segments follow plan_segments; at B > 1 each segment's bound is
+        pick_read_bound's at the segment-end lengths (a two-tier bound for
+        a ragged batch). On CUDA with the runner's cache every step replays
+        the graph of its (B, bound): the token and positions stay in device
+        buffers the graph updates, and nothing is fetched; the caller
+        fetches the tokens once."""
+        lens0 = np.asarray(pos0.cpu() if torch.is_tensor(pos0) else pos0,
+                           np.int64).reshape(-1)
+        b = lens0.shape[0]
+        graphed = self._graphed(kv, b, steps)
+        if graphed:
+            if b not in self._greedy_io:
+                self._greedy_io[b] = (
+                    torch.zeros(b, dtype=torch.int32, device=self.device),
+                    torch.zeros(b, dtype=torch.int32, device=self.device))
+            tok, pos = self._greedy_io[b]
+            tok.copy_(self._tensor(tokens0))
+            pos.copy_(torch.from_numpy(lens0.astype(np.int32)))
+        else:
+            tok, pos = self._tensor(tokens0).clone(), self._tensor(lens0)
+        out = torch.empty((b, steps), dtype=torch.int32, device=self.device)
         done = 0
-        for chunk, bound in self.plan_segments(start, steps, self.max_seq):
+        for chunk, bound in self.plan_segments(int(lens0.max()), steps,
+                                               self.max_seq):
+            if b > 1:
+                # ragged batch: the bound of the segment-END lengths (each
+                # row's context grows by ``chunk`` in the segment)
+                bound = pick_read_bound(lens0 + done + chunk, self.max_seq)
+            bound = self._norm_bound(bound)
+            g = self._greedy_graph(b, bound, kv) if graphed else None
             for _ in range(chunk):
-                p = pos + done
-                logits, kv = forward(self.params, self.cfg, toks[:, None],
-                                     p[:, None], kv, p + 1, read_bound=bound,
-                                     precision=self.matmul_precision)
-                toks = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
-                outs.append(toks)
+                if graphed:
+                    self._replay(g)
+                else:
+                    self._decode_body(tok, pos, kv, bound)
+                out[:, done].copy_(tok)
                 done += 1
-        return torch.stack(outs, dim=1), kv
+        return out, kv
 
     # -- single-sequence prefill + decode ------------------------------------
 
@@ -160,27 +406,27 @@ class ModelRunner:
         t = len(token_ids)
         bt = bucket_len(t)
         b = KV.cache_shape(kv)[1]
-        toks = torch.zeros((b, bt), dtype=torch.int32)
-        toks[batch_idx, :t] = torch.as_tensor(token_ids, dtype=torch.int32)
-        pos = torch.full((b, bt), self.max_seq, dtype=torch.int32)  # dropped
-        pos[batch_idx, :t] = start_pos + torch.arange(t, dtype=torch.int32)
-        lengths = torch.zeros((b,), dtype=torch.int32)
+        toks = np.zeros((b, bt), np.int32)
+        toks[batch_idx, :t] = token_ids
+        pos = np.full((b, bt), self.max_seq, np.int32)  # dropped
+        pos[batch_idx, :t] = start_pos + np.arange(t)
+        lengths = np.zeros((b,), np.int32)
         lengths[batch_idx] = start_pos + t
         logits, kv = self.step(
             toks, pos, lengths, kv,
             read_bound=read_bucket(start_pos + t, self.max_seq),
-            logit_positions=torch.full((b,), t - 1, dtype=torch.int32))
+            logit_positions=np.full((b,), t - 1, np.int32))
         return logits[batch_idx, logits.shape[1] - 1], kv, start_pos + t
 
     def decode_one(self, token_id: int, pos: int, kv: dict,
                    batch_idx: int = 0) -> tuple[torch.Tensor, dict]:
         """Single-token decode for one sequence. Returns (logits [V], kv)."""
         b = KV.cache_shape(kv)[1]
-        toks = torch.zeros((b, 1), dtype=torch.int32)
+        toks = np.zeros((b, 1), np.int32)
         toks[batch_idx, 0] = token_id
-        posa = torch.full((b, 1), self.max_seq, dtype=torch.int32)
+        posa = np.full((b, 1), self.max_seq, np.int32)
         posa[batch_idx, 0] = pos
-        lengths = torch.zeros((b,), dtype=torch.int32)
+        lengths = np.zeros((b,), np.int32)
         lengths[batch_idx] = pos + 1
         logits, kv = self.step(toks, posa, lengths, kv,
                                read_bound=read_bucket(pos + 1, self.max_seq))

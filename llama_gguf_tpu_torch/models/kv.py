@@ -15,6 +15,8 @@ from typing import Any
 
 import torch
 
+from ..ops.attention import group_take
+
 FORMATS = ("f32", "bf16")
 _STORE_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -67,11 +69,27 @@ def write(kv: dict[str, Any], layer: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def read(kv: dict[str, Any], layer: int, compute_dtype=torch.float32,
-         bound: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+         bound: int | None = None, rows: torch.Tensor | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V for one layer ([B,S,H,Dk], [B,S,H,Dv]) in ``compute_dtype``,
     sliced to the first ``bound`` positions (the caller guarantees every
-    valid position < bound); the drop slot is never read."""
+    valid position < bound); the drop slot is never read.
+
+    ``rows``: optional batch-row gather (two-tier ragged decode: only the
+    long rows' cache bytes are read for the high bucket), either [C] global
+    indices or [G, C] group-local ones (ops/attention.group_take); the
+    result is [C or G*C, ...]. Out-of-range indices clamp, as the JAX
+    package's gather does: the caller drops those rows."""
     s = kv["k"][layer].shape[1] - 1
     n = s if bound is None else min(bound, s)
-    return (kv["k"][layer][:, :n].to(compute_dtype),
-            kv["v"][layer][:, :n].to(compute_dtype))
+
+    def pick(a):
+        a = a[:, :n]
+        if rows is not None:
+            if rows.dim() == 2:
+                a = group_take(a, rows)
+            else:
+                a = a.index_select(0, rows.clamp(0, a.shape[0] - 1))
+        return a.to(compute_dtype)
+
+    return pick(kv["k"][layer]), pick(kv["v"][layer])

@@ -13,9 +13,12 @@ own torch matmuls (attention, the router, dense weights) stay float32 in
 either mode. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
 RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
 kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
-kernels, parallel residual, post norms, tied embeddings. Layer kinds other
-than "attn", MLA, the other MoE routings and the tiered read bound are ROADMAP
-queue 1.
+kernels, parallel residual, post norms, tied embeddings, and the two-tier
+ragged read bound on one device. Layer kinds other than "attn", MLA, the
+other MoE routings and the tier over data shards are ROADMAP queue 1.
+
+Nothing here reads a device value on the host, so engine/runner.py can
+capture a whole step in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import linear as L
-from ..ops.attention import attention_scores
+from ..ops.attention import attention_scores, tiered_attention
 from ..ops.norms import apply_norm, rms_norm
 from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
                            moe_group_plan, moe_qmatmul, moe_qmatmul_glu,
@@ -60,13 +63,11 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     """Attention with KV cache. x [B, T, H]; positions [B, T]; lengths [B]
     (valid cache length AFTER this step's tokens are written);
     ``read_bound``: cap on cache positions to read (every valid position <
-    read_bound)."""
+    read_bound), or ``(lo, hi, tier_idx)`` for two-tier ragged decode
+    (``forward`` selects ``tier_idx``)."""
     if "kv_a" in layer:
         raise NotImplementedError("MLA attention is not ported yet "
                                   "(ROADMAP queue 1)")
-    if isinstance(read_bound, tuple):
-        raise NotImplementedError("tiered read bounds come with the batched "
-                                  "engine (ROADMAP queue 1)")
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     vd = cfg.value_length or hd
@@ -130,12 +131,18 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     sinks = None
     if "sinks" in layer:  # attention sinks (gpt-oss): extra logit per head
         sinks = layer["sinks"].reshape(nkv, rep).float()
-    keys, vals = KV.read(kv, layer_idx, bound=read_bound)
-    ctx = attention_scores(qg, keys, vals, positions, lengths,
-                           scale=cfg.attention_scale or hd ** -0.5,
-                           softcap=cfg.attn_logit_softcap,
-                           sliding_window=window, sinks=sinks,
-                           alibi=cfg.uses_alibi)
+    akw = dict(scale=cfg.attention_scale or hd ** -0.5,
+               softcap=cfg.attn_logit_softcap, sliding_window=window,
+               sinks=sinks, alibi=cfg.uses_alibi)
+    if isinstance(read_bound, tuple):  # two-tier ragged decode
+        lo, hi, tier_idx = read_bound
+        ctx = tiered_attention(
+            lambda bound, rows: KV.read(kv, layer_idx, bound=bound,
+                                        rows=rows),
+            qg, positions, lengths, lo, hi, tier_idx, **akw)
+    else:
+        keys, vals = KV.read(kv, layer_idx, bound=read_bound)
+        ctx = attention_scores(qg, keys, vals, positions, lengths, **akw)
     ctx = ctx.reshape(b, t, nh * vd).to(x.dtype)
 
     if "sub_norm" in layer:  # BitNet: RMSNorm on attn output before o_proj
@@ -325,7 +332,29 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     reads; None reads the whole cache. ``logit_positions``: optional [B]
     per-row T-index; the LM head then runs on that one hidden state per row
     and the result is [B, 1, V]. ``precision``: the matmul precision of the
-    quantized products (the runner's ``matmul_precision``)."""
+    quantized products (the runner's ``matmul_precision``).
+
+    ``read_bound`` may also be a tuple ``(lo, hi, cap)`` or ``(lo, hi, cap,
+    shards)``: two-tier ragged decode (ops/attention.tiered_attention).
+    Every row reads the ``lo`` bucket, and the <= ``cap`` rows whose length
+    exceeds ``lo`` re-run against ``hi``; the caller guarantees that no
+    more than ``cap`` rows do (engine/runner.pick_read_bound). The tier's
+    rows are selected here on the device, with one top-k over ``lengths``.
+    ``shards`` > 1 (a tier grouped per data shard) raises."""
+    if isinstance(read_bound, tuple):
+        lo, hi, cap, *rest = read_bound
+        shards = rest[0] if rest else 1
+        b = tokens.shape[0]
+        if shards > 1 and b % shards == 0:
+            raise NotImplementedError(
+                "a tiered read bound over data shards (shards > 1) is not "
+                "ported yet (ROADMAP queue 1 item 12)")
+        # torch.topk may order tied lengths unlike jax.lax.top_k, but cap
+        # covers every row longer than lo, so the same rows get the hi
+        # bucket and the result is the same; the others are padding (b)
+        top, idx = torch.topk(lengths.reshape(1, b), min(cap, b), dim=1)
+        read_bound = (lo, hi, torch.where(top > lo, idx,
+                                          torch.full_like(idx, b)))
     kinds = cfg.layer_kinds or ("attn",) * len(params["layers"])
     x = embed(params, cfg, tokens, positions)
     for i, layer in enumerate(params["layers"]):

@@ -4,11 +4,14 @@ a Pallas kernel).
 
 Mask semantics as in the JAX package: causal on positions, ``lengths``,
 sliding window (a negative window means chunked attention), logit softcap,
-attention sinks and ALiBi; GQA grouping qg [B, T, K, R, D].
+attention sinks and ALiBi; GQA grouping qg [B, T, K, R, D]. Two-tier ragged
+decode attention (``tiered_attention``, ``group_take``) serves the tuple
+read bound of models/transformer.forward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,9 +23,11 @@ DEFAULT_BLOCK = 256
 CHUNK_THRESHOLD = 1 << 22
 
 
+@functools.lru_cache(maxsize=None)
 def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     """Standard ALiBi slopes: geometric sequence from 2^(-8/n) for the
-    largest power-of-two n <= num_heads, with interleaved extras."""
+    largest power-of-two n <= num_heads, with interleaved extras. Cached,
+    so a CUDA graph's capture copies nothing from the host."""
     n = 2 ** math.floor(math.log2(num_heads))
     base = 2.0 ** (-8.0 / n)
     slopes = [base ** (i + 1) for i in range(n)]
@@ -139,6 +144,51 @@ def chunked_attention(qg, keys, vals, positions, lengths, *, scale: float,
         l = l * alpha + torch.exp(sk - m2)
         acc = acc * alpha[..., None]
     return acc / torch.clamp(l[..., None], min=1e-30)
+
+
+def group_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather batch rows by group-local indices: ``x`` [B, ...] viewed as G
+    contiguous groups of B/G rows, ``idx`` [G, C] row indices within each
+    group. Entries == B/G are padding: clamped here (as the JAX package's
+    ``mode="clip"`` gather does), dropped at the scatter of
+    ``tiered_attention``. Returns [G*C, ...]."""
+    g, c = idx.shape
+    bl = x.shape[0] // g
+    rows = (torch.arange(g, device=idx.device)[:, None] * bl
+            + idx.clamp(0, bl - 1)).reshape(-1)
+    return x.index_select(0, rows)
+
+
+def tiered_attention(read_fn, qg, positions, lengths, lo: int, hi: int,
+                     tier_idx: torch.Tensor, **kw):
+    """Two-tier ragged decode attention (static shapes). Every row attends
+    over the ``lo`` KV bucket; the few rows whose live context exceeds
+    ``lo``, pre-selected into ``tier_idx`` [G, C] (group-local indices,
+    B/G = padding), are gathered, attend over the ``hi`` bucket and
+    overwrite their lo-bucket results. Attention reads B*lo + G*C*hi
+    positions instead of B*hi. ``read_fn(bound, rows)`` -> (keys, vals):
+    the cache sliced to ``bound`` positions, batch rows gathered by
+    ``rows`` first when given (models/kv.read).
+
+    The JAX scatter drops the padding index B/G (``mode="drop"``); torch's
+    index_put_ would fault on it. So each group gets one extra row that
+    the padding entries write to and the result leaves out, as the KV
+    cache's drop slot does for padding positions."""
+    g, c = tier_idx.shape
+    b = qg.shape[0]
+    bl = b // g
+    keys, vals = read_fn(lo, None)
+    ctx = attention_scores(qg, keys, vals, positions, lengths, **kw)
+    k_hi, v_hi = read_fn(hi, tier_idx)
+    ctx_hi = attention_scores(
+        group_take(qg, tier_idx), k_hi, v_hi,
+        group_take(positions, tier_idx), group_take(lengths, tier_idx), **kw)
+    rest = ctx.shape[1:]
+    ctxg = torch.cat([ctx.reshape(g, bl, *rest),
+                      ctx.new_zeros((g, 1, *rest))], dim=1)
+    ctxg[torch.arange(g, device=ctx.device)[:, None], tier_idx.long()] = \
+        ctx_hi.reshape(g, c, *rest)
+    return ctxg[:, :bl].reshape(b, *rest)
 
 
 def attention_scores(qg, keys, vals, positions, lengths, *, scale: float,

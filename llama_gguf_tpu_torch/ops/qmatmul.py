@@ -40,6 +40,15 @@ kernel and path ("moe_slot splitk", "moe_glu_grouped tc", ...). What bounds
 each kernel on the card and how its design meets that is written at the top
 of each CUDA source.
 
+CUDA graphs (engine/runner.py). A wrapper called while a stream is captured
+records its launch instead of making it, so the counters it bumps then are
+taken back by the capturer (``launch_counts``, ``credit``) and credited again
+at every replay. The split-K workspace and tile counters (``_scratch``) are
+never freed once handed out: a captured graph keeps their addresses. They
+must be large enough before a capture starts (the runner's eager warm-up
+run grows them); growing them during a capture raises, as does building a
+kernel library then.
+
 Precision (``precision`` of each entry): "highest" or None gives float32
 outputs; "default" gives bfloat16 outputs, the f32 sums rounded once (the
 JAX package's ``_out_dtype``). The JAX entries resolve None from the ambient
@@ -336,6 +345,27 @@ def reset_launches() -> None:
     LAUNCHES_BY_PATH.clear()
 
 
+def launch_counts(since: tuple[dict, dict] | None = None
+                  ) -> tuple[dict, dict]:
+    """A copy of (LAUNCHES, LAUNCHES_BY_PATH); with ``since`` (an earlier
+    copy), the launches counted after it, nonzero entries only."""
+    now = (dict(LAUNCHES), dict(LAUNCHES_BY_PATH))
+    if since is None:
+        return now
+    return tuple({k: v - was.get(k, 0) for k, v in cur.items()
+                  if v != was.get(k, 0)} for cur, was in zip(now, since))
+
+
+def credit(counts: tuple[dict, dict], times: int = 1) -> None:
+    """Add ``times`` x the launches of ``counts`` (a ``launch_counts``
+    difference) to the counters: a graph replay makes the launches its
+    capture recorded."""
+    for key, n in counts[0].items():
+        LAUNCHES[key] += times * n
+    for key, n in counts[1].items():
+        LAUNCHES_BY_PATH[key] = LAUNCHES_BY_PATH.get(key, 0) + times * n
+
+
 def _count(name: str, plan: QmatmulPlan) -> None:
     """One launch of kernel ``name`` on ``plan``'s path."""
     LAUNCHES[name] += 1
@@ -404,6 +434,14 @@ def expert_matmul(x_rows: torch.Tensor, stack,
     n = stack.n if quant else stack.shape[-1]
     x = x_rows.float()
     y = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    if not quant and x.device.type == "cuda":
+        # a dense stack on the card (dequant mode): every row through every
+        # expert, kept where routed. No row count reaches the host, so a
+        # CUDA graph can capture the step.
+        for e in range(stack.shape[0]):
+            y = torch.where((idx == e)[:, None],
+                            torch.matmul(x, stack[e].float()), y)
+        return y
     for e in range(stack.shape[0]):
         sel = torch.nonzero(idx == e)[:, 0]
         if sel.numel():
@@ -489,10 +527,17 @@ SIGNATURES = {
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built at first use."""
-    from ..utils.cuda_build import load
+    """The loaded library of csrc/<name>.cu, built at first use (never
+    during a CUDA graph capture: the warm-up run before it builds)."""
+    from ..utils import cuda_build
 
-    return load(name, SIGNATURES[name])
+    lib = cuda_build.loaded(name)
+    if lib is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"csrc/{name}.cu is not built: run the step "
+                               "once before capturing it")
+        lib = cuda_build.load(name, SIGNATURES[name])
+    return lib
 
 
 def _check(x: torch.Tensor, lin: QuantLinear | QuantExpertStack) -> int:
@@ -563,21 +608,35 @@ def _raise_on(rc: int, what: str) -> None:
 
 _SMS: dict[int, int] = {}
 _SCRATCH: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+# Every workspace and counter tensor ever handed out: a CUDA graph captured
+# on one keeps its address after a larger plan has replaced it in _SCRATCH.
+_HANDED_OUT: list[torch.Tensor] = []
 
 
 def _scratch(dev: torch.device, plan: QmatmulPlan) -> tuple[int, int]:
     """Pointers to the device's split-K workspace and tile counters, grown
     to the plan's need (counters start at 0, and the kernels leave them
-    0). One per device, for launches on one stream at a time."""
+    0). One per device, for launches on one stream at a time. A buffer is
+    never freed (``_HANDED_OUT``), and growing one while a stream is
+    captured raises: the capture would take it from the graph's pool."""
     if plan.splits == 1:
         return 0, 0
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     ws, cnt = _SCRATCH.get(idx, (None, None))
-    if ws is None or ws.numel() * 4 < plan.scratch_bytes:
+    grow_ws = ws is None or ws.numel() * 4 < plan.scratch_bytes
+    grow_cnt = cnt is None or cnt.numel() < plan.tiles
+    if (grow_ws or grow_cnt) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"split-K workspace of {plan.scratch_bytes} bytes and "
+            f"{plan.tiles} tile counters not reserved before the capture: "
+            "run the step once before capturing it")
+    if grow_ws:
         ws = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                          device=dev)
-    if cnt is None or cnt.numel() < plan.tiles:
+        _HANDED_OUT.append(ws)
+    if grow_cnt:
         cnt = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
+        _HANDED_OUT.append(cnt)
     _SCRATCH[idx] = (ws, cnt)
     return ws.data_ptr(), cnt.data_ptr()
 

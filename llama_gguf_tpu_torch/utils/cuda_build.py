@@ -84,6 +84,11 @@ def build_all(names) -> None:
             fut.result()
 
 
+def loaded(name: str) -> ctypes.CDLL | None:
+    """The library of csrc/<name>.cu if this process has loaded it."""
+    return _LIBS.get(name)
+
+
 def load(name: str, signatures: dict[str, list] | None = None) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use.
     ``signatures`` ({function: argtypes}) are bound when the library is first

@@ -376,7 +376,9 @@ def test_engine_on_card_matches_cpu(cuda, tmp_path):
 def test_moe_engine_on_card_matches_cpu(cuda, tmp_path):
     """tiny-moe (Q5_1 gate/up, Q6_K down) through Engine on the card: the
     prompt's 256 slots take the grouped kernels, decode the slot-major one;
-    same greedy tokens as the CPU."""
+    same greedy tokens as the CPU. A first call captures the runner's
+    graphs (their eager warm-up runs launch the kernels too); the counted
+    call replays them."""
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
 
@@ -386,6 +388,7 @@ def test_moe_engine_on_card_matches_cpu(cuda, tmp_path):
     cpu = Engine.load(path, EngineConfig(), device="cpu")
     ids = gpu.tokenizer.encode("The quick brown fox jumps over the lazy dog, "
                                "again and again.")
+    gpu.greedy_tokens(ids, 12)
     Q.reset_launches()
     toks = gpu.greedy_tokens(ids, 12)
     assert Q.LAUNCHES["moe_glu_grouped"] == Q.LAUNCHES["moe_grouped"] == 2
