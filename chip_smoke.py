@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 8, 6: phases 7 and 8 run while phase 6's GGUF builds.
-Phase 9 runs inside each of phases 4, 6 and 7, on that path's engine.
+in the order 1-5, 7, 10a, 8, 6, 10b: phases 7, 10a and 8 run while phase
+6's GGUF builds. Phase 9 runs inside each of phases 4, 6 and 7, on that
+path's engine; phase 10b inside phase 6, on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
 plain version the graphs are held against.
@@ -113,10 +114,46 @@ plain version the graphs are held against.
    batch eager at the single bound 1024; each row's tokens equal up to its
    first step whose top-2 margin is under 1e-3 * max |logit|.
 
+10. The server and continuous batching (engine/batched.py, server/app.py,
+   client.py). 10a, TinyLlama-1.1B at full width: run_server on the
+   ServerConfig of `serve MODEL --max-batch SERVE_BATCH --prefill-chunk
+   SERVE_CHUNK` (its warm-up capturing two graph keys at load) on a free
+   port in a thread;
+   launch counters and eager steps set to 0; then 12 client threads, each
+   one request through RemoteChatClient: 8 greedy /v1/completions of
+   SERVE_TOKENS tokens from prompts of 16-96 token ids, 2 streamed
+   /v1/chat/completions, 1 completion from a SERVE_LONG-token prompt (its
+   chunks ride in mixed steps) and 1 /v1/embeddings. Gates: every request
+   finishes "stop" or "length"; each greedy answer's tokens equal the
+   single-stream steps' (Engine's prefill and decode_one on the unowned
+   one-row cache) up to that prompt's first near tie (top-2 margin under
+   1e-3 * max |logit|); each streamed chat's deltas join to its request's
+   text, and its tokens equal the same chat's non-streamed tokens up to
+   the first near tie; the embedding is within 1e-4 (relative) of
+   extract_embedding run alone; mixed_steps > 0; no eager step; every
+   launch of kernels 1-3 came from a B = 8 graph's replay (or the
+   embedding's forward) and took the tensor-core path. Prints whether
+   jinja2 imports, the graph keys captured while serving with their
+   seconds, the pool's bytes, the burst's decode tok/s (steps that
+   captured a key left out), time to first token, requests per second,
+   the phase's wall time; then two steady passes (steady_passes) of 8
+   greedy completions of STEADY_TOKENS tokens, the second's pure decode
+   steps being the steady aggregate decode tok/s; and the device time of
+   the B = 8 decode step (torch.profiler over 16 replays of each of its
+   graphs, one per read bound).
+   10b, Mixtral-8x7B-l2: a BatchedEngine directly on a max_batch 4 runner
+   over phase 6's quant weights, 4 greedy requests, one of them from a
+   200-token prompt, prefill_chunk 64. Gates: tokens equal single-stream up
+   to the first near tie (logits, or routing: a top-2 vs third router
+   probability margin under 1e-4); kernel 4 launched by the B = 4 decode
+   graphs (8 slots); kernels 5 and 6 launched in mixed steps; no eager
+   step. Then two steady passes of the 4 prompts at STEADY_MOE_TOKENS
+   tokens each, as in 10a.
+
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
-the bench lines and one JSON object {"kernels": [...]}. The last line is
-{"ok": true, "device": {...}}.
+phase 10's, the bench lines and one JSON object {"kernels": [...]}. The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -154,6 +191,14 @@ REL_LIMIT = 2e-4
 GREEDY_STEPS = 200  # phase 9: from the 96-token prompt, across bucket 256
 LONG_ROW = 700  # phase 9: the long row of the B = 8 batch (bucket 1024)
 ROWS = (1, 8, 128, 512)  # 128: the main path's own prefill bucket
+SERVE_BATCH = 8  # phase 10a: the server's rows
+SERVE_CHUNK = 64  # phase 10: prompt tokens per batched step
+SERVE_TOKENS = 48  # phase 10a: tokens per greedy completion
+SERVE_LONG = 400  # phase 10a: the long completion's prompt tokens
+STEADY_TOKENS = 192  # phase 10a: tokens per request of the steady passes
+STEADY_MOE_TOKENS = 128  # phase 10b: the same
+NEAR_TIE = 1e-3  # phases 9, 10: top-2 margin over max |logit|
+ROUTE_TIE = 1e-4  # phase 10b: top-2 vs third router probability margin
 MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 # Phase 7's logit tolerance, relative to max |oracle logits|. The serving
 # configuration rounds to bf16 (relative error <= 2^-9 each) every kernel
@@ -939,7 +984,8 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
           flush=True)
     graph_against_eager("Mixtral-8x7B-l2", quant, ids, card)
     bench_json("Mixtral-8x7B-l2", quant, card)
-    return measurements, launches
+    batched_launches = moe_batched(quant, card)
+    return measurements, launches, batched_launches
 
 
 def upcast_panels(params):
@@ -1094,6 +1140,410 @@ def serving_path(card: str, gguf: str, peaks: dict):
     return launches
 
 
+def single_stream(runner, ids, steps: int):
+    """The single-stream path's greedy tokens (Engine's prefill and
+    decode_one on the runner's unowned one-row cache, graphed) and each
+    step's top-2 margin over max |logit|."""
+    import numpy as np
+
+    toks, margins = [], []
+    logits, kv, pos = runner.prefill(ids, runner.init_kv(1), host=True)
+    for i in range(steps):
+        top2 = np.partition(logits, -2)[-2:]
+        margins.append(float((top2[1] - top2[0]) / np.abs(logits).max()))
+        toks.append(int(np.argmax(logits)))
+        if i + 1 < steps:
+            logits, kv = runner.decode_one(toks[-1], pos, kv, host=True)
+            pos += 1
+    return toks, margins
+
+
+def same_until_tie(label: str, got, want, margins, near=None) -> dict:
+    """``got`` equals ``want`` up to the first near tie: the first step
+    whose margin is under NEAR_TIE, or ``near`` when that comes first."""
+    ties = [i for i, m in enumerate(margins) if m < NEAR_TIE]
+    ties += [near] if near is not None else []
+    tie = min(ties) if ties else None
+    diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+    check(diff is None or (tie is not None and diff >= tie),
+          f"{label}: tokens differ at step {diff}, before the first near "
+          f"tie ({tie})")
+    return dict(tokens=len(got), first_diff=diff, first_near_tie=tie)
+
+
+def graph_launches(r, replays0: dict, batch: int, t: int | None = None
+                   ) -> dict:
+    """The kernel launches the replays of ``r``'s graphs of ``batch`` rows
+    (and ``t`` tokens, when given) made since ``replays0``."""
+    out: dict[str, int] = {}
+    for key, n in r.replays.items():
+        n -= replays0.get(key, 0)
+        if not n or key[0] != batch or (t is not None and key[1] != t):
+            continue
+        for name, per in r._graphs[key].launches[0].items():
+            out[name] = out.get(name, 0) + n * per
+    return out
+
+
+def capture_launches(r, keys0, batch: int, t: int | None = None) -> dict:
+    """The kernel launches of the eager run each capture of ``r``'s graphs
+    of ``batch`` rows (and ``t`` tokens) after ``keys0`` made before it."""
+    out: dict[str, int] = {}
+    for key in r.capture_seconds:
+        if key in keys0 or key[0] != batch or (t is not None
+                                               and key[1] != t):
+            continue
+        for name, n in r._graphs[key].launches[0].items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def profile_decode_graphs(r, batch: int) -> dict:
+    """torch.profiler over 16 replays of each of ``r``'s decode graphs of
+    ``batch`` rows (``summarize``; one per read bound), taken while its
+    scheduler is idle, with the replays each had while serving."""
+    out = {}
+    for key in [k for k in r._graphs if k[0] == batch and k[1] == 1]:
+        g = r._graphs[key]
+        out[str(key)] = dict(served_replays=r.replays.get(key, 0),
+                             **summarize(lambda: [r._replay(g) for _
+                                                  in range(16)], 16))
+    return out
+
+
+def steady_passes(batched, requests) -> list[dict]:
+    """Two passes of ``requests`` (callables, each sending one greedy
+    request that ends in ``batched.submit``), each pass all at once from
+    one thread per request; the second replays the graph keys the first
+    captured, and its pure decode steps are the steady rate. Each pass: its
+    wall seconds, pure decode tokens and seconds, decode_tps over them, the
+    captures it made (their steps left out of decode_tps) and time to first
+    token. Fails if a request does not finish "stop" or "length"."""
+    import dataclasses
+    import threading
+
+    r = batched.runner
+    submit = batched.submit
+    out = []
+    for _ in range(2):
+        s0, c0 = dataclasses.replace(batched.stats), r.captures
+        handles: list = []
+
+        def record(*a, **kw):
+            handles.append(submit(*a, **kw))
+            return handles[-1]
+
+        batched.submit = record
+        threads = [threading.Thread(target=f) for f in requests]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        batched.submit = submit
+        s = batched.stats
+        reasons = [h.finish_reason for h in handles]
+        check(len(handles) == len(requests) and all(
+            x in ("stop", "length") for x in reasons),
+            f"steady pass: finish reasons {reasons}")
+        tokens = s.decode_tokens_pure - s0.decode_tokens_pure
+        secs = s.decode_time - s0.decode_time
+        ttft = sorted(h.first_token_at - h.created for h in handles
+                      if h.first_token_at is not None)
+        out.append(dict(
+            wall_s=wall, decode_tokens_pure=tokens, decode_time_s=secs,
+            decode_tps=tokens / secs if secs else None,
+            completion_tokens=sum(len(h.token_ids) for h in handles),
+            captures=r.captures - c0,
+            capture_steps=s.capture_steps - s0.capture_steps,
+            capture_time_s=s.capture_time - s0.capture_time,
+            ttft_s_median=ttft[len(ttft) // 2] if ttft else None,
+            ttft_s_max=ttft[-1] if ttft else None))
+    return out
+
+
+def server_path(card: str, gguf: str) -> dict:
+    """Phase 10a: TinyLlama-1.1B behind run_server at max_batch SERVE_BATCH,
+    12 concurrent client requests. Returns the served window's launches."""
+    import dataclasses
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.client import RemoteChatClient
+    from llama_gguf_tpu_torch.engine.chat import _jinja_available
+    from llama_gguf_tpu_torch.models.embeddings import extract_embedding
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.cli import build_parser, serve_config
+    from llama_gguf_tpu_torch.server.app import ServerState, run_server
+
+    t_phase = time.perf_counter()
+    jinja = _jinja_available()
+    print(f"jinja2 imports: {jinja} | {card}", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # the deployment `serve` starts from these flags
+    config = serve_config(build_parser().parse_args([
+        "serve", gguf, "--port", str(port), "--max-batch", str(SERVE_BATCH),
+        "--prefill-chunk", str(SERVE_CHUNK)]))
+    t0 = time.perf_counter()
+    state = ServerState(config)  # load, then the warm-up's captures
+    load_s = time.perf_counter() - t0
+    engine, batched = state.current()
+    r = engine.runner
+    warm = {str(k): v for k, v in r.capture_seconds.items()}
+    check(len(warm) == 2, f"server: the warm-up captured {list(warm)}")
+    server = threading.Thread(target=run_server, args=(config, state),
+                              daemon=True, name="server")
+    server.start()
+    client = RemoteChatClient(f"http://127.0.0.1:{port}", timeout=600)
+    for _ in range(100):
+        try:
+            check(client.health()["status"] == "ok", "server: not healthy")
+            break
+        except OSError:
+            time.sleep(0.1)
+    seen: dict = {}  # prompt -> its handles, in order
+    submit = batched.submit
+
+    def record(prompt, **kw):
+        h = submit(prompt, **kw)
+        key = tuple(prompt) if isinstance(prompt, list) else prompt
+        seen.setdefault(key, []).append(h)
+        return h
+
+    batched.submit = record
+    rng = np.random.default_rng(SEED)
+    vocab = r.cfg.vocab_size
+    prompts = [rng.integers(3, vocab, size=int(n)).tolist()
+               for n in np.linspace(16, 96, 8)]
+    prompts.append(rng.integers(3, vocab, size=SERVE_LONG).tolist())
+    chats = [[{"role": "user", "content": f"Count from {i} to {i + 9}."}]
+             for i in (7, 42)]
+    embed_text = PROMPT
+    opts = dict(max_tokens=SERVE_TOKENS, temperature=0.0,
+                repetition_penalty=1.0)
+    results: dict = {}
+
+    def job(kind, i, arg):
+        t = time.perf_counter()
+        try:
+            if kind == "complete":
+                out = client.complete(arg, **opts)
+            elif kind == "chat":
+                out = list(client.chat_streaming(arg, **opts))
+            else:
+                out = client.embed(arg)[0]
+        except Exception as e:  # gated below: every request must answer
+            out = e
+        results[(kind, i)] = (out, time.perf_counter() - t)
+
+    jobs = ([("complete", i, p) for i, p in enumerate(prompts)]
+            + [("chat", i, m) for i, m in enumerate(chats)]
+            + [("embed", 0, embed_text)])
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    r.eager_steps = 0
+    replays0 = dict(r.replays)
+    keys0 = set(r.capture_seconds)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=job, args=j) for j in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, by_path = Q.launch_counts()
+    eager = r.eager_steps
+    b8 = graph_launches(r, replays0, SERVE_BATCH)
+    served = {str(k): v for k, v in r.capture_seconds.items()
+              if k not in keys0}
+    warm_runs = capture_launches(r, keys0, SERVE_BATCH)
+    stats = dataclasses.asdict(batched.stats)
+    decode_tps = batched.stats.decode_tps
+    check(len(results) == len(jobs) and not any(
+        isinstance(out, Exception) for out, _ in results.values()),
+        f"server: failed requests {[(k, v[0]) for k, v in results.items()]}")
+    handles = [h for hs in seen.values() for h in hs]
+    check(len(handles) == len(prompts) + len(chats),
+          f"server: {len(handles)} requests reached the scheduler")
+    reasons = [h.finish_reason for h in handles]
+    check(all(x in ("stop", "length") for x in reasons),
+          f"server: finish reasons {reasons}")
+    check(eager == 0, f"server: {eager} steps ran eagerly")
+    check(batched.stats.mixed_steps > 0, f"server: no mixed step {stats}")
+
+    steady = steady_passes(batched, [
+        lambda p=p: client.complete(p, **dict(opts, max_tokens=STEADY_TOKENS))
+        for p in prompts[:SERVE_BATCH]])
+    b8_profile = profile_decode_graphs(r, SERVE_BATCH)
+
+    # the embedding alone (its launches: the rest of the window's)
+    ids = engine.tokenizer.encode(embed_text)
+    before = Q.launch_counts()
+    want = extract_embedding(r, ids)
+    emb_launches = Q.launch_counts(since=before)[0]
+    got = np.asarray(results[("embed", 0)][0], np.float32)
+    emb_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(got.shape == want.shape and emb_rel <= 1e-4,
+          f"server: embedding differs by {emb_rel:.3g} (relative)")
+    for name in PER_STEP:
+        check(launches.get(name, 0) == b8.get(name, 0)
+              + warm_runs.get(name, 0) + emb_launches.get(name, 0)
+              and b8.get(name, 0) > 0,
+              f"server {name}: {launches.get(name, 0)} launches, "
+              f"{b8.get(name, 0)} from B = {SERVE_BATCH} graph replays, "
+              f"{warm_runs.get(name, 0)} from the eager run before each "
+              f"capture and {emb_launches.get(name, 0)} from the embedding")
+        check(by_path.get(f"{name} tc", 0) == launches[name],
+              f"server {name}: not every launch on the tensor cores "
+              f"({by_path})")
+
+    report = []
+    for i, p in enumerate(prompts):  # greedy completions
+        h = seen[tuple(p)][0]
+        check(results[("complete", i)][0] == "".join(h._text_parts),
+              f"server: completion {i}'s text")
+        want_t, margins = single_stream(r, p, max(len(h.token_ids), 1))
+        report.append(dict(prompt_tokens=len(p), **same_until_tie(
+            f"server completion {i}", h.token_ids, want_t, margins)))
+    for i, m in enumerate(chats):  # streamed, then the same non-streamed
+        prompt = engine.chat_template.render(m)
+        streamed = seen[prompt][0]
+        check("".join(results[("chat", i)][0]) == "".join(streamed._text_parts),
+              f"server: chat {i}'s deltas do not join to its text")
+        client.chat(m, **opts)
+        plain = seen[prompt][1]
+        _, margins = single_stream(r, engine.tokenizer.encode(prompt),
+                                   max(len(streamed.token_ids), 1))
+        report.append(dict(chat=i, **same_until_tie(
+            f"server chat {i} streamed/non-streamed", streamed.token_ids,
+            plain.token_ids, margins)))
+    ttft = sorted(h.first_token_at - h.created for h in handles
+                  if h.first_token_at is not None)
+    state.shutdown()
+    server.join(timeout=30)
+    check(not server.is_alive(), "server: run_server did not return")
+    completion_tokens = sum(len(h.token_ids) for h in handles)
+    print(json.dumps({"server": dict(
+        path="TinyLlama-1.1B", max_batch=SERVE_BATCH,
+        prefill_chunk=SERVE_CHUNK, requests=len(jobs), wall_s=wall,
+        requests_per_s=len(jobs) / wall,
+        completion_tokens_per_s=completion_tokens / wall,
+        decode_tps_burst=decode_tps, stats=stats, steady=steady,
+        ttft_s_median=ttft[len(ttft) // 2] if ttft else None,
+        ttft_s_max=ttft[-1] if ttft else None,
+        load_s=load_s, warmup_keys=warm, served_keys=served,
+        served_capture_s=sum(served.values()), pool_bytes=r.pool_bytes,
+        b8_decode_profiles=b8_profile,
+        embedding_rel_err=emb_rel, launches=launches,
+        launches_by_path=by_path, b8_graph_launches=b8,
+        capture_warm_launches=warm_runs, jinja2=jinja,
+        rows=report, phase_s=time.perf_counter() - t_phase, card=card)}),
+        flush=True)
+    return launches
+
+
+def moe_batched(quant, card: str) -> dict:
+    """Phase 10b: Mixtral-8x7B-l2 in a BatchedEngine at max_batch 4 over
+    phase 6's quant weights. Returns the batched run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.engine.batched import BatchedEngine
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    t_phase = time.perf_counter()
+    q = quant.runner
+    r = ModelRunner(q.params, q.cfg, max_batch=4, max_seq=q.max_seq,
+                    matmul_precision=q.matmul_precision,
+                    kv_format=q.kv_format, device=q.device)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(3, q.cfg.vocab_size, size=n).tolist()
+               for n in (16, 32, 48, 200)]
+    steps = 24
+    be = BatchedEngine(r, quant.tokenizer, max_queue=8,
+                       prefill_chunk=SERVE_CHUNK)
+    mixed: dict[str, int] = {}
+    step = be._mixed_step
+
+    def counted():  # the launches of the steps that were mixed
+        before, m0 = Q.launch_counts(), be.stats.mixed_steps
+        did = step()
+        if be.stats.mixed_steps > m0:
+            for name, n in Q.launch_counts(since=before)[0].items():
+                mixed[name] = mixed.get(name, 0) + n
+        return did
+
+    be._mixed_step = counted
+    greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    t0 = time.perf_counter()
+    handles = [be.submit(p, max_tokens=steps, sampler=greedy)
+               for p in prompts]
+    for h in handles:
+        h.text(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, by_path = Q.launch_counts()
+    dec = graph_launches(r, {}, 4, t=1)
+    dec_warm = capture_launches(r, set(), 4, t=1)
+    stats = dataclasses.asdict(be.stats)
+    keys = {str(k): v for k, v in r.capture_seconds.items()}
+    mixed_run = dict(mixed)
+    steady = steady_passes(be, [
+        lambda p=p: be.submit(p, max_tokens=STEADY_MOE_TOKENS,
+                              sampler=greedy).text(timeout=600)
+        for p in prompts])
+    be.shutdown()
+    reasons = [h.finish_reason for h in handles]
+    check(all(x in ("stop", "length") for x in reasons),
+          f"Mixtral batched: finish reasons {reasons}")
+    check(r.eager_steps == 0, f"Mixtral batched: {r.eager_steps} eager steps")
+    check(stats["mixed_steps"] > 0, f"Mixtral batched: no mixed step {stats}")
+    check(0 < dec.get("moe_slot", 0) == launches["moe_slot"]
+          - dec_warm.get("moe_slot", 0),
+          f"Mixtral batched: kernel 4 launched {launches['moe_slot']} times, "
+          f"{dec.get('moe_slot', 0)} by the B = 4 decode graphs' replays and "
+          f"{dec_warm.get('moe_slot', 0)} before their captures")
+    for name in ("moe_grouped", "moe_glu_grouped"):
+        check(mixed_run.get(name, 0) > 0,
+              f"Mixtral batched: {name} not launched in a mixed step "
+              f"({mixed_run})")
+    report = []
+    for i, (p, h) in enumerate(zip(prompts, handles)):
+        want, margins = single_stream(q, p, max(len(h.token_ids), 1))
+        near = None
+        if h.token_ids != want[:len(h.token_ids)]:  # routing ties too
+            route = routing_margins(quant, p, len(want))
+            near = next((j for j, m in enumerate(route) if m < ROUTE_TIE),
+                        None)
+        report.append(dict(prompt_tokens=len(p), **same_until_tie(
+            f"Mixtral batched request {i}", h.token_ids, want, margins,
+            near)))
+    print(json.dumps({"batched_moe": dict(
+        path="Mixtral-8x7B-l2", max_batch=4, prefill_chunk=SERVE_CHUNK,
+        wall_s=wall, stats=stats, decode_tps_run=stats["decode_tokens_pure"]
+        / stats["decode_time"] if stats["decode_time"] else None,
+        steady=steady,
+        launches=launches, launches_by_path=by_path,
+        decode_graph_launches=dec, decode_capture_launches=dec_warm,
+        mixed_step_launches=mixed_run,
+        capture_seconds=keys, rows=report,
+        phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+    del r
+    return launches
+
+
 def variant_path(card: str, timer, peaks: dict):
     """Phase 8: the probe (counted), then each variant's kernel against its
     plain version with times. Returns (measurements, launches)."""
@@ -1174,7 +1624,8 @@ def run(moe_gguf) -> int:
         f"{time.perf_counter() - t0:.1f}s (nvcc: {cuda_build.BUILD_SECONDS})")
     timer = Timer()
 
-    # -- 2-5. the dense path, 7. serving, 8. the probe, then 6. MoE ----------
+    # -- 2-5. the dense path, 7. serving, 10a. the server, 8. the probe, then
+    # 6. MoE (and 10b) -------------------------------------------------------
     t0 = time.perf_counter()
     dense, dense_launches = dense_path(card, timer, peaks, tinyllama)
     log(f"dense path done in {time.perf_counter() - t0:.1f}s")
@@ -1184,6 +1635,10 @@ def run(moe_gguf) -> int:
     log(f"serving path done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    server_launches = server_path(card, tinyllama)
+    log(f"server path done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     probe, probe_launches = variant_path(card, timer, peaks)
     log(f"probe done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
@@ -1191,7 +1646,8 @@ def run(moe_gguf) -> int:
     gguf = moe_gguf.result()
     log(f"waited {time.perf_counter() - t0:.1f}s for the Mixtral GGUF")
     t0 = time.perf_counter()
-    moe, moe_launches = moe_path(card, timer, peaks, gguf)
+    moe, moe_launches, moe_batched_launches = moe_path(card, timer, peaks,
+                                                       gguf)
     log(f"MoE path done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
@@ -1201,7 +1657,9 @@ def run(moe_gguf) -> int:
         by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
             ("TinyLlama-1.1B serving", serving_launches),
+            ("TinyLlama-1.1B server", server_launches),
             ("Mixtral-8x7B-l2", moe_launches),
+            ("Mixtral-8x7B-l2 batched", moe_batched_launches),
             ("probe", probe_launches)) if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

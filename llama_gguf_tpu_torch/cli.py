@@ -1,13 +1,17 @@
 """Command-line interface of the PyTorch port (subset of
-llama_gguf_tpu/cli.py): ``info``, ``run`` and ``bench``.
+llama_gguf_tpu/cli.py): ``info``, ``run``, ``chat``, ``serve`` and ``bench``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
+    python -m llama_gguf_tpu_torch chat MODEL.gguf [--system TEXT]
+    python -m llama_gguf_tpu_torch serve MODEL.gguf [--port N] [--max-batch B]
+        [--prefill-chunk T]
     python -m llama_gguf_tpu_torch info MODEL.gguf [--tensors] [--json]
     python -m llama_gguf_tpu_torch bench MODEL.gguf [--json] [--profile DIR]
 
-``run`` and ``bench`` load onto CUDA unless ``--device cpu`` is given. The
-TOML config file, the speculative, grammar and LoRA flags and the other
-subcommands are ROADMAP queue 1.
+Every subcommand that loads a model loads it onto CUDA unless ``--device
+cpu`` is given, and raises when CUDA is absent. The TOML config file, the
+speculative, grammar and LoRA flags and the other subcommands are ROADMAP
+queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -36,14 +40,32 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(p)
     p.add_argument("-p", "--prompt", default=None)
     p.add_argument("--no-stream", action="store_true")
-    p.add_argument("-n", "--max-tokens", type=int, default=512)
-    p.add_argument("-t", "--temperature", type=float, default=0.8)
-    p.add_argument("--top-k", type=int, default=40)
-    p.add_argument("--top-p", type=float, default=0.95)
-    p.add_argument("--min-p", type=float, default=0.0)
-    p.add_argument("--repeat-penalty", type=float, default=1.1)
-    p.add_argument("--seed", type=int, default=None)
+    _add_gen_flags(p)
     p.add_argument("--stop", action="append", default=None)
+    p.add_argument("-v", "--verbose", action="store_true")
+
+    p = sub.add_parser("chat", help="interactive chat")
+    _add_model_flags(p)
+    p.add_argument("--system", default=None, help="system prompt")
+    p.add_argument("--template", default=None,
+                   choices=["chatml", "llama2", "llama3", "gemma", "phi",
+                            "plain"], help="override chat template style")
+    _add_gen_flags(p)
+    p.add_argument("-v", "--verbose", action="store_true")
+
+    p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
+    _add_model_flags(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-queue", type=int, default=64)
+    p.add_argument("--prefill-chunk", type=int, default=512,
+                   help="prompt tokens per row in one batched step: a "
+                   "longer prompt is prefilled in chunks beside the "
+                   "decoding rows (smaller: shorter stalls for them)")
+    p.add_argument("--api-key", action="append", default=None)
+    p.add_argument("--rag-db", default=None,
+                   help="not ported yet (ROADMAP queue 1 item 13): raises")
     p.add_argument("-v", "--verbose", action="store_true")
 
     p = sub.add_parser("bench", help="benchmark prefill/decode throughput")
@@ -59,6 +81,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace to DIR")
     p.add_argument("-v", "--verbose", action="store_true")
     return ap
+
+
+def _add_gen_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-n", "--max-tokens", type=int, default=512)
+    p.add_argument("-t", "--temperature", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--min-p", type=float, default=0.0)
+    p.add_argument("--repeat-penalty", type=float, default=1.1)
+    p.add_argument("--seed", type=int, default=None)
+
+
+def _sampler(args):
+    from .sampling.sampler import SamplerConfig
+
+    return SamplerConfig(
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        min_p=args.min_p, repetition_penalty=args.repeat_penalty,
+        seed=args.seed)
 
 
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
@@ -114,7 +155,6 @@ def cmd_info(args) -> int:
 
 def cmd_run(args) -> int:
     from .engine.engine import Engine, EngineConfig
-    from .sampling.sampler import SamplerConfig
 
     if not os.path.exists(args.model):
         sys.exit(f"error: model not found: {args.model}")
@@ -124,10 +164,7 @@ def cmd_run(args) -> int:
                      kv_format=args.kv_cache_type, seed=args.seed),
         device=args.device)
     prompt = args.prompt if args.prompt is not None else sys.stdin.read()
-    sampler = SamplerConfig(
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        min_p=args.min_p, repetition_penalty=args.repeat_penalty,
-        seed=args.seed)
+    sampler = _sampler(args)
     if args.no_stream:
         print(engine.generate(prompt, max_tokens=args.max_tokens,
                               sampler=sampler, stop=args.stop))
@@ -142,6 +179,62 @@ def cmd_run(args) -> int:
     print(f"[prefill {s.prompt_tokens} tok @ {s.prefill_tps:.1f} tok/s | "
           f"decode {s.generated_tokens} tok @ {s.decode_tps:.1f} tok/s]",
           file=sys.stderr)
+    return 0
+
+
+def cmd_chat(args) -> int:
+    """Interactive chat on stdin: one user turn per line; /reset clears the
+    history, /exit (or the end of the input) quits."""
+    from .engine.engine import ChatEngine, Engine, EngineConfig
+
+    if not os.path.exists(args.model):
+        sys.exit(f"error: model not found: {args.model}")
+    engine = Engine.load(
+        args.model,
+        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
+                     kv_format=args.kv_cache_type, seed=args.seed,
+                     chat_template=args.template),
+        device=args.device)
+    chat = ChatEngine(engine, system_prompt=args.system)
+    sampler = _sampler(args)
+    print("(interactive chat — /exit to quit, /reset to clear)")
+    while True:
+        try:
+            user = input("> ")
+        except (EOFError, KeyboardInterrupt):
+            print()
+            return 0
+        if user.strip() in ("/exit", "/quit"):
+            return 0
+        if user.strip() == "/reset":
+            chat.reset()
+            continue
+        if not user.strip():
+            continue
+        for piece in chat.send_streaming(user, max_tokens=args.max_tokens,
+                                         sampler=sampler):
+            print(piece, end="", flush=True)
+        print()
+
+
+def serve_config(args):
+    """The ServerConfig of ``serve``'s flags."""
+    from .server.app import ServerConfig
+
+    return ServerConfig(
+        host=args.host, port=args.port, model_path=args.model,
+        max_batch=args.max_batch, max_queue=args.max_queue,
+        prefill_chunk=args.prefill_chunk, weight_mode=args.weight_mode,
+        api_keys=args.api_key or [], rag_db=args.rag_db, device=args.device,
+        max_context_len=args.ctx, kv_format=args.kv_cache_type)
+
+
+def cmd_serve(args) -> int:
+    from .server.app import run_server
+
+    if not os.path.exists(args.model):
+        sys.exit(f"error: model not found: {args.model}")
+    run_server(serve_config(args))
     return 0
 
 
@@ -212,7 +305,8 @@ def cmd_bench(args) -> int:
     return 0
 
 
-COMMANDS = {"info": cmd_info, "run": cmd_run, "bench": cmd_bench}
+COMMANDS = {"info": cmd_info, "run": cmd_run, "chat": cmd_chat,
+            "serve": cmd_serve, "bench": cmd_bench}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,0 +1,492 @@
+"""Continuous batching: one batched step over all active sequences (port of
+llama_gguf_tpu/engine/batched.py).
+
+  * one KV cache [L, B, S, H, D] with one batch row per in-flight sequence,
+    owned by the engine (``runner.init_kv(max_batch, owner=...)``), so no
+    single-stream call on the same runner can zero or overwrite its rows,
+  * one step over the whole batch per iteration: prefill chunks of
+    ``prefill_chunk`` tokens ride beside decode rows, free rows get position
+    ``max_seq`` (the cache's drop slot, models/kv.py), and the LM head runs
+    on one position per row. On CUDA each step replays the runner's graph
+    of (max_batch, T bucket, read bound, gathered logits),
+  * per-sequence host-side samplers (penalties, grammar masks, seeds),
+  * queue-depth admission control, FIFO.
+
+The scheduler thread makes every CUDA call of a step through one
+``runner.step(..., host_rows=)``, which hands back the picked rows' logits
+on the host (engine/runner.py serializes the device's work).
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass
+from typing import Any, Iterator
+
+import numpy as np
+
+from ..sampling.sampler import Sampler, SamplerConfig
+from .runner import ModelRunner, bucket_len, pick_read_bound
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class BatchedStats:
+    """Aggregate scheduler counters."""
+    submitted: int = 0
+    completed: int = 0
+    rejected: int = 0
+    decode_steps: int = 0
+    # steps that carried BOTH prefill-chunk rows and decode rows
+    mixed_steps: int = 0
+    decode_tokens: int = 0
+    # tokens sampled in PURE decode steps: the numerator matching
+    # decode_time (mixed steps carry prefill compute)
+    decode_tokens_pure: int = 0
+    prefill_tokens: int = 0
+    # seconds of pure decode steps that replayed graphs they had: a step
+    # that captured a new key counts in capture_steps/capture_time instead
+    decode_time: float = 0.0
+    capture_steps: int = 0
+    capture_time: float = 0.0
+
+    @property
+    def decode_tps(self) -> float:
+        return (self.decode_tokens_pure / self.decode_time
+                if self.decode_time else 0.0)
+
+
+class _StopBuffer:
+    """Holds back text that may be a prefix of a stop pattern."""
+
+    def __init__(self, stop: list[str]):
+        self.stop = [s for s in (stop or []) if s]
+        self.tail = ""
+
+    def push(self, piece: str) -> tuple[str, bool]:
+        """Returns (text safe to emit, hit_stop)."""
+        if not self.stop:
+            return piece, False
+        self.tail += piece
+        for s in self.stop:
+            i = self.tail.find(s)
+            if i >= 0:
+                out, self.tail = self.tail[:i], ""
+                return out, True
+        keep = max((len(s) - 1 for s in self.stop
+                    if self.tail.endswith(s[: len(s) - 1])), default=0)
+        # also hold back shorter prefixes that end the tail
+        for s in self.stop:
+            for k in range(min(len(s) - 1, len(self.tail)), 0, -1):
+                if self.tail.endswith(s[:k]):
+                    keep = max(keep, k)
+                    break
+        if keep:
+            out, self.tail = self.tail[:-keep], self.tail[-keep:]
+        else:
+            out, self.tail = self.tail, ""
+        return out, False
+
+    def flush(self) -> str:
+        out, self.tail = self.tail, ""
+        return out
+
+
+@dataclass
+class _Sequence:
+    request_id: str
+    handle: "RequestHandle"
+    token_ids: list[int]
+    max_tokens: int
+    sampler: Sampler
+    stop: _StopBuffer
+    grammar: Any = None
+    logprobs: int = -1    # -1 = off; 0 = sampled token only; N = top-N too
+    slot: int = -1
+    pos: int = 0          # position of the NEXT token to decode
+    last_token: int = 0
+    generated: int = 0
+    decoder: Any = None
+    prefilled: int = 0    # prompt tokens already written to the KV cache
+    prompt_len: int = 0
+
+    @property
+    def decoding(self) -> bool:
+        return self.prefilled >= self.prompt_len
+
+
+class RequestHandle:
+    """Consumer side of one request: a thread-safe event stream.
+
+    Events: ("piece", str) | ("done", finish_reason) | ("error", Exception).
+    ``token_ids``: the completion's sampled token ids, in order.
+    """
+
+    def __init__(self, request_id: str, prompt_tokens: int = 0):
+        self.request_id = request_id
+        self.prompt_tokens = prompt_tokens
+        self.created = time.time()
+        self.first_token_at: float | None = None
+        self.finished_at: float | None = None
+        self._q: queue.Queue = queue.Queue()
+        self.finish_reason: str | None = None
+        self.completion_tokens = 0
+        self.token_ids: list[int] = []
+        self._text_parts: list[str] = []
+        # per-token logprob records when requested (OpenAI logprobs):
+        # {"token": str, "id": int, "logprob": float,
+        #  "top_logprobs": [{"token", "id", "logprob"}, ...]}
+        self.logprobs: list[dict] = []
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        """Ask the scheduler to finish this request at its next step (used
+        to reap orphaned submissions, e.g. a partially admitted n>1
+        batch)."""
+        self.cancelled = True
+
+    @property
+    def timings(self) -> dict:
+        """Per-request latency metrics."""
+        now = self.finished_at or time.time()
+        # rate over the decode window, floored at 1 ms so a stop string
+        # hitting in the first piece can't report absurd throughput
+        window = max(now - (self.first_token_at or self.created), 1e-3)
+        return {
+            "time_to_first_token_s": round(
+                (self.first_token_at or now) - self.created, 4),
+            "total_s": round(now - self.created, 4),
+            "tokens_per_s": round(self.completion_tokens / window, 2),
+        }
+
+    # -- producer (scheduler thread) -----------------------------------------
+
+    def _emit(self, piece: str) -> None:
+        if piece:
+            if self.first_token_at is None:
+                self.first_token_at = time.time()
+            self._text_parts.append(piece)
+            self._q.put(("piece", piece))
+
+    def _finish(self, reason: str) -> None:
+        self.finish_reason = reason
+        self.finished_at = time.time()
+        self._q.put(("done", reason))
+
+    def _fail(self, exc: Exception) -> None:
+        self.finish_reason = "error"
+        self._q.put(("error", exc))
+
+    # -- consumer -------------------------------------------------------------
+
+    def stream(self, timeout: float | None = None) -> Iterator[str]:
+        """Yield text pieces as they are generated (true token streaming)."""
+        while True:
+            kind, payload = self._q.get(timeout=timeout)
+            if kind == "piece":
+                yield payload
+            elif kind == "error":
+                raise payload
+            else:
+                return
+
+    def text(self, timeout: float | None = None) -> str:
+        for _ in self.stream(timeout=timeout):
+            pass
+        return "".join(self._text_parts)
+
+    @property
+    def done(self) -> bool:
+        return self.finish_reason is not None
+
+
+class BatchedEngine:
+    """Continuous-batching scheduler over a ModelRunner: one batched step
+    per iteration over every live row."""
+
+    def __init__(self, runner: ModelRunner, tokenizer, max_queue: int = 64,
+                 default_sampler: SamplerConfig | None = None,
+                 prompt_cache=None, prefill_chunk: int = 512):
+        """``prefill_chunk``: long prompts are prefilled in chunks of this
+        many tokens interleaved with decode steps, so admitting a long
+        prompt never stalls in-flight sequences for its whole prefill."""
+        if prompt_cache is not None:
+            raise NotImplementedError(
+                "the prompt cache is not ported yet (ROADMAP queue 1 item "
+                "6: engine/prompt_cache.py)")
+        self.runner = runner
+        self.tokenizer = tokenizer
+        self.max_queue = max_queue
+        self.default_sampler = default_sampler or SamplerConfig()
+        self.prefill_chunk = prefill_chunk
+        self.stats = BatchedStats()
+
+        self._pending: queue.Queue[_Sequence] = queue.Queue()
+        self._pending_count = 0
+        self._slots: list[_Sequence | None] = [None] * runner.max_batch
+        self._owner = f"batched-{id(self):x}"
+        self._kv = runner.init_kv(runner.max_batch, owner=self._owner)
+        self._last_rb = None
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="batched-engine")
+        self._thread.start()
+
+    # -- public API ------------------------------------------------------------
+
+    def submit(self, prompt: str | list[int], max_tokens: int = 128,
+               sampler: SamplerConfig | None = None,
+               stop: list[str] | None = None,
+               grammar=None, logprobs: int = -1) -> RequestHandle:
+        """Enqueue a generation request; returns a streaming handle.
+
+        Raises RuntimeError when the queue is full (admission control) or
+        the engine has been shut down."""
+        if not self._running:
+            raise RuntimeError("the engine is shut down")
+        with self._lock:
+            active = sum(s is not None for s in self._slots)
+            if self._pending_count + active >= self.max_queue:
+                self.stats.rejected += 1
+                raise RuntimeError("request queue full")
+            self._pending_count += 1
+
+        ids = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
+               else list(prompt))
+        ids = ids[-(self.runner.max_seq - max_tokens - 1):] if \
+            len(ids) + max_tokens >= self.runner.max_seq else ids
+        handle = RequestHandle(uuid.uuid4().hex[:16], prompt_tokens=len(ids))
+        seq = _Sequence(
+            request_id=handle.request_id,
+            handle=handle,
+            token_ids=ids,
+            prompt_len=len(ids),
+            max_tokens=max_tokens,
+            sampler=Sampler(sampler or self.default_sampler),
+            stop=_StopBuffer(stop or []),
+            grammar=grammar,
+            logprobs=logprobs,
+            decoder=self.tokenizer.streaming_decoder(),
+        )
+        with self._lock:  # submit runs on many threads
+            self.stats.submitted += 1
+        self._pending.put(seq)
+        self._wake.set()
+        return handle
+
+    def generate(self, prompt: str | list[int], **kw) -> str:
+        return self.submit(prompt, **kw).text()
+
+    @property
+    def active_count(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    @property
+    def queued_count(self) -> int:
+        return self._pending_count
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop the scheduler (live and queued requests finish "aborted")
+        and, once it has stopped, hand the cache back to the runner."""
+        self._running = False
+        self._wake.set()
+        if wait:
+            self._thread.join(timeout=30)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+    # -- scheduler loop ----------------------------------------------------------
+
+    def _loop(self) -> None:
+        while self._running:
+            try:
+                did_work = self._admit()
+                did_work |= self._mixed_step()
+            except Exception:
+                log.exception("batched engine step failed")
+                self._abort_all()
+                continue
+            if not did_work:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+        self._abort_all()
+        self.runner.release_kv(self._owner)
+
+    def _abort_all(self) -> None:
+        for i, seq in enumerate(self._slots):
+            if seq is not None:
+                seq.handle._finish("aborted")
+                self._slots[i] = None
+        while True:
+            try:
+                seq = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            with self._lock:
+                self._pending_count -= 1
+            seq.handle._finish("aborted")
+
+    def _admit(self) -> bool:
+        """Assign queued sequences to free slots (prefill happens in chunks
+        via _mixed_step, decode rows riding in the same step)."""
+        admitted = False
+        for slot, cur in enumerate(self._slots):
+            if cur is not None:
+                continue
+            try:
+                seq = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            with self._lock:
+                self._pending_count -= 1
+            if seq.handle.cancelled:  # reaped before admission
+                seq.handle._finish("aborted")
+                continue
+            seq.slot = slot
+            self._slots[slot] = seq
+            admitted = True
+        return admitted
+
+    def _mixed_step(self) -> bool:
+        """ONE batched forward carrying every live row: sequences mid-
+        prefill contribute their next chunk (at their own prompt offset)
+        and decoding sequences their single next token, so a prefill
+        admission costs in-flight decodes no extra step."""
+        pre = [s for s in self._slots if s is not None and not s.decoding]
+        dec = [s for s in self._slots if s is not None and s.decoding]
+        if not pre and not dec:
+            return False
+        chunks = {
+            s.slot: s.token_ids[s.prefilled: s.prefilled + self.prefill_chunk]
+            for s in pre
+        }
+        bt = bucket_len(max(len(c) for c in chunks.values())) if pre else 1
+        b = len(self._slots)
+        toks = np.zeros((b, bt), np.int32)
+        pos = np.full((b, bt), self.runner.max_seq, np.int32)  # dropped
+        lengths = np.zeros((b,), np.int32)
+        for s in pre:
+            c = chunks[s.slot]
+            toks[s.slot, : len(c)] = c
+            pos[s.slot, : len(c)] = s.prefilled + np.arange(len(c))
+            lengths[s.slot] = s.prefilled + len(c)
+        for s in dec:
+            toks[s.slot, 0] = s.last_token
+            pos[s.slot, 0] = s.pos
+            lengths[s.slot] = s.pos + 1
+
+        # the LM head runs on ONE column per row (decode rows column 0,
+        # prefill rows their chunk end)
+        lp = np.zeros((b,), np.int32)
+        for s in pre:
+            lp[s.slot] = len(chunks[s.slot]) - 1
+        t0 = time.time()
+        captures = self.runner.captures
+        # two-tier ragged read; prev= keeps the last pick (a graph key)
+        # while it stays within TIER_HYSTERESIS of the modelled optimum
+        rb = pick_read_bound(lengths, self.runner.max_seq,
+                             shards=self.runner.tier_shards,
+                             prev=self._last_rb)
+        self._last_rb = rb
+        done_pre = [s for s in pre
+                    if s.prefilled + len(chunks[s.slot]) >= s.prompt_len]
+        need = dec + done_pre
+        # the one copy to the host: [len(need), V]
+        picked, self._kv = self.runner.step(
+            toks, pos, lengths, self._kv, read_bound=rb,
+            logit_positions=lp, host_rows=[s.slot for s in need])
+        dt = time.time() - t0
+        if self.runner.captures > captures:
+            self.stats.capture_steps += 1
+            self.stats.capture_time += dt
+
+        if dec:
+            # pure decode steps feed decode_tps; mixed steps carry prefill
+            # compute too, so their time is tracked separately, and so is a
+            # step's that captured a graph
+            if pre:
+                self.stats.mixed_steps += 1
+            elif self.runner.captures == captures:
+                self.stats.decode_time += dt
+                self.stats.decode_tokens_pure += len(dec)
+            self.stats.decode_steps += 1
+        for idx, s in enumerate(dec):
+            s.pos += 1
+            self._sample_and_emit(s, picked[idx])
+        for s in pre:
+            n = len(chunks[s.slot])
+            s.prefilled += n
+            self.stats.prefill_tokens += n
+        for j, s in enumerate(done_pre):
+            s.pos = s.prompt_len
+            self._sample_and_emit(s, picked[len(dec) + j])
+        return True
+
+    def _sample_and_emit(self, seq: _Sequence, logits: np.ndarray) -> None:
+        """Sample the next token for one sequence and emit text / finish."""
+        if seq.handle.cancelled:
+            self._finish(seq, "aborted")
+            return
+        mask = seq.grammar.get_token_mask() if seq.grammar is not None else None
+        tok = seq.sampler.sample(logits, seq.token_ids, mask=mask)
+        if self.tokenizer.is_eog(tok):
+            # no logprob entry for the EOG token: OpenAI aligns
+            # logprobs.content 1:1 with the returned completion tokens
+            self._finish(seq, "stop")
+            return
+        if seq.logprobs >= 0:  # OpenAI logprobs: log-softmax of RAW logits
+            lf = logits.astype(np.float64)
+            lse = np.logaddexp.reduce(lf)
+            entry = {"token": self.tokenizer.decode([tok]), "id": int(tok),
+                     "logprob": float(lf[tok] - lse)}
+            k = min(seq.logprobs, lf.size - 1)  # clamp: kth must be in range
+            if k > 0:
+                top = np.argpartition(-lf, k)[:k]
+                top = top[np.argsort(-lf[top])]
+                entry["top_logprobs"] = [
+                    {"token": self.tokenizer.decode([int(t)]),
+                     "id": int(t), "logprob": float(lf[t] - lse)}
+                    for t in top]
+            seq.handle.logprobs.append(entry)
+        seq.token_ids.append(tok)
+        seq.handle.token_ids.append(int(tok))
+        seq.last_token = tok
+        seq.generated += 1
+        seq.handle.completion_tokens = seq.generated
+        self.stats.decode_tokens += 1
+        piece = seq.decoder.push(tok)
+        if seq.grammar is not None:
+            seq.grammar.record_token(self.tokenizer.decode([tok]))
+        if piece:
+            out, hit = seq.stop.push(piece)
+            seq.handle._emit(out)
+            if hit:
+                self._finish(seq, "stop", flush=False)
+                return
+        if seq.grammar is not None and seq.grammar.is_complete and \
+                seq.grammar.state is not None and \
+                seq.grammar.machine.exhausted(seq.grammar.state):
+            self._finish(seq, "stop")
+            return
+        if seq.generated >= seq.max_tokens:
+            self._finish(seq, "length")
+        elif seq.pos >= self.runner.max_seq - 1:
+            self._finish(seq, "length")
+
+    def _finish(self, seq: _Sequence, reason: str, flush: bool = True) -> None:
+        if flush:
+            seq.handle._emit(seq.stop.flush())
+        self._slots[seq.slot] = None
+        self.stats.completed += 1
+        seq.handle._finish(reason)

@@ -3,24 +3,30 @@ llama_gguf_tpu/engine/engine.py, GGUF decoders only).
 
 Prefill runs the prompt through one bucketed forward; decode runs one forward
 per token with the KV cache updated in place on the device. On CUDA both
-replay the runner's CUDA graphs, on the runner's own cache (``init_kv``):
-one request per engine runs at a time. Grammar-constrained decoding, the
-prompt cache, context shift and chat templates are ROADMAP queue 1.
+replay the runner's CUDA graphs, on the runner's unowned one-row cache
+(``init_kv(1)``): single-stream requests on one engine run one at a time
+(each holds the engine's stream lock from its prefill to its last token),
+and a continuous-batching engine on the same runner (engine/batched.py)
+keeps its own cache. The runner hands the logits back on the host.
+Grammar-constrained decoding, embeddings and chat templates are here; the
+prompt cache and context shift are ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
-import torch
+import numpy as np
 
 from ..gguf.reader import GGUFFile
 from ..models.loader import ModelLoader, resolve_device
 from ..sampling.sampler import Sampler, SamplerConfig
 from ..tokenizer.gguf_tokenizer import Tokenizer
+from .chat import ChatTemplate
 from .runner import ModelRunner
 
 log = logging.getLogger(__name__)
@@ -34,6 +40,10 @@ class EngineConfig:
     kv_format: str = "f32"  # f32 | bf16
     matmul_precision: str = "highest"
     seed: int | None = None
+    chat_template: str | None = None  # override the detected style
+    # generate past the context window by sliding the KV cache left: not
+    # ported yet (ROADMAP queue 1 item 6, kv.shift_left); raises when needed
+    context_shift: bool = False
 
 
 @dataclass
@@ -59,7 +69,12 @@ class Engine:
         self.tokenizer = tokenizer
         self.config = config
         self.gguf = gguf
+        self.chat_template = (ChatTemplate(config.chat_template)
+                              if config.chat_template
+                              else ChatTemplate.detect(tokenizer))
         self.stats = GenerationStats()
+        # single-stream requests share the runner's unowned one-row cache
+        self._stream = threading.Lock()
 
     @classmethod
     def load(cls, path: str, config: EngineConfig | None = None,
@@ -71,6 +86,9 @@ class Engine:
         t0 = time.time()
         gguf = GGUFFile.open(path)
         tokenizer = Tokenizer.from_gguf(gguf.metadata)
+        # a serving runner on this device may capture meanwhile: its
+        # "thread_local" captures survive this thread's allocations, copies
+        # and kernels, so a load must make no device-wide synchronize
         loader = ModelLoader(gguf, mode=config.weight_mode, device=dev)
         params, cfg = loader.build()
         max_seq = cfg.max_seq_len
@@ -85,24 +103,47 @@ class Engine:
                  time.time() - t0)
         return cls(runner, tokenizer, config, gguf)
 
-    def _sync(self) -> None:
-        if self.runner.device.type == "cuda":
-            torch.cuda.synchronize(self.runner.device)
-
     # -- generation ----------------------------------------------------------
 
     def generate(self, prompt: str, max_tokens: int = 128,
                  sampler: SamplerConfig | Sampler | None = None,
                  stop: list[str] | None = None,
-                 on_token: Callable[[str], None] | None = None) -> str:
+                 on_token: Callable[[str], None] | None = None,
+                 grammar=None) -> str:
         return "".join(self.generate_streaming(prompt, max_tokens, sampler,
-                                               stop, on_token))
+                                               stop, on_token,
+                                               grammar=grammar))
+
+    def make_grammar_sampler(self, machine):
+        """Bind a grammar machine (json_grammar()/gbnf_grammar()/...) to this
+        model's vocab for constrained decoding."""
+        from ..sampling.grammar import GrammarSampler
+
+        vocab = [self.tokenizer.decode([i]) for i in
+                 range(self.tokenizer.vocab_size)]
+        return GrammarSampler(machine, vocab,
+                              eos_token_id=self.tokenizer.eos_id)
+
+    def _prefill(self, ids: list[int]):
+        """Prefill on the runner's unowned one-row cache. Returns (the last
+        position's logits on the host, kv, position)."""
+        r = self.runner
+        return r.prefill(ids, r.init_kv(1), host=True)
+
+    def _decode(self, tok: int, pos: int, kv: dict) -> np.ndarray:
+        return self.runner.decode_one(tok, pos, kv, host=True)[0]
+
+    def _refuse_context_shift(self) -> None:
+        if self.config.context_shift:
+            raise NotImplementedError(
+                "context shift (sliding the KV cache left) is not ported yet "
+                "(ROADMAP queue 1 item 6: kv.shift_left)")
 
     def generate_streaming(self, prompt: str, max_tokens: int = 128,
                            sampler: SamplerConfig | Sampler | None = None,
                            stop: list[str] | None = None,
-                           on_token: Callable[[str], None] | None = None
-                           ) -> Iterator[str]:
+                           on_token: Callable[[str], None] | None = None,
+                           grammar=None) -> Iterator[str]:
         if sampler is None:
             sampler = Sampler(SamplerConfig(seed=self.config.seed))
         elif isinstance(sampler, SamplerConfig):
@@ -111,12 +152,15 @@ class Engine:
         ids = self.tokenizer.encode(prompt)
         ids = ids[-(self.runner.max_seq - max_tokens - 1):] if \
             len(ids) + max_tokens >= self.runner.max_seq else ids
-        self.stats = GenerationStats(prompt_tokens=len(ids))
+        with self._stream:
+            yield from self._stream_tokens(ids, max_tokens, sampler, stop,
+                                           on_token, grammar)
 
+    def _stream_tokens(self, ids, max_tokens, sampler, stop, on_token,
+                       grammar) -> Iterator[str]:
+        self.stats = GenerationStats(prompt_tokens=len(ids))
         t0 = time.time()
-        kv = self.runner.init_kv()
-        logits, kv, pos = self.runner.prefill(ids, kv)
-        self._sync()
+        logits, kv, pos = self._prefill(ids)
         self.stats.prefill_time = time.time() - t0
 
         decoder = self.tokenizer.streaming_decoder()
@@ -124,11 +168,21 @@ class Engine:
         tail = ""  # holds text that might be a stop-pattern prefix
         t1 = time.time()
         for _ in range(max_tokens):
-            tok = sampler.sample(logits.float().cpu().numpy(), history)
+            mask = grammar.get_token_mask() if grammar is not None else None
+            tok = sampler.sample(logits, history, mask=mask)
             if self.tokenizer.is_eog(tok):
                 break
             history.append(tok)
             piece = decoder.push(tok)
+            if grammar is not None:
+                grammar.record_token(self.tokenizer.decode([tok]))
+                if grammar.is_complete and grammar.state is not None and \
+                        grammar.machine.exhausted(grammar.state):
+                    if piece:
+                        if on_token:
+                            on_token(piece)
+                        yield piece
+                    break
             self.stats.generated_tokens += 1
             if piece:
                 if stop:
@@ -157,8 +211,9 @@ class Engine:
                         on_token(piece)
                     yield piece
             if pos >= self.runner.max_seq - 1:
+                self._refuse_context_shift()
                 break
-            logits, kv = self.runner.decode_one(tok, pos, kv)
+            logits = self._decode(tok, pos, kv)
             pos += 1
         else:
             if tail:
@@ -168,16 +223,89 @@ class Engine:
 
     def greedy_tokens(self, prompt_ids: list[int], max_tokens: int) -> list[int]:
         """Pure greedy decode for parity harnesses: returns generated ids."""
-        kv = self.runner.init_kv()
-        logits, kv, pos = self.runner.prefill(prompt_ids, kv)
-        out = []
-        for _ in range(max_tokens):
-            tok = int(torch.argmax(logits).item())
-            out.append(tok)
-            if self.tokenizer is not None and self.tokenizer.is_eog(tok):
-                break
-            if pos >= self.runner.max_seq - 1:
-                break
-            logits, kv = self.runner.decode_one(tok, pos, kv)
-            pos += 1
-        return out
+        with self._stream:
+            logits, kv, pos = self._prefill(prompt_ids)
+            out = []
+            for _ in range(max_tokens):
+                tok = int(np.argmax(logits))
+                out.append(tok)
+                if self.tokenizer is not None and self.tokenizer.is_eog(tok):
+                    break
+                if pos >= self.runner.max_seq - 1:
+                    break
+                logits = self._decode(tok, pos, kv)
+                pos += 1
+            return out
+
+    # -- embeddings ----------------------------------------------------------
+
+    def embed(self, text: str, pooling: str = "mean",
+              normalize: bool = True) -> np.ndarray:
+        from ..models.embeddings import extract_embedding
+
+        return extract_embedding(self.runner, self.tokenizer.encode(text),
+                                 pooling=pooling, normalize=normalize)
+
+    # -- chat ----------------------------------------------------------------
+
+    def chat(self, messages: list[dict], max_tokens: int = 512,
+             sampler: SamplerConfig | None = None,
+             stop: list[str] | None = None) -> str:
+        prompt = self.chat_template.render(messages)
+        return self.generate(prompt, max_tokens=max_tokens, sampler=sampler,
+                             stop=stop)
+
+    def chat_streaming(self, messages: list[dict], max_tokens: int = 512,
+                       sampler: SamplerConfig | None = None,
+                       stop: list[str] | None = None) -> Iterator[str]:
+        prompt = self.chat_template.render(messages)
+        return self.generate_streaming(prompt, max_tokens=max_tokens,
+                                       sampler=sampler, stop=stop)
+
+
+class ChatEngine:
+    """Multi-turn conversation state on top of Engine (the JAX package's
+    ChatEngine)."""
+
+    def __init__(self, engine: Engine, system_prompt: str | None = None):
+        self.engine = engine
+        self.messages: list[dict] = []
+        if system_prompt:
+            self.messages.append({"role": "system", "content": system_prompt})
+
+    def send(self, user_message: str, max_tokens: int = 512,
+             sampler: SamplerConfig | None = None) -> str:
+        self.messages.append({"role": "user", "content": user_message})
+        self._ensure_context_space(max_tokens)
+        reply = self.engine.chat(self.messages, max_tokens=max_tokens,
+                                 sampler=sampler)
+        self.messages.append({"role": "assistant", "content": reply})
+        return reply
+
+    def send_streaming(self, user_message: str, max_tokens: int = 512,
+                       sampler: SamplerConfig | None = None) -> Iterator[str]:
+        self.messages.append({"role": "user", "content": user_message})
+        self._ensure_context_space(max_tokens)
+        parts: list[str] = []
+        for piece in self.engine.chat_streaming(self.messages,
+                                                max_tokens=max_tokens,
+                                                sampler=sampler):
+            parts.append(piece)
+            yield piece
+        self.messages.append({"role": "assistant", "content": "".join(parts)})
+
+    def _ensure_context_space(self, max_tokens: int) -> None:
+        """Drop oldest non-system turns until the prompt fits."""
+        self.engine._refuse_context_shift()
+        limit = self.engine.runner.max_seq - max_tokens - 16
+        while len(self.messages) > 2:
+            prompt = self.engine.chat_template.render(self.messages)
+            if len(self.engine.tokenizer.encode(prompt)) <= limit:
+                return
+            start = 1 if self.messages[0]["role"] == "system" else 0
+            del self.messages[start : start + 2]
+
+    def reset(self) -> None:
+        keep_system = self.messages[:1] if self.messages and \
+            self.messages[0]["role"] == "system" else []
+        self.messages = keep_system

@@ -15,16 +15,33 @@ compile key, and one per (batch, read bound) for a greedy decode step, all
 captured after one eager warm-up run and sharing one memory pool. Each graph
 has static input buffers, so a call copies its inputs in and replays: one
 launch from the host where the eager step makes ~1,700. A graph is bound to
-the addresses of the cache it was captured on, so the runner owns one cache
-per batch size (``init_kv``); a cache it did not make runs eagerly and is
-counted in ``eager_steps``. On the CPU every step runs eagerly (the plain
-path).
+the addresses of the cache it was captured on, so the runner owns its caches
+(``init_kv``): one per batch size and owner, each with its own graphs, so
+no caller can zero or overwrite another's (the continuous-batching engine
+owns one, the single-stream paths use the unowned one). A cache it did not
+make runs eagerly and is counted in ``eager_steps``. On the CPU every step
+runs eagerly (the plain path).
+
+Threads: the runner is the one module that makes a served model's CUDA
+calls, and it serializes them itself. Every step, capture, greedy loop and
+embedding forward holds one re-entrant lock per device, and the forms a
+server uses hand back host arrays copied under it (``step(...,
+host_rows=)``, ``prefill``/``decode_one(..., host=True)``,
+``hidden_states``), so no caller takes a lock or touches a device tensor.
+Captures run in PyTorch's "thread_local" error mode: CUDA work that another
+thread queues meanwhile (a model load during a hot reload: allocations,
+copies, kernels) cannot break them. Two things still must not happen on
+another thread during a capture, and neither a load nor the serving path
+does them: a device-wide synchronize (``torch.cuda.synchronize()`` ends the
+capture) and a draw from the default CUDA generator (bound to the capture,
+so the draw raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 
 import numpy as np
@@ -33,8 +50,21 @@ import torch
 from ..models import kv as KV
 from ..models.config import ModelConfig
 from ..models.loader import resolve_device
-from ..models.transformer import forward
+from ..models.transformer import embed, forward, transformer_layer
 from ..ops import qmatmul as Q
+from ..ops.norms import apply_norm
+
+_DEVICE_LOCKS: dict[str, threading.RLock] = {}
+
+
+def _device_lock(device) -> threading.RLock:
+    """The one lock of ``device``, shared by every runner on it (an old and
+    a new engine during a hot reload): a capture begins with a device-wide
+    synchronize, which would end another runner's capture in progress."""
+    dev = torch.device(device)
+    return _DEVICE_LOCKS.setdefault(f"{dev.type}:{dev.index or 0}",
+                                    threading.RLock())
+
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -114,10 +144,11 @@ def pick_read_bound(lengths, max_seq: int, shards: int = 1,
 
 @dataclasses.dataclass
 class _Graph:
-    """A captured step: the graph, its static packed int32 inputs (None for
-    a greedy step, which reads the runner's token and position buffers),
-    its static output, and the kernel launches one replay makes
+    """A captured step: its key, the graph, its static packed int32 inputs
+    (None for a greedy step, which reads the runner's token and position
+    buffers), its static output, and the kernel launches one replay makes
     (ops/qmatmul.launch_counts)."""
+    key: tuple
     graph: torch.cuda.CUDAGraph
     inputs: torch.Tensor | None
     out: torch.Tensor | None
@@ -149,14 +180,19 @@ class ModelRunner:
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_format = kv_format
         self.matmul_precision = matmul_precision
-        self._kv: dict[int, dict] = {}  # the runner's own cache per batch
+        self._lock = _device_lock(self.device)
+        self.tier_shards = 1  # batch groups of a tiered read (one device)
+        # the runner's own caches, by (batch, owner)
+        self._kv: dict[tuple[int, str | None], dict] = {}
         self._graphs: dict[tuple, _Graph] = {}
-        self._greedy_io: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._greedy_io: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._pool = None  # the graphs' shared memory pool
         self.eager_steps = 0  # CUDA steps run eagerly (a foreign cache)
-        # per graph key: seconds of its warm-up and capture; and the device
-        # memory the captures reserved (the pool's growth)
+        self.replays: dict[tuple, int] = {}  # per graph key
+        # per graph key: seconds of its warm-up and capture; the captures
+        # made; and the device memory they reserved (the pool's growth)
         self.capture_seconds: dict[tuple, float] = {}
+        self.captures = 0
         self.pool_bytes = 0
 
     # -- state ---------------------------------------------------------------
@@ -170,32 +206,53 @@ class ModelRunner:
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
             device=self.device)
 
-    def init_kv(self, batch: int | None = None) -> dict:
-        """The runner's own cache for ``batch`` rows, zeroed in place: the
-        same tensors at every call, so the graphs captured on them replay.
-        The JAX runner returns a new cache and donates it to each step; the
-        port's steps update the cache in place instead, and a new request
-        reuses (and clears) the previous one's, so one request per batch
-        size runs at a time."""
-        b = batch or self.max_batch
-        kv = self._kv.get(b)
-        if kv is None:
-            kv = self._kv[b] = self._make_kv(b)
-        else:
-            for t in kv["k"] + kv["v"]:
-                t.zero_()
-        return kv
+    def init_kv(self, batch: int | None = None,
+                owner: str | None = None) -> dict:
+        """The runner's own cache for ``batch`` rows and ``owner``, zeroed
+        in place: the same tensors at every call, so the graphs captured on
+        them replay. The JAX runner returns a new cache and donates it to
+        each step; the port's steps update the cache in place instead, and
+        a new request reuses (and clears) the previous one's, so one request
+        per (batch, owner) runs at a time. A caller that keeps its rows
+        across requests (engine/batched.py) names itself as ``owner``, and
+        no other caller's ``init_kv`` touches its cache."""
+        with self._lock:
+            key = (batch or self.max_batch, owner)
+            kv = self._kv.get(key)
+            if kv is None:
+                kv = self._kv[key] = self._make_kv(key[0])
+            else:
+                for t in kv["k"] + kv["v"]:
+                    t.zero_()
+            return kv
 
-    def _graphed(self, kv: dict, b: int, steps: int = 1) -> bool:
-        """Whether steps on ``kv`` replay graphs: on CUDA, with the
-        runner's own cache. ``steps`` on a foreign cache on CUDA are
-        counted in ``eager_steps``."""
+    def release_kv(self, owner: str) -> None:
+        """Drop ``owner``'s caches, and the graphs and buffers bound to
+        them."""
+        with self._lock:
+            for d in (self._kv, self._greedy_io):
+                for key in [k for k in d if k[-1] == owner]:
+                    del d[key]
+            for key in [k for k in self._graphs if k[-1] == owner]:
+                del self._graphs[key]
+
+    def _graphed(self, kv: dict, steps: int = 1):
+        """The (batch, owner) of ``kv`` when steps on it replay graphs: on
+        CUDA, with one of the runner's own caches; else None. ``steps`` on
+        a foreign cache on CUDA are counted in ``eager_steps``."""
         if self.device.type != "cuda":
-            return False
-        if kv is self._kv.get(b):
-            return True
+            return None
+        for key, own in self._kv.items():
+            if own is kv:
+                return key
         self.eager_steps += steps
-        return False
+        return None
+
+    @staticmethod
+    def _graph_key(key: tuple, cache: tuple) -> tuple:
+        """A graph's key: the step's key, and the cache's owner unless the
+        cache is the unowned one (whose keys are the JAX compile keys)."""
+        return key if cache[1] is None else key + (cache[1],)
 
     # -- graphs --------------------------------------------------------------
 
@@ -223,17 +280,22 @@ class ModelRunner:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        with torch.cuda.graph(graph, pool=self._pool):
+        # "thread_local": only this thread's unsafe calls end the capture,
+        # not another thread's CUDA work (the runner's lock orders its own)
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
             out = body()
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         launches = Q.launch_counts(since=before)
         Q.credit(launches, -1)
         self.capture_seconds[key] = time.perf_counter() - t0
-        return _Graph(graph, inputs, out, launches)
+        self.captures += 1
+        return _Graph(key, graph, inputs, out, launches)
 
     def _replay(self, g: _Graph) -> None:
         g.graph.replay()
         Q.credit(g.launches)
+        self.replays[g.key] = self.replays.get(g.key, 0) + 1
 
     def _norm_bound(self, read_bound):
         """A read bound capped at max_seq; a tier whose lo reaches hi is the
@@ -254,8 +316,8 @@ class ModelRunner:
         return logits
 
     def _step_graph(self, b: int, t: int, read_bound, gather: bool,
-                    kv: dict) -> _Graph:
-        key = (b, t, read_bound, gather)
+                    kv: dict, cache: tuple) -> _Graph:
+        key = self._graph_key((b, t, read_bound, gather), cache)
         g = self._graphs.get(key)
         if g is not None:
             return g
@@ -282,32 +344,44 @@ class ModelRunner:
 
     @torch.no_grad()
     def step(self, tokens, positions, lengths, kv: dict,
-             read_bound=None, logit_positions=None
-             ) -> tuple[torch.Tensor, dict]:
+             read_bound=None, logit_positions=None, host_rows=None):
         """Run one step. tokens/positions [B, T], lengths [B] (int arrays or
         tensors). ``read_bound``: cap on KV positions attention reads (all
         valid positions must be < read_bound); use read_bucket() to pick, or
         a ``(lo, hi, cap)`` tier from pick_read_bound. ``logit_positions``:
         optional [B] per-row T-index — the LM head runs on that single
-        position per row and logits come back [B, 1, V]. The logits are
-        the caller's own (a copy of a graph's output)."""
+        position per row and logits come back [B, 1, V]. Returns (logits,
+        kv): the logits are the caller's own (a copy of a graph's output).
+        ``host_rows``: a list of batch rows; the logits are then those rows'
+        last column, copied to the host as one f32 [len(host_rows), V]
+        array under the runner's lock (none copied for an empty list)."""
         b, t = np.shape(tokens)
         read_bound = self._norm_bound(read_bound)
         gather = logit_positions is not None and t > 1
         parts = (tokens, positions, lengths) + (
             (logit_positions,) if gather else ())
-        if not self._graphed(kv, b):
-            return self._forward(kv, read_bound,
-                                 *(self._tensor(p) for p in parts)), kv
-        g = self._step_graph(b, t, read_bound, gather, kv)
-        if any(torch.is_tensor(p) and p.device.type != "cpu" for p in parts):
-            g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
-                                      for p in parts]))
-        else:  # one copy from the host
-            g.inputs.copy_(torch.from_numpy(np.concatenate(
-                [np.asarray(p, np.int32).reshape(-1) for p in parts])))
-        self._replay(g)
-        return g.out.clone(), kv
+        with self._lock:
+            cache = self._graphed(kv)
+            if cache is None:
+                out = self._forward(kv, read_bound,
+                                    *(self._tensor(p) for p in parts))
+            else:
+                g = self._step_graph(b, t, read_bound, gather, kv, cache)
+                if any(torch.is_tensor(p) and p.device.type != "cpu"
+                       for p in parts):
+                    g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
+                                              for p in parts]))
+                else:  # one copy from the host
+                    g.inputs.copy_(torch.from_numpy(np.concatenate(
+                        [np.asarray(p, np.int32).reshape(-1)
+                         for p in parts])))
+                self._replay(g)
+                out = g.out if host_rows is not None else g.out.clone()
+            if host_rows is None:
+                return out, kv
+            if not len(host_rows):
+                return np.zeros((0, out.shape[-1]), np.float32), kv
+            return out[list(host_rows), -1].float().cpu().numpy(), kv
 
     @staticmethod
     def plan_segments(start: int, steps: int,
@@ -339,11 +413,12 @@ class ModelRunner:
         tok.copy_(torch.argmax(logits[:, 0, :], dim=-1))
         pos.add_(1)
 
-    def _greedy_graph(self, b: int, read_bound, kv: dict) -> _Graph:
-        key = ("greedy", b, read_bound)
+    def _greedy_graph(self, b: int, read_bound, kv: dict,
+                      cache: tuple) -> _Graph:
+        key = self._graph_key(("greedy", b, read_bound), cache)
         g = self._graphs.get(key)
         if g is None:
-            tok, pos = self._greedy_io[b]
+            tok, pos = self._greedy_io[cache]
             dtok = torch.zeros_like(tok)
             dpos = torch.full_like(pos, self.max_seq)  # writes dropped
             g = self._graphs[key] = self._capture(
@@ -363,16 +438,21 @@ class ModelRunner:
         the graph of its (B, bound): the token and positions stay in device
         buffers the graph updates, and nothing is fetched; the caller
         fetches the tokens once."""
+        with self._lock:
+            return self._greedy_decode(tokens0, pos0, kv, steps)
+
+    def _greedy_decode(self, tokens0, pos0, kv, steps: int):
         lens0 = np.asarray(pos0.cpu() if torch.is_tensor(pos0) else pos0,
                            np.int64).reshape(-1)
         b = lens0.shape[0]
-        graphed = self._graphed(kv, b, steps)
+        cache = self._graphed(kv, steps)
+        graphed = cache is not None
         if graphed:
-            if b not in self._greedy_io:
-                self._greedy_io[b] = (
+            if cache not in self._greedy_io:
+                self._greedy_io[cache] = (
                     torch.zeros(b, dtype=torch.int32, device=self.device),
                     torch.zeros(b, dtype=torch.int32, device=self.device))
-            tok, pos = self._greedy_io[b]
+            tok, pos = self._greedy_io[cache]
             tok.copy_(self._tensor(tokens0))
             pos.copy_(torch.from_numpy(lens0.astype(np.int32)))
         else:
@@ -386,7 +466,7 @@ class ModelRunner:
                 # row's context grows by ``chunk`` in the segment)
                 bound = pick_read_bound(lens0 + done + chunk, self.max_seq)
             bound = self._norm_bound(bound)
-            g = self._greedy_graph(b, bound, kv) if graphed else None
+            g = self._greedy_graph(b, bound, kv, cache) if graphed else None
             for _ in range(chunk):
                 if graphed:
                     self._replay(g)
@@ -399,10 +479,11 @@ class ModelRunner:
     # -- single-sequence prefill + decode ------------------------------------
 
     def prefill(self, token_ids: list[int], kv: dict, batch_idx: int = 0,
-                start_pos: int = 0) -> tuple[torch.Tensor, dict, int]:
+                start_pos: int = 0, host: bool = False):
         """Prefill one sequence (padded to a bucket). Returns (last-token
-        logits [V], kv, seq_len). ``start_pos`` > 0 continues from an
-        existing KV prefix."""
+        logits [V], kv, seq_len); ``host``: the logits as an f32 numpy
+        array, copied under the runner's lock. ``start_pos`` > 0 continues
+        from an existing KV prefix."""
         t = len(token_ids)
         bt = bucket_len(t)
         b = KV.cache_shape(kv)[1]
@@ -415,12 +496,16 @@ class ModelRunner:
         logits, kv = self.step(
             toks, pos, lengths, kv,
             read_bound=read_bucket(start_pos + t, self.max_seq),
-            logit_positions=np.full((b,), t - 1, np.int32))
+            logit_positions=np.full((b,), t - 1, np.int32),
+            host_rows=[batch_idx] if host else None)
+        if host:
+            return logits[0], kv, start_pos + t
         return logits[batch_idx, logits.shape[1] - 1], kv, start_pos + t
 
     def decode_one(self, token_id: int, pos: int, kv: dict,
-                   batch_idx: int = 0) -> tuple[torch.Tensor, dict]:
-        """Single-token decode for one sequence. Returns (logits [V], kv)."""
+                   batch_idx: int = 0, host: bool = False):
+        """Single-token decode for one sequence. Returns (logits [V], kv);
+        ``host`` as in prefill."""
         b = KV.cache_shape(kv)[1]
         toks = np.zeros((b, 1), np.int32)
         toks[batch_idx, 0] = token_id
@@ -429,5 +514,33 @@ class ModelRunner:
         lengths = np.zeros((b,), np.int32)
         lengths[batch_idx] = pos + 1
         logits, kv = self.step(toks, posa, lengths, kv,
-                               read_bound=read_bucket(pos + 1, self.max_seq))
-        return logits[batch_idx, 0], kv
+                               read_bound=read_bucket(pos + 1, self.max_seq),
+                               host_rows=[batch_idx] if host else None)
+        return (logits[0] if host else logits[batch_idx, 0]), kv
+
+    @torch.no_grad()
+    def hidden_states(self, token_ids: list[int], owner: str) -> np.ndarray:
+        """The final-norm hidden states [T, H] of one sequence, on the host
+        (models/embeddings.py): the forward without its LM head, eagerly, on
+        ``owner``'s one-row cache, so no request's cache is touched."""
+        cfg = self.cfg
+        t = len(token_ids)
+        kinds = cfg.layer_kinds or ("attn",) * len(self.params["layers"])
+        with self._lock:
+            kv = self.init_kv(1, owner=owner)
+            tokens = self._tensor([token_ids])
+            positions = torch.arange(t, dtype=torch.int32,
+                                     device=self.device)[None]
+            lengths = self._tensor([t])
+            x = embed(self.params, cfg, tokens, positions)
+            for i, layer in enumerate(self.params["layers"]):
+                if kinds[i] != "attn":
+                    raise NotImplementedError(
+                        f"layer kind {kinds[i]!r} is not ported yet "
+                        "(ROADMAP queue 1)")
+                x, kv = transformer_layer(layer, cfg, x, positions, kv, i,
+                                          lengths,
+                                          precision=self.matmul_precision)
+            x = apply_norm(x, self.params["final_norm"], cfg.norm_eps,
+                           cfg.uses_layer_norm)
+            return x[0].float().cpu().numpy()

@@ -67,7 +67,7 @@ def test_graphed_step_equals_eager(engine, n):
     eager_kv = r._make_kv(1)
     want, eager_kv, pos = r.prefill(ids, eager_kv)
     got, kv, pos2 = r.prefill(ids, r.init_kv())
-    assert pos == pos2 and kv is r._kv[1]
+    assert pos == pos2 and kv is r._kv[(1, None)]
     assert _close(got, want)
     tok = int(torch.argmax(want))
     for _ in range(4):

@@ -27,14 +27,21 @@ def _port_modules():
     return mods
 
 
+# importing these fails in the fresh interpreters below: the card's machine
+# has neither jax, aiohttp nor requests, and jinja2 may be missing
+ABSENT = ("jax", "llama_gguf_tpu", "aiohttp", "requests", "jinja2")
+
+
 def test_every_module_imports_without_jax():
-    """Each module imports in a fresh interpreter where importing jax or
-    llama_gguf_tpu fails."""
+    """Each module imports in a fresh interpreter where importing jax,
+    llama_gguf_tpu, aiohttp, requests or jinja2 fails."""
     mods = _port_modules()
     assert "llama_gguf_tpu_torch.ops.qmatmul" in mods
+    assert "llama_gguf_tpu_torch.server.app" in mods
+    assert "llama_gguf_tpu_torch.client" in mods
     code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['llama_gguf_tpu'] = None\n"
+            f"for m in {ABSENT!r}:\n"
+            "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -45,6 +52,25 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_chat_template_falls_back_without_jinja2():
+    """Without jinja2, a GGUF's embedded template renders by its vocab
+    style (chatml here), as the JAX package does."""
+    code = ("import sys\n"
+            f"for m in {ABSENT!r}:\n"
+            "    sys.modules[m] = None\n"
+            "from types import SimpleNamespace\n"
+            "from llama_gguf_tpu_torch.engine.chat import ChatTemplate\n"
+            "tok = SimpleNamespace(tokens=['<|im_start|>', '<|im_end|>'],\n"
+            "                      chat_template='{{ messages }}')\n"
+            "t = ChatTemplate.detect(tok)\n"
+            "print(t.style, t.render([{'role': 'user', 'content': 'hi'}])"
+            "[:19])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "chatml <|im_start|>user\nhi"
 
 
 def _imported_names(path: Path):
