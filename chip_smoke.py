@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 10a, 8, 6, 10b: phases 7, 10a and 8 run while phase
-6's GGUF builds. Phase 9 runs inside each of phases 4, 6 and 7, on that
+in the order 1-5, 7, 10a, 8, 6, 10b, 11: phases 7, 10a and 8 run while phase
+6's GGUF and phase 11's inputs build in two child processes. Phase 9 runs inside each of phases 4, 6 and 7, on that
 path's engine; phase 10b inside phase 6, on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
@@ -17,7 +17,8 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and a child process phase 6's.
+   process builds phase 2's GGUF and two child processes phase 6's and
+   phase 11's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -150,6 +151,28 @@ plain version the graphs are held against.
    step. Then two steady passes of the 4 prompts at STEADY_MOE_TOKENS
    tokens each, as in 10a.
 
+11. Formats (every GGUF weight format the loader keeps quantized), in three
+   parts. 11a: TinyLlama-1.1B at the Q2_K mix (full width and depth; Q2_K
+   attention and gate/up, which repack to q4 with scale groups of 16;
+   Q6_K ffn_down, embedding and LM head), loaded in both modes; kernels 1-3
+   on its own weights as in phase 3 (1, 8, 128 and 512 rows, f32 and bf16
+   panels), each q4 group-16 case on split-K below TC_MIN_ROWS rows and on
+   the tensor cores from there; its weight bytes per decode step and
+   their bound; the main path as in phase 4 (exact launch counts, no eager
+   step, tokens and prefill logits against dequant mode); a greedy decode
+   profile and the CLI's bench. 11b: tinyllama-1.1b-l2 (TinyLlama's widths,
+   2 of 22 layers) at each of FORMATS_11B, loaded in both modes:
+   ops/parity.kernel_parity_check with f32 and with bf16 panels (each in
+   "highest" and "default" precision), then the main path as in phase 4
+   with each format's exact launch counts, the prefill's launches on the
+   tensor cores (Q8_K: q8 with groups of 256), quant tokens equal dequant
+   tokens, prefill logits within 1e-3; Q8_K's
+   qkv and gate|up also timed as in phase 3. 11c: Q2_K expert stacks at
+   Mixtral-8x7B's expert shapes (Q2K_EXPERTS experts each, from seeded
+   weights): kernel 4 at 2 slots, kernels 5 and 6 at 256 slots on the
+   tensor cores, as in phase 6 (moe_kernel_checks), then
+   ops/parity.moe_kernel_parity_check on Q2_K and Q4_K stacks.
+
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
 phase 10's, the bench lines and one JSON object {"kernels": [...]}. The
@@ -207,6 +230,14 @@ MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 # forward. Taken as independent errors that reach the logits at the logits'
 # own scale, they add up like a random walk: 2^-9 * sqrt(R).
 SERVING_ROUNDINGS_PER_LAYER = 6
+# Phase 11: the formats of tinyllama-1.1b-l2 (11b; Q2_K is 11a's TinyLlama),
+# the q4 ones among them, and the experts of each Q2_K stack of 11c (of
+# Mixtral's 8: the stacks are built and quantized on the host in a child
+# process, beside the Mixtral GGUF)
+FORMATS_11B = ("Q4_0", "Q4_1", "Q5_0", "Q3_K", "Q5_K", "Q8_K", "IQ4_NL",
+               "IQ4_XS")
+Q4_FORMATS = ("Q4_0", "Q4_1", "Q2_K", "Q4_K")
+Q2K_EXPERTS = 4
 
 VARIANTS_SOURCE = "llama_gguf_tpu_torch/csrc/qmatmul_variants.cu"
 VARIANTS_HELPER = "scripts/bench_kernel_variants.py:124-131 (the pallas() helper"
@@ -382,20 +413,64 @@ def summarize(run, steps: int) -> dict:
         device_ms_per_step_by_kernel=dict(top))
 
 
-def build_model(preset: str, **kw) -> str:
-    """The synthetic GGUF at the Q4_K_M mix, built once into .cache/."""
+def build_model(preset: str, quant: str = "Q4_K", **kw) -> str:
+    """The synthetic GGUF at ``quant``'s mix (Q4_K: Q4_K_M), built once into
+    .cache/."""
     from llama_gguf_tpu_torch.gguf.constants import GGMLType
     from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
 
+    tag = "q4k" if quant == "Q4_K" else quant.lower()
     path = os.path.join(ROOT, ".cache", "chip_smoke",
-                        f"{preset}-q4k-s{SEED}.gguf")
+                        f"{preset}-{tag}-s{SEED}.gguf")
     if not os.path.exists(path):
         t0 = time.perf_counter()
         tmp = path + f".{os.getpid()}.tmp"
-        build_synthetic_gguf(tmp, preset=preset, quant=GGMLType.Q4_K,
+        build_synthetic_gguf(tmp, preset=preset, quant=GGMLType[quant],
                              seed=SEED, **kw)
         os.replace(tmp, path)
         log(f"built {path} in {time.perf_counter() - t0:.1f}s")
+    return path
+
+
+def build_formats() -> dict:
+    """Phase 11's inputs, built in a child process: TinyLlama-1.1B at the
+    Q2_K mix, tinyllama-1.1b-l2 at each of FORMATS_11B, and the Q2_K expert
+    stacks (``build_q2k_experts``). Returns their paths."""
+    out = {"Q2_K": build_model("tinyllama-1.1b", "Q2_K")}
+    for fmt in FORMATS_11B:
+        out[fmt] = build_model("tinyllama-1.1b-l2", fmt)
+    out["experts"] = build_q2k_experts()
+    return out
+
+
+def build_q2k_experts() -> str:
+    """Phase 11c's expert stacks: Q2K_EXPERTS experts of Mixtral-8x7B's
+    gate, up (14336 x 4096) and down (4096 x 14336) weights, from seeded
+    weights, quantized to Q2_K and repacked as the loader repacks an expert
+    stack (ops/parity.expert_arrays), saved as .npz."""
+    import numpy as np
+
+    from llama_gguf_tpu_torch.gguf.constants import GGMLType
+    from llama_gguf_tpu_torch.ops.parity import expert_arrays
+
+    path = os.path.join(ROOT, ".cache", "chip_smoke",
+                        f"q2k-experts-{Q2K_EXPERTS}-s{SEED}.npz")
+    if os.path.exists(path):
+        return path
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    hidden, ffn = MOE_SHAPE["hidden_size"], MOE_SHAPE["expert_ffn"]
+    arrays = {}
+    for key, (n, k) in (("gate", (ffn, hidden)), ("up", (ffn, hidden)),
+                        ("down", (hidden, ffn))):
+        a = expert_arrays(rng, GGMLType.Q2_K, Q2K_EXPERTS, k, n, scale=0.02)
+        for field in ("packed", "scales", "mins"):
+            arrays[f"{key}.{field}"] = a[field]
+    tmp = path + f".{os.getpid()}.tmp.npz"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    log(f"built {path} in {time.perf_counter() - t0:.1f}s")
     return path
 
 
@@ -696,8 +771,8 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
     measurements = []
     modes = [("highest", False)] + ([("default", True)] if serving else [])
     for name, proj, lin32 in projections:
-        glu = name == "qmatmul_glu"
-        check(lin32.fmt == ("q8" if name == "qmatmul_q8" else "q4"),
+        glu = name == "qmatmul_glu"  # of either format
+        check(glu or lin32.fmt == ("q8" if name == "qmatmul_q8" else "q4"),
               f"{proj}: unexpected layout {lin32.fmt}")
         n_out = lin32.splits[0] if glu else lin32.n
         for precision, bf16 in modes:
@@ -816,10 +891,7 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
     from llama_gguf_tpu_torch.ops import qmatmul as Q
-    from llama_gguf_tpu_torch.ops.linear import dequantize_expert
-    from llama_gguf_tpu_torch.utils.timing import bound_ms
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     quant, deq = load_both(gguf)
     cfg = quant.runner.cfg
     layer0 = quant.runner.params["layers"][0]
@@ -859,7 +931,6 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
     k = cfg.num_experts_per_token
     idx = topi.reshape(-1).to(torch.int32)                   # [256]
     xr = xf.float().repeat_interleave(k, dim=0)              # [256, 4096]
-    e_num = ex["gate"].packed.shape[0]
     imbalanced = idx.clone()
     imbalanced[0::2] = 0                 # expert 0 takes half of the slots
     imbalanced[imbalanced == 1] = 2      # expert 1 none
@@ -872,6 +943,54 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
         "prefill, router's routing": (idx, xr),
         "prefill, imbalanced": (imbalanced, xr),
     }
+    measurements += moe_kernel_checks(ex, cases, timer, peaks,
+                                      "Mixtral-8x7B-l2")
+
+    def on_differ(ids_, toks, want):
+        i = next(j for j, (a, b) in enumerate(zip(toks, want)) if a != b)
+        margin = routing_margins(quant, ids_, len(toks))[i]
+        log(f"Mixtral: quant and dequant tokens first differ at step {i}; "
+            f"smallest top-2 vs third router margin there: {margin:.3g}")
+
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, "Mixtral-8x7B-l2", on_differ)
+    n_layers = cfg.num_layers
+    for name in Q.LAUNCHES:
+        want = n_layers * (decoded * MOE_PER_LAYER["decode"].get(name, 0)
+                           + MOE_PER_LAYER["prefill"].get(name, 0))
+        if name == "qmatmul_q8":
+            want = 1 + decoded  # the LM head
+        check(launches[name] == want,
+              f"Mixtral {name}: {launches[name]} launches, expected {want}")
+    for name, path in MOE_PATHS.items():  # counted where they launched
+        on_path = by_path.get(f"{name} {path}", 0)
+        check(on_path == launches[name] > 0,
+              f"Mixtral {name}: {on_path} of {launches[name]} launches on "
+              f"{path} ({by_path})")
+    print(json.dumps({"moe_decode_profile": decode_profiles(quant, ids)}),
+          flush=True)
+    graph_against_eager("Mixtral-8x7B-l2", quant, ids, card)
+    bench_json("Mixtral-8x7B-l2", quant, card)
+    batched_launches = moe_batched(quant, card)
+    return measurements, launches, batched_launches
+
+
+def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
+                      label: str) -> list[dict]:
+    """Kernels 4-6 on the expert stacks ``ex`` ("gate", "up", "down") for
+    each case (slot ids, input rows) of ``cases``: the slot-major kernel on
+    the gate and down stacks below the grouped rule, the grouped GLU
+    (gate|up) and the grouped kernel (down) from it, each in "highest" and
+    "default", against the plain versions and timed with the torch.bmm
+    yardstick (phase 6). The path each takes must be MOE_PATHS's."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import dequantize_expert
+    from llama_gguf_tpu_torch.utils.timing import bound_ms
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    e_num = ex["gate"].packed.shape[0]
+    measurements = []
     w_all = {key: torch.stack([dequantize_expert(ex[key], e)
                                for e in range(e_num)]) for key in ex}
     for case, (sid, x) in cases.items():
@@ -922,7 +1041,7 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
                       + 4 * s_slots * (kdim + 1)
                       + Q.out_dtype(precision).itemsize * s_slots * n)
             ops = 2 * s_slots * kdim * n * len(stacks)
-            label = ", default" if precision == "default" else ""
+            tag = ", default" if precision == "default" else ""
             # the wrapper's plan (its shapes and alignment), which must be
             # the main path's: split-K for kernel 4, tensor cores for 5, 6
             aligned = all(Q._aligned(xin.float().contiguous(), st_)
@@ -948,61 +1067,34 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
                 kpath["launch_ms"] = timer.ms(
                     lambda: Q.moe_grouped_blocked(xin, stacks[0], eg, rows,
                                                   precision, **glu))
-                log(f"{name} {proj} S={s_slots} {case}{label}: the launch "
+                log(f"{name} {proj} S={s_slots} {case}{tag}: the launch "
                     f"alone {kpath['launch_ms']:.4f} ms")
             measurements.append(compare(
-                name, f"{proj} S={s_slots} {case}{label}", kern(), plain(),
+                name, f"{proj} S={s_slots} {case}{tag}", kern(), plain(),
                 timer, kern, plain, lambda: torch.bmm(xin_g, w_g), nbytes,
-                ops, peaks, op_type=op_type, path="Mixtral-8x7B-l2",
+                ops, peaks, op_type=op_type, path=label,
                 projection=proj, slots=s_slots, experts_read=n_exp,
                 library_rows=n_exp * depth, k=kdim, n=n,
                 precision=precision, **kpath))
-    del w_all, products
-
-    def on_differ(ids_, toks, want):
-        i = next(j for j, (a, b) in enumerate(zip(toks, want)) if a != b)
-        margin = routing_margins(quant, ids_, len(toks))[i]
-        log(f"Mixtral: quant and dequant tokens first differ at step {i}; "
-            f"smallest top-2 vs third router margin there: {margin:.3g}")
-
-    launches, by_path, decoded, ids = run_main_path(
-        quant, deq, card, "Mixtral-8x7B-l2", on_differ)
-    n_layers = cfg.num_layers
-    for name in Q.LAUNCHES:
-        want = n_layers * (decoded * MOE_PER_LAYER["decode"].get(name, 0)
-                           + MOE_PER_LAYER["prefill"].get(name, 0))
-        if name == "qmatmul_q8":
-            want = 1 + decoded  # the LM head
-        check(launches[name] == want,
-              f"Mixtral {name}: {launches[name]} launches, expected {want}")
-    for name, path in MOE_PATHS.items():  # counted where they launched
-        on_path = by_path.get(f"{name} {path}", 0)
-        check(on_path == launches[name] > 0,
-              f"Mixtral {name}: {on_path} of {launches[name]} launches on "
-              f"{path} ({by_path})")
-    print(json.dumps({"moe_decode_profile": decode_profiles(quant, ids)}),
-          flush=True)
-    graph_against_eager("Mixtral-8x7B-l2", quant, ids, card)
-    bench_json("Mixtral-8x7B-l2", quant, card)
-    batched_launches = moe_batched(quant, card)
-    return measurements, launches, batched_launches
+    return measurements
 
 
-def upcast_panels(params):
+def panels_as(params, dtype):
     """A copy of a params tree whose QuantLinear and QuantEmbedding panels
-    are float32 (exact from bf16); every other leaf is shared."""
+    are ``dtype`` (float32 is exact from bf16); every other leaf is
+    shared."""
     import dataclasses
 
     from llama_gguf_tpu_torch.ops.linear import QuantEmbedding, QuantLinear
 
     if isinstance(params, dict):
-        return {k: upcast_panels(v) for k, v in params.items()}
+        return {k: panels_as(v, dtype) for k, v in params.items()}
     if isinstance(params, list):
-        return [upcast_panels(v) for v in params]
+        return [panels_as(v, dtype) for v in params]
     if isinstance(params, (QuantLinear, QuantEmbedding)):
         return dataclasses.replace(
-            params, scales=params.scales.float(),
-            mins=params.mins.float() if params.mins is not None else None)
+            params, scales=params.scales.to(dtype),
+            mins=params.mins.to(dtype) if params.mins is not None else None)
     return params
 
 
@@ -1064,7 +1156,7 @@ def serving_path(card: str, gguf: str, peaks: dict):
     engine = Engine(ModelRunner(params, cfg, matmul_precision="default",
                                 kv_format="bf16", device="cuda"),
                     Tokenizer.from_gguf(gg.metadata), config, gg)
-    oracle = ModelRunner(upcast_panels(params), cfg,
+    oracle = ModelRunner(panels_as(params, torch.float32), cfg,
                          matmul_precision="highest", kv_format="f32",
                          device="cuda")
     log(f"serving: loaded in {time.perf_counter() - t0:.1f}s")
@@ -1578,6 +1670,157 @@ def variant_path(card: str, timer, peaks: dict):
     return measurements, launches
 
 
+def formats_path(card: str, timer, peaks: dict, builds):
+    """Phase 11 (``builds``: the future of build_formats). Returns
+    (measurements, launches by path)."""
+    import torch
+    from llama_gguf_tpu_torch.gguf.constants import GGMLType
+    from llama_gguf_tpu_torch.ops import parity
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    t0 = time.perf_counter()
+    paths = builds.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for phase 11's inputs")
+    launches = {}
+
+    # -- 11a: TinyLlama-1.1B at the Q2_K mix, full width and depth ----------
+    t0 = time.perf_counter()
+    label = "TinyLlama-1.1B Q2_K"
+    quant, deq = load_both(paths["Q2_K"])
+    cfg, params = quant.runner.cfg, quant.runner.params
+    check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
+          (22, 2048, 32000), f"{label}: unexpected model shape {cfg}")
+    layer = params["layers"][0]
+    q4 = [("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
+          ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
+          ("qmatmul_glu", "gate|up", layer["ffn"]["gate_up"])]
+    for _, proj, lin in q4:
+        check((lin.fmt, lin.group, lin.source_type) == ("q4", 16, "Q2_K"),
+              f"{label} {proj}: {lin.fmt} group {lin.group} from "
+              f"{lin.source_type}")
+    measurements = projection_checks(q4 + [
+        ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
+        ("qmatmul_q8", "lm_head", params["output"])],
+        ROWS, timer, peaks, label, serving=True)
+    for m in measurements:  # q4 group 16: split-K below 5 rows, tc from 5
+        if m["projection"] in ("qkv", "o_proj", "gate|up"):
+            want = "tc" if m["rows"] >= Q.TC_MIN_ROWS else "splitk"
+            check(m["kernel_path"] == want,
+                  f"{label} {m['case']}: on {m['kernel_path']}, not {want}")
+    nbytes = step_bytes(params)
+    print(f"{label}: {nbytes} weight bytes per decode step, bound "
+          f"{nbytes / peaks['bytes'] * 1e3:.4f} ms | {card}", flush=True)
+    run, _, decoded, ids = run_main_path(quant, deq, card, label)
+    for name, per in PER_STEP.items():
+        check(run[name] == per * (1 + decoded),
+              f"{label} {name}: {run[name]} launches, expected {per} x "
+              f"{1 + decoded}")
+    launches[label] = run
+    print(json.dumps({"q2k_decode_profile": profile_decode(
+        quant, ids, mode="greedy")}), flush=True)
+    bench_json(label, quant, card)
+    del quant, deq, params, layer, q4
+    torch.cuda.empty_cache()
+    log(f"11a done in {time.perf_counter() - t0:.1f}s")
+
+    # -- 11b: tinyllama-1.1b-l2 at each other format -------------------------
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+    for fmt in FORMATS_11B:
+        label = f"tinyllama-1.1b-l2 {fmt}"
+        quant, deq = load_both(paths[fmt])
+        params, n_layers = quant.runner.params, quant.runner.cfg.num_layers
+        kind = "q4" if fmt in Q4_FORMATS else "q8"
+        wqkv = params["layers"][0]["attn"]["wqkv"]
+        gate_up = params["layers"][0]["ffn"]["gate_up"]
+        check(wqkv.source_type == gate_up.source_type == fmt
+              and wqkv.fmt == gate_up.fmt == kind,
+              f"{label}: {wqkv.fmt} from {wqkv.source_type}")
+        gated = [parity.kernel_parity_check(panels_as(params, dtype), rtol=0,
+                                            atol=REL_LIMIT)
+                 for dtype in (torch.float32, torch.bfloat16)]
+        if fmt == "Q8_K":  # q8 group 256, the other new layout
+            measurements += projection_checks([
+                ("qmatmul_q8", "qkv", wqkv),
+                ("qmatmul_glu", "gate|up", gate_up)], ROWS, timer, peaks,
+                label)
+        run, by_path, decoded, _ = run_main_path(quant, deq, card, label)
+        steps = 1 + decoded
+        # per step: qkv and o_proj of each layer, the GLU, the Q6_K down
+        # projections and the LM head
+        want = {"qmatmul_glu": n_layers,
+                "qmatmul_q4": 2 * n_layers if kind == "q4" else 0,
+                "qmatmul_q8": n_layers + 1 + (2 * n_layers if kind == "q8"
+                                              else 0)}
+        for name in Q.LAUNCHES:
+            check(run[name] == want.get(name, 0) * steps,
+                  f"{label} {name}: {run[name]} launches, expected "
+                  f"{want.get(name, 0)} x {steps}")
+        # the prefill's 128 rows on the tensor cores: the format's qkv and
+        # o_proj, the down projections and the GLU of every layer
+        tc = {"qmatmul_glu": n_layers,
+              "qmatmul_q4": 2 * n_layers if kind == "q4" else 0,
+              "qmatmul_q8": n_layers * (3 if kind == "q8" else 1)}
+        for name, least in tc.items():
+            check(by_path.get(f"{name} tc", 0) >= least,
+                  f"{label}: {by_path.get(f'{name} tc', 0)} launches of "
+                  f"{name} on the tensor cores, {least} at least ({by_path})")
+        log(f"{label}: parity gate passed on {gated} layouts (f32, bf16 "
+            f"panels; highest, default); launches by path {by_path}")
+        for name, n in run.items():
+            total[name] = total.get(name, 0) + n
+        del quant, deq, params, wqkv, gate_up
+        torch.cuda.empty_cache()
+    launches["tinyllama-1.1b-l2 formats"] = total
+    log(f"11b done in {time.perf_counter() - t0:.1f}s")
+
+    # -- 11c: kernels 4-6 on Q2_K expert stacks at Mixtral's shapes ----------
+    t0 = time.perf_counter()
+    measurements += q2k_moe_checks(paths["experts"], timer, peaks)
+    for t in ("Q2_K", "Q4_K"):
+        n = parity.moe_kernel_parity_check(GGMLType[t], rtol=0,
+                                           atol=REL_LIMIT)
+        log(f"moe_kernel_parity_check({t}): {n} products passed")
+    log(f"11c done in {time.perf_counter() - t0:.1f}s")
+    return measurements, launches
+
+
+def q2k_moe_checks(npz: str, timer, peaks: dict) -> list[dict]:
+    """Phase 11c: the Q2_K expert stacks of build_q2k_experts on the card,
+    kernel 4 at 2 slots (two experts) and kernels 5 and 6 at 256 slots (128
+    tokens, each routed to 2 of the stacks' experts, from a seed), through
+    moe_kernel_checks."""
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.ops.linear import QuantExpertStack
+
+    data = np.load(npz)
+    ex = {}
+    for key in ("gate", "up", "down"):
+        packed = torch.from_numpy(data[f"{key}.packed"]).cuda()
+        ex[key] = QuantExpertStack(
+            packed, torch.from_numpy(data[f"{key}.scales"]).cuda(),
+            torch.from_numpy(data[f"{key}.mins"]).cuda(), fmt="q4", group=16,
+            k=2 * packed.shape[1], n=packed.shape[2])
+    check((ex["gate"].k, ex["gate"].n, ex["down"].k) == (
+        MOE_SHAPE["hidden_size"], MOE_SHAPE["expert_ffn"],
+        MOE_SHAPE["expert_ffn"]), "Q2_K expert stacks: unexpected shapes")
+    rng = np.random.default_rng(SEED)
+    tokens, k = 128, MOE_SHAPE["num_experts_per_token"]
+    idx = np.concatenate([rng.choice(Q2K_EXPERTS, k, replace=False)
+                          for _ in range(tokens)]).astype(np.int32)
+    x = rng.standard_normal((tokens * k, MOE_SHAPE["hidden_size"]),
+                            dtype=np.float32)
+    idx_t, x_t = torch.from_numpy(idx).cuda(), torch.from_numpy(x).cuda()
+    cases = {"decode, 2 experts": (idx_t[:2], x_t[:2]),
+             "prefill, 2 of 4 experts per token": (idx_t, x_t)}
+    out = moe_kernel_checks(ex, cases, timer, peaks,
+                            f"Q2_K experts ({Q2K_EXPERTS} of 8)")
+    del ex, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -1586,16 +1829,18 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF (host numpy work, minutes) builds in a child process
-    # while the dense path runs; leaving the block waits for the child
+    # the Mixtral GGUF and phase 11's inputs (host numpy work, minutes) build
+    # in two child processes while the dense path runs; leaving the block
+    # waits for the children
     with ProcessPoolExecutor(
-            max_workers=1,
+            max_workers=2,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         moe_gguf = pool.submit(build_model, "mixtral-8x7b-l2", max_ctx=2048)
-        return run(moe_gguf)
+        formats = pool.submit(build_formats)
+        return run(moe_gguf, formats)
 
 
-def run(moe_gguf) -> int:
+def run(moe_gguf, formats) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -1649,10 +1894,14 @@ def run(moe_gguf) -> int:
     moe, moe_launches, moe_batched_launches = moe_path(card, timer, peaks,
                                                        gguf)
     log(f"MoE path done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fmts, fmt_launches = formats_path(card, timer, peaks, formats)
+    log(f"formats path done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in dense + moe + probe if m["name"] == name]
+        mine = [m for m in dense + moe + probe + fmts if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
@@ -1660,7 +1909,8 @@ def run(moe_gguf) -> int:
             ("TinyLlama-1.1B server", server_launches),
             ("Mixtral-8x7B-l2", moe_launches),
             ("Mixtral-8x7B-l2 batched", moe_batched_launches),
-            ("probe", probe_launches)) if launched.get(name, 0)}
+            ("probe", probe_launches), *fmt_launches.items())
+            if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count
         for m in mine:

@@ -1,5 +1,6 @@
 """Command-line interface of the PyTorch port (subset of
-llama_gguf_tpu/cli.py): ``info``, ``run``, ``chat``, ``serve`` and ``bench``.
+llama_gguf_tpu/cli.py): ``info``, ``run``, ``chat``, ``serve``, ``bench`` and
+``quantize``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
     python -m llama_gguf_tpu_torch chat MODEL.gguf [--system TEXT]
@@ -7,11 +8,15 @@ llama_gguf_tpu/cli.py): ``info``, ``run``, ``chat``, ``serve`` and ``bench``.
         [--prefill-chunk T]
     python -m llama_gguf_tpu_torch info MODEL.gguf [--tensors] [--json]
     python -m llama_gguf_tpu_torch bench MODEL.gguf [--json] [--profile DIR]
+    python -m llama_gguf_tpu_torch quantize IN.gguf OUT.gguf -t q4_k
+        [--all-tensors] [--min-elements N]
 
 Every subcommand that loads a model loads it onto CUDA unless ``--device
-cpu`` is given, and raises when CUDA is absent. The TOML config file, the
-speculative, grammar and LoRA flags and the other subcommands are ROADMAP
-queue 1 item 6.
+cpu`` is given, and raises when CUDA is absent (``quantize`` is host work and
+loads no model). The TOML config file, the speculative, grammar and LoRA
+flags and the other subcommands are ROADMAP queue 1 item 6; without the
+config file ``quantize`` takes the JAX CLI's defaults (q4_k, weights only,
+1024 elements).
 """
 
 from __future__ import annotations
@@ -79,6 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
                    const=os.path.join(tempfile.gettempdir(),
                                       "llama_gguf_tpu_torch_profile"),
                    help="write a torch.profiler chrome trace to DIR")
+    p.add_argument("-v", "--verbose", action="store_true")
+
+    p = sub.add_parser("quantize", help="requantize a GGUF model")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("-t", "--type", default="q4_k",
+                   help="target type (q4_k, q6_k, q8_0, ...)")
+    p.add_argument("--all-tensors", action="store_true",
+                   help="also requantize embeddings/output")
+    p.add_argument("--min-elements", type=int, default=1024)
     p.add_argument("-v", "--verbose", action="store_true")
     return ap
 
@@ -305,8 +320,36 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_quantize(args) -> int:
+    import time
+
+    from .gguf.constants import GGMLType
+    from .gguf.requantize import QuantizeOptions, quantize_model
+
+    tname = args.type.upper()
+    try:
+        target = GGMLType[tname]
+    except KeyError:
+        sys.exit(f"error: unknown quant type {tname!r}")
+    t0 = time.time()
+
+    def progress(name, i, total):
+        print(f"\r[{i}/{total}] {name[:60]:<60}", end="", flush=True)
+
+    report = quantize_model(
+        args.input, args.output,
+        QuantizeOptions(target=target, weights_only=not args.all_tensors,
+                        min_elements=args.min_elements),
+        progress=progress)
+    print(f"\n{report.converted} converted, {report.skipped} kept, "
+          f"{report.fallback_f16} f16-fallback; "
+          f"{report.in_bytes / 1e6:.1f} -> {report.out_bytes / 1e6:.1f} MB "
+          f"in {time.time() - t0:.1f}s")
+    return 0
+
+
 COMMANDS = {"info": cmd_info, "run": cmd_run, "chat": cmd_chat,
-            "serve": cmd_serve, "bench": cmd_bench}
+            "serve": cmd_serve, "bench": cmd_bench, "quantize": cmd_quantize}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,6 +1,6 @@
 // Sparse-MoE grouped dequant-matmul kernels for Hopper (sm_90a) on the CUDA
 // cores, for the layouts the tensor-core path of csrc/qgemm.cu does not
-// take (ragged N, q4 groups other than 32, unaligned stacks;
+// take (ragged N, q4 groups other than 16 and 32, unaligned stacks;
 // ops/qmatmul.moe_grouped_plan and moe_glu_grouped_plan choose). Each routed
 // slot's input row times the quantized weight of the expert it was routed
 // to, read straight from the full expert stack by index (no gathered

@@ -62,7 +62,14 @@
 // k0+15], the high nibbles the next against x[k0+16 .. k0+31]. Within a k16
 // step the fragment's k order is permuted (physical k = t + 4i for fragment
 // rows 2t, 2t+1, 2t+8, 2t+9), the same for x and W, so every shared-memory
-// read is conflict-free.
+// read is conflict-free. Other layouts (Q2_K's q4 group 16, Q8_K's q8 group
+// 256): at q4 group 16 a stage holds two groups of 8 packed rows, and a k16
+// step is exactly one group, its low nibbles against x[k0 .. k0+7] and its
+// high nibbles against x[k0+8 .. k0+15] (a B fragment built from 8 rows,
+// folded every step, as q8 group 16 is). At group 256 a group spans 8
+// stages: C_g carries across them, each stage adds its x sums to the
+// thread's running ones, and the fold comes at the group's last stage; a K
+// slice holds whole groups.
 //
 // The grouped products (kernels 5 and 6) are this path with gathered rows:
 // a BM-row tile of the blocked layout lies inside one C-row group (BM
@@ -82,13 +89,15 @@
 // Split-K path ("splitk", 1 to 4 rows: decode). Bound: the weight bytes,
 // read once from HBM. A grid over columns alone leaves most of the 132 SMs
 // idle at one row (16 blocks of 128 columns for a 2048-column weight), so K
-// is cut into `splits` slices of whole scale groups and each block of 64
+// is cut into `splits` slices of whole scale groups (of 32 packed rows in
+// longer groups, two groups of 8 at q4 group 16) and each block of 64
 // threads owns 128 columns x one row x one slice. Eight threads side by
 // side read 128 contiguous bytes of a packed row, each 16 columns; each
 // keeps 16 rows' 16-byte loads in flight before it uses the first, turns
 // bytes into floats with a byte permute and a subtraction (no integer
 // conversion), and folds s and m per chunk of 16 packed rows (linear, so
-// any cut of a group is exact). What bounds it at TinyLlama's 2048-wide q4
+// any cut of a group is exact; at q4 group 16 a chunk is two groups of 8
+// rows, each with its own x offsets and its own fold). What bounds it at TinyLlama's 2048-wide q4
 // weights is latency, not bytes: by profiler device time
 // (scripts/bench_qmatmul.py attribute, H100 80GB HBM3, 700 W) an empty
 // kernel takes 2.0 us, a launch whose threads each load one chunk 7.0 us,
@@ -138,6 +147,13 @@ using namespace qgemm;
 // the same layout; KIND_SLOT: kernel 4 (the expert of each row from eg;
 // split-K).
 enum { KIND_PLAIN = 0, KIND_GLU = 1, KIND_GATHERED = 2, KIND_SLOT = 4 };
+
+// The weight's layout class, the second template argument of both kernels:
+// the layouts of Q4_K, Q6_K, Q8_0, ... (q4 group 32, q8 group 16 or 32);
+// Q2_K's q4 group 16; and q8 groups longer than a stage (Q8_K's 256). Each
+// class is its own instantiation, so the new layouts cost the others
+// nothing.
+enum { LAY_STD = 0, LAY_G16 = 1, LAY_LONG = 2 };
 
 __host__ __device__ constexpr bool is_glu(int kind) { return (kind & KIND_GLU) != 0; }
 __host__ __device__ constexpr bool is_gathered(int kind) { return (kind & KIND_GATHERED) != 0; }
@@ -210,6 +226,13 @@ constexpr int SK_TY = 8;    // threads along K
 constexpr int SK_THREADS = SK_TX * SK_TY;
 static_assert(16 * SK_TX == TILE, "a split-K block reads one tile's columns");
 
+// Packed rows per unit of a split-K slice: a whole group (16 or 32 packed
+// rows), two groups of 8 (q4 group 16), or 32 rows of a longer group (q8
+// group 256); the chunks of 16 rows a block loads never straddle a unit.
+__host__ __device__ constexpr int sk_unit_rows(int rows_g) {
+    return rows_g < 16 ? 16 : rows_g > 32 ? 32 : rows_g;
+}
+
 template <bool VEC>
 __device__ __forceinline__ uint4 load16(const uint8_t* p, int nvalid) {
     if (VEC) return __ldg(reinterpret_cast<const uint4*>(p));
@@ -268,7 +291,7 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int c, float bias) {
 // KIND_SLOT: W is a stack of E experts ([E, K/2 | K, N], panels [E,
 // K/group, N]) and row r reads expert eg[r]; an id outside [0, E) reads
 // nothing, and slice 0 writes the row's NaN.
-template <int FMT, bool VEC, class SP, class OT, int KIND>
+template <int FMT, int LAY, bool VEC, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(SK_THREADS, 8)
 qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
              const SP* __restrict__ scales, const SP* __restrict__ mins, OT* __restrict__ y,
@@ -301,32 +324,51 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 
     constexpr int SK_JC = 16;  // packed rows per chunk: 16-byte loads in flight
     const int rows_g = FMT == FMT_Q4 ? group / 2 : group;  // packed rows per group
-    const int cpg = rows_g / SK_JC;                          // chunks per group
-    const int ngroups = K / group;
-    const int gb = int((long long)blockIdx.x * ngroups / splits);
-    const int ge = int((long long)(blockIdx.x + 1) * ngroups / splits);
+    // a chunk holds two groups of 8 packed rows (q4 group 16), or lies
+    // inside one group; a slice holds whole units of sk_unit_rows
+    constexpr bool two = LAY == LAY_G16;
+    const int cpu = sk_unit_rows(rows_g) / SK_JC;  // chunks per unit
+    const int units = (FMT == FMT_Q4 ? K / 2 : K) / sk_unit_rows(rows_g);
+    const int cb = int((long long)blockIdx.x * units / splits) * cpu;
+    const int ce = int((long long)(blockIdx.x + 1) * units / splits) * cpu;
     const bool has_mins = mins != nullptr;
 
     float acc[16];
 #pragma unroll
     for (int c = 0; c < 16; ++c) acc[c] = 0.0f;
+    // acc += s[g] * qd - m[g] * xs: one group's part of a chunk
+    auto fold = [&](int g, const float (&qd)[16], float xs) {
+        float sc[16];
+        load_panel16<VEC>(scales + size_t(g) * ldw + col, nvalid, sc);
+#pragma unroll
+        for (int c = 0; c < 16; ++c) acc[c] = fmaf(sc[c], qd[c], acc[c]);
+        if (has_mins) {
+            float mn[16];
+            load_panel16<VEC>(mins + size_t(g) * ldw + col, nvalid, mn);
+#pragma unroll
+            for (int c = 0; c < 16; ++c) acc[c] = fmaf(-mn[c], xs, acc[c]);
+        }
+    };
 
     if (nvalid > 0) {
-        for (int ch = gb * cpg + ty; ch < ge * cpg; ch += SK_TY) {
-            const int g = ch / cpg, j0 = (ch % cpg) * SK_JC;
-            const uint8_t* prow = packed + (size_t(g) * rows_g + j0) * ldw + col;
+        for (int ch = cb + ty; ch < ce; ch += SK_TY) {
+            const int pr0 = ch * SK_JC;  // the chunk's first packed row
+            const int g = pr0 / rows_g;
+            const uint8_t* prow = packed + size_t(pr0) * ldw + col;
             uint4 wv[SK_JC];
 #pragma unroll
             for (int j = 0; j < SK_JC; ++j) wv[j] = load16<VEC>(prow + size_t(j) * ldw, nvalid);
             float qd[16], xs = 0.0f;
 #pragma unroll
             for (int c = 0; c < 16; ++c) qd[c] = 0.0f;
-            const int k0 = g * group + j0;
+            const int k0 = g * group + pr0 % rows_g;
 #pragma unroll
             for (int j = 0; j < SK_JC; ++j) {
                 const uint32_t wd[4] = {wv[j].x, wv[j].y, wv[j].z, wv[j].w};
-                const float xlo = __ldg(xr + k0 + j);
-                const float xhi = FMT == FMT_Q4 ? __ldg(xr + k0 + j + group / 2) : 0.0f;
+                // q4 group 16: rows 8-15 are the next group's, 16 elements on
+                const int kj = k0 + j + (two && j >= SK_JC / 2 ? SK_JC / 2 : 0);
+                const float xlo = __ldg(xr + kj);
+                const float xhi = FMT == FMT_Q4 ? __ldg(xr + kj + group / 2) : 0.0f;
                 xs += xlo + xhi;
 #pragma unroll
                 for (int w4 = 0; w4 < 4; ++w4) {
@@ -345,17 +387,14 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                             qd[4 * w4 + c] = fmaf(xlo, byte_f32(u, c, 8388736.0f), qd[4 * w4 + c]);
                     }
                 }
-            }
-            float sc[16];
-            load_panel16<VEC>(scales + size_t(g) * ldw + col, nvalid, sc);
+                if (two && j == SK_JC / 2 - 1) {  // the first group of the chunk ends
+                    fold(g, qd, xs);
+                    xs = 0.0f;
 #pragma unroll
-            for (int c = 0; c < 16; ++c) acc[c] = fmaf(sc[c], qd[c], acc[c]);
-            if (has_mins) {
-                float mn[16];
-                load_panel16<VEC>(mins + size_t(g) * ldw + col, nvalid, mn);
-#pragma unroll
-                for (int c = 0; c < 16; ++c) acc[c] = fmaf(-mn[c], xs, acc[c]);
+                    for (int c = 0; c < 16; ++c) qd[c] = 0.0f;
+                }
             }
+            fold(two ? g + 1 : g, qd, xs);
         }
     }
 
@@ -378,7 +417,7 @@ qgemm_splitk(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 // ---- tensor-core path ------------------------------------------------------
 
 constexpr int TC_THREADS = 128;         // 4 warps side by side along N, 32 columns each
-constexpr int TC_KS = 32;               // K elements per stage: 1 or 2 scale groups
+constexpr int TC_KS = 32;               // K elements per stage: 2, 1 or 1/8 scale group
 constexpr int TC_XSTRIDE = TC_KS + 8;   // floats per staged x row (conflict-free reads)
 constexpr int TC_WSTRIDE = TILE + 32;   // bytes per staged packed row (conflict-free reads)
 static_assert(TC_THREADS == TILE, "the 4 warps cover one tile's columns");
@@ -400,13 +439,13 @@ struct Tc {
 
 // Grid: (splits, ceil(B/BM), column tiles: ceil(N/128), the GLU
 // ceil(N/64)); ws/counters: see split_sum; dynamic shared memory Tc::SMEM.
-// q4: group 32; q8: group 16 or 32; K % 32 == 0, N % 16 == 0 and 16-byte
+// q4: group 16 or 32; q8: group 16, 32, or 256 without min panels (Q8_K); K % 32 == 0, N % 16 == 0 and 16-byte
 // aligned tensors (the plan sees to them). GLU: act. KIND_GATHERED: B = G *
 // crows rows of the blocked layout, rows [B] slot ids (S: padding), eg [G]
 // expert ids, E experts in the stacks, BM dividing crows; with KIND_GLU the
 // up columns come from the second stack (packed2, scales2, mins2), which
 // has the first's layout.
-template <int FMT, int MT, class SP, class OT, int KIND>
+template <int FMT, int LAY, int MT, class SP, class OT, int KIND>
 __global__ void __launch_bounds__(TC_THREADS)
 qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
          const SP* __restrict__ scales, const SP* __restrict__ mins,
@@ -452,10 +491,20 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             if (mins2 != nullptr) mins2 += size_t(e) * sstride;
         }
     }
+    constexpr bool g16 = LAY == LAY_G16;  // a k16 step is one group
+    constexpr bool longg = LAY == LAY_LONG;
     const int nst = K / TC_KS;
-    const int sb = int((long long)blockIdx.x * nst / splits);
-    const int n_it = int((long long)(blockIdx.x + 1) * nst / splits) - sb;
-    const int gps = TC_KS / group;  // scale groups per stage: 1 or 2
+    int sb = int((long long)blockIdx.x * nst / splits);
+    int n_it = int((long long)(blockIdx.x + 1) * nst / splits) - sb;
+    const int gps = longg ? 1 : TC_KS / group;  // scale groups per stage: 1 or 2
+    // LAY_LONG: a group spans spg stages (a power of two: 8 at group 256),
+    // and a slice holds whole groups
+    const int spg = longg ? group / TC_KS : 1;
+    const int spg_shift = longg ? __ffs(spg) - 1 : 0;
+    if constexpr (longg) {
+        sb = int((long long)blockIdx.x * (nst / spg) / splits) * spg;
+        n_it = int((long long)(blockIdx.x + 1) * (nst / spg) / splits) * spg - sb;
+    }
     const bool has_mins = mins != nullptr;
 
     // This thread's cp.async chunks, fixed for the whole loop: MT chunks of
@@ -503,7 +552,10 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     const bool p_ok = p_which < 2 * (has_mins ? 2 : 1) && (p_which & 1) < gps && tid < 4 * PC;
     const SP* p_base = in_up<KIND>(PE * (tid % PC)) ? (p_which < 2 ? scales2 : mins2)
                                                      : (p_which < 2 ? scales : mins);
-    const size_t p_src = (size_t(sb) * gps + (p_which & 1)) * ldw + (p_col_ok ? p_col : 0);
+    // the slice's first panel row: its first stage's group (and at group 16
+    // the next); LAY_LONG: the group of sb
+    const size_t p_src = (longg ? size_t(sb >> spg_shift) : size_t(sb) * gps + (p_which & 1)) * ldw +
+                         (p_col_ok ? p_col : 0);
     const int p_dst = C::X_BYTES + C::W_BYTES + p_which * C::P_BYTES + 16 * (tid % PC);
 
     auto load_stage = [&](int it) {
@@ -515,7 +567,9 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
         for (int i = 0; i < WCH; ++i)
             cp_async16(st + w_dst[i], w_base + w_src[i] + size_t(it) * C::WROWS * ldw, w_ok);
         if (p_ok)
-            cp_async16(st + p_dst, p_base + p_src + size_t(it) * gps * ldw, p_col_ok);
+            cp_async16(st + p_dst,
+                       p_base + p_src + (longg ? size_t(it >> spg_shift) : size_t(it) * gps) * ldw,
+                       p_col_ok);
     };
 
     // x of one stage -> parts[pass][kstep][row][pos] and the group sums
@@ -574,6 +628,8 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
         for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+    // LAY_LONG: C_g carries across a group's stages (no min panels: the
+    // launcher refuses them)
 
 #pragma unroll
     for (int s = 0; s < C::NSTAGE - 1; ++s) {
@@ -599,24 +655,36 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
         const SP* ms = ss + 2 * TILE;
         const bf16* parts = parts_buf + (it & 1) * C::PARTS;
         const float* xsum = xsum_buf + (it & 1) * 2 * BM;
+        // LAY_LONG: the stage's place in its group (sb % spg == 0)
+        const int gstage = longg ? it & (spg - 1) : 0;
 
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
             // B fragments of the four n8 tiles: tile j, fragment column g8
             // is the warp's column 4 g8 + j; rows t4 + 4i of the step (q4:
-            // low nibbles for step 0, high nibbles for step 1).
-            const int wrow = FMT == FMT_Q4 ? 0 : 16 * ks;
+            // low nibbles for step 0, high nibbles for step 1). At q4 group
+            // 16 step ks is group ks: rows 8 ks + t4 and 8 ks + t4 + 4 give
+            // the step's offsets t4, t4 + 4 (low nibbles) and t4 + 8, t4 +
+            // 12 (high nibbles).
+            const int wrow = FMT == FMT_Q4 ? (g16 ? 8 * ks : 0) : 16 * ks;
             uint32_t w[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-                w[i] = *reinterpret_cast<const uint32_t*>(ws_ + (wrow + t4 + 4 * i) * TC_WSTRIDE + wc + 4 * g8);
+                if (!g16 || i < 2)
+                    w[i] = *reinterpret_cast<const uint32_t*>(ws_ + (wrow + t4 + 4 * i) * TC_WSTRIDE + wc + 4 * g8);
             uint32_t b[4][2];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 if (FMT == FMT_Q4) {
                     const uint32_t sel = uint32_t(j) | uint32_t(j) << 4 | uint32_t(4 + j) << 8 | uint32_t(4 + j) << 12;
-                    b[j][0] = nibbles_bf16x2(__byte_perm(w[0], w[1], sel) >> (4 * ks));
-                    b[j][1] = nibbles_bf16x2(__byte_perm(w[2], w[3], sel) >> (4 * ks));
+                    if constexpr (g16) {
+                        const uint32_t v = __byte_perm(w[0], w[1], sel);
+                        b[j][0] = nibbles_bf16x2(v);
+                        b[j][1] = nibbles_bf16x2(v >> 4);
+                    } else {
+                        b[j][0] = nibbles_bf16x2(__byte_perm(w[0], w[1], sel) >> (4 * ks));
+                        b[j][1] = nibbles_bf16x2(__byte_perm(w[2], w[3], sel) >> (4 * ks));
+                    }
                 } else {
                     b[j][0] = int8_pair_bf16x2(w[0], w[1], j);
                     b[j][1] = int8_pair_bf16x2(w[2], w[3], j);
@@ -631,7 +699,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                     const uint2 r8 = *reinterpret_cast<const uint2*>(pa + 8 * 16);  // row g8 + 8
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
-                        if (pass == C::PASSES - 1 && (gps == 2 || ks == 0))  // a group's first product
+                        if (pass == C::PASSES - 1 && (gps == 2 || ks == 0) && gstage == 0)  // a group's first product
                             mma_bf16_first(cg_[m][j], r0.x, r8.x, r0.y, r8.y, b[j][0], b[j][1]);
                         else
                             mma_bf16(cg_[m][j], r0.x, r8.x, r0.y, r8.y, b[j][0], b[j][1]);
@@ -640,7 +708,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             }
             // a group ends: acc += s * C_g - m * xs_g; this thread's
             // columns are wc + 8 t4 + q
-            if (gps == 2 || ks == 1) {
+            if ((gps == 2 || ks == 1) && gstage == spg - 1) {
                 const int gi = gps == 2 ? ks : 0;
                 float sc[8];
                 load8(ss + gi * TILE + wc + 8 * t4, sc);
@@ -651,7 +719,7 @@ qgemm_tc(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 #pragma unroll
                         for (int e = 0; e < 4; ++e)
                             acc[m][j][e] = fmaf(sc[j + 4 * (e & 1)], cg_[m][j][e], acc[m][j][e]);
-                if (has_mins) {
+                if (!longg && has_mins) {
                     float mn[8];
                     load8(ms + gi * TILE + wc + 8 * t4, mn);
 #pragma unroll
@@ -735,54 +803,60 @@ int col_tiles(int N) {
     return (N + OC - 1) / OC;
 }
 
-template <int FMT, bool VEC, class SP, class OT, int KIND>
+template <int FMT, int LAY, bool VEC, class SP, class OT, int KIND>
 int splitk(const Call& c) {
     const dim3 grid(c.splits, c.B, col_tiles<KIND>(c.N));
-    return launch(qgemm_splitk<FMT, VEC, SP, OT, KIND>, grid, SK_THREADS, 0, c.stream,
+    return launch(qgemm_splitk<FMT, LAY, VEC, SP, OT, KIND>, grid, SK_THREADS, 0, c.stream,
                   c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
                   static_cast<OT*>(c.y), c.ws, c.counters, c.eg, c.B, c.K, c.N, c.group,
                   c.splits, c.act, c.E);
 }
 
-template <int FMT, int MT, class SP, class OT, int KIND>
+template <int FMT, int LAY, int MT, class SP, class OT, int KIND>
 int tc_mt(const Call& c) {
     using T = Tc<FMT, MT, SP, OT>;
-    const cudaError_t e = allow_smem<qgemm_tc<FMT, MT, SP, OT, KIND>>(T::SMEM);
+    const cudaError_t e = allow_smem<qgemm_tc<FMT, LAY, MT, SP, OT, KIND>>(T::SMEM);
     if (e != cudaSuccess) return int(e);
     const dim3 grid(c.splits, (c.B + T::BM - 1) / T::BM, col_tiles<KIND>(c.N));
-    return launch(qgemm_tc<FMT, MT, SP, OT, KIND>, grid, TC_THREADS, T::SMEM, c.stream,
+    return launch(qgemm_tc<FMT, LAY, MT, SP, OT, KIND>, grid, TC_THREADS, T::SMEM, c.stream,
                   c.x, c.packed, static_cast<const SP*>(c.scales), static_cast<const SP*>(c.mins),
                   c.packed2, static_cast<const SP*>(c.scales2),
                   static_cast<const SP*>(c.mins2), static_cast<OT*>(c.y), c.ws, c.counters,
                   c.rows, c.eg, c.B, c.K, c.N, c.group, c.splits, c.act, c.crows, c.S, c.E);
 }
 
-template <int FMT, class SP, class OT, int KIND>
+template <int FMT, int LAY, class SP, class OT, int KIND>
 int dispatch(const Call& c, int path) {
     if (path == 1) {
         if constexpr ((KIND & KIND_SLOT) != 0) {
             return int(cudaErrorInvalidValue);
         } else {
             switch (c.tile) {
-            case 1: return tc_mt<FMT, 1, SP, OT, KIND>(c);
-            case 2: return tc_mt<FMT, 2, SP, OT, KIND>(c);
-            case 4: return tc_mt<FMT, 4, SP, OT, KIND>(c);
+            case 1: return tc_mt<FMT, LAY, 1, SP, OT, KIND>(c);
+            case 2: return tc_mt<FMT, LAY, 2, SP, OT, KIND>(c);
+            case 4: return tc_mt<FMT, LAY, 4, SP, OT, KIND>(c);
             default: return int(cudaErrorInvalidValue);
             }
         }
     }
-    if constexpr (is_gathered(KIND)) {
+    if constexpr (is_gathered(KIND) || LAY == LAY_LONG) {  // split-K: LAY_STD serves both
         return int(cudaErrorInvalidValue);
     } else {
         if (c.tile != 1) return int(cudaErrorInvalidValue);
-        return c.vec ? splitk<FMT, true, SP, OT, KIND>(c) : splitk<FMT, false, SP, OT, KIND>(c);
+        return c.vec ? splitk<FMT, LAY, true, SP, OT, KIND>(c)
+                     : splitk<FMT, LAY, false, SP, OT, KIND>(c);
     }
 }
 
+// The layout class of the call: q4 group 16 (both paths), q8 groups longer
+// than a stage (tensor cores; split-K folds them per chunk as any other).
 template <class SP, class OT, int KIND>
 int dispatch_fmt(const Call& c, int fmt, int path) {
-    return fmt == FMT_Q4 ? dispatch<FMT_Q4, SP, OT, KIND>(c, path)
-                         : dispatch<FMT_Q8, SP, OT, KIND>(c, path);
+    if (fmt == FMT_Q4)
+        return c.group == 16 ? dispatch<FMT_Q4, LAY_G16, SP, OT, KIND>(c, path)
+                             : dispatch<FMT_Q4, LAY_STD, SP, OT, KIND>(c, path);
+    return c.group > TC_KS && path == 1 ? dispatch<FMT_Q8, LAY_LONG, SP, OT, KIND>(c, path)
+                                        : dispatch<FMT_Q8, LAY_STD, SP, OT, KIND>(c, path);
 }
 
 template <class SP, class OT>
@@ -821,10 +895,13 @@ int dispatch_kind(const Call& c, int fmt, int path) {
 // A block reads 128 weight columns. path 0 = split-K (tile = rows per
 // block: 1; vec = 1 when N % 16 == 0 and every tensor is 16-byte aligned),
 // path 1 = tensor cores (tile = MT, 16-row tiles per block: 1, 2 or 4;
-// needs vec, q4 group 32, q8 group 16 or 32). splits: 1..32 K slices of
-// whole groups. With splits > 1, ws holds tiles x splits x (rows x 128)
-// floats and counters one int per output tile, all 0 (the kernel leaves
-// them 0 again); tiles = ceil(B / rows) x column tiles (ceil(N / 128), the
+// needs vec, q4 group 16 or 32, q8 group 16, 32, or 256 without min
+// panels).
+// splits:
+// 1..32 K slices of whole groups (split-K: of sk_unit_rows packed rows).
+// With splits > 1, ws holds tiles x splits x (rows x 128) floats and
+// counters one int per output tile, all 0 (the kernel leaves them 0
+// again); tiles = ceil(B / rows) x column tiles (ceil(N / 128), the
 // GLU ceil(N / 64)), as ops/qmatmul.py's plans give them.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int qgemm_launch(const float* x, const void* packed, const void* scales,
@@ -835,11 +912,15 @@ extern "C" int qgemm_launch(const float* x, const void* packed, const void* scal
                             int panel_bf16, int out_bf16, int path, int tile, int splits, int vec, int act, int crows, int S, int E,
                             void* stream) {
     const int rows_g = fmt == FMT_Q4 ? group / 2 : group;
-    if (splits < 1 || splits > 32 || splits > K / group || group % 16 != 0 || K % group != 0 ||
-        rows_g % 16 != 0 || act < -1 || act > 4)
+    const int prows = fmt == FMT_Q4 ? K / 2 : K;
+    if (splits < 1 || splits > 32 || group % 16 != 0 || K % group != 0 ||
+        (rows_g % 16 != 0 && rows_g != 8) || prows % sk_unit_rows(rows_g) != 0 || act < -1 ||
+        act > 4)
         return int(cudaErrorInvalidValue);
-    if (path == 1 && (!vec || K % TC_KS != 0 || splits > K / TC_KS ||
-                      (fmt == FMT_Q4 ? group != 32 : group != 16 && group != 32)))
+    if (path == 0 && splits > prows / sk_unit_rows(rows_g)) return int(cudaErrorInvalidValue);
+    if (path == 1 && (!vec || K % TC_KS != 0 || splits > K / (group > TC_KS ? group : TC_KS) ||
+                      (fmt == FMT_Q4 ? group != 16 && group != 32
+                                     : group != 16 && group != 32 && (group != 256 || mins != nullptr))))
         return int(cudaErrorInvalidValue);
     if ((rows != nullptr && eg == nullptr) || (eg != nullptr && (panel_bf16 || E < 1)) ||
         (rows != nullptr && (path != 1 || S < 0 || crows < 16 * tile ||

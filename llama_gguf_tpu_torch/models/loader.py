@@ -1,15 +1,20 @@
 """GGUF -> PyTorch params (port of llama_gguf_tpu/models/loader.py, dense
-decoders of the llama and qwen2 families and Mixtral-style sparse MoE).
+decoders of the llama and qwen2 families, architectures that store a
+combined attn_qkv tensor (phi3, MPT, DBRX, GPT-2, Falcon, Bloom, ...), and
+Mixtral-style sparse MoE).
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
 
   * "dequant": weights dequantized to f32 on the host (the oracle path;
                matmuls run as torch.matmul);
-  * "quant":   matmul weights repacked to the kernel layouts
-               (quant/repack.py) with scale panels in ``scale_dtype``, MoE
-               experts as QuantExpertStacks (f32 panels); norms and biases
-               stay dense; the embedding table stays quantized.
+  * "quant":   matmul weights of the 13 block formats of _QUANTIZED_KEEP
+               repacked to the kernel layouts (quant/repack.py) with scale
+               panels in ``scale_dtype``, MoE experts as QuantExpertStacks
+               (f32 panels); norms and biases stay dense; the embedding
+               table stays quantized. Other types (the IQ grid formats,
+               F16, ...) and combined QKV tensors load dense, as in the
+               JAX package.
 
 The JAX package's repack sidecar cache is not ported (ROADMAP queue 1).
 """
@@ -30,7 +35,12 @@ from ..quant.repack import repack, repack_rows
 from .config import Activation, ModelConfig, parse_config
 
 # formats kept quantized on the device (the ones quant/repack.py handles)
-_QUANTIZED_KEEP = {GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K}
+_QUANTIZED_KEEP = {
+    GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
+    GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K,
+    GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_K, GGMLType.IQ4_NL,
+    GGMLType.IQ4_XS,
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -161,21 +171,20 @@ class ModelLoader:
         if kind != "attn":
             raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                       "yet (ROADMAP queue 1)")
-        if self.has(f"{p}.attn_kv_a_mqa.weight") or \
-                self.has(f"{p}.attn_qkv.weight"):
+        if self.has(f"{p}.attn_kv_a_mqa.weight"):
             raise NotImplementedError(
-                "MLA and combined-QKV layers are not ported yet "
-                "(ROADMAP queue 1)")
+                "MLA layers are not ported yet (ROADMAP queue 1 item 11)")
         layer: dict[str, Any] = {}
         attn_norm = self.norm(f"{p}.attn_norm", required=False, unit_ok=True)
         if attn_norm is not None:
             layer["attn_norm"] = attn_norm
-        attn: dict[str, Any] = {
-            "wq": self.linear(f"{p}.attn_q"),
-            "wk": self.linear(f"{p}.attn_k"),
-            "wv": self.linear(f"{p}.attn_v"),
-            "wo": self.linear(f"{p}.attn_output"),
-        }
+        if self.has(f"{p}.attn_qkv.weight"):
+            attn: dict[str, Any] = self._split_qkv(i, cfg)
+        else:
+            attn = {"wq": self.linear(f"{p}.attn_q"),
+                    "wk": self.linear(f"{p}.attn_k"),
+                    "wv": self.linear(f"{p}.attn_v")}
+        attn["wo"] = self.linear(f"{p}.attn_output")
         for key, tname in (("q_norm", "attn_q_norm"), ("k_norm", "attn_k_norm"),
                            ("sinks", "attn_sinks"),
                            ("sub_norm", "attn_sub_norm")):
@@ -187,6 +196,10 @@ class ModelLoader:
         layer["attn"] = attn
 
         ffn_norm = self.norm(f"{p}.ffn_norm", required=False, unit_ok=True)
+        if ffn_norm is None:
+            # DBRX stores its pre-MoE norm as attn_output_norm
+            # (norm_attn_norm.norm_2 in HF, ATTN_OUT_NORM in llama.cpp)
+            ffn_norm = self.norm(f"{p}.attn_output_norm", required=False)
         if ffn_norm is not None:
             layer["ffn_norm"] = ffn_norm
         layer["ffn"] = self._load_ffn(i, cfg)
@@ -197,6 +210,22 @@ class ModelLoader:
         if post_ffw is not None:
             layer["post_ffn_norm"] = post_ffw
         return layer
+
+    def _split_qkv(self, i: int, cfg: ModelConfig) -> dict:
+        """A combined QKV tensor (rows [q | k | v]) as three DenseLinears,
+        dequantized whatever its type, as the JAX loader does."""
+        p = f"blk.{i}"
+        w = self.dense(f"{p}.attn_qkv.weight")  # [q+k+v rows, H]
+        nq = cfg.num_heads * cfg.head_dim
+        nkv = cfg.num_kv_heads * cfg.head_dim
+        cuts = [nq, nq + nkv]
+        bname = f"{p}.attn_qkv.bias"
+        biases = (np.split(self.dense(bname), cuts, axis=0)
+                  if self.has(bname) else [None] * 3)
+        return {key: DenseLinear(self._put(np.ascontiguousarray(ww.T)),
+                                 self._put(bb) if bb is not None else None)
+                for key, ww, bb in zip(("wq", "wk", "wv"),
+                                       np.split(w, cuts, axis=0), biases)}
 
     @staticmethod
     def _fuse_attn(attn: dict) -> None:

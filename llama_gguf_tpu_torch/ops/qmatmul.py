@@ -90,7 +90,7 @@ PRECISIONS = (None, "highest", "default")
 # (scripts/bench_qmatmul.py paths, H100 80GB HBM3, 700 W).
 TC_MIN_ROWS = 5
 TC_COLS = 128          # columns per tensor-core block (4 warps x 32)
-TC_STAGE = 32          # K elements per tensor-core stage (1 or 2 groups)
+TC_STAGE = 32          # K elements per tensor-core stage (2, 1 or 1/8 group)
 SPLITK_COLS = 128      # columns per split-K block (8 threads x 16)
 MAX_SPLITS = 32        # K slices per output tile
 # The grid the split of K aims for, in blocks per SM: 64-thread split-K
@@ -107,7 +107,7 @@ class QmatmulPlan:
     "splitk" (CUDA cores, one row per block); a block owns ``rows`` x
     ``cols`` columns of the weight (``out_cols`` of the output: half of
     them for the GLU, whose block reads 64 gate columns and their 64 up
-    columns) and one of ``splits`` K slices of whole scale groups; ``grid``
+    columns) and one of ``splits`` K slices of whole ``slice_units``; ``grid``
     is (splits, row tiles, column tiles); ``vec``: 16-byte loads (N % 16
     == 0 and aligned tensors). With splits > 1 each block writes its f32
     partial tile to a workspace of ``scratch_bytes`` and the last block of
@@ -154,21 +154,41 @@ def _layout(k: int, n: int, group: int, fmt: str, aligned: bool
             ) -> tuple[bool, bool]:
     """(vec, tc_ok) of a q4/q8 weight of k rows and n output columns: the
     16-byte loads need n % 16 == 0 and aligned tensors; the tensor cores
-    those, whole 32-element stages and q4 group 32 or q8 group 16 or 32.
-    Raises on what no kernel takes."""
-    if fmt not in ("q4", "q8") or group % (32 if fmt == "q4" else 16) \
-            or k % group:
+    those, whole 32-element stages and q4 group 16 (Q2_K) or 32, or q8
+    group 16, 32 or 256 (Q8_K, no min panels). Raises on what no
+    kernel takes: q4 groups other than 16 and multiples of 32, q8 groups
+    not a multiple of 16, k not a multiple of the split-K slice unit."""
+    if fmt not in ("q4", "q8") or (group % 16 if fmt == "q8" else
+                                   group != 16 and group % 32) \
+            or k % group or k % _unit_k(group, fmt):
         raise ValueError(f"qmatmul_plan: fmt={fmt} k={k} group={group}")
     vec = aligned and n % 16 == 0
     return vec, (vec and k % TC_STAGE == 0
-                 and group in ((32,) if fmt == "q4" else (16, 32)))
+                 and group in ((16, 32) if fmt == "q4" else (16, 32, 256)))
 
 
-def _check_splits(splits: int, k: int, group: int, path: str) -> None:
-    if not 1 <= splits <= min(MAX_SPLITS, k // group if path == "splitk"
-                              else k // TC_STAGE):
-        raise ValueError(f"qmatmul_plan: {splits} splits of {k // group} "
-                         "groups")
+def _unit_k(group: int, fmt: str) -> int:
+    """K elements per unit of a split-K slice (csrc/qgemm.cu sk_unit_rows
+    packed rows): a whole group of 16 or 32 packed rows, two groups of 8
+    (q4 group 16), or 32 rows of a longer group (q8 group 256)."""
+    per_row = 2 if fmt == "q4" else 1
+    return per_row * min(max(group // per_row, 16), 32)
+
+
+def slice_units(k: int, group: int, fmt: str, path: str) -> int:
+    """The units a K slice is made of, as the kernels cut K: split-K's of
+    ``_unit_k`` elements; the tensor cores' 32-element stages, or whole
+    groups where a group spans several stages."""
+    if path == "splitk":
+        return k // _unit_k(group, fmt)
+    return k // max(group, TC_STAGE)
+
+
+def _check_splits(splits: int, k: int, group: int, fmt: str,
+                  path: str) -> None:
+    units = slice_units(k, group, fmt, path)
+    if not 1 <= splits <= min(MAX_SPLITS, units):
+        raise ValueError(f"qmatmul_plan: {splits} splits of {units} units")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -185,12 +205,13 @@ def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
     BLOCKS_PER_SM["tc prefill"] blocks per SM: at TinyLlama's 128-row
     prefill 32-row tiles took 0.126 ms against 0.149, bench_qmatmul paths,
     H100 80GB HBM3, 700 W). Tensor cores from
-    TC_MIN_ROWS rows on, where the layout allows them (q4 group 32, q8 group
-    16 or 32, 16-byte loads); BM = 16 rows x 128 columns up to 16 rows, 32
-    up to 64 rows or below 4096 columns, else 64. Below, the split-K
-    kernel: one row x 128 columns. Either way K is cut into up to
-    MAX_SPLITS slices of whole groups (whole 32-element stages on the tensor
-    cores, 8 of them per slice at least, for the cp.async ring; split-K: 6
+    TC_MIN_ROWS rows on, where the layout allows them (``_layout``: q4
+    group 16 or 32, q8 group 16, 32 or 256, 16-byte loads);
+    BM = 16 rows x 128 columns up to 16 rows, 32 up to 64 rows or below
+    4096 columns, else 64. Below, the split-K kernel: one row x 128 columns.
+    Either way K is cut into up to MAX_SPLITS slices of whole
+    ``slice_units`` (whole 32-element stages or groups on the tensor
+    cores, 8 stages per slice at least, for the cp.async ring; split-K: 6
     chunks of 16 packed rows at least, the GLU 8) until the grid holds
     BLOCKS_PER_SM blocks per SM: rounded up, or down for the tensor cores'
     32- and 64-row tiles up to 128 rows. ``path``, ``splits`` and
@@ -233,7 +254,7 @@ def qmatmul_plan(b: int, k: int, n: int, group: int, fmt: str,
         else:
             want = -(-BLOCKS_PER_SM[path] * sms // tiles)
         splits = max(1, min(MAX_SPLITS, slices_max, want))
-    _check_splits(splits, k, group, path)
+    _check_splits(splits, k, group, fmt, path)
     if row_tiles > 65535 or col_tiles > 65535:
         raise ValueError(f"qmatmul_plan: {b} x {n} exceeds the grid")
     return QmatmulPlan(path, rows, cols, splits, (splits, row_tiles, col_tiles),
@@ -289,7 +310,7 @@ def moe_grouped_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
         live = min(row_tiles, -(-s_slots // rows) + e_num)
         want = BLOCKS_PER_SM["tc prefill"] * sms // (live * col_tiles)
         splits = max(1, min(MAX_SPLITS, k // TC_STAGE // 8, want))
-    _check_splits(splits, k, group, path)
+    _check_splits(splits, k, group, fmt, path)
     if row_tiles > 65535 or col_tiles > 65535:
         raise ValueError(f"moe_grouped_plan: {b} x {n} exceeds the grid")
     return QmatmulPlan(path, rows, TC_COLS, splits,
@@ -321,8 +342,8 @@ def moe_slot_plan(s_slots: int, e_num: int, k: int, n: int, group: int,
     slices (1,120 blocks over 1,056 resident) took 0.0606 ms on the gate
     stack against 0.0453 for 4; on the down stack 17 slices 0.0689 against
     0.0571 for 16 (bench_qmatmul paths, H100 80GB HBM3, 700 W). Every
-    layout ``qmatmul_plan`` takes: K % group == 0, q4 group 32 (or a
-    multiple), q8 group 16 or a multiple, ragged N masked, byte loads
+    layout ``qmatmul_plan`` takes: K % group == 0, q4 group 16 or a
+    multiple of 32, q8 group 16 or a multiple, ragged N masked, byte loads
     where a tensor is not 16-byte aligned. ``splits`` overrides the
     choice."""
     if moe_dims(s_slots, e_num)[2]:

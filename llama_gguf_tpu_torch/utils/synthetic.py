@@ -2,8 +2,9 @@
 
 A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense and Mixtral-style
 MoE presets; the port never imports the JAX package). The same preset, quant
-and seed give the same file byte for byte as the JAX package's builder. Q4_K_M
-convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
+and seed give the same file byte for byte as the JAX package's builder
+(the -l2 presets are the port's own). ``quant`` is any quantizable type;
+Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
 Q6_K; a K-quant whose super-block does not divide the row falls back to Q5_1.
 """
@@ -26,6 +27,10 @@ PRESETS = {
     "qwen2.5-0.5b": ("qwen2", 151936, 896, 24, 14, 2, 4864, 32768, True),
     "llama3-8b": ("llama", 128256, 4096, 32, 32, 8, 14336, 8192, False),
     "tinyllama-1.1b": ("llama", 32000, 2048, 22, 32, 4, 5632, 2048, False),
+    # port-only: TinyLlama-1.1B's widths cut to 2 of 22 layers (every
+    # kernel shape is local to a layer), so one file per weight format fits
+    # chip_smoke.py's time limit
+    "tinyllama-1.1b-l2": ("llama", 32000, 2048, 2, 32, 4, 5632, 2048, False),
 }
 
 # Mixtral-style sparse-MoE presets (llama arch + expert_count, the GGUF

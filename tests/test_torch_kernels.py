@@ -942,3 +942,119 @@ def test_moe_layer_makes_one_dispatch_plan(cuda, tmp_path, monkeypatch):
         want = ({"moe_glu_grouped": 1, "moe_grouped": 1} if plans
                 else {"moe_slot": 3})
         assert {k: v for k, v in Q.LAUNCHES.items() if v} == want
+
+
+# -- the layouts of Q2_K (q4 group 16) and Q8_K (q8 group 256): kernels 1-6 --
+
+NEW_LAYOUTS = [GGMLType.Q2_K, GGMLType.Q8_K]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 8, 37, 130])
+@pytest.mark.parametrize("t", NEW_LAYOUTS, ids=lambda v: v.name)
+def test_new_layouts_kernels_1_2(cuda, t, b, panels, precision):
+    """Split-K below TC_MIN_ROWS rows, the tensor cores from there, f32 and
+    bf16 panels and outputs, counted on the plan's path."""
+    lin = make_lin(t, 384, 1024, 30, cuda)
+    assert (lin.fmt, lin.group) == {GGMLType.Q2_K: ("q4", 16),
+                                    GGMLType.Q8_K: ("q8", 256)}[t]
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(b, 1024, 30, cuda)
+    path = "tc" if b >= Q.TC_MIN_ROWS else "splitk"
+    assert Q.qmatmul_plan(b, 1024, 384, lin.group, lin.fmt).path == path
+    Q.reset_launches()
+    got = Q.qmatmul(x, lin, precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES_BY_PATH == {
+        f"{'qmatmul_q4' if lin.fmt == 'q4' else 'qmatmul_q8'} {path}": 1}
+    check_close(got, Q.qmatmul_plain(x, lin, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("path,b", [("splitk", 1), ("splitk", 3),
+                                    ("tc", 5), ("tc", 40)])
+@pytest.mark.parametrize("t", NEW_LAYOUTS, ids=lambda v: v.name)
+def test_new_layouts_forced_splits(cuda, t, path, b, splits):
+    """K = 1280: 5 groups of 256 (3 slices of unequal group counts on the
+    tensor cores, a group's 8 stages never cut) and 80 groups of 16."""
+    lin = make_lin(t, 256, 1280, 31, cuda)
+    x = make_x(b, 1280, 31, cuda)
+    check_close(Q.qmatmul(x, lin, path=path, splits=splits),
+                Q.qmatmul_plain(x, lin), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 131])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", NEW_LAYOUTS, ids=lambda v: v.name)
+def test_new_layouts_ragged_n(cuda, t, b, n):
+    """N % 16 != 0: split-K with byte loads at any row count."""
+    lin = make_lin(t, n, 512, 32, cuda)
+    x = make_x(b, 512, 32, cuda)
+    assert Q.qmatmul_plan(b, 512, n, lin.group, lin.fmt).path == "splitk"
+    check_close(Q.qmatmul(x, lin), Q.qmatmul_plain(x, lin), "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("panels", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 4, 5, 64])
+@pytest.mark.parametrize("t", NEW_LAYOUTS, ids=lambda v: v.name)
+def test_new_layouts_glu_kernel(cuda, t, b, panels, precision):
+    lin = make_lin(t, 2 * 192, 1024, 33, cuda, splits=(192, 192))
+    if panels == "bf16":
+        lin = to_bf16_panels(lin)
+    x = make_x(b, 1024, 33, cuda)
+    path = "tc" if b >= Q.TC_MIN_ROWS else "splitk"
+    Q.reset_launches()
+    got = Q.qmatmul_glu(x, lin, "silu", precision)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES_BY_PATH == {f"qmatmul_glu {path}": 1}
+    check_close(got, Q.qmatmul_glu_plain(x, lin, "silu", precision),
+                precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("s", [2, 45, 256])
+@pytest.mark.parametrize("t", NEW_LAYOUTS, ids=lambda v: v.name)
+def test_new_layouts_moe_kernels(cuda, t, s, precision):
+    """Kernel 4 (split-K) at 2 slots; kernels 5 and 6 on the tensor cores at
+    45 and 256 (imbalanced routing: a zero-slot expert)."""
+    gate = make_stack(t, 4, 256, 1024, 34, cuda)
+    up = make_stack(t, 4, 256, 1024, 35, cuda)
+    x, idx = make_x(s, 1024, 34, cuda), make_idx(s, 4, 34, cuda)
+    Q.reset_launches()
+    got = Q.moe_qmatmul(x, gate, idx, precision)
+    glu = Q.moe_qmatmul_glu(x, gate, up, idx, "silu", precision)
+    torch.cuda.synchronize()
+    if s < Q.MOE_GROUPED_MIN_SLOTS:
+        assert glu is None
+        assert Q.LAUNCHES_BY_PATH == {"moe_slot splitk": 1}
+    else:
+        assert Q.LAUNCHES_BY_PATH == {"moe_grouped tc": 1,
+                                      "moe_glu_grouped tc": 1}
+        check_close(glu, Q.moe_qmatmul_glu_plain(x, gate, up, idx, "silu",
+                                                 precision), precision)
+    check_close(got, Q.moe_qmatmul_plain(x, gate, idx, precision), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", NEW_LAYOUTS + [GGMLType.Q4_K],
+                         ids=lambda v: v.name)
+def test_parity_gates_pass_on_the_card(cuda, t):
+    """ops/parity on a model-like tree of the format (a plain and a fused
+    gate|up weight, f32 and bf16 panels) and on the MoE kernels, each in
+    "highest" and "default" precision."""
+    from llama_gguf_tpu_torch.ops import parity
+
+    lin = make_lin(t, 256, 512, 36, cuda)
+    glu = make_lin(t, 256, 512, 37, cuda, splits=(128, 128))
+    tree = {"layers": [{"w": lin, "gate_up": glu},
+                       {"w": to_bf16_panels(lin)}]}
+    assert parity.kernel_parity_check(tree, rtol=0, atol=REL_LIMIT) == 3
+    assert parity.moe_kernel_parity_check(t, rtol=0, atol=REL_LIMIT) == 6

@@ -37,7 +37,10 @@ torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32 elementwise / small reductions
 PORTED = [GGMLType.F32, GGMLType.F16, GGMLType.BF16, GGMLType.Q8_0,
-          GGMLType.Q5_1, GGMLType.Q4_K, GGMLType.Q6_K]
+          GGMLType.Q5_1, GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q4_0,
+          GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q8_1, GGMLType.Q2_K,
+          GGMLType.Q3_K, GGMLType.Q5_K, GGMLType.Q8_K, GGMLType.IQ4_NL,
+          GGMLType.IQ4_XS]
 
 
 def rnd(seed, *shape, scale=1.0):
@@ -262,12 +265,16 @@ def test_quantize_and_dequantize_match_jax(t):
 
 
 def test_unported_types_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tq.quantize(np.zeros(256, np.float32), GGMLType.Q2_K)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tdq.dequantize(np.zeros(84, np.uint8), GGMLType.Q2_K)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        trp.repack(np.zeros(18 * 8, np.uint8), GGMLType.Q4_0, (8, 32))
+    """The grid formats have no quantizer and no kernel layout in either
+    package: both raise, and the port names the roadmap entry that says
+    so."""
+    for quantize in (tq.quantize, jq.quantize):
+        with pytest.raises(NotImplementedError):
+            quantize(np.zeros(256, np.float32), GGMLType.IQ2_XXS)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        tq.quantize(np.zeros(256, np.float32), GGMLType.IQ2_XXS)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        trp.repack(np.zeros(66 * 8, np.uint8), GGMLType.IQ2_XXS, (8, 256))
 
 
 def test_synthetic_builder_matches_jax(tmp_path):

@@ -44,10 +44,12 @@ ROWS = [1, 2, 4, 8, 16, 128, 512]
 SMS = 132  # an H100 SXM
 
 
-def slices(k, group, splits, path):
+def slices(k, group, fmt, splits, path):
     """The kernels' cut of K: slice s holds units [s*U/S, (s+1)*U/S), the
-    units being scale groups (split-K) or 32-element stages (tc)."""
-    units = k // group if path == "splitk" else k // Q.TC_STAGE
+    units (ops/qmatmul.slice_units) being scale groups (split-K; two groups
+    of 8 packed rows at q4 group 16, 32 packed rows of a group of 256) or
+    32-element stages (tc; whole groups of 256)."""
+    units = Q.slice_units(k, group, fmt, path)
     return [(s * units // splits, (s + 1) * units // splits)
             for s in range(splits)], units
 
@@ -58,7 +60,7 @@ def test_plan_at_main_path_shapes(name, k, n, group, fmt, b):
     plan = Q.qmatmul_plan(b, k, n, group, fmt, SMS)
     assert plan.path == ("tc" if b >= Q.TC_MIN_ROWS else "splitk")
     # the slices cover K in whole groups, none empty, in order
-    cut, units = slices(k, group, plan.splits, plan.path)
+    cut, units = slices(k, group, fmt, plan.splits, plan.path)
     assert cut[0][0] == 0 and cut[-1][1] == units
     assert all(lo < hi for lo, hi in cut)
     assert all(a[1] == b_[0] for a, b_ in zip(cut, cut[1:]))
@@ -103,7 +105,7 @@ def test_plan_falls_back_to_split_k(case):
 
 def test_plan_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
-        Q.qmatmul_plan(1, 2048, 2048, 16, "q4")  # q4 needs groups of 32
+        Q.qmatmul_plan(1, 2048, 2048, 8, "q4")  # q4: 16 or a multiple of 32
     with pytest.raises(ValueError):
         Q.qmatmul_plan(1, 2048, 2048, 32, "q4", splits=65)
     with pytest.raises(ValueError):
@@ -158,7 +160,8 @@ def split_product(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
 
 @pytest.mark.parametrize("b", [1, 16, 130])
 @pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0,
-                               GGMLType.Q5_1], ids=lambda t: t.name)
+                               GGMLType.Q5_1, GGMLType.Q2_K, GGMLType.Q8_K],
+                         ids=lambda t: t.name)
 def test_split_product_matches_pallas(t, b):
     n, k = 160, 512
     rng = np.random.default_rng(40 + b)
@@ -233,7 +236,7 @@ def test_glu_plan_at_main_path_shapes(name, k, f, group, fmt, b):
     plan = Q.qmatmul_plan(b, k, f, group, fmt, SMS, glu=True)
     assert plan.glu and plan.cols == 128 and plan.out_cols == 64
     assert plan.path == ("tc" if b >= Q.TC_MIN_ROWS else "splitk")
-    cut, units = slices(k, group, plan.splits, plan.path)
+    cut, units = slices(k, group, fmt, plan.splits, plan.path)
     assert cut[0][0] == 0 and cut[-1][1] == units
     assert all(lo < hi for lo, hi in cut)
     assert all(a[1] == b_[0] for a, b_ in zip(cut, cut[1:]))
@@ -283,23 +286,27 @@ def levels(lin) -> torch.Tensor:
 
 def sliced_product(x: torch.Tensor, lin, splits: int) -> torch.Tensor:
     """The kernels' arithmetic with K cut into ``splits`` slices of whole
-    groups: within a slice, each group's product of the three bf16 parts of
-    x (smallest first), scaled, less the min term, summed in group order;
-    then the slices' partial tiles summed in slice order (split_sum)."""
+    split-K units: within a slice, each group's part (a whole group, or a
+    unit's part of a longer one) as the product of the three bf16 parts of x
+    (smallest first), scaled, less the min term, summed in K order; then the
+    slices' partial tiles summed in slice order (split_sum)."""
     k, n, g = lin.k, lin.n, lin.group
-    qg = levels(lin).reshape(k // g, g, n)
+    q = levels(lin)
     parts = split3(x.float())
     b = x.shape[0]
+    cut, units = slices(k, g, lin.fmt, splits, "splitk")
+    seg = min(g, k // units)  # K elements of one fold
     total = None
-    for lo, hi in slices(k, g, splits, "splitk")[0]:
+    for lo, hi in cut:
         part = torch.zeros(b, n)
-        for gi in range(lo, hi):
+        for k0 in range(lo * k // units, hi * k // units, seg):
+            gi, k1 = k0 // g, k0 + seg
             c = torch.zeros(b, n)
             for p in reversed(parts):
-                c = c + p.float()[:, gi * g:(gi + 1) * g] @ qg[gi]
+                c = c + p.float()[:, k0:k1] @ q[k0:k1]
             part = part + lin.scales[gi].float() * c
             if lin.mins is not None:
-                xs = x[:, gi * g:(gi + 1) * g].sum(dim=1, keepdim=True)
+                xs = x[:, k0:k1].sum(dim=1, keepdim=True)
                 part = part - xs * lin.mins[gi].float()
         total = part if total is None else total + part
     return total
@@ -324,7 +331,8 @@ def both_linears(t, n, k, seed, splits=None):
 @pytest.mark.parametrize("splits", [1, 3])
 @pytest.mark.parametrize("act", Q.GLU_ACTS)
 @pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0,
-                               GGMLType.Q5_1], ids=lambda t: t.name)
+                               GGMLType.Q5_1, GGMLType.Q2_K, GGMLType.Q8_K],
+                         ids=lambda t: t.name)
 def test_glu_tile_arithmetic_matches_pallas(t, act, splits):
     """Kernel 3's arithmetic: both halves' partial tiles summed over the K
     slices in order, act(gate) * up taken after the sum; against the JAX
@@ -502,12 +510,13 @@ def gathered_model(x: torch.Tensor, stack, idx: torch.Tensor, splits: int,
 
 @pytest.mark.parametrize("kind", ["uniform", "skewed", "one"])
 @pytest.mark.parametrize("s", [32, 64, 257])
-@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
-                         ids=lambda t: t.name)
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q2_K,
+                               GGMLType.Q8_K], ids=lambda t: t.name)
 def test_gathered_row_model_matches_pallas(t, s, kind):
     """The gathered-row tiles against the JAX package's moe_qmatmul in
-    interpret mode; every slot's row is written."""
-    e_num, k, n = 4, 256, 128
+    interpret mode; every slot's row is written. (The JAX entry declines a
+    single group of 256, so Q8_K takes two.)"""
+    e_num, k, n = 4, 512 if t == GGMLType.Q8_K else 256, 128
     js, ts = both_stacks(t, e_num, n, k, 60)
     x = np.random.default_rng(61 + s).standard_normal((s, k)).astype(
         np.float32)
@@ -523,7 +532,7 @@ def test_gathered_row_model_matches_pallas(t, s, kind):
 @pytest.mark.parametrize("act", ["silu", "swiglu_oai"])
 @pytest.mark.parametrize("kind", ["uniform", "skewed", "one"])
 @pytest.mark.parametrize("s", [32, 64, 257])
-@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q2_K],
                          ids=lambda t: t.name)
 def test_gathered_glu_model_matches_pallas(t, s, kind, act):
     """Kernel 6's tiles (gathered rows, the gate and the up stack, the GLU
@@ -546,7 +555,8 @@ def test_gathered_glu_model_matches_pallas(t, s, kind, act):
 
 
 @pytest.mark.parametrize("s", [1, 2, 3, 31])
-@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0,
+                               GGMLType.Q2_K, GGMLType.Q8_K],
                          ids=lambda t: t.name)
 def test_slot_model_matches_pallas(t, s):
     """Kernel 4's split-K arithmetic, one slot per block row over its own
@@ -605,14 +615,14 @@ def test_slot_plan_at_main_path_shapes(s, e, k, n, group, fmt, splits, grid):
 def test_slot_plan_layouts_and_refusals():
     """Every layout split-K takes: ragged N (byte loads), unaligned stacks,
     q8 groups 16 and 32; forced splits within 1..min(32, groups); refused:
-    a grouped slot count, a q4 group of 16, K not a multiple of the group,
+    a grouped slot count, a q4 group of 8, K not a multiple of the group,
     too many splits, more slots than the grid holds."""
     assert not Q.moe_slot_plan(2, 8, 4096, 200, 16, "q8").vec
     assert not Q.moe_slot_plan(2, 8, 4096, 4096, 16, "q8",
                                aligned=False).vec
     assert Q.moe_slot_plan(3, 8, 1024, 256, 32, "q8", splits=32).splits == 32
     for args, kw in (((32, 8, 4096, 4096, 16, "q8"), {}),
-                     ((2, 8, 4096, 4096, 16, "q4"), {}),
+                     ((2, 8, 4096, 4096, 8, "q4"), {}),
                      ((2, 8, 4100, 4096, 16, "q8"), {}),
                      ((2, 8, 512, 256, 32, "q4"), dict(splits=17)),
                      ((70000, 100000, 512, 256, 32, "q4"), {})):
