@@ -68,15 +68,20 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 
 def kv_from_numpy(kv: dict, device="cpu") -> dict:
     """Convert a numpy-leaved f32/bf16 llama_gguf_tpu KV cache ({"k": L x
-    [B, S, H, D], "v": ...}) to the port's layout, which carries one extra
-    drop slot per buffer (models/kv.py)."""
-    if set(kv) != {"k", "v"}:
+    [B, S, H, D], "v": ..., and for a hybrid model "deltanet": L x {"S",
+    "conv"}}) to the port's layout, whose K/V buffers carry one extra drop
+    slot each (models/kv.py)."""
+    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet"}:
         raise NotImplementedError(
-            f"kv_from_numpy: only plain f32/bf16 caches are ported, got keys "
-            f"{sorted(kv)}")
+            f"kv_from_numpy: only plain f32/bf16 caches and DeltaNet state "
+            f"are ported, got keys {sorted(kv)}")
 
     def pad(a):
         t = _tensor(a, device)
         return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
 
-    return {key: [pad(a) for a in kv[key]] for key in ("k", "v")}
+    out = {key: [pad(a) for a in kv[key]] for key in ("k", "v")}
+    if "deltanet" in kv:
+        out["deltanet"] = [{key: _tensor(st[key], device)
+                            for key in ("S", "conv")} for st in kv["deltanet"]]
+    return out

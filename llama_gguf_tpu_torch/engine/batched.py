@@ -9,6 +9,8 @@ llama_gguf_tpu/engine/batched.py).
     ``max_seq`` (the cache's drop slot, models/kv.py), and the LM head runs
     on one position per row. On CUDA each step replays the runner's graph
     of (max_batch, T bucket, read bound, gathered logits),
+  * a hybrid model's recurrent state carried across a row's prefill chunks
+    (padding freezes it) and zeroed when a new sequence takes the row,
   * per-sequence host-side samplers (penalties, grammar masks, seeds),
   * queue-depth admission control, FIFO.
 
@@ -339,7 +341,10 @@ class BatchedEngine:
 
     def _admit(self) -> bool:
         """Assign queued sequences to free slots (prefill happens in chunks
-        via _mixed_step, decode rows riding in the same step)."""
+        via _mixed_step, decode rows riding in the same step). A hybrid
+        model's recurrent state in the slot's row is zeroed first, so the
+        sequence does not start from the previous one's (the JAX engine
+        leaves it: ROADMAP queue 3); its K/V rows need no clearing."""
         admitted = False
         for slot, cur in enumerate(self._slots):
             if cur is not None:
@@ -353,6 +358,7 @@ class BatchedEngine:
             if seq.handle.cancelled:  # reaped before admission
                 seq.handle._finish("aborted")
                 continue
+            self.runner.clear_state(self._kv, slot)
             seq.slot = slot
             self._slots[slot] = seq
             admitted = True

@@ -49,8 +49,9 @@ import torch
 
 from ..models import kv as KV
 from ..models.config import ModelConfig
+from ..models.deltanet import init_deltanet_state
 from ..models.loader import resolve_device
-from ..models.transformer import embed, forward, transformer_layer
+from ..models.transformer import embed, forward, layer_forward
 from ..ops import qmatmul as Q
 from ..ops.norms import apply_norm
 
@@ -198,13 +199,18 @@ class ModelRunner:
     # -- state ---------------------------------------------------------------
 
     def _make_kv(self, batch: int) -> dict:
-        """A new zeroed cache. The runner keeps none of these: a step on
-        one runs eagerly (the plain path the graphs are held against)."""
-        return KV.init_cache(
+        """A new zeroed cache, with the recurrent state of a hybrid model's
+        DeltaNet layers. The runner keeps none of these: a step on one runs
+        eagerly (the plain path the graphs are held against)."""
+        cache = KV.init_cache(
             self.cfg.num_layers, batch, self.max_seq,
             self.cfg.cache_kv_heads, self.cfg.cache_k_dim,
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
             device=self.device)
+        if "deltanet" in (self.cfg.layer_kinds or ()):
+            cache["deltanet"] = init_deltanet_state(
+                self.cfg, batch, self.cfg.num_layers, device=self.device)
+        return cache
 
     def init_kv(self, batch: int | None = None,
                 owner: str | None = None) -> dict:
@@ -222,9 +228,16 @@ class ModelRunner:
             if kv is None:
                 kv = self._kv[key] = self._make_kv(key[0])
             else:
-                for t in kv["k"] + kv["v"]:
-                    t.zero_()
+                KV.zero_(kv)
             return kv
+
+    def clear_state(self, kv: dict, row: int) -> None:
+        """Zero batch row ``row``'s recurrent state in ``kv`` in place
+        (models/kv.clear_state), under the runner's lock: a new sequence in
+        a reused row starts from no state."""
+        if "deltanet" in kv:
+            with self._lock:
+                KV.clear_state(kv, row)
 
     def release_kv(self, owner: str) -> None:
         """Drop ``owner``'s caches, and the graphs and buffers bound to
@@ -258,8 +271,9 @@ class ModelRunner:
 
     def _capture(self, key: tuple, warm, body,
                  inputs: torch.Tensor | None = None) -> _Graph:
-        """Run ``warm()`` (the step on dummy inputs whose cache writes all
-        go to the drop slot) eagerly on a side stream, so every kernel is
+        """Run ``warm()`` (the step on dummy inputs that are all padding:
+        positions in the drop slot, lengths 0, so neither the K/V nor a
+        recurrent state changes) eagerly on a side stream, so every kernel is
         built and every workspace sized, then capture ``body()`` into the
         runner's pool. The launches counted during the capture are taken
         back (it launches nothing) and kept for crediting at each replay.
@@ -405,11 +419,14 @@ class ModelRunner:
         return plan
 
     def _decode_body(self, tok: torch.Tensor, pos: torch.Tensor, kv: dict,
-                     read_bound) -> None:
+                     read_bound, warm: bool = False) -> None:
         """One greedy decode step on tok/pos [B] in place: the argmax token
-        replaces tok, and pos advances by one."""
+        replaces tok, and pos advances by one. ``warm``: a capture's
+        warm-up, whose lengths are 0 so that every token is padding (a
+        DeltaNet layer's state only freezes for positions >= lengths; the
+        K/V writes go to the drop slot either way)."""
         logits = self._forward(kv, read_bound, tok[:, None], pos[:, None],
-                               pos + 1)
+                               torch.zeros_like(pos) if warm else pos + 1)
         tok.copy_(torch.argmax(logits[:, 0, :], dim=-1))
         pos.add_(1)
 
@@ -422,7 +439,8 @@ class ModelRunner:
             dtok = torch.zeros_like(tok)
             dpos = torch.full_like(pos, self.max_seq)  # writes dropped
             g = self._graphs[key] = self._capture(
-                key, lambda: self._decode_body(dtok, dpos, kv, read_bound),
+                key, lambda: self._decode_body(dtok, dpos, kv, read_bound,
+                                               warm=True),
                 lambda: self._decode_body(tok, pos, kv, read_bound))
         return g
 
@@ -525,7 +543,6 @@ class ModelRunner:
         ``owner``'s one-row cache, so no request's cache is touched."""
         cfg = self.cfg
         t = len(token_ids)
-        kinds = cfg.layer_kinds or ("attn",) * len(self.params["layers"])
         with self._lock:
             kv = self.init_kv(1, owner=owner)
             tokens = self._tensor([token_ids])
@@ -534,13 +551,9 @@ class ModelRunner:
             lengths = self._tensor([t])
             x = embed(self.params, cfg, tokens, positions)
             for i, layer in enumerate(self.params["layers"]):
-                if kinds[i] != "attn":
-                    raise NotImplementedError(
-                        f"layer kind {kinds[i]!r} is not ported yet "
-                        "(ROADMAP queue 1)")
-                x, kv = transformer_layer(layer, cfg, x, positions, kv, i,
-                                          lengths,
-                                          precision=self.matmul_precision)
+                x, kv = layer_forward(layer, cfg, x, positions, kv, i,
+                                      lengths,
+                                      precision=self.matmul_precision)
             x = apply_norm(x, self.params["final_norm"], cfg.norm_eps,
                            cfg.uses_layer_norm)
             return x[0].float().cpu().numpy()

@@ -1,6 +1,9 @@
 """KV cache: one [B, S + 1, H_kv, D] buffer per layer, updated in place
 (port of llama_gguf_tpu/models/kv.py, f32 and bf16 formats only).
 
+A hybrid model's cache also carries ``"deltanet"``: one {"S", "conv"}
+recurrent state per layer (models/deltanet.py), updated in place as well.
+
 The JAX cache is immutable and relies on JAX's scatter silently dropping
 positions >= S (the runner pads with pos = max_seq on purpose). PyTorch's
 ``index_put_`` raises on the CPU, and trips a device-side assert on CUDA, for
@@ -39,6 +42,25 @@ def init_cache(num_layers: int, batch: int, max_seq: int, num_kv_heads: int,
                 for _ in range(num_layers)]
 
     return {"k": layers(head_dim), "v": layers(vd)}
+
+
+def zero_(kv: dict[str, Any]) -> None:
+    """Zero every buffer of ``kv`` in place: K, V and the recurrent
+    state."""
+    for t in kv["k"] + kv["v"]:
+        t.zero_()
+    for st in kv.get("deltanet", ()):
+        st["S"].zero_()
+        st["conv"].zero_()
+
+
+def clear_state(kv: dict[str, Any], row: int) -> None:
+    """Zero batch row ``row``'s recurrent state in place, so a new sequence
+    in that row starts from none (its K/V need no clearing: attention reads
+    only positions below the row's length)."""
+    for st in kv.get("deltanet", ()):
+        st["S"][row].zero_()
+        st["conv"][row].zero_()
 
 
 def cache_shape(kv: dict[str, Any]) -> tuple[int, int, int, int, int]:

@@ -1,7 +1,8 @@
 """GGUF -> PyTorch params (port of llama_gguf_tpu/models/loader.py, dense
 decoders of the llama and qwen2 families, architectures that store a
-combined attn_qkv tensor (phi3, MPT, DBRX, GPT-2, Falcon, Bloom, ...), and
-Mixtral-style sparse MoE).
+combined attn_qkv tensor (phi3, MPT, DBRX, GPT-2, Falcon, Bloom, ...),
+Mixtral-style sparse MoE with optional shared experts, and Qwen3Next's
+DeltaNet layers, models/deltanet.py).
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -33,6 +34,7 @@ from ..ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
 from ..quant.dequant import dequantize
 from ..quant.repack import repack, repack_rows
 from .config import Activation, ModelConfig, parse_config
+from .deltanet import load_deltanet_layer
 
 # formats kept quantized on the device (the ones quant/repack.py handles)
 _QUANTIZED_KEEP = {
@@ -153,24 +155,33 @@ class ModelLoader:
     # -- model building ------------------------------------------------------
 
     def layer_kind(self, i: int) -> str:
-        """Classify layer i by tensor presence, as the JAX loader does; only
-        "attn" is ported."""
+        """Classify layer i by tensor presence, as the JAX loader does:
+        DeltaNet layers carry ssm_beta/ssm_ba (and ssm_a too, so those come
+        first); ssm_a beside attention projections is Falcon-H1's parallel
+        hybrid; Mamba-1 has ssm_x, Mamba-2 folds it into ssm_in. Only
+        "attn" and "deltanet" are ported."""
         p = f"blk.{i}"
-        if (self.has(f"{p}.ssm_beta.weight") or self.has(f"{p}.ssm_ba.weight")
-                or self.has(f"{p}.ssm_in.weight")):
+        if self.has(f"{p}.ssm_beta.weight") or self.has(f"{p}.ssm_ba.weight"):
             return "deltanet"
         if self.has(f"{p}.ssm_a.weight") or self.has(f"{p}.ssm_a"):
-            return "mamba"
-        if self.has(f"{p}.shortconv.in_proj.weight"):
+            if self.has(f"{p}.attn_q.weight") or \
+                    self.has(f"{p}.attn_qkv.weight"):
+                return "hybrid_par"
+            return "mamba" if self.has(f"{p}.ssm_x.weight") else "mamba2"
+        if self.has(f"{p}.ssm_in.weight"):
+            return "deltanet"
+        if self.has(f"{p}.shortconv.in_proj.weight"):  # LFM2 conv blocks
             return "shortconv"
         return "attn"
 
     def load_layer(self, i: int, cfg: ModelConfig) -> dict:
         p = f"blk.{i}"
         kind = self.layer_kind(i)
+        if kind == "deltanet":
+            return load_deltanet_layer(self, i, cfg)
         if kind != "attn":
             raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                      "yet (ROADMAP queue 1)")
+                                      "yet (ROADMAP queue 1 item 11)")
         if self.has(f"{p}.attn_kv_a_mqa.weight"):
             raise NotImplementedError(
                 "MLA layers are not ported yet (ROADMAP queue 1 item 11)")
@@ -248,18 +259,27 @@ class ModelLoader:
         if self.has(f"{p}.ffn_gate_inp.weight"):  # MoE
             unported = [f"{p}.{t}" for t in (
                 "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias",
-                "exp_probs_b.bias", "ffn_gate_shexp.weight")
-                if self.has(f"{p}.{t}")]
+                "exp_probs_b.bias") if self.has(f"{p}.{t}")]
             if unported:
                 raise NotImplementedError(
-                    f"MoE per-expert biases, routing biases and shared experts "
-                    f"are not ported yet (ROADMAP queue 1): {unported}")
-            return {
+                    f"MoE per-expert biases and routing biases are not "
+                    f"ported yet (ROADMAP queue 1 item 9): {unported}")
+            ffn: dict[str, Any] = {
                 "router": self.linear(f"{p}.ffn_gate_inp"),
                 "experts": {key: self._expert_stack(f"{p}.ffn_{key}_exps.weight")
                             for key in ("gate", "up", "down")},
             }
-        ffn: dict[str, Any] = {}
+            if self.has(f"{p}.ffn_gate_shexp.weight"):
+                # the JAX package runs gate and up as two products; fused,
+                # the GLU kernel runs them (same values)
+                shared = {key: self.linear(f"{p}.ffn_{key}_shexp")
+                          for key in ("gate", "up", "down")}
+                self._fuse_ffn(shared)
+                ffn["shared"] = shared
+                if self.has(f"{p}.ffn_gate_inp_shexp.weight"):
+                    ffn["shared_gate"] = self.linear(f"{p}.ffn_gate_inp_shexp")
+            return ffn
+        ffn = {}
         if cfg.has_ffn_gate and self.has(f"{p}.ffn_gate.weight"):
             ffn["gate"] = self.linear(f"{p}.ffn_gate")
         ffn["up"] = self.linear(f"{p}.ffn_up")

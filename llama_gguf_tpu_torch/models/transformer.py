@@ -12,10 +12,13 @@ input of the down projection, the MoE gate/up/act/down outputs). The port's
 own torch matmuls (attention, the router, dense weights) stay float32 in
 either mode. Covered: GQA, fused QKV, QK-RMSNorm, Normal/NeoX/partial
 RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
-kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE (softmax-before-top-k routing) through the MoE
-kernels, parallel residual, post norms, tied embeddings, and the two-tier
-ragged read bound on one device. Layer kinds other than "attn", MLA, the
-other MoE routings and the tier over data shards are ROADMAP queue 1.
+kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE
+(softmax-before-top-k routing) through the MoE kernels with an optional
+shared expert behind its sigmoid gate (Qwen3Next), Qwen3Next's DeltaNet
+layers (models/deltanet.py), parallel residual, post norms, tied
+embeddings, and the two-tier ragged read bound on one device. The other
+recurrent layer kinds, MLA, the other MoE routings and the tier over data
+shards are ROADMAP queue 1.
 
 Nothing here reads a device value on the host, so engine/runner.py can
 capture a whole step in a CUDA graph.
@@ -34,6 +37,7 @@ from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import kv as KV
 from .config import Activation, ModelConfig
+from .deltanet import deltanet_layer
 
 
 def _act(x: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -250,11 +254,18 @@ def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
                    cfg.hidden_act)
     dn = _expert_mm(act.float(), ex["down"], idx, precision, plan)
     y = (dn.reshape(nt, k, h) * topv[:, :, None]).sum(dim=1)
+    if "shared" in ffn:  # Qwen2Moe/Qwen3Next shared expert (+ its gate)
+        sh = feed_forward(ffn["shared"], cfg, xf[None], precision)[0]
+        if "shared_gate" in ffn:
+            sh = sh * torch.sigmoid(
+                L.apply(ffn["shared_gate"], xf, precision).float())
+        y = y + sh.to(y.dtype)
     return y.reshape(b, t, h).to(x.dtype)
 
 
-def _ffn(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
-         precision: str | None) -> torch.Tensor:
+def ffn_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
+                precision: str | None) -> torch.Tensor:
+    """The FFN half of a block: MoE or dense."""
     return moe_layer(ffn, cfg, x, precision) if "router" in ffn else \
         feed_forward(ffn, cfg, x, precision)
 
@@ -275,19 +286,37 @@ def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         attn_out = norm(layer["post_attn_norm"], attn_out)
 
     if cfg.use_parallel_residual:
-        return x + attn_out + _ffn(layer["ffn"], cfg, h, precision), kv
+        return x + attn_out + ffn_forward(layer["ffn"], cfg, h, precision), kv
 
     rs = cfg.residual_scale  # Granite residual_multiplier
     if rs != 1.0:
         attn_out = attn_out * rs
     x = x + attn_out
     h2 = norm(layer["ffn_norm"], x) if layer.get("ffn_norm") else x
-    ffn_out = _ffn(layer["ffn"], cfg, h2, precision)
+    ffn_out = ffn_forward(layer["ffn"], cfg, h2, precision)
     if "post_ffn_norm" in layer:
         ffn_out = norm(layer["post_ffn_norm"], ffn_out)
     if rs != 1.0:
         ffn_out = ffn_out * rs
     return x + ffn_out, kv
+
+
+def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kv: dict, layer_idx: int,
+                  lengths: torch.Tensor, read_bound=None,
+                  precision: str | None = None) -> tuple[torch.Tensor, dict]:
+    """Layer ``layer_idx`` by its kind (cfg.layer_kinds): an attention
+    block, or a DeltaNet block (which ignores the read bound)."""
+    kind = cfg.layer_kinds[layer_idx] if cfg.layer_kinds else "attn"
+    if kind == "deltanet":
+        return deltanet_layer(layer, cfg, x, positions, kv, layer_idx,
+                              lengths, precision)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (ROADMAP queue 1 item "
+            "11)")
+    return transformer_layer(layer, cfg, x, positions, kv, layer_idx,
+                             lengths, read_bound, precision)
 
 
 def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -355,14 +384,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         top, idx = torch.topk(lengths.reshape(1, b), min(cap, b), dim=1)
         read_bound = (lo, hi, torch.where(top > lo, idx,
                                           torch.full_like(idx, b)))
-    kinds = cfg.layer_kinds or ("attn",) * len(params["layers"])
     x = embed(params, cfg, tokens, positions)
     for i, layer in enumerate(params["layers"]):
-        if kinds[i] != "attn":
-            raise NotImplementedError(f"layer kind {kinds[i]!r} is not "
-                                      "ported yet (ROADMAP queue 1)")
-        x, kv = transformer_layer(layer, cfg, x, positions, kv, i, lengths,
-                                  read_bound, precision)
+        x, kv = layer_forward(layer, cfg, x, positions, kv, i, lengths,
+                              read_bound, precision)
     if logit_positions is not None and x.shape[1] > 1:
         idx = logit_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)

@@ -1,9 +1,10 @@
 """Synthetic GGUF model builder (random weights, real configs).
 
-A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense and Mixtral-style
-MoE presets; the port never imports the JAX package). The same preset, quant
-and seed give the same file byte for byte as the JAX package's builder
-(the -l2 presets are the port's own). ``quant`` is any quantizable type;
+A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
+MoE and Qwen3Next hybrid presets; the port never imports the JAX package).
+The same preset, quant and seed give the same file byte for byte as the JAX
+package's builder (the -l2 presets and HYBRID_MOE_PRESETS are the port's
+own). ``quant`` is any quantizable type;
 Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
 Q6_K; a K-quant whose super-block does not divide the row falls back to Q5_1.
@@ -48,6 +49,40 @@ MOE_PRESETS = {
     "mixtral-8x7b-l2": (32000, 4096, 2, 32, 8, 14336, 32768, 8, 2),
 }
 
+# Qwen3Next-style hybrid (gated full attention every 4th layer, DeltaNet
+# linear attention elsewhere), dense FFNs, as the JAX package's builder.
+# name: (vocab, hidden, layers, heads, kv_heads, head_dim, ffn, ctx,
+#        hv, hk, dk, dv, conv)
+HYBRID_PRESETS = {
+    "tiny-qwen3next": (512, 128, 4, 4, 2, 32, 256, 256, 4, 2, 32, 32, 4),
+}
+
+# Port-only: the same hybrid with MoE FFNs (softmax top-k routing,
+# renormalised, plus a shared expert behind a sigmoid gate), as
+# Qwen/Qwen3-Next-80B-A3B-Instruct's config.json has them. Q4_K_M mix of
+# _build_moe: attention, DeltaNet projections, gate/up experts and the
+# shared gate/up Q4_K; down experts, shared down, embedding and head Q6_K.
+HYBRID_MOE_PRESETS = {
+    # the CPU tests' size: hidden 256 so gate/up stay Q4_K (q4) and the
+    # down stacks Q6_K (q8), as at full width
+    "tiny-qwen3next-moe": dict(
+        vocab=512, hidden=256, layers=4, heads=4, kv_heads=2, head_dim=64,
+        ffn=512, ctx=256, hv=4, hk=2, dk=32, dv=32, conv=4, experts=8,
+        topk=2, expert_ffn=256, shared_ffn=256, rope_base=1e7),
+    # Qwen3-Next-80B-A3B at its published widths: hidden 2048, 16 q / 2 kv
+    # heads of 256 with an output gate, partial RoPE 0.25 (64 dims), rope
+    # base 1e7; DeltaNet 16 key / 32 value heads of 128, conv 4; top-10 of
+    # 512 experts of ffn 512, shared expert 512; every 4th layer full
+    # attention. Reduced: layers 48 -> 4 (one period: 3 DeltaNet layers, 1
+    # attention) and experts 512 -> 64 (host quantization time; the kernels
+    # read only routed experts, and 64 is 6.4x the 10 a token uses)
+    "qwen3-next-80b-a3b-l4": dict(
+        vocab=151936, hidden=2048, layers=4, heads=16, kv_heads=2,
+        head_dim=256, ffn=5120, ctx=262144, hv=32, hk=16, dk=128, dv=128,
+        conv=4, experts=64, topk=10, expert_ffn=512, shared_ffn=512,
+        rope_base=1e7),
+}
+
 
 def build_synthetic_gguf(
     path: str,
@@ -61,6 +96,8 @@ def build_synthetic_gguf(
         return path
     if preset in MOE_PRESETS:
         return _build_moe(path, preset, quant, seed, max_ctx)
+    if preset in HYBRID_PRESETS or preset in HYBRID_MOE_PRESETS:
+        return _build_hybrid(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -193,6 +230,121 @@ def _build_moe(path: str, preset: str, quant: GGMLType, seed: int,
                     np.ones(hidden, np.float32) + rw(hidden))
     addq("output.weight", rw(vocab, hidden),
          GGMLType.F32 if f32 else GGMLType.Q6_K)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_hybrid(path: str, preset: str, quant: GGMLType, seed: int,
+                  max_ctx: int | None) -> str:
+    """Qwen3Next-convention hybrid: DeltaNet linear-attention layers with a
+    gated full-attention layer every 4th block (ssm_in = [q|k|v] grouped per
+    k-head, z in attn_gate, combined ssm_ba, (1+w) norms, partial RoPE,
+    ssm_a pre-transformed). HYBRID_PRESETS give the JAX builder's bytes;
+    HYBRID_MOE_PRESETS replace the dense FFN by routed and shared
+    experts."""
+    moe = HYBRID_MOE_PRESETS.get(preset)
+    if moe is None:
+        (vocab, hidden, layers, heads, kv_heads, head_dim, ffn, ctx,
+         hv, hk, dk, dv, conv) = HYBRID_PRESETS[preset]
+        rope_base = 10000.0
+    else:
+        (vocab, hidden, layers, heads, kv_heads, head_dim, ffn, ctx, hv, hk,
+         dk, dv, conv, rope_base) = (moe[k] for k in (
+             "vocab", "hidden", "layers", "heads", "kv_heads", "head_dim",
+             "ffn", "ctx", "hv", "hk", "dk", "dv", "conv", "rope_base"))
+    if max_ctx:
+        ctx = min(ctx, max_ctx)
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape):
+        return (rng.standard_normal(shape).astype(np.float32) * 0.02)
+
+    a = "qwen3next"
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    w.add_metadata(f"{a}.embedding_length", hidden)
+    w.add_metadata(f"{a}.block_count", layers)
+    w.add_metadata(f"{a}.attention.head_count", heads)
+    w.add_metadata(f"{a}.attention.head_count_kv", kv_heads)
+    w.add_metadata(f"{a}.attention.key_length", head_dim)
+    w.add_metadata(f"{a}.attention.value_length", head_dim)
+    w.add_metadata(f"{a}.feed_forward_length", ffn)
+    w.add_metadata(f"{a}.context_length", ctx)
+    w.add_metadata(f"{a}.attention.layer_norm_rms_epsilon", 1e-6)
+    w.add_metadata(f"{a}.rope.freq_base", rope_base)
+    w.add_metadata(f"{a}.rope.dimension_count", head_dim // 4)
+    w.add_metadata(f"{a}.ssm.inner_size", hv * dv)
+    w.add_metadata(f"{a}.ssm.state_size", dk)
+    w.add_metadata(f"{a}.ssm.group_count", hk)
+    w.add_metadata(f"{a}.ssm.time_step_rank", hv)
+    w.add_metadata(f"{a}.ssm.conv_kernel", conv)
+    if moe is not None:
+        w.add_metadata(f"{a}.expert_count", moe["experts"])
+        w.add_metadata(f"{a}.expert_used_count", moe["topk"])
+        w.add_metadata(f"{a}.expert_feed_forward_length", moe["expert_ffn"])
+        w.add_metadata(f"{a}.expert_shared_feed_forward_length",
+                       moe["shared_ffn"])
+        w.add_metadata(f"{a}.expert_weights_norm", True)
+    w.add_metadata(f"{a}.vocab_size", vocab)
+    _add_tokenizer(w, vocab)
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    f32 = quant == GGMLType.F32
+    # the JAX builder's table and head are Q8_0; the MoE presets' Q6_K
+    emb_q = (GGMLType.F32 if f32 else GGMLType.Q8_0 if moe is None
+             else GGMLType.Q6_K)
+    down_q = GGMLType.F32 if f32 else GGMLType.Q6_K
+    conv_dim = 2 * hk * dk + hv * dv
+    addq("token_embd.weight", rw(vocab, hidden), emb_q)
+    for i in range(layers):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        w.add_tensor_np(f"{p}.ffn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        if moe is None:
+            addq(f"{p}.ffn_gate.weight", rw(ffn, hidden))
+            addq(f"{p}.ffn_up.weight", rw(ffn, hidden))
+            addq(f"{p}.ffn_down.weight", rw(hidden, ffn))
+        else:
+            e, ef, sf = moe["experts"], moe["expert_ffn"], moe["shared_ffn"]
+            w.add_tensor_np(f"{p}.ffn_gate_inp.weight", rw(e, hidden))
+            addq(f"{p}.ffn_gate_exps.weight", rw(e, ef, hidden))
+            addq(f"{p}.ffn_up_exps.weight", rw(e, ef, hidden))
+            addq(f"{p}.ffn_down_exps.weight", rw(e, hidden, ef), down_q)
+            addq(f"{p}.ffn_gate_shexp.weight", rw(sf, hidden))
+            addq(f"{p}.ffn_up_shexp.weight", rw(sf, hidden))
+            addq(f"{p}.ffn_down_shexp.weight", rw(hidden, sf), down_q)
+            w.add_tensor_np(f"{p}.ffn_gate_inp_shexp.weight", rw(1, hidden))
+        if (i + 1) % 4 != 0:  # DeltaNet linear-attention layer
+            addq(f"{p}.ssm_in.weight",
+                 rw(hk * dk + hk * dk + hv * dv, hidden))
+            addq(f"{p}.attn_gate.weight", rw(hv * dv, hidden))
+            w.add_tensor_np(f"{p}.ssm_ba.weight", rw(2 * hv, hidden))
+            w.add_tensor_np(f"{p}.ssm_conv1d.weight", rw(conv_dim, conv))
+            w.add_tensor_np(f"{p}.ssm_dt.bias", rw(hv))
+            w.add_tensor_np(f"{p}.ssm_a",
+                            -np.exp(rw(hv)).astype(np.float32))
+            w.add_tensor_np(f"{p}.ssm_norm.weight",
+                            np.ones(dv, np.float32) + rw(dv))
+            addq(f"{p}.ssm_out.weight", rw(hidden, hv * dv))
+        else:  # gated full attention
+            addq(f"{p}.attn_q.weight", rw(heads * head_dim, hidden))
+            addq(f"{p}.attn_gate.weight", rw(heads * head_dim, hidden))
+            addq(f"{p}.attn_k.weight", rw(kv_heads * head_dim, hidden))
+            addq(f"{p}.attn_v.weight", rw(kv_heads * head_dim, hidden))
+            addq(f"{p}.attn_output.weight", rw(hidden, heads * head_dim))
+            w.add_tensor_np(f"{p}.attn_q_norm.weight",
+                            np.ones(head_dim, np.float32) + rw(head_dim))
+            w.add_tensor_np(f"{p}.attn_k_norm.weight",
+                            np.ones(head_dim, np.float32) + rw(head_dim))
+    w.add_tensor_np("output_norm.weight",
+                    np.ones(hidden, np.float32) + rw(hidden))
+    addq("output.weight", rw(vocab, hidden), emb_q)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

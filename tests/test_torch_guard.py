@@ -37,6 +37,7 @@ def test_every_module_imports_without_jax():
     llama_gguf_tpu, aiohttp, requests or jinja2 fails."""
     mods = _port_modules()
     assert "llama_gguf_tpu_torch.ops.qmatmul" in mods
+    assert "llama_gguf_tpu_torch.models.deltanet" in mods
     assert "llama_gguf_tpu_torch.server.app" in mods
     assert "llama_gguf_tpu_torch.client" in mods
     code = ("import sys\n"

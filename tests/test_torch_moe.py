@@ -390,8 +390,10 @@ def test_unported_routings_raise(tiny_moe, case):
                     torch.zeros(1, 2, cfg.hidden_size))
 
 
+# shared experts (ffn_*_shexp) load since the Qwen3Next slice
+# (tests/test_torch_hybrid.py)
 @pytest.mark.parametrize("extra", ["ffn_down_exps.bias", "exp_probs_b.bias",
-                                   "ffn_gate_shexp.weight"])
+                                   "ffn_gate_exps.bias"])
 def test_unported_moe_tensors_raise(tiny_moe, extra):
     path, _, _ = tiny_moe
     gguf = GGUFFile.open(path)
