@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 10a, 8, 6, 10b, 11, 12: phases 7, 10a and 8 run while
+in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12: phases 7, 13, 10a and 8 run while
 phase 6's GGUF, phase 11's inputs and phase 12's GGUF build in three child
 processes. Phase 9 runs inside each of phases 4, 6, 7 and 12, on that
 path's engine; phase 10b inside phase 6, on its quant weights.
@@ -203,10 +203,39 @@ plain version the graphs are held against.
    eager step, kernels 4-6 launched, then two steady passes of 4 requests
    (the steady decode tok/s).
 
+13. Perplexity, the prompt cache and the context shift (ROADMAP queue 1
+   item 6) on phase 2's engines (quant and dequant) and phase 7's, while
+   they are loaded. 13a: engine/perplexity.perplexity of PPL_TOKENS tokens
+   of SURVEY.md (the model's tokenizer; 4 windows of 512 and a trailing one
+   of 252 on its padded bucket) in each mode and the serving
+   configuration, each after one warm-up pass (the captures, their seconds
+   printed): no eager step, kernels 1-3 launched exactly their per-step
+   counts once per window, mean NLL of quant within 2e-3 * max |logit| of
+   dequant (log-softmax moves by at most twice the largest logit change,
+   which phase 4 holds within 1e-3 of max |logit|); prints ppl, delta ppl,
+   the serving ppl (not gated) and the 512-token window rate without
+   captures. 13b: an Engine with the prompt cache on the quant runner,
+   prompt A (~290 tokens) then A + B, greedy, 16 tokens each (a first pass
+   captures): one hit, the second prefill runs only B's tokens, its logits
+   within 1e-3 * max |logit| of an uncached prefill, its tokens equal the
+   uncached steps' up to the first near tie, no eager step; session files
+   of f32 (this runner) and bf16 KV (phase 7's runner) saved and loaded
+   with equal bytes; a BatchedEngine at B = 4 with a PromptCache, 4
+   requests sharing a BATCH_PREFIX-token prefix: >= 3 hits, tokens equal
+   the single-stream steps' up to each near tie, no eager step; prints a
+   hit's and a miss's prefill ms. 13c: each mode's weights in a runner of
+   SHIFT_SEQ positions and an Engine with the context shift, SHIFT_TOKENS
+   greedy tokens from the prompt (the window passed at least twice): no
+   eager step, quant tokens equal dequant's up to the first near tie, and
+   after the first shift layer 0's keys at [0, 255 - n) within REL_LIMIT *
+   max |k| of a fresh prefill of the kept tokens; prints ms per shift.
+   13d: the CLI's sysinfo names the card. Prints the phase's wall time and
+   launches (kernels 1-3, counted from its start to its end).
+
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
-phase 10's, the bench lines and one JSON object {"kernels": [...]}. The
-last line is {"ok": true, "device": {...}}.
+phase 10's and 13's, the bench lines and one JSON object {"kernels":
+[...]}. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -876,7 +905,7 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
 
 def dense_path(card: str, timer, peaks: dict, gguf: str):
     """Phases 2-5 on TinyLlama-1.1B (``gguf``). Returns (measurements,
-    launches)."""
+    launches, the quant engine, the dequant engine)."""
     quant, deq = load_both(gguf)
     cfg = quant.runner.cfg
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
@@ -902,7 +931,7 @@ def dense_path(card: str, timer, peaks: dict, gguf: str):
     graph_against_eager("TinyLlama-1.1B", quant, ids, card)
     tiered_batch(quant, ids, card)
     bench_json("TinyLlama-1.1B", quant, card)
-    return measurements, launches
+    return measurements, launches, quant, deq
 
 
 def expert_bytes(stack, experts: int) -> int:
@@ -1203,7 +1232,7 @@ def step_logits(runner, ids, steps: int, tokens=None, eager=False):
 
 def serving_path(card: str, gguf: str, peaks: dict):
     """Phase 7: TinyLlama-1.1B in the serving configuration. Returns the
-    launches of its counted generate."""
+    launches of its counted generate, and the engine."""
     import torch
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.engine.runner import ModelRunner
@@ -1296,7 +1325,7 @@ def serving_path(card: str, gguf: str, peaks: dict):
           flush=True)
     graph_against_eager("TinyLlama-1.1B serving", engine, ids, card)
     bench_json("TinyLlama-1.1B serving", engine, card)
-    return launches
+    return launches, engine
 
 
 def single_stream(runner, ids, steps: int):
@@ -2189,6 +2218,347 @@ def hybrid_batched(quant, card: str) -> dict:
     return launches
 
 
+# Phase 13: perplexity, the prompt cache and the context shift on
+# TinyLlama-1.1B (ROADMAP queue 1 item 6), on engines phases 2 and 7 loaded
+PPL_TOKENS = 2300  # 4 windows of 512 and a trailing one of 252
+PPL_CHUNK = 512
+SHIFT_SEQ = 256  # 13c's window
+SHIFT_TOKENS = 400  # from the 96-token prompt: the window is passed 4 times
+CACHE_TOKENS = 16  # 13b: greedy tokens per request
+BATCH_PREFIX = 192  # 13b: the batched requests' shared prefix (tokens)
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def repo_text_ids(tokenizer, n: int) -> list[int]:
+    """The first ``n`` tokens of SURVEY.md under ``tokenizer``."""
+    with open(os.path.join(ROOT, "SURVEY.md"), encoding="utf-8") as f:
+        ids = tokenizer.encode(f.read())
+    check(len(ids) >= n, f"SURVEY.md gives {len(ids)} < {n} tokens")
+    return ids[:n]
+
+
+def recording_sampler(margins: list | None = None):
+    """A greedy Sampler whose picks (and, with ``margins``, each step's
+    top-2 margin over max |logit|) are recorded: (sampler, picks)."""
+    import numpy as np
+    from llama_gguf_tpu_torch.sampling.sampler import Sampler, SamplerConfig
+
+    sampler = Sampler(SamplerConfig(temperature=0.0, repetition_penalty=1.0))
+    picks: list[int] = []
+    sample = sampler.sample
+
+    def record(logits, *a, **kw):
+        if margins is not None:
+            top2 = np.partition(logits, -2)[-2:]
+            margins.append(float((top2[1] - top2[0]) / np.abs(logits).max()))
+        picks.append(sample(logits, *a, **kw))
+        return picks[-1]
+
+    sampler.sample = record
+    return sampler, picks
+
+
+def ppl_checks(quant, deq, serving, card: str) -> dict:
+    """13a: perplexity of PPL_TOKENS tokens of the repo's text in both
+    modes, each after a warm-up pass (its captures); the quant pass counted
+    (exact launches per window, no eager step) and timed per window; the
+    serving configuration's ppl reported."""
+    import math
+
+    from llama_gguf_tpu_torch.engine.perplexity import PPL_OWNER, perplexity
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    ids = repo_text_ids(quant.tokenizer, PPL_TOKENS)
+    windows = -(-PPL_TOKENS // PPL_CHUNK)
+    out = {}
+    for label, engine in (("quant", quant), ("dequant", deq),
+                          ("serving", serving)):
+        r = engine.runner
+        keys0 = set(r.capture_seconds)
+        perplexity(r, ids, chunk=PPL_CHUNK)  # warm-up: the captures
+        captured = {str(k): v for k, v in r.capture_seconds.items()
+                    if k not in keys0}
+        sync()
+        before = Q.launch_counts()
+        r.eager_steps = 0
+        stamps = [time.perf_counter()]
+        res = perplexity(r, ids, chunk=PPL_CHUNK,
+                         progress=lambda *a: stamps.append(
+                             time.perf_counter()))
+        sync()
+        launches = Q.launch_counts(since=before)[0]
+        check(r.eager_steps == 0,
+              f"13a {label}: {r.eager_steps} perplexity steps ran eagerly")
+        check(res.count == PPL_TOKENS - windows and len(stamps) == windows + 1,
+              f"13a {label}: {res.count} tokens scored in "
+              f"{len(stamps) - 1} windows")
+        check(all(map(math.isfinite, res.per_chunk_ppl + [res.nll])),
+              f"13a {label}: non-finite perplexity")
+        full = sorted(b - a for a, b in zip(stamps[:4], stamps[1:5]))
+        if label != "dequant":
+            for name, per in PER_STEP.items():
+                check(launches.get(name, 0) == per * windows,
+                      f"13a {label} {name}: {launches.get(name, 0)} "
+                      f"launches, expected {per} x {windows} windows")
+        out[label] = dict(
+            ppl=res.ppl, nll=res.nll, tokens=res.count,
+            per_chunk_ppl=res.per_chunk_ppl,
+            chunk_512_s_median=(full[1] + full[2]) / 2,
+            chunk_512_tps=PPL_CHUNK / ((full[1] + full[2]) / 2),
+            trailing_s=stamps[-1] - stamps[-2], launches=launches,
+            capture_seconds=captured)
+    # the gate's scale: max |logit| of the first window, dequant mode
+    r = deq.runner
+    t = PPL_CHUNK
+    logits, _ = r.step([ids[:t]], [list(range(t))], [t],
+                       r.init_kv(1, owner=PPL_OWNER), read_bound=t)
+    max_logit = logits.abs().max().item()
+    d_nll = abs(out["quant"]["nll"] - out["dequant"]["nll"])
+    limit = 2 * 1e-3 * max_logit
+    check(d_nll <= limit, f"13a: mean NLL quant {out['quant']['nll']} vs "
+                          f"dequant {out['dequant']['nll']}: {d_nll:.3g} > "
+                          f"{limit:.3g}")
+    summary = dict(
+        ppl_quant=out["quant"]["ppl"], ppl_dequant=out["dequant"]["ppl"],
+        delta_ppl=out["quant"]["ppl"] - out["dequant"]["ppl"],
+        delta_nll=d_nll, nll_limit=limit, max_logit=max_logit,
+        ppl_serving=out["serving"]["ppl"],
+        delta_ppl_serving=out["serving"]["ppl"] - out["dequant"]["ppl"],
+        chunk_512_tps_quant=out["quant"]["chunk_512_tps"],
+        chunk_512_tps_dequant=out["dequant"]["chunk_512_tps"],
+        chunk_512_tps_serving=out["serving"]["chunk_512_tps"])
+    print(json.dumps({"perplexity": dict(summary=summary, runs=out,
+                                         card=card)}), flush=True)
+
+
+def cache_checks(quant, serving, card: str) -> None:
+    """13b: the prompt cache on the quant runner (Engine, session files,
+    BatchedEngine) and a session file of the serving runner's bf16 KV."""
+    import tempfile
+
+    import numpy as np
+    from llama_gguf_tpu_torch.engine.batched import BatchedEngine
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.prompt_cache import PromptCache
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+
+    r = quant.runner
+    tok = quant.tokenizer
+    a_text = " ".join([PROMPT] * 3)
+    b_text = a_text + " Five more wizards jump."
+    a_ids, ab_ids = tok.encode(a_text), tok.encode(b_text)
+    check(250 <= len(a_ids) <= 350 and ab_ids[:len(a_ids)] == a_ids
+          and 20 <= len(ab_ids) - len(a_ids) <= 80,
+          f"13b: prompts of {len(a_ids)} and {len(ab_ids)} tokens")
+    prefilled: list[int] = []
+    hit_logits: list = []
+    prefill = r.prefill
+
+    def spy(ids, *a, **kw):
+        prefilled.append(len(ids))
+        out = prefill(ids, *a, **kw)
+        hit_logits[:] = [out[0]]  # the last prefill's logits (host)
+        return out
+
+    r.prefill = spy
+    try:
+        eng = None
+        for _ in range(2):  # the first pass captures the keys
+            eng = Engine(r, tok, EngineConfig(prompt_cache=True), quant.gguf)
+            r.eager_steps = 0
+            prefilled.clear()
+            margins: list = []
+            sampler, picks = recording_sampler(margins)
+            eng.generate(a_text, max_tokens=CACHE_TOKENS, sampler=greedy)
+            miss_s = eng.stats.prefill_time
+            eng.generate(b_text, max_tokens=CACHE_TOKENS, sampler=sampler)
+            hit_s = eng.stats.prefill_time
+    finally:
+        del r.prefill
+    s = eng.prompt_cache.stats
+    check((s.hits, s.misses) == (1, 1), f"13b: hits {s.hits}, misses "
+                                        f"{s.misses}")
+    check(prefilled == [len(a_ids), len(ab_ids) - len(a_ids)],
+          f"13b: prefills of {prefilled} tokens")
+    check(r.eager_steps == 0, "13b: a cached step ran eagerly")
+    # the hit's last logits against an uncached prefill of A + B
+    want = r.prefill(ab_ids, r.init_kv(1), host=True)[0]
+    diff = float(np.abs(hit_logits[0] - want).max())
+    check(diff <= 1e-3 * float(np.abs(want).max()),
+          f"13b: a hit's logits differ from uncached by {diff:.4g}")
+    want_toks, want_margins = single_stream(r, ab_ids, CACHE_TOKENS)
+    tie = same_until_tie("13b Engine", picks, want_toks, want_margins)
+    # session files: f32 (this runner) and bf16 KV (the serving runner)
+    files = {}
+    with tempfile.TemporaryDirectory() as d:
+        for label, engine in (("f32", eng), ("bf16", None)):
+            if engine is None:
+                engine = Engine(serving.runner, serving.tokenizer,
+                                EngineConfig(prompt_cache=True),
+                                serving.gguf)
+                engine.generate(a_text, max_tokens=2, sampler=greedy)
+            path = os.path.join(d, f"{label}.bin")
+            n = engine.save_prompt_cache(path)
+            loaded = PromptCache()
+            check(loaded.load(path) == n >= 1, f"13b {label}: file entries")
+            for key, e in engine.prompt_cache._entries.items():
+                f = loaded._entries[key]
+                check(e.dtypes == f.dtypes and all(
+                    np.array_equal(e.arrays[k].view(np.uint8),
+                                   f.arrays[k].view(np.uint8))
+                    for k in e.arrays), f"13b {label}: file bytes differ")
+            files[label] = dict(entries=n, bytes=os.path.getsize(path),
+                                dtype=sorted(set(
+                                    next(iter(loaded._entries.values()))
+                                    .dtypes.values())))
+    # batched: four requests sharing a BATCH_PREFIX-token prefix, B = 4
+    br = ModelRunner(r.params, r.cfg, max_batch=4, max_seq=r.max_seq,
+                     device=r.device)
+    prefix = " ".join([PROMPT] * 2)
+    check(abs(len(tok.encode(prefix)) - BATCH_PREFIX) <= 16,
+          f"13b batched: a prefix of {len(tok.encode(prefix))} tokens")
+    prompts = [prefix] + [f"{prefix} {w}" for w in
+                          ("Why?", "And then the wizards jumped.", "No.")]
+    runs = {}
+    for label, cache in (("uncached", None), ("cached", PromptCache())):
+        br.eager_steps = 0
+        be = BatchedEngine(br, tok, prompt_cache=cache)
+        try:
+            first = be.submit(prompts[0], max_tokens=CACHE_TOKENS,
+                              sampler=greedy)
+            first.text(timeout=600)
+            rest = [be.submit(p, max_tokens=CACHE_TOKENS, sampler=greedy)
+                    for p in prompts[1:]]
+            for h in rest:
+                h.text(timeout=600)
+        finally:
+            be.shutdown()
+        check(br.eager_steps == 0, f"13b batched {label}: eager steps")
+        runs[label] = [list(h.token_ids) for h in [first] + rest]
+        if cache is not None:
+            check(cache.stats.hits >= 3, f"13b batched: {cache.stats.hits} "
+                                         "hits")
+            hits = cache.stats.hits
+    rows = []
+    for p, got_t, want_t in zip(prompts, runs["cached"], runs["uncached"]):
+        ids = tok.encode(p)
+        ref, margins = single_stream(r, ids, CACHE_TOKENS)
+        rows.append(same_until_tie("13b batched cached", got_t, ref,
+                                   margins))
+        same_until_tie("13b batched uncached", want_t, ref, margins)
+    print(json.dumps({"prompt_cache": dict(
+        prompt_tokens=[len(a_ids), len(ab_ids)], prefilled=prefilled,
+        hit_prefill_ms=hit_s * 1e3, miss_prefill_ms=miss_s * 1e3,
+        hit_logits_max_diff=diff, engine_tokens=tie, session_files=files,
+        batched_hits=hits, batched_rows=rows, card=card)}), flush=True)
+
+
+def shift_checks(quant, deq, card: str) -> None:
+    """13c: both modes' weights in a SHIFT_SEQ-token runner with the
+    context shift on, SHIFT_TOKENS greedy tokens from the prompt: quant
+    tokens equal dequant up to the first near tie, no eager step, and after
+    the first shift layer 0's keys equal a fresh prefill's of the kept
+    tokens."""
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+
+    got = {}
+    for label, base in (("quant", quant), ("dequant", deq)):
+        r = ModelRunner(base.runner.params, base.runner.cfg,
+                        max_seq=SHIFT_SEQ, device=base.runner.device)
+        eng = Engine(r, base.tokenizer, EngineConfig(context_shift=True),
+                     base.gguf)
+        shift = r.shift_left
+        shifts: list[float] = []
+        first: dict = {}
+
+        def timed(kv, n, batch_idx=None):
+            if not first:
+                first["n"] = n
+            sync()
+            t0 = time.perf_counter()
+            shift(kv, n, batch_idx)
+            sync()
+            shifts.append(time.perf_counter() - t0)
+            if "k0" not in first:
+                first["k0"] = kv["k"][0][0, :SHIFT_SEQ - 1 - n].clone()
+
+        r.shift_left = timed
+        margins: list = []
+        sampler, picks = recording_sampler(margins)
+        eng.generate(PROMPT, max_tokens=SHIFT_TOKENS, sampler=sampler)
+        check(r.eager_steps == 0, f"13c {label}: {r.eager_steps} eager "
+                                  "steps")
+        check(eng.stats.prompt_tokens == len(base.tokenizer.encode(PROMPT))
+              and len(shifts) >= 2,
+              f"13c {label}: {eng.stats.generated_tokens} tokens, "
+              f"{len(shifts)} shifts")
+        # the kept tokens: positions n .. SHIFT_SEQ - 2 of the history
+        history = base.tokenizer.encode(PROMPT) + picks
+        kept = history[first["n"]:SHIFT_SEQ - 1]
+        _, kv, _ = r.prefill(kept, r._make_kv(1))  # eager, a cache of its own
+        fresh = kv["k"][0][0, :len(kept)]
+        err = (first["k0"] - fresh).abs().max().item()
+        scale = fresh.abs().max().item()
+        check(err <= REL_LIMIT * scale, f"13c {label}: shifted keys differ "
+                                        f"from a fresh prefill by {err:.4g}")
+        got[label] = dict(picks=picks, margins=margins, shifts=shifts,
+                          key_err=err, key_scale=scale,
+                          captures={str(k): v for k, v in
+                                    r.capture_seconds.items()})
+        del r.shift_left
+    tie = same_until_tie("13c quant vs dequant", got["quant"]["picks"],
+                         got["dequant"]["picks"], got["dequant"]["margins"])
+    print(json.dumps({"context_shift": dict(
+        window=SHIFT_SEQ, tokens=SHIFT_TOKENS, quant_vs_dequant=tie,
+        **{label: dict(shifts=len(g["shifts"]),
+                       ms_per_shift_median=sorted(g["shifts"])[
+                           len(g["shifts"]) // 2] * 1e3,
+                       ms_per_shift=[s * 1e3 for s in g["shifts"]],
+                       first_shift_key_err=g["key_err"],
+                       key_scale=g["key_scale"], captures=g["captures"])
+           for label, g in got.items()}, card=card)}), flush=True)
+
+
+def item6_path(quant, deq, serving, card: str) -> dict:
+    """Phase 13 (13a-d) on phase 2's engines and phase 7's. Returns the
+    kernel launches of the whole phase (every one on the main path)."""
+    import contextlib
+    import io
+
+    import torch
+    from llama_gguf_tpu_torch import cli
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    t0 = time.perf_counter()
+    sync()
+    Q.reset_launches()
+    ppl_checks(quant, deq, serving, card)
+    cache_checks(quant, serving, card)
+    shift_checks(quant, deq, card)
+    sync()
+    counted = {k: v for k, v in Q.LAUNCHES.items() if v}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli.main(["sysinfo"]) == 0, "13d: sysinfo failed")
+    name = torch.cuda.get_device_name(0)
+    check(f"cuda {name}" in out.getvalue(),
+          f"13d: sysinfo does not name {name}: {out.getvalue()!r}")
+    print(json.dumps({"phase_13": dict(
+        wall_s=time.perf_counter() - t0, launches=counted,
+        sysinfo=out.getvalue().splitlines(), card=card)}), flush=True)
+    return counted
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -2238,15 +2608,20 @@ def run(moe_gguf, formats, hybrid_gguf) -> int:
         f"{time.perf_counter() - t0:.1f}s (nvcc: {cuda_build.BUILD_SECONDS})")
     timer = Timer()
 
-    # -- 2-5. the dense path, 7. serving, 10a. the server, 8. the probe, then
-    # 6. MoE (and 10b) -------------------------------------------------------
+    # -- 2-5. the dense path, 7. serving, 13. item 6 on their engines, 10a.
+    # the server, 8. the probe, then 6. MoE (and 10b) -------------------------
     t0 = time.perf_counter()
-    dense, dense_launches = dense_path(card, timer, peaks, tinyllama)
+    dense, dense_launches, quant, deq = dense_path(card, timer, peaks,
+                                                   tinyllama)
     log(f"dense path done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serving_launches = serving_path(card, tinyllama, peaks)
+    serving_launches, serving = serving_path(card, tinyllama, peaks)
     log(f"serving path done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    item6_launches = item6_path(quant, deq, serving, card)
+    log(f"phase 13 done in {time.perf_counter() - t0:.1f}s")
+    del quant, deq, serving
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     server_launches = server_path(card, tinyllama)
@@ -2285,6 +2660,7 @@ def run(moe_gguf, formats, hybrid_gguf) -> int:
         by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
             ("TinyLlama-1.1B serving", serving_launches),
+            ("TinyLlama-1.1B phase 13", item6_launches),
             ("TinyLlama-1.1B server", server_launches),
             ("Mixtral-8x7B-l2", moe_launches),
             ("Mixtral-8x7B-l2 batched", moe_batched_launches),

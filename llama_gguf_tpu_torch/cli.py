@@ -1,22 +1,31 @@
-"""Command-line interface of the PyTorch port (subset of
-llama_gguf_tpu/cli.py): ``info``, ``run``, ``chat``, ``serve``, ``bench`` and
-``quantize``.
+"""Command-line interface of the PyTorch port (port of llama_gguf_tpu/cli.py):
+``info``, ``run``, ``chat``, ``serve``, ``bench``, ``quantize``,
+``perplexity``, ``embed``, ``tokenize``, ``sysinfo``, ``models``,
+``init-config`` and ``manpages``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
+        [--prompt-cache FILE] [--context-shift]
     python -m llama_gguf_tpu_torch chat MODEL.gguf [--system TEXT]
     python -m llama_gguf_tpu_torch serve MODEL.gguf [--port N] [--max-batch B]
         [--prefill-chunk T]
+    python -m llama_gguf_tpu_torch perplexity MODEL.gguf -f TEXT [--chunk 512]
+        [--json]
+    python -m llama_gguf_tpu_torch embed MODEL.gguf -p TEXT [-p TEXT] [--json]
+    python -m llama_gguf_tpu_torch tokenize MODEL.gguf -p TEXT | --ids 5,9
     python -m llama_gguf_tpu_torch info MODEL.gguf [--tensors] [--json]
     python -m llama_gguf_tpu_torch bench MODEL.gguf [--json] [--profile DIR]
     python -m llama_gguf_tpu_torch quantize IN.gguf OUT.gguf -t q4_k
         [--all-tensors] [--min-elements N]
+    python -m llama_gguf_tpu_torch sysinfo | models [--dir D] |
+        init-config [PATH] | manpages [--dir D]
 
-Every subcommand that loads a model loads it onto CUDA unless ``--device
-cpu`` is given, and raises when CUDA is absent (``quantize`` is host work and
-loads no model). The TOML config file, the speculative, grammar and LoRA
-flags and the other subcommands are ROADMAP queue 1 item 6; without the
-config file ``quantize`` takes the JAX CLI's defaults (q4_k, weights only,
-1024 elements).
+Every subcommand takes ``--config FILE`` (TOML, config.py); each option is
+taken from its flag, else its LLAMA_GGUF_* variable, else the file, else the
+default. Every subcommand that loads a model loads it onto CUDA unless
+``--device cpu`` is given, and raises when CUDA is absent. ``download``
+(network), ``rag`` (ROADMAP queue 1 item 13), ``shard`` and ``cluster`` and
+the speculative, LoRA and mesh flags (item 12) are not ported; a config
+naming LoRA or a mesh raises where it is used.
 """
 
 from __future__ import annotations
@@ -27,6 +36,16 @@ import logging
 import os
 import sys
 import tempfile
+
+from .config import Config, example_config
+
+KV_CHOICES = ["f32", "bf16", "i8", "f8_e4m3", "f8_e5m2", "tq2", "tq3", "tq4",
+              "qjl"]
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", help="TOML config file path")
+    p.add_argument("-v", "--verbose", action="store_true")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("model")
     p.add_argument("--tensors", action="store_true", help="list all tensors")
     p.add_argument("--json", dest="json_out", action="store_true")
-    p.add_argument("-v", "--verbose", action="store_true")
+    _add_common(p)
 
     p = sub.add_parser("run", help="generate text from a prompt")
     _add_model_flags(p)
@@ -47,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-stream", action="store_true")
     _add_gen_flags(p)
     p.add_argument("--stop", action="append", default=None)
-    p.add_argument("-v", "--verbose", action="store_true")
+    _add_common(p)
 
     p = sub.add_parser("chat", help="interactive chat")
     _add_model_flags(p)
@@ -56,14 +75,14 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["chatml", "llama2", "llama3", "gemma", "phi",
                             "plain"], help="override chat template style")
     _add_gen_flags(p)
-    p.add_argument("-v", "--verbose", action="store_true")
+    _add_common(p)
 
     p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
     _add_model_flags(p)
-    p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--max-batch", type=int, default=8)
-    p.add_argument("--max-queue", type=int, default=64)
+    p.add_argument("--host", default=None)
+    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--max-batch", type=int, default=None)
+    p.add_argument("--max-queue", type=int, default=None)
     p.add_argument("--prefill-chunk", type=int, default=512,
                    help="prompt tokens per row in one batched step: a "
                    "longer prompt is prefilled in chunks beside the "
@@ -71,12 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--api-key", action="append", default=None)
     p.add_argument("--rag-db", default=None,
                    help="not ported yet (ROADMAP queue 1 item 13): raises")
-    p.add_argument("-v", "--verbose", action="store_true")
+    _add_common(p)
 
     p = sub.add_parser("bench", help="benchmark prefill/decode throughput")
     _add_model_flags(p)
-    p.add_argument("--prompt-tokens", type=int, default=32)
-    p.add_argument("--gen-tokens", type=int, default=64)
+    p.add_argument("--prompt-tokens", type=int, default=None)
+    p.add_argument("--gen-tokens", type=int, default=None)
     p.add_argument("--batch", type=int, default=None,
                    help="accepted as the JAX CLI accepts it; one stream")
     p.add_argument("--json", dest="json_out", action="store_true")
@@ -84,47 +103,167 @@ def build_parser() -> argparse.ArgumentParser:
                    const=os.path.join(tempfile.gettempdir(),
                                       "llama_gguf_tpu_torch_profile"),
                    help="write a torch.profiler chrome trace to DIR")
-    p.add_argument("-v", "--verbose", action="store_true")
+    _add_common(p)
 
     p = sub.add_parser("quantize", help="requantize a GGUF model")
     p.add_argument("input")
     p.add_argument("output")
-    p.add_argument("-t", "--type", default="q4_k",
+    p.add_argument("-t", "--type", default=None,
                    help="target type (q4_k, q6_k, q8_0, ...)")
     p.add_argument("--all-tensors", action="store_true",
                    help="also requantize embeddings/output")
-    p.add_argument("--min-elements", type=int, default=1024)
-    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--min-elements", type=int, default=None)
+    _add_common(p)
+
+    p = sub.add_parser("tokenize",
+                       help="tokenize text / detokenize ids (debugging)")
+    p.add_argument("model", help="path to .gguf model")
+    p.add_argument("-p", "--prompt", default=None,
+                   help="text to tokenize (default: stdin)")
+    p.add_argument("--ids", default=None,
+                   help="comma-separated ids to DEtokenize instead")
+    p.add_argument("--no-bos", action="store_true",
+                   help="do not add the BOS token")
+    _add_common(p)
+
+    p = sub.add_parser("sysinfo", help="show torch, the CUDA devices and the "
+                       "kernel build directory")
+    _add_common(p)
+
+    p = sub.add_parser("perplexity", help="perplexity over a text file")
+    _add_model_flags(p)
+    p.add_argument("-f", "--file", required=True, help="input text file")
+    p.add_argument("--chunk", type=int, default=512)
+    p.add_argument("--json", dest="json_out", action="store_true")
+    _add_common(p)
+
+    p = sub.add_parser("embed", help="compute text embeddings")
+    _add_model_flags(p)
+    p.add_argument("-p", "--text", action="append", required=True)
+    p.add_argument("--pooling", default=None,
+                   choices=["mean", "last", "first", "max"])
+    p.add_argument("--no-normalize", action="store_true")
+    p.add_argument("--json", dest="json_out", action="store_true")
+    _add_common(p)
+
+    p = sub.add_parser("models", help="list locally cached models")
+    p.add_argument("--dir", default=None)
+    _add_common(p)
+
+    p = sub.add_parser("init-config", help="write an example config file")
+    p.add_argument("path", nargs="?", default="llama-gguf.toml")
+    _add_common(p)
+
+    p = sub.add_parser("manpages", help="generate man pages")
+    p.add_argument("--dir", default="man")
+    _add_common(p)
     return ap
 
 
 def _add_gen_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("-n", "--max-tokens", type=int, default=512)
-    p.add_argument("-t", "--temperature", type=float, default=0.8)
-    p.add_argument("--top-k", type=int, default=40)
-    p.add_argument("--top-p", type=float, default=0.95)
-    p.add_argument("--min-p", type=float, default=0.0)
-    p.add_argument("--repeat-penalty", type=float, default=1.1)
+    p.add_argument("-n", "--max-tokens", type=int, default=None)
+    p.add_argument("-t", "--temperature", type=float, default=None)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--min-p", type=float, default=None)
+    p.add_argument("--repeat-penalty", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
 
 
-def _sampler(args):
-    from .sampling.sampler import SamplerConfig
-
-    return SamplerConfig(
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        min_p=args.min_p, repetition_penalty=args.repeat_penalty,
-        seed=args.seed)
-
-
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("model", help="path to .gguf model")
+    p.add_argument("model", nargs="?", help="path to .gguf model")
     p.add_argument("--ctx", type=int, default=None, help="max context length")
     p.add_argument("--weight-mode", choices=["quant", "dequant"],
-                   default="quant")
-    p.add_argument("--kv-cache-type", choices=["f32", "bf16"], default="f32")
+                   default=None)
+    p.add_argument("--kv-cache-type", choices=KV_CHOICES, default=None,
+                   help="f32 or bf16 (the other formats are not ported yet: "
+                   "ROADMAP queue 1 item 10)")
+    p.add_argument("--context-shift", action="store_true",
+                   help="generate past the window by sliding the KV cache")
+    p.add_argument("--prompt-cache", default=None, metavar="FILE",
+                   help="session file: load cached KV prefixes at start, "
+                        "save back after generation (llama.cpp parity)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch path)")
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _load_config(args) -> Config:
+    return Config.load(getattr(args, "config", None))
+
+
+def _pick(args, flag: str, default):
+    """The flag's value when given, else ``default`` (env or TOML)."""
+    v = getattr(args, flag, None)
+    return v if v is not None else default
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.model.lora:
+        raise NotImplementedError(
+            "LoRA adapters ([model].lora) are not ported yet (ROADMAP queue "
+            "1 item 12)")
+    if (cfg.parallel.data, cfg.parallel.model) != (1, 1):
+        raise NotImplementedError(
+            "mesh axes ([parallel]) are not ported yet (ROADMAP queue 1 item "
+            "12)")
+
+
+def _engine_config(cfg: Config, args):
+    from .engine.engine import EngineConfig
+
+    _refuse_unported(cfg)
+    return EngineConfig(
+        max_context_len=_pick(args, "ctx", cfg.model.max_context_len),
+        weight_mode=_pick(args, "weight_mode", cfg.model.weight_mode),
+        kv_format=_pick(args, "kv_cache_type", cfg.model.kv_cache_type),
+        matmul_precision=cfg.model.matmul_precision,
+        chat_template=_pick(args, "template", cfg.chat.template),
+        context_shift=args.context_shift,
+        seed=_pick(args, "seed", cfg.generation.seed),
+        prompt_cache_file=args.prompt_cache)
+
+
+def _sampler(cfg: Config, args):
+    from .sampling.sampler import SamplerConfig
+
+    g = cfg.generation
+    return SamplerConfig(
+        temperature=_pick(args, "temperature", g.temperature),
+        top_k=_pick(args, "top_k", g.top_k),
+        top_p=_pick(args, "top_p", g.top_p),
+        min_p=_pick(args, "min_p", g.min_p),
+        repetition_penalty=_pick(args, "repeat_penalty", g.repetition_penalty),
+        frequency_penalty=g.frequency_penalty,
+        presence_penalty=g.presence_penalty,
+        mirostat=g.mirostat, mirostat_tau=g.mirostat_tau,
+        mirostat_eta=g.mirostat_eta,
+        seed=_pick(args, "seed", g.seed))
+
+
+def _model_path(cfg: Config, args) -> str:
+    path = getattr(args, "model", None) or cfg.model.path
+    if not path:
+        sys.exit("error: no model path (pass MODEL or set [model].path)")
+    if not os.path.exists(path):
+        sys.exit(f"error: model not found: {path}")
+    return path
+
+
+def _load_engine(cfg: Config, args):
+    from .engine.engine import Engine
+
+    return Engine.load(_model_path(cfg, args), _engine_config(cfg, args),
+                       device=args.device)
+
+
+# ---------------------------------------------------------------------------
+# subcommands
+# ---------------------------------------------------------------------------
 
 
 def cmd_info(args) -> int:
@@ -169,86 +308,95 @@ def cmd_info(args) -> int:
 
 
 def cmd_run(args) -> int:
-    from .engine.engine import Engine, EngineConfig
-
-    if not os.path.exists(args.model):
-        sys.exit(f"error: model not found: {args.model}")
-    engine = Engine.load(
-        args.model,
-        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
-                     kv_format=args.kv_cache_type, seed=args.seed),
-        device=args.device)
+    cfg = _load_config(args)
+    engine = _load_engine(cfg, args)
     prompt = args.prompt if args.prompt is not None else sys.stdin.read()
-    sampler = _sampler(args)
+    sampler = _sampler(cfg, args)
+    max_tokens = _pick(args, "max_tokens", cfg.generation.max_tokens)
+    stop = args.stop if args.stop is not None else cfg.generation.stop
     if args.no_stream:
-        print(engine.generate(prompt, max_tokens=args.max_tokens,
-                              sampler=sampler, stop=args.stop))
+        print(engine.generate(prompt, max_tokens=max_tokens,
+                              sampler=sampler, stop=stop))
     else:
-        for piece in engine.generate_streaming(prompt,
-                                               max_tokens=args.max_tokens,
-                                               sampler=sampler,
-                                               stop=args.stop):
+        for piece in engine.generate_streaming(prompt, max_tokens=max_tokens,
+                                               sampler=sampler, stop=stop):
             print(piece, end="", flush=True)
         print()
     s = engine.stats
     print(f"[prefill {s.prompt_tokens} tok @ {s.prefill_tps:.1f} tok/s | "
           f"decode {s.generated_tokens} tok @ {s.decode_tps:.1f} tok/s]",
           file=sys.stderr)
+    if engine.save_prompt_cache():
+        print(f"[prompt cache saved to {args.prompt_cache}]",
+              file=sys.stderr)
     return 0
 
 
 def cmd_chat(args) -> int:
     """Interactive chat on stdin: one user turn per line; /reset clears the
-    history, /exit (or the end of the input) quits."""
-    from .engine.engine import ChatEngine, Engine, EngineConfig
+    history, /exit (or the end of the input) quits and saves the prompt
+    cache when one was given."""
+    from .engine.engine import ChatEngine
 
-    if not os.path.exists(args.model):
-        sys.exit(f"error: model not found: {args.model}")
-    engine = Engine.load(
-        args.model,
-        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
-                     kv_format=args.kv_cache_type, seed=args.seed,
-                     chat_template=args.template),
-        device=args.device)
-    chat = ChatEngine(engine, system_prompt=args.system)
-    sampler = _sampler(args)
+    cfg = _load_config(args)
+    engine = _load_engine(cfg, args)
+    chat = ChatEngine(engine, system_prompt=args.system
+                      or cfg.chat.system_prompt)
+    sampler = _sampler(cfg, args)
+    max_tokens = _pick(args, "max_tokens", cfg.generation.max_tokens)
+
+    def bye() -> int:
+        if engine.save_prompt_cache():
+            print(f"[prompt cache saved to {args.prompt_cache}]",
+                  file=sys.stderr)
+        return 0
+
     print("(interactive chat — /exit to quit, /reset to clear)")
     while True:
         try:
             user = input("> ")
         except (EOFError, KeyboardInterrupt):
             print()
-            return 0
+            return bye()
         if user.strip() in ("/exit", "/quit"):
-            return 0
+            return bye()
         if user.strip() == "/reset":
             chat.reset()
             continue
         if not user.strip():
             continue
-        for piece in chat.send_streaming(user, max_tokens=args.max_tokens,
+        for piece in chat.send_streaming(user, max_tokens=max_tokens,
                                          sampler=sampler):
             print(piece, end="", flush=True)
         print()
 
 
-def serve_config(args):
-    """The ServerConfig of ``serve``'s flags."""
+def serve_config(args, cfg: Config | None = None):
+    """The ServerConfig of ``serve``'s flags over ``cfg`` (default: the
+    --config file and the environment)."""
     from .server.app import ServerConfig
 
+    cfg = cfg or _load_config(args)
+    _refuse_unported(cfg)
     return ServerConfig(
-        host=args.host, port=args.port, model_path=args.model,
-        max_batch=args.max_batch, max_queue=args.max_queue,
-        prefill_chunk=args.prefill_chunk, weight_mode=args.weight_mode,
-        api_keys=args.api_key or [], rag_db=args.rag_db, device=args.device,
-        max_context_len=args.ctx, kv_format=args.kv_cache_type)
+        host=_pick(args, "host", cfg.server.host),
+        port=_pick(args, "port", cfg.server.port),
+        model_path=_model_path(cfg, args),
+        max_batch=_pick(args, "max_batch", cfg.server.max_batch),
+        max_queue=_pick(args, "max_queue", cfg.server.max_queue),
+        max_tokens_default=cfg.generation.max_tokens,
+        prefill_chunk=args.prefill_chunk,
+        weight_mode=_pick(args, "weight_mode", cfg.model.weight_mode),
+        api_keys=args.api_key or cfg.server.api_keys,
+        served_model_name=cfg.server.served_model_name,
+        rag_db=args.rag_db, device=args.device,
+        max_context_len=_pick(args, "ctx", cfg.model.max_context_len),
+        kv_format=_pick(args, "kv_cache_type", cfg.model.kv_cache_type))
 
 
 def cmd_serve(args) -> int:
     from .server.app import run_server
 
-    if not os.path.exists(args.model):
-        sys.exit(f"error: model not found: {args.model}")
     run_server(serve_config(args))
     return 0
 
@@ -300,23 +448,17 @@ def bench(engine, prompt_tokens: int = 32, gen_tokens: int = 64,
 
 
 def cmd_bench(args) -> int:
-    from .engine.engine import Engine, EngineConfig
-
-    if not os.path.exists(args.model):
-        sys.exit(f"error: model not found: {args.model}")
-    engine = Engine.load(
-        args.model,
-        EngineConfig(max_context_len=args.ctx, weight_mode=args.weight_mode,
-                     kv_format=args.kv_cache_type),
-        device=args.device)
-    result = bench(engine, args.prompt_tokens, args.gen_tokens, args.profile)
+    cfg = _load_config(args)
+    engine = _load_engine(cfg, args)
+    ptoks = _pick(args, "prompt_tokens", cfg.bench.prompt_tokens)
+    gtoks = _pick(args, "gen_tokens", cfg.bench.gen_tokens)
+    result = bench(engine, ptoks, gtoks, args.profile)
     if args.json_out:
         print(json.dumps(result))
     else:
         print(f"prefill: {result['prefill_tps']:.1f} tok/s "
-              f"({args.prompt_tokens} tok, incl. capture)")
-        print(f"decode:  {result['decode_tps']:.1f} tok/s "
-              f"({args.gen_tokens} tok)")
+              f"({ptoks} tok, incl. capture)")
+        print(f"decode:  {result['decode_tps']:.1f} tok/s ({gtoks} tok)")
     return 0
 
 
@@ -326,7 +468,8 @@ def cmd_quantize(args) -> int:
     from .gguf.constants import GGMLType
     from .gguf.requantize import QuantizeOptions, quantize_model
 
-    tname = args.type.upper()
+    cfg = _load_config(args)
+    tname = (args.type or cfg.quantize.type).upper()
     try:
         target = GGMLType[tname]
     except KeyError:
@@ -338,8 +481,11 @@ def cmd_quantize(args) -> int:
 
     report = quantize_model(
         args.input, args.output,
-        QuantizeOptions(target=target, weights_only=not args.all_tensors,
-                        min_elements=args.min_elements),
+        QuantizeOptions(
+            target=target,
+            weights_only=not args.all_tensors and cfg.quantize.weights_only,
+            min_elements=_pick(args, "min_elements",
+                               cfg.quantize.min_elements)),
         progress=progress)
     print(f"\n{report.converted} converted, {report.skipped} kept, "
           f"{report.fallback_f16} f16-fallback; "
@@ -348,8 +494,132 @@ def cmd_quantize(args) -> int:
     return 0
 
 
+def cmd_perplexity(args) -> int:
+    from .engine.perplexity import perplexity
+
+    cfg = _load_config(args)
+    engine = _load_engine(cfg, args)
+    with open(args.file, errors="replace") as f:
+        text = f.read()
+    ids = engine.tokenizer.encode(text)
+
+    def progress(done, total, ppl):
+        print(f"\r[{done}/{total}] ppl={ppl:.4f}   ", end="",
+              file=sys.stderr, flush=True)
+
+    result = perplexity(engine.runner, ids, chunk=args.chunk,
+                        progress=progress)
+    print(file=sys.stderr)
+    if args.json_out:
+        print(json.dumps({"ppl": result.ppl, "nll": result.nll,
+                          "tokens": result.count}))
+    else:
+        print(f"perplexity: {result.ppl:.4f} over {result.count} tokens "
+              f"(nll {result.nll:.4f})")
+    return 0
+
+
+def cmd_embed(args) -> int:
+    import numpy as np
+
+    cfg = _load_config(args)
+    engine = _load_engine(cfg, args)
+    pooling = args.pooling or cfg.embed.pooling
+    normalize = not args.no_normalize and cfg.embed.normalize
+    vecs = [engine.embed(t, pooling=pooling, normalize=normalize)
+            for t in args.text]
+    if args.json_out:
+        print(json.dumps([np.asarray(v).tolist() for v in vecs]))
+    else:
+        for t, v in zip(args.text, vecs):
+            print(f"{t[:40]!r}: dim={v.shape[0]} "
+                  f"head={np.round(v[:6], 4).tolist()}")
+        if len(vecs) == 2:
+            from .models.embeddings import cosine_similarity
+
+            print(f"cosine similarity: "
+                  f"{cosine_similarity(vecs[0], vecs[1]):.4f}")
+    return 0
+
+
+def cmd_tokenize(args) -> int:
+    """llama-tokenize analogue: ids + per-token pieces, or detokenize."""
+    from .gguf.reader import GGUFFile
+    from .tokenizer.gguf_tokenizer import Tokenizer
+
+    g = GGUFFile.open(args.model)
+    try:
+        tok = Tokenizer.from_gguf(g.metadata)
+    finally:
+        g.close()
+    if args.ids is not None:
+        ids = [int(x) for x in args.ids.replace(",", " ").split()]
+        print(tok.decode(ids))
+        return 0
+    text = args.prompt if args.prompt is not None else sys.stdin.read()
+    ids = tok.encode(text, add_bos=False if args.no_bos else None)
+    for i in ids:
+        print(f"{i:>8} -> {tok.decode([i])!r}")
+    print(f"total: {len(ids)} tokens")
+    return 0
+
+
+def cmd_sysinfo(args) -> int:
+    """torch and its CUDA, each CUDA device (name, capability, free and
+    total memory) and the port's kernel build directory; a host with no
+    card says so."""
+    import torch
+
+    from .utils.cuda_build import BUILD_DIR
+
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda or 'none'})")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        print("devices: 0 (no CUDA device: the port's kernels need one; "
+              "--device cpu runs the plain path)")
+    else:
+        print(f"devices: {n}")
+    for i in range(n):
+        major, minor = torch.cuda.get_device_capability(i)
+        free, total = torch.cuda.mem_get_info(i)
+        print(f"  [{i}] cuda {torch.cuda.get_device_name(i)} (sm_{major}"
+              f"{minor}) memory: {(total - free) / 1e9:.2f} / "
+              f"{total / 1e9:.2f} GB in use")
+    print(f"kernel build directory: {BUILD_DIR}")
+    return 0
+
+
+def cmd_models(args) -> int:
+    from .hub import list_local_models
+
+    for path, size in list_local_models(args.dir):
+        print(f"{size / 1e6:10.1f} MB  {path}")
+    return 0
+
+
+def cmd_init_config(args) -> int:
+    if os.path.exists(args.path):
+        sys.exit(f"error: {args.path} already exists")
+    with open(args.path, "w") as f:
+        f.write(example_config())
+    print(f"wrote {args.path}")
+    return 0
+
+
+def cmd_manpages(args) -> int:
+    from .manpages import write_manpages
+
+    n = write_manpages(build_parser(), args.dir)
+    print(f"wrote {n} man pages to {args.dir}/")
+    return 0
+
+
 COMMANDS = {"info": cmd_info, "run": cmd_run, "chat": cmd_chat,
-            "serve": cmd_serve, "bench": cmd_bench, "quantize": cmd_quantize}
+            "serve": cmd_serve, "bench": cmd_bench, "quantize": cmd_quantize,
+            "perplexity": cmd_perplexity, "embed": cmd_embed,
+            "tokenize": cmd_tokenize, "sysinfo": cmd_sysinfo,
+            "models": cmd_models, "init-config": cmd_init_config,
+            "manpages": cmd_manpages}
 
 
 def main(argv: list[str] | None = None) -> int:

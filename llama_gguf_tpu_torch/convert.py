@@ -1,6 +1,7 @@
 """Carry weights and KV caches across from the JAX package.
 
-``params_from_numpy`` turns llama_gguf_tpu's params into the port's. The
+``params_from_numpy`` turns llama_gguf_tpu's params into the port's;
+``kv_from_numpy`` and ``kv_to_numpy`` carry a KV cache either way. The
 caller converts the JAX tree to numpy first (for example
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
 nothing of JAX or of the JAX package: QuantLinear-, DenseLinear-,
@@ -84,4 +85,22 @@ def kv_from_numpy(kv: dict, device="cpu") -> dict:
     if "deltanet" in kv:
         out["deltanet"] = [{key: _tensor(st[key], device)
                             for key in ("S", "conv")} for st in kv["deltanet"]]
+    return out
+
+
+def kv_to_numpy(kv: dict) -> dict:
+    """The port's f32/bf16 cache as the JAX package's logical arrays: each
+    K/V buffer without its drop slot, [B, S, H, D] on the host (bf16 as
+    its raw bits, uint16: numpy has no bfloat16), and a hybrid model's
+    "deltanet" state as is. The reverse of ``kv_from_numpy``."""
+    def host(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(np.uint16)
+        return t.cpu().numpy()
+
+    out = {key: [host(a[:, :-1]) for a in kv[key]] for key in ("k", "v")}
+    if "deltanet" in kv:
+        out["deltanet"] = [{key: host(st[key]) for key in ("S", "conv")}
+                           for st in kv["deltanet"]]
     return out

@@ -11,6 +11,9 @@ llama_gguf_tpu/engine/batched.py).
     of (max_batch, T bucket, read bound, gathered logits),
   * a hybrid model's recurrent state carried across a row's prefill chunks
     (padding freezes it) and zeroed when a new sequence takes the row,
+  * an optional prompt cache (engine/prompt_cache.py): a new row's longest
+    cached prefix is restored into the engine's cache in place at admission,
+    so only the rest is prefilled, and a fully prefilled prompt is stored,
   * per-sequence host-side samplers (penalties, grammar masks, seeds),
   * queue-depth admission control, FIFO.
 
@@ -216,12 +219,10 @@ class BatchedEngine:
                  prompt_cache=None, prefill_chunk: int = 512):
         """``prefill_chunk``: long prompts are prefilled in chunks of this
         many tokens interleaved with decode steps, so admitting a long
-        prompt never stalls in-flight sequences for its whole prefill."""
-        if prompt_cache is not None:
-            raise NotImplementedError(
-                "the prompt cache is not ported yet (ROADMAP queue 1 item "
-                "6: engine/prompt_cache.py)")
+        prompt never stalls in-flight sequences for its whole prefill.
+        ``prompt_cache``: an optional engine.prompt_cache.PromptCache."""
         self.runner = runner
+        self.prompt_cache = prompt_cache
         self.tokenizer = tokenizer
         self.max_queue = max_queue
         self.default_sampler = default_sampler or SamplerConfig()
@@ -360,6 +361,10 @@ class BatchedEngine:
                 continue
             self.runner.clear_state(self._kv, slot)
             seq.slot = slot
+            if self.prompt_cache is not None:
+                seq.prefilled = self.runner.restore_prefix(
+                    self.prompt_cache, seq.token_ids, self._kv,
+                    batch_idx=slot)
             self._slots[slot] = seq
             admitted = True
         return admitted
@@ -435,6 +440,10 @@ class BatchedEngine:
             s.prefilled += n
             self.stats.prefill_tokens += n
         for j, s in enumerate(done_pre):
+            if self.prompt_cache is not None:
+                self.runner.store_prefix(
+                    self.prompt_cache, s.token_ids[:s.prompt_len], self._kv,
+                    batch_idx=s.slot)
             s.pos = s.prompt_len
             self._sample_and_emit(s, picked[len(dec) + j])
         return True

@@ -8,13 +8,18 @@ replay the runner's CUDA graphs, on the runner's unowned one-row cache
 (each holds the engine's stream lock from its prefill to its last token),
 and a continuous-batching engine on the same runner (engine/batched.py)
 keeps its own cache. The runner hands the logits back on the host.
-Grammar-constrained decoding, embeddings and chat templates are here; the
-prompt cache and context shift are ROADMAP queue 1 item 6.
+Grammar-constrained decoding, embeddings and chat templates are here, and
+two features that work on that cache in place, so the steps after them
+replay the same graphs: the prompt cache (engine/prompt_cache.py: a cached
+prefix is restored into the row, and prefill runs only the rest) and the
+context shift (models/kv.shift_left: past the window the cache slides left
+by a quarter, its keys re-rotated).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -41,9 +46,15 @@ class EngineConfig:
     matmul_precision: str = "highest"
     seed: int | None = None
     chat_template: str | None = None  # override the detected style
-    # generate past the context window by sliding the KV cache left: not
-    # ported yet (ROADMAP queue 1 item 6, kv.shift_left); raises when needed
+    # generate past the context window by sliding the KV cache left
+    # (exact RoPE re-rotation; see models/kv.shift_left)
     context_shift: bool = False
+    prompt_cache: bool = False  # prefix-sharing KV snapshots (LRU)
+    prompt_cache_bytes: int = 2 << 30
+    # session file (llama.cpp --prompt-cache): loaded from this .npz at
+    # construction (implies prompt_cache=True); Engine.save_prompt_cache()
+    # writes it back
+    prompt_cache_file: str | None = None
 
 
 @dataclass
@@ -75,6 +86,16 @@ class Engine:
         self.stats = GenerationStats()
         # single-stream requests share the runner's unowned one-row cache
         self._stream = threading.Lock()
+        self.prompt_cache = None
+        if config.prompt_cache or config.prompt_cache_file:
+            from .prompt_cache import PromptCache
+
+            self.prompt_cache = PromptCache(max_bytes=config.prompt_cache_bytes)
+            if config.prompt_cache_file and \
+                    os.path.exists(config.prompt_cache_file):
+                n = self.prompt_cache.load(config.prompt_cache_file)
+                log.info("prompt cache: loaded %d entries from %s", n,
+                         config.prompt_cache_file)
 
     @classmethod
     def load(cls, path: str, config: EngineConfig | None = None,
@@ -103,6 +124,14 @@ class Engine:
                  time.time() - t0)
         return cls(runner, tokenizer, config, gguf)
 
+    def save_prompt_cache(self, path: str | None = None) -> int:
+        """Write the prompt cache to disk (a llama.cpp session file); path
+        defaults to config.prompt_cache_file. Returns the entries saved."""
+        path = path or self.config.prompt_cache_file
+        if self.prompt_cache is None or not path:
+            return 0
+        return self.prompt_cache.save(path)
+
     # -- generation ----------------------------------------------------------
 
     def generate(self, prompt: str, max_tokens: int = 128,
@@ -124,20 +153,38 @@ class Engine:
         return GrammarSampler(machine, vocab,
                               eos_token_id=self.tokenizer.eos_id)
 
-    def _prefill(self, ids: list[int]):
+    def _prefill(self, ids: list[int], cached: bool = False):
         """Prefill on the runner's unowned one-row cache. Returns (the last
-        position's logits on the host, kv, position)."""
+        position's logits on the host, kv, position). ``cached``: with a
+        prompt cache, restore the longest cached prefix into the row first,
+        prefill only the rest, then store the prompt."""
         r = self.runner
-        return r.prefill(ids, r.init_kv(1), host=True)
+        kv = r.init_kv(1)
+        if not cached or self.prompt_cache is None:
+            return r.prefill(ids, kv, host=True)
+        shared = r.restore_prefix(self.prompt_cache, ids, kv)
+        logits, kv, pos = r.prefill(ids[shared:], kv, start_pos=shared,
+                                    host=True)
+        r.store_prefix(self.prompt_cache, ids, kv)
+        return logits, kv, pos
+
+    def _fit_prompt(self, ids: list[int], max_tokens: int) -> list[int]:
+        """The prompt's tail that fits the window. Without the context
+        shift, the JAX package's rule: prompt and ``max_tokens`` fit
+        (keeping at least one token, where JAX's slice empties or garbles
+        the prompt once max_tokens >= max_seq - 1). With it, generation
+        slides past the window, so only the prompt must fit: its last
+        max_seq - 1 tokens (JAX applies the first rule there too, which
+        leaves the shift unreachable but for an emptied prompt)."""
+        max_seq = self.runner.max_seq
+        if self.config.context_shift:
+            return ids[-(max_seq - 1):]
+        if len(ids) + max_tokens >= max_seq:
+            return ids[-max(max_seq - max_tokens - 1, 1):]
+        return ids
 
     def _decode(self, tok: int, pos: int, kv: dict) -> np.ndarray:
         return self.runner.decode_one(tok, pos, kv, host=True)[0]
-
-    def _refuse_context_shift(self) -> None:
-        if self.config.context_shift:
-            raise NotImplementedError(
-                "context shift (sliding the KV cache left) is not ported yet "
-                "(ROADMAP queue 1 item 6: kv.shift_left)")
 
     def generate_streaming(self, prompt: str, max_tokens: int = 128,
                            sampler: SamplerConfig | Sampler | None = None,
@@ -149,9 +196,7 @@ class Engine:
         elif isinstance(sampler, SamplerConfig):
             sampler = Sampler(sampler)
 
-        ids = self.tokenizer.encode(prompt)
-        ids = ids[-(self.runner.max_seq - max_tokens - 1):] if \
-            len(ids) + max_tokens >= self.runner.max_seq else ids
+        ids = self._fit_prompt(self.tokenizer.encode(prompt), max_tokens)
         with self._stream:
             yield from self._stream_tokens(ids, max_tokens, sampler, stop,
                                            on_token, grammar)
@@ -160,7 +205,7 @@ class Engine:
                        grammar) -> Iterator[str]:
         self.stats = GenerationStats(prompt_tokens=len(ids))
         t0 = time.time()
-        logits, kv, pos = self._prefill(ids)
+        logits, kv, pos = self._prefill(ids, cached=True)
         self.stats.prefill_time = time.time() - t0
 
         decoder = self.tokenizer.streaming_decoder()
@@ -211,8 +256,13 @@ class Engine:
                         on_token(piece)
                     yield piece
             if pos >= self.runner.max_seq - 1:
-                self._refuse_context_shift()
-                break
+                if not self.config.context_shift:
+                    break
+                # drop the oldest quarter of the window: the cache slides
+                # left in place, its keys re-rotated
+                n = max(self.runner.max_seq // 4, 1)
+                self.runner.shift_left(kv, n)
+                pos -= n
             logits = self._decode(tok, pos, kv)
             pos += 1
         else:
@@ -296,7 +346,6 @@ class ChatEngine:
 
     def _ensure_context_space(self, max_tokens: int) -> None:
         """Drop oldest non-system turns until the prompt fits."""
-        self.engine._refuse_context_shift()
         limit = self.engine.runner.max_seq - max_tokens - 16
         while len(self.messages) > 2:
             prompt = self.engine.chat_template.render(self.messages)

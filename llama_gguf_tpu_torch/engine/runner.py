@@ -27,7 +27,10 @@ calls, and it serializes them itself. Every step, capture, greedy loop and
 embedding forward holds one re-entrant lock per device, and the forms a
 server uses hand back host arrays copied under it (``step(...,
 host_rows=)``, ``prefill``/``decode_one(..., host=True)``,
-``hidden_states``), so no caller takes a lock or touches a device tensor.
+``hidden_states``), so no caller takes a lock or touches a device tensor;
+the context shift and the prompt cache's restore and store write or read
+a cache in place under the same lock (``shift_left``, ``restore_prefix``,
+``store_prefix``), so the graphs captured on it replay after them.
 Captures run in PyTorch's "thread_local" error mode: CUDA work that another
 thread queues meanwhile (a model load during a hot reload: allocations,
 copies, kernels) cannot break them. Two things still must not happen on
@@ -239,15 +242,42 @@ class ModelRunner:
             with self._lock:
                 KV.clear_state(kv, row)
 
+    def shift_left(self, kv: dict, n: int, batch_idx: int | None = None
+                   ) -> None:
+        """Context shift on ``kv`` in place, under the runner's lock
+        (models/kv.shift_left with this model's per-layer RoPE): the graphs
+        captured on one of the runner's own caches replay on it after."""
+        with self._lock:
+            KV.shift_left(kv, n, batch_idx=batch_idx, model_cfg=self.cfg)
+
+    def restore_prefix(self, cache, token_ids: list[int], kv: dict,
+                       batch_idx: int = 0) -> int:
+        """``cache.restore`` (engine/prompt_cache.py) into row ``batch_idx``
+        of ``kv`` in place, under the runner's lock. Returns the restored
+        length: prefill continues from there."""
+        with self._lock:
+            return cache.restore(token_ids, kv, batch_idx=batch_idx)[1]
+
+    def store_prefix(self, cache, token_ids: list[int], kv: dict,
+                     batch_idx: int = 0) -> None:
+        """``cache.put`` of row ``batch_idx``'s first len(token_ids)
+        positions, under the runner's lock."""
+        with self._lock:
+            cache.put(token_ids, kv, batch_idx=batch_idx)
+
     def release_kv(self, owner: str) -> None:
         """Drop ``owner``'s caches, and the graphs and buffers bound to
-        them."""
+        them. A memory pool that no graph holds any more is not captured
+        into again (PyTorch's allocator asserts on such a pool): the next
+        capture starts a new one."""
         with self._lock:
             for d in (self._kv, self._greedy_io):
                 for key in [k for k in d if k[-1] == owner]:
                     del d[key]
             for key in [k for k in self._graphs if k[-1] == owner]:
                 del self._graphs[key]
+            if not self._graphs:
+                self._pool = None
 
     def _graphed(self, kv: dict, steps: int = 1):
         """The (batch, owner) of ``kv`` when steps on it replay graphs: on
@@ -539,21 +569,25 @@ class ModelRunner:
     @torch.no_grad()
     def hidden_states(self, token_ids: list[int], owner: str) -> np.ndarray:
         """The final-norm hidden states [T, H] of one sequence, on the host
-        (models/embeddings.py): the forward without its LM head, eagerly, on
-        ``owner``'s one-row cache, so no request's cache is touched."""
+        (models/embeddings.py), eagerly, on ``owner``'s one-row cache, so no
+        request's cache is touched. This follows the JAX package's
+        ``extract_hidden_states``, not the forward: the embedding takes no
+        learned position rows, and the Gemma family's final norm multiplies
+        by (1 + w)."""
         cfg = self.cfg
         t = len(token_ids)
+        gemma = cfg.arch_info.is_gemma if cfg.arch_info else False
         with self._lock:
             kv = self.init_kv(1, owner=owner)
             tokens = self._tensor([token_ids])
             positions = torch.arange(t, dtype=torch.int32,
                                      device=self.device)[None]
             lengths = self._tensor([t])
-            x = embed(self.params, cfg, tokens, positions)
+            x = embed(self.params, cfg, tokens)
             for i, layer in enumerate(self.params["layers"]):
                 x, kv = layer_forward(layer, cfg, x, positions, kv, i,
                                       lengths,
                                       precision=self.matmul_precision)
             x = apply_norm(x, self.params["final_norm"], cfg.norm_eps,
-                           cfg.uses_layer_norm)
+                           cfg.uses_layer_norm, gemma)
             return x[0].float().cpu().numpy()

@@ -10,6 +10,10 @@ positions >= S (the runner pads with pos = max_seq on purpose). PyTorch's
 such an index. So each buffer carries one extra slot at index S: writes
 redirect every out-of-range position there, and reads never look at it. The
 logical cache is [B, S, H, D], as in the JAX package.
+
+``shift_left`` (the context shift) rolls the logical region in place with
+``copy_``: the runner's CUDA graphs replay the addresses they captured, so
+no buffer is ever rebound.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any
 import torch
 
 from ..ops.attention import group_take
+from ..ops.rope import rerotate_keys
 
 FORMATS = ("f32", "bf16")
 _STORE_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -115,3 +120,49 @@ def read(kv: dict[str, Any], layer: int, compute_dtype=torch.float32,
         return a.to(compute_dtype)
 
     return pick(kv["k"][layer]), pick(kv["v"][layer])
+
+
+def shift_left(kv: dict[str, Any], n: int, rope_cfg=None,
+               batch_idx: int | None = None, model_cfg=None
+               ) -> dict[str, Any]:
+    """Drop the first ``n`` cache positions and slide the rest left, in
+    place (the JAX package's ``shift_left``, f32 and bf16 formats).
+
+    The logical [:, :S] region of every buffer rolls by -n, as ``jnp.roll``
+    does on the JAX cache (the first n slots wrap round to the end); the
+    drop slot stays. Stored keys are post-RoPE, so sliding a key from
+    position p to p - n re-rotates it by -n * theta, in f32, rounded once to
+    the cache's dtype. ``model_cfg`` (a ModelConfig) gives each layer its own
+    RoPE (``layer_rope``): NoPE layers only slide, dual-base SWA layers
+    rotate at their own base. ``rope_cfg`` alone rotates every layer alike.
+    ``batch_idx`` shifts only that row. A hybrid cache's "deltanet" state is
+    not positional and is left alone. The caller subtracts n from its
+    lengths."""
+    if model_cfg is not None and getattr(model_cfg, "kv_lora_rank", 0) > 0:
+        raise NotImplementedError(
+            "context shift of an MLA latent cache is not ported yet (ROADMAP "
+            "queue 1 item 11)")
+    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet"}:
+        raise NotImplementedError(
+            f"context shift of a cache with keys {sorted(kv)} is not ported "
+            "yet (f32/bf16 K/V only; ROADMAP queue 1 item 10)")
+    rows = slice(None) if batch_idx is None else slice(batch_idx,
+                                                       batch_idx + 1)
+
+    def layer_rope(i):
+        if model_cfg is not None:
+            return model_cfg.layer_rope(i)
+        return rope_cfg if rope_cfg is not None and rope_cfg.n_dims > 0 \
+            else None
+
+    for i, (k, v) in enumerate(zip(kv["k"], kv["v"])):
+        s = k.shape[1] - 1
+        live = v[rows, :s]
+        live.copy_(torch.roll(live, -n, dims=1))
+        live = k[rows, :s]
+        rolled = torch.roll(live, -n, dims=1)
+        rcfg = layer_rope(i)
+        if rcfg is not None:
+            rolled = rerotate_keys(rolled.float(), -n, rcfg)
+        live.copy_(rolled)
+    return kv

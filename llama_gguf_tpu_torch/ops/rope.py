@@ -84,3 +84,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     if cfg.partial_at_end:
         return torch.cat([pass_part, rotated], dim=-1)
     return torch.cat([rotated, pass_part], dim=-1)
+
+
+def rerotate_keys(k: torch.Tensor, delta: int, cfg: RopeConfig
+                  ) -> torch.Tensor:
+    """Rotate stored (post-RoPE) keys by a fixed position delta.
+
+    RoPE is linear in position: moving a key from position p to p + delta is
+    a rotation by delta * theta whatever p is. Used by the KV context shift
+    (models/kv.shift_left), so shifted keys stay consistent with their new
+    positions. k: [..., H, D] (any leading dims)."""
+    cos, sin = rope_cos_sin(torch.tensor(delta, dtype=torch.float32,
+                                         device=k.device), cfg)
+    return apply_rope(k, cos, sin, cfg)

@@ -37,6 +37,7 @@ import numpy as np
 
 from ..engine.batched import BatchedEngine, RequestHandle
 from ..engine.engine import Engine, EngineConfig
+from ..engine.prompt_cache import PromptCache
 from ..engine.runner import read_bucket
 from ..sampling.sampler import SamplerConfig
 
@@ -57,7 +58,7 @@ class ServerConfig:
     api_keys: list[str] = field(default_factory=list)
     served_model_name: str | None = None
     rag_db: str | None = None  # ROADMAP queue 1 item 13: raises
-    prompt_cache_bytes: int = 0  # > 0: ROADMAP queue 1 item 6, raises
+    prompt_cache_bytes: int = 0  # > 0: the scheduler's prompt cache budget
     lora: str | None = None  # ROADMAP queue 1 item 12: raises
     # capture the first request's graph keys (the 8-token prefill and the
     # decode step) at load time; a failure raises
@@ -71,8 +72,6 @@ class ServerConfig:
 def _refuse_unported(config: ServerConfig) -> None:
     for setting, item, what in (
             (config.rag_db, 13, "RAG (rag_db)"),
-            (config.prompt_cache_bytes > 0, 6,
-             "the prompt cache (prompt_cache_bytes)"),
             (config.lora, 12, "LoRA adapters (lora)")):
         if setting:
             raise NotImplementedError(
@@ -116,8 +115,11 @@ class ServerState:
             self.engine = self.batched = None
             if old is not None:
                 old.shutdown()
+            pcache = (PromptCache(max_bytes=c.prompt_cache_bytes)
+                      if c.prompt_cache_bytes > 0 else None)
             batched = BatchedEngine(engine.runner, engine.tokenizer,
                                     max_queue=c.max_queue,
+                                    prompt_cache=pcache,
                                     prefill_chunk=c.prefill_chunk)
             if c.warmup:
                 try:

@@ -346,12 +346,6 @@ def test_capture_steps_are_left_out_of_the_decode_rate(port):
     assert st.decode_tps > 0
 
 
-def test_prompt_cache_is_not_ported(port):
-    teng = port["qwen2"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        BatchedEngine(teng.runner, teng.tokenizer, prompt_cache=object())
-
-
 STOP_CASES = [
     (["END"], ["hello E", "N", "D tail"]),
     (["xyz"], ["abc", "xy", "q"]),

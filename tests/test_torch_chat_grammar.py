@@ -6,8 +6,10 @@ Templates and grammar masks are exact (the same strings and boolean masks).
 Generation runs the qwen2 tiny model of tests/test_batched.py with Q8_0
 weights: the port in "quant" mode (the q8 kernel's plain version), the JAX
 engine in "dequant" mode (the same dequantized weights), greedy: the same
-text. Embeddings: within 1e-4 (f32 hidden states, another order of
-summation)."""
+text. Embeddings: within 1e-5 (f32 hidden states, another order of
+summation), on that qwen2 model and on tiny gemma, gemma2 and gpt2 models,
+whose embeddings the JAX package takes without learned positions and, for
+the Gemma family, with a final norm by (1 + w)."""
 
 import json
 from types import SimpleNamespace
@@ -29,7 +31,7 @@ from llama_gguf_tpu_torch.engine.engine import ChatEngine, Engine, EngineConfig
 from llama_gguf_tpu_torch.sampling import grammar as G
 from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
 
-EMBED_TOL = 1e-4
+EMBED_TOL = 1e-5
 GREEDY = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
 JGREEDY = JSampler(temperature=0.0, repetition_penalty=1.0)
 
@@ -164,9 +166,93 @@ def test_generate_with_grammar_matches_jax(engines, schema):
     json.loads(got)
 
 
-@pytest.mark.parametrize("pooling", ["mean", "last", "first", "max"])
-def test_embed_matches_jax(engines, pooling):
-    teng, jeng = engines
+def write_tiny_gpt2(path: str, seed: int = 11, vocab: int = 288,
+                    hidden: int = 64, layers: int = 2, heads: int = 4,
+                    ffn: int = 128, ctx: int = 96) -> None:
+    """A 2-layer gpt2-family GGUF (learned positions of unit scale,
+    LayerNorm with biases, fused QKV, tied head) with the fixtures'
+    tokenizer, from seeded random weights."""
+    from llama_gguf_tpu.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+
+    def randw(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    w = GGUFWriter()
+    for key, value in (("general.architecture", "gpt2"),
+                       ("gpt2.embedding_length", hidden),
+                       ("gpt2.block_count", layers),
+                       ("gpt2.attention.head_count", heads),
+                       ("gpt2.feed_forward_length", ffn),
+                       ("gpt2.context_length", ctx),
+                       ("gpt2.attention.layer_norm_epsilon", 1e-5),
+                       ("gpt2.vocab_size", vocab)):
+        w.add_metadata(key, value)
+    # the fixtures' tokenizer: specials, 256 byte tokens, then tokN
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    toks += [f"tok{i}" for i in range(len(toks), vocab)]
+    types = [2, 3, 3] + [6] * 256 + [1] * (vocab - 259)
+    for key, value in (("tokenizer.ggml.model", "llama"),
+                       ("tokenizer.ggml.tokens", toks),
+                       ("tokenizer.ggml.scores", np.zeros(vocab, np.float32)),
+                       ("tokenizer.ggml.token_type",
+                        np.array(types, np.int32)),
+                       ("tokenizer.ggml.bos_token_id", 1),
+                       ("tokenizer.ggml.eos_token_id", 2),
+                       ("tokenizer.ggml.unknown_token_id", 0)):
+        w.add_metadata(key, value)
+    w.add_tensor_np("token_embd.weight", randw(vocab, hidden))
+    w.add_tensor_np("position_embd.weight", randw(ctx, hidden, scale=1.0))
+    for i in range(layers):
+        p = f"blk.{i}"
+        for norm in ("attn_norm", "ffn_norm"):
+            w.add_tensor_np(f"{p}.{norm}.weight", 1.0 + randw(hidden))
+            w.add_tensor_np(f"{p}.{norm}.bias", randw(hidden))
+        for name, n, k in (("attn_qkv", 3 * hidden, hidden),
+                           ("attn_output", hidden, hidden),
+                           ("ffn_up", ffn, hidden),
+                           ("ffn_down", hidden, ffn)):
+            w.add_tensor_np(f"{p}.{name}.weight", randw(n, k))
+            w.add_tensor_np(f"{p}.{name}.bias", randw(n))
+    w.add_tensor_np("output_norm.weight", 1.0 + randw(hidden))
+    w.add_tensor_np("output_norm.bias", randw(hidden))
+    w.write_to_path(path)
+
+
+@pytest.fixture(scope="module")
+def embed_engines(engines, tmp_path_factory):
+    """The port's engine (CPU) and the JAX package's, per model of
+    EMBED_MODELS: qwen2 is ``engines``' Q8_0 model; gemma and gemma2 tiny
+    F32 models (fixtures.make_tiny_model, seed 11); gpt2 write_tiny_gpt2."""
+    out = {"qwen2": engines}
+    d = tmp_path_factory.mktemp("embed")
+    for arch in ("gemma", "gemma2", "gpt2"):
+        path = str(d / f"{arch}.gguf")
+        if arch == "gpt2":
+            write_tiny_gpt2(path)
+        else:
+            make_tiny_model(path, arch=arch, vocab=288, hidden=64, layers=2,
+                            heads=4, kv_heads=2, ffn=128, ctx=96, seed=11,
+                            tokenizer=True)
+        out[arch] = (Engine.load(path, EngineConfig(weight_mode="quant"),
+                                 device="cpu"),
+                     JEngine.load(path, JConfig(weight_mode="dequant")))
+    return out
+
+
+EMBED_MODELS = ("qwen2", "gemma", "gemma2", "gpt2")
+POOLINGS = ("mean", "last", "first", "max")
+
+
+@pytest.mark.parametrize("model,pooling", [
+    pytest.param(m, p, id=p if m == "qwen2" else f"{m}-{p}")
+    for m in EMBED_MODELS for p in POOLINGS])
+def test_embed_matches_jax(embed_engines, model, pooling):
+    """Engine.embed equals the JAX package's: no learned position rows
+    (gpt2) and the Gemma family's (1 + w) final norm, as its
+    extract_hidden_states takes them."""
+    teng, jeng = embed_engines[model]
     text = "The quick brown fox jumps over the lazy dog"
     got = teng.embed(text, pooling=pooling)
     want = np.asarray(jeng.embed(text, pooling=pooling))
@@ -202,12 +288,3 @@ def test_chat_engine_matches_jax(engines):
         ref.send("More", max_tokens=8, sampler=JGREEDY)
     mine.reset()
     assert mine.messages == [{"role": "system", "content": "Be brief."}]
-
-
-def test_context_shift_is_not_ported(engines):
-    teng, _ = engines
-    eng = Engine(teng.runner, teng.tokenizer,
-                 EngineConfig(context_shift=True), teng.gguf)
-    chat = ChatEngine(eng)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        chat.send("hi", max_tokens=4)

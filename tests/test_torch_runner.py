@@ -264,8 +264,14 @@ def test_cli_bench_json_keys(models, capsys):
 
 
 def test_cli_bench_defaults():
+    """Unset flags take the config's values (flag > env > TOML > default):
+    the default [bench] section's 32 and 64."""
+    from llama_gguf_tpu_torch.config import Config
+
     args = cli.build_parser().parse_args(["bench", "m.gguf", "--batch", "2",
                                           "--profile"])
-    assert (args.prompt_tokens, args.gen_tokens, args.device) == (32, 64,
-                                                                   "cuda")
+    bench = Config().bench
+    assert (cli._pick(args, "prompt_tokens", bench.prompt_tokens),
+            cli._pick(args, "gen_tokens", bench.gen_tokens),
+            args.device) == (32, 64, "cuda")
     assert args.batch == 2 and args.profile

@@ -348,7 +348,6 @@ def test_load_model_matches_jax(servers, model_path):
 
 @pytest.mark.parametrize("setting,item", [
     ({"rag_db": "kb.sqlite"}, "13"),
-    ({"prompt_cache_bytes": 1 << 20}, "6"),
     ({"lora": "adapter.gguf"}, "12"),
 ])
 def test_unported_settings_raise(setting, item):
