@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12: phases 7, 13, 10a and 8 run while
-phase 6's GGUF, phase 11's inputs and phase 12's GGUF build in three child
-processes. Phase 9 runs inside each of phases 4, 6, 7 and 12, on that
-path's engine; phase 10b inside phase 6, on its quant weights.
+in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12, 14: phases 7, 13, 10a and 8
+run while phase 6's GGUF, phase 11's inputs, phase 12's and phase 14's GGUFs
+build in four child processes. Phase 9 runs inside each of phases 4, 6, 7,
+12 and 14, on that path's engine; phase 10b inside phase 6, on its quant
+weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
 plain version the graphs are held against.
@@ -18,8 +19,8 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and three child processes phase 6's,
-   phase 11's and phase 12's.
+   process builds phase 2's GGUF and four child processes phase 6's,
+   phase 11's, phase 12's and phase 14's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -231,6 +232,39 @@ plain version the graphs are held against.
    max |k| of a fresh prefill of the kept tokens; prints ms per shift.
    13d: the CLI's sysinfo names the card. Prints the phase's wall time and
    launches (kernels 1-3, counted from its start to its end).
+
+14. The Mamba family (models/mamba.py) through the runner's graphs and the
+   batched engine. 14a: granite-4.0-h-micro-l10 (ibm-granite/granite-4.0-
+   h-micro's published widths: hidden 2048, vocab 100352, 32/8 NoPE heads
+   of 64, SwiGLU 8192 in every block, Mamba-2 64 heads of 64, d_state 128,
+   1 group, conv 4; the four Granite multipliers; tied embeddings; cut to
+   10 of 40 layers, one period of 9 Mamba-2 blocks and 1 attention block),
+   Q4_K_M mix (Q4_K ssm_in, ssm_out, q/k/v/o, gate/up; Q6_K down and the
+   table, which is the tied head), loaded in both modes (load seconds
+   printed); its weight bytes per decode step and recurrent state, and
+   their bound; kernels 1-3 on its own projections (ssm_in 2048 -> 8512,
+   ssm_out, the fused QKV, o_proj, gate|up 2048 -> 2 x 8192, Q6_K down, the
+   tied Q6_K head 2048 -> 100352) at 1, 8, 128 and 512 rows as in phase 3;
+   the main path as in phase 4 with exact launch counts derived from the
+   loaded model, no eager step, quant tokens equal dequant tokens up to
+   the first near tie, prefill logits within 1e-3 of max |logit|; phase 9
+   on this path; phase 12a's state gates; the decode and 128-token prefill
+   keys' capture seconds and nodes (kernels one replay launches); a
+   greedy decode profile, against the byte bound, beside the scan's time
+   (CUDA events) launched alone at a step's shapes, so its share of the
+   profiled step is an estimate from a separate timing; the CLI's bench.
+   14b: a BatchedEngine at max_batch 4 over 14a's quant weights, the
+   HYBRID_REQUESTS prompts, prefill_chunk SERVE_CHUNK: every admission
+   clears its row's state (recorded with no host sync; that the clear
+   zeroes one row and only it is checked after the timed passes), tokens
+   equal single-stream up to each near tie, no eager step, then two steady
+   passes. 14c: tiny-mamba (Mamba-1), tiny-mamba2, tiny-falconh1,
+   tiny-lfm2 and tiny-jamba (its MoE half on kernels 4-6) at the Q4_K_M
+   mix: the main path as in 14a; every kernel it launched against its
+   plain version on the preset's own weights, as in phases 3 and 6, at
+   TINY_ROWS rows (kernels 1-3, each distinct projection shape) and at the
+   prompt's routing (kernels 4-6); phase 9 with TINY_GREEDY_STEPS greedy
+   steps.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -546,7 +580,9 @@ def build_q2k_experts() -> str:
     return path
 
 
-def load_both(path: str):
+def load_both(path: str, seconds: dict | None = None):
+    """The quant and dequant engines of ``path`` on the card; each load's
+    seconds go into ``seconds`` (by mode) when it is given."""
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
 
     engines = []
@@ -554,8 +590,10 @@ def load_both(path: str):
         t0 = time.perf_counter()
         engines.append(Engine.load(path, EngineConfig(weight_mode=mode),
                                    device="cuda"))
-        log(f"{os.path.basename(path)}: {mode} engine loaded in "
-            f"{time.perf_counter() - t0:.1f}s")
+        took = time.perf_counter() - t0
+        if seconds is not None:
+            seconds[mode] = took
+        log(f"{os.path.basename(path)}: {mode} engine loaded in {took:.1f}s")
     return engines
 
 
@@ -642,13 +680,15 @@ def decode_profiles(engine, ids) -> dict:
     return out
 
 
-def graph_against_eager(label: str, engine, ids, card: str) -> None:
+def graph_against_eager(label: str, engine, ids, card: str,
+                        greedy_steps: int = GREEDY_STEPS) -> None:
     """Phase 9 on one path: the prefill and NEW_TOKENS decode steps replayed
     as graphs against the same steps run eagerly (a cache the runner did
     not make), greedy on each side's own logits: tokens equal, logits
     within REL_LIMIT * max |logit| (expected: equal); then greedy_decode of
-    GREEDY_STEPS from the prompt (across the 256 read bucket), graphed
-    against eager, tokens equal. Also prints the graphs' capture cost."""
+    ``greedy_steps`` from the prompt (GREEDY_STEPS: across the 256 read
+    bucket), graphed against eager, tokens equal. Also prints the graphs'
+    capture cost."""
     import torch
 
     r = engine.runner
@@ -664,11 +704,11 @@ def graph_against_eager(label: str, engine, ids, card: str) -> None:
                                  f"eager by {max(rel):.3g} of max |logit|")
     logits, kv, pos = r.prefill(ids, r._make_kv(1))
     first = torch.argmax(logits)[None].to(torch.int32)
-    want_g, _ = r.greedy_decode(first, [pos], kv, GREEDY_STEPS)
+    want_g, _ = r.greedy_decode(first, [pos], kv, greedy_steps)
     _, kv, _ = r.prefill(ids, r.init_kv())
-    got_g, _ = r.greedy_decode(first, [pos], kv, GREEDY_STEPS)
-    segments = r.plan_segments(pos, GREEDY_STEPS, r.max_seq)
-    check(r.eager_steps == eager0 + GREEDY_STEPS + 1,
+    got_g, _ = r.greedy_decode(first, [pos], kv, greedy_steps)
+    segments = r.plan_segments(pos, greedy_steps, r.max_seq)
+    check(r.eager_steps == eager0 + greedy_steps + 1,
           f"{label}: greedy_decode on the runner's cache ran eagerly")
     check(torch.equal(got_g, want_g),
           f"{label}: graphed greedy_decode differs from eager at steps "
@@ -687,7 +727,7 @@ def graph_against_eager(label: str, engine, ids, card: str) -> None:
         path=label, steps=1 + NEW_TOKENS, tokens_equal=True,
         max_logit_diff_rel=max(rel), max_logit_diff_abs=max(
             (g - w).abs().max().item() for g, w in zip(got, want)),
-        greedy_steps=GREEDY_STEPS, greedy_segments=segments,
+        greedy_steps=greedy_steps, greedy_segments=segments,
         greedy_tokens_equal=True,
         replay_host_ms_median=sorted(host_ms)[len(host_ms) // 2],
         card=card)}), flush=True)
@@ -970,8 +1010,9 @@ def routing_margins(engine, ids, steps: int) -> list[float]:
             pos += 1
     finally:
         T.route = route
-    n_layers = engine.runner.cfg.num_layers
-    return [min(rows[j:j + n_layers]) for j in range(0, len(rows), n_layers)]
+    n_moe = sum("router" in layer.get("ffn", {})
+                for layer in r.params["layers"])
+    return [min(rows[j:j + n_moe]) for j in range(0, len(rows), n_moe)]
 
 
 def moe_path(card: str, timer, peaks: dict, gguf: str):
@@ -1065,13 +1106,14 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
 
 
 def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
-                      label: str) -> list[dict]:
+                      label: str, paths: dict | None = None) -> list[dict]:
     """Kernels 4-6 on the expert stacks ``ex`` ("gate", "up", "down") for
     each case (slot ids, input rows) of ``cases``: the slot-major kernel on
     the gate and down stacks below the grouped rule, the grouped GLU
     (gate|up) and the grouped kernel (down) from it, each in "highest" and
     "default", against the plain versions and timed with the torch.bmm
-    yardstick (phase 6). The path each takes must be MOE_PATHS's."""
+    yardstick (phase 6). The path each takes must be MOE_PATHS's, or one
+    of ``paths[name]`` when given (the paths the main path took)."""
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_expert
@@ -1142,8 +1184,9 @@ def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
                 plan = Q.moe_grouped_plan(s_slots, e_num, kdim, n,
                                           stacks[0].group, stacks[0].fmt, sms,
                                           aligned, glu=len(stacks) == 2)
-            check(plan.path == MOE_PATHS[name], f"{name} {proj}: the plan's "
-                                                f"path is {plan.path!r}")
+            allowed = paths[name] if paths else {MOE_PATHS[name]}
+            check(plan.path in allowed, f"{name} {proj}: the plan's path is "
+                                        f"{plan.path!r}, not of {allowed}")
             kpath = dict(kernel_path=plan.path, splits=plan.splits,
                          tile_rows=plan.rows,
                          bound_f32_ms=bound_ms(nbytes, ops, "f32", peaks)[0])
@@ -1918,12 +1961,12 @@ def q2k_moe_checks(npz: str, timer, peaks: dict) -> list[dict]:
 
 
 def hybrid_launches_per_step(params, cfg) -> dict[str, dict[str, int]]:
-    """Phase 12's launches per step, derived from the loaded model: every
-    QuantLinear runs once per step (a fused gate|up on the GLU kernel, the
-    others on the q4 or q8 kernel by format); each MoE layer's routed
-    experts run kernel 4 three times (gate, up, down) at a decode step's
-    num_experts_per_token slots, below the grouped rule, and the grouped
-    GLU and grouped kernels once each at the prefill's 128 x
+    """Phases 12 and 14's launches per step, derived from the loaded model:
+    every QuantLinear runs once per step (a fused gate|up on the GLU
+    kernel, the others on the q4 or q8 kernel by format); each MoE layer's
+    routed experts run kernel 4 three times (gate, up, down) at a decode
+    step's num_experts_per_token slots, below the grouped rule, and the
+    grouped GLU and grouped kernels once each at the prefill's 128 x
     num_experts_per_token slots (ops/qmatmul.moe_dims)."""
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import QuantLinear
@@ -1943,25 +1986,41 @@ def hybrid_launches_per_step(params, cfg) -> dict[str, dict[str, int]]:
             per[name] = per.get(name, 0) + 1
 
     walk(params)
-    moe = sum("router" in layer["ffn"] for layer in params["layers"])
+    moe = sum("router" in layer.get("ffn", {}) for layer in params["layers"])
     k, e = cfg.num_experts_per_token, cfg.num_experts
-    check(not Q.moe_dims(k, e)[2] and Q.moe_dims(128 * k, e)[2],
-          f"phase 12: the dispatch rule at {k} / {128 * k} slots")
+    check(not moe or (not Q.moe_dims(k, e)[2] and Q.moe_dims(128 * k, e)[2]),
+          f"the dispatch rule at {k} / {128 * k} slots")
     return {"decode": dict(per, moe_slot=3 * moe),
             "prefill": dict(per, moe_glu_grouped=moe, moe_grouped=moe)}
 
 
-def hybrid_near_tie(deq):
-    """run_main_path's near_tie for phase 12: the first step at which the
-    dequant engine's greedy logits have a top-2 margin under NEAR_TIE of
-    max |logit|, or its routing a k-th vs (k+1)-th probability margin
-    under ROUTE_TIE."""
+def exact_launches(label: str, launches: dict, decoded: int, per: dict):
+    """Each kernel launched exactly its per-step count (``per``, from
+    hybrid_launches_per_step) over one prefill and ``decoded`` steps."""
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    for name in set(Q.LAUNCHES) | set(per["decode"]) | set(per["prefill"]):
+        want = (decoded * per["decode"].get(name, 0)
+                + per["prefill"].get(name, 0))
+        check(launches.get(name, 0) == want,
+              f"{label} {name}: {launches.get(name, 0)} launches, expected "
+              f"{want} ({per})")
+
+
+def hybrid_near_tie(deq, label: str = HYBRID_LABEL):
+    """run_main_path's near_tie for phases 12 and 14: the first step at
+    which the dequant engine's greedy logits have a top-2 margin under
+    NEAR_TIE of max |logit|, or (a model with MoE layers) its routing a
+    k-th vs (k+1)-th probability margin under ROUTE_TIE."""
+    moe = any("router" in layer.get("ffn", {})
+              for layer in deq.runner.params["layers"])
+
     def near(ids, toks, want):
         _, margins = single_stream(deq.runner, ids, len(want))
-        route = routing_margins(deq, ids, len(want))
+        route = routing_margins(deq, ids, len(want)) if moe else [1.0]
         ties = ([i for i, m in enumerate(margins) if m < NEAR_TIE]
                 + [i for i, m in enumerate(route) if m < ROUTE_TIE])
-        log(f"{HYBRID_LABEL}: smallest logit margin {min(margins):.3g}, "
+        log(f"{label}: smallest logit margin {min(margins):.3g}, "
             f"routing margin {min(route):.3g}; near ties at {sorted(ties)}")
         return min(ties) if ties else None
     return near
@@ -1987,12 +2046,29 @@ def delta_rule_ms(cfg, timer) -> float:
     return timer.ms(lambda: D.delta_rule_scan(q, k, v, beta, gate, state))
 
 
-def hybrid_state_checks(quant, ids, card: str) -> dict:
-    """Phase 12a's state gates: greedy_tokens of the prompt before and
-    after another prompt's (init_kv clears the recurrent state); then a
-    decode key captured after the prompt's prefill (its warm-up runs on the
-    live cache) replayed for 4 steps against the same steps eager, logits
-    and state within REL_LIMIT of max |value|."""
+def recurrent_state(runner, kv) -> list:
+    """The live recurrent-state tensors of ``kv``: each DeltaNet layer's S
+    and conv, each Mamba-family layer's conv window and ssm state (not the
+    placeholders of the other layers)."""
+    from llama_gguf_tpu_torch.models.mamba import KINDS
+
+    out = []
+    for i, kind in enumerate(runner.cfg.layer_kinds or ()):
+        if kind == "deltanet":
+            out += [kv["deltanet"][i]["S"], kv["deltanet"][i]["conv"]]
+        elif kind in KINDS:
+            out += [t for t in (kv["mamba"]["conv"][i], kv["mamba"]["ssm"][i])
+                    if t.numel()]
+    return out
+
+
+def hybrid_state_checks(quant, ids, card: str,
+                        label: str = HYBRID_LABEL) -> dict:
+    """Phases 12a and 14a's state gates: greedy_tokens of the prompt before
+    and after another prompt's (init_kv clears the recurrent state); then
+    a decode key captured after the prompt's prefill (its warm-up runs on
+    the live cache) replayed for 4 steps against the same steps eager,
+    logits and state within REL_LIMIT of max |value|."""
     import torch
 
     r = quant.runner
@@ -2000,10 +2076,10 @@ def hybrid_state_checks(quant, ids, card: str) -> dict:
     quant.greedy_tokens(quant.tokenizer.encode("Another prompt entirely."),
                         8)
     again = quant.greedy_tokens(ids, 16)
-    check(first == again, f"{HYBRID_LABEL}: a second greedy run of the "
+    check(first == again, f"{label}: a second greedy run of the "
                           f"prompt gave {again}, the first {first}")
     key, bound = (1, 1, 512, False), 512
-    check(key not in r._graphs, f"{HYBRID_LABEL}: {key} captured already")
+    check(key not in r._graphs, f"{label}: {key} captured already")
     _, kv, pos = r.prefill(ids, r.init_kv())
     logits, ekv, _ = r.prefill(ids, r._make_kv(1))
     tok, rel = int(torch.argmax(logits)), []
@@ -2013,15 +2089,16 @@ def hybrid_state_checks(quant, ids, card: str) -> dict:
         want, ekv = r.step(*args, ekv, read_bound=bound)
         rel.append(((got - want).abs().max() / want.abs().max()).item())
         tok, pos = int(torch.argmax(want)), pos + 1
-    check(r.replays.get(key) == 4, f"{HYBRID_LABEL}: {key} replayed "
+    check(r.replays.get(key) == 4, f"{label}: {key} replayed "
                                    f"{r.replays.get(key)} times, not 4")
-    state_rel = max(((a[n] - b[n]).abs().max() / b[n].abs().max()).item()
-                    for a, b in zip(kv["deltanet"], ekv["deltanet"])
-                    if b["S"].shape[1] > 1 for n in ("S", "conv"))
+    state_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(recurrent_state(r, kv),
+                                    recurrent_state(r, ekv)))
     check(max(rel) <= REL_LIMIT and state_rel <= REL_LIMIT,
-          f"{HYBRID_LABEL}: the step captured after traffic differs from "
+          f"{label}: the step captured after traffic differs from "
           f"eager by {max(rel):.3g} (logits), {state_rel:.3g} (state)")
-    out = dict(greedy_repeats=True, captured_after_traffic=str(key),
+    out = dict(path=label, greedy_repeats=True,
+               captured_after_traffic=str(key),
                max_logit_diff_rel=max(rel), max_state_diff_rel=state_rel,
                card=card)
     print(json.dumps({"hybrid_state": out}), flush=True)
@@ -2033,7 +2110,6 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
     (measurements, launches, batched launches)."""
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
-    from llama_gguf_tpu_torch.ops import qmatmul as Q
 
     quant, deq = load_both(gguf)
     cfg, params = quant.runner.cfg, quant.runner.params
@@ -2056,9 +2132,8 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
 
     # the weight bytes of one decode step, and the state it reads and writes
     nbytes = step_bytes(params, cfg.num_experts_per_token)
-    kv = quant.runner.init_kv()
-    state = sum(t.numel() * t.element_size() for st in kv["deltanet"]
-                for t in st.values() if st["S"].shape[1] > 1)
+    state = sum(t.numel() * t.element_size() for t in recurrent_state(
+        quant.runner, quant.runner.init_kv()))
     bound = (nbytes + 2 * state) / peaks["bytes"] * 1e3
     print(f"{HYBRID_LABEL}: {nbytes} weight bytes per decode step, "
           f"recurrent state {state} bytes (read and written), bound "
@@ -2109,12 +2184,7 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
     launches, by_path, decoded, ids = run_main_path(
         quant, deq, card, HYBRID_LABEL, near_tie=hybrid_near_tie(deq),
         logit_rel=True)
-    for name in set(Q.LAUNCHES) | set(per["decode"]) | set(per["prefill"]):
-        want = (decoded * per["decode"].get(name, 0)
-                + per["prefill"].get(name, 0))
-        check(launches.get(name, 0) == want,
-              f"{HYBRID_LABEL} {name}: {launches.get(name, 0)} launches, "
-              f"expected {want} ({per})")
+    exact_launches(HYBRID_LABEL, launches, decoded, per)
     for name, path in MOE_PATHS.items():
         on_path = by_path.get(f"{name} {path}", 0)
         check(on_path == launches[name] > 0,
@@ -2142,10 +2212,14 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
     return measurements, launches, batched_launches
 
 
-def hybrid_batched(quant, card: str) -> dict:
-    """Phase 12b: qwen3-next-80b-a3b-l4 in a BatchedEngine at max_batch 4
-    over phase 12a's quant weights, HYBRID_REQUESTS greedy requests (rows
-    reused), prefill_chunk SERVE_CHUNK. Returns the run's launches."""
+def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
+    """Phases 12b and 14b: the path's model in a BatchedEngine at
+    max_batch 4 over its quant weights, HYBRID_REQUESTS greedy requests
+    (rows reused), prefill_chunk SERVE_CHUNK; every admission clears its
+    row's recurrent state (runner.clear_state, its calls recorded as the
+    engine runs, with no host sync in the timed passes; after them, that
+    it zeroes each row of the engine's cache and only that row). With MoE
+    layers, kernels 4-6 must launch. Returns the run's launches."""
     import dataclasses
 
     import numpy as np
@@ -2164,9 +2238,19 @@ def hybrid_batched(quant, card: str) -> dict:
     prompts = [rng.integers(3, min(q.cfg.vocab_size, 4096), size=n).tolist()
                for n in HYBRID_REQUESTS]
     steps = 24
+    cleared = []  # the rows admissions cleared, in order
+    clear = r.clear_state
+
+    def record_clear(kv, row):
+        cleared.append(row)
+        clear(kv, row)
+
+    r.clear_state = record_clear
     be = BatchedEngine(r, quant.tokenizer, max_queue=16,
                        prefill_chunk=SERVE_CHUNK)
     greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    moe = any("router" in layer.get("ffn", {})
+              for layer in q.params["layers"])
     torch.cuda.synchronize()
     Q.reset_launches()
     t0 = time.perf_counter()
@@ -2183,30 +2267,44 @@ def hybrid_batched(quant, card: str) -> dict:
                               sampler=greedy).text(timeout=600)
         for p in prompts[:4]])
     be.shutdown()
+    state = recurrent_state(r, be._kv)
+    for row in range(4):  # each row holds its last sequence's state
+        before = [t.clone() for t in state]
+        check(any(bool(t[row].any()) for t in before),
+              f"{label} batched: row {row}'s state is already zero")
+        clear(be._kv, row)
+        for t, b in zip(state, before):
+            rest = [i for i in range(4) if i != row]
+            check(not bool(t[row].any()) and torch.equal(t[rest], b[rest]),
+                  f"{label} batched: clear_state of row {row}")
     reasons = [h.finish_reason for h in handles]
     check(all(x in ("stop", "length") for x in reasons),
-          f"{HYBRID_LABEL} batched: finish reasons {reasons}")
+          f"{label} batched: finish reasons {reasons}")
     check(r.eager_steps == 0,
-          f"{HYBRID_LABEL} batched: {r.eager_steps} eager steps")
+          f"{label} batched: {r.eager_steps} eager steps")
     check(stats["mixed_steps"] > 0,
-          f"{HYBRID_LABEL} batched: no mixed step {stats}")
-    for name in ("moe_slot", "moe_glu_grouped", "moe_grouped"):
+          f"{label} batched: no mixed step {stats}")
+    check(len(cleared) >= len(prompts) + 8
+          and set(cleared) == set(range(4)),
+          f"{label} batched: admissions' cleared rows {cleared}")
+    for name in ("moe_slot", "moe_glu_grouped", "moe_grouped") if moe else ():
         check(launches.get(name, 0) > 0,
-              f"{HYBRID_LABEL} batched: {name} not launched ({launches})")
+              f"{label} batched: {name} not launched ({launches})")
     report = []
     for i, (p, h) in enumerate(zip(prompts, handles)):
         want, margins = single_stream(q, p, max(len(h.token_ids), 1))
         near = None
-        if h.token_ids != want[:len(h.token_ids)]:  # routing ties too
+        if moe and h.token_ids != want[:len(h.token_ids)]:  # routing ties
             route = routing_margins(quant, p, len(want))
             near = next((j for j, m in enumerate(route) if m < ROUTE_TIE),
                         None)
         report.append(dict(prompt_tokens=len(p), row_reused=i >= 4,
                            **same_until_tie(
-                               f"{HYBRID_LABEL} batched request {i}",
+                               f"{label} batched request {i}",
                                h.token_ids, want, margins, near)))
     print(json.dumps({"batched_hybrid": dict(
-        path=HYBRID_LABEL, max_batch=4, prefill_chunk=SERVE_CHUNK,
+        path=label, max_batch=4, prefill_chunk=SERVE_CHUNK,
+        admissions_zeroed=len(cleared),
         requests=len(prompts), wall_s=wall, stats=stats,
         decode_tps_run=stats["decode_tokens_pure"] / stats["decode_time"]
         if stats["decode_time"] else None, steady=steady,
@@ -2559,6 +2657,283 @@ def item6_path(quant, deq, serving, card: str) -> dict:
     return counted
 
 
+# Phase 14: the Mamba family. 14a-b: granite-4.0-h-micro-l10
+# (ibm-granite/granite-4.0-h-micro's widths, 10 of 40 layers: one period of
+# 9 Mamba-2 blocks and 1 NoPE attention block; utils/synthetic.SSM_PRESETS);
+# 14c: the tiny Mamba-1, Mamba-2, Falcon-H1, LFM2 and Jamba presets
+GRANITE_PRESET = "granite-4.0-h-micro-l10"
+GRANITE_LABEL = "Granite-4.0-H-Micro-l10"
+GRANITE_SHAPE = dict(layer_kinds=("mamba2",) * 5 + ("attn",) + ("mamba2",) * 4,
+                     hidden_size=2048, vocab_size=100352, heads=(32, 8, 64),
+                     mamba2=(4096, 128, 1, 64, 4), ffn=8192,
+                     multipliers=(12.0, 0.125, 0.22, 0.015625))
+MAMBA_TINY = ("tiny-mamba", "tiny-mamba2", "tiny-falconh1", "tiny-lfm2",
+              "tiny-jamba")
+TINY_GREEDY_STEPS = 64  # phase 14c: from the 96-token prompt, within 256
+TINY_ROWS = (1, 128)  # phase 14c: a decode step, the prompt's prefill bucket
+
+
+def ssd_scan_ms(cfg, timer, tokens: int) -> dict[str, float]:
+    """One Mamba-2 layer's scan (models/mamba.ssd_scan) over ``tokens``
+    tokens of one row at cfg's widths, CUDA events, L2 flushed: launched
+    eagerly, and replayed from a CUDA graph of it, as the runner's steps
+    run it (the device's time without the host's launch gaps)."""
+    import torch
+    from llama_gguf_tpu_torch.models import mamba as M
+
+    nh, ds = cfg.ssm_dt_rank, cfg.ssm_d_state
+    hd = cfg.ssm_d_inner // nh
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    decay = torch.rand(1, tokens, nh, device="cuda", generator=gen)
+    dtx, state = randn(1, tokens, nh, hd), randn(1, nh, hd, ds)
+    b_h, c_h = randn(1, tokens, nh, ds), randn(1, tokens, nh, ds)
+
+    def scan():
+        return M.ssd_scan(decay, dtx, b_h, c_h, state)
+
+    eager = timer.ms(scan)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        scan()
+    return dict(eager=eager, graphed=timer.ms(graph.replay))
+
+
+def graph_cost(r, key) -> dict:
+    """A captured key's capture seconds, its nodes (the kernels one replay
+    launches) and one replay's device ms (torch.profiler over one
+    replay)."""
+    g = r._graphs[key]
+    prof = summarize(lambda: r._replay(g), 1)
+    return dict(capture_s=r.capture_seconds[key],
+                kernels_per_replay=prof["kernels_launched_per_step"],
+                device_ms_per_replay=prof["device_ms_per_step"])
+
+
+def mamba_path(card: str, timer, peaks: dict, gguf: str):
+    """Phase 14a on granite-4.0-h-micro-l10 (``gguf``), then 14b. Returns
+    (measurements, launches, batched launches)."""
+    import contextlib
+    import io
+
+    import torch
+    from llama_gguf_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    load_s: dict[str, float] = {}
+    quant, deq = load_both(gguf, load_s)
+    cfg, params = quant.runner.cfg, quant.runner.params
+    print(f"{GRANITE_LABEL}: layer kinds {list(cfg.layer_kinds)} | {card}",
+          flush=True)
+    layers = params["layers"]
+    shape = dict(layer_kinds=cfg.layer_kinds, hidden_size=cfg.hidden_size,
+                 vocab_size=cfg.vocab_size,
+                 heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                 mamba2=(cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_n_group,
+                         cfg.ssm_dt_rank, cfg.ssm_conv_kernel),
+                 ffn=cfg.intermediate_size, multipliers=(
+                     cfg.embedding_scale, cfg.logit_scale,
+                     round(cfg.residual_scale, 6), cfg.attention_scale))
+    check(shape == GRANITE_SHAPE, f"unexpected Granite shape {shape}")
+    check(cfg.rope.n_dims == 0 and cfg.tie_word_embeddings,
+          f"{GRANITE_LABEL}: NoPE and tied embeddings expected")
+
+    # the weight bytes of one decode step, and the state it reads and writes
+    nbytes = step_bytes(params)
+    state = sum(t.numel() * t.element_size() for t in recurrent_state(
+        quant.runner, quant.runner.init_kv()))
+    bound = (nbytes + 2 * state) / peaks["bytes"] * 1e3
+    print(f"{GRANITE_LABEL}: {nbytes} weight bytes per decode step, "
+          f"recurrent state {state} bytes (read and written), bound "
+          f"{bound:.4f} ms | {card}", flush=True)
+
+    # kernels 1-3 at the model's own projections
+    m0, at5 = layers[0], layers[5]["attn"]
+    measurements = projection_checks([
+        ("qmatmul_q4", "ssm_in", m0["ssm_in"]),
+        ("qmatmul_q4", "ssm_out", m0["ssm_out"]),
+        ("qmatmul_q4", "qkv", at5["wqkv"]),
+        ("qmatmul_q4", "o_proj", at5["wo"]),
+        ("qmatmul_glu", "gate|up", m0["ffn"]["gate_up"]),
+        ("qmatmul_q8", "ffn_down", m0["ffn"]["down"]),
+        ("qmatmul_q8", "lm_head (tied)", params["output"]),
+    ], ROWS, timer, peaks, GRANITE_LABEL)
+
+    # the main path: exact launch counts, quant against dequant
+    per = hybrid_launches_per_step(params, cfg)
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, GRANITE_LABEL,
+        near_tie=hybrid_near_tie(deq, GRANITE_LABEL), logit_rel=True)
+    exact_launches(GRANITE_LABEL, launches, decoded, per)
+    print(json.dumps({"mamba_launches_per_step": dict(
+        path=GRANITE_LABEL, **per)}), flush=True)
+
+    # phase 9 on this path, the state gates, a greedy profile, bench
+    graph_against_eager(GRANITE_LABEL, quant, ids, card)
+    hybrid_state_checks(quant, ids, card, GRANITE_LABEL)
+    r = quant.runner
+    graphs = {name: graph_cost(r, key) for name, key in (
+        ("decode", (1, 1, 256, False)), ("prefill 128", (1, 128, 256, True)))}
+    profile = profile_decode(quant, ids, mode="greedy")
+    n_m2 = sum(kind == "mamba2" for kind in cfg.layer_kinds)
+    scan = ssd_scan_ms(cfg, timer, 1)
+    device = profile["device_ms_per_step"]
+    print(json.dumps({"mamba_decode_profile": dict(
+        profile, path=GRANITE_LABEL, byte_bound_ms=bound,
+        # the scan timed alone (ssd_scan_ms, random inputs, L2 flushed),
+        # not inside the profiled step: its share is an estimate
+        scan_ms_per_layer=scan, scan_ms_per_step=n_m2 * scan["graphed"],
+        scan_share_estimate=(n_m2 * scan["graphed"] / device
+                    if isinstance(device, float) else "not measured"),
+        scan_ms_per_layer_prefill_128=ssd_scan_ms(cfg, timer, 128),
+        kernels_1_3_ms_per_step=(profile["kernels_1_2_ms_per_step"]
+                                 + profile["kernel_3_ms_per_step"]),
+        graphs=graphs, load_s=load_s,
+        card=card)}), flush=True)
+    bench_json(GRANITE_LABEL, quant, card)
+    del deq
+    torch.cuda.empty_cache()
+    # the CLI's run on the GGUF (its own load, on the card by default)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["run", gguf, "-p", PROMPT, "-n", "8",
+                       "--temperature", "0", "--no-stream"])
+    check(rc == 0 and out.getvalue().strip() != "",
+          f"{GRANITE_LABEL}: the CLI's run gave {rc}, {out.getvalue()!r}")
+    log(f"{GRANITE_LABEL}: the CLI's run (load and 8 tokens) took "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    batched_launches = hybrid_batched(quant, card, GRANITE_LABEL)
+    log(f"phase 14a-b done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches, batched_launches
+
+
+def distinct_projections(params) -> list[tuple[str, str, object]]:
+    """Each QuantLinear of ``params`` whose kernel and shape (K, N, format,
+    group, GLU split) no earlier one has, as projection_checks takes them:
+    (kernel, its place in the tree, QuantLinear), the kernel picked as
+    hybrid_launches_per_step picks it."""
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+
+    seen: dict[tuple, tuple[str, str, object]] = {}
+
+    def walk(tree, where):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{where}.{k}" if where else k)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{where}.{i}")
+        elif isinstance(tree, QuantLinear):
+            name = ("qmatmul_glu" if where.endswith("gate_up")
+                    else f"qmatmul_{tree.fmt}")
+            key = (name, tree.k, tree.n, tree.fmt, tree.group, tree.splits)
+            seen.setdefault(key, (name, where, tree))
+
+    walk(params, "")
+    return list(seen.values())
+
+
+def tiny_kernel_checks(quant, label: str, by_path: dict, timer,
+                       peaks: dict) -> list[dict]:
+    """Phase 14c's kernel checks on a tiny preset's own weights: kernels
+    1-3 on each distinct projection (distinct_projections) at a decode
+    step's row and the prefill bucket's TINY_ROWS[-1]; with MoE layers,
+    kernels 4-6 on the first MoE layer's stacks at the prompt's own
+    routing (a decode step's slots and the prompt's), each on a path the
+    main path took (``by_path``, run_main_path's)."""
+    import torch
+    from llama_gguf_tpu_torch.models import transformer as T
+
+    r = quant.runner
+    out = projection_checks(distinct_projections(r.params), TINY_ROWS, timer,
+                            peaks, label)
+    ffn0 = next((layer["ffn"] for layer in r.params["layers"]
+                 if "router" in layer.get("ffn", {})), None)
+    if ffn0 is None:
+        return out
+    seen = []
+    route = T.route
+
+    def record(ffn, cfg_, xf):
+        topv, topi = route(ffn, cfg_, xf)
+        if ffn is ffn0:
+            seen.append((xf, topi))
+        return topv, topi
+
+    ids = quant.tokenizer.encode(PROMPT)
+    T.route = record
+    try:  # eager (a cache the runner did not make), so route sees it
+        r.prefill(ids, r._make_kv(1))
+    finally:
+        T.route = route
+    xf, topi = seen[0]
+    k = r.cfg.num_experts_per_token
+    idx = topi[:len(ids)].reshape(-1).to(torch.int32)
+    xr = xf[:len(ids)].float().repeat_interleave(k, dim=0)
+    last = k * (len(ids) - 1)
+    paths: dict[str, set] = {}
+    for key, n in by_path.items():
+        name, _, path = key.partition(" ")
+        if n and name in MOE_PATHS:
+            paths.setdefault(name, set()).add(path)
+    return out + moe_kernel_checks(ffn0["experts"], {
+        f"decode, {k} experts": (idx[last:last + k], xr[last:last + k]),
+        f"prefill of {len(ids)} tokens": (idx, xr)}, timer, peaks, label,
+        paths)
+
+
+def mamba_tiny_path(card: str, timer, peaks: dict):
+    """Phase 14c: each of MAMBA_TINY at the Q4_K_M mix, both modes: the
+    main path as in phase 4 with exact launch counts derived from the
+    loaded model, no eager step, quant tokens equal dequant tokens up to
+    the first near tie, prefill logits within 1e-3 of max |logit|; the
+    kernels it launched against their plain versions on the preset's own
+    weights (tiny_kernel_checks); graphed steps against eager ones (phase
+    9, TINY_GREEDY_STEPS greedy steps). Returns (measurements, the
+    launches of the counted runs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+    measurements = []
+    for preset in MAMBA_TINY:
+        quant, deq = load_both(build_model(preset))
+        label = f"{preset} (phase 14c)"
+        log(f"{label}: layer kinds {quant.runner.cfg.layer_kinds}")
+        per = hybrid_launches_per_step(quant.runner.params, quant.runner.cfg)
+        launches, by_path, decoded, ids = run_main_path(
+            quant, deq, card, label, near_tie=hybrid_near_tie(deq, label),
+            logit_rel=True)
+        exact_launches(label, launches, decoded, per)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        mine = tiny_kernel_checks(quant, label, by_path, timer, peaks)
+        checked = {m["name"] for m in mine}
+        check(checked == {name for name, n in launches.items() if n},
+              f"{label}: kernels checked {sorted(checked)}, launched "
+              f"{launches}")
+        measurements += mine
+        graph_against_eager(label, quant, ids, card,
+                            greedy_steps=TINY_GREEDY_STEPS)
+        del quant, deq
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase_14c": dict(
+        presets=MAMBA_TINY, launches=total,
+        kernel_cases=len(measurements),
+        wall_s=time.perf_counter() - t0, card=card)}), flush=True)
+    return measurements, total
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -2567,19 +2942,20 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF, phase 11's inputs and phase 12's GGUF (host numpy
-    # work, minutes) build in three child processes while the dense path
-    # runs; leaving the block waits for the children
+    # the Mixtral GGUF, phase 11's inputs, phase 12's and phase 14's GGUFs
+    # (host numpy work, minutes) build in four child processes while the
+    # dense path runs; leaving the block waits for the children
     with ProcessPoolExecutor(
-            max_workers=3,
+            max_workers=4,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         moe_gguf = pool.submit(build_model, "mixtral-8x7b-l2", max_ctx=2048)
         formats = pool.submit(build_formats)
         hybrid_gguf = pool.submit(build_model, HYBRID_PRESET, max_ctx=2048)
-        return run(moe_gguf, formats, hybrid_gguf)
+        granite_gguf = pool.submit(build_model, GRANITE_PRESET, max_ctx=2048)
+        return run(moe_gguf, formats, hybrid_gguf, granite_gguf)
 
 
-def run(moe_gguf, formats, hybrid_gguf) -> int:
+def run(moe_gguf, formats, hybrid_gguf, granite_gguf) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -2651,10 +3027,21 @@ def run(moe_gguf, formats, hybrid_gguf) -> int:
     hybrid, hybrid_launches, hybrid_batched_launches = hybrid_path(
         card, timer, peaks, gguf)
     log(f"hybrid path (phase 12) done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gguf = granite_gguf.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for the {GRANITE_LABEL} "
+        "GGUF")
+    t0 = time.perf_counter()
+    mamba, mamba_launches, mamba_batched_launches = mamba_path(
+        card, timer, peaks, gguf)
+    torch.cuda.empty_cache()
+    tiny, tiny_launches = mamba_tiny_path(card, timer, peaks)
+    log(f"Mamba path (phase 14) done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in dense + moe + probe + fmts + hybrid
+        mine = [m for m in dense + moe + probe + fmts + hybrid + mamba + tiny
                 if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
@@ -2666,7 +3053,10 @@ def run(moe_gguf, formats, hybrid_gguf) -> int:
             ("Mixtral-8x7B-l2 batched", moe_batched_launches),
             ("probe", probe_launches), *fmt_launches.items(),
             (HYBRID_LABEL, hybrid_launches),
-            (f"{HYBRID_LABEL} batched", hybrid_batched_launches))
+            (f"{HYBRID_LABEL} batched", hybrid_batched_launches),
+            (GRANITE_LABEL, mamba_launches),
+            (f"{GRANITE_LABEL} batched", mamba_batched_launches),
+            ("Mamba tiny presets (14c)", tiny_launches))
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

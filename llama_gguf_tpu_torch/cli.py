@@ -526,8 +526,12 @@ def cmd_embed(args) -> int:
     engine = _load_engine(cfg, args)
     pooling = args.pooling or cfg.embed.pooling
     normalize = not args.no_normalize and cfg.embed.normalize
-    vecs = [engine.embed(t, pooling=pooling, normalize=normalize)
-            for t in args.text]
+    try:
+        vecs = [engine.embed(t, pooling=pooling, normalize=normalize)
+                for t in args.text]
+    except NotImplementedError as e:  # a model with no embeddings
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     if args.json_out:
         print(json.dumps([np.asarray(v).tolist() for v in vecs]))
     else:

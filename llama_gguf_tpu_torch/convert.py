@@ -70,11 +70,12 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 def kv_from_numpy(kv: dict, device="cpu") -> dict:
     """Convert a numpy-leaved f32/bf16 llama_gguf_tpu KV cache ({"k": L x
     [B, S, H, D], "v": ..., and for a hybrid model "deltanet": L x {"S",
-    "conv"}}) to the port's layout, whose K/V buffers carry one extra drop
-    slot each (models/kv.py)."""
-    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet"}:
+    "conv"} or "mamba": {"conv": L x ..., "ssm": L x ...}}) to the port's
+    layout, whose K/V buffers carry one extra drop slot each
+    (models/kv.py)."""
+    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet", "mamba"}:
         raise NotImplementedError(
-            f"kv_from_numpy: only plain f32/bf16 caches and DeltaNet state "
+            f"kv_from_numpy: only plain f32/bf16 caches and recurrent state "
             f"are ported, got keys {sorted(kv)}")
 
     def pad(a):
@@ -85,6 +86,9 @@ def kv_from_numpy(kv: dict, device="cpu") -> dict:
     if "deltanet" in kv:
         out["deltanet"] = [{key: _tensor(st[key], device)
                             for key in ("S", "conv")} for st in kv["deltanet"]]
+    if "mamba" in kv:
+        out["mamba"] = {key: [_tensor(a, device) for a in kv["mamba"][key]]
+                        for key in ("conv", "ssm")}
     return out
 
 
@@ -92,7 +96,7 @@ def kv_to_numpy(kv: dict) -> dict:
     """The port's f32/bf16 cache as the JAX package's logical arrays: each
     K/V buffer without its drop slot, [B, S, H, D] on the host (bf16 as
     its raw bits, uint16: numpy has no bfloat16), and a hybrid model's
-    "deltanet" state as is. The reverse of ``kv_from_numpy``."""
+    "deltanet" or "mamba" state as is. The reverse of ``kv_from_numpy``."""
     def host(t):
         t = t.detach()
         if t.dtype == torch.bfloat16:
@@ -103,4 +107,7 @@ def kv_to_numpy(kv: dict) -> dict:
     if "deltanet" in kv:
         out["deltanet"] = [{key: host(st[key]) for key in ("S", "conv")}
                            for st in kv["deltanet"]]
+    if "mamba" in kv:
+        out["mamba"] = {key: [host(a) for a in kv["mamba"][key]]
+                        for key in ("conv", "ssm")}
     return out

@@ -79,8 +79,9 @@ class PromptCache:
     # -- store --------------------------------------------------------------
 
     # positional cache entries, indexed by sequence position. Recurrent
-    # state ("deltanet") is a running summary, not positional: prefixes of
-    # it cannot be snapshotted, so hybrid models bypass the prompt cache.
+    # state ("deltanet", "mamba") is a running summary, not positional:
+    # prefixes of it cannot be snapshotted, so hybrid models bypass the
+    # prompt cache.
     _POSITIONAL_KEYS = ("k", "v", "k_scale", "v_scale")
 
     @classmethod

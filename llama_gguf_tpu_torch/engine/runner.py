@@ -53,6 +53,7 @@ import torch
 from ..models import kv as KV
 from ..models.config import ModelConfig
 from ..models.deltanet import init_deltanet_state
+from ..models.mamba import KINDS as MAMBA_KINDS, init_mamba_state
 from ..models.loader import resolve_device
 from ..models.transformer import embed, forward, layer_forward
 from ..ops import qmatmul as Q
@@ -203,15 +204,20 @@ class ModelRunner:
 
     def _make_kv(self, batch: int) -> dict:
         """A new zeroed cache, with the recurrent state of a hybrid model's
-        DeltaNet layers. The runner keeps none of these: a step on one runs
-        eagerly (the plain path the graphs are held against)."""
+        DeltaNet or Mamba-family layers. The runner keeps none of these: a
+        step on one runs eagerly (the plain path the graphs are held
+        against)."""
         cache = KV.init_cache(
             self.cfg.num_layers, batch, self.max_seq,
             self.cfg.cache_kv_heads, self.cfg.cache_k_dim,
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
             device=self.device)
-        if "deltanet" in (self.cfg.layer_kinds or ()):
+        kinds = set(self.cfg.layer_kinds or ())
+        if "deltanet" in kinds:
             cache["deltanet"] = init_deltanet_state(
+                self.cfg, batch, self.cfg.num_layers, device=self.device)
+        if kinds & set(MAMBA_KINDS):
+            cache["mamba"] = init_mamba_state(
                 self.cfg, batch, self.cfg.num_layers, device=self.device)
         return cache
 
@@ -238,9 +244,8 @@ class ModelRunner:
         """Zero batch row ``row``'s recurrent state in ``kv`` in place
         (models/kv.clear_state), under the runner's lock: a new sequence in
         a reused row starts from no state."""
-        if "deltanet" in kv:
-            with self._lock:
-                KV.clear_state(kv, row)
+        with self._lock:
+            KV.clear_state(kv, row)
 
     def shift_left(self, kv: dict, n: int, batch_idx: int | None = None
                    ) -> None:
@@ -453,7 +458,7 @@ class ModelRunner:
         """One greedy decode step on tok/pos [B] in place: the argmax token
         replaces tok, and pos advances by one. ``warm``: a capture's
         warm-up, whose lengths are 0 so that every token is padding (a
-        DeltaNet layer's state only freezes for positions >= lengths; the
+        recurrent layer's state only freezes for positions >= lengths; the
         K/V writes go to the drop slot either way)."""
         logits = self._forward(kv, read_bound, tok[:, None], pos[:, None],
                                torch.zeros_like(pos) if warm else pos + 1)
@@ -573,8 +578,20 @@ class ModelRunner:
         request's cache is touched. This follows the JAX package's
         ``extract_hidden_states``, not the forward: the embedding takes no
         learned position rows, and the Gemma family's final norm multiplies
-        by (1 + w)."""
+        by (1 + w).
+
+        The Mamba family is refused: the JAX function sends those layers
+        through the attention block, which raises on a Mamba-1 model and
+        skips Falcon-H1's mixer, so there are no reference values to
+        follow (ROADMAP queue 3)."""
         cfg = self.cfg
+        mamba = sorted(set(cfg.layer_kinds or ()) & set(MAMBA_KINDS))
+        if mamba:
+            raise NotImplementedError(
+                f"embeddings of models with {'/'.join(mamba)} layers are "
+                "not supported: the reference's extract_hidden_states runs "
+                "no Mamba-family mixer, so it has no values to match "
+                "(ROADMAP queue 3)")
         t = len(token_ids)
         gemma = cfg.arch_info.is_gemma if cfg.arch_info else False
         with self._lock:

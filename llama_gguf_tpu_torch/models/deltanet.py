@@ -192,3 +192,6 @@ def init_deltanet_state(cfg, batch: int, num_layers: int,
             "conv": torch.zeros(c_shape, dtype=torch.float32, device=device)})
     return states
 
+
+# kind -> (loader, forward), as models/mamba.LAYERS
+LAYERS = {"deltanet": (load_deltanet_layer, deltanet_layer)}

@@ -1,8 +1,9 @@
 """KV cache: one [B, S + 1, H_kv, D] buffer per layer, updated in place
 (port of llama_gguf_tpu/models/kv.py, f32 and bf16 formats only).
 
-A hybrid model's cache also carries ``"deltanet"``: one {"S", "conv"}
-recurrent state per layer (models/deltanet.py), updated in place as well.
+A hybrid model's cache also carries recurrent state, updated in place as
+well: ``"deltanet"``, one {"S", "conv"} per layer (models/deltanet.py), or
+``"mamba"``, {"conv": L x tensor, "ssm": L x tensor} (models/mamba.py).
 
 The JAX cache is immutable and relies on JAX's scatter silently dropping
 positions >= S (the runner pads with pos = max_seq on purpose). PyTorch's
@@ -52,20 +53,23 @@ def init_cache(num_layers: int, batch: int, max_seq: int, num_kv_heads: int,
 def zero_(kv: dict[str, Any]) -> None:
     """Zero every buffer of ``kv`` in place: K, V and the recurrent
     state."""
-    for t in kv["k"] + kv["v"]:
+    for t in kv["k"] + kv["v"] + _state_tensors(kv):
         t.zero_()
-    for st in kv.get("deltanet", ()):
-        st["S"].zero_()
-        st["conv"].zero_()
 
 
 def clear_state(kv: dict[str, Any], row: int) -> None:
     """Zero batch row ``row``'s recurrent state in place, so a new sequence
     in that row starts from none (its K/V need no clearing: attention reads
     only positions below the row's length)."""
-    for st in kv.get("deltanet", ()):
-        st["S"][row].zero_()
-        st["conv"][row].zero_()
+    for t in _state_tensors(kv):
+        t[row].zero_()
+
+
+def _state_tensors(kv: dict[str, Any]) -> list[torch.Tensor]:
+    """Every recurrent-state tensor of ``kv`` (DeltaNet and Mamba)."""
+    out = [t for st in kv.get("deltanet", ()) for t in (st["S"], st["conv"])]
+    mamba = kv.get("mamba", {})
+    return out + list(mamba.get("conv", ())) + list(mamba.get("ssm", ()))
 
 
 def cache_shape(kv: dict[str, Any]) -> tuple[int, int, int, int, int]:
@@ -135,14 +139,14 @@ def shift_left(kv: dict[str, Any], n: int, rope_cfg=None,
     the cache's dtype. ``model_cfg`` (a ModelConfig) gives each layer its own
     RoPE (``layer_rope``): NoPE layers only slide, dual-base SWA layers
     rotate at their own base. ``rope_cfg`` alone rotates every layer alike.
-    ``batch_idx`` shifts only that row. A hybrid cache's "deltanet" state is
-    not positional and is left alone. The caller subtracts n from its
-    lengths."""
+    ``batch_idx`` shifts only that row. A hybrid cache's recurrent state
+    ("deltanet", "mamba") is not positional and is left alone, as in the
+    JAX package. The caller subtracts n from its lengths."""
     if model_cfg is not None and getattr(model_cfg, "kv_lora_rank", 0) > 0:
         raise NotImplementedError(
             "context shift of an MLA latent cache is not ported yet (ROADMAP "
             "queue 1 item 11)")
-    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet"}:
+    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet", "mamba"}:
         raise NotImplementedError(
             f"context shift of a cache with keys {sorted(kv)} is not ported "
             "yet (f32/bf16 K/V only; ROADMAP queue 1 item 10)")

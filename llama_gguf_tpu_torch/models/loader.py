@@ -1,8 +1,9 @@
 """GGUF -> PyTorch params (port of llama_gguf_tpu/models/loader.py, dense
 decoders of the llama and qwen2 families, architectures that store a
 combined attn_qkv tensor (phi3, MPT, DBRX, GPT-2, Falcon, Bloom, ...),
-Mixtral-style sparse MoE with optional shared experts, and Qwen3Next's
-DeltaNet layers, models/deltanet.py).
+Mixtral-style sparse MoE with optional shared experts, Qwen3Next's
+DeltaNet layers, models/deltanet.py, and the Mamba family, models/mamba.py:
+Mamba-1, Mamba-2, Falcon-H1's parallel hybrid and LFM2's short conv).
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -34,7 +35,8 @@ from ..ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
 from ..quant.dequant import dequantize
 from ..quant.repack import repack, repack_rows
 from .config import Activation, ModelConfig, parse_config
-from .deltanet import load_deltanet_layer
+from .mamba import load_mamba2_fields
+from .transformer import RECURRENT_LAYERS
 
 # formats kept quantized on the device (the ones quant/repack.py handles)
 _QUANTIZED_KEEP = {
@@ -158,8 +160,7 @@ class ModelLoader:
         """Classify layer i by tensor presence, as the JAX loader does:
         DeltaNet layers carry ssm_beta/ssm_ba (and ssm_a too, so those come
         first); ssm_a beside attention projections is Falcon-H1's parallel
-        hybrid; Mamba-1 has ssm_x, Mamba-2 folds it into ssm_in. Only
-        "attn" and "deltanet" are ported."""
+        hybrid; Mamba-1 has ssm_x, Mamba-2 folds it into ssm_in."""
         p = f"blk.{i}"
         if self.has(f"{p}.ssm_beta.weight") or self.has(f"{p}.ssm_ba.weight"):
             return "deltanet"
@@ -177,11 +178,10 @@ class ModelLoader:
     def load_layer(self, i: int, cfg: ModelConfig) -> dict:
         p = f"blk.{i}"
         kind = self.layer_kind(i)
-        if kind == "deltanet":
-            return load_deltanet_layer(self, i, cfg)
-        if kind != "attn":
-            raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                      "yet (ROADMAP queue 1 item 11)")
+        if kind in RECURRENT_LAYERS:
+            return RECURRENT_LAYERS[kind][0](self, i, cfg)
+        # "attn" and "hybrid_par" take the attention path; hybrid_par also
+        # gets the Mamba-2 mixer's fields (Falcon-H1)
         if self.has(f"{p}.attn_kv_a_mqa.weight"):
             raise NotImplementedError(
                 "MLA layers are not ported yet (ROADMAP queue 1 item 11)")
@@ -220,6 +220,8 @@ class ModelLoader:
         post_ffw = self.norm(f"{p}.post_ffw_norm", required=False)
         if post_ffw is not None:
             layer["post_ffn_norm"] = post_ffw
+        if kind == "hybrid_par":
+            layer["mamba"] = load_mamba2_fields(self, i, cfg)
         return layer
 
     def _split_qkv(self, i: int, cfg: ModelConfig) -> dict:
@@ -352,14 +354,19 @@ class ModelLoader:
         if self.has("position_embd.weight"):  # learned positions (gpt2...)
             params["position_embed"] = self._put(
                 self.dense("position_embd.weight"))
+        # LFM2 stores its FINAL norm as token_embd_norm (llama.cpp maps HF's
+        # embedding_norm there); bloom's is a real post-embedding LayerNorm
+        lfm2_final = (info is not None and info.name in ("lfm2", "lfm2moe")
+                      and not self.has("output_norm.weight"))
         embed_norm = self.norm("token_embd_norm", required=False)
-        if embed_norm is not None:
+        if embed_norm is not None and not lfm2_final:
             params["embed_norm"] = embed_norm
         params["layers"] = [self.load_layer(i, cfg)
                             for i in range(cfg.num_layers)]
         cfg.layer_kinds = tuple(
             self.layer_kind(i) for i in range(cfg.num_layers))
-        params["final_norm"] = self.norm("output_norm", unit_ok=True)
+        params["final_norm"] = (embed_norm if lfm2_final
+                                else self.norm("output_norm", unit_ok=True))
         if self.has("output.weight"):
             params["output"] = self.linear("output")
         else:

@@ -15,10 +15,11 @@ RoPE, softcap, sliding window, sinks, ALiBi, gated FFN through the fused GLU
 kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE
 (softmax-before-top-k routing) through the MoE kernels with an optional
 shared expert behind its sigmoid gate (Qwen3Next), Qwen3Next's DeltaNet
-layers (models/deltanet.py), parallel residual, post norms, tied
-embeddings, and the two-tier ragged read bound on one device. The other
-recurrent layer kinds, MLA, the other MoE routings and the tier over data
-shards are ROADMAP queue 1.
+layers (models/deltanet.py), the Mamba family (models/mamba.py: Mamba-1,
+Mamba-2, LFM2's short conv, and Falcon-H1's parallel hybrid here),
+parallel residual, post norms, tied embeddings, and the two-tier ragged
+read bound on one device. MLA, the other MoE routings and the tier over
+data shards are ROADMAP queue 1.
 
 Nothing here reads a device value on the host, so engine/runner.py can
 capture a whole step in a CUDA graph.
@@ -35,9 +36,10 @@ from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
                            moe_group_plan, moe_qmatmul, moe_qmatmul_glu,
                            qmatmul_glu)
 from ..ops.rope import apply_rope, rope_cos_sin
+from . import deltanet, mamba
 from . import kv as KV
 from .config import Activation, ModelConfig
-from .deltanet import deltanet_layer
+from .mamba import mamba2_mixer
 
 
 def _act(x: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -301,20 +303,46 @@ def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     return x + ffn_out, kv
 
 
+def parallel_hybrid_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+                          positions: torch.Tensor, kv: dict, layer_idx: int,
+                          lengths: torch.Tensor, read_bound=None,
+                          precision: str | None = None
+                          ) -> tuple[torch.Tensor, dict]:
+    """A Falcon-H1 block: attention and the Mamba-2 mixer side by side off
+    one pre-norm, their outputs summed into the residual, then the FFN
+    half (the checkpoint's multipliers are folded into its weights at
+    conversion)."""
+    h = apply_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.uses_layer_norm)
+    attn_out, kv = attention(layer["attn"], cfg, h, positions, kv, layer_idx,
+                             lengths, read_bound, precision)
+    ssm_out, kv = mamba2_mixer(layer["mamba"], cfg, h, positions, kv,
+                               layer_idx, lengths, precision)
+    x = x + attn_out + ssm_out.to(x.dtype)
+    h2 = apply_norm(x, layer["ffn_norm"], cfg.norm_eps, cfg.uses_layer_norm)
+    return x + ffn_forward(layer["ffn"], cfg, h2, precision), kv
+
+
+# kind -> (loader, forward) of the recurrent blocks, which take no read
+# bound; models/loader.py loads through the same table
+RECURRENT_LAYERS = {**deltanet.LAYERS, **mamba.LAYERS}
+
+
 def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv: dict, layer_idx: int,
                   lengths: torch.Tensor, read_bound=None,
                   precision: str | None = None) -> tuple[torch.Tensor, dict]:
     """Layer ``layer_idx`` by its kind (cfg.layer_kinds): an attention
-    block, or a DeltaNet block (which ignores the read bound)."""
+    block, a Falcon-H1 parallel hybrid, or a recurrent block (DeltaNet,
+    Mamba-1, Mamba-2, LFM2's short conv; these ignore the read bound)."""
     kind = cfg.layer_kinds[layer_idx] if cfg.layer_kinds else "attn"
-    if kind == "deltanet":
-        return deltanet_layer(layer, cfg, x, positions, kv, layer_idx,
-                              lengths, precision)
+    if kind in RECURRENT_LAYERS:
+        return RECURRENT_LAYERS[kind][1](layer, cfg, x, positions, kv,
+                                         layer_idx, lengths, precision)
+    if kind == "hybrid_par":
+        return parallel_hybrid_layer(layer, cfg, x, positions, kv, layer_idx,
+                                     lengths, read_bound, precision)
     if kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP queue 1 item "
-            "11)")
+        raise ValueError(f"unknown layer kind {kind!r}")
     return transformer_layer(layer, cfg, x, positions, kv, layer_idx,
                              lengths, read_bound, precision)
 

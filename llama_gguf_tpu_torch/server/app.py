@@ -655,7 +655,10 @@ def _embeddings(st: ServerState, req: _Request, engine: Engine,
         inputs = [inputs]
     data = []
     for i, text in enumerate(inputs):
-        vec = engine.embed(text)
+        try:
+            vec = engine.embed(text)
+        except NotImplementedError as e:  # a model with no embeddings
+            return _err(400, str(e))
         data.append({"object": "embedding", "index": i,
                      "embedding": np.asarray(vec, np.float32).tolist()})
     total = sum(len(engine.tokenizer.encode(t)) for t in inputs)

@@ -1,10 +1,11 @@
 """Synthetic GGUF model builder (random weights, real configs).
 
 A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
-MoE and Qwen3Next hybrid presets; the port never imports the JAX package).
-The same preset, quant and seed give the same file byte for byte as the JAX
-package's builder (the -l2 presets and HYBRID_MOE_PRESETS are the port's
-own). ``quant`` is any quantizable type;
+MoE, Qwen3Next hybrid and Falcon-H1 presets; the port never imports the JAX
+package). The same preset, quant and seed give the same file byte for byte
+as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS and
+SSM_PRESETS are the port's own, and the JAX package loads them too).
+``quant`` is any quantizable type;
 Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
 Q6_K; a K-quant whose super-block does not divide the row falls back to Q5_1.
@@ -84,6 +85,65 @@ HYBRID_MOE_PRESETS = {
 }
 
 
+# Falcon-H1-convention parallel hybrid: every block runs attention AND a
+# Mamba-2 mixer off one pre-norm, outputs summed, then a SwiGLU FFN half.
+# name: (vocab, hidden, layers, heads, kv_heads, ffn, ctx, d_inner,
+#        d_state, n_groups, n_heads, conv)
+FALCONH1_PRESETS = {
+    "tiny-falconh1": (512, 128, 2, 4, 2, 256, 256, 128, 16, 2, 4, 4),
+}
+
+# Port-only Mamba-family presets (_build_ssm). ``kinds``: one letter a
+# layer, "m" Mamba-1, "2" Mamba-2, "c" LFM2's short conv, "a" attention;
+# ``moe``: the layers whose FFN half is routed experts. Q4_K_M mix as the
+# dense presets pick it: ssm_in, ssm_x, ssm_out, the short conv's
+# projections, q/k/v/o, gate/up and gate/up experts Q4_K; down (and down
+# experts), the table and the head Q6_K; conv weights, ssm_a, ssm_d, the dt
+# bias and projection, ssm_norm, the router and the norms F32. The
+# recurrences' parameters follow the HF initialisers (dt in [1e-3, 0.1],
+# A = -(1..n), D = 1), so the state carries memory.
+SSM_PRESETS = {
+    # Mamba-1 blocks alone (arch mamba: no FFN half, no dt/B/C norms)
+    "tiny-mamba": dict(
+        arch="mamba", vocab=512, hidden=256, kinds="mm", ctx=256, di=512,
+        ds=16, dtr=16, conv=4, tie=False),
+    # Mamba-2 blocks alone (arch mamba2: no FFN half), gated full-width norm
+    "tiny-mamba2": dict(
+        arch="mamba2", vocab=512, hidden=256, kinds="22", ctx=256,
+        di=512, ds=16, ng=2, nh=8, conv=4, tie=False),
+    # LFM2: short-conv blocks and QK-normed GQA blocks, each with a SwiGLU
+    # half; its final norm stored as token_embd_norm, tied embeddings
+    "tiny-lfm2": dict(
+        arch="lfm2", vocab=512, hidden=256, kinds="caca", heads=4,
+        kv_heads=2, ffn=512, ctx=256, lc=3, tie=True, rope_base=1e6),
+    # Jamba: NoPE attention and Mamba-1 blocks (dt/B/C norms), a
+    # softmax-top-2 MoE half of 4 experts every other layer
+    "tiny-jamba": dict(
+        arch="jamba", vocab=512, hidden=256, kinds="amam", heads=4,
+        kv_heads=2, ffn=512, ctx=256, di=512, ds=16, dtr=16, conv=4,
+        experts=4, topk=2, moe=(1, 3), tie=False),
+    # Granite-4.0 hybrid: Mamba-2 and NoPE GQA blocks, each with a dense
+    # SwiGLU half, the four Granite multipliers, tied embeddings
+    "tiny-granitehybrid": dict(
+        arch="granitehybrid", vocab=512, hidden=256, kinds="22a2", heads=4,
+        kv_heads=2, ffn=512, ctx=256, di=512, ds=16, ng=1, nh=8, conv=4,
+        tie=True, granite=(12.0, 8.0, 0.22, 0.015625)),
+    # ibm-granite/granite-4.0-h-micro's config.json: vocab 100352, hidden
+    # 2048, 32 q / 8 kv heads of 64 (NoPE), SwiGLU 8192 in every block,
+    # Mamba-2 64 heads of 64 (d_inner 4096), d_state 128, 1 group, conv 4
+    # with bias, rms eps 1e-5, multipliers embedding 12, logits / 8,
+    # residual 0.22, attention 0.015625, tied embeddings. Reduced: layers
+    # 40 -> 10, one period of layer_types (attention at index 5), so 9
+    # Mamba-2 blocks and 1 attention block, the published 9:1 ratio (host
+    # quantization time; every kernel shape is local to a layer)
+    "granite-4.0-h-micro-l10": dict(
+        arch="granitehybrid", vocab=100352, hidden=2048, kinds="22222a2222",
+        heads=32, kv_heads=8, ffn=8192, ctx=131072, di=4096, ds=128, ng=1,
+        nh=64, conv=4, tie=True, granite=(12.0, 8.0, 0.22, 0.015625),
+        eps=1e-5),
+}
+
+
 def build_synthetic_gguf(
     path: str,
     preset: str = "tiny",
@@ -98,6 +158,10 @@ def build_synthetic_gguf(
         return _build_moe(path, preset, quant, seed, max_ctx)
     if preset in HYBRID_PRESETS or preset in HYBRID_MOE_PRESETS:
         return _build_hybrid(path, preset, quant, seed, max_ctx)
+    if preset in FALCONH1_PRESETS:
+        return _build_falconh1(path, preset, quant, seed, max_ctx)
+    if preset in SSM_PRESETS:
+        return _build_ssm(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -345,6 +409,215 @@ def _build_hybrid(path: str, preset: str, quant: GGMLType, seed: int,
     w.add_tensor_np("output_norm.weight",
                     np.ones(hidden, np.float32) + rw(hidden))
     addq("output.weight", rw(vocab, hidden), emb_q)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_falconh1(path: str, preset: str, quant: GGMLType, seed: int,
+                    max_ctx: int | None) -> str:
+    """Falcon-H1-convention parallel hybrid: attention + Mamba-2 mixer in
+    every block (in_proj = [z|xBC|dt], ssm_a = -exp(A_log) per head,
+    per-group gated ssm_norm stored [ng, di/ng])."""
+    (vocab, hidden, layers, heads, kv_heads, ffn, ctx,
+     di, ds, ng, nh, conv) = FALCONH1_PRESETS[preset]
+    if max_ctx:
+        ctx = min(ctx, max_ctx)
+    head_dim = hidden // heads
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape):
+        return (rng.standard_normal(shape).astype(np.float32) * 0.02)
+
+    a = "falcon-h1"
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    w.add_metadata(f"{a}.embedding_length", hidden)
+    w.add_metadata(f"{a}.block_count", layers)
+    w.add_metadata(f"{a}.attention.head_count", heads)
+    w.add_metadata(f"{a}.attention.head_count_kv", kv_heads)
+    w.add_metadata(f"{a}.feed_forward_length", ffn)
+    w.add_metadata(f"{a}.context_length", ctx)
+    w.add_metadata(f"{a}.attention.layer_norm_rms_epsilon", 1e-6)
+    w.add_metadata(f"{a}.rope.freq_base", 10000.0)
+    w.add_metadata(f"{a}.ssm.inner_size", di)
+    w.add_metadata(f"{a}.ssm.state_size", ds)
+    w.add_metadata(f"{a}.ssm.group_count", ng)
+    w.add_metadata(f"{a}.ssm.time_step_rank", nh)
+    w.add_metadata(f"{a}.ssm.conv_kernel", conv)
+    w.add_metadata(f"{a}.vocab_size", vocab)
+    _add_tokenizer(w, vocab)
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    conv_dim = di + 2 * ng * ds
+    addq("token_embd.weight", rw(vocab, hidden),
+         GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q8_0)
+    for i in range(layers):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        w.add_tensor_np(f"{p}.ffn_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+        addq(f"{p}.attn_q.weight", rw(heads * head_dim, hidden))
+        addq(f"{p}.attn_k.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_v.weight", rw(kv_heads * head_dim, hidden))
+        addq(f"{p}.attn_output.weight", rw(hidden, heads * head_dim))
+        addq(f"{p}.ssm_in.weight", rw(2 * di + 2 * ng * ds + nh, hidden))
+        w.add_tensor_np(f"{p}.ssm_conv1d.weight", rw(conv_dim, conv))
+        w.add_tensor_np(f"{p}.ssm_conv1d.bias", rw(conv_dim))
+        w.add_tensor_np(f"{p}.ssm_dt.bias", rw(nh))
+        w.add_tensor_np(f"{p}.ssm_a", -np.exp(rw(nh)).astype(np.float32))
+        w.add_tensor_np(f"{p}.ssm_d", rw(nh))
+        w.add_tensor_np(f"{p}.ssm_norm.weight",
+                        (np.ones(di, np.float32) + rw(di)).reshape(ng, -1))
+        addq(f"{p}.ssm_out.weight", rw(hidden, di))
+        addq(f"{p}.ffn_gate.weight", rw(ffn, hidden))
+        addq(f"{p}.ffn_up.weight", rw(ffn, hidden))
+        addq(f"{p}.ffn_down.weight", rw(hidden, ffn))
+    w.add_tensor_np("output_norm.weight",
+                    np.ones(hidden, np.float32) + rw(hidden))
+    addq("output.weight", rw(vocab, hidden),
+         GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q8_0)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_ssm(path: str, preset: str, quant: GGMLType, seed: int,
+               max_ctx: int | None) -> str:
+    """A port-only Mamba-family preset (SSM_PRESETS), in the llama.cpp
+    tensor names the JAX loader reads: Mamba-1 blk.N.ssm_{in,conv1d,x,dt,
+    a,d,out} (+ Jamba's ssm_{dt,b,c}_norm), Mamba-2 ssm_in = [z|xBC|dt]
+    with per-head ssm_a/ssm_d and ssm_norm [ng, di/ng], LFM2's
+    shortconv.{in_proj,conv,out_proj}, attention q/k/v/o (LFM2 with QK
+    norms), and a SwiGLU or routed FFN half under ffn_norm."""
+    c = SSM_PRESETS[preset]
+    a, vocab, hidden, kinds = c["arch"], c["vocab"], c["hidden"], c["kinds"]
+    ctx = min(c["ctx"], max_ctx) if max_ctx else c["ctx"]
+    heads, kv_heads = c.get("heads", 0), c.get("kv_heads", 0)
+    hd = hidden // heads if heads else 0
+    ffn, moe = c.get("ffn", 0), c.get("moe", ())
+    di, ds, conv = c.get("di", 0), c.get("ds", 0), c.get("conv", 0)
+    ng, nh, dtr = c.get("ng", 1), c.get("nh", 0), c.get("dtr", 0)
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape, scale=0.02):
+        return rng.standard_normal(shape).astype(np.float32) * scale
+
+    def ones(n):
+        return np.ones(n, np.float32) + rw(n)
+
+    def dt_bias(n):  # softplus^-1 of dt drawn log-uniform in [1e-3, 0.1]
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), n))
+        return (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+
+    w = GGUFWriter()
+    md = {"embedding_length": hidden, "block_count": len(kinds),
+          "context_length": ctx, "vocab_size": vocab,
+          "attention.layer_norm_rms_epsilon": c.get("eps", 1e-6)}
+    if heads:
+        md.update({"attention.head_count": heads,
+                   "attention.head_count_kv": kv_heads,
+                   "attention.key_length": hd, "attention.value_length": hd,
+                   "rope.freq_base": c.get("rope_base", 10000.0)})
+        if "a" in kinds and a != "lfm2":  # Jamba and Granite: NoPE
+            md["rope.dimension_count"] = 0
+    if ffn:
+        md["feed_forward_length"] = ffn
+    if di:
+        md.update({"ssm.inner_size": di, "ssm.state_size": ds,
+                   "ssm.conv_kernel": conv,
+                   "ssm.time_step_rank": nh or dtr})
+        if nh:  # Mamba-2: its B/C groups
+            md["ssm.group_count"] = ng
+    if "lc" in c:
+        md["shortconv.l_cache"] = c["lc"]
+    if moe:
+        md.update({"expert_count": c["experts"],
+                   "expert_used_count": c["topk"]})
+    if "granite" in c:
+        emb, logit, resid, attn = c["granite"]
+        md.update({"embedding_scale": emb, "logit_scale": logit,
+                   "residual_scale": resid, "attention.scale": attn})
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    for key, value in md.items():
+        w.add_metadata(f"{a}.{key}", value)
+    _add_tokenizer(w, vocab)
+
+    f32 = quant == GGMLType.F32
+    q6 = GGMLType.F32 if f32 else GGMLType.Q6_K
+    emb_q = GGMLType.F32 if f32 else (GGMLType.Q6_K if hidden % 256 == 0
+                                      else GGMLType.Q8_0)
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    addq("token_embd.weight", rw(vocab, hidden), emb_q)
+    for i, kind in enumerate(kinds):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight", ones(hidden))
+        if kind == "a":
+            addq(f"{p}.attn_q.weight", rw(heads * hd, hidden))
+            addq(f"{p}.attn_k.weight", rw(kv_heads * hd, hidden))
+            addq(f"{p}.attn_v.weight", rw(kv_heads * hd, hidden))
+            addq(f"{p}.attn_output.weight", rw(hidden, heads * hd))
+            if a == "lfm2":
+                w.add_tensor_np(f"{p}.attn_q_norm.weight", ones(hd))
+                w.add_tensor_np(f"{p}.attn_k_norm.weight", ones(hd))
+        elif kind == "c":
+            lc = c["lc"]
+            addq(f"{p}.shortconv.in_proj.weight", rw(3 * hidden, hidden))
+            w.add_tensor_np(f"{p}.shortconv.conv.weight",
+                            rw(hidden, lc, scale=0.3))
+            addq(f"{p}.shortconv.out_proj.weight", rw(hidden, hidden))
+        elif kind == "m":
+            addq(f"{p}.ssm_in.weight", rw(2 * di, hidden))
+            w.add_tensor_np(f"{p}.ssm_conv1d.weight", rw(di, conv, scale=0.3))
+            w.add_tensor_np(f"{p}.ssm_conv1d.bias", rw(di))
+            addq(f"{p}.ssm_x.weight", rw(dtr + 2 * ds, di))
+            addq(f"{p}.ssm_dt.weight", rw(di, dtr, scale=0.1))
+            w.add_tensor_np(f"{p}.ssm_dt.bias", dt_bias(di))
+            w.add_tensor_np(f"{p}.ssm_a", -np.tile(
+                np.arange(1, ds + 1, dtype=np.float32), (di, 1)))
+            w.add_tensor_np(f"{p}.ssm_d", ones(di))
+            addq(f"{p}.ssm_out.weight", rw(hidden, di))
+            for tag, n in (("dt", dtr), ("b", ds), ("c", ds)) \
+                    if a == "jamba" else ():
+                w.add_tensor_np(f"{p}.ssm_{tag}_norm.weight", ones(n))
+        else:  # Mamba-2
+            conv_dim = di + 2 * ng * ds
+            addq(f"{p}.ssm_in.weight", rw(2 * di + 2 * ng * ds + nh, hidden))
+            w.add_tensor_np(f"{p}.ssm_conv1d.weight",
+                            rw(conv_dim, conv, scale=0.3))
+            w.add_tensor_np(f"{p}.ssm_conv1d.bias", rw(conv_dim))
+            w.add_tensor_np(f"{p}.ssm_dt.bias", dt_bias(nh))
+            w.add_tensor_np(f"{p}.ssm_a",
+                            -np.arange(1, nh + 1, dtype=np.float32))
+            w.add_tensor_np(f"{p}.ssm_d", ones(nh))
+            w.add_tensor_np(f"{p}.ssm_norm.weight", ones(di).reshape(ng, -1))
+            addq(f"{p}.ssm_out.weight", rw(hidden, di))
+        if not ffn:
+            continue
+        w.add_tensor_np(f"{p}.ffn_norm.weight", ones(hidden))
+        if i in moe:
+            e = c["experts"]
+            w.add_tensor_np(f"{p}.ffn_gate_inp.weight", rw(e, hidden))
+            addq(f"{p}.ffn_gate_exps.weight", rw(e, ffn, hidden))
+            addq(f"{p}.ffn_up_exps.weight", rw(e, ffn, hidden))
+            addq(f"{p}.ffn_down_exps.weight", rw(e, hidden, ffn), q6)
+        else:
+            addq(f"{p}.ffn_gate.weight", rw(ffn, hidden))
+            addq(f"{p}.ffn_up.weight", rw(ffn, hidden))
+            addq(f"{p}.ffn_down.weight", rw(hidden, ffn), q6)
+    # LFM2 keeps its final norm under token_embd_norm
+    final = "token_embd_norm" if a == "lfm2" else "output_norm"
+    w.add_tensor_np(f"{final}.weight", ones(hidden))
+    if not c["tie"]:
+        addq("output.weight", rw(vocab, hidden), emb_q)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

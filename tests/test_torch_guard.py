@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax():
     assert "llama_gguf_tpu_torch.server.app" in mods
     assert "llama_gguf_tpu_torch.client" in mods
     for new in ("engine.perplexity", "engine.prompt_cache", "config",
-                "manpages", "hub"):
+                "manpages", "hub", "models.mamba"):
         assert f"llama_gguf_tpu_torch.{new}" in mods
     code = ("import sys\n"
             f"for m in {ABSENT!r}:\n"

@@ -351,21 +351,23 @@ def _j_layer_kinds(path):
 
 
 def test_layer_kind_matches_jax_and_unported_kinds_raise(paths, tmp_path):
+    """Layer kinds by tensor presence equal the JAX loader's, and every
+    recurrent kind now loads (DeltaNet, Falcon-H1's parallel hybrid,
+    Mamba-1; Mamba-2 by tensor presence); MLA still raises, naming ROADMAP
+    queue 1 item 11."""
     falcon = jbuild(str(tmp_path / "falconh1.gguf"), preset="tiny-falconh1",
                     quant=GGMLType.F32)
     mamba = str(tmp_path / "mamba.gguf")
     build_mamba_gguf(mamba)
-    for path, want in ((paths["qwen3next-f32"], ("deltanet", "deltanet")),
-                       (falcon, ("hybrid_par", "hybrid_par")),
-                       (mamba, ("mamba", "mamba"))):
+    for path, want, key in (
+            (paths["qwen3next-f32"], ("deltanet", "deltanet"), "deltanet"),
+            (falcon, ("hybrid_par", "hybrid_par"), "mamba"),
+            (mamba, ("mamba", "mamba"), "ssm_x")):
         loader = ModelLoader(GGUFFile.open(path), mode="dequant",
                              device="cpu")
         got = tuple(loader.layer_kind(i) for i in range(2))
         assert got == _j_layer_kinds(path) == want
-        if want[0] != "deltanet":
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP queue 1 item 11"):
-                loader.load_layer(0, loader.config)
+        assert key in loader.load_layer(0, loader.config)
     # Mamba-2 and LFM2's short conv, by tensor presence
     kinds = []
     g_port = GGUFFile.open(mamba)
@@ -379,9 +381,17 @@ def test_layer_kind_matches_jax_and_unported_kinds_raise(paths, tmp_path):
         kinds.append([loader.layer_kind(i) for i in range(2)])
     assert kinds[0] == kinds[1] == ["mamba2", "shortconv"]
     port = ModelLoader(g_port, mode="dequant", device="cpu")
-    for i in range(2):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            port.load_layer(i, port.config)
+    layer = port.load_layer(0, port.config)
+    assert "ssm_in" in layer and "ssm_x" not in layer
+    # an MLA attention layer (DeepSeek's attn_kv_a_mqa) is still refused
+    g = GGUFFile.open(falcon)
+    for name in ("blk.0.ssm_a", "blk.0.ssm_in.weight"):
+        del g.tensors[name]
+    g.tensors["blk.0.attn_kv_a_mqa.weight"] = g.tensors["blk.0.attn_q.weight"]
+    port = ModelLoader(g, mode="dequant", device="cpu")
+    assert port.layer_kind(0) == "attn"
+    with pytest.raises(NotImplementedError, match="MLA.*queue 1 item 11"):
+        port.load_layer(0, port.config)
 
 
 # -- recurrent state in the runner, the batched engine and the server ---------
