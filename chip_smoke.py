@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12, 14: phases 7, 13, 10a and 8
-run while phase 6's GGUF, phase 11's inputs, phase 12's and phase 14's GGUFs
-build in four child processes. Phase 9 runs inside each of phases 4, 6, 7,
-12 and 14, on that path's engine; phase 10b inside phase 6, on its quant
-weights.
+in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12, 14, 15: phases 7, 13, 10a
+and 8 run while phase 6's GGUF, phase 11's inputs, phase 12's, phase 14's
+and phase 15's GGUFs build in five child processes. Phase 9 runs inside
+each of phases 4, 6, 7, 12, 14 and 15, on that path's engine; phase 10b
+inside phase 6, on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
 plain version the graphs are held against.
@@ -19,8 +19,8 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and four child processes phase 6's,
-   phase 11's, phase 12's and phase 14's.
+   process builds phase 2's GGUF and five child processes phase 6's,
+   phase 11's, phase 12's, phase 14's and phase 15's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -154,15 +154,17 @@ plain version the graphs are held against.
    tokens each, as in 10a.
 
 11. Formats (every GGUF weight format the loader keeps quantized), in three
-   parts. 11a: TinyLlama-1.1B at the Q2_K mix (full width and depth; Q2_K
+   parts. 11a: tinyllama-1.1b-l2 (TinyLlama-1.1B's widths, 2 of 22
+   layers: every kernel shape is local to a layer, and the full depth's
+   loads cost the script 40 s of its time limit) at the Q2_K mix (Q2_K
    attention and gate/up, which repack to q4 with scale groups of 16;
    Q6_K ffn_down, embedding and LM head), loaded in both modes; kernels 1-3
    on its own weights as in phase 3 (1, 8, 128 and 512 rows, f32 and bf16
    panels), each q4 group-16 case on split-K below TC_MIN_ROWS rows and on
    the tensor cores from there; its weight bytes per decode step and
-   their bound; the main path as in phase 4 (exact launch counts, no eager
-   step, tokens and prefill logits against dequant mode); a greedy decode
-   profile and the CLI's bench. 11b: tinyllama-1.1b-l2 (TinyLlama's widths,
+   their bound; the main path as in phase 4 (exact launch counts derived
+   from the loaded model, no eager step, tokens and prefill logits against
+   dequant mode); a greedy decode profile and the CLI's bench. 11b: tinyllama-1.1b-l2 (TinyLlama's widths,
    2 of 22 layers) at each of FORMATS_11B, loaded in both modes:
    ops/parity.kernel_parity_check with f32 and with bf16 panels (each in
    "highest" and "default" precision), then the main path as in phase 4
@@ -266,6 +268,38 @@ plain version the graphs are held against.
    prompt's routing (kernels 4-6); phase 9 with TINY_GREEDY_STEPS greedy
    steps.
 
+15. The DeepSeek family (multi-head latent attention over a one-head
+   latent cache, DeepSeek-V3's sigmoid routing with its bias, leading
+   dense layers). 15a: moonlight-16b-a3b-l2 (moonshotai/Moonlight-16B-
+   A3B's published widths: vocab 163840, hidden 2048, 16 heads, a dense
+   wq, kv_lora_rank 512, qk_nope 128, qk_rope 64, v 128, rope theta 50000;
+   a leading SwiGLU layer of 11264, then 64 routed experts of 1408, top-6,
+   2 shared, sigmoid scoring with the correction bias, routed scale 2.446,
+   renormalised; cut to 2 of 27 layers), Q4_K_M mix (Q4_K wq, kv_a, kv_b,
+   o_proj, gate/up and the experts' gate/up; Q6_K dense and shared down,
+   table and head; the experts' down Q5_1, its K 1408 being no multiple of
+   256), loaded in both modes (load seconds printed); its weight bytes per
+   decode step (6 routed experts, and the dense up-projections W_uk and
+   W_uv) and their bound; the main path as in phase 4 with exact launch
+   counts derived from the loaded model, no eager step, quant tokens equal
+   dequant tokens up to the first near tie (a logit margin, or a 6th vs
+   7th routing choice margin under ROUTE_TIE), prefill logits within 1e-3
+   of max |logit|; kernels 1-3 on its own projections (wq 2048 -> 3072,
+   kv_a 2048 -> 576, o_proj, gate|up 2048 -> 2 x 11264, Q6_K down, the
+   shared experts' gate|up 2048 -> 2 x 2816 and down, the Q6_K head 2048
+   -> 163840) at 1, 8, 128 and 512 rows as in phase 3, and kernels 4-6 on
+   layer 1's stacks at its own routing (a decode step's 6 slots, the
+   128-token prefill bucket's 768), as in phase 6, each on a path the main
+   path took (kernel_paths records which); phase 9 on this path; a second
+   greedy run repeats the first; the decode and 128-token prefill keys'
+   capture seconds and nodes; a greedy decode profile against the byte
+   bound; the CLI's bench; 13c's context shift on this model (4 shifts,
+   quant against dequant, the shifted latents against a fresh prefill's,
+   ms per shift); the CLI's `run` on its GGUF. 15b: phase 14b's
+   BatchedEngine on 15a's quant weights. 15c: tiny-deepseek-v3 (low-rank
+   q, a group limit), tiny-deepseek-v2-lite (softmax routing, scale 16)
+   and tiny-moonlight as in 14c.
+
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
 phase 10's and 13's, the bench lines and one JSON object {"kernels":
@@ -276,6 +310,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -323,7 +358,7 @@ MOE_ROWS = (1, 128)  # Mixtral: a decode step, the prompt's prefill bucket
 # forward. Taken as independent errors that reach the logits at the logits'
 # own scale, they add up like a random walk: 2^-9 * sqrt(R).
 SERVING_ROUNDINGS_PER_LAYER = 6
-# Phase 11: the formats of tinyllama-1.1b-l2 (11b; Q2_K is 11a's TinyLlama),
+# Phase 11: the formats of tinyllama-1.1b-l2 (11b; Q2_K is 11a's),
 # the q4 ones among them, and the experts of each Q2_K stack of 11c (of
 # Mixtral's 8: the stacks are built and quantized on the host in a child
 # process, beside the Mixtral GGUF)
@@ -539,11 +574,11 @@ def build_model(preset: str, quant: str = "Q4_K", **kw) -> str:
 
 
 def build_formats() -> dict:
-    """Phase 11's inputs, built in a child process: TinyLlama-1.1B at the
-    Q2_K mix, tinyllama-1.1b-l2 at each of FORMATS_11B, and the Q2_K expert
-    stacks (``build_q2k_experts``). Returns their paths."""
-    out = {"Q2_K": build_model("tinyllama-1.1b", "Q2_K")}
-    for fmt in FORMATS_11B:
+    """Phase 11's inputs, built in a child process: tinyllama-1.1b-l2 at
+    the Q2_K mix and at each of FORMATS_11B, and the Q2_K expert stacks
+    (``build_q2k_experts``). Returns their paths."""
+    out = {}
+    for fmt in ("Q2_K",) + FORMATS_11B:
         out[fmt] = build_model("tinyllama-1.1b-l2", fmt)
     out["experts"] = build_q2k_experts()
     return out
@@ -981,22 +1016,42 @@ def expert_bytes(stack, experts: int) -> int:
                          if t is not None)
 
 
-def routing_margins(engine, ids, steps: int) -> list[float]:
-    """The smallest margin between the k-th and the (k+1)-th router
-    probability (top-k routing) over the layers, for each of ``steps``
-    greedy steps (step 0: the prefill's prompt rows)."""
+def choice_margin(ffn, cfg, xf) -> float:
+    """The smallest margin, over the rows of ``xf``, between the k-th and
+    the (k+1)-th router choice (models/transformer.route_choice: the
+    softmax probabilities, or DeepSeek-V3's biased sigmoid scores), and
+    under a group limit between the tg-th and (tg+1)-th group score."""
+    import dataclasses
+
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
-    from llama_gguf_tpu_torch.ops.linear import apply
+
+    k = cfg.num_experts_per_token
+    top = torch.topk(T.route_choice(ffn, cfg, xf)[1], k + 1, dim=-1).values
+    margin = (top[:, k - 1] - top[:, k]).min().item()
+    ng, tg = cfg.expert_group_count, cfg.expert_group_used_count
+    if cfg.expert_gating_func == 2 and 1 < ng and 0 < tg < ng:
+        free = T.route_choice(ffn, dataclasses.replace(
+            cfg, expert_group_count=0), xf)[1]
+        gs = torch.topk(free.reshape(len(xf), ng, -1), 2,
+                        dim=-1).values.sum(-1)
+        g = torch.topk(gs, tg + 1, dim=-1).values
+        margin = min(margin, (g[:, tg - 1] - g[:, tg]).min().item())
+    return margin
+
+
+def routing_margins(engine, ids, steps: int) -> list[float]:
+    """The smallest routing margin (``choice_margin``) over the layers,
+    for each of ``steps`` greedy steps (step 0: the prefill's prompt
+    rows)."""
+    import torch
+    from llama_gguf_tpu_torch.models import transformer as T
 
     rows = []
     route = T.route
 
     def record(ffn, cfg, xf):
-        p = torch.softmax(apply(ffn["router"], xf).float(), -1)
-        p = torch.sort(p, descending=True).values
-        k = cfg.num_experts_per_token
-        rows.append((p[:, k - 1] - p[:, k])[:len(ids)].min().item())
+        rows.append(choice_margin(ffn, cfg, xf[:len(ids)]))
         return route(ffn, cfg, xf)
 
     # eagerly, on a cache the runner did not make: a graph replay would
@@ -1822,13 +1877,13 @@ def formats_path(card: str, timer, peaks: dict, builds):
     log(f"waited {time.perf_counter() - t0:.1f}s for phase 11's inputs")
     launches = {}
 
-    # -- 11a: TinyLlama-1.1B at the Q2_K mix, full width and depth ----------
+    # -- 11a: tinyllama-1.1b-l2 at the Q2_K mix, full width -----------------
     t0 = time.perf_counter()
-    label = "TinyLlama-1.1B Q2_K"
+    label = "tinyllama-1.1b-l2 Q2_K"
     quant, deq = load_both(paths["Q2_K"])
     cfg, params = quant.runner.cfg, quant.runner.params
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size) ==
-          (22, 2048, 32000), f"{label}: unexpected model shape {cfg}")
+          (2, 2048, 32000), f"{label}: unexpected model shape {cfg}")
     layer = params["layers"][0]
     q4 = [("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
           ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
@@ -1850,10 +1905,7 @@ def formats_path(card: str, timer, peaks: dict, builds):
     print(f"{label}: {nbytes} weight bytes per decode step, bound "
           f"{nbytes / peaks['bytes'] * 1e3:.4f} ms | {card}", flush=True)
     run, _, decoded, ids = run_main_path(quant, deq, card, label)
-    for name, per in PER_STEP.items():
-        check(run[name] == per * (1 + decoded),
-              f"{label} {name}: {run[name]} launches, expected {per} x "
-              f"{1 + decoded}")
+    exact_launches(label, run, decoded, hybrid_launches_per_step(params, cfg))
     launches[label] = run
     print(json.dumps({"q2k_decode_profile": profile_decode(
         quant, ids, mode="greedy")}), flush=True)
@@ -2213,13 +2265,14 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
 
 
 def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
-    """Phases 12b and 14b: the path's model in a BatchedEngine at
+    """Phases 12b, 14b and 15b: the path's model in a BatchedEngine at
     max_batch 4 over its quant weights, HYBRID_REQUESTS greedy requests
     (rows reused), prefill_chunk SERVE_CHUNK; every admission clears its
     row's recurrent state (runner.clear_state, its calls recorded as the
-    engine runs, with no host sync in the timed passes; after them, that
-    it zeroes each row of the engine's cache and only that row). With MoE
-    layers, kernels 4-6 must launch. Returns the run's launches."""
+    engine runs, with no host sync in the timed passes; after them, with
+    recurrent state, that it zeroes each row of the engine's cache and
+    only that row). With MoE layers, kernels 4-6 must launch. Returns the
+    run's launches."""
     import dataclasses
 
     import numpy as np
@@ -2267,8 +2320,8 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
                               sampler=greedy).text(timeout=600)
         for p in prompts[:4]])
     be.shutdown()
-    state = recurrent_state(r, be._kv)
-    for row in range(4):  # each row holds its last sequence's state
+    state = recurrent_state(r, be._kv)  # none in an attention-only model
+    for row in range(4) if state else ():  # each row holds its last state
         before = [t.clone() for t in state]
         check(any(bool(t[row].any()) for t in before),
               f"{label} batched: row {row}'s state is already zero")
@@ -2560,12 +2613,13 @@ def cache_checks(quant, serving, card: str) -> None:
         batched_hits=hits, batched_rows=rows, card=card)}), flush=True)
 
 
-def shift_checks(quant, deq, card: str) -> None:
-    """13c: both modes' weights in a SHIFT_SEQ-token runner with the
-    context shift on, SHIFT_TOKENS greedy tokens from the prompt: quant
-    tokens equal dequant up to the first near tie, no eager step, and after
-    the first shift layer 0's keys equal a fresh prefill's of the kept
-    tokens."""
+def shift_checks(quant, deq, card: str, path: str = "13c") -> None:
+    """13c (and 15a, ``path``): both modes' weights in a SHIFT_SEQ-token
+    runner with the context shift on, SHIFT_TOKENS greedy tokens from the
+    prompt: quant tokens equal dequant up to the first near tie (with MoE
+    layers also a routing near tie of the steps before the first shift),
+    no eager step, and after the first shift layer 0's keys (an MLA
+    model's latents) equal a fresh prefill's of the kept tokens."""
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.engine.runner import ModelRunner
 
@@ -2594,11 +2648,11 @@ def shift_checks(quant, deq, card: str) -> None:
         margins: list = []
         sampler, picks = recording_sampler(margins)
         eng.generate(PROMPT, max_tokens=SHIFT_TOKENS, sampler=sampler)
-        check(r.eager_steps == 0, f"13c {label}: {r.eager_steps} eager "
+        check(r.eager_steps == 0, f"{path} {label}: {r.eager_steps} eager "
                                   "steps")
         check(eng.stats.prompt_tokens == len(base.tokenizer.encode(PROMPT))
               and len(shifts) >= 2,
-              f"13c {label}: {eng.stats.generated_tokens} tokens, "
+              f"{path} {label}: {eng.stats.generated_tokens} tokens, "
               f"{len(shifts)} shifts")
         # the kept tokens: positions n .. SHIFT_SEQ - 2 of the history
         history = base.tokenizer.encode(PROMPT) + picks
@@ -2607,17 +2661,28 @@ def shift_checks(quant, deq, card: str) -> None:
         fresh = kv["k"][0][0, :len(kept)]
         err = (first["k0"] - fresh).abs().max().item()
         scale = fresh.abs().max().item()
-        check(err <= REL_LIMIT * scale, f"13c {label}: shifted keys differ "
-                                        f"from a fresh prefill by {err:.4g}")
+        check(err <= REL_LIMIT * scale, f"{path} {label}: shifted keys "
+                                        f"differ from a fresh prefill by "
+                                        f"{err:.4g}")
         got[label] = dict(picks=picks, margins=margins, shifts=shifts,
                           key_err=err, key_scale=scale,
                           captures={str(k): v for k, v in
                                     r.capture_seconds.items()})
         del r.shift_left
-    tie = same_until_tie("13c quant vs dequant", got["quant"]["picks"],
-                         got["dequant"]["picks"], got["dequant"]["margins"])
+    near = None
+    picks = got["quant"]["picks"], got["dequant"]["picks"]
+    moe = any("router" in layer.get("ffn", {})
+              for layer in deq.runner.params["layers"])
+    if moe and picks[0] != picks[1]:  # routing ties before the first shift
+        ids = deq.tokenizer.encode(PROMPT)
+        route = routing_margins(deq, ids, min(len(picks[1]),
+                                              SHIFT_SEQ - 1 - len(ids)))
+        near = next((i for i, m in enumerate(route) if m < ROUTE_TIE), None)
+    tie = same_until_tie(f"{path} quant vs dequant", *picks,
+                         got["dequant"]["margins"], near)
     print(json.dumps({"context_shift": dict(
-        window=SHIFT_SEQ, tokens=SHIFT_TOKENS, quant_vs_dequant=tie,
+        path=path, window=SHIFT_SEQ, tokens=SHIFT_TOKENS,
+        quant_vs_dequant=tie,
         **{label: dict(shifts=len(g["shifts"]),
                        ms_per_shift_median=sorted(g["shifts"])[
                            len(g["shifts"]) // 2] * 1e3,
@@ -2892,23 +2957,24 @@ def tiny_kernel_checks(quant, label: str, by_path: dict, timer,
         paths)
 
 
-def mamba_tiny_path(card: str, timer, peaks: dict):
-    """Phase 14c: each of MAMBA_TINY at the Q4_K_M mix, both modes: the
-    main path as in phase 4 with exact launch counts derived from the
-    loaded model, no eager step, quant tokens equal dequant tokens up to
-    the first near tie, prefill logits within 1e-3 of max |logit|; the
-    kernels it launched against their plain versions on the preset's own
-    weights (tiny_kernel_checks); graphed steps against eager ones (phase
-    9, TINY_GREEDY_STEPS greedy steps). Returns (measurements, the
-    launches of the counted runs)."""
+def mamba_tiny_path(card: str, timer, peaks: dict,
+                    presets: tuple = MAMBA_TINY, phase: str = "14c"):
+    """Phase 14c (15c with MLA_TINY): each of ``presets`` at the Q4_K_M
+    mix, both modes: the main path as in phase 4 with exact launch counts
+    derived from the loaded model, no eager step, quant tokens equal
+    dequant tokens up to the first near tie, prefill logits within 1e-3
+    of max |logit|; the kernels it launched against their plain versions
+    on the preset's own weights (tiny_kernel_checks); graphed steps
+    against eager ones (phase 9, TINY_GREEDY_STEPS greedy steps). Returns
+    (measurements, the launches of the counted runs)."""
     import torch
 
     t0 = time.perf_counter()
     total: dict[str, int] = {}
     measurements = []
-    for preset in MAMBA_TINY:
+    for preset in presets:
         quant, deq = load_both(build_model(preset))
-        label = f"{preset} (phase 14c)"
+        label = f"{preset} (phase {phase})"
         log(f"{label}: layer kinds {quant.runner.cfg.layer_kinds}")
         per = hybrid_launches_per_step(quant.runner.params, quant.runner.cfg)
         launches, by_path, decoded, ids = run_main_path(
@@ -2927,11 +2993,178 @@ def mamba_tiny_path(card: str, timer, peaks: dict):
                             greedy_steps=TINY_GREEDY_STEPS)
         del quant, deq
         torch.cuda.empty_cache()
-    print(json.dumps({"phase_14c": dict(
-        presets=MAMBA_TINY, launches=total,
+    print(json.dumps({f"phase_{phase}": dict(
+        presets=presets, launches=total,
         kernel_cases=len(measurements),
         wall_s=time.perf_counter() - t0, card=card)}), flush=True)
     return measurements, total
+
+
+# Phase 15: the DeepSeek family. 15a-b: moonlight-16b-a3b-l2
+# (moonshotai/Moonlight-16B-A3B's widths, 2 of 27 layers: the leading dense
+# layer and one MoE layer; utils/synthetic.MLA_PRESETS); 15c: the tiny
+# DeepSeek-V3, DeepSeek-V2-Lite and Moonlight presets
+MLA_PRESET = "moonlight-16b-a3b-l2"
+MLA_LABEL = "Moonlight-16B-A3B-l2"
+# (q_lora, kv_lora, nope, rope, v), (experts, top-k, expert ffn, shared ffn),
+# (gating, routed scale, norm, groups, groups used)
+MLA_SHAPE = dict(hidden_size=2048, vocab_size=163840, heads=16,
+                 mla=(0, 512, 128, 64, 128), ffn=11264,
+                 experts=(64, 6, 1408, 2816), routing=(2, 2.446, True, 1, 1),
+                 rope_base=50000.0)
+MLA_TINY = ("tiny-deepseek-v3", "tiny-deepseek-v2-lite", "tiny-moonlight")
+
+
+def mla_path(card: str, timer, peaks: dict, gguf: str):
+    """Phase 15a on moonlight-16b-a3b-l2 (``gguf``), then 15b. Returns
+    (measurements, launches, batched launches)."""
+    import contextlib
+    import io
+
+    import torch
+    from llama_gguf_tpu_torch import cli
+    from llama_gguf_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    load_s: dict[str, float] = {}
+    quant, deq = load_both(gguf, load_s)
+    cfg, params = quant.runner.cfg, quant.runner.params
+    layers = params["layers"]
+    at0, ffn0, ffn1 = layers[0]["attn"], layers[0]["ffn"], layers[1]["ffn"]
+    ex = ffn1["experts"]
+    shape = dict(hidden_size=cfg.hidden_size, vocab_size=cfg.vocab_size,
+                 heads=cfg.num_heads,
+                 mla=(cfg.q_lora_rank, cfg.kv_lora_rank,
+                      cfg.head_dim - cfg.rope.n_dims, cfg.rope.n_dims,
+                      cfg.value_length),
+                 ffn=cfg.intermediate_size,
+                 experts=(cfg.num_experts, cfg.num_experts_per_token,
+                          ex["gate"].n, ffn1["shared"]["down"].k),
+                 routing=(cfg.expert_gating_func,
+                          round(cfg.expert_weights_scale, 6),
+                          cfg.expert_weights_norm, cfg.expert_group_count,
+                          cfg.expert_group_used_count),
+                 rope_base=cfg.rope.freq_base)
+    check(shape == MLA_SHAPE, f"unexpected {MLA_LABEL} shape {shape}")
+    check("router" not in ffn0 and "router_bias" in ffn1
+          and cfg.layer_kinds == ("attn", "attn"),
+          f"{MLA_LABEL}: a leading dense layer, then a biased router")
+    layouts = {key: (st.fmt, st.group) for key, st in ex.items()}
+    print(f"{MLA_LABEL}: expert layouts {layouts}, latent cache K "
+          f"{cfg.cache_k_dim} V {cfg.cache_v_dim} on {cfg.cache_kv_heads} "
+          f"head | {card}", flush=True)
+    check(layouts["gate"][0] == layouts["up"][0] == "q4"
+          and layouts["down"][0] == "q8", f"expert layouts {layouts}")
+
+    # the weight bytes of one decode step (6 routed experts, the dense
+    # up-projections W_uk and W_uv beside the quantized products)
+    up_proj = sum(layer["attn"][key].numel() * 4 for layer in layers
+                  for key in ("w_uk", "w_uv"))
+    nbytes = step_bytes(params, cfg.num_experts_per_token) + up_proj
+    bound = nbytes / peaks["bytes"] * 1e3
+    print(f"{MLA_LABEL}: {nbytes} weight bytes per decode step ({up_proj} "
+          f"of them the dense W_uk, W_uv), bound {bound:.4f} ms | {card}",
+          flush=True)
+
+    # the main path: exact launch counts, quant against dequant
+    per = hybrid_launches_per_step(params, cfg)
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, MLA_LABEL,
+        near_tie=hybrid_near_tie(deq, MLA_LABEL), logit_rel=True)
+    exact_launches(MLA_LABEL, launches, decoded, per)
+    print(json.dumps({"mla_launches_per_step": dict(
+        path=MLA_LABEL, **per, launches_by_path=by_path)}), flush=True)
+
+    # kernels 1-3 at the model's own projections, 4-6 on layer 1's stacks
+    # at its own routing: a decode step's 6 slots, the 128-token prefill
+    # bucket's 768 (padding rows routed too, as the main path routes them)
+    measurements = projection_checks([
+        ("qmatmul_q4", "wq", at0["wq"]),
+        ("qmatmul_q4", "kv_a", at0["kv_a"]),
+        ("qmatmul_q4", "o_proj", at0["wo"]),
+        ("qmatmul_glu", "gate|up", ffn0["gate_up"]),
+        ("qmatmul_q8", "ffn_down", ffn0["down"]),
+        ("qmatmul_glu", "shared gate|up", ffn1["shared"]["gate_up"]),
+        ("qmatmul_q8", "shared down", ffn1["shared"]["down"]),
+        ("qmatmul_q8", "lm_head", params["output"]),
+    ], ROWS, timer, peaks, MLA_LABEL)
+    seen = []
+    route = T.route
+
+    def record(ffn, cfg_, xf):
+        topv, topi = route(ffn, cfg_, xf)
+        if ffn is ffn1:
+            seen.append((xf, topi))
+        return topv, topi
+
+    T.route = record
+    try:  # eager (a cache the runner did not make), so route sees it
+        quant.runner.prefill(ids, quant.runner._make_kv(1))
+    finally:
+        T.route = route
+    xf, topi = seen[0]
+    k = cfg.num_experts_per_token
+    idx = topi.reshape(-1).to(torch.int32)
+    xr = xf.float().repeat_interleave(k, dim=0)
+    last = k * (len(ids) - 1)
+    paths: dict[str, set] = {}
+    for key, n in by_path.items():
+        name, _, kpath = key.partition(" ")
+        if n and name in MOE_PATHS:
+            paths.setdefault(name, set()).add(kpath)
+    measurements += moe_kernel_checks(ex, {
+        f"decode, {k} experts": (idx[last:last + k], xr[last:last + k]),
+        f"prefill bucket of {len(xf)} tokens": (idx, xr)}, timer, peaks,
+        MLA_LABEL, paths)
+
+    # phase 9 on this path; a second greedy run repeats the first; the
+    # graphs' cost, a greedy profile against the byte bound, bench
+    graph_against_eager(MLA_LABEL, quant, ids, card)
+    first = quant.greedy_tokens(ids, 16)
+    quant.greedy_tokens(quant.tokenizer.encode("Another prompt entirely."), 8)
+    again = quant.greedy_tokens(ids, 16)
+    check(first == again, f"{MLA_LABEL}: a second greedy run of the prompt "
+                          f"gave {again}, the first {first}")
+    r = quant.runner
+    graphs = {name: graph_cost(r, key) for name, key in (
+        ("decode", (1, 1, 256, False)), ("prefill 128", (1, 128, 256, True)))}
+    profile = profile_decode(quant, ids, mode="greedy")
+    device = profile["device_ms_per_step"]
+    print(json.dumps({"mla_decode_profile": dict(
+        profile, path=MLA_LABEL, byte_bound_ms=bound,
+        bound_share=(bound / device if isinstance(device, float)
+                     else "not measured"),
+        kernels_1_6_ms_per_step=(profile["kernels_1_2_ms_per_step"]
+                                 + profile["kernel_3_ms_per_step"]
+                                 + profile["kernels_4_6_ms_per_step"]),
+        graphs=graphs, load_s=load_s, card=card)}), flush=True)
+    bench_json(MLA_LABEL, quant, card)
+
+    # 4 context shifts over the latent cache, quant against dequant
+    t0 = time.perf_counter()
+    shift_checks(quant, deq, card, path=MLA_LABEL)
+    log(f"{MLA_LABEL}: context shifts checked in "
+        f"{time.perf_counter() - t0:.1f}s")
+    del deq
+    torch.cuda.empty_cache()
+    # the CLI's run on the GGUF (its own load, on the card by default); the
+    # synthetic tokenizer spells 4096 of the 163840 ids, so the text may be
+    # empty: its stats line must count the tokens decoded
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["run", gguf, "-p", PROMPT, "-n", "8",
+                       "--temperature", "0", "--no-stream"])
+    decoded = re.search(r"decode (\d+) tok @", err.getvalue())
+    check(rc == 0 and decoded is not None and int(decoded.group(1)) > 0,
+          f"{MLA_LABEL}: the CLI's run gave {rc}, {out.getvalue()!r}, "
+          f"{err.getvalue()[-300:]!r}")
+    log(f"{MLA_LABEL}: the CLI's run (load and 8 tokens) took "
+        f"{time.perf_counter() - t0:.1f}s: {err.getvalue().strip()[-80:]}")
+    torch.cuda.empty_cache()
+    batched_launches = hybrid_batched(quant, card, MLA_LABEL)
+    log(f"phase 15a-b done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches, batched_launches
 
 
 def main() -> int:
@@ -2942,20 +3175,21 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF, phase 11's inputs, phase 12's and phase 14's GGUFs
-    # (host numpy work, minutes) build in four child processes while the
+    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's and 15's GGUFs
+    # (host numpy work, minutes) build in five child processes while the
     # dense path runs; leaving the block waits for the children
     with ProcessPoolExecutor(
-            max_workers=4,
+            max_workers=5,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         moe_gguf = pool.submit(build_model, "mixtral-8x7b-l2", max_ctx=2048)
         formats = pool.submit(build_formats)
         hybrid_gguf = pool.submit(build_model, HYBRID_PRESET, max_ctx=2048)
         granite_gguf = pool.submit(build_model, GRANITE_PRESET, max_ctx=2048)
-        return run(moe_gguf, formats, hybrid_gguf, granite_gguf)
+        mla_gguf = pool.submit(build_model, MLA_PRESET, max_ctx=2048)
+        return run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf)
 
 
-def run(moe_gguf, formats, hybrid_gguf, granite_gguf) -> int:
+def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -3038,11 +3272,22 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf) -> int:
     torch.cuda.empty_cache()
     tiny, tiny_launches = mamba_tiny_path(card, timer, peaks)
     log(f"Mamba path (phase 14) done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gguf = mla_gguf.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for the {MLA_LABEL} GGUF")
+    t0 = time.perf_counter()
+    mla, mla_launches, mla_batched_launches = mla_path(card, timer, peaks,
+                                                       gguf)
+    torch.cuda.empty_cache()
+    mla_tiny, mla_tiny_launches = mamba_tiny_path(card, timer, peaks,
+                                                  MLA_TINY, "15c")
+    log(f"DeepSeek path (phase 15) done in {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in dense + moe + probe + fmts + hybrid + mamba + tiny
-                if m["name"] == name]
+        mine = [m for m in (dense + moe + probe + fmts + hybrid + mamba
+                            + tiny + mla + mla_tiny) if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
@@ -3056,7 +3301,10 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf) -> int:
             (f"{HYBRID_LABEL} batched", hybrid_batched_launches),
             (GRANITE_LABEL, mamba_launches),
             (f"{GRANITE_LABEL} batched", mamba_batched_launches),
-            ("Mamba tiny presets (14c)", tiny_launches))
+            ("Mamba tiny presets (14c)", tiny_launches),
+            (MLA_LABEL, mla_launches),
+            (f"{MLA_LABEL} batched", mla_batched_launches),
+            ("DeepSeek tiny presets (15c)", mla_tiny_launches))
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

@@ -6,7 +6,8 @@ caller converts the JAX tree to numpy first (for example
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
 nothing of JAX or of the JAX package: QuantLinear-, DenseLinear-,
 QuantEmbedding- and QuantExpertStack-like leaves are recognised by their
-attributes.
+attributes; every other array (norms, MLA's dense up-projections w_uk and
+w_uv, DeepSeek-V3's router_bias, ...) becomes a tensor as it is.
 """
 
 from __future__ import annotations

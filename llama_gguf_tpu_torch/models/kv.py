@@ -139,13 +139,12 @@ def shift_left(kv: dict[str, Any], n: int, rope_cfg=None,
     the cache's dtype. ``model_cfg`` (a ModelConfig) gives each layer its own
     RoPE (``layer_rope``): NoPE layers only slide, dual-base SWA layers
     rotate at their own base. ``rope_cfg`` alone rotates every layer alike.
-    ``batch_idx`` shifts only that row. A hybrid cache's recurrent state
-    ("deltanet", "mamba") is not positional and is left alone, as in the
-    JAX package. The caller subtracts n from its lengths."""
-    if model_cfg is not None and getattr(model_cfg, "kv_lora_rank", 0) > 0:
-        raise NotImplementedError(
-            "context shift of an MLA latent cache is not ported yet (ROADMAP "
-            "queue 1 item 11)")
+    ``batch_idx`` shifts only that row. An MLA latent cache (``model_cfg``
+    with a kv_lora_rank) holds K = [c_kv | k_rope]: only its trailing rope
+    dims rotate, and c_kv, in K and in V, only slides. A hybrid cache's
+    recurrent state ("deltanet", "mamba") is not positional and is left
+    alone, as in the JAX package. The caller subtracts n from its
+    lengths."""
     if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet", "mamba"}:
         raise NotImplementedError(
             f"context shift of a cache with keys {sorted(kv)} is not ported "
@@ -159,6 +158,7 @@ def shift_left(kv: dict[str, Any], n: int, rope_cfg=None,
         return rope_cfg if rope_cfg is not None and rope_cfg.n_dims > 0 \
             else None
 
+    rank = getattr(model_cfg, "kv_lora_rank", 0) if model_cfg else 0
     for i, (k, v) in enumerate(zip(kv["k"], kv["v"])):
         s = k.shape[1] - 1
         live = v[rows, :s]
@@ -167,6 +167,8 @@ def shift_left(kv: dict[str, Any], n: int, rope_cfg=None,
         rolled = torch.roll(live, -n, dims=1)
         rcfg = layer_rope(i)
         if rcfg is not None:
-            rolled = rerotate_keys(rolled.float(), -n, rcfg)
+            tail = rolled[..., rank:]  # the whole key when rank is 0
+            rolled[..., rank:] = rerotate_keys(tail.float(), -n,
+                                               rcfg).to(rolled.dtype)
         live.copy_(rolled)
     return kv

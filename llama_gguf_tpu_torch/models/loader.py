@@ -2,8 +2,10 @@
 decoders of the llama and qwen2 families, architectures that store a
 combined attn_qkv tensor (phi3, MPT, DBRX, GPT-2, Falcon, Bloom, ...),
 Mixtral-style sparse MoE with optional shared experts, Qwen3Next's
-DeltaNet layers, models/deltanet.py, and the Mamba family, models/mamba.py:
-Mamba-1, Mamba-2, Falcon-H1's parallel hybrid and LFM2's short conv).
+DeltaNet layers, models/deltanet.py, the Mamba family, models/mamba.py:
+Mamba-1, Mamba-2, Falcon-H1's parallel hybrid and LFM2's short conv, and
+the DeepSeek family: multi-head latent attention and DeepSeek-V3's routing
+bias).
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -182,29 +184,14 @@ class ModelLoader:
             return RECURRENT_LAYERS[kind][0](self, i, cfg)
         # "attn" and "hybrid_par" take the attention path; hybrid_par also
         # gets the Mamba-2 mixer's fields (Falcon-H1)
-        if self.has(f"{p}.attn_kv_a_mqa.weight"):
-            raise NotImplementedError(
-                "MLA layers are not ported yet (ROADMAP queue 1 item 11)")
         layer: dict[str, Any] = {}
         attn_norm = self.norm(f"{p}.attn_norm", required=False, unit_ok=True)
         if attn_norm is not None:
             layer["attn_norm"] = attn_norm
-        if self.has(f"{p}.attn_qkv.weight"):
-            attn: dict[str, Any] = self._split_qkv(i, cfg)
+        if self.has(f"{p}.attn_kv_a_mqa.weight"):  # MLA (DeepSeek-V2/V3)
+            layer["attn"] = self._load_mla_attn(i, cfg)
         else:
-            attn = {"wq": self.linear(f"{p}.attn_q"),
-                    "wk": self.linear(f"{p}.attn_k"),
-                    "wv": self.linear(f"{p}.attn_v")}
-        attn["wo"] = self.linear(f"{p}.attn_output")
-        for key, tname in (("q_norm", "attn_q_norm"), ("k_norm", "attn_k_norm"),
-                           ("sinks", "attn_sinks"),
-                           ("sub_norm", "attn_sub_norm")):
-            if self.has(f"{p}.{tname}.weight"):
-                attn[key] = self._put(self.dense(f"{p}.{tname}.weight"))
-        if self.has(f"{p}.attn_gate.weight"):
-            attn["gate"] = self.linear(f"{p}.attn_gate")
-        self._fuse_attn(attn)
-        layer["attn"] = attn
+            layer["attn"] = self._load_attn(i, cfg)
 
         ffn_norm = self.norm(f"{p}.ffn_norm", required=False, unit_ok=True)
         if ffn_norm is None:
@@ -223,6 +210,55 @@ class ModelLoader:
         if kind == "hybrid_par":
             layer["mamba"] = load_mamba2_fields(self, i, cfg)
         return layer
+
+    def _load_attn(self, i: int, cfg: ModelConfig) -> dict:
+        """Q/K/V (or a combined QKV), o_proj and the optional norms, sinks
+        and output gate; q/k/v fused into one product where they can be."""
+        p = f"blk.{i}"
+        if self.has(f"{p}.attn_qkv.weight"):
+            attn: dict[str, Any] = self._split_qkv(i, cfg)
+        else:
+            attn = {"wq": self.linear(f"{p}.attn_q"),
+                    "wk": self.linear(f"{p}.attn_k"),
+                    "wv": self.linear(f"{p}.attn_v")}
+        attn["wo"] = self.linear(f"{p}.attn_output")
+        for key, tname in (("q_norm", "attn_q_norm"), ("k_norm", "attn_k_norm"),
+                           ("sinks", "attn_sinks"),
+                           ("sub_norm", "attn_sub_norm")):
+            if self.has(f"{p}.{tname}.weight"):
+                attn[key] = self._put(self.dense(f"{p}.{tname}.weight"))
+        if self.has(f"{p}.attn_gate.weight"):
+            attn["gate"] = self.linear(f"{p}.attn_gate")
+        self._fuse_attn(attn)
+        return attn
+
+    def _load_mla_attn(self, i: int, cfg: ModelConfig) -> dict:
+        """Multi-head latent attention (DeepSeek-V2/V3), in the tensor names
+        the JAX loader reads: attn_q_a, attn_q_a_norm and attn_q_b, or a
+        dense attn_q; attn_kv_a_mqa [rank + rope, H] and attn_kv_a_norm;
+        attn_kv_b [nh * (nope + v), rank], dequantized on the host whatever
+        its type and split into the per-head up-projections W_uk [nh, nope,
+        rank] and W_uv [nh, v, rank] of the absorbed attention
+        (models/transformer.mla_attention); attn_output. Nothing is fused."""
+        p = f"blk.{i}"
+        attn: dict[str, Any] = {}
+        if self.has(f"{p}.attn_q_a.weight"):
+            attn["q_a"] = self.linear(f"{p}.attn_q_a")
+            attn["q_a_norm"] = self._put(
+                self.dense(f"{p}.attn_q_a_norm.weight"))
+            attn["q_b"] = self.linear(f"{p}.attn_q_b")
+        else:
+            attn["wq"] = self.linear(f"{p}.attn_q")
+        attn["kv_a"] = self.linear(f"{p}.attn_kv_a_mqa")
+        attn["kv_a_norm"] = self._put(self.dense(f"{p}.attn_kv_a_norm.weight"))
+        nope = cfg.head_dim - cfg.rope.n_dims
+        kvb = self.dense(f"{p}.attn_kv_b.weight").reshape(
+            cfg.num_heads, nope + (cfg.value_length or cfg.head_dim),
+            cfg.kv_lora_rank)
+        attn["w_uk"] = self._put(kvb[:, :nope])
+        attn["w_uv"] = self._put(kvb[:, nope:])
+        attn["wo"] = self.linear(f"{p}.attn_output")
+        return attn
 
     def _split_qkv(self, i: int, cfg: ModelConfig) -> dict:
         """A combined QKV tensor (rows [q | k | v]) as three DenseLinears,
@@ -260,17 +296,20 @@ class ModelLoader:
         p = f"blk.{i}"
         if self.has(f"{p}.ffn_gate_inp.weight"):  # MoE
             unported = [f"{p}.{t}" for t in (
-                "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias",
-                "exp_probs_b.bias") if self.has(f"{p}.{t}")]
+                "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias")
+                if self.has(f"{p}.{t}")]
             if unported:
                 raise NotImplementedError(
-                    f"MoE per-expert biases and routing biases are not "
-                    f"ported yet (ROADMAP queue 1 item 9): {unported}")
+                    f"MoE per-expert biases (gpt-oss) are not ported yet "
+                    f"(ROADMAP queue 1 item 9): {unported}")
             ffn: dict[str, Any] = {
                 "router": self.linear(f"{p}.ffn_gate_inp"),
                 "experts": {key: self._expert_stack(f"{p}.ffn_{key}_exps.weight")
                             for key in ("gate", "up", "down")},
             }
+            if self.has(f"{p}.exp_probs_b.bias"):  # DeepSeek-V3 choice bias
+                ffn["router_bias"] = self._put(
+                    self.dense(f"{p}.exp_probs_b.bias"))
             if self.has(f"{p}.ffn_gate_shexp.weight"):
                 # the JAX package runs gate and up as two products; fused,
                 # the GLU kernel runs them (same values)

@@ -17,9 +17,11 @@ kernel, the no-gate FFN with Apertus's per-layer xIELU, Mixtral-style MoE
 shared expert behind its sigmoid gate (Qwen3Next), Qwen3Next's DeltaNet
 layers (models/deltanet.py), the Mamba family (models/mamba.py: Mamba-1,
 Mamba-2, LFM2's short conv, and Falcon-H1's parallel hybrid here),
-parallel residual, post norms, tied embeddings, and the two-tier ragged
-read bound on one device. MLA, the other MoE routings and the tier over
-data shards are ROADMAP queue 1.
+DeepSeek's multi-head latent attention (absorbed, over a one-head latent
+cache) and DeepSeek-V3's sigmoid routing with its bias and group limit
+(route_choice), parallel residual, post norms, tied embeddings, and the
+two-tier ragged read bound on one device. PhiMoE's and llama4's routings
+and the tier over data shards are ROADMAP queue 1.
 
 Nothing here reads a device value on the host, so engine/runner.py can
 capture a whole step in a CUDA graph.
@@ -62,6 +64,70 @@ def _glu(g: torch.Tensor, u: torch.Tensor, act: Activation) -> torch.Tensor:
     return _act(g, act) * u
 
 
+def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kv: dict, layer_idx: int,
+                  lengths: torch.Tensor, read_bound=None,
+                  precision: str | None = None) -> tuple[torch.Tensor, dict]:
+    """Multi-head latent attention (DeepSeek-V2/V3) in the JAX package's
+    absorbed form: queries move into the latent's rank space,
+
+        q_eff = [q_nope @ W_uk | rope(q_rope)]         (rank + rope dims)
+        k_eff = [c_kv          | rope(k_rope)]         (cached, one head)
+        ctx   = softmax(q_eff . k_eff * scale) @ c_kv  (rank dims)
+        out   = (ctx @ W_uv^T) @ W_o
+
+    so the cache holds one latent a token (K = k_eff, V = c_kv) and
+    attention runs as MQA over it. The scale is head_dim (nope + rope)
+    ** -0.5, not the latent's width. The projections go through
+    ``L.apply`` (the kernels when quantized); the up-projections W_uk
+    [nh, nope, rank] and W_uv [nh, v, rank] are dense f32."""
+    b, t, _ = x.shape
+    nh, rope_dim, rank = cfg.num_heads, cfg.rope.n_dims, cfg.kv_lora_rank
+    nope = cfg.head_dim - rope_dim
+
+    if "q_a" in layer:  # low-rank q (V3, V2); V2-Lite and Moonlight: wq
+        qa = L.apply(layer["q_a"], x, precision).float()
+        q = L.apply(layer["q_b"], rms_norm(qa, layer["q_a_norm"],
+                                           cfg.norm_eps).to(x.dtype),
+                    precision)
+    else:
+        q = L.apply(layer["wq"], x, precision)
+    q = q.reshape(b, t, nh, nope + rope_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = L.apply(layer["kv_a"], x, precision).float()  # [B,T,rank+rope]
+    c_kv = rms_norm(kv_a[..., :rank], layer["kv_a_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., None, rank:]  # [B, T, 1, rope], shared by the heads
+
+    cos, sin = rope_cos_sin(positions, cfg.rope)
+    q_rope = apply_rope(q_rope, cos, sin, cfg.rope)
+    k_rope = apply_rope(k_rope, cos, sin, cfg.rope)
+
+    q_rank = torch.einsum("bthn,hnr->bthr", q_nope.float(),
+                          layer["w_uk"].float())
+    q_eff = torch.cat([q_rank, q_rope.float()], dim=-1)
+    k_eff = torch.cat([c_kv[:, :, None, :], k_rope.float()], dim=-1)
+    KV.write(kv, layer_idx, k_eff, c_kv[:, :, None, :], positions)
+
+    qg = q_eff.reshape(b, t, 1, nh, rank + rope_dim)  # one KV head, R = nh
+    akw = dict(scale=cfg.attention_scale or cfg.head_dim ** -0.5,
+               softcap=cfg.attn_logit_softcap)
+    if isinstance(read_bound, tuple):  # two-tier ragged decode
+        lo, hi, tier_idx = read_bound
+        ctx = tiered_attention(
+            lambda bound, rows: KV.read(kv, layer_idx, bound=bound,
+                                        rows=rows),
+            qg, positions, lengths, lo, hi, tier_idx, **akw)
+    else:
+        keys, vals = KV.read(kv, layer_idx, bound=read_bound)
+        ctx = attention_scores(qg, keys, vals, positions, lengths, **akw)
+    out_v = torch.einsum("bthr,hvr->bthv", ctx[:, :, 0],
+                         layer["w_uv"].float())  # [B, T, nh, v]
+    vd = cfg.value_length or cfg.head_dim
+    return L.apply(layer["wo"], out_v.reshape(b, t, nh * vd).to(x.dtype),
+                   precision), kv
+
+
 def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, kv: dict, layer_idx: int,
               lengths: torch.Tensor, read_bound: int | None = None,
@@ -71,9 +137,9 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     ``read_bound``: cap on cache positions to read (every valid position <
     read_bound), or ``(lo, hi, tier_idx)`` for two-tier ragged decode
     (``forward`` selects ``tier_idx``)."""
-    if "kv_a" in layer:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP queue 1)")
+    if "kv_a" in layer:  # MLA (DeepSeek-V2/V3)
+        return mla_attention(layer, cfg, x, positions, kv, layer_idx,
+                             lengths, read_bound, precision)
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     vd = cfg.value_length or hd
@@ -192,22 +258,56 @@ def feed_forward(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
     return down(_act(u, cfg.hidden_act))
 
 
+def route_choice(ffn: dict, cfg: ModelConfig, xf: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The router's (scores, choice) for tokens xf [N, H], each [N, E] f32:
+    the top-k of ``choice`` picks the experts, and ``scores`` at those
+    experts are their weights. Softmax routing (gating 1): both are the
+    softmax of the router logits. DeepSeek-V3 (gating 2): the scores are
+    the logits' sigmoid, and the choice adds the learned per-expert bias
+    (``router_bias``, exp_probs_b) and, with expert_group_used_count of
+    expert_group_count groups, sets every expert outside the best groups
+    (a group scored by the sum of its top-2 choices) to -inf."""
+    logits = L.apply(ffn["router"], xf).float()
+    if cfg.expert_gating_func != 2:
+        probs = torch.softmax(logits, dim=-1)
+        return probs, probs
+    scores = torch.sigmoid(logits)
+    choice = scores
+    if "router_bias" in ffn:
+        choice = choice + ffn["router_bias"].float()
+    ng, tg = cfg.expert_group_count, cfg.expert_group_used_count
+    if ng > 1 and tg > 0:
+        n, e = choice.shape
+        grp = choice.reshape(n, ng, e // ng)
+        gscore = torch.topk(grp, 2, dim=-1).values.sum(-1)  # [N, ng]
+        keep = torch.zeros_like(gscore, dtype=torch.bool).scatter_(
+            1, torch.topk(gscore, tg, dim=-1).indices, True)
+        choice = torch.where(keep[:, :, None], grp,
+                             torch.full_like(grp, -torch.inf)).reshape(n, e)
+    return scores, choice
+
+
 def route(ffn: dict, cfg: ModelConfig,
           xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing of tokens xf [N, H] -> (weights [N, k] f32, expert ids
-    [N, k]): softmax over the router logits, then top-k, with the optional
-    renormalisation (Mixtral) and routed scale of the JAX package's
-    softmax-before-top-k branch."""
-    if cfg.expert_gating_func in (2, 3) or cfg.moe_weight_before_ffn:
+    [N, k]), the JAX package's softmax-before-top-k and DeepSeek-V3
+    branches (``route_choice``): the top-k of the choice, the scores there,
+    then the optional renormalisation (sum clamped at 1e-9 after a softmax,
+    plus 1e-20 after a sigmoid, as the JAX package has them) and the
+    routed scale."""
+    if cfg.expert_gating_func == 3 or cfg.moe_weight_before_ffn:
         raise NotImplementedError(
-            "sigmoid (DeepSeek-V3) and sparsemixer (PhiMoE) routing and "
-            "input-scaled experts (llama4) are not ported yet "
-            "(ROADMAP queue 1)")
-    probs = torch.softmax(L.apply(ffn["router"], xf).float(), dim=-1)
-    topv, topi = torch.topk(probs, cfg.num_experts_per_token, dim=-1)
+            "sparsemixer (PhiMoE) routing and input-scaled experts (llama4) "
+            "are not ported yet (ROADMAP queue 1 item 9)")
+    scores, choice = route_choice(ffn, cfg, xf)
+    topi = torch.topk(choice, cfg.num_experts_per_token, dim=-1).indices
+    topv = torch.gather(scores, 1, topi)
     if cfg.expert_weights_norm:
-        topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
-    if cfg.expert_weights_scale != 1.0:  # DeepSeek-V2 routed scale
+        total = topv.sum(-1, keepdim=True)
+        topv = topv / (total + 1e-20 if cfg.expert_gating_func == 2
+                       else total.clamp_min(1e-9))
+    if cfg.expert_weights_scale != 1.0:  # DeepSeek routed scale
         topv = topv * cfg.expert_weights_scale
     return topv, topi
 

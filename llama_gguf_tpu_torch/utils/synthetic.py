@@ -3,8 +3,9 @@
 A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
 MoE, Qwen3Next hybrid and Falcon-H1 presets; the port never imports the JAX
 package). The same preset, quant and seed give the same file byte for byte
-as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS and
-SSM_PRESETS are the port's own, and the JAX package loads them too).
+as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS,
+SSM_PRESETS and MLA_PRESETS are the port's own, and the JAX package loads
+them too).
 ``quant`` is any quantizable type;
 Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
@@ -144,6 +145,60 @@ SSM_PRESETS = {
 }
 
 
+# Port-only DeepSeek-family presets (_build_deepseek2), in the llama.cpp
+# deepseek2 convention the JAX loader reads: multi-head latent attention
+# (attn_q_a/attn_q_a_norm/attn_q_b when q_lora is set, else a dense attn_q;
+# attn_kv_a_mqa = [c_kv | k_rope], attn_kv_a_norm, attn_kv_b the per-head
+# up-projections [heads * (nope + v), kv_lora]); ``dense`` leading SwiGLU
+# layers of width ffn, then routed experts of expert_ffn beside ``shared``
+# shared experts stored as one shared FFN of shared * expert_ffn. Routing:
+# ``gating`` 1 softmax, 2 sigmoid with the learned exp_probs_b bias that
+# only the choice of experts sees; ``groups`` (count, used) limits the
+# choice to the best groups; ``norm`` renormalises the top-k weights and
+# ``scale`` multiplies them. Q4_K_M mix as the MoE presets pick it: the
+# attention projections, gate/up and the experts' gate/up Q4_K; the dense
+# and shared down, the table and the head Q6_K, the experts' down Q6_K
+# where its K divides 256, else Q5_1 (_quant_put); the router, the bias
+# and the norms F32.
+MLA_PRESETS = {
+    # DeepSeek-V3's layout at the CPU tests' size: low-rank q, sigmoid
+    # routing with the bias and a group limit (4 groups, 2 used)
+    "tiny-deepseek-v3": dict(
+        vocab=512, hidden=256, layers=3, dense=1, heads=4, q_lora=256,
+        kv_lora=64, rope=32, nope=64, v=64, ffn=512, experts=8, topk=2,
+        expert_ffn=256, shared=1, gating=2, scale=2.5, norm=True,
+        groups=(4, 2), ctx=256, rope_base=10000.0),
+    # DeepSeek-V2-Lite's layout: a dense wq, softmax routing without
+    # renormalisation, DeepSeek-V2's routed scale 16 (so the scale shows)
+    "tiny-deepseek-v2-lite": dict(
+        vocab=512, hidden=256, layers=3, dense=1, heads=4, q_lora=0,
+        kv_lora=64, rope=32, nope=64, v=64, ffn=512, experts=8, topk=2,
+        expert_ffn=256, shared=2, gating=1, scale=16.0, norm=False,
+        groups=(1, 1), ctx=256, rope_base=10000.0),
+    # Moonlight's layout: a dense wq, sigmoid routing with the bias, one
+    # group, top-6, routed scale 2.446, renormalised, 2 shared experts
+    "tiny-moonlight": dict(
+        vocab=512, hidden=256, layers=3, dense=1, heads=4, q_lora=0,
+        kv_lora=64, rope=32, nope=64, v=64, ffn=512, experts=16, topk=6,
+        expert_ffn=256, shared=2, gating=2, scale=2.446, norm=True,
+        groups=(1, 1), ctx=256, rope_base=50000.0),
+    # moonshotai/Moonlight-16B-A3B's config.json (model_type deepseek_v3):
+    # vocab 163840, hidden 2048, 16 heads, q_lora_rank null (dense wq),
+    # kv_lora_rank 512, qk_nope 128, qk_rope 64, v 128, rope theta 50000
+    # without scaling, rms eps 1e-5; first_k_dense_replace 1 with a SwiGLU
+    # of 11264; 64 routed experts of 1408, top-6, 2 shared, sigmoid scoring
+    # with e_score_correction_bias (noaux_tc), n_group 1, routed scale
+    # 2.446, norm_topk_prob; untied head. Reduced: layers 27 -> 2, the
+    # leading dense layer and one MoE layer (host quantization and load
+    # time; every kernel shape is local to a layer)
+    "moonlight-16b-a3b-l2": dict(
+        vocab=163840, hidden=2048, layers=2, dense=1, heads=16, q_lora=0,
+        kv_lora=512, rope=64, nope=128, v=128, ffn=11264, experts=64,
+        topk=6, expert_ffn=1408, shared=2, gating=2, scale=2.446,
+        norm=True, groups=(1, 1), ctx=8192, rope_base=50000.0, eps=1e-5),
+}
+
+
 def build_synthetic_gguf(
     path: str,
     preset: str = "tiny",
@@ -162,6 +217,8 @@ def build_synthetic_gguf(
         return _build_falconh1(path, preset, quant, seed, max_ctx)
     if preset in SSM_PRESETS:
         return _build_ssm(path, preset, quant, seed, max_ctx)
+    if preset in MLA_PRESETS:
+        return _build_deepseek2(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -618,6 +675,91 @@ def _build_ssm(path: str, preset: str, quant: GGMLType, seed: int,
     w.add_tensor_np(f"{final}.weight", ones(hidden))
     if not c["tie"]:
         addq("output.weight", rw(vocab, hidden), emb_q)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_deepseek2(path: str, preset: str, quant: GGMLType, seed: int,
+                     max_ctx: int | None) -> str:
+    """A port-only DeepSeek-family preset (MLA_PRESETS) under arch
+    deepseek2, with the GGUF keys the JAX parse_config reads."""
+    c = MLA_PRESETS[preset]
+    a, hidden, heads = "deepseek2", c["hidden"], c["heads"]
+    nope, rope, v, rank = c["nope"], c["rope"], c["v"], c["kv_lora"]
+    e, ef = c["experts"], c["expert_ffn"]
+    ctx = min(c["ctx"], max_ctx) if max_ctx else c["ctx"]
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape, scale=0.02):
+        return rng.standard_normal(shape).astype(np.float32) * scale
+
+    def ones(n):
+        return np.ones(n, np.float32) + rw(n)
+
+    md = {"embedding_length": hidden, "block_count": c["layers"],
+          "context_length": ctx, "vocab_size": c["vocab"],
+          "attention.layer_norm_rms_epsilon": c.get("eps", 1e-6),
+          "attention.head_count": heads, "attention.head_count_kv": heads,
+          "attention.key_length": nope + rope, "attention.value_length": v,
+          "attention.kv_lora_rank": rank, "rope.dimension_count": rope,
+          "rope.freq_base": c["rope_base"], "feed_forward_length": c["ffn"],
+          "leading_dense_block_count": c["dense"], "expert_count": e,
+          "expert_used_count": c["topk"], "expert_feed_forward_length": ef,
+          "expert_shared_count": c["shared"],
+          "expert_gating_func": c["gating"],
+          "expert_weights_scale": c["scale"],
+          "expert_weights_norm": c["norm"],
+          "expert_group_count": c["groups"][0],
+          "expert_group_used_count": c["groups"][1]}
+    if c["q_lora"]:
+        md["attention.q_lora_rank"] = c["q_lora"]
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    for key, value in md.items():
+        w.add_metadata(f"{a}.{key}", value)
+    _add_tokenizer(w, c["vocab"])
+
+    f32 = quant == GGMLType.F32
+    q6 = GGMLType.F32 if f32 else GGMLType.Q6_K
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    addq("token_embd.weight", rw(c["vocab"], hidden), q6)
+    for i in range(c["layers"]):
+        p = f"blk.{i}"
+        w.add_tensor_np(f"{p}.attn_norm.weight", ones(hidden))
+        if c["q_lora"]:
+            addq(f"{p}.attn_q_a.weight", rw(c["q_lora"], hidden))
+            w.add_tensor_np(f"{p}.attn_q_a_norm.weight", ones(c["q_lora"]))
+            addq(f"{p}.attn_q_b.weight",
+                 rw(heads * (nope + rope), c["q_lora"]))
+        else:
+            addq(f"{p}.attn_q.weight", rw(heads * (nope + rope), hidden))
+        addq(f"{p}.attn_kv_a_mqa.weight", rw(rank + rope, hidden))
+        w.add_tensor_np(f"{p}.attn_kv_a_norm.weight", ones(rank))
+        addq(f"{p}.attn_kv_b.weight", rw(heads * (nope + v), rank))
+        addq(f"{p}.attn_output.weight", rw(hidden, heads * v))
+        w.add_tensor_np(f"{p}.ffn_norm.weight", ones(hidden))
+        if i < c["dense"]:
+            addq(f"{p}.ffn_gate.weight", rw(c["ffn"], hidden))
+            addq(f"{p}.ffn_up.weight", rw(c["ffn"], hidden))
+            addq(f"{p}.ffn_down.weight", rw(hidden, c["ffn"]), q6)
+            continue
+        sf = c["shared"] * ef
+        w.add_tensor_np(f"{p}.ffn_gate_inp.weight", rw(e, hidden))
+        if c["gating"] == 2:
+            w.add_tensor_np(f"{p}.exp_probs_b.bias", rw(e, scale=0.05))
+        addq(f"{p}.ffn_gate_exps.weight", rw(e, ef, hidden))
+        addq(f"{p}.ffn_up_exps.weight", rw(e, ef, hidden))
+        addq(f"{p}.ffn_down_exps.weight", rw(e, hidden, ef), q6)
+        addq(f"{p}.ffn_gate_shexp.weight", rw(sf, hidden))
+        addq(f"{p}.ffn_up_shexp.weight", rw(sf, hidden))
+        addq(f"{p}.ffn_down_shexp.weight", rw(hidden, sf), q6)
+    w.add_tensor_np("output_norm.weight", ones(hidden))
+    addq("output.weight", rw(c["vocab"], hidden), q6)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

@@ -159,15 +159,21 @@ def test_shift_left_one_rope_for_every_layer(fields):
 
 
 def test_shift_left_leaves_recurrent_state_and_refuses_mla():
+    """Recurrent state is left alone; an MLA latent cache (rank 12, rope 4:
+    keys of 16) is shifted now, as the JAX package shifts it (only the
+    trailing rope dims rotate); other cache formats still raise."""
     _, tcfg = model_pair(rope=dict(n_dims=16, rope_type="NEOX"))
     _, tkv = filled_caches("f32")
     state = {"S": torch.randn(2, 3, 4), "conv": torch.randn(2, 3)}
     tkv["deltanet"] = [{k: v.clone() for k, v in state.items()}]
     KV.shift_left(tkv, 2, model_cfg=tcfg)
     assert all(torch.equal(tkv["deltanet"][0][k], state[k]) for k in state)
-    mla = TC.ModelConfig(kv_lora_rank=8, rope=TC.RopeConfig(n_dims=4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        KV.shift_left(tkv, 2, model_cfg=mla)
+    jmla, mla = model_pair(rope=dict(n_dims=4, rope_type="NORMAL"),
+                           kv_lora_rank=12)
+    jkv, tkv = filled_caches("f32", seed=4)
+    jkv = JKV.shift_left(jkv, 2, model_cfg=jmla)
+    KV.shift_left(tkv, 2, model_cfg=mla)
+    assert_same_logical(tkv, jkv, "f32")
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         KV.shift_left({"k": [], "v": [], "k_scale": []}, 2,
                       model_cfg=tcfg)

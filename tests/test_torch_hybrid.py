@@ -353,8 +353,8 @@ def _j_layer_kinds(path):
 def test_layer_kind_matches_jax_and_unported_kinds_raise(paths, tmp_path):
     """Layer kinds by tensor presence equal the JAX loader's, and every
     recurrent kind now loads (DeltaNet, Falcon-H1's parallel hybrid,
-    Mamba-1; Mamba-2 by tensor presence); MLA still raises, naming ROADMAP
-    queue 1 item 11."""
+    Mamba-1; Mamba-2 by tensor presence); an MLA layer is an attention
+    kind and loads."""
     falcon = jbuild(str(tmp_path / "falconh1.gguf"), preset="tiny-falconh1",
                     quant=GGMLType.F32)
     mamba = str(tmp_path / "mamba.gguf")
@@ -383,15 +383,14 @@ def test_layer_kind_matches_jax_and_unported_kinds_raise(paths, tmp_path):
     port = ModelLoader(g_port, mode="dequant", device="cpu")
     layer = port.load_layer(0, port.config)
     assert "ssm_in" in layer and "ssm_x" not in layer
-    # an MLA attention layer (DeepSeek's attn_kv_a_mqa) is still refused
-    g = GGUFFile.open(falcon)
-    for name in ("blk.0.ssm_a", "blk.0.ssm_in.weight"):
-        del g.tensors[name]
-    g.tensors["blk.0.attn_kv_a_mqa.weight"] = g.tensors["blk.0.attn_q.weight"]
-    port = ModelLoader(g, mode="dequant", device="cpu")
-    assert port.layer_kind(0) == "attn"
-    with pytest.raises(NotImplementedError, match="MLA.*queue 1 item 11"):
-        port.load_layer(0, port.config)
+    # an MLA attention layer (DeepSeek's attn_kv_a_mqa) is an attention
+    # kind, and loads now (tests/test_torch_mla.py)
+    dsv3 = build_synthetic_gguf(str(tmp_path / "dsv3.gguf"),
+                                preset="tiny-deepseek-v3", quant=GGMLType.F32)
+    port = ModelLoader(GGUFFile.open(dsv3), mode="dequant", device="cpu")
+    assert port.layer_kind(0) == JLoader(
+        JGGUFFile.open(dsv3), mode="dequant").layer_kind(0) == "attn"
+    assert "kv_a" in port.load_layer(0, port.config)["attn"]
 
 
 # -- recurrent state in the runner, the batched engine and the server ---------

@@ -379,19 +379,46 @@ def test_routing_matches_jax_with_a_margin(tiny_moe, monkeypatch):
 
 @pytest.mark.parametrize("case", ["sigmoid", "sparsemixer", "input_scaled"])
 def test_unported_routings_raise(tiny_moe, case):
-    _, _, teng = tiny_moe
+    """PhiMoE's sparsemixer and llama4's input-scaled experts still raise,
+    naming item 9. DeepSeek-V3's sigmoid routing is ported: on tiny-moe's
+    router with a seeded bias and 2 groups of 2, the port's route gives the
+    JAX moe_layer's experts and weights (its output within 1e-5 of max
+    |value|)."""
+    _, jeng, teng = tiny_moe
     cfg = teng.runner.cfg
-    cfg = {"sigmoid": dataclasses.replace(cfg, expert_gating_func=2),
-           "sparsemixer": dataclasses.replace(cfg, expert_gating_func=3),
-           "input_scaled": dataclasses.replace(cfg, moe_weight_before_ffn=True),
-           }[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.moe_layer(teng.runner.params["layers"][0]["ffn"], cfg,
-                    torch.zeros(1, 2, cfg.hidden_size))
+    ffn = teng.runner.params["layers"][0]["ffn"]
+    if case != "sigmoid":
+        cfg = {"sparsemixer": dataclasses.replace(cfg, expert_gating_func=3),
+               "input_scaled": dataclasses.replace(
+                   cfg, moe_weight_before_ffn=True)}[case]
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 9"):
+            T.moe_layer(ffn, cfg, torch.zeros(1, 2, cfg.hidden_size))
+        return
+    bias = np.random.default_rng(2).standard_normal(4).astype(
+        np.float32) * 0.05
+    change = dict(expert_gating_func=2, expert_group_count=2,
+                  expert_group_used_count=1, expert_weights_scale=2.5)
+    tcfg = dataclasses.replace(cfg, **change)
+    jcfg = dataclasses.replace(jeng.runner.cfg, **change)
+    tffn = dict(ffn, router_bias=torch.from_numpy(bias))
+    jffn = dict(jeng.runner.params["layers"][0]["ffn"],
+                router_bias=jnp.asarray(bias))
+    x = np.random.default_rng(3).standard_normal(
+        (1, 16, cfg.hidden_size)).astype(np.float32)
+    with torch.no_grad():
+        topv, topi = T.route(tffn, tcfg, torch.from_numpy(x[0]))
+        got = T.moe_layer(tffn, tcfg, torch.from_numpy(x)).numpy()
+    want = np.asarray(jtransformer.moe_layer(jffn, jcfg, jnp.asarray(x)))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    # both experts of a token lie in its one kept group of two
+    assert ((topi[:, 0] // 2) == (topi[:, 1] // 2)).all()
+    np.testing.assert_allclose(topv.sum(-1).numpy(), 2.5, rtol=1e-6)
 
 
 # shared experts (ffn_*_shexp) load since the Qwen3Next slice
-# (tests/test_torch_hybrid.py)
+# (tests/test_torch_hybrid.py), DeepSeek-V3's routing bias since the
+# DeepSeek slice (tests/test_torch_mla.py)
 @pytest.mark.parametrize("extra", ["ffn_down_exps.bias", "exp_probs_b.bias",
                                    "ffn_gate_exps.bias"])
 def test_unported_moe_tensors_raise(tiny_moe, extra):
@@ -399,7 +426,12 @@ def test_unported_moe_tensors_raise(tiny_moe, extra):
     gguf = GGUFFile.open(path)
     gguf.tensors[f"blk.0.{extra}"] = gguf.tensors["blk.0.ffn_norm.weight"]
     loader = ModelLoader(gguf, mode="quant", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    if extra == "exp_probs_b.bias":  # loads as the router's choice bias
+        ffn = loader.load_layer(0, loader.config)["ffn"]
+        np.testing.assert_array_equal(
+            ffn["router_bias"].numpy(), loader.dense("blk.0.ffn_norm.weight"))
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         loader.load_layer(0, loader.config)
 
 

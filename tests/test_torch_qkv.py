@@ -166,14 +166,26 @@ def test_dbrx_takes_the_attn_output_norm_fallback(tmp_path, mode):
 
 
 def test_mla_layers_still_raise(tmp_path):
-    """MLA (DeepSeek-V2/V3) stays unported: the loader refuses it by name."""
-    from llama_gguf_tpu_torch.gguf.reader import GGUFFile
-    from llama_gguf_tpu_torch.models.loader import ModelLoader
+    """MLA (DeepSeek-V2/V3) layers load now, with the JAX loader's
+    tensors: no combined QKV is split or fused, the latent's projections
+    kv_a and o_proj stay quantized, and attn_kv_b becomes the dense
+    up-projections W_uk and W_uv (the BERT/T5 refusals stay,
+    tests/test_torch_arch.py)."""
+    from llama_gguf_tpu.models.loader import load_model as jload
 
-    path = str(tmp_path / "phi3.gguf")
-    write(path, "phi3", GGMLType.F32)
-    loader = ModelLoader(GGUFFile.open(path), mode="dequant", device="cpu")
-    loader.gguf.tensors["blk.0.attn_kv_a_mqa.weight"] = \
-        loader.gguf.tensors["blk.0.attn_qkv.weight"]
-    with pytest.raises(NotImplementedError, match="MLA"):
-        loader.load_layer(0, loader.config)
+    from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
+
+    path = str(tmp_path / "dsv3.gguf")
+    build_synthetic_gguf(path, preset="tiny-deepseek-v3", quant=GGMLType.Q4_K)
+    params, cfg, _ = load_model(path, mode="quant", device="cpu")
+    jparams, _, _ = jload(path, mode="quant")
+    attn, jattn = params["layers"][0]["attn"], jparams["layers"][0]["attn"]
+    assert sorted(attn) == sorted(jattn) == [
+        "kv_a", "kv_a_norm", "q_a", "q_a_norm", "q_b", "w_uk", "w_uv", "wo"]
+    for key in ("w_uk", "w_uv", "kv_a_norm", "q_a_norm"):
+        np.testing.assert_array_equal(attn[key].numpy(),
+                                      np.asarray(jattn[key]))
+    assert not isinstance(attn["kv_a"], DenseLinear)
+    assert (attn["kv_a"].k, attn["kv_a"].n) == (cfg.hidden_size,
+                                                cfg.kv_lora_rank
+                                                + cfg.rope.n_dims)
