@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 10a, 8, 6, 10b, 11, 12, 14, 15: phases 7, 13, 10a
-and 8 run while phase 6's GGUF, phase 11's inputs, phase 12's, phase 14's
-and phase 15's GGUFs build in five child processes. Phase 9 runs inside
-each of phases 4, 6, 7, 12, 14 and 15, on that path's engine; phase 10b
-inside phase 6, on its quant weights.
+in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c:
+phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
+phase 12's, phase 14's, phase 15's and phase 16b's GGUFs build in six child
+processes. Phase 9 runs inside each of phases 4, 6, 7, 12, 14 and 15, on
+that path's engine; phase 10b inside phase 6, on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
 plain version the graphs are held against.
@@ -19,13 +19,14 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and five child processes phase 6's,
-   phase 11's, phase 12's, phase 14's and phase 15's.
+   process builds phase 2's GGUF and six child processes phase 6's,
+   phase 11's, phase 12's, phase 14's, phase 15's and phase 16b's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
    Engine.load on CUDA in "quant" mode (kernels) and in "dequant" mode
-   (dense f32 torch.matmul).
+   (dense f32 torch.matmul), the two loads at once on two threads (every
+   path since PR 14, load_both).
 3. Dense kernels: each of the q4, q8 and GLU kernels' wrappers on the card,
    on the loaded model's own weights (the main path's shapes) at 1, 8, 128
    (the prompt's bucket) and 512 rows, each on the path
@@ -299,6 +300,39 @@ plain version the graphs are held against.
    BatchedEngine on 15a's quant weights. 15c: tiny-deepseek-v3 (low-rank
    q, a group limit), tiny-deepseek-v2-lite (softmax routing, scale 16)
    and tiny-moonlight as in 14c.
+16. The KV-cache formats and the sliding-window ring (models/kv.py, plain
+   torch ops beside kernels 1-3; no kernel of their own). 16a, on phase
+   4's TinyLlama-1.1B weights, a new runner per format (i8, f8_e4m3,
+   f8_e5m2, tq2, tq3, tq4, qjl): KV_EAGER_STEPS graphed steps against
+   eager ones (tokens equal, logits within REL_LIMIT of max |logit|),
+   Engine.generate with exact launch counts (44/22/23 a step) and no
+   eager step, quant tokens equal dequant tokens in the format up to the
+   first near tie; printed per format: the first token that parts from
+   the f32 cache's, the prefill's max |dlogit| against the f32 cache's, a
+   greedy profile's device ms per step against the step's byte bound
+   (weights plus the cache bytes of the profiled steps' live keys; the
+   bytes the step reads printed beside),
+   memory_bytes and its ratio to f32. Then 13c's context shift on an i8
+   cache (the requantized keys within 2 i8 steps of a fresh prefill's),
+   a prompt-cache hit on an f8_e4m3 cache (logits within 1e-3 of max
+   |logit| of uncached, the session file byte-equal), and phase 14b's
+   batched engine on an i8 cache. 16b: gemma-3-4b-l6
+   (google/gemma-3-4b-it's text_config widths: vocab 262208, hidden 2560,
+   8 heads and 4 KV heads of 256, FFN 10240, window 1024 with pattern 6,
+   tied embeddings; 6 of 34 layers), Q4_K_M mix, both modes at a window
+   of 8192 (a ring of 2048 slots on the 5 local layers): kernels 1-3
+   against their plain versions at layer 0's projections (1, 8, 128, 512
+   and the ring's 1024-row chunk) and the tied Q6_K head (1-512 rows);
+   the main path as in phase 4 with exact launches; the ring against the same model with
+   swa_ring=False on a GEMMA_PROMPT-token prompt (three prefill chunks,
+   wrapping the ring) and 64 greedy steps past the window, tokens equal,
+   logits within 1e-5 of max |logit|; memory_bytes ring against full at
+   32768; a greedy profile against its bound (a ring's live keys at most
+   its window); the CLI's bench; phase
+   14b's batched engine on the ring (chunk 512, a 1500-token prompt among
+   them); the context shift's runner takes the full cache. 16c: the paged
+   pool's appends, a copy-on-write fork and gathers on the card equal the
+   CPU's bit for bit. Prints phase 16's seconds.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -339,6 +373,7 @@ MOE_PATHS = {"moe_slot": "splitk", "moe_grouped": "tc",
 MOE_SHAPE = dict(num_layers=2, hidden_size=4096, expert_ffn=14336,
                  num_experts=8, num_experts_per_token=2)
 REL_LIMIT = 2e-4
+MOE_PRESET, MOE_LABEL = "mixtral-8x7b-l2", "Mixtral-8x7B-l2"  # phases 6, 10b
 GREEDY_STEPS = 200  # phase 9: from the 96-token prompt, across bucket 256
 LONG_ROW = 700  # phase 9: the long row of the B = 8 batch (bucket 1024)
 ROWS = (1, 8, 128, 512)  # 128: the main path's own prefill bucket
@@ -615,20 +650,34 @@ def build_q2k_experts() -> str:
     return path
 
 
-def load_both(path: str, seconds: dict | None = None):
-    """The quant and dequant engines of ``path`` on the card; each load's
-    seconds go into ``seconds`` (by mode) when it is given."""
+def load_both(path: str, seconds: dict | None = None, **config):
+    """The quant and dequant engines of ``path`` on the card (``config``:
+    more EngineConfig fields), loaded at once on two threads (each load is
+    host work and copies, and makes no device-wide synchronize; since PR
+    14, to keep the script within its limit); each load's seconds, and the
+    two's wall time under "both", go into ``seconds`` when it is given."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
 
-    engines = []
-    for mode in ("quant", "dequant"):
+    took = {}
+
+    def load(mode):
         t0 = time.perf_counter()
-        engines.append(Engine.load(path, EngineConfig(weight_mode=mode),
-                                   device="cuda"))
-        took = time.perf_counter() - t0
-        if seconds is not None:
-            seconds[mode] = took
-        log(f"{os.path.basename(path)}: {mode} engine loaded in {took:.1f}s")
+        engine = Engine.load(path, EngineConfig(weight_mode=mode, **config),
+                             device="cuda")
+        took[mode] = time.perf_counter() - t0
+        log(f"{os.path.basename(path)}: {mode} engine loaded in "
+            f"{took[mode]:.1f}s")
+        return engine
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        dequant = pool.submit(load, "dequant")
+        engines = [load("quant"), dequant.result()]
+    took["both"] = time.perf_counter() - t0
+    if seconds is not None:
+        seconds.update(took)
     return engines
 
 
@@ -920,10 +969,11 @@ def bf16_panels(lin):
 
 
 def projection_checks(projections, rows_list, timer, peaks, path: str,
-                      serving: bool = False) -> list[dict]:
+                      serving: bool = False, act: str = "silu") -> list[dict]:
     """Kernels 1-3 on a path's own projections (kernel, projection name,
     QuantLinear) at each row count of ``rows_list``, through compare(); with
-    ``serving`` also with bf16 panels in "default" precision."""
+    ``serving`` also with bf16 panels in "default" precision. ``act``: the
+    path's GLU activation."""
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_weight
@@ -959,8 +1009,8 @@ def projection_checks(projections, rows_list, timer, peaks, path: str,
                              tile_rows=plan.rows,
                              bound_f32_ms=bound_ms(nbytes, ops, "f32", peaks)[0])
                 if glu:
-                    def kern(): return Q.qmatmul_glu(x, lin, "silu", precision)
-                    def plain(): return Q.qmatmul_glu_plain(x, lin, "silu",
+                    def kern(): return Q.qmatmul_glu(x, lin, act, precision)
+                    def plain(): return Q.qmatmul_glu_plain(x, lin, act,
                                                             precision)
                 else:
                     def kern(): return Q.qmatmul(x, lin, precision)
@@ -1094,7 +1144,7 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
         ("qmatmul_q4", "qkv", layer0["attn"]["wqkv"]),
         ("qmatmul_q4", "o_proj", layer0["attn"]["wo"]),
         ("qmatmul_q8", "lm_head", quant.runner.params["output"]),
-    ], MOE_ROWS, timer, peaks, "Mixtral-8x7B-l2")
+    ], MOE_ROWS, timer, peaks, MOE_LABEL)
 
     # layer 0's router on the prompt: the main path's inputs and routing
     ffn0 = quant.runner.params["layers"][0]["ffn"]
@@ -1129,7 +1179,7 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
         "prefill, imbalanced": (imbalanced, xr),
     }
     measurements += moe_kernel_checks(ex, cases, timer, peaks,
-                                      "Mixtral-8x7B-l2")
+                                      MOE_LABEL)
 
     def on_differ(ids_, toks, want):
         i = next(j for j, (a, b) in enumerate(zip(toks, want)) if a != b)
@@ -1138,7 +1188,7 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
             f"smallest top-2 vs third router margin there: {margin:.3g}")
 
     launches, by_path, decoded, ids = run_main_path(
-        quant, deq, card, "Mixtral-8x7B-l2", on_differ)
+        quant, deq, card, MOE_LABEL, on_differ)
     n_layers = cfg.num_layers
     for name in Q.LAUNCHES:
         want = n_layers * (decoded * MOE_PER_LAYER["decode"].get(name, 0)
@@ -1154,8 +1204,8 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
               f"{path} ({by_path})")
     print(json.dumps({"moe_decode_profile": decode_profiles(quant, ids)}),
           flush=True)
-    graph_against_eager("Mixtral-8x7B-l2", quant, ids, card)
-    bench_json("Mixtral-8x7B-l2", quant, card)
+    graph_against_eager(MOE_LABEL, quant, ids, card)
+    bench_json(MOE_LABEL, quant, card)
     batched_launches = moe_batched(quant, card)
     return measurements, launches, batched_launches
 
@@ -1817,7 +1867,7 @@ def moe_batched(quant, card: str) -> dict:
             f"Mixtral batched request {i}", h.token_ids, want, margins,
             near)))
     print(json.dumps({"batched_moe": dict(
-        path="Mixtral-8x7B-l2", max_batch=4, prefill_chunk=SERVE_CHUNK,
+        path=MOE_LABEL, max_batch=4, prefill_chunk=SERVE_CHUNK,
         wall_s=wall, stats=stats, decode_tps_run=stats["decode_tokens_pure"]
         / stats["decode_time"] if stats["decode_time"] else None,
         steady=steady,
@@ -2264,10 +2314,13 @@ def hybrid_path(card: str, timer, peaks: dict, gguf: str):
     return measurements, launches, batched_launches
 
 
-def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
-    """Phases 12b, 14b and 15b: the path's model in a BatchedEngine at
-    max_batch 4 over its quant weights, HYBRID_REQUESTS greedy requests
-    (rows reused), prefill_chunk SERVE_CHUNK; every admission clears its
+def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL,
+                   chunk: int = SERVE_CHUNK,
+                   requests: tuple = HYBRID_REQUESTS) -> dict:
+    """Phases 12b, 14b, 15b and 16: the path's model in a BatchedEngine at
+    max_batch 4 over its quant weights and in its runner's KV format (and
+    ring), greedy requests of ``requests`` prompt tokens (rows reused),
+    prefill_chunk ``chunk``; every admission clears its
     row's recurrent state (runner.clear_state, its calls recorded as the
     engine runs, with no host sync in the timed passes; after them, with
     recurrent state, that it zeroes each row of the engine's cache and
@@ -2289,7 +2342,7 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
                     kv_format=q.kv_format, device=q.device)
     rng = np.random.default_rng(SEED + 2)
     prompts = [rng.integers(3, min(q.cfg.vocab_size, 4096), size=n).tolist()
-               for n in HYBRID_REQUESTS]
+               for n in requests]
     steps = 24
     cleared = []  # the rows admissions cleared, in order
     clear = r.clear_state
@@ -2300,7 +2353,7 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
 
     r.clear_state = record_clear
     be = BatchedEngine(r, quant.tokenizer, max_queue=16,
-                       prefill_chunk=SERVE_CHUNK)
+                       prefill_chunk=chunk)
     greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
     moe = any("router" in layer.get("ffn", {})
               for layer in q.params["layers"])
@@ -2356,7 +2409,8 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL) -> dict:
                                f"{label} batched request {i}",
                                h.token_ids, want, margins, near)))
     print(json.dumps({"batched_hybrid": dict(
-        path=label, max_batch=4, prefill_chunk=SERVE_CHUNK,
+        path=label, max_batch=4, prefill_chunk=chunk, kv_format=r.kv_format,
+        ring_slots=r.ring_slots,
         admissions_zeroed=len(cleared),
         requests=len(prompts), wall_s=wall, stats=stats,
         decode_tps_run=stats["decode_tokens_pure"] / stats["decode_time"]
@@ -2613,20 +2667,26 @@ def cache_checks(quant, serving, card: str) -> None:
         batched_hits=hits, batched_rows=rows, card=card)}), flush=True)
 
 
-def shift_checks(quant, deq, card: str, path: str = "13c") -> None:
-    """13c (and 15a, ``path``): both modes' weights in a SHIFT_SEQ-token
-    runner with the context shift on, SHIFT_TOKENS greedy tokens from the
-    prompt: quant tokens equal dequant up to the first near tie (with MoE
-    layers also a routing near tie of the steps before the first shift),
-    no eager step, and after the first shift layer 0's keys (an MLA
-    model's latents) equal a fresh prefill's of the kept tokens."""
+def shift_checks(quant, deq, card: str, path: str = "13c",
+                 kv_format: str = "f32") -> None:
+    """13c (and 15a, 16a: ``path``): both modes' weights in a
+    SHIFT_SEQ-token runner with the context shift on (its cache in
+    ``kv_format``), SHIFT_TOKENS greedy tokens from the prompt: quant
+    tokens equal dequant up to the first near tie (with MoE layers also a
+    routing near tie of the steps before the first shift), no eager step,
+    and after the first shift layer 0's keys (an MLA model's latents; an
+    i8 cache's dequantized) equal a fresh prefill's of the kept tokens
+    within REL_LIMIT of their largest magnitude (i8: within 2 steps of
+    max |k| / 127, the shift having requantized them)."""
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
     from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.models import kv as KV
 
     got = {}
     for label, base in (("quant", quant), ("dequant", deq)):
         r = ModelRunner(base.runner.params, base.runner.cfg,
-                        max_seq=SHIFT_SEQ, device=base.runner.device)
+                        max_seq=SHIFT_SEQ, device=base.runner.device,
+                        kv_format=kv_format)
         eng = Engine(r, base.tokenizer, EngineConfig(context_shift=True),
                      base.gguf)
         shift = r.shift_left
@@ -2642,7 +2702,8 @@ def shift_checks(quant, deq, card: str, path: str = "13c") -> None:
             sync()
             shifts.append(time.perf_counter() - t0)
             if "k0" not in first:
-                first["k0"] = kv["k"][0][0, :SHIFT_SEQ - 1 - n].clone()
+                keys = KV.read(kv, 0)[0]
+                first["k0"] = keys[0, :SHIFT_SEQ - 1 - n].clone()
 
         r.shift_left = timed
         margins: list = []
@@ -2658,12 +2719,12 @@ def shift_checks(quant, deq, card: str, path: str = "13c") -> None:
         history = base.tokenizer.encode(PROMPT) + picks
         kept = history[first["n"]:SHIFT_SEQ - 1]
         _, kv, _ = r.prefill(kept, r._make_kv(1))  # eager, a cache of its own
-        fresh = kv["k"][0][0, :len(kept)]
+        fresh = KV.read(kv, 0)[0][0, :len(kept)]
         err = (first["k0"] - fresh).abs().max().item()
         scale = fresh.abs().max().item()
-        check(err <= REL_LIMIT * scale, f"{path} {label}: shifted keys "
-                                        f"differ from a fresh prefill by "
-                                        f"{err:.4g}")
+        limit = (2 / 127 if kv_format == "i8" else REL_LIMIT) * scale
+        check(err <= limit, f"{path} {label}: shifted keys differ from a "
+                            f"fresh prefill by {err:.4g} > {limit:.4g}")
         got[label] = dict(picks=picks, margins=margins, shifts=shifts,
                           key_err=err, key_scale=scale,
                           captures={str(k): v for k, v in
@@ -2681,7 +2742,8 @@ def shift_checks(quant, deq, card: str, path: str = "13c") -> None:
     tie = same_until_tie(f"{path} quant vs dequant", *picks,
                          got["dequant"]["margins"], near)
     print(json.dumps({"context_shift": dict(
-        path=path, window=SHIFT_SEQ, tokens=SHIFT_TOKENS,
+        path=path, kv_format=kv_format, window=SHIFT_SEQ,
+        tokens=SHIFT_TOKENS,
         quant_vs_dequant=tie,
         **{label: dict(shifts=len(g["shifts"]),
                        ms_per_shift_median=sorted(g["shifts"])[
@@ -3167,6 +3229,392 @@ def mla_path(card: str, timer, peaks: dict, gguf: str):
     return measurements, launches, batched_launches
 
 
+# Phase 16: the KV-cache formats and the sliding-window ring (ROADMAP queue
+# 1 item 10). 16a: every quantized format on TinyLlama-1.1B, over phase 4's
+# weights; 16b: gemma-3-4b-l6 (google/gemma-3-4b-it's text_config widths,
+# 6 of 34 layers: one period of 5 local layers and 1 global;
+# utils/synthetic.GEMMA3_PRESETS), its ring against the full cache; 16c:
+# the paged pool on the card against the CPU
+KV_FORMATS_16 = ("i8", "f8_e4m3", "f8_e5m2", "tq2", "tq3", "tq4", "qjl")
+KV_EAGER_STEPS = 9  # 16a: the prefill and 8 decode steps, graphed vs eager
+GEMMA_PRESET = "gemma-3-4b-l6"
+GEMMA_LABEL = "Gemma-3-4B-l6"
+GEMMA_SHAPE = dict(hidden_size=2560, vocab_size=262208, heads=(8, 4, 256),
+                   ffn=10240, window=1024, swa_pattern=6, layers=6)
+GEMMA_SEQ = 8192  # 16b's context: a ring of 2,048 slots beside it
+GEMMA_RING = 2048  # the window, plus the runner's 1,024 slots of headroom
+GEMMA_PROMPT = 2500  # three prefill chunks (1024, 1024, 452): wraps the ring
+GEMMA_STEPS = 64  # greedy steps past the prompt, past the window
+GEMMA_MEMORY_SEQ = 32768  # the context memory_bytes compares ring and full at
+GEMMA_REQUESTS = (1500, 40, 300, 700, 24, 1100)  # 16b's batched prompts
+
+
+def kv_step_bytes(kv: dict, keys: float, bound: int,
+                  window: int = 0) -> tuple[float, int]:
+    """(The cache bytes one decode step of one row needs, the bytes it
+    reads.) It needs each layer's K/V (and scales) at its ``keys`` live
+    positions, a ring layer's at min(keys, window); it reads each full
+    layer's up to the read bound ``bound``, and each ring whole with its
+    slot positions."""
+    need, read = 0.0, 0
+    for key in ("k", "v", "k_scale", "v_scale", "k_swa", "v_swa"):
+        ring = key.endswith("_swa")
+        for t in kv.get(key, ()):
+            per = t[0, 0].numel() * t.element_size()
+            need += per * (min(keys, window) if ring else keys)
+            read += per * (t.shape[1] - 1 if ring else bound)
+    read += sum(t[0, :-1].numel() * t.element_size()
+                for t in kv.get("swa_pos", ()))
+    return need, read
+
+
+def profiled_keys(ids) -> float:
+    """The mean number of keys a step of profile_decode(mode="greedy")
+    attends to: its steps run at positions len(ids) + 1 .. + 16."""
+    return len(ids) + 9.5
+
+
+def kv_formats_path(quant, deq, card: str, peaks: dict):
+    """Phase 16a on phase 4's TinyLlama-1.1B weights: a new runner per
+    format over them (no load), each through Engine.generate. Returns the
+    launches counted on its main paths, by path."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner, read_bucket
+    from llama_gguf_tpu_torch.models import kv as KV
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    t_phase = time.perf_counter()
+    greedy = SamplerConfig(temperature=0.0)
+    tok = quant.tokenizer
+    ids = tok.encode(PROMPT)
+    q0 = quant.runner
+    base_toks, _ = single_stream(q0, ids, NEW_TOKENS)
+    base_logits = q0.prefill(ids, q0.init_kv(1))[0].float()
+    f32_bytes = KV.memory_bytes(q0.init_kv(1))
+    weight_bytes = step_bytes(q0.params)
+    # the profiled greedy steps run at positions len(ids) + 1 .. + 16
+    bound_pos = read_bucket(len(ids) + 17, q0.max_seq)
+    keys = profiled_keys(ids)
+    rows, counted = {}, {}
+    engines = {}
+    for fmt in KV_FORMATS_16:
+        t0 = time.perf_counter()
+        runners = {label: ModelRunner(
+            e.runner.params, e.runner.cfg, max_seq=e.runner.max_seq,
+            kv_format=fmt, device=e.runner.device)
+            for label, e in (("quant", quant), ("dequant", deq))}
+        r = runners["quant"]
+        eq = Engine(r, tok, EngineConfig(kv_format=fmt), quant.gguf)
+        # phase 9's gate in this format: graphed steps against eager ones
+        want_toks, want = step_logits(r, ids, KV_EAGER_STEPS, eager=True)
+        eager0 = r.eager_steps
+        toks, got = step_logits(r, ids, KV_EAGER_STEPS)
+        rel = max(((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, want))
+        check(r.eager_steps == eager0 and toks == want_toks
+              and rel <= REL_LIMIT,
+              f"16a {fmt}: graphed tokens {toks} vs eager {want_toks}, "
+              f"logits {rel:.3g} of max |logit|")
+        # the counted main path: Engine.generate, every step a replay
+        eq.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up
+        torch.cuda.synchronize()
+        Q.reset_launches()
+        r.eager_steps = 0
+        eq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in Q.LAUNCHES.items() if v}
+        steps = 1 + eq.stats.generated_tokens
+        check(r.eager_steps == 0, f"16a {fmt}: {r.eager_steps} eager steps")
+        for name, per in PER_STEP.items():
+            check(launches.get(name, 0) == per * steps,
+                  f"16a {fmt} {name}: {launches.get(name, 0)} launches, "
+                  f"expected {per} x {steps}")
+        counted[f"TinyLlama-1.1B {fmt} KV"] = launches
+        decode_tps = eq.stats.decode_tps
+        # quant against dequant in this format, and against the f32 cache
+        q_toks, _ = single_stream(r, ids, NEW_TOKENS)
+        d_toks, d_margins = single_stream(runners["dequant"], ids,
+                                          NEW_TOKENS)
+        tie = same_until_tie(f"16a {fmt} quant vs dequant", q_toks, d_toks,
+                             d_margins)
+        parts = next((i for i, (a, b) in enumerate(zip(q_toks, base_toks))
+                      if a != b), None)
+        logits = r.prefill(ids, r.init_kv(1))[0].float()
+        check(bool(torch.isfinite(logits).all()), f"16a {fmt}: logits")
+        d_f32 = (logits - base_logits).abs().max().item()
+        prof = profile_decode(eq, ids, mode="greedy")
+        kv = r.init_kv(1)
+        mem = KV.memory_bytes(kv)
+        cache_b, cache_read = kv_step_bytes(kv, keys, bound_pos)
+        bound = (weight_bytes + cache_b) / peaks["bytes"] * 1e3
+        rows[fmt] = dict(
+            first_token_off_f32=parts, prefill_max_dlogit_vs_f32=d_f32,
+            max_abs_logit=base_logits.abs().max().item(),
+            quant_vs_dequant=tie, graphed_vs_eager_rel=rel,
+            launches=launches, decode_tps=decode_tps,
+            device_ms_per_greedy_step=prof["device_ms_per_step"],
+            device_idle_share=prof["device_idle_share"],
+            kernels_per_step=prof["kernels_launched_per_step"],
+            top_kernels_ms=dict(list(
+                prof["device_ms_per_step_by_kernel"].items())[:6]),
+            weight_bytes=weight_bytes, cache_bytes_needed=cache_b,
+            cache_bytes_read=cache_read, mean_keys=keys,
+            read_bound_positions=bound_pos, step_bound_ms=bound,
+            memory_bytes=mem, memory_ratio_to_f32=mem / f32_bytes,
+            capture_s=sum(r.capture_seconds.values()),
+            seconds=time.perf_counter() - t0)
+        log(f"16a {fmt}: parts from f32 at {parts}, prefill dlogit "
+            f"{d_f32:.3g}, {prof['device_ms_per_step']} device ms a step "
+            f"(bound {bound:.4f}), memory {mem / f32_bytes:.4f} of f32, "
+            f"{rows[fmt]['seconds']:.1f}s")
+        if fmt == "i8":
+            engines[fmt] = eq  # 16a's batched engine runs on it
+        del runners, r, eq, kv
+        torch.cuda.empty_cache()
+    shift_checks(quant, deq, card, path="16a i8", kv_format="i8")
+    f8_prompt_cache(quant, card)
+    counted["TinyLlama-1.1B i8 KV batched"] = hybrid_batched(
+        engines.pop("i8"), card, "TinyLlama-1.1B i8 KV")
+    print(json.dumps({"kv_formats": dict(
+        path="TinyLlama-1.1B", f32_memory_bytes=f32_bytes, formats=rows,
+        phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+    return counted
+
+
+def f8_prompt_cache(quant, card: str) -> None:
+    """16a: a prompt-cache hit on an f8_e4m3 cache: only the new tokens
+    prefilled, the hit's logits within 1e-3 of max |logit| of an uncached
+    prefill, no eager step; the session file saved and loaded, its entries
+    byte-equal under the ml_dtypes name."""
+    import tempfile
+
+    import numpy as np
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.prompt_cache import PromptCache
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    q = quant.runner
+    r = ModelRunner(q.params, q.cfg, max_seq=q.max_seq, kv_format="f8_e4m3",
+                    device=q.device)
+    tok = quant.tokenizer
+    a_text = " ".join([PROMPT] * 3)
+    b_text = a_text + " Five more wizards jump."
+    a_ids, ab_ids = tok.encode(a_text), tok.encode(b_text)
+    prefilled, hit = [], []
+    prefill = r.prefill
+
+    def spy(ids, *a, **kw):
+        prefilled.append(len(ids))
+        out = prefill(ids, *a, **kw)
+        hit[:] = [out[0]]
+        return out
+
+    r.prefill = spy
+    eng = Engine(r, tok, EngineConfig(kv_format="f8_e4m3", prompt_cache=True),
+                 quant.gguf)
+    eng.generate(a_text, max_tokens=4, sampler=greedy)
+    eng.generate(b_text, max_tokens=4, sampler=greedy)
+    del r.prefill
+    s = eng.prompt_cache.stats
+    check((s.hits, s.misses) == (1, 1)
+          and prefilled == [len(a_ids), len(ab_ids) - len(a_ids)]
+          and r.eager_steps == 0,
+          f"16a f8 prompt cache: hits {s.hits}, misses {s.misses}, "
+          f"prefills {prefilled}, eager steps {r.eager_steps}")
+    want = r.prefill(ab_ids, r.init_kv(1), host=True)[0]
+    diff = float(np.abs(hit[0] - want).max())
+    check(diff <= 1e-3 * float(np.abs(want).max()),
+          f"16a f8 prompt cache: a hit's logits differ by {diff:.4g}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "f8.bin")
+        n = eng.save_prompt_cache(path)
+        loaded = PromptCache()
+        check(loaded.load(path) == n >= 1, "16a f8 prompt cache: entries")
+        for key, e in eng.prompt_cache._entries.items():
+            f = loaded._entries[key]
+            check(e.dtypes == f.dtypes and set(e.dtypes.values()) == {
+                "float8_e4m3fn"} and all(
+                np.array_equal(e.arrays[k].view(np.uint8),
+                               f.arrays[k].view(np.uint8))
+                for k in e.arrays), "16a f8 prompt cache: file bytes")
+        size = os.path.getsize(path)
+    print(json.dumps({"f8_prompt_cache": dict(
+        prompt_tokens=[len(a_ids), len(ab_ids)], prefilled=prefilled,
+        hit_logits_max_diff=diff, max_abs_logit=float(np.abs(want).max()),
+        session_file_bytes=size, card=card)}), flush=True)
+
+
+def ring_path(card: str, timer, peaks: dict, gguf: str):
+    """Phase 16b on gemma-3-4b-l6 (``gguf``). Returns (measurements,
+    launches, batched launches)."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import EngineConfig, make_runner
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner, read_bucket
+    from llama_gguf_tpu_torch.models import kv as KV
+
+    t_phase = time.perf_counter()
+    load_s = {}
+    quant, deq = load_both(gguf, load_s, max_context_len=GEMMA_SEQ)
+    r, cfg, params = quant.runner, quant.runner.cfg, quant.runner.params
+    shape = dict(hidden_size=cfg.hidden_size, vocab_size=cfg.vocab_size,
+                 heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                 ffn=cfg.intermediate_size, window=cfg.sliding_window,
+                 swa_pattern=cfg.swa_pattern, layers=cfg.num_layers)
+    check(shape == GEMMA_SHAPE, f"unexpected {GEMMA_LABEL} shape {shape}")
+    check(r.ring_slots == deq.runner.ring_slots == GEMMA_RING
+          and r.ring_chunk == 1024 and "k_swa" in r.init_kv(1),
+          f"{GEMMA_LABEL}: ring {r.ring_slots}, chunk {r.ring_chunk}")
+    nbytes = step_bytes(params)
+    log(f"{GEMMA_LABEL}: loaded in {load_s}; {nbytes} weight bytes a step")
+
+    # kernels 1-3 at the path's own projections (every FFN down is Q6_K,
+    # the tied head Q6_K too) and row counts: a decode step, the batched
+    # engine's rows, the prompt's bucket, 512, and the ring's 1,024-token
+    # prefill chunk (the head sees one row a sequence)
+    layer = params["layers"][0]
+    check(layer["ffn"]["down"].fmt == params["output"].fmt == "q8",
+          f"{GEMMA_LABEL}: down {layer['ffn']['down'].fmt}, head "
+          f"{params['output'].fmt}")
+    measurements = projection_checks([
+        ("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
+        ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
+        ("qmatmul_glu", "gate|up", layer["ffn"]["gate_up"]),
+        ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
+    ], ROWS + (r.ring_chunk,), timer, peaks, GEMMA_LABEL,
+        act=cfg.hidden_act.value)
+    measurements += projection_checks([
+        ("qmatmul_q8", "tied lm_head", params["output"])],
+        ROWS, timer, peaks, GEMMA_LABEL)
+
+    # the main path as in phase 4: exact launches, quant against dequant
+    per = hybrid_launches_per_step(params, cfg)
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, GEMMA_LABEL,
+        near_tie=hybrid_near_tie(deq, GEMMA_LABEL), logit_rel=True)
+    exact_launches(GEMMA_LABEL, launches, decoded, per)
+
+    # the ring against the full cache on a prompt that wraps it
+    long_ids = repo_text_ids(quant.tokenizer, GEMMA_PROMPT)
+    full = ModelRunner(params, cfg, max_seq=GEMMA_SEQ, swa_ring=False,
+                       device=r.device)
+    steps_t = []
+    step = r.step
+    r.step = lambda toks, *a, **kw: (steps_t.append(len(toks[0])),
+                                     step(toks, *a, **kw))[1]
+    t0 = time.perf_counter()
+    ring_toks, ring_rows = step_logits(r, long_ids, GEMMA_STEPS + 1)
+    sync()
+    ring_s = time.perf_counter() - t0
+    del r.step
+    check(steps_t[:3] == [1024, 1024, 512],
+          f"{GEMMA_LABEL}: the long prefill's steps {steps_t[:3]}")
+    full_toks, full_rows = step_logits(full, long_ids, GEMMA_STEPS + 1)
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(ring_rows, full_rows)]
+    check(ring_toks == full_toks and max(rel) <= 1e-5,
+          f"{GEMMA_LABEL}: ring tokens {ring_toks} vs full {full_toks}, "
+          f"logits {max(rel):.3g} of max |logit|")
+    # the ring's slots after the run: every slot written, the newest
+    # positions kept
+    kv = r.init_kv(1)
+    _, kv, pos = r.prefill(long_ids, kv)
+    slots = kv["swa_pos"][0][0, :GEMMA_RING]
+    check(int(slots.min()) == GEMMA_PROMPT - GEMMA_RING
+          and int(slots.max()) == GEMMA_PROMPT - 1,
+          f"{GEMMA_LABEL}: ring slots hold {int(slots.min())}.."
+          f"{int(slots.max())}")
+    del full
+    torch.cuda.empty_cache()
+
+    # memory: ring against full at GEMMA_MEMORY_SEQ (shapes only)
+    mem = {}
+    for label, ring in (("ring", GEMMA_RING), ("full", 0)):
+        mem[label] = KV.memory_bytes(KV.init_cache(
+            cfg.num_layers, 1, GEMMA_MEMORY_SEQ, cfg.cache_kv_heads,
+            cfg.cache_k_dim, v_head_dim=cfg.cache_v_dim, device="meta",
+            swa_layers=r.swa_layers, ring_slots=ring))
+    # a greedy profile against the bound (weights + the cache it needs:
+    # the live keys, which the rings' whole reads exceed)
+    prof = profile_decode(quant, ids, mode="greedy")
+    keys = profiled_keys(ids)
+    bound_pos = read_bucket(len(ids) + 17, r.max_seq)
+    cache_b, cache_read = kv_step_bytes(r.init_kv(1), keys, bound_pos,
+                                        cfg.sliding_window)
+    bound = (nbytes + cache_b) / peaks["bytes"] * 1e3
+    bench_json(GEMMA_LABEL, quant, card)
+    # the context shift takes the full cache
+    shift_runner = make_runner(params, cfg, EngineConfig(
+        context_shift=True, max_context_len=GEMMA_SEQ), r.device)
+    check(shift_runner.ring_slots == 0
+          and "k_swa" not in shift_runner.init_kv(1),
+          f"{GEMMA_LABEL}: the context shift's runner keeps a ring")
+    del shift_runner
+    torch.cuda.empty_cache()
+    print(json.dumps({"ring": dict(
+        path=GEMMA_LABEL, load_s=load_s, ring_slots=r.ring_slots,
+        ring_chunk=r.ring_chunk, prompt_tokens=GEMMA_PROMPT,
+        prefill_steps=steps_t[:3], greedy_steps=GEMMA_STEPS,
+        ring_vs_full_max_rel=max(rel), ring_vs_full_prefill_rel=rel[0],
+        ring_run_s=ring_s, launches=launches, launches_by_path=by_path,
+        memory_bytes_at=GEMMA_MEMORY_SEQ, memory_ring=mem["ring"],
+        memory_full=mem["full"], memory_ratio=mem["ring"] / mem["full"],
+        weight_bytes=nbytes, cache_bytes_needed=cache_b,
+        cache_bytes_read=cache_read, mean_keys=keys,
+        read_bound_positions=bound_pos, step_bound_ms=bound,
+        read_bound_ms=(nbytes + cache_read) / peaks["bytes"] * 1e3,
+        device_ms_per_greedy_step=prof["device_ms_per_step"],
+        device_idle_share=prof["device_idle_share"],
+        kernels_per_step=prof["kernels_launched_per_step"],
+        top_kernels_ms=dict(list(
+            prof["device_ms_per_step_by_kernel"].items())[:8]),
+        card=card)}), flush=True)
+    del deq
+    torch.cuda.empty_cache()
+    batched = hybrid_batched(quant, card, GEMMA_LABEL, chunk=512,
+                             requests=GEMMA_REQUESTS)
+    log(f"phase 16b done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches, batched
+
+
+def paged_check(card: str) -> None:
+    """Phase 16c: the paged pool (models/paged.py) on the card: appends
+    across blocks, a copy-on-write fork, both sequences diverging; the
+    gathers equal the same calls' on the CPU bit for bit."""
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.models.paged import PagedKVPool
+
+    rng = np.random.default_rng(SEED + 16)
+    toks = [torch.from_numpy(rng.normal(size=(2, 4, 64)).astype(np.float32))
+            for _ in range(9)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pool = PagedKVPool(2, 8, 4, 64, block_size=4, device=dev)
+        pool.create("a")
+        for t in toks[:6]:
+            pool.append("a", t, t * 2)
+        pool.fork("a", "b")
+        pool.append("a", toks[6], toks[6])
+        pool.append("b", toks[7], toks[7])
+        pool.append("b", toks[8], toks[8])
+        out[dev] = [x.cpu() for seq in ("a", "b")
+                    for x in pool.gather(seq, max_blocks=4)[:2]] + [
+            pool.tables["a"].blocks, pool.tables["b"].blocks,
+            pool.allocator.free_blocks]
+    same = all(torch.equal(a, b) for a, b in zip(out["cpu"][:4],
+                                                 out["cuda"][:4]))
+    check(same and out["cpu"][4:] == out["cuda"][4:],
+          f"16c: the card's pool differs from the CPU's ({out['cuda'][4:]} "
+          f"vs {out['cpu'][4:]})")
+    print(json.dumps({"paged_pool": dict(
+        bit_equal=True, tables=out["cuda"][4:6], free_blocks=out["cuda"][6],
+        card=card)}), flush=True)
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3175,21 +3623,24 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's and 15's GGUFs
-    # (host numpy work, minutes) build in five child processes while the
-    # dense path runs; leaving the block waits for the children
+    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's, 15's and 16b's
+    # GGUFs (host numpy work, minutes) build in six child processes while
+    # the dense path runs; leaving the block waits for the children
     with ProcessPoolExecutor(
-            max_workers=5,
+            max_workers=6,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        moe_gguf = pool.submit(build_model, "mixtral-8x7b-l2", max_ctx=2048)
+        moe_gguf = pool.submit(build_model, MOE_PRESET, max_ctx=2048)
         formats = pool.submit(build_formats)
         hybrid_gguf = pool.submit(build_model, HYBRID_PRESET, max_ctx=2048)
         granite_gguf = pool.submit(build_model, GRANITE_PRESET, max_ctx=2048)
         mla_gguf = pool.submit(build_model, MLA_PRESET, max_ctx=2048)
-        return run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf)
+        gemma_gguf = pool.submit(build_model, GEMMA_PRESET)
+        return run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
+                   gemma_gguf)
 
 
-def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf) -> int:
+def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
+        gemma_gguf) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -3231,6 +3682,10 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf) -> int:
     t0 = time.perf_counter()
     item6_launches = item6_path(quant, deq, serving, card)
     log(f"phase 13 done in {time.perf_counter() - t0:.1f}s")
+    t16 = time.perf_counter()
+    kv_launches = kv_formats_path(quant, deq, card, peaks)
+    phase_16a_s = time.perf_counter() - t16
+    log(f"phase 16a done in {phase_16a_s:.1f}s")
     del quant, deq, serving
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3283,19 +3738,33 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf) -> int:
     mla_tiny, mla_tiny_launches = mamba_tiny_path(card, timer, peaks,
                                                   MLA_TINY, "15c")
     log(f"DeepSeek path (phase 15) done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gguf = gemma_gguf.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for the {GEMMA_LABEL} GGUF")
+    t16 = time.perf_counter()
+    gemma, ring_launches, ring_batched_launches = ring_path(card, timer,
+                                                           peaks, gguf)
+    paged_check(card)
+    phase_16_s = phase_16a_s + time.perf_counter() - t16
+    print(json.dumps({"phase_16": dict(
+        seconds=phase_16_s, seconds_16a=phase_16a_s,
+        seconds_16bc=phase_16_s - phase_16a_s, card=card)}), flush=True)
+    log(f"phase 16 took {phase_16_s:.1f}s in all")
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [m for m in (dense + moe + probe + fmts + hybrid + mamba
-                            + tiny + mla + mla_tiny) if m["name"] == name]
+                            + tiny + mla + mla_tiny + gemma)
+                if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
             ("TinyLlama-1.1B", dense_launches),
             ("TinyLlama-1.1B serving", serving_launches),
             ("TinyLlama-1.1B phase 13", item6_launches),
             ("TinyLlama-1.1B server", server_launches),
-            ("Mixtral-8x7B-l2", moe_launches),
-            ("Mixtral-8x7B-l2 batched", moe_batched_launches),
+            (MOE_LABEL, moe_launches),
+            (f"{MOE_LABEL} batched", moe_batched_launches),
             ("probe", probe_launches), *fmt_launches.items(),
             (HYBRID_LABEL, hybrid_launches),
             (f"{HYBRID_LABEL} batched", hybrid_batched_launches),
@@ -3304,7 +3773,9 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf) -> int:
             ("Mamba tiny presets (14c)", tiny_launches),
             (MLA_LABEL, mla_launches),
             (f"{MLA_LABEL} batched", mla_batched_launches),
-            ("DeepSeek tiny presets (15c)", mla_tiny_launches))
+            ("DeepSeek tiny presets (15c)", mla_tiny_launches),
+            *kv_launches.items(), (GEMMA_LABEL, ring_launches),
+            (f"{GEMMA_LABEL} batched", ring_batched_launches))
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

@@ -176,8 +176,9 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--weight-mode", choices=["quant", "dequant"],
                    default=None)
     p.add_argument("--kv-cache-type", choices=KV_CHOICES, default=None,
-                   help="f32 or bf16 (the other formats are not ported yet: "
-                   "ROADMAP queue 1 item 10)")
+                   help="KV-cache storage: f32, bf16, i8 (per-head scales), "
+                   "f8_e4m3, f8_e5m2, TurboQuant tq2-tq4, or qjl (1-bit "
+                   "key sketches, tq4 values)")
     p.add_argument("--context-shift", action="store_true",
                    help="generate past the window by sliding the KV cache")
     p.add_argument("--prompt-cache", default=None, metavar="FILE",

@@ -30,7 +30,9 @@ class ModelSection:
     path: str | None = None
     max_context_len: int | None = None
     weight_mode: str = "quant"          # quant | dequant
-    kv_cache_type: str = "f32"          # f32 | bf16 | i8 | f8_e4m3 | f8_e5m2
+    # f32 | bf16 | i8 | f8_e4m3 | f8_e5m2 | tq2 | tq3 | tq4 | qjl (the
+    # example file below keeps the JAX package's text)
+    kv_cache_type: str = "f32"
     matmul_precision: str = "highest"   # highest | default
     lora: str | None = None             # GGUF LoRA adapter applied at load
 

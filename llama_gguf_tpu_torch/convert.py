@@ -17,20 +17,22 @@ from typing import Any
 import numpy as np
 import torch
 
+from .models.kv import POSITIONAL, RAW_DTYPES, byte_view
 from .ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
                          QuantLinear)
 
 
 def _tensor(a, device) -> torch.Tensor | None:
-    """A numpy array as a tensor. The JAX package's bfloat16 arrays come
-    through numpy with the ml_dtypes ``bfloat16`` dtype, which torch cannot
-    read: their bits are carried over as uint16 and viewed as bfloat16."""
+    """A numpy array as a tensor. The JAX package's bfloat16 and float8
+    arrays come through numpy with ml_dtypes dtypes, which torch cannot
+    read: their bits are carried over (models/kv.RAW_DTYPES), viewed as
+    the torch dtype and moved to ``device``."""
     if a is None:
         return None
     a = np.array(a, copy=True)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(
-            torch.bfloat16).to(device)
+    if a.dtype.name in RAW_DTYPES:
+        bits, dtype = RAW_DTYPES[a.dtype.name]
+        return torch.from_numpy(a.view(bits)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -68,22 +70,27 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     raise TypeError(f"params_from_numpy: unsupported leaf {type(tree).__name__}")
 
 
+_STATE = ("deltanet", "mamba")
+
+
 def kv_from_numpy(kv: dict, device="cpu") -> dict:
-    """Convert a numpy-leaved f32/bf16 llama_gguf_tpu KV cache ({"k": L x
-    [B, S, H, D], "v": ..., and for a hybrid model "deltanet": L x {"S",
-    "conv"} or "mamba": {"conv": L x ..., "ssm": L x ...}}) to the port's
-    layout, whose K/V buffers carry one extra drop slot each
-    (models/kv.py)."""
-    if not {"k", "v"} <= set(kv) <= {"k", "v", "deltanet", "mamba"}:
-        raise NotImplementedError(
-            f"kv_from_numpy: only plain f32/bf16 caches and recurrent state "
-            f"are ported, got keys {sorted(kv)}")
+    """Convert a numpy-leaved llama_gguf_tpu KV cache of any format ({"k": L
+    x [B, S, H, D], "v": ..., i8 and tq scales "k_scale"/"v_scale" L x [B,
+    S, H], packed uint8 tq and qjl buffers, float8 arrays as ml_dtypes
+    arrays, a ring's "k_swa"/"v_swa"/"swa_pos", and for a hybrid model
+    "deltanet": L x {"S", "conv"} or "mamba": {"conv": L x ..., "ssm": L x
+    ...}}) to the port's layout, where every positional buffer carries one
+    extra drop slot on axis 1 (models/kv.py): zeros, -1 for ``swa_pos``."""
+    if not {"k", "v"} <= set(kv) <= set(POSITIONAL + _STATE):
+        raise ValueError(f"kv_from_numpy: unknown cache keys {sorted(kv)}")
 
-    def pad(a):
+    def pad(a, fill):
         t = _tensor(a, device)
-        return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+        slot = torch.full_like(byte_view(t[:, :1]), fill)
+        return torch.cat([byte_view(t), slot], dim=1).view(t.dtype)
 
-    out = {key: [pad(a) for a in kv[key]] for key in ("k", "v")}
+    out = {key: [pad(a, -1 if key == "swa_pos" else 0) for a in kv[key]]
+           for key in POSITIONAL if key in kv}
     if "deltanet" in kv:
         out["deltanet"] = [{key: _tensor(st[key], device)
                             for key in ("S", "conv")} for st in kv["deltanet"]]
@@ -94,17 +101,19 @@ def kv_from_numpy(kv: dict, device="cpu") -> dict:
 
 
 def kv_to_numpy(kv: dict) -> dict:
-    """The port's f32/bf16 cache as the JAX package's logical arrays: each
-    K/V buffer without its drop slot, [B, S, H, D] on the host (bf16 as
-    its raw bits, uint16: numpy has no bfloat16), and a hybrid model's
-    "deltanet" or "mamba" state as is. The reverse of ``kv_from_numpy``."""
+    """The port's cache as the JAX package's logical arrays: each
+    positional buffer without its drop slot, [B, S, ...] on the host (bf16
+    as its raw bits, uint16, and float8 as its raw bytes, uint8: numpy has
+    neither), and a hybrid model's "deltanet" or "mamba" state as is. The
+    reverse of ``kv_from_numpy``."""
     def host(t):
         t = t.detach()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16)
-        return t.cpu().numpy()
+        return byte_view(t).cpu().numpy()
 
-    out = {key: [host(a[:, :-1]) for a in kv[key]] for key in ("k", "v")}
+    out = {key: [host(a[:, :-1]) for a in kv[key]]
+           for key in POSITIONAL if key in kv}
     if "deltanet" in kv:
         out["deltanet"] = [{key: host(st[key]) for key in ("S", "conv")}
                            for st in kv["deltanet"]]

@@ -220,7 +220,17 @@ class BatchedEngine:
         """``prefill_chunk``: long prompts are prefilled in chunks of this
         many tokens interleaved with decode steps, so admitting a long
         prompt never stalls in-flight sequences for its whole prefill.
-        ``prompt_cache``: an optional engine.prompt_cache.PromptCache."""
+        ``prompt_cache``: an optional engine.prompt_cache.PromptCache.
+        With a ring cache (runner.ring_slots), a step's padded length must
+        fit the ring's safe length R - window + 1 (models/kv.write_swa), so
+        a larger ``prefill_chunk`` raises here, not inside a step."""
+        if runner.ring_slots and bucket_len(prefill_chunk) > runner.ring_safe:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} (padded to "
+                f"{bucket_len(prefill_chunk)}) exceeds the SWA ring's safe "
+                f"length {runner.ring_safe} (ring {runner.ring_slots}, "
+                f"window {runner.cfg.sliding_window}); lower it or make the "
+                "runner with swa_ring=False")
         self.runner = runner
         self.prompt_cache = prompt_cache
         self.tokenizer = tokenizer
@@ -345,7 +355,8 @@ class BatchedEngine:
         via _mixed_step, decode rows riding in the same step). A hybrid
         model's recurrent state in the slot's row is zeroed first, so the
         sequence does not start from the previous one's (the JAX engine
-        leaves it: ROADMAP queue 3); its K/V rows need no clearing."""
+        leaves it: ROADMAP queue 3). Its K/V rows, scales and ring slots
+        need no clearing, as in the JAX engine (models/kv.clear_state)."""
         admitted = False
         for slot, cur in enumerate(self._slots):
             if cur is not None:

@@ -42,12 +42,15 @@ class EngineConfig:
     max_context_len: int | None = None
     max_batch: int = 1
     weight_mode: str = "quant"  # "quant" (CUDA kernels) | "dequant"
-    kv_format: str = "f32"  # f32 | bf16
+    # f32 | bf16 | i8 | f8_e4m3 | f8_e5m2 | tq2 | tq3 | tq4 | qjl
+    kv_format: str = "f32"
     matmul_precision: str = "highest"
     seed: int | None = None
     chat_template: str | None = None  # override the detected style
     # generate past the context window by sliding the KV cache left
-    # (exact RoPE re-rotation; see models/kv.shift_left)
+    # (exact RoPE re-rotation; see models/kv.shift_left). Off, a model with
+    # interleaved sliding-window layers (Gemma-2/3) keeps them in the ring
+    # cache, which cannot shift
     context_shift: bool = False
     prompt_cache: bool = False  # prefix-sharing KV snapshots (LRU)
     prompt_cache_bytes: int = 2 << 30
@@ -55,6 +58,22 @@ class EngineConfig:
     # construction (implies prompt_cache=True); Engine.save_prompt_cache()
     # writes it back
     prompt_cache_file: str | None = None
+
+
+def make_runner(params: dict, cfg, config: EngineConfig,
+                device="cuda") -> ModelRunner:
+    """The runner ``Engine.load`` makes for loaded weights: the context
+    window capped at max_context_len, the config's batch, precision and KV
+    format, and the sliding-window ring unless the context shift is on
+    (the ring cannot shift)."""
+    max_seq = cfg.max_seq_len
+    if config.max_context_len:
+        max_seq = min(max_seq, config.max_context_len)
+    return ModelRunner(
+        params, cfg, max_batch=config.max_batch, max_seq=max_seq,
+        matmul_precision=config.matmul_precision,
+        kv_format=config.kv_format, device=device,
+        swa_ring=not config.context_shift)
 
 
 @dataclass
@@ -112,13 +131,7 @@ class Engine:
         # and kernels, so a load must make no device-wide synchronize
         loader = ModelLoader(gguf, mode=config.weight_mode, device=dev)
         params, cfg = loader.build()
-        max_seq = cfg.max_seq_len
-        if config.max_context_len:
-            max_seq = min(max_seq, config.max_context_len)
-        runner = ModelRunner(
-            params, cfg, max_batch=config.max_batch, max_seq=max_seq,
-            matmul_precision=config.matmul_precision,
-            kv_format=config.kv_format, device=dev)
+        runner = make_runner(params, cfg, config, dev)
         log.info("loaded %s (%s, %d layers, vocab %d) on %s in %.1fs", path,
                  cfg.arch, cfg.num_layers, cfg.vocab_size, dev,
                  time.time() - t0)

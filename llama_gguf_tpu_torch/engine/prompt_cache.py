@@ -8,10 +8,14 @@ the cache given: the runner's CUDA graphs replay the addresses they
 captured, so a restore never rebinds a buffer. Prefill then continues from
 the shared length.
 
-numpy has no bfloat16: a bf16 snapshot is kept as its raw 16 bits (uint16)
-and labelled "bfloat16". The session file is the JAX package's format
-(``__meta__`` JSON and raw uint8 blobs), so a file saved by either package
-loads into the other.
+numpy has no bfloat16 and no float8: a bf16 snapshot is kept as its raw 16
+bits (uint16) and labelled "bfloat16", a float8 one as its raw bytes
+(uint8) labelled "float8_e4m3fn" or "float8_e5m2", the ml_dtypes names the
+JAX package writes. i8 and tq snapshots carry their scales (``k_scale``,
+``v_scale``). The session file is the JAX package's format (``__meta__``
+JSON and raw uint8 blobs), so a file saved by either package loads into the
+other. A ring cache (``k_swa``...) is not positional as a whole, so, as in
+the JAX package, models that use it bypass the prompt cache.
 """
 
 from __future__ import annotations
@@ -24,30 +28,47 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.kv import RAW_DTYPES, byte_view
+
 BF16 = "bfloat16"
+_NAME = {tdt: name for name, (_, tdt) in RAW_DTYPES.items()}
 
 
-def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """One device-to-host copy of ``t``: (the numpy array, its dtype's
-    name); bf16 comes back as its raw bits."""
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s raw bits as an integer tensor numpy can take (bf16: int16,
+    float8: uint8); any other tensor as it is."""
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).cpu().numpy().view(np.uint16), BF16
-    a = t.cpu().numpy()
-    return a, str(a.dtype)
+        return t.view(torch.int16)
+    return byte_view(t)
 
 
-def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
-    if dtype == BF16:
-        return torch.from_numpy(np.ascontiguousarray(a).view(
-            np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+def _host(layers: list[torch.Tensor]) -> tuple[np.ndarray, str]:
+    """The layers stacked on the device, then one device-to-host copy:
+    (the numpy array, its dtype's name); bf16 and float8 come back as their
+    raw bits."""
+    a = torch.stack([_bits(t) for t in layers]).cpu().numpy()
+    name = _NAME.get(layers[0].dtype)
+    if name is None:
+        return a, str(a.dtype)
+    return a.view(RAW_DTYPES[name][0]), name
+
+
+def _np_dtype(name: str) -> np.dtype:
+    return np.dtype(RAW_DTYPES[name][0] if name in RAW_DTYPES else name)
+
+
+def _host_bits(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A host snapshot as the tensor ``_bits`` gives of its cache buffer
+    (bf16 as int16, float8 as uint8, others as they are)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int16) if dtype == BF16 else a)
 
 
 @dataclass
 class _Entry:
     tokens: tuple[int, ...]
     arrays: dict[str, np.ndarray]  # key -> [L, len(tokens), ...] host copy
-    dtypes: dict[str, str]  # key -> dtype name ("bfloat16": raw uint16)
+    dtypes: dict[str, str]  # key -> dtype name (bfloat16, float8: raw bits)
     nbytes: int
     last_used: float = field(default_factory=time.monotonic)
     hits: int = 0
@@ -101,7 +122,7 @@ class PromptCache:
         arrays, dtypes = {}, {}
         for name, layers in kv.items():
             arrays[name], dtypes[name] = _host(
-                torch.stack([a[batch_idx, :t] for a in layers]))
+                [a[batch_idx, :t] for a in layers])
         nbytes = sum(a.nbytes for a in arrays.values())
         if nbytes > self.max_bytes:
             return
@@ -148,10 +169,10 @@ class PromptCache:
         entry.hits += 1
         self.stats.hits += 1
         for name, host in entry.arrays.items():  # one host copy per key
-            dev = _tensor(host[:, :n], entry.dtypes[name]).to(
+            dev = _host_bits(host[:, :n], entry.dtypes[name]).to(
                 kv[name][0].device)
-            for layer, a in enumerate(kv[name]):
-                a[batch_idx, :n].copy_(dev[layer])
+            for layer, a in enumerate(kv[name]):  # bf16 and float8 as bits
+                _bits(a)[batch_idx, :n].copy_(dev[layer])
         return kv, n
 
     # -- eviction -----------------------------------------------------------
@@ -214,8 +235,7 @@ class PromptCache:
                           for name, info in m["arrays"].items()}
                 arrays = {
                     name: z[f"e{idx}.{name}"].view(
-                        np.uint16 if info["dtype"] == BF16
-                        else np.dtype(info["dtype"])).reshape(info["shape"])
+                        _np_dtype(info["dtype"])).reshape(info["shape"])
                     for name, info in m["arrays"].items()}
                 nbytes = sum(a.nbytes for a in arrays.values())
                 if nbytes > self.max_bytes:

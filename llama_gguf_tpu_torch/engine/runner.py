@@ -164,27 +164,53 @@ class ModelRunner:
     def __init__(self, params: dict, cfg: ModelConfig, max_batch: int = 1,
                  max_seq: int | None = None,
                  matmul_precision: str = "highest",
-                 kv_format: str | None = None, device="cuda"):
+                 kv_format: str | None = None, device="cuda",
+                 swa_ring: bool = True, swa_ring_extra: int = 1024):
         """``matmul_precision``: "highest" (f32 throughout, no TF32) or
         "default", in which the quantized kernels emit bf16 outputs, rounded
         once from their f32 sums (the JAX package's _out_dtype). The port's
         own torch matmuls (attention, router, dense weights) stay f32 in
         "default", where the JAX package on a TPU takes one bf16 pass.
-        ``kv_format``: f32 | bf16 KV-cache storage."""
+        ``kv_format``: the KV-cache storage, one of models/kv.FORMATS (f32,
+        bf16, i8, f8_e4m3, f8_e5m2, tq2, tq3, tq4, qjl).
+        ``swa_ring``: a model with interleaved sliding-window layers
+        (swa_pattern > 1) keeps those layers in a ring of ``ring_slots`` =
+        the window rounded up to 128 plus ``swa_ring_extra`` slots, when
+        that is shorter than max_seq and the format takes a ring
+        (models/kv.ring_format_ok); the same values in less memory. The
+        context shift needs swa_ring=False. Each runner captures its graphs
+        into its own pool, on caches of its one format."""
         if matmul_precision not in ("highest", "default"):
             raise ValueError(f"unknown matmul_precision {matmul_precision!r}: "
                              "'highest' or 'default'")
+        kv_format = kv_format or "f32"
+        if kv_format not in KV.FORMATS:
+            raise ValueError(f"unknown kv format {kv_format!r} (one of "
+                             f"{KV.FORMATS})")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 parity: no TF32 in cuBLAS matmuls (dense and attention)
             torch.backends.cuda.matmul.allow_tf32 = False
-        kv_format = kv_format or "f32"
         self.params = params
-        self.cfg = dataclasses.replace(cfg, kv_format=kv_format)
+        self.cfg = cfg = dataclasses.replace(cfg, kv_format=kv_format)
         self.max_batch = max_batch
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_format = kv_format
         self.matmul_precision = matmul_precision
+        self.swa_layers = tuple(cfg.layer_is_swa(i)
+                                for i in range(cfg.num_layers))
+        self.ring_slots = 0
+        if swa_ring and cfg.swa_pattern > 1 and any(self.swa_layers) \
+                and KV.ring_format_ok(kv_format):
+            want = -(-cfg.sliding_window // 128) * 128 + swa_ring_extra
+            if want - abs(cfg.sliding_window) + 1 < PREFILL_BUCKETS[0]:
+                raise ValueError(
+                    f"SWA ring headroom too small: ring of {want} slots "
+                    f"leaves {want - abs(cfg.sliding_window) + 1} safe "
+                    f"prefill tokens (< {PREFILL_BUCKETS[0]}); raise "
+                    "swa_ring_extra or pass swa_ring=False")
+            if want < self.max_seq:
+                self.ring_slots = want
         self._lock = _device_lock(self.device)
         self.tier_shards = 1  # batch groups of a tiered read (one device)
         # the runner's own caches, by (batch, owner)
@@ -200,6 +226,23 @@ class ModelRunner:
         self.captures = 0
         self.pool_bytes = 0
 
+    @property
+    def ring_safe(self) -> int:
+        """The most tokens one step may write into the ring, R - window + 1
+        (models/kv.write_swa); 0 without a ring."""
+        if not self.ring_slots:
+            return 0
+        return self.ring_slots - abs(self.cfg.sliding_window) + 1
+
+    @property
+    def ring_chunk(self) -> int:
+        """The longest prefill step a ring cache takes: the largest prefill
+        bucket within ring_safe (the padded length is what write_swa
+        checks); 0 without a ring."""
+        if not self.ring_slots:
+            return 0
+        return max(b for b in PREFILL_BUCKETS if b <= self.ring_safe)
+
     # -- state ---------------------------------------------------------------
 
     def _make_kv(self, batch: int) -> dict:
@@ -211,7 +254,8 @@ class ModelRunner:
             self.cfg.num_layers, batch, self.max_seq,
             self.cfg.cache_kv_heads, self.cfg.cache_k_dim,
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
-            device=self.device)
+            device=self.device, swa_layers=self.swa_layers,
+            ring_slots=self.ring_slots)
         kinds = set(self.cfg.layer_kinds or ())
         if "deltanet" in kinds:
             cache["deltanet"] = init_deltanet_state(
@@ -536,7 +580,17 @@ class ModelRunner:
         """Prefill one sequence (padded to a bucket). Returns (last-token
         logits [V], kv, seq_len); ``host``: the logits as an f32 numpy
         array, copied under the runner's lock. ``start_pos`` > 0 continues
-        from an existing KV prefix."""
+        from an existing KV prefix. With a ring cache, a prompt longer than
+        the ring's safe length (``ring_chunk``) is prefilled in chunks of
+        it, so no step's scatter wraps the ring."""
+        chunk = self.ring_chunk
+        if chunk and len(token_ids) > chunk:
+            out = None
+            for off in range(0, len(token_ids), chunk):
+                out, kv, start_pos = self.prefill(
+                    token_ids[off: off + chunk], kv, batch_idx, start_pos,
+                    host)
+            return out, kv, start_pos
         t = len(token_ids)
         bt = bucket_len(t)
         b = KV.cache_shape(kv)[1]

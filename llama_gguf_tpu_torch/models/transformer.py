@@ -20,7 +20,9 @@ Mamba-2, LFM2's short conv, and Falcon-H1's parallel hybrid here),
 DeepSeek's multi-head latent attention (absorbed, over a one-head latent
 cache) and DeepSeek-V3's sigmoid routing with its bias and group limit
 (route_choice), parallel residual, post norms, tied embeddings, and the
-two-tier ragged read bound on one device. PhiMoE's and llama4's routings
+two-tier ragged read bound on one device, over every KV-cache format of
+models/kv.py (the qjl format through ops/attention.qjl_attention) and the
+sliding-window ring. PhiMoE's and llama4's routings
 and the tier over data shards are ROADMAP queue 1.
 
 Nothing here reads a device value on the host, so engine/runner.py can
@@ -32,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import linear as L
-from ..ops.attention import attention_scores, tiered_attention
+from ..ops.attention import attention_scores, qjl_attention, tiered_attention
 from ..ops.norms import apply_norm, rms_norm
 from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
                            moe_group_plan, moe_qmatmul, moe_qmatmul_glu,
@@ -112,14 +114,17 @@ def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     qg = q_eff.reshape(b, t, 1, nh, rank + rope_dim)  # one KV head, R = nh
     akw = dict(scale=cfg.attention_scale or cfg.head_dim ** -0.5,
                softcap=cfg.attn_logit_softcap)
+
+    def read_fn(bound, rows):
+        return KV.read(kv, layer_idx, head_dim=rank + rope_dim,
+                       v_head_dim=rank, bound=bound, rows=rows)
+
     if isinstance(read_bound, tuple):  # two-tier ragged decode
         lo, hi, tier_idx = read_bound
-        ctx = tiered_attention(
-            lambda bound, rows: KV.read(kv, layer_idx, bound=bound,
-                                        rows=rows),
-            qg, positions, lengths, lo, hi, tier_idx, **akw)
+        ctx = tiered_attention(read_fn, qg, positions, lengths, lo, hi,
+                               tier_idx, **akw)
     else:
-        keys, vals = KV.read(kv, layer_idx, bound=read_bound)
+        keys, vals = read_fn(read_bound, None)
         ctx = attention_scores(qg, keys, vals, positions, lengths, **akw)
     out_v = torch.einsum("bthr,hvr->bthv", ctx[:, :, 0],
                          layer["w_uv"].float())  # [B, T, nh, v]
@@ -196,25 +201,64 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                * cfg.attn_temp_scale + 1.0)
         q = (q.float() * tsc[:, :, None, None]).to(q.dtype)
 
-    KV.write(kv, layer_idx, k, v, positions)
+    # SWA ring cache: sliding layers keep ~window positions in a ring (read
+    # whole, masked by stored position), full layers the plain stack; with
+    # no ring every layer indexes the plain stack directly
+    ring = "k_swa" in kv and cfg.layer_is_swa(layer_idx)
+    cache_idx = (cfg.swa_index(layer_idx) if ring
+                 else cfg.full_index(layer_idx) if "k_swa" in kv
+                 else layer_idx)
+    if ring:
+        KV.write_swa(kv, cache_idx, k, v, positions, window)
+    else:
+        KV.write(kv, cache_idx, k, v, positions)
 
     rep = nh // nkv
     qg = q.reshape(b, t, nkv, rep, hd).float()
     sinks = None
     if "sinks" in layer:  # attention sinks (gpt-oss): extra logit per head
         sinks = layer["sinks"].reshape(nkv, rep).float()
-    akw = dict(scale=cfg.attention_scale or hd ** -0.5,
-               softcap=cfg.attn_logit_softcap, sliding_window=window,
-               sinks=sinks, alibi=cfg.uses_alibi)
-    if isinstance(read_bound, tuple):  # two-tier ragged decode
-        lo, hi, tier_idx = read_bound
-        ctx = tiered_attention(
-            lambda bound, rows: KV.read(kv, layer_idx, bound=bound,
-                                        rows=rows),
-            qg, positions, lengths, lo, hi, tier_idx, **akw)
+    scale = cfg.attention_scale or hd ** -0.5
+    if ring:
+        keys, vals, key_pos = KV.read_swa(kv, cache_idx)
+        ctx = attention_scores(qg, keys, vals, positions, lengths,
+                               scale=scale, softcap=cfg.attn_logit_softcap,
+                               sliding_window=window, key_positions=key_pos,
+                               sinks=sinks)
+    elif cfg.kv_format == "qjl":  # attention on the compressed keys
+        if sinks is not None:
+            raise ValueError(
+                "kv_format=qjl cannot represent attention sinks "
+                "(scores are sign-sketch estimates); use another format")
+        if cfg.uses_alibi:
+            raise ValueError(
+                "kv_format=qjl does not support ALiBi position biases "
+                "(bloom/mpt); use another kv format")
+        if isinstance(read_bound, tuple):  # qjl scores are cheap: read hi
+            read_bound = read_bound[1]
+        s_cap = kv["k"][cache_idx].shape[1] - 1
+        rb = s_cap if read_bound is None else min(read_bound, s_cap)
+        ctx = qjl_attention(
+            qg, kv["k"][cache_idx][:, :rb], kv["k_scale"][cache_idx][:, :rb],
+            kv["v"][cache_idx][:, :rb], kv["v_scale"][cache_idx][:, :rb],
+            positions, lengths, scale=scale, v_head_dim=vd,
+            softcap=cfg.attn_logit_softcap, sliding_window=window)
     else:
-        keys, vals = KV.read(kv, layer_idx, bound=read_bound)
-        ctx = attention_scores(qg, keys, vals, positions, lengths, **akw)
+        akw = dict(scale=scale, softcap=cfg.attn_logit_softcap,
+                   sliding_window=window, sinks=sinks, alibi=cfg.uses_alibi)
+
+        def read_fn(bound, rows):
+            return KV.read(kv, cache_idx, head_dim=hd, v_head_dim=vd,
+                           bound=bound, rows=rows)
+
+        if isinstance(read_bound, tuple):  # two-tier ragged decode
+            lo, hi, tier_idx = read_bound
+            ctx = tiered_attention(read_fn, qg, positions, lengths, lo, hi,
+                                   tier_idx, **akw)
+        else:
+            keys, vals = read_fn(read_bound, None)
+            ctx = attention_scores(qg, keys, vals, positions, lengths,
+                                   **akw)
     ctx = ctx.reshape(b, t, nh * vd).to(x.dtype)
 
     if "sub_norm" in layer:  # BitNet: RMSNorm on attn output before o_proj

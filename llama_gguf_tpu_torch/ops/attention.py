@@ -6,7 +6,8 @@ Mask semantics as in the JAX package: causal on positions, ``lengths``,
 sliding window (a negative window means chunked attention), logit softcap,
 attention sinks and ALiBi; GQA grouping qg [B, T, K, R, D]. Two-tier ragged
 decode attention (``tiered_attention``, ``group_take``) serves the tuple
-read bound of models/transformer.forward.
+read bound of models/transformer.forward; ``qjl_attention`` scores a qjl
+cache's sign sketches without rebuilding its keys.
 """
 
 from __future__ import annotations
@@ -144,6 +145,32 @@ def chunked_attention(qg, keys, vals, positions, lengths, *, scale: float,
         l = l * alpha + torch.exp(sk - m2)
         acc = acc * alpha[..., None]
     return acc / torch.clamp(l[..., None], min=1e-30)
+
+
+def qjl_attention(qg, k_packed, k_norms, v_packed, v_scale, positions,
+                  lengths, *, scale: float, v_head_dim: int,
+                  softcap: float = 0.0, sliding_window: int = 0):
+    """Attention on QJL-compressed keys: the scores are the sign-sketch
+    estimates (models/turboquant.qjl_scores_batched), K is never rebuilt;
+    the values are tq4-decompressed for the weighted sum.
+
+    qg [B,T,K,R,D]; k_packed [B,S,K,D/8]; k_norms [B,S,K];
+    v_packed [B,S,K,Dv/2]; v_scale [B,S,K] -> [B,T,K,R,Dv]."""
+    from ..models.turboquant import decompress, qjl_scores_batched
+
+    s = k_packed.shape[1]
+    scores = qjl_scores_batched(qg, k_packed, k_norms) * scale
+    if softcap > 0.0:
+        scores = torch.tanh(scores / softcap) * softcap
+    valid = _mask_block(positions, lengths,
+                        torch.arange(s, device=qg.device), sliding_window)
+    scores = torch.where(valid[:, :, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(valid.any(-1)[:, :, None, None, None], probs,
+                        torch.zeros_like(probs))
+    vals = decompress(v_packed, v_scale, 4, v_head_dim)
+    return torch.einsum("btkrs,bskd->btkrd", probs, vals)
 
 
 def group_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -66,6 +66,8 @@ class ServerConfig:
     device: str = "cuda"  # "cpu": the plain PyTorch path
     prefill_chunk: int = 512  # prompt tokens per batched step
     max_context_len: int | None = None
+    # any of models/kv.FORMATS; Gemma-2/3 keep their sliding-window layers
+    # in the ring cache (the server makes no context shift)
     kv_format: str = "f32"
 
 

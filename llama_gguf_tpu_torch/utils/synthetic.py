@@ -4,8 +4,8 @@ A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
 MoE, Qwen3Next hybrid and Falcon-H1 presets; the port never imports the JAX
 package). The same preset, quant and seed give the same file byte for byte
 as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS,
-SSM_PRESETS and MLA_PRESETS are the port's own, and the JAX package loads
-them too).
+SSM_PRESETS, MLA_PRESETS and GEMMA3_PRESETS are the port's own, and the JAX
+package loads them too).
 ``quant`` is any quantizable type;
 Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
@@ -198,6 +198,32 @@ MLA_PRESETS = {
         norm=True, groups=(1, 1), ctx=8192, rope_base=50000.0, eps=1e-5),
 }
 
+# Gemma-3 presets (port-only, arch gemma3): sliding-window attention on 5
+# of every 6 layers at RoPE base 1e4, the 6th global at the model's base
+# with its linear scaling, per-head QK RMSNorm, sandwich norms (the GGUF
+# stores the +1 of Gemma's norms), GELU-tanh FFN, tied embeddings; the
+# same Q4_K_M mix as the dense presets (the table Q6_K).
+GEMMA3_PRESETS = {
+    # the CPU tests' size: every width a multiple of 256 where a K-quant
+    # needs it, head_dim 64 (a power of 2, for the TurboQuant formats), a
+    # window of 16 shorter than the tests' prompts
+    "tiny-gemma3": dict(
+        vocab=512, hidden=256, layers=6, heads=4, kv_heads=2, head_dim=64,
+        ffn=512, window=16, rope_base=1e6, rope_linear=8.0, ctx=2048),
+    # google/gemma-3-4b-it config.json, text_config: vocab 262208, hidden
+    # 2560, 8 heads and 4 KV heads of head_dim 256, FFN 10240, sliding
+    # window 1024 with pattern 6, rope_theta 1e6 with linear scaling x8 on
+    # the global layers and rope_local_base_freq 1e4 on the local ones,
+    # query_pre_attn_scalar 256 (= head_dim: the default scale), tied
+    # embeddings, 131072 positions. Reduced: layers 34 -> 6, one period (5
+    # local, 1 global), for chip_smoke.py's time limit; every width is a
+    # multiple of 256, so each matrix takes the mix's own K-quant
+    "gemma-3-4b-l6": dict(
+        vocab=262208, hidden=2560, layers=6, heads=8, kv_heads=4,
+        head_dim=256, ffn=10240, window=1024, rope_base=1e6,
+        rope_linear=8.0, ctx=131072),
+}
+
 
 def build_synthetic_gguf(
     path: str,
@@ -219,6 +245,8 @@ def build_synthetic_gguf(
         return _build_ssm(path, preset, quant, seed, max_ctx)
     if preset in MLA_PRESETS:
         return _build_deepseek2(path, preset, quant, seed, max_ctx)
+    if preset in GEMMA3_PRESETS:
+        return _build_gemma3(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -760,6 +788,64 @@ def _build_deepseek2(path: str, preset: str, quant: GGMLType, seed: int,
         addq(f"{p}.ffn_down_shexp.weight", rw(hidden, sf), q6)
     w.add_tensor_np("output_norm.weight", ones(hidden))
     addq("output.weight", rw(c["vocab"], hidden), q6)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_gemma3(path: str, preset: str, quant: GGMLType, seed: int,
+                  max_ctx: int | None) -> str:
+    """A port-only Gemma-3 preset (GEMMA3_PRESETS) under arch gemma3, with
+    the GGUF keys the JAX parse_config reads (the local layers' base 1e4
+    and the pattern of 6 are the architecture's defaults there)."""
+    c = GEMMA3_PRESETS[preset]
+    a, hidden, hd = "gemma3", c["hidden"], c["head_dim"]
+    heads, kvh = c["heads"], c["kv_heads"]
+    ctx = min(c["ctx"], max_ctx) if max_ctx else c["ctx"]
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape):
+        return rng.standard_normal(shape).astype(np.float32) * 0.02
+
+    def ones(n):
+        return np.ones(n, np.float32) + rw(n)
+
+    md = {"embedding_length": hidden, "block_count": c["layers"],
+          "context_length": ctx, "vocab_size": c["vocab"],
+          "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.head_count": heads, "attention.head_count_kv": kvh,
+          "attention.key_length": hd, "attention.value_length": hd,
+          "attention.sliding_window": c["window"],
+          "rope.freq_base": c["rope_base"], "rope.scaling.type": "linear",
+          "rope.scaling.factor": c["rope_linear"],
+          "feed_forward_length": c["ffn"]}
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    for key, value in md.items():
+        w.add_metadata(f"{a}.{key}", value)
+    _add_tokenizer(w, c["vocab"])
+
+    q6 = GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q6_K
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    addq("token_embd.weight", rw(c["vocab"], hidden), q6)
+    for i in range(c["layers"]):
+        p = f"blk.{i}"
+        addq(f"{p}.attn_q.weight", rw(heads * hd, hidden))
+        addq(f"{p}.attn_k.weight", rw(kvh * hd, hidden))
+        addq(f"{p}.attn_v.weight", rw(kvh * hd, hidden))
+        addq(f"{p}.attn_output.weight", rw(hidden, heads * hd))
+        for norm, n in (("attn_q_norm", hd), ("attn_k_norm", hd),
+                        ("attn_norm", hidden), ("post_attention_norm", hidden),
+                        ("ffn_norm", hidden), ("post_ffw_norm", hidden)):
+            w.add_tensor_np(f"{p}.{norm}.weight", ones(n))
+        addq(f"{p}.ffn_gate.weight", rw(c["ffn"], hidden))
+        addq(f"{p}.ffn_up.weight", rw(c["ffn"], hidden))
+        addq(f"{p}.ffn_down.weight", rw(hidden, c["ffn"]), q6)
+    w.add_tensor_np("output_norm.weight", ones(hidden))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

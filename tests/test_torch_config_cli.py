@@ -131,9 +131,9 @@ def test_unported_config_values_raise(tmp_path, model_path):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             cli.main(["run", model_path, "--config", str(p), "--device",
                       "cpu", "-p", "hi", "-n", "2"])
-    with pytest.raises(NotImplementedError, match="kv format 'i8'"):
-        cli.main(["run", model_path, "--kv-cache-type", "i8", "--device",
-                  "cpu", "-p", "hi", "-n", "2"])
+    # every KV format is ported: the i8 cache runs
+    assert cli.main(["run", model_path, "--kv-cache-type", "i8", "--device",
+                     "cpu", "-p", "hi", "-n", "2"]) == 0
 
 
 # -- subcommands ----------------------------------------------------------------

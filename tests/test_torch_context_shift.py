@@ -161,7 +161,8 @@ def test_shift_left_one_rope_for_every_layer(fields):
 def test_shift_left_leaves_recurrent_state_and_refuses_mla():
     """Recurrent state is left alone; an MLA latent cache (rank 12, rope 4:
     keys of 16) is shifted now, as the JAX package shifts it (only the
-    trailing rope dims rotate); other cache formats still raise."""
+    trailing rope dims rotate); a ring cache raises, as in the JAX
+    package."""
     _, tcfg = model_pair(rope=dict(n_dims=16, rope_type="NEOX"))
     _, tkv = filled_caches("f32")
     state = {"S": torch.randn(2, 3, 4), "conv": torch.randn(2, 3)}
@@ -174,9 +175,10 @@ def test_shift_left_leaves_recurrent_state_and_refuses_mla():
     jkv = JKV.shift_left(jkv, 2, model_cfg=jmla)
     KV.shift_left(tkv, 2, model_cfg=mla)
     assert_same_logical(tkv, jkv, "f32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        KV.shift_left({"k": [], "v": [], "k_scale": []}, 2,
-                      model_cfg=tcfg)
+    ring = KV.init_cache(3, 1, 12, 2, 16, device="cpu",
+                         swa_layers=(True, True, False), ring_slots=8)
+    with pytest.raises(ValueError, match="context shift"):
+        KV.shift_left(ring, 2, model_cfg=tcfg)
 
 
 @pytest.fixture(scope="module")

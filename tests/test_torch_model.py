@@ -227,7 +227,8 @@ def test_runner_helpers_match_jax():
 def test_unported_options_raise(pair):
     """matmul_precision="default" is ported (held against the JAX package by
     tests/test_torch_precision.py): it loads and gives bf16-rounded kernel
-    outputs near the "highest" logits. The i8 KV cache still raises."""
+    outputs near the "highest" logits. The i8 KV cache (ported since the
+    other formats were) loads and gives an i8 cache with its scales."""
     path, jeng, teng = pair
     eng = Engine.load(path, EngineConfig(matmul_precision="default"),
                       device="cpu")
@@ -240,9 +241,9 @@ def test_unported_options_raise(pair):
     # logits by a few bf16 ulps of max |logit| (2^-7 relative each)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2.0 ** -5 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine.load(path, EngineConfig(kv_format="i8"), device="cpu")\
-            .runner.init_kv()
+    kv = Engine.load(path, EngineConfig(kv_format="i8"),
+                     device="cpu").runner.init_kv()
+    assert kv["k"][0].dtype == torch.int8 and "k_scale" in kv
 
 
 def test_cli_run_and_info(pair, capsys):
