@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c:
+in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17:
 phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
-phase 12's, phase 14's, phase 15's and phase 16b's GGUFs build in six child
-processes. Phase 9 runs inside each of phases 4, 6, 7, 12, 14 and 15, on
+phase 12's, phase 14's, phase 15's, phase 16b's and phase 17's GGUFs build
+in seven child processes. Phase 9 runs inside each of phases 4, 6, 7, 12, 14 and 15, on
 that path's engine; phase 10b inside phase 6, on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
@@ -19,8 +19,9 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and six child processes phase 6's,
-   phase 11's, phase 12's, phase 14's, phase 15's and phase 16b's.
+   process builds phase 2's GGUF and seven child processes phase 6's,
+   phase 11's, phase 12's, phase 14's, phase 15's, phase 16b's and phase
+   17's.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -333,6 +334,31 @@ plain version the graphs are held against.
    them); the context shift's runner takes the full cache. 16c: the paged
    pool's appends, a copy-on-write fork and gathers on the card equal the
    CPU's bit for bit. Prints phase 16's seconds.
+17. The encoders (models/bert.py, models/t5.py, onnx/; their GGUFs built
+   in a seventh child process). 17a: bge-base-en-v1.5 (BertModel at full
+   size: vocab 30522, hidden 768, 12 layers of 12 heads, FFN 3072, 512
+   positions), Q4_K_M, both modes: kernels 1-2 against their plain
+   versions at its qkv, o, up and down (1, 8, 512 and 4,096 rows); 32
+   sequences of 8-512 tokens through BertEncoder.encode, 8 at a time, with
+   exact launches derived from the loaded model; quant hidden states within
+   1e-3 of max |h| of dequant's, a sequence in its batch within 1e-5 of it
+   alone, Engine.embed at unit norm, /v1/embeddings over HTTP within 1e-5
+   of Engine.embed and /v1/completions's 400 body; printed: sequences/s,
+   tokens/s, an 8 x 512 batch's device ms against its bound. 17b:
+   flan-t5-base (12 + 12 layers, d_model 768, 12 heads of 64, gated-GELU
+   FFN 2048, 32 buckets, untied head), Q4_K_M, both modes: kernels 1-3 at
+   its projections (1, 8, 512 rows); Engine.generate of a 512-token
+   encoder input and 64 greedy steps with exact launches (the encoder,
+   the cross K/V, each step) and no eager step; graphed steps against
+   eager ones (tokens, 2e-4 of max |logit|), quant against dequant up to
+   the first near tie (logits within 1e-3), a 16-token input after the
+   512-token one equal to a fresh runner's, seeded sampling repeated, a
+   stop string withheld; printed: encode and cross-K/V ms, the step's
+   device ms against its byte bound, decode tok/s, capture seconds, idle
+   share; the t5encoder variant's unit-norm embedding and refused
+   generation; the CLI's run. 17c: the tiny preset's F32 GGUF as an ONNX
+   export (onnx/export.py): Engine.load's greedy tokens equal the GGUF's,
+   and its tokenizer.json round-trips. Prints phase 17's seconds.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -3615,6 +3641,521 @@ def paged_check(card: str) -> None:
         card=card)}), flush=True)
 
 
+# Phase 17: the encoder models (ROADMAP queue 1 item 11). 17a:
+# bge-base-en-v1.5 (BertModel, full depth and width) through
+# BertEncoder.encode, Engine.embed and /v1/embeddings; 17b: flan-t5-base
+# (12 + 12 layers, full width) through Engine.generate, greedy_tokens and
+# the CLI's run, its decoder step a CUDA graph, and its t5encoder variant;
+# 17c: an ONNX export of the tiny preset through Engine.load. Their GGUFs
+# build in a seventh child process (utils/synthetic.ENCODER_PRESETS)
+BGE_PRESET = "bge-base-en-v1.5"
+T5_PRESET = "flan-t5-base"
+T5ENC_PRESET = "flan-t5-base-encoder"
+BGE_SHAPE = dict(layers=12, hidden=768, heads=12, ffn=3072, vocab=30522,
+                 positions=512, types=2)
+T5_SHAPE = dict(enc=12, dec=12, hidden=768, heads=12, head_dim=64, ffn=2048,
+                vocab=32128, buckets=32, max_distance=128, untied=True)
+ENCODER_ROWS = (1, 8, 512)  # 17a-b: a decoder step, a short input, 512
+BERT_SEQS = 32  # 17a: sequences of 8-512 tokens ...
+BERT_BATCH = 8  # ... encoded 8 at a time (8 x 512 = 4,096 rows at most)
+T5_INPUT = 512  # 17b: encoder tokens, the trailing EOS included
+T5_STEPS = 64  # 17b: greedy decoder steps
+T5_SHORT = 16  # 17b: the short input after the long one
+GRAPH_REL = 2e-4  # 17b: graphed against eager steps, of max |logit|
+QUANT_REL = 1e-3  # 17a-b: quant against dequant, of max |value|
+BATCH_REL = 1e-5  # 17a: a sequence in its batch against it alone
+
+
+def linear_launches(items) -> dict[str, int]:
+    """Kernel launches of one pass over ``items``, (linear, glu) pairs: a
+    QuantLinear runs kernel 1 or 2 by its layout, a fused gate|up kernel 3
+    (glu); a dense weight none."""
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+
+    out: dict[str, int] = {}
+    for lin, glu in items:
+        if isinstance(lin, QuantLinear):
+            key = "qmatmul_glu" if glu else f"qmatmul_{lin.fmt}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _block_items(layer: dict, attn_keys=("wqkv", "wq", "wk", "wv", "wo")):
+    items = [(layer["attn"][k], False) for k in attn_keys
+             if k in layer["attn"]]
+    ffn = layer["ffn"]
+    if "gate_up" in ffn:
+        items.append((ffn["gate_up"], True))
+    items += [(ffn[k], False) for k in ("gate", "up") if k in ffn]
+    return items + [(ffn["down"], False)]
+
+
+def encoder_launches(params: dict, t5: bool) -> dict[str, dict[str, int]]:
+    """The launches derived from a loaded encoder model: BERT's forward
+    ("encode"); T5's encoder forward, the cross K/V projection of a
+    request ("cross") and one decoder step ("step")."""
+    if not t5:
+        return {"encode": linear_launches(
+            [it for layer in params["layers"] for it in _block_items(layer)])}
+    dec = params["dec"]["layers"]
+    step = [it for layer in dec for it in _block_items(layer)]
+    step += [(layer["cross"][k], False) for layer in dec
+             for k in ("wq", "wo")]
+    step.append((params.get("output"), False))
+    return {
+        "encode": linear_launches([it for layer in params["enc"]["layers"]
+                                   for it in _block_items(layer)]),
+        "cross": linear_launches([(layer["cross"][k], False) for layer in dec
+                                  for k in ("wk", "wv")]),
+        "step": linear_launches(step)}
+
+
+def exact_kernels(label: str, got: dict, want: dict) -> None:
+    for name in ("qmatmul_q4", "qmatmul_q8", "qmatmul_glu", "moe_slot",
+                 "moe_grouped", "moe_glu_grouped"):
+        check(got.get(name, 0) == want.get(name, 0),
+              f"{label}: {name} launched {got.get(name, 0)} times, derived "
+              f"{want.get(name, 0)}")
+
+
+def scaled(counts: dict, times: int) -> dict:
+    return {k: v * times for k, v in counts.items()}
+
+
+def added(*counts: dict) -> dict:
+    out: dict[str, int] = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def quant_bytes(lins) -> int:
+    """Device bytes of the QuantLinear weights among ``lins``."""
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+
+    return sum(t.numel() * t.element_size() for lin in lins
+               if isinstance(lin, QuantLinear)
+               for t in (lin.packed, lin.scales, lin.mins, lin.bias)
+               if t is not None)
+
+
+def rel_diff(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def bert_path(card: str, timer, peaks: dict, gguf: str):
+    """Phase 17a on bge-base-en-v1.5 (``gguf``). Returns (measurements,
+    launches)."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.client import RemoteChatClient, RemoteError
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.server.app import (ServerConfig, ServerState,
+                                                 run_server)
+    from llama_gguf_tpu_torch.utils.timing import bound_ms
+
+    t_phase = time.perf_counter()
+    load_s: dict[str, float] = {}
+    quant, deq = load_both(gguf, load_s)
+    enc, cfg = quant.encoder, quant.encoder.cfg
+    params = enc.params
+    layer = params["layers"][0]
+    shape = dict(layers=len(params["layers"]), hidden=cfg.hidden_size,
+                 heads=cfg.num_heads, ffn=layer["ffn"]["up"].n,
+                 vocab=params["embed"].shape[0],
+                 positions=params["position_embed"].shape[0],
+                 types=params["type_embed"].shape[0])
+    check(shape == BGE_SHAPE and quant.runner is None
+          and "wqkv" in layer["attn"], f"unexpected {BGE_PRESET} {shape}")
+    measurements = projection_checks([
+        ("qmatmul_q4", "qkv", layer["attn"]["wqkv"]),
+        ("qmatmul_q4", "o_proj", layer["attn"]["wo"]),
+        ("qmatmul_q4", "ffn_up", layer["ffn"]["up"]),
+        ("qmatmul_q8", "ffn_down", layer["ffn"]["down"]),
+    ], ENCODER_ROWS + (BERT_BATCH * 512,), timer, peaks, BGE_PRESET)
+
+    # the traffic: 32 sequences of 8-512 tokens, 8 at a time
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(8, 513, size=BERT_SEQS)
+    lens[:2] = (512, 8)
+    seqs = [rng.integers(5, cfg.vocab_size, size=int(n)).tolist()
+            for n in lens]
+    batches = [seqs[i:i + BERT_BATCH] for i in range(0, BERT_SEQS,
+                                                      BERT_BATCH)]
+    per = encoder_launches(params, t5=False)["encode"]
+    enc.encode(batches[0])  # warm-up: cuBLAS handles, kernel workspaces
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    t0 = time.perf_counter()
+    outs = [enc.encode(b) for b in batches]  # each ends in a host copy
+    wall = time.perf_counter() - t0
+    launches = dict(Q.LAUNCHES)
+    exact_kernels(BGE_PRESET, launches, scaled(per, len(batches)))
+    padded = sum(len(b) * o.shape[1] for b, o in zip(batches, outs))
+    # quant against dequant, each sequence's real rows
+    worst = 0.0
+    for b, o in zip(batches, outs):
+        d = deq.encoder.encode(b)
+        for i, ids in enumerate(b):
+            worst = max(worst, rel_diff(o[i, :len(ids)], d[i, :len(ids)]))
+    check(worst <= QUANT_REL, f"{BGE_PRESET}: quant hidden states differ "
+                              f"from dequant by {worst:.3g} of max |h|")
+    # a sequence in its ragged batch against it alone
+    alone = 0.0
+    for j in (0, 1, BERT_BATCH - 1):
+        ids = batches[0][j]
+        alone = max(alone, rel_diff(outs[0][j, :len(ids)],
+                                    enc.encode([ids])[0, :len(ids)]))
+    check(alone <= BATCH_REL, f"{BGE_PRESET}: a sequence in its batch "
+                              f"differs from it alone by {alone:.3g}")
+    # Engine.embed (CLS pooling, normalized)
+    texts = ["the quick brown fox jumps over the lazy dog",
+             "embedding search query: a passage about a model",
+             ("the lazy dog " * 30).strip()]
+    vecs = [quant.embed(t, pooling="first") for t in texts]
+    norms = [float(np.linalg.norm(v)) for v in vecs]
+    check(all(abs(n - 1) < 1e-5 for n in norms), f"{BGE_PRESET}: norms "
+                                                 f"{norms}")
+    # device time of one full batch (8 x 512) against its bound
+    full = [rng.integers(5, cfg.vocab_size, size=512).tolist()
+            for _ in range(BERT_BATCH)]
+    prof = summarize(lambda: enc.encode(full), 1)
+    rows = BERT_BATCH * 512
+    lins = [lin for lay in params["layers"] for lin, _ in _block_items(lay)]
+    weights = quant_bytes(lins)
+    nbytes = weights + 2 * rows * cfg.hidden_size * 4
+    ops = sum(2 * rows * lin.k * lin.n for lin in lins) + \
+        len(params["layers"]) * 4 * BERT_BATCH * 512 * 512 * cfg.hidden_size
+    bound, by = bound_ms(nbytes, ops, "bf16x3", peaks)
+    device = prof["device_ms_per_step"]
+
+    # /v1/embeddings over HTTP on the same engine, and the 400 body
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    config = ServerConfig(port=port, device="cuda")
+    state = ServerState(config)
+    state.serve_engine(quant, gguf)
+    check(state.batched is None, f"{BGE_PRESET}: a scheduler for an encoder")
+    server = threading.Thread(target=run_server, args=(config, state),
+                              daemon=True)
+    server.start()
+    client = RemoteChatClient(f"http://127.0.0.1:{port}", timeout=600)
+    try:
+        for _ in range(100):
+            try:
+                if client.health()["status"] == "ok":
+                    break
+            except OSError:
+                time.sleep(0.1)
+        http = client.embed(texts)
+        refused = None
+        try:
+            client.complete("hello")
+        except RemoteError as e:
+            refused = str(e)
+    finally:
+        state.shutdown()
+        server.join(timeout=30)
+    check(not server.is_alive(), f"{BGE_PRESET}: the server did not stop")
+    want = [quant.embed(t) for t in texts]
+    http_err = max(float(np.abs(np.asarray(h) - w).max())
+                   for h, w in zip(http, want))
+    check(http_err <= 1e-5, f"{BGE_PRESET}: /v1/embeddings differs from "
+                            f"Engine.embed by {http_err:.3g}")
+    check(refused == "HTTP 400: this model does not support text "
+                     "generation; use /v1/embeddings",
+          f"{BGE_PRESET}: /v1/completions answered {refused!r}")
+    print(json.dumps({"bert": dict(
+        path=BGE_PRESET, sequences=BERT_SEQS, real_tokens=int(lens.sum()),
+        padded_tokens=padded, seconds=wall, sequences_per_s=BERT_SEQS / wall,
+        tokens_per_s=float(lens.sum()) / wall,
+        batch_8x512_device_ms=device, batch_8x512_bound_ms=bound,
+        bound_by=by, bound_bytes=nbytes, bound_ops=ops,
+        bound_share=(bound / device if isinstance(device, float)
+                     else "not measured"),
+        batch_8x512_wall_ms=prof["wall_ms_per_step"],
+        batch_8x512_idle_share=prof["device_idle_share"],
+        kernels_per_batch=prof["kernels_launched_per_step"],
+        device_ms_by_kernel=prof["device_ms_per_step_by_kernel"],
+        launches=launches, launches_per_forward=per,
+        quant_vs_dequant=worst, batch_vs_alone=alone, embed_norms=norms,
+        http_vs_engine=http_err, load_s=load_s, card=card)}), flush=True)
+    del deq
+    log(f"phase 17a done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches
+
+
+def t5_input_text(tokenizer, n: int) -> str:
+    """A text the tokenizer spells in exactly ``n`` tokens: PROMPT repeated,
+    then single letters (each one byte-fallback token)."""
+    text = PROMPT
+    while len(tokenizer.encode(text + " " + PROMPT)) <= n:
+        text += " " + PROMPT
+    for _ in range(8):
+        short = n - len(tokenizer.encode(text))
+        if short <= 0:
+            break
+        text += "a" * short
+    check(len(tokenizer.encode(text)) == n, f"no text of {n} tokens")
+    return text
+
+
+def t5_path(card: str, timer, peaks: dict, gguf: str, enc_gguf: str):
+    """Phase 17b on flan-t5-base (``gguf``) and its t5encoder variant
+    (``enc_gguf``). Returns (measurements, launches)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch import cli
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.models import t5 as T5
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    t_phase = time.perf_counter()
+    load_s: dict[str, float] = {}
+    quant, deq = load_both(gguf, load_s)
+    t5, cfg, params = quant.t5, quant.t5.cfg, quant.t5.params
+    dl = params["dec"]["layers"][0]
+    shape = dict(enc=len(params["enc"]["layers"]),
+                 dec=len(params["dec"]["layers"]), hidden=cfg.hidden_size,
+                 heads=cfg.num_heads, head_dim=cfg.head_dim,
+                 ffn=dl["ffn"]["gate_up"].splits[0],
+                 vocab=params["embed"].shape[0], buckets=cfg.rel_buckets,
+                 max_distance=cfg.rel_max_distance,
+                 untied=isinstance(params.get("output"), QuantLinear))
+    check(shape == T5_SHAPE and "wqkv" in dl["attn"]
+          and isinstance(dl["ffn"]["gate_up"], QuantLinear),
+          f"unexpected {T5_PRESET} {shape}")
+    measurements = projection_checks([
+        ("qmatmul_q4", "self qkv", dl["attn"]["wqkv"]),
+        ("qmatmul_q4", "o_proj (cross q, k, v, o)", dl["attn"]["wo"]),
+        ("qmatmul_glu", "gate|up", dl["ffn"]["gate_up"]),
+        ("qmatmul_q8", "ffn_down", dl["ffn"]["down"]),
+        ("qmatmul_q8", "lm_head", params["output"]),
+    ], ENCODER_ROWS, timer, peaks, T5_PRESET, act="gelu")
+
+    greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    eos = quant.tokenizer.eos_id
+    text = t5_input_text(quant.tokenizer, T5_INPUT - 1)  # + the EOS
+    ids = quant._t5_encoder_ids(text)
+    check(len(ids) == T5_INPUT and T5_INPUT <= t5.enc_capacity,
+          f"{len(ids)} encoder tokens, capacity {t5.enc_capacity}")
+    per = encoder_launches(params, t5=True)
+    quant.generate(text, max_tokens=2, sampler=greedy)  # capture, uncounted
+    torch.cuda.synchronize()
+    Q.reset_launches()
+    t5.eager_steps = 0
+    replays0 = sum(t5.replays.values())
+    out = quant.generate(text, max_tokens=T5_STEPS, sampler=greedy)
+    launches = dict(Q.LAUNCHES)
+    stats = quant.stats
+    steps = sum(t5.replays.values()) - replays0
+    check(t5.eager_steps == 0 and steps >= 1,
+          f"{T5_PRESET}: {t5.eager_steps} eager steps, {steps} replays")
+    exact_kernels(T5_PRESET, launches, added(
+        per["encode"], per["cross"], scaled(per["step"], steps)))
+    print(f"{T5_PRESET} main path: {stats.prompt_tokens} encoder tokens in "
+          f"{stats.prefill_time * 1e3:.1f} ms (encode + cross K/V), decode "
+          f"{stats.generated_tokens} tok @ {stats.decode_tps:.1f} tok/s over "
+          f"{steps} graphed steps, launches {launches} | {card}", flush=True)
+
+    # graphed against eager; quant against dequant; greedy_tokens
+    g_l, e_l, d_l = [], [], []
+    toks = t5.generate_ids(ids, T5_STEPS, eos, record=g_l)
+    eager = t5.generate_ids(ids, T5_STEPS, eos, eager=True, record=e_l)
+    check(toks == eager, f"{T5_PRESET}: graphed tokens {toks[:8]} != eager "
+                         f"{eager[:8]}")
+    graph_err = max(rel_diff(a, b) for a, b in zip(g_l, e_l))
+    check(graph_err <= GRAPH_REL, f"{T5_PRESET}: graphed logits differ from "
+                                  f"eager by {graph_err:.3g}")
+    check(quant.greedy_tokens(text, T5_STEPS) == toks,
+          f"{T5_PRESET}: greedy_tokens != the runner's tokens")
+    want = deq.t5.generate_ids(ids, T5_STEPS, eos, record=d_l)
+    margins = []
+    for row in d_l:
+        top2 = np.sort(row)[-2:]
+        margins.append(float((top2[1] - top2[0]) / np.abs(row).max()))
+    tie = same_until_tie(T5_PRESET, toks, want, margins)
+    upto = len(g_l) if tie["first_diff"] is None else tie["first_diff"] + 1
+    deq_err = max(rel_diff(a, b) for a, b in zip(g_l[:upto], d_l[:upto]))
+    check(deq_err <= QUANT_REL, f"{T5_PRESET}: quant logits differ from "
+                                f"dequant by {deq_err:.3g}")
+    # the short input after the long one, against a new runner (a fresh
+    # engine's) on the same weights
+    short = ids[:T5_SHORT - 1] + [ids[-1]]
+    s_l, f_l = [], []
+    got = t5.generate_ids(short, T5_STEPS, eos, record=s_l)
+    fresh = T5.T5Runner(params, cfg, max_seq=t5.max_seq, device="cuda")
+    ref = fresh.generate_ids(short, T5_STEPS, eos, record=f_l)
+    reuse_err = max(rel_diff(a, b) for a, b in zip(s_l, f_l))
+    check(got == ref and reuse_err <= 1e-6,
+          f"{T5_PRESET}: the short input after the long one gave {got[:8]} "
+          f"(logits {reuse_err:.3g} off) where a fresh runner gave {ref[:8]}")
+    del fresh
+    # seeded sampling repeats itself; a stop string does not leak
+    sampled = [quant.generate(text, max_tokens=32, sampler=SamplerConfig(
+        temperature=0.8, seed=7)) for _ in range(2)]
+    check(sampled[0] == sampled[1], f"{T5_PRESET}: seeded runs differ")
+    stop = sampled[0][len(sampled[0]) // 2:][:3]
+    stopped = quant.generate(text, max_tokens=32, sampler=SamplerConfig(
+        temperature=0.8, seed=7), stop=[stop]) if stop else ""
+    check(not stop or (stopped == sampled[0][:sampled[0].index(stop)]
+                       and stop not in stopped),
+          f"{T5_PRESET}: stop {stop!r} gave {stopped!r} of {sampled[0]!r}")
+
+    # where the time goes: encode and cross K/V (CUDA events), graphed
+    # steps (torch.profiler) against the step's byte bound
+    def events_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    with torch.no_grad():
+        enc_out, _ = t5.encode_ids(ids)
+        encode_ms = events_ms(lambda: t5.encode_ids(ids))
+        cross_ms = events_ms(lambda: T5.t5_cross_kv(params, cfg, enc_out))
+    sess = t5.begin(ids)
+    t5.step_host(sess, cfg.decoder_start_token_id, 0)
+    prof = summarize(lambda: [t5.step_host(sess, 5, t)
+                              for t in range(1, 17)], 16)
+    dec = params["dec"]["layers"]
+    lins = [lin for layer in dec for lin, _ in _block_items(layer)]
+    lins += [layer["cross"][k] for layer in dec for k in ("wq", "wo")]
+    lins.append(params["output"])
+    caches = 2 * len(dec) * (t5.max_seq + t5.enc_capacity) * \
+        cfg.num_heads * cfg.head_dim * 4
+    nbytes = quant_bytes(lins) + caches
+    bound = nbytes / peaks["bytes"] * 1e3
+    device = prof["device_ms_per_step"]
+    key = ("t5", t5.enc_capacity)
+    print(json.dumps({"t5": dict(
+        path=T5_PRESET, encoder_tokens=len(ids), decode_tps=stats.decode_tps,
+        prefill_ms=stats.prefill_time * 1e3, encode_ms=encode_ms,
+        cross_kv_ms=cross_ms, step_device_ms=device,
+        step_wall_ms=prof["wall_ms_per_step"],
+        step_idle_share=prof["device_idle_share"],
+        kernels_per_step=prof["kernels_launched_per_step"],
+        device_ms_by_kernel=prof["device_ms_per_step_by_kernel"],
+        kernels_1_3_ms_per_step=(prof["kernels_1_2_ms_per_step"]
+                                 + prof["kernel_3_ms_per_step"]),
+        step_byte_bound_ms=bound, step_bytes=nbytes, cache_bytes=caches,
+        bound_share=(bound / device if isinstance(device, float)
+                     else "not measured"),
+        capture_s=t5.capture_seconds.get(key), graphs=len(t5._graphs),
+        pool_bytes=t5.pool_bytes, launches=launches,
+        launches_per_step=per["step"], launches_per_request=added(
+            per["encode"], per["cross"]), graph_vs_eager=graph_err,
+        quant_vs_dequant=deq_err, near_tie=tie, short_after_long=reuse_err,
+        generated=out[:40], load_s=load_s, card=card)}), flush=True)
+    del deq, sess
+    torch.cuda.empty_cache()
+
+    # the t5encoder variant: embeddings, and generation refused
+    t0 = time.perf_counter()
+    encoder = Engine.load(enc_gguf, EngineConfig(weight_mode="quant"),
+                          device="cuda")
+    vec = encoder.embed("the quick brown fox")
+    check(abs(float(np.linalg.norm(vec)) - 1) < 1e-5 and
+          vec.shape == (cfg.hidden_size,), f"{T5ENC_PRESET}: embedding")
+    try:
+        encoder.generate("hello", max_tokens=4)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, f"{T5ENC_PRESET}: generate did not raise")
+    log(f"{T5ENC_PRESET}: loaded and checked in "
+        f"{time.perf_counter() - t0:.1f}s")
+    del encoder
+    # the CLI's run on the GGUF (its own load, on the card by default)
+    out_io, err_io = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_io), \
+            contextlib.redirect_stderr(err_io):
+        rc = cli.main(["run", gguf, "-p", PROMPT, "-n", "8",
+                       "--temperature", "0", "--no-stream"])
+    decoded = re.search(r"decode (\d+) tok @", err_io.getvalue())
+    check(rc == 0 and decoded is not None,
+          f"{T5_PRESET}: the CLI's run gave {rc}, {out_io.getvalue()!r}, "
+          f"{err_io.getvalue()[-300:]!r}")
+    log(f"{T5_PRESET}: the CLI's run took {time.perf_counter() - t0:.1f}s: "
+        f"{err_io.getvalue().strip()[-80:]}")
+    log(f"phase 17b done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches
+
+
+def onnx_path(card: str) -> None:
+    """Phase 17c: the tiny preset's F32 GGUF exported as an HF-Optimum-style
+    ONNX directory (onnx/export.py: model.onnx, config.json, a Unigram
+    tokenizer.json) and loaded by Engine.load on the card: its greedy tokens
+    equal the GGUF's, and the tokenizer round-trips its texts."""
+    import tempfile
+
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.onnx.export import export_gguf
+
+    t0 = time.perf_counter()
+    gguf = build_model("tiny", "F32")
+    with tempfile.TemporaryDirectory() as d:
+        path = export_gguf(gguf, d)
+        onnx = Engine.load(path, EngineConfig(), device="cuda")
+        ref = Engine.load(gguf, EngineConfig(weight_mode="dequant"),
+                          device="cuda")
+        ids = [5, 77, 300, 12, 9, 401, 33, 250]
+        got, want = onnx.greedy_tokens(ids, 16), ref.greedy_tokens(ids, 16)
+        check(got == want, f"ONNX greedy tokens {got} != the GGUF's {want}")
+        texts = ["hello world", "the quick brown fox jumps over the lazy dog",
+                 "onnx model export 42!"]
+        back = [onnx.tokenizer.decode(onnx.tokenizer.encode(t))
+                for t in texts]
+        check(back == texts, f"tokenizer.json round trip {back}")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"onnx": dict(tokens=got, round_trip=texts,
+                                   seconds=seconds, card=card)}), flush=True)
+    log(f"phase 17c done in {seconds:.1f}s")
+
+
+def build_encoders() -> dict:
+    """Phase 17's GGUFs, built in a child process."""
+    return {p: build_model(p) for p in (BGE_PRESET, T5_PRESET, T5ENC_PRESET)}
+
+
+def encoder_path(card: str, timer, peaks: dict, builds: dict):
+    """Phase 17 (a, b, c). Returns (measurements, launches by path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    bert, bert_launches = bert_path(card, timer, peaks, builds[BGE_PRESET])
+    torch.cuda.empty_cache()
+    t5m, t5_launches = t5_path(card, timer, peaks, builds[T5_PRESET],
+                               builds[T5ENC_PRESET])
+    torch.cuda.empty_cache()
+    onnx_path(card)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"phase_17": dict(seconds=seconds, card=card)}),
+          flush=True)
+    log(f"phase 17 took {seconds:.1f}s")
+    return bert + t5m, {BGE_PRESET: bert_launches, T5_PRESET: t5_launches}
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3623,11 +4164,12 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's, 15's and 16b's
-    # GGUFs (host numpy work, minutes) build in six child processes while
-    # the dense path runs; leaving the block waits for the children
+    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's, 15's, 16b's
+    # and 17's GGUFs (host numpy work, minutes) build in seven child
+    # processes while the dense path runs; leaving the block waits for the
+    # children
     with ProcessPoolExecutor(
-            max_workers=6,
+            max_workers=7,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         moe_gguf = pool.submit(build_model, MOE_PRESET, max_ctx=2048)
         formats = pool.submit(build_formats)
@@ -3635,12 +4177,13 @@ def main() -> int:
         granite_gguf = pool.submit(build_model, GRANITE_PRESET, max_ctx=2048)
         mla_gguf = pool.submit(build_model, MLA_PRESET, max_ctx=2048)
         gemma_gguf = pool.submit(build_model, GEMMA_PRESET)
+        encoders = pool.submit(build_encoders)
         return run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
-                   gemma_gguf)
+                   gemma_gguf, encoders)
 
 
 def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
-        gemma_gguf) -> int:
+        gemma_gguf, encoders) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -3751,11 +4294,16 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
         seconds=phase_16_s, seconds_16a=phase_16a_s,
         seconds_16bc=phase_16_s - phase_16a_s, card=card)}), flush=True)
     log(f"phase 16 took {phase_16_s:.1f}s in all")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    builds = encoders.result()
+    log(f"waited {time.perf_counter() - t0:.1f}s for phase 17's GGUFs")
+    enc, enc_launches = encoder_path(card, timer, peaks, builds)
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [m for m in (dense + moe + probe + fmts + hybrid + mamba
-                            + tiny + mla + mla_tiny + gemma)
+                            + tiny + mla + mla_tiny + gemma + enc)
                 if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
@@ -3775,7 +4323,8 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
             (f"{MLA_LABEL} batched", mla_batched_launches),
             ("DeepSeek tiny presets (15c)", mla_tiny_launches),
             *kv_launches.items(), (GEMMA_LABEL, ring_launches),
-            (f"{GEMMA_LABEL} batched", ring_batched_launches))
+            (f"{GEMMA_LABEL} batched", ring_batched_launches),
+            *enc_launches.items())
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

@@ -1,7 +1,9 @@
 """Carry weights and KV caches across from the JAX package.
 
-``params_from_numpy`` turns llama_gguf_tpu's params into the port's;
-``kv_from_numpy`` and ``kv_to_numpy`` carry a KV cache either way. The
+``params_from_numpy`` turns llama_gguf_tpu's params into the port's (decoder,
+BERT and T5 trees alike: nested dicts, lists and tuples of the leaves
+below); ``kv_from_numpy`` and ``kv_to_numpy`` carry a KV cache either way,
+a T5 decoder cache ("k", "v" and the cross "ck", "cv") included. The
 caller converts the JAX tree to numpy first (for example
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports
 nothing of JAX or of the JAX package: QuantLinear-, DenseLinear-,
@@ -71,6 +73,7 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 
 
 _STATE = ("deltanet", "mamba")
+_CROSS = ("ck", "cv")  # a T5 decoder cache's cross K/V: not positional
 
 
 def kv_from_numpy(kv: dict, device="cpu") -> dict:
@@ -79,9 +82,11 @@ def kv_from_numpy(kv: dict, device="cpu") -> dict:
     S, H], packed uint8 tq and qjl buffers, float8 arrays as ml_dtypes
     arrays, a ring's "k_swa"/"v_swa"/"swa_pos", and for a hybrid model
     "deltanet": L x {"S", "conv"} or "mamba": {"conv": L x ..., "ssm": L x
-    ...}}) to the port's layout, where every positional buffer carries one
-    extra drop slot on axis 1 (models/kv.py): zeros, -1 for ``swa_pos``."""
-    if not {"k", "v"} <= set(kv) <= set(POSITIONAL + _STATE):
+    ...}}, or a T5 decoder cache's "ck"/"cv": L x [B, S_enc, H, D]) to the
+    port's layout, where every positional buffer carries one extra drop
+    slot on axis 1 (models/kv.py): zeros, -1 for ``swa_pos``; the cross K/V
+    come across as they are."""
+    if not {"k", "v"} <= set(kv) <= set(POSITIONAL + _STATE + _CROSS):
         raise ValueError(f"kv_from_numpy: unknown cache keys {sorted(kv)}")
 
     def pad(a, fill):
@@ -91,6 +96,9 @@ def kv_from_numpy(kv: dict, device="cpu") -> dict:
 
     out = {key: [pad(a, -1 if key == "swa_pos" else 0) for a in kv[key]]
            for key in POSITIONAL if key in kv}
+    for key in _CROSS:
+        if key in kv:
+            out[key] = [_tensor(a, device) for a in kv[key]]
     if "deltanet" in kv:
         out["deltanet"] = [{key: _tensor(st[key], device)
                             for key in ("S", "conv")} for st in kv["deltanet"]]
@@ -114,6 +122,9 @@ def kv_to_numpy(kv: dict) -> dict:
 
     out = {key: [host(a[:, :-1]) for a in kv[key]]
            for key in POSITIONAL if key in kv}
+    for key in _CROSS:
+        if key in kv:
+            out[key] = [host(a) for a in kv[key]]
     if "deltanet" in kv:
         out["deltanet"] = [{key: host(st[key]) for key in ("S", "conv")}
                            for st in kv["deltanet"]]

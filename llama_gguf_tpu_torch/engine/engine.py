@@ -1,5 +1,11 @@
 """Engine: model + tokenizer + sampler -> text generation (port of
-llama_gguf_tpu/engine/engine.py, GGUF decoders only).
+llama_gguf_tpu/engine/engine.py).
+
+``Engine.load`` takes a GGUF decoder (a ModelRunner), a T5 or t5encoder GGUF
+(models/t5.T5Runner: seq2seq generation and pooled encoder embeddings), a
+BERT-family encoder-only GGUF (models/bert.BertEncoder: embeddings only), or
+an HF Optimum ONNX export with its config.json and tokenizer.json
+(onnx/loader.py, tokenizer/hf_json.py) into the same ModelRunner.
 
 Prefill runs the prompt through one bucketed forward; decode runs one forward
 per token with the KV cache updated in place on the device. On CUDA both
@@ -93,9 +99,12 @@ class GenerationStats:
 
 
 class Engine:
-    def __init__(self, runner: ModelRunner, tokenizer, config: EngineConfig,
-                 gguf: GGUFFile | None = None):
+    def __init__(self, runner: ModelRunner | None, tokenizer,
+                 config: EngineConfig, gguf: GGUFFile | None = None,
+                 encoder=None, t5=None):
         self.runner = runner
+        self.encoder = encoder  # BertEncoder of an encoder-only model
+        self.t5 = t5  # T5Runner of an encoder-decoder model
         self.tokenizer = tokenizer
         self.config = config
         self.gguf = gguf
@@ -124,18 +133,65 @@ class Engine:
         config = config or EngineConfig()
         dev = resolve_device(device)
         t0 = time.time()
+        if str(path).endswith(".onnx"):
+            return cls._load_onnx(path, config, dev, t0)
         gguf = GGUFFile.open(path)
         tokenizer = Tokenizer.from_gguf(gguf.metadata)
         # a serving runner on this device may capture meanwhile: its
         # "thread_local" captures survive this thread's allocations, copies
         # and kernels, so a load must make no device-wide synchronize
         loader = ModelLoader(gguf, mode=config.weight_mode, device=dev)
+        info = loader.config.arch_info
+        if info is not None and info.name in ("t5", "t5encoder"):
+            from ..models.t5 import T5Runner
+
+            params, cfg = loader.build()
+            log.info("loaded encoder-decoder %s (%s, %d enc / %d dec layers) "
+                     "on %s in %.1fs", path, cfg.arch,
+                     len(params["enc"]["layers"]),
+                     len(params.get("dec", {}).get("layers", ())), dev,
+                     time.time() - t0)
+            # the decoder cache is capped at 1024 slots unless
+            # max_context_len says otherwise (T5 models rarely decode long)
+            dec_cap = config.max_context_len or min(cfg.max_seq_len, 1024)
+            return cls(None, tokenizer, config, gguf, t5=T5Runner(
+                params, cfg, max_seq=dec_cap, device=dev,
+                matmul_precision=config.matmul_precision))
+        if info is not None and info.is_encoder_only:
+            from ..models.bert import BertEncoder, load_bert
+
+            params, cfg = load_bert(loader)
+            log.info("loaded encoder-only %s (%s, %d layers) on %s in %.1fs",
+                     path, cfg.arch, cfg.num_layers, dev, time.time() - t0)
+            return cls(None, tokenizer, config, gguf, encoder=BertEncoder(
+                params, cfg, device=dev,
+                matmul_precision=config.matmul_precision))
         params, cfg = loader.build()
         runner = make_runner(params, cfg, config, dev)
         log.info("loaded %s (%s, %d layers, vocab %d) on %s in %.1fs", path,
                  cfg.arch, cfg.num_layers, cfg.vocab_size, dev,
                  time.time() - t0)
         return cls(runner, tokenizer, config, gguf)
+
+    @classmethod
+    def _load_onnx(cls, path: str, config: EngineConfig, dev,
+                   t0: float) -> "Engine":
+        """An HF Optimum export, with tokenizer.json (when present) from the
+        same directory."""
+        from ..onnx.loader import load_onnx_model
+
+        params, cfg = load_onnx_model(path, device=dev)
+        tok_path = os.path.join(os.path.dirname(os.path.abspath(path)),
+                                "tokenizer.json")
+        tokenizer = None
+        if os.path.exists(tok_path):
+            from ..tokenizer.hf_json import HFTokenizer
+
+            tokenizer = HFTokenizer(tok_path)
+        runner = make_runner(params, cfg, config, dev)
+        log.info("loaded ONNX %s (%s, %d layers) on %s in %.1fs", path,
+                 cfg.arch, cfg.num_layers, dev, time.time() - t0)
+        return cls(runner, tokenizer, config)
 
     def save_prompt_cache(self, path: str | None = None) -> int:
         """Write the prompt cache to disk (a llama.cpp session file); path
@@ -199,11 +255,86 @@ class Engine:
     def _decode(self, tok: int, pos: int, kv: dict) -> np.ndarray:
         return self.runner.decode_one(tok, pos, kv, host=True)[0]
 
+    def _t5_encoder_ids(self, prompt: str | list[int]) -> list[int]:
+        """Tokenize (or pass through) the encoder input, with the trailing
+        EOS that the llama.cpp and HF T5 conventions expect."""
+        ids = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
+               else list(prompt))
+        eos = self.tokenizer.eos_id if self.tokenizer else None
+        if eos is not None and (not ids or ids[-1] != eos):
+            ids = ids + [eos]
+        return ids
+
+    def _t5_stream(self, prompt: str, max_tokens: int, sampler, stop,
+                   on_token) -> Iterator[str]:
+        """Seq2seq generation: encode the prompt once (with its trailing
+        EOS), load the T5 runner's decoder cache, then decode from
+        decoder_start_token_id one graphed step at a time. Stop strings use
+        the batched engine's prefix-withholding buffer."""
+        t5 = self.t5
+        if "dec" not in t5.params:
+            raise RuntimeError(
+                "t5encoder model: use embed(), not generate()")
+        if sampler is not None and isinstance(sampler, SamplerConfig):
+            sampler = Sampler(sampler)
+        ids = self._t5_encoder_ids(prompt)
+        self.stats = GenerationStats(prompt_tokens=len(ids))
+        history: list[int] = []
+
+        def pick(row):  # row: 1-D [V] raw logits
+            if sampler is None:
+                return int(np.argmax(row))
+            return sampler.sample(row, history)
+
+        from .batched import _StopBuffer
+
+        decoder = self.tokenizer.streaming_decoder()
+        stopbuf = _StopBuffer(stop or [])
+        with t5.stream:
+            t0 = time.time()
+            sess = t5.begin(ids)
+            self.stats.prefill_time = time.time() - t0
+            t1 = time.time()
+            tok = t5.cfg.decoder_start_token_id
+            for t in range(min(max_tokens, t5.max_seq - 1)):
+                tok = pick(t5.step_host(sess, tok, t))
+                if self.tokenizer.is_eog(tok):
+                    break
+                history.append(tok)
+                self.stats.generated_tokens += 1
+                piece = decoder.push(tok)
+                if piece:
+                    out, hit = stopbuf.push(piece)
+                    if out:
+                        if on_token:
+                            on_token(out)
+                        yield out
+                    if hit:
+                        self.stats.decode_time = time.time() - t1
+                        return
+            tail = stopbuf.flush()
+            if tail:
+                if on_token:
+                    on_token(tail)
+                yield tail
+            self.stats.decode_time = time.time() - t1
+
     def generate_streaming(self, prompt: str, max_tokens: int = 128,
                            sampler: SamplerConfig | Sampler | None = None,
                            stop: list[str] | None = None,
                            on_token: Callable[[str], None] | None = None,
                            grammar=None) -> Iterator[str]:
+        if self.t5 is not None:  # encoder-decoder (T5) path
+            if grammar is not None:
+                raise ValueError(
+                    "grammar-constrained decoding is not supported for "
+                    "T5 models")
+            yield from self._t5_stream(prompt, max_tokens, sampler, stop,
+                                       on_token)
+            return
+        if self.runner is None:
+            raise RuntimeError(
+                "encoder-only model: use embed(), not generate()")
         if sampler is None:
             sampler = Sampler(SamplerConfig(seed=self.config.seed))
         elif isinstance(sampler, SamplerConfig):
@@ -286,6 +417,10 @@ class Engine:
 
     def greedy_tokens(self, prompt_ids: list[int], max_tokens: int) -> list[int]:
         """Pure greedy decode for parity harnesses: returns generated ids."""
+        if self.t5 is not None:
+            eos = self.tokenizer.eos_id if self.tokenizer else None
+            return self.t5.generate_ids(self._t5_encoder_ids(prompt_ids),
+                                        max_tokens, eos_id=eos)
         with self._stream:
             logits, kv, pos = self._prefill(prompt_ids)
             out = []
@@ -304,10 +439,21 @@ class Engine:
 
     def embed(self, text: str, pooling: str = "mean",
               normalize: bool = True) -> np.ndarray:
+        ids = self.tokenizer.encode(text)
+        if self.encoder is not None:  # encoder-only (BERT-family) model
+            return self.encoder.embed(ids, pooling=pooling,
+                                      normalize=normalize)
+        if self.t5 is not None:  # t5 / t5encoder: pooled encoder output
+            h = self.t5.encode_host(ids)
+            vec = h[-1] if pooling == "last" else (
+                h[0] if pooling == "cls" else h.mean(axis=0))
+            if normalize:
+                vec = vec / (np.linalg.norm(vec) + 1e-12)
+            return vec
         from ..models.embeddings import extract_embedding
 
-        return extract_embedding(self.runner, self.tokenizer.encode(text),
-                                 pooling=pooling, normalize=normalize)
+        return extract_embedding(self.runner, ids, pooling=pooling,
+                                 normalize=normalize)
 
     # -- chat ----------------------------------------------------------------
 

@@ -5,7 +5,9 @@ Mixtral-style sparse MoE with optional shared experts, Qwen3Next's
 DeltaNet layers, models/deltanet.py, the Mamba family, models/mamba.py:
 Mamba-1, Mamba-2, Falcon-H1's parallel hybrid and LFM2's short conv, and
 the DeepSeek family: multi-head latent attention and DeepSeek-V3's routing
-bias).
+bias), and T5 (models/t5.load_t5). Encoder-only BERT-family models load
+through models/bert.load_bert, which the engine calls, as in the JAX
+package.
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -369,12 +371,10 @@ class ModelLoader:
     def build(self) -> tuple[dict, ModelConfig]:
         cfg = self.config
         info = cfg.arch_info
-        if info is not None and (info.name in ("t5", "t5encoder")
-                                 or info.is_encoder_only):
-            # the JAX engine sends these to models/t5.py and models/bert.py
-            raise NotImplementedError(
-                f"{info.name}: encoder-decoder and encoder-only models are "
-                "not ported yet (ROADMAP queue 1 item 11)")
+        if info is not None and info.name in ("t5", "t5encoder"):
+            from .t5 import load_t5  # encoder-decoder stacks (enc./dec.)
+
+            return load_t5(self, cfg), cfg
         params: dict[str, Any] = {}
         emb_name = "token_embd.weight"
         emb_info = self.gguf.tensors[emb_name]

@@ -193,6 +193,16 @@ def dequantize_weight(ql: QuantLinear) -> torch.Tensor:
     return w
 
 
+def apply_qkv(attn: dict, x: torch.Tensor, precision: str | None = None):
+    """(q, k, v) of ``attn``'s fused "wqkv" (cut at its splits) or of its
+    separate "wq", "wk", "wv"."""
+    if "wqkv" in attn:
+        nq, nk, _ = attn["wqkv"].splits
+        qkv = apply(attn["wqkv"], x, precision)
+        return qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
+    return tuple(apply(attn[key], x, precision) for key in ("wq", "wk", "wv"))
+
+
 def apply(lin, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
     """y = x @ W (+ bias). x: [..., K] -> [..., N]. ``precision`` reaches the
     quantized kernels (bfloat16 outputs in "default"), whose output is cast

@@ -112,23 +112,34 @@ class ServerState:
             max_context_len=c.max_context_len, max_batch=c.max_batch,
             weight_mode=c.weight_mode, kv_format=c.kv_format),
             device=c.device)
+        self.serve_engine(engine, path)
+
+    def serve_engine(self, engine: Engine, path: str) -> None:
+        """Serve ``engine``, loaded from ``path``: stop the old scheduler,
+        make (and warm up) the new one when the engine has a decoder
+        runner, then swap them in."""
+        c = self.config
         with self.lock:
             old = self.batched
             self.engine = self.batched = None
             if old is not None:
                 old.shutdown()
-            pcache = (PromptCache(max_bytes=c.prompt_cache_bytes)
-                      if c.prompt_cache_bytes > 0 else None)
-            batched = BatchedEngine(engine.runner, engine.tokenizer,
-                                    max_queue=c.max_queue,
-                                    prompt_cache=pcache,
-                                    prefill_chunk=c.prefill_chunk)
-            if c.warmup:
-                try:
-                    self._warmup(batched)
-                except BaseException:
-                    batched.shutdown()
-                    raise
+            batched = None
+            # an encoder-only or encoder-decoder model (no decoder runner)
+            # serves /v1/embeddings only: no scheduler, no warm-up
+            if engine.runner is not None:
+                pcache = (PromptCache(max_bytes=c.prompt_cache_bytes)
+                          if c.prompt_cache_bytes > 0 else None)
+                batched = BatchedEngine(engine.runner, engine.tokenizer,
+                                        max_queue=c.max_queue,
+                                        prompt_cache=pcache,
+                                        prefill_chunk=c.prefill_chunk)
+                if c.warmup:
+                    try:
+                        self._warmup(batched)
+                    except BaseException:
+                        batched.shutdown()
+                        raise
             self.engine, self.batched = engine, batched
             self.model_name = c.served_model_name or path.rsplit("/", 1)[-1]
             c.model_path = path
@@ -412,13 +423,20 @@ def _queue_status(st: ServerState, req: _Request):
 
 
 def _props(st: ServerState, req: _Request):
-    """Model/server properties (llama-server /props analogue)."""
+    """Model/server properties (llama-server /props analogue); an encoder
+    model's config comes from its T5 runner or BERT encoder."""
     engine, batched = st.current()
-    cfg = engine.runner.cfg if engine is not None else None
+    cfg = None
+    if engine is not None:
+        r, t5, enc = engine.runner, engine.t5, engine.encoder
+        cfg = (r.cfg if r is not None else t5.cfg if t5 is not None
+               else enc.cfg if enc is not None else None)
     return _json({
         "model": st.model_name,
         "arch": cfg.arch if cfg else None,
-        "n_ctx": engine.runner.max_seq if engine is not None else 0,
+        "n_ctx": (engine.runner.max_seq
+                  if engine is not None and engine.runner
+                  else (cfg.max_seq_len if cfg else 0)),
         "n_layers": cfg.num_layers if cfg else 0,
         "n_embd": cfg.hidden_size if cfg else 0,
         "n_vocab": cfg.vocab_size if cfg else 0,
@@ -707,11 +725,30 @@ def _require_model(route):
     return wrapped
 
 
+def _require_generation(route):
+    """``_require_model``, then a 400 for a model without a scheduler (the
+    JAX server's bodies, word for word)."""
+    def wrapped(st: ServerState, req: _Request, engine: Engine,
+                batched: BatchedEngine):
+        if batched is None:
+            if engine.t5 is not None:
+                # encoder-decoder models DO generate, just not through the
+                # server's batched scheduler
+                return _err(400, "generation for encoder-decoder models"
+                                 " is only available via the CLI or the"
+                                 " Engine API; this server exposes"
+                                 " /v1/embeddings only")
+            return _err(400, "this model does not support text "
+                             "generation; use /v1/embeddings")
+        return route(st, req, engine, batched)
+    return _require_model(wrapped)
+
+
 ROUTES = {
     "GET": {"/health": _health, "/metrics": _metrics, "/props": _props,
             "/v1/models": _models, "/v1/queue": _queue_status},
-    "POST": {"/v1/completions": _require_model(_completions),
-             "/v1/chat/completions": _require_model(_chat_completions),
+    "POST": {"/v1/completions": _require_generation(_completions),
+             "/v1/chat/completions": _require_generation(_chat_completions),
              "/v1/embeddings": _require_model(_embeddings),
              "/v1/internal/load_model": _load_model,
              "/v1/rag/ingest": _rag, "/v1/rag/search": _rag,

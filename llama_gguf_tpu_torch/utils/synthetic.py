@@ -4,8 +4,10 @@ A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
 MoE, Qwen3Next hybrid and Falcon-H1 presets; the port never imports the JAX
 package). The same preset, quant and seed give the same file byte for byte
 as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS,
-SSM_PRESETS, MLA_PRESETS and GEMMA3_PRESETS are the port's own, and the JAX
-package loads them too).
+SSM_PRESETS, MLA_PRESETS, GEMMA3_PRESETS and ENCODER_PRESETS are the port's
+own, and the JAX package loads them too). ``build_synthetic_t5`` writes the
+JAX builder's bytes at its defaults; ``build_synthetic_bert`` the tensor
+names of the JAX package's BERT test builder.
 ``quant`` is any quantizable type;
 Q4_K_M convention: embeddings and LM head Q6_K (dense presets: Q8_0 when the row does
 not divide the 256-element super-block), attention and gate/up Q4_K, ffn_down
@@ -225,6 +227,31 @@ GEMMA3_PRESETS = {
 }
 
 
+# Encoder presets (port-only; full depth and width, random weights): the
+# Q4_K_M mix (attention, up and gate|up Q4_K; ffn_down, the token table and
+# an untied head Q6_K; biases, norms, position and type tables and T5's
+# relative-bias table f32).
+ENCODER_PRESETS = {
+    # BAAI/bge-base-en-v1.5 config.json (BertModel): vocab 30522, hidden
+    # 768, 12 layers, 12 heads of 64, intermediate 3072, GELU, 512
+    # positions, type vocab 2, layer_norm_eps 1e-12, CLS pooling
+    "bge-base-en-v1.5": dict(
+        arch="bert", vocab=30522, hidden=768, layers=12, heads=12, ffn=3072,
+        ctx=512, types=2, eps=1e-12),
+    # google/flan-t5-base config.json: vocab 32128, d_model 768, 12 heads
+    # of d_kv 64, d_ff 2048, gated-GELU, 12 encoder and 12 decoder layers,
+    # 32 relative buckets, max distance 128, layer_norm_epsilon 1e-6,
+    # untied lm_head, decoder_start_token_id 0; 512 positions (n_positions)
+    "flan-t5-base": dict(
+        arch="t5", vocab=32128, hidden=768, layers=12, heads=12, hd=64,
+        ffn=2048, buckets=32, max_distance=128, ctx=512, eps=1e-6),
+    # its t5encoder variant: the same encoder stack, no decoder
+    "flan-t5-base-encoder": dict(
+        arch="t5encoder", vocab=32128, hidden=768, layers=12, heads=12,
+        hd=64, ffn=2048, buckets=32, max_distance=128, ctx=512, eps=1e-6),
+}
+
+
 def build_synthetic_gguf(
     path: str,
     preset: str = "tiny",
@@ -247,6 +274,8 @@ def build_synthetic_gguf(
         return _build_deepseek2(path, preset, quant, seed, max_ctx)
     if preset in GEMMA3_PRESETS:
         return _build_gemma3(path, preset, quant, seed, max_ctx)
+    if preset in ENCODER_PRESETS:
+        return _build_encoder(path, preset, quant, seed)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -851,11 +880,12 @@ def _build_gemma3(path: str, preset: str, quant: GGMLType, seed: int,
     return path
 
 
-def _add_tokenizer(w: GGUFWriter, vocab: int) -> None:
-    """Minimal byte-fallback SPM tokenizer metadata."""
+def _add_tokenizer(w: GGUFWriter, vocab: int, cap: int = 4096) -> None:
+    """Minimal byte-fallback SPM tokenizer metadata (at most ``cap``
+    tokens)."""
     toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
     ttypes = [2, 3, 3] + [6] * 256
-    while len(toks) < min(vocab, 4096):
+    while len(toks) < min(vocab, cap):
         toks.append(f"tok{len(toks)}")
         ttypes.append(1)
     w.add_metadata("tokenizer.ggml.model", "llama")
@@ -865,3 +895,222 @@ def _add_tokenizer(w: GGUFWriter, vocab: int) -> None:
     w.add_metadata("tokenizer.ggml.bos_token_id", 1)
     w.add_metadata("tokenizer.ggml.eos_token_id", 2)
     w.add_metadata("tokenizer.ggml.unknown_token_id", 0)
+
+
+def build_synthetic_t5(path: str, vocab: int = 512, hidden: int = 64,
+                       layers: int = 2, heads: int = 4, hd: int = 16,
+                       ffn: int = 128, gated: bool = False,
+                       decoder: bool = True, seed: int = 0, *,
+                       quant: GGMLType = GGMLType.F32, buckets: int = 8,
+                       max_distance: int = 20, ctx: int = 512,
+                       eps: float = 1e-6, untied: bool = False,
+                       name: str = "synthetic-tiny-t5",
+                       tokenizer_cap: int = 4096,
+                       hf_init: bool = False) -> str:
+    """Synthetic T5 GGUF (llama.cpp enc./dec. naming); ``decoder=False``
+    emits an encoder-only `t5encoder` model. At the defaults, the JAX
+    builder's bytes. ``quant``: the Q4_K_M mix (attention, cross-attention
+    and gate/up in ``quant``; ffn_down, the token table and the head
+    Q6_K); ``untied``: an output.weight after the stacks (flan-t5);
+    ``hf_init``: each matrix drawn at the standard deviation of HF's
+    T5PreTrainedModel._init_weights (q (d_model d_kv)^-1/2, k, v, the FFN
+    input and the bias table d_model^-1/2, o (heads d_kv)^-1/2, the FFN
+    output d_ff^-1/2, the embedding and head 1) instead of 0.05 for all:
+    at full width 0.05 makes the unscaled q.k scores ~15 wide, and the
+    attention then multiplies a 1e-6 error by 2-5 in every layer."""
+    if os.path.exists(path):
+        return path
+    rng = np.random.default_rng(seed)
+    std = dict(q=(hidden * hd) ** -0.5, kv=hidden ** -0.5,
+               o=(heads * hd) ** -0.5, ffn_in=hidden ** -0.5,
+               ffn_out=ffn ** -0.5, rel=hidden ** -0.5, embed=1.0)
+
+    def rw(*shape, kind=None):
+        arr = rng.standard_normal(shape).astype(np.float32)
+        if hf_init and kind is not None:
+            return arr * np.float32(std[kind])
+        return arr * 0.05
+
+    q6 = GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q6_K
+
+    def addq(name_, arr, q=quant):
+        if q == GGMLType.F32:
+            w.add_tensor_np(name_, arr)
+        else:
+            _quant_put(w, name_, arr, q)
+
+    a = "t5" if decoder else "t5encoder"
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", name)
+    w.add_metadata(f"{a}.embedding_length", hidden)
+    w.add_metadata(f"{a}.block_count", layers)
+    w.add_metadata(f"{a}.attention.head_count", heads)
+    w.add_metadata(f"{a}.attention.key_length", hd)
+    w.add_metadata(f"{a}.attention.value_length", hd)
+    w.add_metadata(f"{a}.attention.relative_buckets_count", buckets)
+    w.add_metadata(f"{a}.attention.relative_max_distance", max_distance)
+    w.add_metadata(f"{a}.decoder_start_token_id", 0)
+    w.add_metadata(f"{a}.feed_forward_length", ffn)
+    w.add_metadata(f"{a}.context_length", ctx)
+    w.add_metadata(f"{a}.attention.layer_norm_rms_epsilon", eps)
+    w.add_metadata(f"{a}.vocab_size", vocab)
+    _add_tokenizer(w, vocab, tokenizer_cap)
+    addq("token_embd.weight", rw(vocab, hidden, kind="embed"), q6)
+    for pre in (("enc", "dec") if decoder else ("enc",)):
+        for i in range(layers):
+            p = f"{pre}.blk.{i}"
+            addq(f"{p}.attn_q.weight", rw(heads * hd, hidden, kind="q"))
+            addq(f"{p}.attn_k.weight", rw(heads * hd, hidden, kind="kv"))
+            addq(f"{p}.attn_v.weight", rw(heads * hd, hidden, kind="kv"))
+            addq(f"{p}.attn_o.weight", rw(hidden, heads * hd, kind="o"))
+            w.add_tensor_np(f"{p}.attn_norm.weight",
+                            np.ones(hidden, np.float32) + rw(hidden))
+            if i == 0:
+                w.add_tensor_np(f"{p}.attn_rel_b.weight",
+                                rw(buckets, heads, kind="rel"))
+            if pre == "dec":
+                for key, kind, shape in (("q", "q", (heads * hd, hidden)),
+                                         ("k", "kv", (heads * hd, hidden)),
+                                         ("v", "kv", (heads * hd, hidden)),
+                                         ("o", "o", (hidden, heads * hd))):
+                    addq(f"{p}.cross_attn_{key}.weight",
+                         rw(*shape, kind=kind))
+                w.add_tensor_np(f"{p}.cross_attn_norm.weight",
+                                np.ones(hidden, np.float32) + rw(hidden))
+            if gated:
+                addq(f"{p}.ffn_gate.weight", rw(ffn, hidden, kind="ffn_in"))
+            addq(f"{p}.ffn_up.weight", rw(ffn, hidden, kind="ffn_in"))
+            addq(f"{p}.ffn_down.weight", rw(hidden, ffn, kind="ffn_out"), q6)
+            w.add_tensor_np(f"{p}.ffn_norm.weight",
+                            np.ones(hidden, np.float32) + rw(hidden))
+        w.add_tensor_np(f"{pre}.output_norm.weight",
+                        np.ones(hidden, np.float32) + rw(hidden))
+    if untied:
+        addq("output.weight", rw(vocab, hidden, kind="embed"), q6)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+# WordPiece pieces of the synthetic BERT tokenizer: the specials at BERT's
+# own ids are not kept; these come first, then every piece again with the
+# "##" continuation prefix, then filler up to the vocab size
+_BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+_BERT_PIECES = tuple("abcdefghijklmnopqrstuvwxyz0123456789.,;:!?'\"()-") + (
+    "the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog", "and",
+    "embed", "ding", "search", "query", "passage", "model", "text")
+
+
+def _add_bert_tokenizer(w: GGUFWriter, vocab: int) -> None:
+    """WordPiece ("bert") tokenizer metadata: [CLS] and [SEP] around every
+    input (add_bos/add_eos), characters and a few words, each also as a
+    "##" continuation, so any lowercase ASCII text tokenizes."""
+    toks = list(_BERT_SPECIALS) + list(_BERT_PIECES) + [
+        "##" + t for t in _BERT_PIECES]
+    while len(toks) < vocab:
+        toks.append(f"[unused{len(toks)}]")
+    ttypes = [3] * len(_BERT_SPECIALS) + [1] * (len(toks) - len(_BERT_SPECIALS))
+    w.add_metadata("tokenizer.ggml.model", "bert")
+    w.add_metadata("tokenizer.ggml.tokens", toks)
+    w.add_metadata("tokenizer.ggml.token_type", np.array(ttypes, np.int32))
+    for key, tid in (("padding_token_id", 0), ("unknown_token_id", 1),
+                     ("bos_token_id", 2), ("eos_token_id", 3)):
+        w.add_metadata(f"tokenizer.ggml.{key}", tid)
+    w.add_metadata("tokenizer.ggml.add_bos_token", True)
+    w.add_metadata("tokenizer.ggml.add_eos_token", True)
+
+
+def build_synthetic_bert(path: str, vocab: int = 64, hidden: int = 32,
+                         layers: int = 2, heads: int = 4, ffn: int = 64,
+                         ctx: int = 32, seed: int = 0,
+                         quant: GGMLType = GGMLType.F32, types: int = 2,
+                         eps: float = 1e-5, name: str = "tiny-bert",
+                         wordpiece: bool = False, scale: float = 0.1) -> str:
+    """A BERT GGUF in the tensor names of the JAX package's BERT test
+    builder (token_embd, position_embd, token_types, token_embd_norm;
+    blk.N.attn_{q,k,v,output} with biases, attn_output_norm, ffn_up,
+    ffn_down, layer_output_norm). ``quant``: the Q4_K_M mix (q, k, v,
+    output and up in ``quant``; ffn_down and the token table Q6_K);
+    ``wordpiece``: a WordPiece tokenizer that tokenizes lowercase ASCII
+    (else the test builder's "tokN" vocabulary); ``scale``: the weights'
+    standard deviation (the test builder's 0.1; BERT's initializer_range
+    is 0.02)."""
+    if os.path.exists(path):
+        return path
+    rng = np.random.default_rng(seed)
+    q6 = GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q6_K
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", "bert")
+    w.add_metadata("general.name", name)
+    w.add_metadata("bert.block_count", layers)
+    w.add_metadata("bert.embedding_length", hidden)
+    w.add_metadata("bert.attention.head_count", heads)
+    w.add_metadata("bert.feed_forward_length", ffn)
+    w.add_metadata("bert.context_length", ctx)
+    w.add_metadata("bert.attention.layer_norm_epsilon", eps)
+    w.add_metadata("bert.pooling_type", 2)  # CLS
+    if wordpiece:
+        _add_bert_tokenizer(w, vocab)
+    else:
+        w.add_metadata("tokenizer.ggml.model", "bert")
+        w.add_metadata("tokenizer.ggml.tokens",
+                       [f"tok{i}" for i in range(vocab)])
+        w.add_metadata("tokenizer.ggml.token_type", [1] * vocab)
+
+    def t(name_, shape, offset=0.0, q=GGMLType.F32):
+        arr = rng.normal(size=shape).astype(np.float32) * scale + offset
+        if q == GGMLType.F32:
+            w.add_tensor_np(name_, arr)
+        else:
+            _quant_put(w, name_, arr, q)
+
+    t("token_embd.weight", (vocab, hidden), q=q6)
+    t("position_embd.weight", (ctx, hidden))
+    t("token_types.weight", (types, hidden))
+    t("token_embd_norm.weight", (hidden,), offset=1.0)
+    t("token_embd_norm.bias", (hidden,))
+    for i in range(layers):
+        p = f"blk.{i}"
+        for nm, shape, off, q in (
+            (f"{p}.attn_q.weight", (hidden, hidden), 0.0, quant),
+            (f"{p}.attn_q.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.attn_k.weight", (hidden, hidden), 0.0, quant),
+            (f"{p}.attn_k.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.attn_v.weight", (hidden, hidden), 0.0, quant),
+            (f"{p}.attn_v.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.attn_output.weight", (hidden, hidden), 0.0, quant),
+            (f"{p}.attn_output.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.attn_output_norm.weight", (hidden,), 1.0, GGMLType.F32),
+            (f"{p}.attn_output_norm.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.ffn_up.weight", (ffn, hidden), 0.0, quant),
+            (f"{p}.ffn_up.bias", (ffn,), 0.0, GGMLType.F32),
+            (f"{p}.ffn_down.weight", (hidden, ffn), 0.0, q6),
+            (f"{p}.ffn_down.bias", (hidden,), 0.0, GGMLType.F32),
+            (f"{p}.layer_output_norm.weight", (hidden,), 1.0, GGMLType.F32),
+            (f"{p}.layer_output_norm.bias", (hidden,), 0.0, GGMLType.F32),
+        ):
+            t(nm, shape, offset=off, q=q)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_encoder(path: str, preset: str, quant: GGMLType,
+                   seed: int) -> str:
+    """An ENCODER_PRESETS model at ``quant``'s mix."""
+    c = ENCODER_PRESETS[preset]
+    if c["arch"] == "bert":
+        return build_synthetic_bert(
+            path, vocab=c["vocab"], hidden=c["hidden"], layers=c["layers"],
+            heads=c["heads"], ffn=c["ffn"], ctx=c["ctx"], seed=seed,
+            quant=quant, types=c["types"], eps=c["eps"],
+            name=f"synthetic-{preset}", wordpiece=True, scale=0.02)
+    decoder = c["arch"] == "t5"
+    return build_synthetic_t5(
+        path, vocab=c["vocab"], hidden=c["hidden"], layers=c["layers"],
+        heads=c["heads"], hd=c["hd"], ffn=c["ffn"], gated=True,
+        decoder=decoder, seed=seed, quant=quant, buckets=c["buckets"],
+        max_distance=c["max_distance"], ctx=c["ctx"], eps=c["eps"],
+        untied=decoder, name=f"synthetic-{preset}",
+        tokenizer_cap=c["vocab"], hf_init=True)

@@ -1,6 +1,6 @@
 """Architectures the port loads differently from a llama decoder, against the
-JAX package on the CPU: Apertus's per-layer xIELU FFN, and the model kinds
-the port refuses (encoder-only BERT, T5) with NotImplementedError."""
+JAX package on the CPU: Apertus's per-layer xIELU FFN, and the encoder
+model kinds (BERT, T5, t5encoder) through Engine.load and load_model."""
 
 import numpy as np
 import pytest
@@ -13,6 +13,7 @@ from llama_gguf_tpu.engine.engine import Engine as JEngine
 from llama_gguf_tpu.engine.engine import EngineConfig as JConfig
 from llama_gguf_tpu.gguf.constants import GGMLType
 from llama_gguf_tpu.gguf.writer import GGUFWriter as JWriter
+from llama_gguf_tpu.models.loader import load_model as jload_model
 from llama_gguf_tpu.utils.synthetic import build_synthetic_t5
 
 from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
@@ -162,14 +163,32 @@ def _t5encoder(path):
 @pytest.mark.parametrize("build", [_bert, _t5, _t5encoder],
                          ids=["bert", "t5", "t5encoder"])
 def test_unported_model_kinds_raise_not_implemented(tmp_path, build):
-    """The JAX engine loads these (models/bert.py, models/t5.py); the port
-    raises NotImplementedError naming its roadmap item before it reads a
-    tensor, where it once failed with a KeyError on a missing tensor."""
+    """Once refused (NotImplementedError, ROADMAP queue 1 item 11), these
+    kinds now load as in the JAX package: Engine.load gives a BERT encoder
+    or a T5 runner whose embedding equals JAX's, and load_model gives the
+    T5 tree (both packages' stacks of the same depth) or, on BERT, the
+    JAX loader's KeyError (BERT loads through models/bert.load_bert from
+    the engine only)."""
     path = str(tmp_path / "m.gguf")
     build(path)
     jeng = JEngine.load(path, JConfig(weight_mode="dequant"))
-    assert jeng.encoder is not None or jeng.t5 is not None
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        Engine.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        load_model(path, mode="dequant", device="cpu")
+    eng = Engine.load(path, EngineConfig(weight_mode="dequant"), device="cpu")
+    assert (eng.encoder is None) == (jeng.encoder is None)
+    assert (eng.t5 is None) == (jeng.t5 is None)
+    assert eng.runner is None and jeng.runner is None
+    text = "tok3 tok9 tok17" if jeng.encoder is not None else "hi there"
+    want = np.asarray(jeng.embed(text))
+    got = eng.embed(text)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    if jeng.encoder is not None:
+        with pytest.raises(KeyError, match="output_norm"):
+            jload_model(path, mode="dequant")
+        with pytest.raises(KeyError, match="output_norm"):
+            load_model(path, mode="dequant", device="cpu")
+    else:
+        jparams, _ = jload_model(path, mode="dequant")[:2]
+        params, cfg, _ = load_model(path, mode="dequant", device="cpu")
+        assert cfg.arch == jeng.t5.cfg.arch
+        for stack in ("enc", "dec"):
+            assert len(params.get(stack, {}).get("layers", ())) == \
+                len(jparams.get(stack, {}).get("layers", ()))

@@ -1,7 +1,8 @@
 """The port's CLI ``serve`` and ``chat`` subcommands on the CPU (``--device
 cpu``), and both refusing to start without CUDA when no device is given.
 ``chat``'s replies are held against the JAX package's ChatEngine on the same
-tiny model (greedy: the same text)."""
+tiny model (greedy: the same text); ``run`` on a T5 GGUF and ``embed`` on
+BERT and t5encoder GGUFs against the JAX engine's text and vectors."""
 
 import io
 import socket
@@ -131,3 +132,46 @@ def test_serve_rag_db_is_not_ported(model_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         cli.main(["serve", model_path, "--device", "cpu", "--rag-db",
                   "kb.sqlite"])
+
+
+def test_run_on_t5(tmp_path, capsys):
+    """`run` on a T5 GGUF: seq2seq generation through the engine, the text
+    of the JAX engine's greedy generation."""
+    from llama_gguf_tpu.utils.synthetic import build_synthetic_t5
+
+    path = build_synthetic_t5(str(tmp_path / "t5.gguf"), gated=True)
+    assert cli.main(["run", path, "--device", "cpu", "-p", "translate: hi",
+                     "-n", "12", "-t", "0", "--repeat-penalty", "1.0",
+                     "--no-stream"]) == 0
+    out = capsys.readouterr().out
+    want = JEngine.load(path, JConfig(weight_mode="quant")).generate(
+        "translate: hi", max_tokens=12,
+        sampler=JSampler(temperature=0.0, repetition_penalty=1.0))
+    assert out == want + "\n"
+
+
+@pytest.mark.parametrize("kind", ["bert", "t5encoder"])
+def test_embed_on_encoders(tmp_path, capsys, kind):
+    """`embed --json` on a BERT and a t5encoder GGUF: the JAX engine's
+    vectors within 1e-5."""
+    import json
+
+    import numpy as np
+
+    from test_bert_mamba import build_bert_gguf
+
+    from llama_gguf_tpu.utils.synthetic import build_synthetic_t5
+
+    path = str(tmp_path / f"{kind}.gguf")
+    if kind == "bert":
+        build_bert_gguf(path)
+    else:
+        build_synthetic_t5(path, decoder=False)
+    texts = ["tok3 tok9 tok17", "tok40 tok2"]
+    assert cli.main(["embed", path, "--device", "cpu", "--json",
+                     "--pooling", "mean", "-p", texts[0], "-p",
+                     texts[1]]) == 0
+    got = np.array(json.loads(capsys.readouterr().out))
+    jeng = JEngine.load(path, JConfig(weight_mode="quant"))
+    want = np.array([jeng.embed(t, pooling="mean") for t in texts])
+    assert np.abs(got - want).max() <= 1e-5

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax():
     assert "llama_gguf_tpu_torch.server.app" in mods
     assert "llama_gguf_tpu_torch.client" in mods
     for new in ("engine.perplexity", "engine.prompt_cache", "config",
-                "manpages", "hub", "models.mamba"):
+                "manpages", "hub", "models.mamba", "models.bert",
+                "models.t5", "onnx.wire", "onnx.loader", "onnx.export",
+                "tokenizer.hf_json"):
         assert f"llama_gguf_tpu_torch.{new}" in mods
     code = ("import sys\n"
             f"for m in {ABSENT!r}:\n"
@@ -173,3 +175,29 @@ def test_chip_smoke_profile_keys_name_each_kind(name, want):
     finally:
         sys.path.remove(str(ROOT))
     assert chip_smoke.kernel_key(name) == want
+
+
+def test_hf_json_without_regex(tmp_path):
+    """The card's machine may lack the regex package: the tokenizer.json
+    reader then compiles Split patterns with re, and a Unigram file still
+    round-trips."""
+    import json
+
+    from llama_gguf_tpu_torch.onnx.export import unigram_tokenizer_json
+
+    tj = unigram_tokenizer_json(128)
+    tj["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+        {"type": "Split", "pattern": {"Regex": "[0-9]+"},
+         "behavior": "Isolated"}, tj["pre_tokenizer"]]}
+    path = tmp_path / "tokenizer.json"
+    path.write_text(json.dumps(tj))
+    code = ("import sys\n"
+            "sys.modules['regex'] = None\n"
+            "from llama_gguf_tpu_torch.tokenizer.hf_json import HFTokenizer\n"
+            f"t = HFTokenizer({str(path)!r})\n"
+            "ids = t.encode('hello 42 world', add_special=False)\n"
+            "print(len(ids) > 3, t.decode(ids))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[0].startswith("True")

@@ -8,8 +8,9 @@ that name a request or a time (``id``, ``created``, ``timings``,
 order of summation). The model is the qwen2 tiny model of
 tests/test_server.py with Q8_0 weights: the port serves it in "quant" mode
 (the q8 kernel's plain version), the JAX server in "dequant" mode (the same
-dequantized weights). Also the port's client against both servers, and the
-settings that raise until they are ported."""
+dequantized weights). Also the port's client against both servers, the
+settings that raise until they are ported, and both servers on encoder
+models (BERT, T5, t5encoder: embeddings only)."""
 
 import asyncio
 import json
@@ -372,3 +373,78 @@ def test_no_model_answers_503():
         state.shutdown()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def _encoder_model(tmp_path, kind: str) -> str:
+    from test_bert_mamba import build_bert_gguf
+
+    from llama_gguf_tpu.utils.synthetic import build_synthetic_t5
+
+    path = str(tmp_path / f"{kind}.gguf")
+    if kind == "bert":
+        build_bert_gguf(path)
+    else:
+        build_synthetic_t5(path, decoder=kind == "t5")
+    return path
+
+
+@pytest.mark.parametrize("kind", ["t5encoder", "t5", "bert"])
+def test_serve_encoder_only_model(tmp_path, kind):
+    """Embeddings-only serving, against the JAX server on the same model:
+    /v1/embeddings equal within 1e-4, the generation routes' 400 bodies
+    (the encoder-decoder one for T5) word for word, /props and /v1/models
+    for a runner-less engine."""
+    from aiohttp import web
+
+    path = _encoder_model(tmp_path, kind)
+    jcfg = JServerConfig(model_path=path, port=_free_port(), max_batch=2,
+                         weight_mode="dequant", warmup=False)
+    jstate = JServerState(jcfg)
+    loop = asyncio.new_event_loop()
+    jrunner = web.AppRunner(create_app(jstate))
+
+    async def start():
+        await jrunner.setup()
+        await web.TCPSite(jrunner, jcfg.host, jcfg.port).start()
+
+    jthread = threading.Thread(target=loop.run_forever, daemon=True)
+    jthread.start()
+    asyncio.run_coroutine_threadsafe(start(), loop).result(timeout=60)
+    tcfg = ServerConfig(model_path=path, port=_free_port(), max_batch=2,
+                        weight_mode="dequant", device="cpu")
+    tstate = ServerState(tcfg)
+    assert tstate.batched is None
+    tthread = threading.Thread(target=run_server, args=(tcfg, tstate),
+                               daemon=True)
+    tthread.start()
+    servers = ((f"http://{jcfg.host}:{jcfg.port}", jstate),
+               (f"http://{tcfg.host}:{tcfg.port}", tstate))
+    try:
+        for base, _ in servers:
+            _wait_healthy(base)
+        text = "tok3 tok9 tok17" if kind == "bert" else "hello"
+        got, want = _both(servers, "POST", "/v1/embeddings",
+                          {"input": [text, text + " tok5"]})
+        assert got[0] == want[0] == 200, (got, want)
+        _same(_strip(got[1]), _strip(want[1]))
+        for route, body in (
+                ("/v1/chat/completions",
+                 {"messages": [{"role": "user", "content": "hi"}]}),
+                ("/v1/completions", {"prompt": "hi"})):
+            got, want = _both(servers, "POST", route, body)
+            assert got == want and got[0] == 400, (got, want)
+            assert "generation" in got[1]["error"]["message"]
+            assert ("encoder-decoder" in got[1]["error"]["message"]) == \
+                (kind != "bert")
+        for route in ("/props", "/v1/models", "/health"):
+            got, want = _both(servers, "GET", route)
+            assert got[0] == want[0] == 200
+            _same(_strip(got[1]), _strip(want[1]), route)
+    finally:
+        tstate.shutdown()
+        tthread.join(timeout=30)
+        asyncio.run_coroutine_threadsafe(jrunner.cleanup(), loop).result(
+            timeout=10)
+        loop.call_soon_threadsafe(loop.stop)
+        jstate.shutdown()
+    assert not tthread.is_alive()
