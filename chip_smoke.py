@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17:
+in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17, 18:
 phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
-phase 12's, phase 14's, phase 15's, phase 16b's and phase 17's GGUFs build
-in seven child processes. Phase 9 runs inside each of phases 4, 6, 7, 12, 14 and 15, on
-that path's engine; phase 10b inside phase 6, on its quant weights.
+phase 12's, phase 14's, phase 15's, phase 16b's, phase 17's and phase 18's
+GGUFs build in nine child processes. Phase 9 runs inside each of phases 4,
+6, 7, 12, 14, 15 and 18, on that path's engine; phase 10b inside phase 6,
+on its quant weights.
 Every step of the runner on its own cache replays a CUDA graph
 (engine/runner.py); a step on a cache it did not make runs eagerly, the
 plain version the graphs are held against.
@@ -19,9 +20,9 @@ plain version the graphs are held against.
    moe_qmatmul.cu: kernels 5 and 6 for other layouts; qmatmul_variants.cu)
    with nvcc
    (sm_90a), one nvcc process per source, all at once, while the main
-   process builds phase 2's GGUF and seven child processes phase 6's,
-   phase 11's, phase 12's, phase 14's, phase 15's, phase 16b's and phase
-   17's.
+   process builds phase 2's GGUF and nine child processes phase 6's,
+   phase 11's, phase 12's, phase 14's, phase 15's, phase 16b's, phase
+   17's and phase 18's two.
 2. Dense model: builds the synthetic TinyLlama-1.1B at the Q4_K_M mix (full
    width and depth: 22 layers, hidden 2048, ffn 5632, vocab 32000; random
    weights from a seed), cached under .cache/chip_smoke/, and loads it with
@@ -359,6 +360,33 @@ plain version the graphs are held against.
    generation; the CLI's run. 17c: the tiny preset's F32 GGUF as an ONNX
    export (onnx/export.py): Engine.load's greedy tokens equal the GGUF's,
    and its tokenizer.json round-trips. Prints phase 17's seconds.
+18. The load path (native/, quant/repack_cache.py) and MoE routing beyond
+   softmax-top-k (models/transformer.route, moe_layer; their GGUFs built in
+   an eighth and a ninth child process). 18a: tinyllama-1.1b-l2 Q4_K_M,
+   each mode loaded alone, first in a child process with
+   LLAMA_GGUF_NO_NATIVE=1 and LLAMA_GGUF_NO_REPACK_CACHE=1 (the parent
+   commit's load path), then cold (the native library; the quant load
+   writes the sidecar), then quant from the sidecar: each load's seconds;
+   the child's bulk calls all numpy, this process's all native, the
+   sidecar load repacks nothing and its params equal the cold load's bit
+   for bit. 18b: gpt-oss-20b-l2 (openai/gpt-oss-20b's widths: vocab
+   201088, hidden 2880, 64 query and 8 KV heads of 64, 32 experts of 2880,
+   top-4, window 128 on even layers, sinks, biases on q/k/v/o, the router
+   and the experts, clamped SwiGLU, untied head; 2 of 24 layers; every
+   2880-row tensor Q5_1, attn_output Q4_K), both modes: kernel 1 at
+   o_proj and kernel 2 at qkv and the head (1-512 rows), kernels 4 and 5
+   on layer 1's stacks at a decode step's 4 slots and the prompt's
+   prefill bucket; Engine.generate of a ~385-token prompt with exact
+   launches and no grouped GLU (the biases), quant against dequant up to
+   the first near tie, phase 9, a greedy profile against the byte bound
+   (4 routed experts, the biases, the head), bench, the CLI's run (a load
+   from the sidecar, its seconds) and phase 14b's B = 4 batched engine.
+   18c: tiny-gpt-oss, tiny-phimoe (sparsemixer) and tiny-llama4 (input-
+   scaled experts, chunked and NoPE layers, a shared expert) as in 14c.
+   18d: every path's quant load again, from its sidecar (those whose cold
+   quant load took 0.5 s or more), each alone, beside its cold seconds;
+   none repacks a tensor. Gate: no bulk call of the run went to numpy.
+   Prints every load_both's seconds, phase 18's and the script's.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -377,6 +405,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+T_START = time.perf_counter()
 # 96 tokens with the synthetic byte-fallback tokenizer (a space costs 3)
 PROMPT = "The quick brown fox jumps over the lazy dog while five wizards jump."
 NEW_TOKENS = 32
@@ -681,7 +710,8 @@ def load_both(path: str, seconds: dict | None = None, **config):
     more EngineConfig fields), loaded at once on two threads (each load is
     host work and copies, and makes no device-wide synchronize; since PR
     14, to keep the script within its limit); each load's seconds, and the
-    two's wall time under "both", go into ``seconds`` when it is given."""
+    two's wall time under "both", go into ``seconds`` when it is given, and
+    into LOADS, which the script prints at its end."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
@@ -702,14 +732,17 @@ def load_both(path: str, seconds: dict | None = None, **config):
         dequant = pool.submit(load, "dequant")
         engines = [load("quant"), dequant.result()]
     took["both"] = time.perf_counter() - t0
+    LOADS.append(dict(gguf=os.path.basename(path), path=path, **took))
     if seconds is not None:
         seconds.update(took)
     return engines
 
 
 def run_main_path(quant, deq, card: str, label: str, on_differ=None,
-                  near_tie=None, logit_rel: bool = False):
-    """Engine.generate with the launch counters and the runner's count of
+                  near_tie=None, logit_rel: bool = False, prompt=PROMPT,
+                  prompt_tokens=(90, 128)):
+    """Engine.generate of ``prompt`` (of ``prompt_tokens`` tokens) with the
+    launch counters and the runner's count of
     eager steps set to 0 just before and read just after (every step must
     have replayed a CUDA graph); then quant against dequant: text, greedy
     tokens and prefill logits (within 1e-3; of max |logit| with
@@ -722,13 +755,14 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None,
     from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
 
     greedy = SamplerConfig(temperature=0.0)
-    ids = quant.tokenizer.encode(PROMPT)
-    check(90 <= len(ids) <= 128, f"prompt is {len(ids)} tokens")
-    quant.generate(PROMPT, max_tokens=2, sampler=greedy)  # warm-up, uncounted
+    ids = quant.tokenizer.encode(prompt)
+    check(prompt_tokens[0] <= len(ids) <= prompt_tokens[1],
+          f"prompt is {len(ids)} tokens")
+    quant.generate(prompt, max_tokens=2, sampler=greedy)  # warm-up, uncounted
     torch.cuda.synchronize()
     Q.reset_launches()
     quant.runner.eager_steps = 0
-    text = quant.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+    text = quant.generate(prompt, max_tokens=NEW_TOKENS, sampler=greedy)
     torch.cuda.synchronize()
     launches = dict(Q.LAUNCHES)
     by_path = dict(Q.LAUNCHES_BY_PATH)
@@ -743,7 +777,7 @@ def run_main_path(quant, deq, card: str, label: str, on_differ=None,
           f"1 prefill + {stats.generated_tokens} decode steps (by path: "
           f"{by_path}) | {card}", flush=True)
 
-    want_text = deq.generate(PROMPT, max_tokens=NEW_TOKENS, sampler=greedy)
+    want_text = deq.generate(prompt, max_tokens=NEW_TOKENS, sampler=greedy)
     toks = quant.greedy_tokens(ids, NEW_TOKENS)
     want_toks = deq.greedy_tokens(ids, NEW_TOKENS)
     check(quant.runner.eager_steps == deq.runner.eager_steps == 0,
@@ -825,7 +859,9 @@ def graph_against_eager(label: str, engine, ids, card: str,
           f"{torch.nonzero(got_g[0] != want_g[0])[:, 0].tolist()}")
     # the host's time in one replay of the decode step's graph (its launch),
     # from an empty queue: what the engine's loop pays per token
-    decode = r._graphs[(1, 1, 256, False)]
+    from llama_gguf_tpu_torch.engine.runner import read_bucket
+
+    decode = r._graphs[(1, 1, read_bucket(len(ids) + 1, r.max_seq), False)]
     host_ms = []
     for _ in range(16):
         torch.cuda.synchronize()
@@ -1095,15 +1131,30 @@ def expert_bytes(stack, experts: int) -> int:
 def choice_margin(ffn, cfg, xf) -> float:
     """The smallest margin, over the rows of ``xf``, between the k-th and
     the (k+1)-th router choice (models/transformer.route_choice: the
-    softmax probabilities, or DeepSeek-V3's biased sigmoid scores), and
-    under a group limit between the tg-th and (tg+1)-th group score."""
+    softmax probabilities, DeepSeek-V3's biased sigmoid scores, or the
+    logits), and under a group limit between the tg-th and (tg+1)-th group
+    score. PhiMoE's sparsemixer (its top-2 picked one at a time): the
+    1st-2nd and 2nd-3rd logit gaps, and each pick's distance of a score's
+    relative gap from the mask threshold 2 * router_jitter_eps."""
     import dataclasses
 
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
 
     k = cfg.num_experts_per_token
-    top = torch.topk(T.route_choice(ffn, cfg, xf)[1], k + 1, dim=-1).values
+    choice = T.route_choice(ffn, cfg, xf)[1]
+    if cfg.expert_gating_func == 3:
+        top = torch.topk(choice, 3, dim=-1)
+        margin = (top.values[:, :2] - top.values[:, 1:]).min().item()
+        sel = choice
+        for j in range(2):  # each pick masks by the gap to its own max
+            m = sel.max(dim=-1, keepdim=True).values
+            gap = (m - sel) / torch.maximum(choice.abs(), m)
+            near = (gap - 2.0 * cfg.router_jitter_eps).abs()
+            margin = min(margin, near[torch.isfinite(gap)].min().item())
+            sel = sel.scatter(1, top.indices[:, j:j + 1], -torch.inf)
+        return margin
+    top = torch.topk(choice, k + 1, dim=-1).values
     margin = (top[:, k - 1] - top[:, k]).min().item()
     ng, tg = cfg.expert_group_count, cfg.expert_group_used_count
     if cfg.expert_gating_func == 2 and 1 < ng and 0 < tg < ng:
@@ -1237,14 +1288,18 @@ def moe_path(card: str, timer, peaks: dict, gguf: str):
 
 
 def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
-                      label: str, paths: dict | None = None) -> list[dict]:
+                      label: str, paths: dict | None = None,
+                      act_fn: str = "silu") -> list[dict]:
     """Kernels 4-6 on the expert stacks ``ex`` ("gate", "up", "down") for
     each case (slot ids, input rows) of ``cases``: the slot-major kernel on
     the gate and down stacks below the grouped rule, the grouped GLU
     (gate|up) and the grouped kernel (down) from it, each in "highest" and
     "default", against the plain versions and timed with the torch.bmm
-    yardstick (phase 6). The path each takes must be MOE_PATHS's, or one
-    of ``paths[name]`` when given (the paths the main path took)."""
+    yardstick (phase 6). Stacks with expert biases (gpt-oss; the GLU
+    ``act_fn``) run as moe_layer runs them: gate, up and down each on the
+    slot-major kernel, or on the grouped kernel. The path each takes must
+    be MOE_PATHS's, or one of ``paths[name]`` when given (the paths the
+    main path took)."""
     import torch
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import dequantize_expert
@@ -1253,11 +1308,13 @@ def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     e_num = ex["gate"].packed.shape[0]
     measurements = []
+    biased = "gate_bias" in ex or "up_bias" in ex
     w_all = {key: torch.stack([dequantize_expert(ex[key], e)
-                               for e in range(e_num)]) for key in ex}
+                               for e in range(e_num)])
+             for key in ("gate", "up", "down")}
     for case, (sid, x) in cases.items():
         s_slots = sid.shape[0]
-        act = Q.moe_qmatmul_glu_plain(x, ex["gate"], ex["up"], sid, "silu")
+        act = Q.moe_qmatmul_glu_plain(x, ex["gate"], ex["up"], sid, act_fn)
         _, _, grouped = Q.moe_dims(s_slots, e_num)
         # the yardstick's batch: each routed expert once, its own slots'
         # rows padded with zero rows to the busiest expert's count
@@ -1274,26 +1331,27 @@ def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
 
         # (kernel, projection, input rows, the yardstick's batched input
         # and its experts' f32 weights)
-        if grouped:
+        single = "moe_grouped" if grouped else "moe_slot"
+        if grouped and not biased:
             products = [
                 ("moe_glu_grouped", "gate|up", x, batch(x),
-                 torch.cat([w_all["gate"][used], w_all["up"][used]], dim=2)),
-                ("moe_grouped", "down", act, batch(act), w_all["down"][used])]
+                 torch.cat([w_all["gate"][used], w_all["up"][used]], dim=2))]
         else:
-            products = [
-                ("moe_slot", "gate", x, batch(x), w_all["gate"][used]),
-                ("moe_slot", "down", act, batch(act), w_all["down"][used])]
+            products = [(single, key, x, batch(x), w_all[key][used])
+                        for key in (("gate", "up") if biased else ("gate",))]
+        products.append((single, "down", act, batch(act),
+                         w_all["down"][used]))
         for (name, proj, xin, xin_g, w_g), precision in (
                 (pr, prec) for pr in products
                 for prec in ("highest", "default")):
             if name == "moe_glu_grouped":
                 def kern(): return Q.moe_qmatmul_glu(
-                    xin, ex["gate"], ex["up"], sid, "silu", precision)
+                    xin, ex["gate"], ex["up"], sid, act_fn, precision)
                 def plain(): return Q.moe_qmatmul_glu_plain(
-                    xin, ex["gate"], ex["up"], sid, "silu", precision)
+                    xin, ex["gate"], ex["up"], sid, act_fn, precision)
                 stacks = (ex["gate"], ex["up"])
             else:
-                st = ex["gate" if proj == "gate" else "down"]
+                st = ex[proj]
                 def kern(): return Q.moe_qmatmul(xin, st, sid, precision)
                 def plain(): return Q.moe_qmatmul_plain(xin, st, sid,
                                                         precision)
@@ -1325,7 +1383,7 @@ def moe_kernel_checks(ex: dict, cases: dict, timer, peaks: dict,
             if name != "moe_slot":  # the launch alone, on the wrapper's plan
                 c_rows, g_blocks, _ = Q.moe_dims(s_slots, e_num)
                 eg, rows, _ = Q.moe_group_plan(sid, e_num, c_rows, g_blocks)
-                glu = (dict(up=ex["up"], act="silu") if len(stacks) == 2
+                glu = (dict(up=ex["up"], act=act_fn) if len(stacks) == 2
                        else {})
                 kpath["launch_ms"] = timer.ms(
                     lambda: Q.moe_grouped_blocked(xin, stacks[0], eg, rows,
@@ -2088,14 +2146,34 @@ def q2k_moe_checks(npz: str, timer, peaks: dict) -> list[dict]:
     return out
 
 
-def hybrid_launches_per_step(params, cfg) -> dict[str, dict[str, int]]:
-    """Phases 12 and 14's launches per step, derived from the loaded model:
-    every QuantLinear runs once per step (a fused gate|up on the GLU
-    kernel, the others on the q4 or q8 kernel by format); each MoE layer's
-    routed experts run kernel 4 three times (gate, up, down) at a decode
-    step's num_experts_per_token slots, below the grouped rule, and the
-    grouped GLU and grouped kernels once each at the prefill's 128 x
-    num_experts_per_token slots (ops/qmatmul.moe_dims)."""
+def biased_moe(params) -> bool:
+    """Whether the model's expert stacks carry gate or up biases (gpt-oss):
+    then models/transformer.moe_layer runs gate and up on kernels 4-5 and
+    never the grouped GLU (kernel 6)."""
+    return any(key in layer["ffn"]["experts"] for layer in params["layers"]
+               if "router" in layer.get("ffn", {})
+               for key in ("gate_bias", "up_bias"))
+
+
+def moe_kernels(params) -> tuple[str, ...]:
+    """The MoE kernels a model's layers launch (none without MoE layers)."""
+    if not any("router" in layer.get("ffn", {})
+               for layer in params["layers"]):
+        return ()
+    return (("moe_slot", "moe_grouped") if biased_moe(params)
+            else ("moe_slot", "moe_glu_grouped", "moe_grouped"))
+
+
+def hybrid_launches_per_step(params, cfg, prefill_rows: int = 128
+                             ) -> dict[str, dict[str, int]]:
+    """Phases 12, 14, 15 and 18's launches per step, derived from the
+    loaded model: every QuantLinear runs once per step (a fused gate|up on
+    the GLU kernel, the others on the q4 or q8 kernel by format); each MoE
+    layer's routed experts run kernel 4 three times (gate, up, down) at a
+    decode step's num_experts_per_token slots, below the grouped rule, and
+    at the prefill bucket's ``prefill_rows`` x num_experts_per_token slots
+    the grouped GLU and grouped kernels once each, or, with expert biases,
+    the grouped kernel three times (ops/qmatmul.moe_dims)."""
     from llama_gguf_tpu_torch.ops import qmatmul as Q
     from llama_gguf_tpu_torch.ops.linear import QuantLinear
 
@@ -2116,10 +2194,12 @@ def hybrid_launches_per_step(params, cfg) -> dict[str, dict[str, int]]:
     walk(params)
     moe = sum("router" in layer.get("ffn", {}) for layer in params["layers"])
     k, e = cfg.num_experts_per_token, cfg.num_experts
-    check(not moe or (not Q.moe_dims(k, e)[2] and Q.moe_dims(128 * k, e)[2]),
-          f"the dispatch rule at {k} / {128 * k} slots")
-    return {"decode": dict(per, moe_slot=3 * moe),
-            "prefill": dict(per, moe_glu_grouped=moe, moe_grouped=moe)}
+    s = prefill_rows * k
+    check(not moe or (not Q.moe_dims(k, e)[2] and Q.moe_dims(s, e)[2]),
+          f"the dispatch rule at {k} / {s} slots")
+    prefill = (dict(per, moe_grouped=3 * moe) if biased_moe(params)
+               else dict(per, moe_glu_grouped=moe, moe_grouped=moe))
+    return {"decode": dict(per, moe_slot=3 * moe), "prefill": prefill}
 
 
 def exact_launches(label: str, launches: dict, decoded: int, per: dict):
@@ -2419,9 +2499,12 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL,
     check(len(cleared) >= len(prompts) + 8
           and set(cleared) == set(range(4)),
           f"{label} batched: admissions' cleared rows {cleared}")
-    for name in ("moe_slot", "moe_glu_grouped", "moe_grouped") if moe else ():
+    for name in moe_kernels(q.params):
         check(launches.get(name, 0) > 0,
               f"{label} batched: {name} not launched ({launches})")
+    if biased_moe(q.params):
+        check(launches.get("moe_glu_grouped", 0) == 0,
+              f"{label} batched: the grouped GLU ran on biased experts")
     report = []
     for i, (p, h) in enumerate(zip(prompts, handles)):
         want, margins = single_stream(q, p, max(len(h.token_ids), 1))
@@ -3042,19 +3125,19 @@ def tiny_kernel_checks(quant, label: str, by_path: dict, timer,
     return out + moe_kernel_checks(ffn0["experts"], {
         f"decode, {k} experts": (idx[last:last + k], xr[last:last + k]),
         f"prefill of {len(ids)} tokens": (idx, xr)}, timer, peaks, label,
-        paths)
+        paths, act_fn=r.cfg.hidden_act.value)
 
 
 def mamba_tiny_path(card: str, timer, peaks: dict,
                     presets: tuple = MAMBA_TINY, phase: str = "14c"):
-    """Phase 14c (15c with MLA_TINY): each of ``presets`` at the Q4_K_M
-    mix, both modes: the main path as in phase 4 with exact launch counts
-    derived from the loaded model, no eager step, quant tokens equal
-    dequant tokens up to the first near tie, prefill logits within 1e-3
-    of max |logit|; the kernels it launched against their plain versions
-    on the preset's own weights (tiny_kernel_checks); graphed steps
-    against eager ones (phase 9, TINY_GREEDY_STEPS greedy steps). Returns
-    (measurements, the launches of the counted runs)."""
+    """Phase 14c (15c with MLA_TINY, 18c with ROUTING_TINY): each of
+    ``presets`` at the Q4_K_M mix, both modes: the main path as in phase 4
+    with exact launch counts derived from the loaded model, no eager step,
+    quant tokens equal dequant tokens up to the first near tie, prefill
+    logits within 1e-3 of max |logit|; the kernels it launched against
+    their plain versions on the preset's own weights (tiny_kernel_checks);
+    graphed steps against eager ones (phase 9, TINY_GREEDY_STEPS greedy
+    steps). Returns (measurements, the launches of the counted runs)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4156,6 +4239,358 @@ def encoder_path(card: str, timer, peaks: dict, builds: dict):
     return bert + t5m, {BGE_PRESET: bert_launches, T5_PRESET: t5_launches}
 
 
+# Phase 18: the load path (ROADMAP queue 1 item 7) and MoE routing beyond
+# softmax-top-k (item 9). 18a: tinyllama-1.1b-l2 loaded as the parent commit
+# loaded it (a child process with LLAMA_GGUF_NO_NATIVE=1 and
+# LLAMA_GGUF_NO_REPACK_CACHE=1), cold with the native library, and from the
+# repack sidecar; 18b: gpt-oss-20b-l2 (openai/gpt-oss-20b's widths, 2 of 24
+# layers; utils/synthetic.ROUTING_PRESETS); 18c: the tiny gpt-oss, PhiMoE
+# and llama4 presets
+LOAD_PRESET = "tinyllama-1.1b-l2"
+OSS_PRESET = "gpt-oss-20b-l2"
+OSS_LABEL = "gpt-oss-20b-l2"
+# heads (query, KV, head_dim), experts (count, top-k, expert ffn), the
+# window and its pattern, RoPE (base, scaling)
+OSS_SHAPE = dict(hidden_size=2880, vocab_size=201088, heads=(64, 8, 64),
+                 experts=(32, 4, 2880), window=(128, 2),
+                 rope=(150000.0, "yarn"), act="swiglu_oai")
+OSS_PROMPT = " ".join([PROMPT] * 4)  # past the 128-token window
+ROUTING_TINY = ("tiny-gpt-oss", "tiny-phimoe", "tiny-llama4")
+LOADS: list[dict] = []  # every load_both's seconds, in order
+SIDECAR_MIN_S = 0.5  # 18d: the paths whose cold quant load took this long
+
+CHILD_LOADS = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+from llama_gguf_tpu_torch import native
+from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+torch.zeros(1, device="cuda")  # the CUDA context, outside the timed loads
+out = {{}}
+for mode in ("quant", "dequant"):
+    t0 = time.perf_counter()
+    Engine.load({path!r}, EngineConfig(weight_mode=mode), device="cuda")
+    out[mode] = time.perf_counter() - t0
+out["counts"] = {{k: dict(v) for k, v in native.COUNTS.items()}}
+print(json.dumps(out))
+"""
+
+
+def native_counts() -> dict:
+    """The native library's counters (native.COUNTS) as plain dicts."""
+    from llama_gguf_tpu_torch import native
+
+    return {k: dict(v) for k, v in native.COUNTS.items()}
+
+
+def same_params(a, b, where: str = "params") -> int:
+    """Check two params trees equal, bit for bit (tensors torch.equal, the
+    leaves' dataclass fields alike); returns the number of tensors."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and a.keys() == b.keys(),
+              f"{where}: keys differ")
+        return sum(same_params(a[k], b[k], f"{where}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        check(type(a) is type(b) and len(a) == len(b), f"{where}: lengths")
+        return sum(same_params(x, y, f"{where}.{i}")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if dataclasses.is_dataclass(a):
+        check(type(a) is type(b), f"{where}: leaf types differ")
+        return sum(same_params(getattr(a, f.name), getattr(b, f.name),
+                               f"{where}.{f.name}")
+                   for f in dataclasses.fields(a))
+    if torch.is_tensor(a):
+        check(torch.is_tensor(b) and a.dtype == b.dtype
+              and a.shape == b.shape and torch.equal(a, b),
+              f"{where}: tensors differ")
+        return 1
+    check(a == b, f"{where}: {a!r} != {b!r}")
+    return 0
+
+
+def load_path(card: str, gguf: str) -> dict:
+    """Phase 18a on tinyllama-1.1b-l2 Q4_K_M (``gguf``): each mode's load
+    seconds (Engine.load, one mode at a time) before (a child process on
+    the parent commit's load path: numpy dequant and repack, no sidecar),
+    cold (the native library; the quant load writes the sidecar) and from
+    the sidecar. Gates: the child's bulk calls all went to numpy and this
+    process's all native; the sidecar load repacked nothing and its params
+    equal the cold load's, bit for bit. Returns the seconds."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+
+    t_phase = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", CHILD_LOADS.format(root=ROOT, path=gguf)],
+        env=dict(os.environ, LLAMA_GGUF_NO_NATIVE="1",
+                 LLAMA_GGUF_NO_REPACK_CACHE="1"),
+        capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"18a: the child's loads failed: "
+                               f"{res.stderr[-2000:]}")
+    before = json.loads(res.stdout.strip().splitlines()[-1])
+    child = before.pop("counts")
+    check(not child["native"] and sum(child["numpy"].values()) > 0,
+          f"18a: LLAMA_GGUF_NO_NATIVE=1 did not select numpy: {child}")
+    sidecar = gguf + ".repack"
+    if os.path.exists(sidecar):  # a cold load starts without one
+        os.remove(sidecar)
+    seconds = {}
+
+    def load(mode):
+        t0 = time.perf_counter()
+        engine = Engine.load(gguf, EngineConfig(weight_mode=mode),
+                             device="cuda")
+        torch.cuda.synchronize()
+        return engine, time.perf_counter() - t0
+
+    counts0 = native_counts()
+    cold, seconds["cold quant"] = load("quant")
+    check(os.path.exists(sidecar), f"18a: no sidecar written at {sidecar}")
+    deq, seconds["cold dequant"] = load("dequant")
+    del deq
+    extracts = dict(native_counts()["native"])
+    side, seconds["sidecar quant"] = load("quant")
+    check(native_counts()["native"] == extracts,
+          "18a: the sidecar load repacked a tensor")
+    counts = native_counts()
+    check(not counts["numpy"], f"18a: bulk calls served by numpy: {counts}")
+    tensors = same_params(cold.runner.params, side.runner.params)
+    got = {k: v - counts0["native"].get(k, 0)
+           for k, v in counts["native"].items()
+           if v != counts0["native"].get(k, 0)}
+    print(json.dumps({"phase_18a": dict(
+        path=LOAD_PRESET, gguf_bytes=os.path.getsize(gguf),
+        sidecar_bytes=os.path.getsize(sidecar),
+        before_s=before, after_s=seconds, tensors_equal=tensors,
+        native_calls=got, child_counts=child,
+        wall_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+    del cold, side
+    torch.cuda.empty_cache()
+    return dict(before=before, after=seconds)
+
+
+def sidecar_loads(card: str) -> list[dict]:
+    """Phase 18d: each path's quant load again, from the sidecar its cold
+    load wrote (every `load_both` GGUF whose cold quant load took at least
+    SIDECAR_MIN_S), one at a time: seconds beside the cold load's. Gate:
+    no repack ran (the native extraction counts stand still; tensors the
+    loader keeps dense, such as MLA's attn_kv_b, still dequantize)."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+
+    def extractions():
+        return {k: n for k, n in native_counts()["native"].items()
+                if k.startswith("extract")}
+
+    out = []
+    for cold in LOADS:
+        if cold["quant"] < SIDECAR_MIN_S:
+            continue
+        check(os.path.exists(cold["path"] + ".repack"),
+              f"18d: {cold['gguf']} has no sidecar")
+        before = extractions()
+        t0 = time.perf_counter()
+        engine = Engine.load(cold["path"], EngineConfig(weight_mode="quant"),
+                             device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(extractions() == before,
+              f"18d: {cold['gguf']}'s sidecar load repacked a tensor")
+        out.append(dict(gguf=cold["gguf"], cold_quant=cold["quant"],
+                        cold_dequant=cold["dequant"], sidecar_quant=seconds))
+        del engine
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase_18d": dict(loads=out, card=card)}), flush=True)
+    return out
+
+
+def bias_bytes(params, topk: int) -> int:
+    """Bytes of the biases and sinks a decode step reads: every linear's
+    bias, ``topk`` rows of each expert bias, the attention sinks."""
+    import torch
+    from llama_gguf_tpu_torch.ops.linear import DenseLinear, QuantLinear
+
+    if isinstance(params, dict):
+        total = 0
+        for k, v in params.items():
+            if k.endswith("_bias") and torch.is_tensor(v) and v.dim() == 2:
+                total += topk * v[0].numel() * v.element_size()
+            elif k == "sinks" and torch.is_tensor(v):
+                total += v.numel() * v.element_size()
+            else:
+                total += bias_bytes(v, topk)
+        return total
+    if isinstance(params, list):
+        return sum(bias_bytes(v, topk) for v in params)
+    if isinstance(params, (DenseLinear, QuantLinear)) and \
+            params.bias is not None:
+        return params.bias.numel() * params.bias.element_size()
+    return 0
+
+
+def oss_path(card: str, timer, peaks: dict, gguf: str):
+    """Phase 18b on gpt-oss-20b-l2 (``gguf``): the main path with exact
+    launch counts (no grouped GLU: the experts carry biases), quant
+    against dequant up to the first near tie, kernels 1, 2, 4 and 5 at the
+    model's own shapes, phase 9's graphed-vs-eager gates, a greedy profile
+    against the byte bound, bench, the CLI's run (a load from the sidecar
+    the cold load wrote) and a B = 4 BatchedEngine. Returns (measurements,
+    launches, batched launches)."""
+    import contextlib
+    import io
+
+    import torch
+    from llama_gguf_tpu_torch import cli
+    from llama_gguf_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    load_s: dict[str, float] = {}
+    quant, deq = load_both(gguf, load_s)
+    cfg, params = quant.runner.cfg, quant.runner.params
+    layers = params["layers"]
+    at0, ffn1 = layers[0]["attn"], layers[1]["ffn"]
+    ex = ffn1["experts"]
+    shape = dict(hidden_size=cfg.hidden_size, vocab_size=cfg.vocab_size,
+                 heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                 experts=(cfg.num_experts, cfg.num_experts_per_token,
+                          ex["gate"].n),
+                 window=(cfg.sliding_window, cfg.swa_pattern),
+                 rope=(cfg.rope.freq_base, cfg.rope.scaling_type.value),
+                 act=cfg.hidden_act.value)
+    check(shape == OSS_SHAPE, f"unexpected {OSS_LABEL} shape {shape}")
+    check(all(f"{key}_bias" in layer["ffn"]["experts"] for layer in layers
+              for key in ("gate", "up", "down"))
+          and all("sinks" in layer["attn"] for layer in layers)
+          and all(layer["ffn"]["router"].bias is not None
+                  for layer in layers),
+          f"{OSS_LABEL}: expert biases, sinks and router biases")
+    check(quant.runner.swa_layers == (True, False),
+          f"{OSS_LABEL}: sliding layers {quant.runner.swa_layers}")
+    layouts = {key: (ex[key].fmt, ex[key].group)
+               for key in ("gate", "up", "down")}
+    layouts.update(wqkv=(at0["wqkv"].fmt, at0["wqkv"].group),
+                   wo=(at0["wo"].fmt, at0["wo"].group),
+                   head=(params["output"].fmt, params["output"].group))
+    print(f"{OSS_LABEL}: layouts {layouts}, ring slots "
+          f"{quant.runner.ring_slots} | {card}", flush=True)
+    check(layouts["wo"][0] == "q4" and all(
+        layouts[key][0] == "q8" for key in layouts if key != "wo"),
+        f"{OSS_LABEL}: layouts {layouts}")
+
+    # the bytes of one decode step: the quantized products, 4 routed
+    # experts, the biases and sinks, the router and the head
+    biases = bias_bytes(params, cfg.num_experts_per_token)
+    nbytes = step_bytes(params, cfg.num_experts_per_token) + biases
+    bound = nbytes / peaks["bytes"] * 1e3
+    print(f"{OSS_LABEL}: {nbytes} bytes per decode step ({biases} of them "
+          f"biases and sinks), bound {bound:.4f} ms | {card}", flush=True)
+
+    # the main path: exact launch counts, no grouped GLU, quant against
+    # dequant up to the first near tie
+    ids = quant.tokenizer.encode(OSS_PROMPT)
+    bucket = next(b for b in (128, 256, 512, 1024) if b >= len(ids))
+    per = hybrid_launches_per_step(params, cfg, prefill_rows=bucket)
+    launches, by_path, decoded, ids = run_main_path(
+        quant, deq, card, OSS_LABEL,
+        near_tie=hybrid_near_tie(deq, OSS_LABEL), logit_rel=True,
+        prompt=OSS_PROMPT, prompt_tokens=(300, 512))
+    exact_launches(OSS_LABEL, launches, decoded, per)
+    check(launches.get("moe_glu_grouped", 0) == 0,
+          f"{OSS_LABEL}: the grouped GLU ran on biased experts")
+    print(json.dumps({"oss_launches_per_step": dict(
+        path=OSS_LABEL, prompt_tokens=len(ids), **per,
+        launches_by_path=by_path)}), flush=True)
+
+    # kernels 1-2 at the model's projections and head; 4-5 on layer 1's
+    # stacks at its own routing: a decode step's 4 slots, the prompt's
+    # prefill bucket (padding rows routed too, as the main path routes them)
+    measurements = projection_checks([
+        ("qmatmul_q8", "qkv", at0["wqkv"]),
+        ("qmatmul_q4", "o_proj", at0["wo"]),
+        ("qmatmul_q8", "lm_head", params["output"]),
+    ], ROWS, timer, peaks, OSS_LABEL, act=cfg.hidden_act.value)
+    seen = []
+    route = T.route
+
+    def record(ffn, cfg_, xf):
+        topv, topi = route(ffn, cfg_, xf)
+        if ffn is ffn1:
+            seen.append((xf, topi))
+        return topv, topi
+
+    T.route = record
+    try:  # eager (a cache the runner did not make), so route sees it
+        quant.runner.prefill(ids, quant.runner._make_kv(1))
+    finally:
+        T.route = route
+    xf, topi = seen[0]
+    k = cfg.num_experts_per_token
+    idx = topi.reshape(-1).to(torch.int32)
+    xr = xf.float().repeat_interleave(k, dim=0)
+    last = k * (len(ids) - 1)
+    paths: dict[str, set] = {}
+    for key, n in by_path.items():
+        name, _, kpath = key.partition(" ")
+        if n and name in MOE_PATHS:
+            paths.setdefault(name, set()).add(kpath)
+    measurements += moe_kernel_checks(ex, {
+        f"decode, {k} experts": (idx[last:last + k], xr[last:last + k]),
+        f"prefill bucket of {len(xf)} tokens": (idx, xr)}, timer, peaks,
+        OSS_LABEL, paths, act_fn=cfg.hidden_act.value)
+    sources = {"tc": "csrc/qgemm.cu", "splitk": "csrc/qgemm.cu",
+               "cuda cores": "csrc/moe_qmatmul.cu"}
+    print(json.dumps({"oss_kernel_paths": {
+        name: {p: sources.get(p, p) for p in sorted(ps)}
+        for name, ps in paths.items()}, "card": card}), flush=True)
+
+    # phase 9 on this path; the graphs' cost, a greedy profile against the
+    # byte bound, bench
+    graph_against_eager(OSS_LABEL, quant, ids, card)
+    r = quant.runner
+    graphs = {name: graph_cost(r, key) for name, key in (
+        ("decode", (1, 1, 512, False)),
+        (f"prefill {bucket}", (1, bucket, 512, True)))
+        if key in r._graphs}
+    profile = profile_decode(quant, ids, mode="greedy")
+    device = profile["device_ms_per_step"]
+    print(json.dumps({"oss_decode_profile": dict(
+        profile, path=OSS_LABEL, byte_bound_ms=bound, step_bytes=nbytes,
+        bound_share=(bound / device if isinstance(device, float)
+                     else "not measured"),
+        kernels_1_6_ms_per_step=(profile["kernels_1_2_ms_per_step"]
+                                 + profile["kernel_3_ms_per_step"]
+                                 + profile["kernels_4_6_ms_per_step"]),
+        graphs=graphs, load_s=load_s, card=card)}), flush=True)
+    bench_json(OSS_LABEL, quant, card)
+    del deq
+    torch.cuda.empty_cache()
+
+    # the CLI's run on the GGUF: its own load, from the sidecar the cold
+    # quant load wrote
+    check(os.path.exists(gguf + ".repack"), f"{OSS_LABEL}: no sidecar")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["run", gguf, "-p", PROMPT, "-n", "8",
+                       "--temperature", "0", "--no-stream"])
+    cli_s = time.perf_counter() - t0
+    decoded = re.search(r"decode (\d+) tok @", err.getvalue())
+    check(rc == 0 and decoded is not None and int(decoded.group(1)) > 0,
+          f"{OSS_LABEL}: the CLI's run gave {rc}, {out.getvalue()!r}, "
+          f"{err.getvalue()[-300:]!r}")
+    print(json.dumps({"oss_cli_run": dict(
+        path=OSS_LABEL, seconds=cli_s, from_sidecar=True,
+        stats=err.getvalue().strip()[-120:], card=card)}), flush=True)
+    torch.cuda.empty_cache()
+    batched_launches = hybrid_batched(quant, card, OSS_LABEL)
+    log(f"phase 18b done in {time.perf_counter() - t_phase:.1f}s")
+    return measurements, launches, batched_launches
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -4164,12 +4599,12 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, ROOT)
-    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's, 15's, 16b's
-    # and 17's GGUFs (host numpy work, minutes) build in seven child
+    # the Mixtral GGUF, phase 11's inputs, phase 12's, 14's, 15's, 16b's,
+    # 17's and 18's GGUFs (host numpy work, minutes) build in nine child
     # processes while the dense path runs; leaving the block waits for the
     # children
     with ProcessPoolExecutor(
-            max_workers=7,
+            max_workers=9,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         moe_gguf = pool.submit(build_model, MOE_PRESET, max_ctx=2048)
         formats = pool.submit(build_formats)
@@ -4178,12 +4613,14 @@ def main() -> int:
         mla_gguf = pool.submit(build_model, MLA_PRESET, max_ctx=2048)
         gemma_gguf = pool.submit(build_model, GEMMA_PRESET)
         encoders = pool.submit(build_encoders)
+        load_gguf = pool.submit(build_model, LOAD_PRESET)
+        oss_gguf = pool.submit(build_model, OSS_PRESET, max_ctx=2048)
         return run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
-                   gemma_gguf, encoders)
+                   gemma_gguf, encoders, load_gguf, oss_gguf)
 
 
 def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
-        gemma_gguf, encoders) -> int:
+        gemma_gguf, encoders, load_gguf, oss_gguf) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -4299,11 +4736,33 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
     builds = encoders.result()
     log(f"waited {time.perf_counter() - t0:.1f}s for phase 17's GGUFs")
     enc, enc_launches = encoder_path(card, timer, peaks, builds)
+    torch.cuda.empty_cache()
+
+    # -- 18. the load path, gpt-oss, the tiny routing presets -----------------
+    t18 = time.perf_counter()
+    load_path(card, load_gguf.result())
+    gguf = oss_gguf.result()
+    log(f"waited {time.perf_counter() - t18:.1f}s for phase 18's GGUFs "
+        "(18a included)")
+    oss, oss_launches, oss_batched_launches = oss_path(card, timer, peaks,
+                                                       gguf)
+    torch.cuda.empty_cache()
+    routing_tiny, routing_tiny_launches = mamba_tiny_path(
+        card, timer, peaks, ROUTING_TINY, "18c")
+    torch.cuda.empty_cache()
+    sidecar_loads(card)
+    counts = native_counts()
+    check(not counts["numpy"], f"bulk calls served by numpy: {counts}")
+    print(json.dumps({"phase_18": dict(
+        seconds=time.perf_counter() - t18, native_calls=counts["native"],
+        loads=LOADS, script_s=time.perf_counter() - T_START, card=card)}),
+        flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [m for m in (dense + moe + probe + fmts + hybrid + mamba
-                            + tiny + mla + mla_tiny + gemma + enc)
+                            + tiny + mla + mla_tiny + gemma + enc + oss
+                            + routing_tiny)
                 if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
@@ -4324,7 +4783,9 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
             ("DeepSeek tiny presets (15c)", mla_tiny_launches),
             *kv_launches.items(), (GEMMA_LABEL, ring_launches),
             (f"{GEMMA_LABEL} batched", ring_batched_launches),
-            *enc_launches.items())
+            *enc_launches.items(), (OSS_LABEL, oss_launches),
+            (f"{OSS_LABEL} batched", oss_batched_launches),
+            ("routing tiny presets (18c)", routing_tiny_launches))
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

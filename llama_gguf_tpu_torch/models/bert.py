@@ -161,4 +161,5 @@ def load_bert(loader) -> tuple[dict, ModelConfig]:
             },
         })
     params["layers"] = layers
+    loader.flush_repack_cache()
     return params, cfg

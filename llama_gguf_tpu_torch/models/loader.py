@@ -5,9 +5,9 @@ Mixtral-style sparse MoE with optional shared experts, Qwen3Next's
 DeltaNet layers, models/deltanet.py, the Mamba family, models/mamba.py:
 Mamba-1, Mamba-2, Falcon-H1's parallel hybrid and LFM2's short conv, and
 the DeepSeek family: multi-head latent attention and DeepSeek-V3's routing
-bias), and T5 (models/t5.load_t5). Encoder-only BERT-family models load
-through models/bert.load_bert, which the engine calls, as in the JAX
-package.
+bias, gpt-oss's per-expert biases), and T5 (models/t5.load_t5).
+Encoder-only BERT-family models load through models/bert.load_bert, which
+the engine calls, as in the JAX package.
 
 The params are a plain dict of tensors, QuantLinear/DenseLinear leaves and
 norm dicts, consumed by models/transformer.forward. Two weight modes:
@@ -22,11 +22,16 @@ norm dicts, consumed by models/transformer.forward. Two weight modes:
                F16, ...) and combined QKV tensors load dense, as in the
                JAX package.
 
-The JAX package's repack sidecar cache is not ported (ROADMAP queue 1).
+In "quant" mode every repack goes through the GGUF's repack sidecar
+(quant/repack_cache.py) under the JAX package's keys: a matrix by its
+tensor name, expert j of a stack as "<name>#j", the embedding's row layout
+as "<name>@rows" and a tied head as "<name>@out". The scale panels are cast
+to ``scale_dtype`` after it, so one sidecar serves both.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -37,7 +42,8 @@ from ..gguf.reader import GGUFFile
 from ..ops.linear import (DenseLinear, QuantEmbedding, QuantExpertStack,
                           QuantLinear, fuse_linears)
 from ..quant.dequant import dequantize
-from ..quant.repack import repack, repack_rows
+from ..quant.repack import RepackedWeight, repack, repack_rows
+from ..quant.repack_cache import open_cache
 from .config import Activation, ModelConfig, parse_config
 from .mamba import load_mamba2_fields
 from .transformer import RECURRENT_LAYERS
@@ -80,6 +86,8 @@ class ModelLoader:
         self.mode = mode
         self.device = resolve_device(device)
         self.config = parse_config(gguf.metadata, gguf.tensors)
+        self.repack_cache = (open_cache(gguf.path) if mode == "quant"
+                             and os.path.exists(gguf.path) else None)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
@@ -134,13 +142,30 @@ class ModelLoader:
         if self.has(bname):
             bias = self._put(self.dense(bname).astype(np.float32))
         if self._keep_quantized(wname):
-            rw = repack(self.gguf.tensor_bytes(wname), info.ggml_type,
-                        info.np_shape)
+            rw = self._repack_cached(wname, lambda: repack(
+                self.gguf.tensor_bytes(wname), info.ggml_type, info.np_shape))
             return self._quant_linear(rw, info.ggml_type.name, bias)
         w = self.dense(wname)
         if w.ndim != 2:
             raise ValueError(f"{wname}: expected 2D, got {w.shape}")
-        return DenseLinear(self._put(np.ascontiguousarray(w.T)), bias)
+        # transposed where it lands (on the card, a copy at its memory rate)
+        return DenseLinear(self._put(w).t().contiguous(), bias)
+
+    def _repack_cached(self, key: str, compute) -> RepackedWeight:
+        """The sidecar's entry ``key``, or ``compute()`` staged into it."""
+        if self.repack_cache is not None:
+            rw = self.repack_cache.get(key)
+            if rw is not None:
+                return rw
+        rw = compute()
+        if self.repack_cache is not None:
+            self.repack_cache.put(key, rw)
+        return rw
+
+    def flush_repack_cache(self) -> None:
+        """Write the sidecar a cold load staged (at the end of a load)."""
+        if self.repack_cache is not None:
+            self.repack_cache.flush()
 
     def _panel(self, arr: np.ndarray | None) -> torch.Tensor | None:
         """A scale or min panel on the device, in scale_dtype."""
@@ -297,18 +322,15 @@ class ModelLoader:
     def _load_ffn(self, i: int, cfg: ModelConfig) -> dict:
         p = f"blk.{i}"
         if self.has(f"{p}.ffn_gate_inp.weight"):  # MoE
-            unported = [f"{p}.{t}" for t in (
-                "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias")
-                if self.has(f"{p}.{t}")]
-            if unported:
-                raise NotImplementedError(
-                    f"MoE per-expert biases (gpt-oss) are not ported yet "
-                    f"(ROADMAP queue 1 item 9): {unported}")
             ffn: dict[str, Any] = {
                 "router": self.linear(f"{p}.ffn_gate_inp"),
                 "experts": {key: self._expert_stack(f"{p}.ffn_{key}_exps.weight")
                             for key in ("gate", "up", "down")},
             }
+            for key in ("gate", "up", "down"):  # gpt-oss per-expert biases
+                bname = f"{p}.ffn_{key}_exps.bias"
+                if self.has(bname):
+                    ffn["experts"][f"{key}_bias"] = self._put(self.dense(bname))
             if self.has(f"{p}.exp_probs_b.bias"):  # DeepSeek-V3 choice bias
                 ffn["router_bias"] = self._put(
                     self.dense(f"{p}.exp_probs_b.bias"))
@@ -354,7 +376,9 @@ class ModelLoader:
         if self.mode == "quant" and t in _QUANTIZED_KEEP and k_in % 32 == 0:
             raw = np.frombuffer(self.gguf.tensor_bytes(name), np.uint8)
             per = raw.size // e
-            rws = [repack(raw[j * per: (j + 1) * per], t, (n_out, k_in))
+            rws = [self._repack_cached(
+                f"{name}#{j}", lambda j=j: repack(
+                    raw[j * per: (j + 1) * per], t, (n_out, k_in)))
                    for j in range(e)]
             return QuantExpertStack(
                 packed=self._put(np.stack([r.packed for r in rws])),
@@ -374,7 +398,9 @@ class ModelLoader:
         if info is not None and info.name in ("t5", "t5encoder"):
             from .t5 import load_t5  # encoder-decoder stacks (enc./dec.)
 
-            return load_t5(self, cfg), cfg
+            params = load_t5(self, cfg)
+            self.flush_repack_cache()
+            return params, cfg
         params: dict[str, Any] = {}
         emb_name = "token_embd.weight"
         emb_info = self.gguf.tensors[emb_name]
@@ -382,12 +408,14 @@ class ModelLoader:
             # the table stays quantized on the device; lookups gather packed
             # rows and dequantize them (ops.linear.embedding_lookup)
             v, h = emb_info.np_shape
-            packed, scales, mins, fmt, group = repack_rows(
-                self.gguf.tensor_bytes(emb_name), emb_info.ggml_type, (v, h))
+            rows = self._repack_cached(emb_name + "@rows", lambda: (
+                RepackedWeight(*repack_rows(self.gguf.tensor_bytes(emb_name),
+                                            emb_info.ggml_type, (v, h)),
+                               k=h, n=v, source_type=emb_info.ggml_type)))
             params["embed"] = QuantEmbedding(
-                packed=self._put(packed), scales=self._panel(scales),
-                mins=self._panel(mins),
-                fmt=fmt, group=group, vocab=v, hidden=h)
+                packed=self._put(rows.packed), scales=self._panel(rows.scales),
+                mins=self._panel(rows.mins),
+                fmt=rows.fmt, group=rows.group, vocab=v, hidden=h)
         else:
             params["embed"] = self._put(self.dense(emb_name))
         if self.has("position_embd.weight"):  # learned positions (gpt2...)
@@ -413,12 +441,14 @@ class ModelLoader:
             if self._keep_quantized(emb_name):
                 # tied embeddings in quant mode: the output head is a
                 # QuantLinear built from the same quantized embedding data
-                rw = repack(self.gguf.tensor_bytes(emb_name),
-                            emb_info.ggml_type, emb_info.np_shape)
+                rw = self._repack_cached(emb_name + "@out", lambda: repack(
+                    self.gguf.tensor_bytes(emb_name), emb_info.ggml_type,
+                    emb_info.np_shape))
                 params["output"] = self._quant_linear(
                     rw, emb_info.ggml_type.name)
             else:
                 params["output"] = None  # dense tied table used directly
+        self.flush_repack_cache()
         return params, cfg
 
 

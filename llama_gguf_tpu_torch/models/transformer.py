@@ -19,11 +19,12 @@ layers (models/deltanet.py), the Mamba family (models/mamba.py: Mamba-1,
 Mamba-2, LFM2's short conv, and Falcon-H1's parallel hybrid here),
 DeepSeek's multi-head latent attention (absorbed, over a one-head latent
 cache) and DeepSeek-V3's sigmoid routing with its bias and group limit
-(route_choice), parallel residual, post norms, tied embeddings, and the
-two-tier ragged read bound on one device, over every KV-cache format of
-models/kv.py (the qjl format through ops/attention.qjl_attention) and the
-sliding-window ring. PhiMoE's and llama4's routings
-and the tier over data shards are ROADMAP queue 1.
+(route_choice), PhiMoE's sparsemixer, llama4's input-scaled experts and
+gpt-oss's per-expert biases (moe_layer), parallel residual, post norms, tied
+embeddings, and the two-tier ragged read bound on one device, over every
+KV-cache format of models/kv.py (the qjl format through
+ops/attention.qjl_attention) and the sliding-window ring. The tier over data
+shards is ROADMAP queue 1.
 
 Nothing here reads a device value on the host, so engine/runner.py can
 capture a whole step in a CUDA graph.
@@ -306,13 +307,20 @@ def route_choice(ffn: dict, cfg: ModelConfig, xf: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The router's (scores, choice) for tokens xf [N, H], each [N, E] f32:
     the top-k of ``choice`` picks the experts, and ``scores`` at those
-    experts are their weights. Softmax routing (gating 1): both are the
-    softmax of the router logits. DeepSeek-V3 (gating 2): the scores are
-    the logits' sigmoid, and the choice adds the learned per-expert bias
-    (``router_bias``, exp_probs_b) and, with expert_group_used_count of
-    expert_group_count groups, sets every expert outside the best groups
-    (a group scored by the sum of its top-2 choices) to -inf."""
+    experts are their weights before ``route`` finishes them. Softmax
+    routing (gating 1): both are the softmax of the router logits.
+    DeepSeek-V3 (gating 2): the scores are the logits' sigmoid, and the
+    choice adds the learned per-expert bias (``router_bias``, exp_probs_b)
+    and, with expert_group_used_count of expert_group_count groups, sets
+    every expert outside the best groups (a group scored by the sum of its
+    top-2 choices) to -inf. PhiMoE's sparsemixer (gating 3) and the
+    top-k-then-softmax branch (``router_softmax_before_topk`` False): both
+    are the logits."""
     logits = L.apply(ffn["router"], xf).float()
+    if cfg.expert_gating_func == 3 or (
+            cfg.expert_gating_func != 2
+            and not ffn.get("router_softmax_before_topk", True)):
+        return logits, logits
     if cfg.expert_gating_func != 2:
         probs = torch.softmax(logits, dim=-1)
         return probs, probs
@@ -332,21 +340,46 @@ def route_choice(ffn: dict, cfg: ModelConfig, xf: torch.Tensor
     return scores, choice
 
 
+def sparsemixer(logits: torch.Tensor, jitter_eps: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PhiMoE's sparsemixer at inference (HF PhimoeSparseMoeBlock, the JAX
+    package's gating 3), top-2 of logits [N, E] -> (weights [N, 2], ids
+    [N, 2]). Each pick is a raw argmax (the first maximum); its weight is
+    its softmax probability over the scores, where a score whose gap to the
+    max, relative to max(|score|, max), exceeds 2 * jitter_eps is masked
+    out. The second pick first masks the winner of the first."""
+    eps2 = 2.0 * jitter_eps
+
+    def pick(sel):
+        m = sel.max(dim=-1, keepdim=True).values
+        factor = torch.maximum(logits.abs(), m)
+        masked = torch.where((m - sel) / factor > eps2,
+                             torch.full_like(sel, -torch.inf), sel)
+        e = torch.argmax(sel, dim=-1)
+        return e, torch.softmax(masked, dim=-1).gather(1, e[:, None])[:, 0]
+
+    e1, w1 = pick(logits)
+    e2, w2 = pick(logits.scatter(1, e1[:, None], -torch.inf))
+    return torch.stack([w1, w2], dim=-1), torch.stack([e1, e2], dim=-1)
+
+
 def route(ffn: dict, cfg: ModelConfig,
           xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing of tokens xf [N, H] -> (weights [N, k] f32, expert ids
-    [N, k]), the JAX package's softmax-before-top-k and DeepSeek-V3
-    branches (``route_choice``): the top-k of the choice, the scores there,
-    then the optional renormalisation (sum clamped at 1e-9 after a softmax,
-    plus 1e-20 after a sigmoid, as the JAX package has them) and the
-    routed scale."""
-    if cfg.expert_gating_func == 3 or cfg.moe_weight_before_ffn:
-        raise NotImplementedError(
-            "sparsemixer (PhiMoE) routing and input-scaled experts (llama4) "
-            "are not ported yet (ROADMAP queue 1 item 9)")
+    [N, k]), every branch of the JAX package's moe_layer: PhiMoE's
+    sparsemixer (gating 3, always top-2); the top-k of the logits, then
+    their softmax (``router_softmax_before_topk`` False); else the top-k
+    of ``route_choice``'s choice, the scores there, then the optional
+    renormalisation (sum clamped at 1e-9 after a softmax, plus 1e-20 after
+    a sigmoid, as the JAX package has them) and the routed scale."""
     scores, choice = route_choice(ffn, cfg, xf)
+    if cfg.expert_gating_func == 3:
+        return sparsemixer(scores, cfg.router_jitter_eps)
     topi = torch.topk(choice, cfg.num_experts_per_token, dim=-1).indices
     topv = torch.gather(scores, 1, topi)
+    if cfg.expert_gating_func != 2 and \
+            not ffn.get("router_softmax_before_topk", True):
+        return torch.softmax(topv, dim=-1), topi
     if cfg.expert_weights_norm:
         total = topv.sum(-1, keepdim=True)
         topv = topv / (total + 1e-20 if cfg.expert_gating_func == 2
@@ -371,35 +404,51 @@ def _expert_mm(x_rows: torch.Tensor, stack, idx: torch.Tensor,
 def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
               precision: str | None = None) -> torch.Tensor:
     """Mixture-of-experts FFN. Slots are token-major (slot s = token * k +
-    j). When gate and up are both quantized the grouped gate|up GLU kernel
-    is tried first; else, or below its threshold, the two products and the
-    GLU; then the down product and the routing-weighted sum. Each product
-    is dispatched on its own stack (``_expert_mm``). Where the slots are
-    many enough for the grouped kernels (``moe_dims``), the dispatch plan
-    is made once here and shared by the layer's quantized products."""
+    j). llama4 (``moe_weight_before_ffn``) scales each slot's input row by
+    its routing weight and sums the down outputs unweighted. When gate and
+    up are both quantized and carry no bias the grouped gate|up GLU kernel
+    is tried first; else, or below its threshold, the two products, each
+    expert's gate and up bias (gpt-oss) added per slot in f32, and the GLU;
+    then the down product, its bias per slot, and the routing-weighted sum.
+    Each product is dispatched on its own stack (``_expert_mm``). Where the
+    slots are many enough for the grouped kernels (``moe_dims``), the
+    dispatch plan is made once here and shared by the layer's quantized
+    products."""
     b, t, h = x.shape
     xf = x.reshape(b * t, h)
     topv, topi = route(ffn, cfg, xf)
     nt, k = topi.shape
     ex = ffn["experts"]
     idx = topi.reshape(-1).to(torch.int32)  # [N*k]
-    xr = xf.float()[:, None, :].expand(nt, k, h).reshape(-1, h)
-    quant = {key: isinstance(st, L.QuantExpertStack)
-             for key, st in ex.items()}
+    xr = xf.float()[:, None, :].expand(nt, k, h)
+    if cfg.moe_weight_before_ffn:  # llama4: the weight scales the input
+        xr = xr * topv[:, :, None]
+    xr = xr.reshape(-1, h)
+    quant = {key: isinstance(ex[key], L.QuantExpertStack)
+             for key in ("gate", "up", "down")}
     plan = None
     c_rows, g_blocks, grouped = moe_dims(idx.shape[0], ex["down"].shape[0])
     if grouped and any(quant.values()):
         plan = moe_group_plan(idx, ex["down"].shape[0], c_rows, g_blocks)
     act = None
-    if quant["gate"] and quant["up"]:
+    if quant["gate"] and quant["up"] and \
+            "gate_bias" not in ex and "up_bias" not in ex:
         act = moe_qmatmul_glu(xr, ex["gate"], ex["up"], idx,
                               cfg.hidden_act.value, precision, plan=plan)
     if act is None:
-        act = _glu(_expert_mm(xr, ex["gate"], idx, precision, plan),
-                   _expert_mm(xr, ex["up"], idx, precision, plan),
-                   cfg.hidden_act)
+        g = _expert_mm(xr, ex["gate"], idx, precision, plan)
+        u = _expert_mm(xr, ex["up"], idx, precision, plan)
+        if "gate_bias" in ex:  # gpt-oss per-expert biases
+            g = g + ex["gate_bias"].float()[idx]
+        if "up_bias" in ex:
+            u = u + ex["up_bias"].float()[idx]
+        act = _glu(g, u, cfg.hidden_act)
     dn = _expert_mm(act.float(), ex["down"], idx, precision, plan)
-    y = (dn.reshape(nt, k, h) * topv[:, :, None]).sum(dim=1)
+    if "down_bias" in ex:  # per expert, before the routing weight
+        dn = dn + ex["down_bias"].float()[idx]
+    dn = dn.reshape(nt, k, h)
+    y = (dn.sum(dim=1) if cfg.moe_weight_before_ffn
+         else (dn * topv[:, :, None]).sum(dim=1))
     if "shared" in ffn:  # Qwen2Moe/Qwen3Next shared expert (+ its gate)
         sh = feed_forward(ffn["shared"], cfg, xf[None], precision)[0]
         if "shared_gate" in ffn:

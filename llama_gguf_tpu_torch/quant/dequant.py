@@ -4,9 +4,9 @@ A copy of llama_gguf_tpu/quant/dequant.py (the port never imports the JAX
 package), bit-exact with llama.cpp's dequantize_row_*: the plain dtypes,
 Q4_0..Q8_1, the K-quants Q2_K..Q8_K, IQ4_NL/IQ4_XS, and the lattice-grid
 formats IQ2_XXS/XS/S and IQ3_XXS/S (quant/iq_quants.py). IQ1_S/IQ1_M decode
-to zeros, as in the JAX package. The JAX package's g++ bulk path (native/)
-is not ported (ROADMAP queue 1 item 7): this numpy version is the same
-function.
+to zeros, as in the JAX package. Bulk data (from 64 KiB) of the nine
+formats of native.NATIVE_FORMATS goes through the native library, as in the
+JAX package: the same values, bit for bit.
 
 All functions take raw block bytes as uint8 [..., n_blocks * type_size] and
 return float32 [..., n_blocks * block_size].
@@ -20,12 +20,14 @@ from typing import Callable
 
 import numpy as np
 
+from .. import native
 from ..gguf.constants import GGMLType, QK_K
 from . import iq_quants as IQ
 
 log = logging.getLogger(__name__)
 
 F32 = np.float32
+BULK_BYTES = 1 << 16  # from here the native library dequantizes
 
 _IQ1_WARNED = False
 
@@ -349,7 +351,12 @@ def dequantize(raw: np.ndarray | memoryview | bytes, ggml_type: GGMLType | int,
                 "vendored; generation from this file will be garbage. "
                 "Re-quantize the source model to IQ2/IQ3/Q2_K.", t.name)
     arr = np.frombuffer(raw, dtype=np.uint8) if not isinstance(raw, np.ndarray) else raw
-    out = _DEQUANT[t](arr)
+    out = None
+    if arr.nbytes >= BULK_BYTES and t.name in native.NATIVE_FORMATS:
+        out = native.dequantize_native(arr, t.name)
+        native.record("dequant", t.name, out is not None)
+    if out is None:
+        out = _DEQUANT[t](arr)
     if shape is not None:
         out = out.reshape(shape)
     return out

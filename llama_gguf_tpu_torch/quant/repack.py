@@ -15,7 +15,9 @@ plus float32 scale/min panels [K/group, N]:   W[k, n] = s[g, n] * q[k, n] - m[g,
 
 The mapping is exact (integer levels and per-group effective scales come
 straight from the block fields), so kernel results match the f32 dequant
-oracle up to the order of summation.
+oracle up to the order of summation. The levels, scales and mins of the nine
+formats of native.NATIVE_FORMATS come from the native library (``_extract``),
+bit-equal to the numpy version (``_extract_numpy``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..gguf.constants import GGMLType, QK_K, type_traits
 from . import dequant as DQ
 
@@ -49,7 +52,20 @@ def _f16(b: np.ndarray) -> np.ndarray:
 
 
 def _extract(raw: np.ndarray, t: GGMLType, n: int, k: int):
-    """Return (q_int [N, K], scales [N, K/g], mins [N, K/g] | None, fmt, g).
+    """Return (q_int [N, K], scales [N, K/g], mins [N, K/g] | None, fmt, g):
+    the native library's for the nine formats of native.NATIVE_FORMATS
+    (bit-equal), ``_extract_numpy``'s for the other four and under
+    LLAMA_GGUF_NO_NATIVE."""
+    if t.name in native.NATIVE_FORMATS:
+        out = native.extract_native(raw, t.name, n, k)
+        native.record("extract", t.name, out is not None)
+        if out is not None:
+            return out
+    return _extract_numpy(raw, t, n, k)
+
+
+def _extract_numpy(raw: np.ndarray, t: GGMLType, n: int, k: int):
+    """``_extract`` in numpy, for every kept format.
 
     q_int holds the stored integer levels; for q4 formats they are unsigned
     0..15, for q8 formats they are int8.
@@ -200,8 +216,13 @@ def _extract(raw: np.ndarray, t: GGMLType, n: int, k: int):
 
 
 def _transpose(a: np.ndarray) -> np.ndarray:
-    """Cache-blocked [N, M] -> [M, N] contiguous copy (numpy's plain
-    ``ascontiguousarray(a.T)`` byte transpose is far slower at weight sizes)."""
+    """Cache-blocked [N, M] -> [M, N] contiguous copy of one-byte levels:
+    the native library's, or under LLAMA_GGUF_NO_NATIVE numpy's in slabs
+    (numpy's plain ``ascontiguousarray(a.T)`` byte transpose is far slower
+    at weight sizes)."""
+    out = native.transpose_bytes(a)
+    if out is not None:
+        return out
     n, m = a.shape
     out = np.empty((m, n), a.dtype)
     step = 1024

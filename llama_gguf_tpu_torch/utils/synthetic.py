@@ -4,8 +4,8 @@ A trimmed copy of llama_gguf_tpu/utils/synthetic.py (dense, Mixtral-style
 MoE, Qwen3Next hybrid and Falcon-H1 presets; the port never imports the JAX
 package). The same preset, quant and seed give the same file byte for byte
 as the JAX package's synthetic.py (the -l2 presets, HYBRID_MOE_PRESETS,
-SSM_PRESETS, MLA_PRESETS, GEMMA3_PRESETS and ENCODER_PRESETS are the port's
-own, and the JAX package loads them too). ``build_synthetic_t5`` writes the
+SSM_PRESETS, MLA_PRESETS, GEMMA3_PRESETS, ROUTING_PRESETS and
+ENCODER_PRESETS are the port's own, and the JAX package loads them too). ``build_synthetic_t5`` writes the
 JAX builder's bytes at its defaults; ``build_synthetic_bert`` the tensor
 names of the JAX package's BERT test builder.
 ``quant`` is any quantizable type;
@@ -227,6 +227,49 @@ GEMMA3_PRESETS = {
 }
 
 
+# MoE presets routed past softmax-top-k (port-only; the tensor names and
+# GGUF keys of tests/test_arch_zoo.py's gpt-oss, phimoe and llama4 builders,
+# random weights): gpt-oss (router and per-expert biases, sinks, sliding
+# window on even layers, clamped SwiGLU, the YaRN keys the JAX parse_config
+# reads), PhiMoE (sparsemixer top-2, LayerNorm with biases; its
+# router_jitter_eps is the architecture's default 0.01) and llama4 (MoE on
+# odd layers with a shared expert, sigmoid routing scaling the expert input,
+# chunked attention, NoPE every 4th layer, L2 QK-norm, temperature tuning).
+# The Q4_K_M mix: attention, gate/up and the experts' gate/up Q4_K; the
+# down projections, the table and the head Q6_K; a K-quant whose
+# super-block does not divide the row falls back to Q5_1 (_quant_put);
+# routers, biases, sinks and norms F32.
+ROUTING_PRESETS = {
+    # the CPU tests' size: every width a multiple of 256
+    "tiny-gpt-oss": dict(
+        arch="gpt-oss", vocab=512, hidden=256, layers=2, heads=4,
+        kv_heads=2, head_dim=64, experts=8, topk=4, expert_ffn=256,
+        window=16, ctx=2048, rope_base=150000.0),
+    "tiny-phimoe": dict(
+        arch="phimoe", vocab=512, hidden=256, layers=2, heads=4,
+        kv_heads=2, head_dim=64, experts=8, topk=2, expert_ffn=256,
+        ctx=2048, rope_base=10000.0),
+    "tiny-llama4": dict(
+        arch="llama4", vocab=512, hidden=256, layers=4, heads=4,
+        kv_heads=2, head_dim=64, experts=8, topk=2, expert_ffn=256,
+        ffn=512, chunk=32, ctx=2048, rope_base=500000.0),
+    # openai/gpt-oss-20b config.json: vocab 201088, hidden 2880, 64 query
+    # and 8 KV heads of head_dim 64, 32 experts of 2880, top-4, a sliding
+    # window of 128 on the even layers (sliding / full alternating), sinks,
+    # biases on q/k/v/o, the router and the experts, swiglu_limit 7.0,
+    # rms_norm_eps 1e-5, untied head, rope_theta 150000 with YaRN (factor
+    # 32, original context 4096, beta_fast 32, beta_slow 1), 131072
+    # positions. Reduced: layers 24 -> 2 (one sliding layer and one full);
+    # the real GGUFs store the experts as MXFP4, which neither package
+    # reads: here every tensor with 2880-long rows is Q5_1 (the mix's
+    # fallback) and attn_output (K = 4096) Q4_K
+    "gpt-oss-20b-l2": dict(
+        arch="gpt-oss", vocab=201088, hidden=2880, layers=2, heads=64,
+        kv_heads=8, head_dim=64, experts=32, topk=4, expert_ffn=2880,
+        window=128, ctx=131072, rope_base=150000.0),
+}
+
+
 # Encoder presets (port-only; full depth and width, random weights): the
 # Q4_K_M mix (attention, up and gate|up Q4_K; ffn_down, the token table and
 # an untied head Q6_K; biases, norms, position and type tables and T5's
@@ -276,6 +319,8 @@ def build_synthetic_gguf(
         return _build_gemma3(path, preset, quant, seed, max_ctx)
     if preset in ENCODER_PRESETS:
         return _build_encoder(path, preset, quant, seed)
+    if preset in ROUTING_PRESETS:
+        return _build_routing(path, preset, quant, seed, max_ctx)
     arch, vocab, hidden, layers, heads, kv_heads, ffn, ctx, tie = PRESETS[preset]
     if max_ctx:
         ctx = min(ctx, max_ctx)
@@ -875,6 +920,95 @@ def _build_gemma3(path: str, preset: str, quant: GGMLType, seed: int,
         addq(f"{p}.ffn_up.weight", rw(c["ffn"], hidden))
         addq(f"{p}.ffn_down.weight", rw(hidden, c["ffn"]), q6)
     w.add_tensor_np("output_norm.weight", ones(hidden))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w.write_to_path(path)
+    return path
+
+
+def _build_routing(path: str, preset: str, quant: GGMLType, seed: int,
+                   max_ctx: int | None) -> str:
+    """A ROUTING_PRESETS model under its own arch (gpt-oss, phimoe or
+    llama4)."""
+    c = ROUTING_PRESETS[preset]
+    a, hidden, hd = c["arch"], c["hidden"], c["head_dim"]
+    heads, kvh, e, ef = c["heads"], c["kv_heads"], c["experts"], c["expert_ffn"]
+    ctx = min(c["ctx"], max_ctx) if max_ctx else c["ctx"]
+    rng = np.random.default_rng(seed)
+
+    def rw(*shape, scale=0.02):
+        return rng.standard_normal(shape).astype(np.float32) * scale
+
+    def ones(n):
+        return np.ones(n, np.float32) + rw(n)
+
+    md = {"embedding_length": hidden, "block_count": c["layers"],
+          "context_length": ctx, "vocab_size": c["vocab"],
+          "attention.layer_norm_rms_epsilon": 1e-5,
+          "attention.head_count": heads, "attention.head_count_kv": kvh,
+          "attention.key_length": hd, "attention.value_length": hd,
+          "rope.freq_base": c["rope_base"], "expert_count": e,
+          "expert_used_count": c["topk"], "expert_feed_forward_length": ef,
+          "feed_forward_length": c.get("ffn", ef)}
+    if a == "gpt-oss":
+        md.update({"attention.sliding_window": c["window"],
+                   "rope.scaling.type": "yarn", "rope.scaling.factor": 32.0,
+                   "rope.scaling.original_context_length": 4096})
+    if a == "llama4":
+        md.update({"attention.chunk_size": c["chunk"],
+                   "expert_shared_count": 1, "expert_gating_func": 2,
+                   "attention.use_kq_norm": True,
+                   "attention.temperature_scale": 0.1,
+                   "attention.floor_scale": 16.0})
+    w = GGUFWriter()
+    w.add_metadata("general.architecture", a)
+    w.add_metadata("general.name", f"synthetic-{preset}")
+    for key, value in md.items():
+        w.add_metadata(f"{a}.{key}", value)
+    _add_tokenizer(w, c["vocab"])
+
+    q6 = GGMLType.F32 if quant == GGMLType.F32 else GGMLType.Q6_K
+
+    def addq(name, arr, q=quant):
+        _quant_put(w, name, arr, q)
+
+    def norm(name, n):
+        w.add_tensor_np(f"{name}.weight", ones(n))
+        if a == "phimoe":  # LayerNorm
+            w.add_tensor_np(f"{name}.bias", rw(n))
+
+    addq("token_embd.weight", rw(c["vocab"], hidden), q6)
+    for i in range(c["layers"]):
+        p = f"blk.{i}"
+        norm(f"{p}.attn_norm", hidden)
+        for key, n_out, k_in in (("q", heads * hd, hidden),
+                                 ("k", kvh * hd, hidden),
+                                 ("v", kvh * hd, hidden),
+                                 ("output", hidden, heads * hd)):
+            addq(f"{p}.attn_{key}.weight", rw(n_out, k_in))
+            if a == "gpt-oss":
+                w.add_tensor_np(f"{p}.attn_{key}.bias", rw(n_out))
+        if a == "gpt-oss":
+            w.add_tensor_np(f"{p}.attn_sinks.weight", rw(heads, scale=0.5))
+        norm(f"{p}.ffn_norm", hidden)
+        if a == "llama4" and i % 2 == 0:  # llama4's dense layers
+            addq(f"{p}.ffn_gate.weight", rw(c["ffn"], hidden))
+            addq(f"{p}.ffn_up.weight", rw(c["ffn"], hidden))
+            addq(f"{p}.ffn_down.weight", rw(hidden, c["ffn"]), q6)
+            continue
+        w.add_tensor_np(f"{p}.ffn_gate_inp.weight", rw(e, hidden))
+        addq(f"{p}.ffn_gate_exps.weight", rw(e, ef, hidden))
+        addq(f"{p}.ffn_up_exps.weight", rw(e, ef, hidden))
+        addq(f"{p}.ffn_down_exps.weight", rw(e, hidden, ef), q6)
+        if a == "gpt-oss":
+            w.add_tensor_np(f"{p}.ffn_gate_inp.bias", rw(e, scale=0.1))
+            for key, n in (("gate", ef), ("up", ef), ("down", hidden)):
+                w.add_tensor_np(f"{p}.ffn_{key}_exps.bias", rw(e, n))
+        if a == "llama4":
+            addq(f"{p}.ffn_gate_shexp.weight", rw(ef, hidden))
+            addq(f"{p}.ffn_up_shexp.weight", rw(ef, hidden))
+            addq(f"{p}.ffn_down_shexp.weight", rw(hidden, ef), q6)
+    norm("output_norm", hidden)
+    addq("output.weight", rw(c["vocab"], hidden), q6)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     w.write_to_path(path)
     return path

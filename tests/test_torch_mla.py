@@ -406,25 +406,48 @@ def test_routing_has_a_margin(engines, name, monkeypatch):
                                   "expert_bias"])
 def test_other_routings_still_raise(engines, paths, case):
     """PhiMoE's sparsemixer, llama4's input-scaled experts and gpt-oss's
-    per-expert biases stay unported, naming item 9."""
+    per-expert biases are ported (the name is the test's from before: they
+    raised until the load-path and routing slice), here on
+    tiny-deepseek-v3's MoE layer (sigmoid routing with the bias and 2 of 4
+    groups). Sparsemixer (which reads neither the bias nor the groups) and
+    input-scaled experts: route's ids equal the JAX moe_layer's choice, and
+    moe_layer within 1e-5 of max |value| of the JAX one. An expert bias
+    (exp_probs_b standing in as ffn_up_exps.bias): loaded as the JAX loader
+    loads it."""
+    from llama_gguf_tpu.gguf.reader import GGUFFile as JGGUFFile
+    from llama_gguf_tpu.models.loader import ModelLoader as JLoader
     from llama_gguf_tpu_torch.gguf.reader import GGUFFile
     from llama_gguf_tpu_torch.models.loader import ModelLoader
 
-    _, te = engines("tiny-deepseek-v3")
+    je, te = engines("tiny-deepseek-v3")
     cfg, ffn = te.runner.cfg, te.runner.params["layers"][1]["ffn"]
     if case == "expert_bias":
-        gguf = GGUFFile.open(paths["tiny-deepseek-v3", "f32"])
-        gguf.tensors["blk.1.ffn_up_exps.bias"] = \
-            gguf.tensors["blk.1.exp_probs_b.bias"]
+        path = paths["tiny-deepseek-v3", "f32"]
+        gguf, jgguf = GGUFFile.open(path), JGGUFFile.open(path)
+        for g in (gguf, jgguf):
+            g.tensors["blk.1.ffn_up_exps.bias"] = \
+                g.tensors["blk.1.exp_probs_b.bias"]
         loader = ModelLoader(gguf, mode="dequant", device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            loader.load_layer(1, loader.config)
+        jloader = JLoader(jgguf, mode="dequant")
+        got = loader.load_layer(1, loader.config)["ffn"]["experts"]
+        want = jloader.load_layer(1, jloader.config)["ffn"]["experts"]
+        assert "up_bias" in got and "gate_bias" not in got
+        np.testing.assert_array_equal(got["up_bias"].numpy(),
+                                      np.asarray(want["up_bias"]))
         return
-    cfg = (dataclasses.replace(cfg, expert_gating_func=3)
-           if case == "sparsemixer"
-           else dataclasses.replace(cfg, moe_weight_before_ffn=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        T.route(ffn, cfg, torch.zeros(2, cfg.hidden_size))
+    change = (dict(expert_gating_func=3, router_jitter_eps=0.01)
+              if case == "sparsemixer" else dict(moe_weight_before_ffn=True))
+    tcfg = dataclasses.replace(cfg, **change)
+    jcfg = dataclasses.replace(je.runner.cfg, **change)
+    jffn = je.runner.params["layers"][1]["ffn"]
+    x = np.random.default_rng(5).standard_normal(
+        (1, 12, cfg.hidden_size)).astype(np.float32)
+    with torch.no_grad():
+        _, topi = T.route(ffn, tcfg, torch.from_numpy(x[0]))
+        got = T.moe_layer(ffn, tcfg, torch.from_numpy(x)).numpy()
+    assert topi.shape == (12, 2 if case == "sparsemixer"
+                          else cfg.num_experts_per_token)
+    close(got, np.asarray(JT.moe_layer(jffn, jcfg, jnp.asarray(x))))
 
 
 def test_moe_stats_match_jax(engines):

@@ -379,21 +379,31 @@ def test_routing_matches_jax_with_a_margin(tiny_moe, monkeypatch):
 
 @pytest.mark.parametrize("case", ["sigmoid", "sparsemixer", "input_scaled"])
 def test_unported_routings_raise(tiny_moe, case):
-    """PhiMoE's sparsemixer and llama4's input-scaled experts still raise,
-    naming item 9. DeepSeek-V3's sigmoid routing is ported: on tiny-moe's
-    router with a seeded bias and 2 groups of 2, the port's route gives the
-    JAX moe_layer's experts and weights (its output within 1e-5 of max
-    |value|)."""
+    """Every routing of the JAX moe_layer is ported (the name is the test's
+    from before: the last two raised until the load-path and routing slice).
+    PhiMoE's sparsemixer (gating 3, router_jitter_eps 0.01) and llama4's
+    input-scaled experts on tiny-moe's quantized layer 0, at 16 tokens
+    (32 slots: kernel 4 per slot): the port's moe_layer within 1e-5 of max
+    |value| of the JAX one (Pallas in interpret mode). DeepSeek-V3's
+    sigmoid routing: on tiny-moe's router with a seeded bias and 2 groups
+    of 2, the port's route gives the JAX moe_layer's experts and weights
+    (its output within 1e-5 of max |value|)."""
     _, jeng, teng = tiny_moe
     cfg = teng.runner.cfg
     ffn = teng.runner.params["layers"][0]["ffn"]
     if case != "sigmoid":
-        cfg = {"sparsemixer": dataclasses.replace(cfg, expert_gating_func=3),
-               "input_scaled": dataclasses.replace(
-                   cfg, moe_weight_before_ffn=True)}[case]
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 9"):
-            T.moe_layer(ffn, cfg, torch.zeros(1, 2, cfg.hidden_size))
+        change = ({"sparsemixer": dict(expert_gating_func=3,
+                                       router_jitter_eps=0.01),
+                   "input_scaled": dict(moe_weight_before_ffn=True)}[case])
+        x = np.random.default_rng(4).standard_normal(
+            (1, 16, cfg.hidden_size)).astype(np.float32)
+        with torch.no_grad():
+            got = T.moe_layer(ffn, dataclasses.replace(cfg, **change),
+                              torch.from_numpy(x)).numpy()
+        want = np.asarray(jtransformer.moe_layer(
+            jeng.runner.params["layers"][0]["ffn"],
+            dataclasses.replace(jeng.runner.cfg, **change), jnp.asarray(x)))
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
         return
     bias = np.random.default_rng(2).standard_normal(4).astype(
         np.float32) * 0.05
@@ -422,17 +432,32 @@ def test_unported_routings_raise(tiny_moe, case):
 @pytest.mark.parametrize("extra", ["ffn_down_exps.bias", "exp_probs_b.bias",
                                    "ffn_gate_exps.bias"])
 def test_unported_moe_tensors_raise(tiny_moe, extra):
+    """Every MoE tensor the JAX loader reads loads (the name is the test's
+    from before: the expert biases raised until the load-path and routing
+    slice). A tensor of the GGUF stands in under the extra name: the
+    router's choice bias (exp_probs_b) and gpt-oss's per-expert biases
+    (experts["down_bias"], ["gate_bias"]) equal it, as in the JAX
+    loader."""
+    from llama_gguf_tpu.gguf.reader import GGUFFile as JGGUFFile
+    from llama_gguf_tpu.models.loader import ModelLoader as JLoader
+
     path, _, _ = tiny_moe
-    gguf = GGUFFile.open(path)
-    gguf.tensors[f"blk.0.{extra}"] = gguf.tensors["blk.0.ffn_norm.weight"]
+    name = f"blk.0.{extra}"
+    gguf, jgguf = GGUFFile.open(path), JGGUFFile.open(path)
+    gguf.tensors[name] = gguf.tensors["blk.0.ffn_norm.weight"]
+    jgguf.tensors[name] = jgguf.tensors["blk.0.ffn_norm.weight"]
     loader = ModelLoader(gguf, mode="quant", device="cpu")
+    jloader = JLoader(jgguf, mode="quant")
+    ffn = loader.load_layer(0, loader.config)["ffn"]
+    jffn = jloader.load_layer(0, jloader.config)["ffn"]
     if extra == "exp_probs_b.bias":  # loads as the router's choice bias
-        ffn = loader.load_layer(0, loader.config)["ffn"]
-        np.testing.assert_array_equal(
-            ffn["router_bias"].numpy(), loader.dense("blk.0.ffn_norm.weight"))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        loader.load_layer(0, loader.config)
+        got, want = ffn["router_bias"], jffn["router_bias"]
+    else:
+        key = extra.split("_")[1] + "_bias"
+        got, want = ffn["experts"][key], jffn["experts"][key]
+    np.testing.assert_array_equal(got.numpy(),
+                                  loader.dense("blk.0.ffn_norm.weight"))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_params_from_numpy_converts_expert_stacks(tiny_moe):
