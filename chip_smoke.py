@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed). They run
-in the order 1-5, 7, 13, 16a, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17, 18:
+in the order 1-5, 7, 13, 16a, 19, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17,
+18:
 phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
 phase 12's, phase 14's, phase 15's, phase 16b's, phase 17's and phase 18's
 GGUFs build in nine child processes. Phase 9 runs inside each of phases 4,
@@ -388,6 +389,43 @@ plain version the graphs are held against.
    none repacks a tensor. Gate: no bulk call of the run went to numpy.
    Prints every load_both's seconds, phase 18's and the script's.
 
+19. Speculative decoding (engine/speculative.py), LoRA adapters
+   (models/lora.py) and LLAMA_DEBUG (utils/debug.py), on phase 4's
+   TinyLlama-1.1B engines right after 16a, with tinyllama-1.1b-l2 (18a's
+   GGUF) as the draft. 19a: a 230-token prompt with a repeated span,
+   SPEC_TOKENS tokens in each mode: the draft model, the self-draft at the
+   default exit (5 of 22 layers; its own runner over the same tensors),
+   the target as its own draft, prompt lookup (8 drafts, n-grams up to 3),
+   and generate_sampled at temperature 0.8 with the draft model and with
+   the target as its own draft; each mode run twice, the first capturing
+   its graph keys (printed with their seconds), the second timed with the
+   launch counters at 0 and repeating the first's tokens. Gates: greedy
+   tokens equal generate_plain_greedy's up to the first near tie; the
+   same-model runs accept every draft; no eager step; every launch of
+   kernels 1-3 accounted to the replays of the target's and the draft's
+   graphs; the CLI's run with --draft, --self-speculative 5 and
+   --prompt-lookup 8 exits 0. Printed per mode: tok/s (host clock,
+   synchronized, prefills included, no capture), acceptance, tokens per
+   round, ms per round split into draft, verification and host; beside
+   them plain greedy_decode tok/s. 19b: a seeded adapter GGUF (rank 16,
+   alpha 32, F32, llama.cpp's layout) on q, k, v, o, gate, up and down of
+   all 22 layers, and its zero-B twin, built into .cache/. Gates: quant
+   logits with the adapter within 1e-3 of max |logit| of dequant's with
+   it, tokens equal up to the first near tie; graphed equal to eager
+   (tokens, 2e-4 of max |logit|); exact launches derived from the adapted
+   params, none of kernel 3 (every gate|up split); the zero-B adapter's
+   tokens equal the base's up to the first near tie; after remove_lora
+   the runner holds no graph, captures anew, and its replayed logits equal
+   a fresh runner's over the same params bit for bit (and differ from the
+   adapter's); serve --lora answers a greedy chat completion whose tokens
+   equal Engine.generate's up to the first near tie; the CLI's run --lora
+   exits 0. Printed: a greedy step's device ms and kernels, and bench
+   tok/s, with and without the adapter. 19c, on tinyllama-1.1b-l2:
+   greedy tokens with LLAMA_DEBUG on (every step eager, an embed line and
+   one out line per layer and step on stdout), then off (graphs replay),
+   and bench --profile's chrome trace (utils/debug.profile) holding
+   kernels. Prints phase 19's seconds and the script's.
+
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
 phase 10's and 13's, the bench lines and one JSON object {"kernels":
@@ -396,6 +434,7 @@ phase 10's and 13's, the bench lines and one JSON object {"kernels":
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -2173,9 +2212,10 @@ def hybrid_launches_per_step(params, cfg, prefill_rows: int = 128
     decode step's num_experts_per_token slots, below the grouped rule, and
     at the prefill bucket's ``prefill_rows`` x num_experts_per_token slots
     the grouped GLU and grouped kernels once each, or, with expert biases,
-    the grouped kernel three times (ops/qmatmul.moe_dims)."""
+    the grouped kernel three times (ops/qmatmul.moe_dims). A LoRA-wrapped
+    linear counts as its base."""
     from llama_gguf_tpu_torch.ops import qmatmul as Q
-    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+    from llama_gguf_tpu_torch.ops.linear import LoraLinear, QuantLinear
 
     per: dict[str, int] = {}
 
@@ -2186,6 +2226,10 @@ def hybrid_launches_per_step(params, cfg, prefill_rows: int = 128
         elif isinstance(tree, list):
             for v in tree:
                 walk(v)
+        elif isinstance(tree, LoraLinear):  # the base keeps its kernel
+            walk(tree.base, key)
+        elif isinstance(tree, LoraLinear):
+            walk(tree.base, where)
         elif isinstance(tree, QuantLinear):
             name = ("qmatmul_glu" if key == "gate_up"
                     else f"qmatmul_{tree.fmt}")
@@ -3057,8 +3101,9 @@ def distinct_projections(params) -> list[tuple[str, str, object]]:
     """Each QuantLinear of ``params`` whose kernel and shape (K, N, format,
     group, GLU split) no earlier one has, as projection_checks takes them:
     (kernel, its place in the tree, QuantLinear), the kernel picked as
-    hybrid_launches_per_step picks it."""
-    from llama_gguf_tpu_torch.ops.linear import QuantLinear
+    hybrid_launches_per_step picks it. A LoraLinear stands for its base,
+    which its kernel runs on."""
+    from llama_gguf_tpu_torch.ops.linear import LoraLinear, QuantLinear
 
     seen: dict[tuple, tuple[str, str, object]] = {}
 
@@ -3069,6 +3114,8 @@ def distinct_projections(params) -> list[tuple[str, str, object]]:
         elif isinstance(tree, list):
             for i, v in enumerate(tree):
                 walk(v, f"{where}.{i}")
+        elif isinstance(tree, LoraLinear):
+            walk(tree.base, where)
         elif isinstance(tree, QuantLinear):
             name = ("qmatmul_glu" if where.endswith("gate_up")
                     else f"qmatmul_{tree.fmt}")
@@ -4591,6 +4638,506 @@ def oss_path(card: str, timer, peaks: dict, gguf: str):
     return measurements, launches, batched_launches
 
 
+# -- phase 19: speculative decoding, LoRA, LLAMA_DEBUG ----------------------
+
+SPEC_TOKENS = 128  # 19a: tokens per mode
+SPEC_DRAFT = 4  # 19a: num_draft of the draft model, self-draft and same model
+LOOKUP_DRAFT, LOOKUP_NGRAM = 8, 3  # 19a (iv)
+SPEC_TEMPERATURE = 0.8  # 19a (v)
+LORA_RANK, LORA_ALPHA, LORA_STD = 16, 32.0, 0.01  # 19b: A and B ~ N(0, std)
+LORA_TARGETS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate",
+                "ffn_up", "ffn_down")
+DEBUG_TOKENS = 3  # 19c: greedy tokens traced
+
+
+def spec_prompt(tokenizer) -> list[int]:
+    """19a's prompt: SURVEY.md's first 130 tokens, then its tokens 1-100
+    again (230 tokens; the repeated span gives prompt lookup its n-grams)."""
+    ids = repo_text_ids(tokenizer, 130)
+    return ids + ids[1:101]
+
+
+@contextlib.contextmanager
+def timed_rounds(dec):
+    """Host seconds of a speculative decoder's draft and verification,
+    each synchronized at its end (both end in a fetch from the device
+    anyway): engine/speculative's _draft_greedy_on_device, its _window_dev
+    on the draft's cache and the draft's decode_one (the sampled path)
+    count as "draft", _window_dev on the target's cache as "verify" (all a
+    prompt-lookup decoder's). Yields the dict of seconds; the wrappers go
+    after."""
+    import torch
+    from llama_gguf_tpu_torch.engine import speculative as S
+
+    times = {"draft": 0.0, "verify": 0.0}
+    window, draft_fn = S._window_dev, S._draft_greedy_on_device
+    target_kv = dec.target._kv[(dec.target.max_batch, None)]
+    draft = getattr(dec, "draft", None)
+    inner = [0]
+
+    def timed_window(runner, tokens, start, kv):
+        t0 = time.perf_counter()
+        out = window(runner, tokens, start, kv)
+        if not inner[0]:
+            torch.cuda.synchronize()
+            key = "verify" if kv is target_kv else "draft"
+            times[key] += time.perf_counter() - t0
+        return out
+
+    def timed_draft(*a):
+        t0 = time.perf_counter()
+        inner[0] += 1
+        try:
+            return draft_fn(*a)
+        finally:
+            inner[0] -= 1
+            times["draft"] += time.perf_counter() - t0
+
+    S._window_dev, S._draft_greedy_on_device = timed_window, timed_draft
+    if draft is not None:
+        decode_one = draft.decode_one
+
+        def timed_decode_one(*a, **kw):
+            t0 = time.perf_counter()
+            out = decode_one(*a, **kw)
+            times["draft"] += time.perf_counter() - t0
+            return out
+
+        draft.decode_one = timed_decode_one
+    try:
+        yield times
+    finally:
+        S._window_dev, S._draft_greedy_on_device = window, draft_fn
+        if draft is not None:
+            del draft.decode_one
+
+
+def replay_launches(runners, replays0) -> dict:
+    """The kernel launches the graph replays of ``runners`` made since
+    ``replays0`` (each runner's replays dict before)."""
+    out: dict[str, int] = {}
+    for r, before in zip(runners, replays0):
+        for key, n in r.replays.items():
+            n -= before.get(key, 0)
+            if n and key in r._graphs:
+                for name, per in r._graphs[key].launches[0].items():
+                    out[name] = out.get(name, 0) + n * per
+    return out
+
+
+def spec_mode(label: str, dec, ids, plain, margins, sampler=None) -> dict:
+    """One mode of 19a: a first run (it captures the mode's graph keys:
+    printed with their seconds), then a timed run with the launch counters
+    set to 0 that captures nothing and repeats the first's tokens. Gates:
+    the greedy tokens equal plain greedy's up to the first near tie; no
+    eager step; every launch of kernels 1-3 accounted to the replays of the
+    target's and the draft's graphs."""
+    import torch
+    from llama_gguf_tpu_torch.engine import speculative as S
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    runners = [dec.target] + ([dec.draft] if getattr(dec, "draft", None)
+                              not in (None, dec.target) else [])
+
+    def go():
+        dec.stats = S.SpeculativeStats()
+        if sampler is None:
+            return dec.generate_greedy(ids, SPEC_TOKENS)
+        return dec.generate_sampled(ids, SPEC_TOKENS, sampler, seed=SEED)
+
+    keys0 = [set(r.capture_seconds) for r in runners]
+    eager0 = [r.eager_steps for r in runners]
+    first = go()
+    captured = {f"{'draft ' if i else ''}{key}": r.capture_seconds[key]
+                for i, (r, k0) in enumerate(zip(runners, keys0))
+                for key in r.capture_seconds if key not in k0}
+    caps = [r.captures for r in runners]
+    replays0 = [dict(r.replays) for r in runners]
+    sync()
+    Q.reset_launches()
+    t0 = time.perf_counter()
+    with timed_rounds(dec) as times:
+        toks = go()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(Q.LAUNCHES)
+    check([r.captures for r in runners] == caps,
+          f"19a {label}: the timed run captured a graph")
+    check(toks == first, f"19a {label}: a second run's tokens differ")
+    check([r.eager_steps for r in runners] == eager0,
+          f"19a {label}: a step ran eagerly")
+    accounted = replay_launches(runners, replays0)
+    for name in PER_STEP:
+        check(launches.get(name, 0) == accounted.get(name, 0) > 0,
+              f"19a {label} {name}: {launches.get(name, 0)} launches, "
+              f"{accounted.get(name, 0)} from the graphs' replays")
+    st = dec.stats
+    rounds = max(st.rounds, 1)
+    out = dict(mode=label, tokens=len(toks), tok_s=len(toks) / wall,
+               acceptance=st.acceptance_rate,
+               tokens_per_round=st.tokens_per_round, rounds=st.rounds,
+               drafted=st.drafted, accepted=st.accepted, bonus=st.bonus,
+               ms_per_round=wall * 1e3 / rounds,
+               draft_ms_per_round=times["draft"] * 1e3 / rounds,
+               verify_ms_per_round=times["verify"] * 1e3 / rounds,
+               host_ms_per_round=(wall - times["draft"] - times["verify"])
+               * 1e3 / rounds,
+               captured_keys=captured, capture_s=sum(captured.values()),
+               launches=launches)
+    if sampler is None:
+        out.update(same_until_tie(f"19a {label}", toks, plain, margins))
+    return out
+
+
+def greedy_rate(runner, ids, steps: int) -> float:
+    """Plain greedy_decode tok/s from the prompt: a first run captures, the
+    second is timed on the host clock from the prefill's start to the
+    tokens' fetch, as spec_mode times a mode (whose run holds the target's
+    prefill, and the draft's)."""
+    import torch
+
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        logits, kv, pos = runner.prefill(ids, runner.init_kv())
+        first = torch.argmax(logits)[None].to(torch.int32)
+        # the prefill's token and steps - 1 more, as a mode's steps tokens
+        toks, kv = runner.greedy_decode(first, [pos], kv, steps=steps - 1)
+        toks.cpu()
+        wall = time.perf_counter() - t0
+    return steps / wall
+
+
+def speculative_path(quant, gguf: str, draft_gguf: str, card: str) -> dict:
+    """Phase 19a on TinyLlama-1.1B (phase 4's quant engine) with the
+    tinyllama-1.1b-l2 draft. Returns the launches of the timed runs."""
+    from llama_gguf_tpu_torch.cli import main as cli_main
+    from llama_gguf_tpu_torch.engine import speculative as S
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    t_phase = time.perf_counter()
+    target = quant.runner
+    draft = Engine.load(draft_gguf, EngineConfig(weight_mode="quant"),
+                        device="cuda")
+    check(draft.runner.cfg.vocab_size == target.cfg.vocab_size,
+          "19a: the draft's vocabulary differs")
+    ids = spec_prompt(quant.tokenizer)
+    plain, margins = single_stream(target, ids, SPEC_TOKENS)
+    check(S.SpeculativeDecoder(target, target).generate_plain_greedy(
+        ids, SPEC_TOKENS) == plain,
+        "19a: generate_plain_greedy differs from the single-stream steps")
+    plain_tps = greedy_rate(target, ids, SPEC_TOKENS)
+    self_dec = S.SpeculativeDecoder.self_speculative(target,
+                                                     num_draft=SPEC_DRAFT)
+    check(self_dec.draft.cfg.num_layers == 5,
+          f"19a: the self-draft exits at {self_dec.draft.cfg.num_layers}")
+    sampled = SamplerConfig(temperature=SPEC_TEMPERATURE, top_k=0, top_p=1.0,
+                            repetition_penalty=1.0)
+    modes = [
+        ("draft model", S.SpeculativeDecoder(target, draft.runner,
+                                             num_draft=SPEC_DRAFT), None),
+        ("self-draft exit 5", self_dec, None),
+        ("same model", S.SpeculativeDecoder(target, target,
+                                            num_draft=SPEC_DRAFT), None),
+        ("prompt lookup", S.PromptLookupDecoder(
+            target, num_draft=LOOKUP_DRAFT, max_ngram=LOOKUP_NGRAM), None),
+        ("sampled, draft model", S.SpeculativeDecoder(
+            target, draft.runner, num_draft=SPEC_DRAFT), sampled),
+        ("sampled, same model", S.SpeculativeDecoder(
+            target, target, num_draft=SPEC_DRAFT), sampled),
+    ]
+    rows, launches = [], {}
+    for label, dec, smp in modes:
+        rows.append(spec_mode(label, dec, ids, plain, margins, smp))
+        launches = added(launches, rows[-1].pop("launches"))
+    for row in rows:
+        if row["mode"] in ("same model", "sampled, same model"):
+            check(row["acceptance"] == 1.0,
+                  f"19a {row['mode']}: acceptance {row['acceptance']}")
+    check(target.eager_steps == 0 and draft.runner.eager_steps == 0
+          and self_dec.draft.eager_steps == 0, "19a: eager steps")
+    cli_runs = {}
+    for flags in (["--draft", draft_gguf], ["--self-speculative", "5"],
+                  ["--prompt-lookup", str(LOOKUP_DRAFT)]):
+        t0 = time.perf_counter()
+        rc = cli_main(["run", gguf, "-p", PROMPT, "-n", "16", "-t", "0"]
+                      + flags)
+        check(rc == 0, f"19a: the CLI's run {flags[0]} exited {rc}")
+        cli_runs[flags[0]] = time.perf_counter() - t0
+    print(json.dumps({"phase_19a": dict(
+        path="TinyLlama-1.1B", draft="tinyllama-1.1b-l2",
+        prompt_tokens=len(ids), plain_greedy_decode_tok_s=plain_tps,
+        modes=rows, cli_run_s=cli_runs,
+        phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+    del draft, self_dec, modes
+    return launches
+
+
+def write_adapter(layer: dict, num_layers: int, zero_b: bool) -> str:
+    """19b's adapter GGUF in llama.cpp's layout (lora_a [r, K], lora_b
+    [N, r], F32; A and B ~ N(0, LORA_STD) from SEED, B zeros for the
+    zero-B twin) on LORA_TARGETS of every layer, at the widths of the
+    loaded ``layer`` (its fused q|k|v and gate|up cut at their splits);
+    built once into .cache/."""
+    import numpy as np
+    from llama_gguf_tpu_torch.gguf.writer import GGUFWriter
+
+    path = os.path.join(ROOT, ".cache", "chip_smoke",
+                        f"tinyllama-1.1b-lora-r{LORA_RANK}"
+                        f"{'-zero' if zero_b else ''}-s{SEED}.gguf")
+    if os.path.exists(path):
+        return path
+    attn, ffn = layer["attn"], layer["ffn"]
+    k = attn["wqkv"].k
+    nq, nk, nv = attn["wqkv"].splits
+    f = ffn["gate_up"].splits[0]
+    shapes = dict(attn_q=(k, nq), attn_k=(k, nk), attn_v=(k, nv),
+                  attn_output=attn["wo"].shape, ffn_gate=(k, f),
+                  ffn_up=(k, f), ffn_down=ffn["down"].shape)
+    rng = np.random.default_rng(SEED)
+    w = GGUFWriter()
+    w.add_metadata("general.type", "adapter")
+    w.add_metadata("adapter.type", "lora")
+    w.add_metadata("adapter.lora.alpha", LORA_ALPHA)
+    for i in range(num_layers):
+        for t in LORA_TARGETS:
+            kk, nn = shapes[t]
+            a = rng.standard_normal((LORA_RANK, kk), np.float32) * LORA_STD
+            b = (np.zeros((nn, LORA_RANK), np.float32) if zero_b else
+                 rng.standard_normal((nn, LORA_RANK), np.float32) * LORA_STD)
+            w.add_tensor_np(f"blk.{i}.{t}.weight.lora_a", a)
+            w.add_tensor_np(f"blk.{i}.{t}.weight.lora_b", b)
+    tmp = path + f".{os.getpid()}.tmp"
+    w.write_to_path(tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def lora_path(quant, deq, gguf: str, card: str, timer,
+              peaks: dict) -> tuple[list[dict], dict]:
+    """Phase 19b on phase 4's TinyLlama-1.1B engines (quant and dequant;
+    their params are rewritten in place, so this is their last use).
+    Returns (the kernel checks at the adapted params' projections, the
+    launches of the counted run)."""
+    import socket
+    import threading
+
+    import torch
+    from llama_gguf_tpu_torch.cli import bench, build_parser, serve_config
+    from llama_gguf_tpu_torch.cli import main as cli_main
+    from llama_gguf_tpu_torch.client import RemoteChatClient
+    from llama_gguf_tpu_torch.engine.runner import ModelRunner
+    from llama_gguf_tpu_torch.models.lora import (LoraAdapter, apply_lora,
+                                                  remove_lora)
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops.linear import LoraLinear
+    from llama_gguf_tpu_torch.server.app import ServerState, run_server
+
+    t_phase = time.perf_counter()
+    r, dr = quant.runner, deq.runner
+    layers = r.cfg.num_layers
+    t0 = time.perf_counter()
+    path = write_adapter(r.params["layers"][0], layers, zero_b=False)
+    zero_path = write_adapter(r.params["layers"][0], layers, zero_b=True)
+    build_s = time.perf_counter() - t0
+    ad = LoraAdapter.load_gguf(path)
+    check((ad.rank, ad.scale) == (LORA_RANK, LORA_ALPHA / LORA_RANK),
+          f"19b: rank {ad.rank}, scale {ad.scale}")
+    ids = quant.tokenizer.encode(PROMPT)
+    base_toks, base_margins = single_stream(r, ids, NEW_TOKENS)
+    base_profile = profile_decode(quant, ids, mode="greedy")
+    base_bench = bench(quant)
+
+    n = apply_lora(r.params, ad, runner=r)
+    check(n == apply_lora(dr.params, ad, runner=dr)
+          == len(LORA_TARGETS) * layers, f"19b: {n} tensors attached")
+    check(all("wqkv" not in l["attn"] and "gate_up" not in l["ffn"]
+              for l in r.params["layers"]), "19b: a fused projection left")
+    # the split's projections (q, k, v, gate and up alone) and the rest,
+    # each distinct shape on its kernel against its plain version, at a
+    # greedy step's row, the 8-row verification bucket and the prefills
+    measurements = projection_checks(distinct_projections(r.params), ROWS,
+                                     timer, peaks, "TinyLlama-1.1B LoRA")
+    # quant against dequant, both with the adapter
+    dq_toks, dq_margins = single_stream(dr, ids, NEW_TOKENS)
+    _, dq_rows = step_logits(dr, ids, NEW_TOKENS, tokens=dq_toks)
+    _, q_rows = step_logits(r, ids, NEW_TOKENS, tokens=dq_toks)
+    quant_rel = max(rel_diff(a.cpu(), b.cpu())
+                    for a, b in zip(q_rows, dq_rows))
+    check(quant_rel <= QUANT_REL,
+          f"19b: quant logits differ from dequant by {quant_rel:.3g}")
+    q_toks, _ = single_stream(r, ids, NEW_TOKENS)
+    vs_dequant = same_until_tie("19b quant vs dequant", q_toks, dq_toks,
+                                dq_margins)
+    # graphed against eager
+    e_toks, e_rows = step_logits(r, ids, NEW_TOKENS, eager=True)
+    g_toks, g_rows = step_logits(r, ids, NEW_TOKENS)
+    graph_rel = max(rel_diff(a.cpu(), b.cpu()) for a, b in zip(g_rows, e_rows))
+    check(g_toks == e_toks and graph_rel <= GRAPH_REL,
+          f"19b: graphed against eager: {graph_rel:.3g}")
+    # launches derived from the adapted params: a prefill and the steps
+    sync()
+    Q.reset_launches()
+    eager0 = r.eager_steps
+    step_logits(r, ids, NEW_TOKENS)
+    sync()
+    launches = dict(Q.LAUNCHES)
+    check(r.eager_steps == eager0, "19b: a counted step ran eagerly")
+    exact_launches("19b", launches, NEW_TOKENS - 1,
+                   hybrid_launches_per_step(r.params, r.cfg))
+    check(not launches.get("qmatmul_glu"), "19b: the GLU kernel launched "
+                                           "in an adapted layer")
+    checked = {m["name"] for m in measurements}
+    for name, n_launched in launches.items():
+        check(not n_launched or name in checked,
+              f"19b: {name} launched at shapes no check held")
+    lora_profile = profile_decode(quant, ids, mode="greedy")
+    lora_bench = bench(quant)
+    # the zero-B twin: the base's tokens
+    remove_lora(r.params, runner=r)
+    apply_lora(r.params, LoraAdapter.load_gguf(zero_path), runner=r)
+    z_toks, _ = single_stream(r, ids, NEW_TOKENS)
+    zero = same_until_tie("19b zero-B", z_toks, base_toks, base_margins)
+    # remove_lora: the graphs go, and the replayed logits are the unfused
+    # base's, equal to a fresh runner's over the same params bit for bit
+    remove_lora(r.params, runner=r)
+    check(not r._graphs, "19b: graphs kept after remove_lora")
+    caps = r.captures
+    u_toks, u_rows = step_logits(r, ids, NEW_TOKENS)
+    check(r.captures > caps, "19b: nothing captured after the reset")
+    fresh = ModelRunner(r.params, r.cfg, max_batch=1, max_seq=r.max_seq,
+                        matmul_precision=r.matmul_precision,
+                        kv_format=r.kv_format, device=r.device)
+    _, f_rows = step_logits(fresh, ids, NEW_TOKENS, tokens=u_toks)
+    check(all(torch.equal(a, b) for a, b in zip(u_rows, f_rows)),
+          "19b: the reset runner's logits differ from a fresh runner's")
+    adapter_effect = rel_diff(q_rows[0].cpu(), u_rows[0].cpu())
+    check(adapter_effect > QUANT_REL,
+          f"19b: the adapter moved the logits by {adapter_effect:.3g} only")
+    del fresh
+    torch.cuda.empty_cache()
+
+    # serve with the adapter
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    config = serve_config(build_parser().parse_args([
+        "serve", gguf, "--port", str(port), "--max-batch", "2", "--lora",
+        path]))
+    state = ServerState(config)
+    engine, batched = state.current()
+    check(isinstance(engine.runner.params["layers"][0]["attn"]["wq"],
+                     LoraLinear), "19b: the server loaded no adapter")
+    seen = []
+    submit = batched.submit
+
+    def record(*a, **kw):
+        seen.append(submit(*a, **kw))
+        return seen[-1]
+
+    batched.submit = record
+    server = threading.Thread(target=run_server, args=(config, state),
+                              daemon=True, name="server-19b")
+    server.start()
+    client = RemoteChatClient(f"http://127.0.0.1:{port}", timeout=600)
+    for _ in range(100):
+        try:
+            check(client.health()["status"] == "ok", "19b: not healthy")
+            break
+        except OSError:
+            time.sleep(0.1)
+    messages = [{"role": "user", "content": PROMPT}]
+    client.chat(messages, max_tokens=16, temperature=0.0,
+                repetition_penalty=1.0)
+    margins: list = []
+    sampler, picks = recording_sampler(margins)
+    engine.generate(engine.chat_template.render(messages), max_tokens=16,
+                    sampler=sampler)
+    served = same_until_tie("19b served", seen[0].token_ids, picks, margins)
+    check(len(seen[0].token_ids) > 0, "19b: the server generated nothing")
+    state.shutdown()
+    server.join(timeout=30)
+    check(not server.is_alive(), "19b: run_server did not return")
+    del state, engine, batched
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = cli_main(["run", gguf, "--lora", path, "-p", PROMPT, "-n", "8",
+                   "-t", "0"])
+    check(rc == 0, f"19b: the CLI's run --lora exited {rc}")
+    print(json.dumps({"phase_19b": dict(
+        path="TinyLlama-1.1B", rank=LORA_RANK, alpha=LORA_ALPHA,
+        tensors=n, adapter_bytes=os.path.getsize(path), build_s=build_s,
+        kernel_checks=len(measurements),
+        quant_vs_dequant_rel=quant_rel, quant_vs_dequant=vs_dequant,
+        graph_vs_eager_rel=graph_rel, zero_b=zero, served=served,
+        adapter_effect_rel=adapter_effect, launches=launches,
+        kernels_per_step_base=base_profile["kernels_launched_per_step"],
+        kernels_per_step_lora=lora_profile["kernels_launched_per_step"],
+        device_ms_per_step_base=base_profile["device_ms_per_step"],
+        device_ms_per_step_lora=lora_profile["device_ms_per_step"],
+        greedy_profile_base=base_profile, greedy_profile_lora=lora_profile,
+        bench_base=base_bench, bench_lora=lora_bench,
+        cli_run_s=time.perf_counter() - t0,
+        phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+    return measurements, launches
+
+
+def debug_path(draft_gguf: str, card: str) -> None:
+    """Phase 19c on tinyllama-1.1b-l2: greedy tokens with LLAMA_DEBUG on
+    (every step eager, an embed line and one out line per layer a step on
+    stdout), then off again (graphs replay), and bench --profile's trace
+    through utils/debug.profile."""
+    import io
+    import tempfile
+
+    from llama_gguf_tpu_torch.cli import bench
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.utils import debug
+
+    t_phase = time.perf_counter()
+    engine = Engine.load(draft_gguf, EngineConfig(weight_mode="quant"),
+                         device="cuda")
+    r = engine.runner
+    ids = engine.tokenizer.encode(PROMPT)
+    engine.greedy_tokens(ids, DEBUG_TOKENS)  # the graphs, switch off
+    eager0, replays0 = r.eager_steps, sum(r.replays.values())
+    buf = io.StringIO()
+    debug.set_debug_activations(True)
+    try:
+        with contextlib.redirect_stdout(buf):
+            traced = engine.greedy_tokens(ids, DEBUG_TOKENS)
+    finally:
+        debug.set_debug_activations(False)
+    lines = [l for l in buf.getvalue().splitlines()
+             if l.startswith("[LLAMA_DEBUG]")]
+    steps = r.eager_steps - eager0
+    pattern = ["layer  -1 embed"] + [f"layer {i:>3} out"
+                                     for i in range(r.cfg.num_layers)]
+    check(sum(r.replays.values()) == replays0 and steps > DEBUG_TOKENS - 1,
+          f"19c: {steps} eager steps, replays moved")
+    check([l.split(": rms=")[0][len("[LLAMA_DEBUG] "):] for l in lines]
+          == pattern * steps, f"19c: {len(lines)} lines for {steps} steps")
+    engine.greedy_tokens(ids, DEBUG_TOKENS)
+    check(r.eager_steps == eager0 + steps
+          and sum(r.replays.values()) > replays0,
+          "19c: the switch off did not replay the graphs")
+    debug.set_debug_activations(None)
+    with tempfile.TemporaryDirectory() as d:
+        result = bench(engine, profile_dir=d)
+        trace = os.path.join(d, "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        check(kernels > 0, "19c: the profile trace holds no kernel")
+        trace_bytes = os.path.getsize(trace)
+    print(json.dumps({"phase_19c": dict(
+        path=LOAD_PRESET, steps=steps, lines=len(lines),
+        first_lines=lines[:3], tokens=traced, bench=result,
+        trace_bytes=trace_bytes, trace_kernels=kernels,
+        phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -4666,6 +5213,19 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
     kv_launches = kv_formats_path(quant, deq, card, peaks)
     phase_16a_s = time.perf_counter() - t16
     log(f"phase 16a done in {phase_16a_s:.1f}s")
+
+    # -- 19. speculative decoding, LoRA (the last use of phase 4's engines:
+    # it rewrites their params) and LLAMA_DEBUG ------------------------------
+    t19 = time.perf_counter()
+    draft_gguf = load_gguf.result()
+    spec_launches = speculative_path(quant, tinyllama, draft_gguf, card)
+    lora, lora_launches = lora_path(quant, deq, tinyllama, card, timer,
+                                    peaks)
+    debug_path(draft_gguf, card)
+    print(json.dumps({"phase_19": dict(
+        seconds=time.perf_counter() - t19,
+        script_s=time.perf_counter() - T_START, card=card)}), flush=True)
+    log(f"phase 19 done in {time.perf_counter() - t19:.1f}s")
     del quant, deq, serving
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4760,9 +5320,9 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [m for m in (dense + moe + probe + fmts + hybrid + mamba
-                            + tiny + mla + mla_tiny + gemma + enc + oss
-                            + routing_tiny)
+        mine = [m for m in (dense + lora + moe + probe + fmts + hybrid
+                            + mamba + tiny + mla + mla_tiny + gemma + enc
+                            + oss + routing_tiny)
                 if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
@@ -4770,6 +5330,8 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
             ("TinyLlama-1.1B serving", serving_launches),
             ("TinyLlama-1.1B phase 13", item6_launches),
             ("TinyLlama-1.1B server", server_launches),
+            ("TinyLlama-1.1B speculative (19a)", spec_launches),
+            ("TinyLlama-1.1B LoRA (19b)", lora_launches),
             (MOE_LABEL, moe_launches),
             (f"{MOE_LABEL} batched", moe_batched_launches),
             ("probe", probe_launches), *fmt_launches.items(),

@@ -4,7 +4,9 @@
 ``init-config`` and ``manpages``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
-        [--prompt-cache FILE] [--context-shift]
+        [--prompt-cache FILE] [--context-shift] [--lora ADAPTER.gguf]
+        [--draft DRAFT.gguf | --self-speculative N | --prompt-lookup N]
+        [--num-draft K]
     python -m llama_gguf_tpu_torch chat MODEL.gguf [--system TEXT]
     python -m llama_gguf_tpu_torch serve MODEL.gguf [--port N] [--max-batch B]
         [--prefill-chunk T]
@@ -24,8 +26,8 @@ taken from its flag, else its LLAMA_GGUF_* variable, else the file, else the
 default. Every subcommand that loads a model loads it onto CUDA unless
 ``--device cpu`` is given, and raises when CUDA is absent. ``download``
 (network), ``rag`` (ROADMAP queue 1 item 13), ``shard`` and ``cluster`` and
-the speculative, LoRA and mesh flags (item 12) are not ported; a config
-naming LoRA or a mesh raises where it is used.
+the mesh flags (item 12) are not ported; a config naming a mesh raises
+where it is used.
 """
 
 from __future__ import annotations
@@ -64,6 +66,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(p)
     p.add_argument("-p", "--prompt", default=None)
     p.add_argument("--no-stream", action="store_true")
+    p.add_argument("--draft", default=None,
+                   help="draft model gguf for speculative decoding")
+    p.add_argument("--self-speculative", type=int, default=None,
+                   metavar="N", help="early-exit self-draft after N layers")
+    p.add_argument("--num-draft", type=int, default=4,
+                   help="draft tokens per speculative round")
+    p.add_argument("--prompt-lookup", type=int, default=None, metavar="N",
+                   help="draft-free n-gram speculation, N tokens per round")
     _add_gen_flags(p)
     p.add_argument("--stop", action="append", default=None)
     _add_common(p)
@@ -181,6 +191,10 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
                    "key sketches, tq4 values)")
     p.add_argument("--context-shift", action="store_true",
                    help="generate past the window by sliding the KV cache")
+    p.add_argument("--lora", default=None,
+                   help="GGUF LoRA adapter to apply at load")
+    p.add_argument("--lora-scale", type=float, default=None,
+                   help="override the adapter's alpha/rank scaling")
     p.add_argument("--prompt-cache", default=None, metavar="FILE",
                    help="session file: load cached KV prefixes at start, "
                         "save back after generation (llama.cpp parity)")
@@ -204,10 +218,6 @@ def _pick(args, flag: str, default):
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.model.lora:
-        raise NotImplementedError(
-            "LoRA adapters ([model].lora) are not ported yet (ROADMAP queue "
-            "1 item 12)")
     if (cfg.parallel.data, cfg.parallel.model) != (1, 1):
         raise NotImplementedError(
             "mesh axes ([parallel]) are not ported yet (ROADMAP queue 1 item "
@@ -226,7 +236,9 @@ def _engine_config(cfg: Config, args):
         chat_template=_pick(args, "template", cfg.chat.template),
         context_shift=args.context_shift,
         seed=_pick(args, "seed", cfg.generation.seed),
-        prompt_cache_file=args.prompt_cache)
+        prompt_cache_file=args.prompt_cache,
+        lora=_pick(args, "lora", cfg.model.lora),
+        lora_scale=args.lora_scale)
 
 
 def _sampler(cfg: Config, args):
@@ -315,6 +327,13 @@ def cmd_run(args) -> int:
     sampler = _sampler(cfg, args)
     max_tokens = _pick(args, "max_tokens", cfg.generation.max_tokens)
     stop = args.stop if args.stop is not None else cfg.generation.stop
+    if args.draft or args.self_speculative or args.prompt_lookup:
+        try:
+            return _run_speculative(cfg, args, engine, prompt, sampler,
+                                    max_tokens)
+        except NotImplementedError as e:  # a model speculation refuses
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     if args.no_stream:
         print(engine.generate(prompt, max_tokens=max_tokens,
                               sampler=sampler, stop=stop))
@@ -330,6 +349,47 @@ def cmd_run(args) -> int:
     if engine.save_prompt_cache():
         print(f"[prompt cache saved to {args.prompt_cache}]",
               file=sys.stderr)
+    return 0
+
+
+def _run_speculative(cfg, args, engine, prompt, sampler, max_tokens) -> int:
+    """run --draft / --self-speculative / --prompt-lookup: the draft model
+    loads with the target's EngineConfig."""
+    import time
+
+    from .engine.engine import Engine
+    from .engine.speculative import PromptLookupDecoder, SpeculativeDecoder
+
+    if args.prompt_lookup:
+        dec = PromptLookupDecoder(engine.runner,
+                                  num_draft=args.prompt_lookup)
+    elif args.draft:
+        draft_engine = Engine.load(args.draft, _engine_config(cfg, args),
+                                   device=args.device)
+        dec = SpeculativeDecoder(engine.runner, draft_engine.runner,
+                                 num_draft=args.num_draft)
+    else:
+        dec = SpeculativeDecoder.self_speculative(
+            engine.runner, exit_layer=args.self_speculative,
+            num_draft=args.num_draft)
+    ids = engine.tokenizer.encode(prompt)
+    t0 = time.time()
+    if args.prompt_lookup and not sampler.is_greedy:
+        print("warning: --prompt-lookup is greedy-only; sampling flags "
+              "ignored", file=sys.stderr)
+    if sampler.is_greedy or args.prompt_lookup:
+        out = dec.generate_greedy(ids, max_tokens,
+                                  is_eog=engine.tokenizer.is_eog)
+    else:
+        out = dec.generate_sampled(ids, max_tokens, sampler,
+                                   seed=sampler.seed,
+                                   is_eog=engine.tokenizer.is_eog)
+    dt = time.time() - t0
+    print(engine.tokenizer.decode(out))
+    s = dec.stats
+    print(f"[speculative: {len(out)} tok @ {len(out) / dt:.1f} tok/s | "
+          f"acceptance {s.acceptance_rate:.0%} | "
+          f"{s.tokens_per_round:.2f} tok/round]", file=sys.stderr)
     return 0
 
 
@@ -392,7 +452,8 @@ def serve_config(args, cfg: Config | None = None):
         served_model_name=cfg.server.served_model_name,
         rag_db=args.rag_db, device=args.device,
         max_context_len=_pick(args, "ctx", cfg.model.max_context_len),
-        kv_format=_pick(args, "kv_cache_type", cfg.model.kv_cache_type))
+        kv_format=_pick(args, "kv_cache_type", cfg.model.kv_cache_type),
+        lora=_pick(args, "lora", cfg.model.lora))
 
 
 def cmd_serve(args) -> int:
@@ -409,12 +470,14 @@ def bench(engine, prompt_tokens: int = 32, gen_tokens: int = 64,
     greedy_decode ended by one host fetch of its tokens. The prefill's time
     includes its graph's capture, as the JAX one includes its compile.
     ``profile_dir``: write a torch.profiler chrome trace of the timed
-    decode there."""
+    decode there (utils/debug.profile)."""
     import contextlib
     import time
 
     import numpy as np
     import torch
+
+    from .utils.debug import profile
 
     r = engine.runner
     ids = np.random.default_rng(0).integers(
@@ -426,23 +489,12 @@ def bench(engine, prompt_tokens: int = 32, gen_tokens: int = 64,
     prefill_s = time.time() - t0
     first = torch.argmax(logits)[None].to(torch.int32)
     _, kv = r.greedy_decode(first, [pos], kv, steps=1)  # warm-up
-    prof = contextlib.nullcontext()
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if r.device.type == "cuda" else [])
-        prof = profile(activities=acts)
+    prof = profile(profile_dir) if profile_dir else contextlib.nullcontext()
     with prof:
         t0 = time.time()
         toks, kv = r.greedy_decode(first, [pos + 1], kv, steps=gen_tokens)
         toks.cpu()
         decode_s = time.time() - t0
-    if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        logging.getLogger(__name__).info("profile trace written to %s",
-                                         profile_dir)
     return {"prefill_tps": prompt_tokens / prefill_s,
             "decode_tps": gen_tokens / decode_s,
             "prompt_tokens": prompt_tokens, "gen_tokens": gen_tokens}

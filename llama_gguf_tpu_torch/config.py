@@ -3,9 +3,8 @@ llama_gguf_tpu/config.py: the same sections, keys, LLAMA_GGUF_* variables
 and example text).
 
 Precedence: CLI > env > TOML > defaults. TOML parsing uses the stdlib
-tomllib. Values that name features the port does not have yet (i8/f8/tq KV
-formats, ``lora``, ``[rag]``, ``[parallel]``) load here and raise where
-they are used.
+tomllib. Values that name features the port does not have yet (``[rag]``,
+``[parallel]``) load here and raise where they are used.
 """
 
 from __future__ import annotations

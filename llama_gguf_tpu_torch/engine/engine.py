@@ -64,6 +64,9 @@ class EngineConfig:
     # construction (implies prompt_cache=True); Engine.save_prompt_cache()
     # writes it back
     prompt_cache_file: str | None = None
+    # GGUF LoRA adapter applied at load (models/lora.py); None = base
+    lora: str | None = None
+    lora_scale: float | None = None  # override adapter alpha/rank scaling
 
 
 def make_runner(params: dict, cfg, config: EngineConfig,
@@ -167,6 +170,15 @@ class Engine:
                 params, cfg, device=dev,
                 matmul_precision=config.matmul_precision))
         params, cfg = loader.build()
+        if config.lora:
+            # before the runner: it captures its graphs on the adapted
+            # params
+            from ..models.lora import LoraAdapter, apply_lora
+
+            adapter = LoraAdapter.load_gguf(config.lora)
+            n = apply_lora(params, adapter, scale=config.lora_scale)
+            log.info("lora: attached %d tensors from %s (rank %d)",
+                     n, config.lora, adapter.rank)
         runner = make_runner(params, cfg, config, dev)
         log.info("loaded %s (%s, %d layers, vocab %d) on %s in %.1fs", path,
                  cfg.arch, cfg.num_layers, cfg.vocab_size, dev,

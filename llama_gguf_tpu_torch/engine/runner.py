@@ -38,14 +38,24 @@ another thread during a capture, and neither a load nor the serving path
 does them: a device-wide synchronize (``torch.cuda.synchronize()`` ends the
 capture) and a draw from the default CUDA generator (bound to the capture,
 so the draw raises).
+
+A graph reads the params by address too: whatever rewrites them in place
+(models/lora.py's apply_lora and remove_lora) calls ``reset_graphs``, and
+the next step captures again. A runner over the same tensors (the early-exit
+self-draft of engine/speculative.py) is tied to this one by
+``share_params``, and the reset drops its graphs too. With LLAMA_DEBUG set (utils/debug.py) the
+forward prints each layer's activation RMS, which a graph cannot do: every
+step then runs eagerly and counts in ``eager_steps``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -58,6 +68,9 @@ from ..models.loader import resolve_device
 from ..models.transformer import embed, forward, layer_forward
 from ..ops import qmatmul as Q
 from ..ops.norms import apply_norm
+from ..utils.debug import debug_activations_enabled
+
+log = logging.getLogger(__name__)
 
 _DEVICE_LOCKS: dict[str, threading.RLock] = {}
 
@@ -211,6 +224,7 @@ class ModelRunner:
                     "swa_ring_extra or pass swa_ring=False")
             if want < self.max_seq:
                 self.ring_slots = want
+        self.swa_ring, self.swa_ring_extra = swa_ring, swa_ring_extra
         self._lock = _device_lock(self.device)
         self.tier_shards = 1  # batch groups of a tiered read (one device)
         # the runner's own caches, by (batch, owner)
@@ -225,6 +239,10 @@ class ModelRunner:
         self.capture_seconds: dict[tuple, float] = {}
         self.captures = 0
         self.pool_bytes = 0
+        self._debug_logged = False
+        # the runners whose params alias this one's (share_params), itself
+        # included: reset_graphs drops the graphs of them all
+        self._param_sharers = weakref.WeakSet([self])
 
     @property
     def ring_safe(self) -> int:
@@ -328,11 +346,41 @@ class ModelRunner:
             if not self._graphs:
                 self._pool = None
 
+    def share_params(self, other: "ModelRunner") -> None:
+        """Tie ``other``, a runner over tensors of this one's params (the
+        self-draft's layers are the target's own dicts), to this one: a
+        reset_graphs on either drops the graphs of both, since an in-place
+        rewrite of the shared dicts frees what either's graphs read."""
+        self._param_sharers |= other._param_sharers
+        for r in self._param_sharers:
+            r._param_sharers = self._param_sharers
+
+    def reset_graphs(self) -> None:
+        """Drop every captured graph, the greedy loop's I/O buffers and the
+        graphs' memory pool, of this runner and of every runner tied to it
+        by share_params. Whatever rewrites the params in place calls this
+        (a graph reads the old tensors by address, and replays them after
+        they are freed); the next step on a cache captures anew. The caches
+        themselves stay."""
+        for r in list(self._param_sharers):
+            with r._lock:
+                r._graphs.clear()
+                r._greedy_io.clear()
+                r._pool = None
+
     def _graphed(self, kv: dict, steps: int = 1):
         """The (batch, owner) of ``kv`` when steps on it replay graphs: on
-        CUDA, with one of the runner's own caches; else None. ``steps`` on
-        a foreign cache on CUDA are counted in ``eager_steps``."""
+        CUDA, with one of the runner's own caches, and LLAMA_DEBUG off;
+        else None. ``steps`` that run eagerly on CUDA are counted in
+        ``eager_steps``."""
         if self.device.type != "cuda":
+            return None
+        if debug_activations_enabled():
+            if not self._debug_logged:
+                self._debug_logged = True
+                log.warning("LLAMA_DEBUG is set: every step runs eagerly "
+                            "(a CUDA graph cannot print the activations)")
+            self.eager_steps += steps
             return None
         for key, own in self._kv.items():
             if own is kv:

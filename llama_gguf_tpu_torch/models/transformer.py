@@ -41,6 +41,7 @@ from ..ops.qmatmul import (expert_matmul, glu_combine, moe_dims,
                            moe_group_plan, moe_qmatmul, moe_qmatmul_glu,
                            qmatmul_glu)
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..utils.debug import trace_activation
 from . import deltanet, mamba
 from . import kv as KV
 from .config import Activation, ModelConfig
@@ -606,9 +607,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         read_bound = (lo, hi, torch.where(top > lo, idx,
                                           torch.full_like(idx, b)))
     x = embed(params, cfg, tokens, positions)
+    trace_activation("embed", -1, x)
     for i, layer in enumerate(params["layers"]):
         x, kv = layer_forward(layer, cfg, x, positions, kv, i, lengths,
                               read_bound, precision)
+        trace_activation("out", i, x)
     if logit_positions is not None and x.shape[1] > 1:
         idx = logit_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)

@@ -14,7 +14,9 @@ bfloat16 (``ModelLoader(scale_dtype=)``; the dequantization upcasts them):
     W[k, n] = s[k // group, n] * q[k, n] - m[k // group, n]
 
 An MoE FFN's experts stack the same layout along a leading expert axis
-(``QuantExpertStack``).
+(``QuantExpertStack``). A LoRA adapter wraps a dense or quantized linear
+(``LoraLinear``, models/lora.py): the base keeps its kernel and the low-rank
+term is added in float32.
 
 ``apply`` sends a QuantLinear to ops.qmatmul.qmatmul, which launches the
 hand-written CUDA kernel for a CUDA tensor and runs the plain dequantize-then-
@@ -60,6 +62,21 @@ class DenseLinear:
     @property
     def shape(self):
         return tuple(self.weight.shape)
+
+
+@dataclass
+class LoraLinear:
+    """A low-rank adapter around a base linear: y = base(x) + (x @ a) @ b *
+    scale, the low-rank term in float32 (the JAX package's LoraLinear)."""
+
+    base: object  # DenseLinear | QuantLinear
+    a: torch.Tensor  # [K, r] float32
+    b: torch.Tensor  # [r, N] float32
+    scale: float
+
+    @property
+    def shape(self):
+        return self.base.shape
 
 
 @dataclass
@@ -122,8 +139,9 @@ def _cat_bias(lins, widths, dtype, device):
 def fuse_linears(lins: list):
     """Fuse same-input linears into one wide matmul (concat along N), as
     llama_gguf_tpu.ops.linear.fuse_linears. Returns None when the weights
-    are not compatible (mixed formats / groups / K)."""
-    if any(l is None for l in lins) or len(lins) < 2:
+    are not compatible (mixed formats / groups / K, or an adapter)."""
+    if any(l is None or isinstance(l, LoraLinear) for l in lins) \
+            or len(lins) < 2:
         return None
     if all(isinstance(l, DenseLinear) for l in lins):
         w = torch.cat([l.weight for l in lins], dim=1)
@@ -147,6 +165,28 @@ def fuse_linears(lins: list):
         _cat_bias(lins, widths, torch.float32, first.packed.device),
         first.fmt, first.group, first.k, sum(widths), first.source_type,
         splits=tuple(widths))
+
+
+def unfuse_linear(lin, splits: list[int]) -> list:
+    """Inverse of fuse_linears: slice along N at the given widths. Each
+    slice is a contiguous copy (a kernel reads its panels whole), with no
+    splits."""
+    out, a = [], 0
+    for w in splits:
+        b = a + w
+
+        def cut(t):
+            return t[..., a:b].contiguous() if t is not None else None
+
+        if isinstance(lin, DenseLinear):
+            out.append(DenseLinear(cut(lin.weight), cut(lin.bias)))
+        else:
+            out.append(QuantLinear(
+                cut(lin.packed), cut(lin.scales), cut(lin.mins),
+                cut(lin.bias), lin.fmt, lin.group, lin.k, w,
+                lin.source_type))
+        a = b
+    return out
 
 
 def _unpack_q4_last(p: torch.Tensor, group: int) -> torch.Tensor:
@@ -207,7 +247,13 @@ def apply(lin, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
     """y = x @ W (+ bias). x: [..., K] -> [..., N]. ``precision`` reaches the
     quantized kernels (bfloat16 outputs in "default"), whose output is cast
     back to x's type, as in the JAX package; a dense weight's torch.matmul
-    stays in x's type."""
+    stays in x's type. A LoraLinear adds its low-rank term to the base's
+    output in float32 (torch.matmul, as the JAX package's jnp.dot) and
+    casts the sum back to the base output's type."""
+    if isinstance(lin, LoraLinear):
+        y = apply(lin.base, x, precision)
+        delta = torch.matmul(torch.matmul(x.float(), lin.a), lin.b)
+        return (y.float() + delta * lin.scale).to(y.dtype)
     if isinstance(lin, DenseLinear):
         y = torch.matmul(x, lin.weight.to(x.dtype))
         if lin.bias is not None:

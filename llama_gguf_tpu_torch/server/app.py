@@ -59,7 +59,7 @@ class ServerConfig:
     served_model_name: str | None = None
     rag_db: str | None = None  # ROADMAP queue 1 item 13: raises
     prompt_cache_bytes: int = 0  # > 0: the scheduler's prompt cache budget
-    lora: str | None = None  # ROADMAP queue 1 item 12: raises
+    lora: str | None = None  # GGUF LoRA adapter applied at model load
     # capture the first request's graph keys (the 8-token prefill and the
     # decode step) at load time; a failure raises
     warmup: bool = True
@@ -72,12 +72,9 @@ class ServerConfig:
 
 
 def _refuse_unported(config: ServerConfig) -> None:
-    for setting, item, what in (
-            (config.rag_db, 13, "RAG (rag_db)"),
-            (config.lora, 12, "LoRA adapters (lora)")):
-        if setting:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+    if config.rag_db:
+        raise NotImplementedError(
+            "RAG (rag_db) is not ported yet (ROADMAP queue 1 item 13)")
 
 
 class ServerState:
@@ -110,8 +107,8 @@ class ServerState:
         c = self.config
         engine = Engine.load(path, EngineConfig(
             max_context_len=c.max_context_len, max_batch=c.max_batch,
-            weight_mode=c.weight_mode, kv_format=c.kv_format),
-            device=c.device)
+            weight_mode=c.weight_mode, kv_format=c.kv_format,
+            lora=c.lora), device=c.device)
         self.serve_engine(engine, path)
 
     def serve_engine(self, engine: Engine, path: str) -> None:

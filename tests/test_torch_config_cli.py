@@ -123,14 +123,26 @@ def test_flags_beat_env_beat_toml(tmp_path, monkeypatch, model_path):
         (9999, 3, ["k1"], "quant", 7, 80)
 
 
-def test_unported_config_values_raise(tmp_path, model_path):
-    for body, item in (('[model]\nlora = "a.gguf"\n', "12"),
-                       ("[parallel]\nmodel = 2\n", "12")):
-        p = tmp_path / "c.toml"
-        p.write_text(body)
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            cli.main(["run", model_path, "--config", str(p), "--device",
-                      "cpu", "-p", "hi", "-n", "2"])
+def test_unported_config_values_raise(tmp_path, model_path, capsys):
+    """A mesh ([parallel], ROADMAP queue 1 item 12) still raises; the
+    TOML's [model].lora, which raised until item 12 ported LoRA, runs as the
+    JAX CLI runs it."""
+    from test_torch_lora import shapes_of, write_lora
+
+    p = tmp_path / "c.toml"
+    p.write_text("[parallel]\nmodel = 2\n")
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        cli.main(["run", model_path, "--config", str(p), "--device",
+                  "cpu", "-p", "hi", "-n", "2"])
+    adapter = write_lora(str(tmp_path / "a.gguf"), alpha=32.0, seed=3,
+                         layers=2, shapes=shapes_of(64, 128))
+    p.write_text(f'[model]\nlora = "{adapter}"\n')
+    argv = ["run", model_path, "--config", str(p), "-p", "hi", "-n", "4",
+            "-t", "0", "--weight-mode", "dequant"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    assert got == capsys.readouterr().out
     # every KV format is ported: the i8 cache runs
     assert cli.main(["run", model_path, "--kv-cache-type", "i8", "--device",
                      "cpu", "-p", "hi", "-n", "2"]) == 0

@@ -9,8 +9,9 @@ order of summation). The model is the qwen2 tiny model of
 tests/test_server.py with Q8_0 weights: the port serves it in "quant" mode
 (the q8 kernel's plain version), the JAX server in "dequant" mode (the same
 dequantized weights). Also the port's client against both servers, the
-settings that raise until they are ported, and both servers on encoder
-models (BERT, T5, t5encoder: embeddings only)."""
+setting that raises until it is ported (RAG) and the LoRA adapter, which
+loads, and both servers on encoder models (BERT, T5, t5encoder:
+embeddings only)."""
 
 import asyncio
 import json
@@ -351,9 +352,49 @@ def test_load_model_matches_jax(servers, model_path):
     ({"rag_db": "kb.sqlite"}, "13"),
     ({"lora": "adapter.gguf"}, "12"),
 ])
-def test_unported_settings_raise(setting, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        ServerState(ServerConfig(device="cpu", **setting))
+def test_unported_settings_raise(setting, item, model_path, tmp_path):
+    """RAG (ROADMAP queue 1 item 13) still raises. LoRA, which raised until
+    item 12 ported it, now loads: the server attaches the adapter to its
+    model, and a greedy chat completion over HTTP equals the JAX engine's
+    with the same adapter."""
+    if "rag_db" in setting:
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            ServerState(ServerConfig(device="cpu", **setting))
+        return
+    from test_torch_lora import shapes_of, write_lora
+
+    from llama_gguf_tpu.engine.engine import Engine as JEngine
+    from llama_gguf_tpu.engine.engine import EngineConfig as JEngineConfig
+    from llama_gguf_tpu.sampling.sampler import SamplerConfig
+
+    from llama_gguf_tpu_torch.ops.linear import LoraLinear
+
+    adapter = write_lora(str(tmp_path / setting["lora"]), alpha=32.0,
+                         seed=3, layers=2, shapes=shapes_of(64, 128))
+    state = ServerState(ServerConfig(
+        model_path=model_path, port=_free_port(), max_batch=2,
+        device="cpu", max_tokens_default=16, **{"lora": adapter}))
+    assert isinstance(state.engine.runner.params["layers"][0]["attn"]["wq"],
+                      LoraLinear)
+    thread = threading.Thread(target=run_server, args=(state.config, state),
+                              daemon=True)
+    thread.start()
+    base = f"http://{state.config.host}:{state.config.port}"
+    _wait_healthy(base)
+    messages = [{"role": "user", "content": "tok3 tok4 tok5"}]
+    try:
+        status, body = _call(base, "POST", "/v1/chat/completions", {
+            "messages": messages, "max_tokens": 8, "temperature": 0.0})
+    finally:
+        state.shutdown()
+        thread.join(timeout=30)
+    assert status == 200
+    jeng = JEngine.load(model_path, JEngineConfig(weight_mode="dequant",
+                                                  lora=adapter))
+    want = jeng.chat(messages, max_tokens=8,
+                     sampler=SamplerConfig(temperature=0.0))
+    assert body["choices"][0]["message"]["content"] == want
 
 
 def test_no_model_answers_503():
