@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 13, 16a, 19, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17,
-18:
+18, 20:
 phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
 phase 12's, phase 14's, phase 15's, phase 16b's, phase 17's and phase 18's
 GGUFs build in nine child processes. Phase 9 runs inside each of phases 4,
@@ -425,6 +425,37 @@ plain version the graphs are held against.
    one out line per layer and step on stdout), then off (graphs replay),
    and bench --profile's chrome trace (utils/debug.profile) holding
    kernels. Prints phase 19's seconds and the script's.
+
+20. The parallel plans (parallel/, engine/runner.MeshRunner), last: ranks
+   sharing the one card, each a process, over gloo (NCCL refuses two ranks
+   on one GPU), every step eager (a CUDA graph cannot hold a gloo
+   collective); the kernels were built by phase 1, before any rank spawns.
+   20a: TinyLlama-1.1B (phase 2's GGUF, loaded from its repack sidecar)
+   through Engine.load(mesh_model=2): kernels 1-3 on rank 0's shards
+   (q|k|v by heads 1280 wide, o_proj's 1024 rows, gate|up 2 x 2816, down's
+   2816 rows, the LM head's 16000 vocab columns) at 1 and 128 rows against
+   their plain versions (phase 3's limits); the single-stream path's greedy
+   tokens equal one rank's (tp=1) up to the first near tie, its prefill
+   logits within 1e-3 of max |logit|; each rank's launches exactly phase
+   4's per-step counts times the steps; the CLI's run --tp 2 exits 0.
+   20b: mixtral-8x7b-l2 at tp=2 (expert parallel: 4 experts a rank):
+   kernels 4-6 on rank 0's local stacks at decode (2 slots) and prefill
+   (256 slots, renumbered onto the 4 local experts), q4 and q8 at their
+   shard shapes; tokens equal one rank's up to the first near tie, prefill
+   logits within 1e-3; each rank's launches exact (kernels 4-6 by the
+   local slots of rank 0's recorded routing, which every rank shares). 20c: dp=2 x tp=2 (four ranks) on
+   tinyllama-1.1b-l2: a ragged B = 4 batch through BatchedEngine (one
+   prompt past bucket 512) takes a tier grouped per data shard, its greedy
+   tokens equal single-stream's up to the first near tie, each rank's
+   launches exact per step. 20d: ``shard`` as two processes serving a
+   prompt through serve_spmd; ``cluster``'s JSON; one HealthMonitor
+   check_once on the card; a world-size-1 NCCL group through the same
+   code (Engine.load inside the group: graphs captured with the NCCL
+   collectives, equal to eager steps, tokens equal one device's).
+   Prints per rank: device, backend, wall ms per step and the collectives'
+   wall ms (host clock: under gloo the host waits for each collective; a
+   shared card's gloo is no figure of NCCL over NVLink), phase 20's
+   seconds and the script's.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -5138,6 +5169,403 @@ def debug_path(draft_gguf: str, card: str) -> None:
         phase_s=time.perf_counter() - t_phase, card=card)}), flush=True)
 
 
+PARALLEL_TOKENS = 24  # 20a, 20b: greedy tokens from the prompt
+# 20c: prompt tokens; the long one passes bucket 512, so that a tier over
+# the B = 4 rows, grouped in two data shards, reads less than one bound
+PARALLEL_REQUESTS = (20, 600, 40, 10)
+PARALLEL_NEW = 16  # 20c, 20d: tokens per request
+# launches a step of tinyllama-1.1b-l2 makes (2 layers: q|k|v and o_proj,
+# the GLU, down; the LM head)
+PER_STEP_L2 = {"qmatmul_q4": 4, "qmatmul_glu": 2, "qmatmul_q8": 3}
+
+
+def rank_lines(label: str, stats: list[dict]) -> list[dict]:
+    """Each rank's placement, backend, wall ms per step and collectives'
+    wall ms per step (host clock), logged and returned."""
+    out = []
+    for st in stats:
+        steps = max(st["steps"], 1)
+        coll = {a: dict(calls=c["calls"], ms_per_step=1e3 * c["seconds"]
+                        / steps)
+                for a, c in st["collectives"].items()}
+        out.append(dict(rank=st["rank"], device=st["device"],
+                        backend=st["backend"], data_index=st["data_index"],
+                        model_index=st["model_index"], steps=st["steps"],
+                        eager_steps=st["eager_steps"],
+                        wall_ms_per_step=1e3 * st["step_seconds"] / steps,
+                        collectives=coll, launches={
+                            k: v for k, v in st["launches"].items() if v}))
+        log(f"{label} rank {st['rank']} on {st['device']} over "
+            f"{st['backend']}: {out[-1]['wall_ms_per_step']:.2f} wall ms a "
+            f"step over {st['steps']} steps, collectives "
+            + ", ".join(f"{a} {c['ms_per_step']:.2f} ms ({c['calls']} calls)"
+                        for a, c in coll.items()))
+    return out
+
+
+def mesh_tokens(label: str, runner, one_runner, ids, steps: int,
+                watch=contextlib.nullcontext) -> dict:
+    """Single-stream greedy tokens of the mesh's ``runner`` against one
+    rank's (``one_runner``), equal up to the first near tie, and the
+    prefill logits within 1e-3 of max |logit|. The mesh's run, between
+    its ranks' counters set to 0 and read, runs inside ``watch()``."""
+    import numpy as np
+
+    want, margins = single_stream(one_runner, ids, steps)
+    lw = one_runner.prefill(ids, one_runner.init_kv(1), host=True)[0]
+    runner.reset_rank_stats()
+    with watch():
+        got, _ = single_stream(runner, ids, steps)
+    stats = runner.rank_stats()
+    lg = runner.prefill(ids, runner.init_kv(1), host=True)[0]
+    err = float(np.abs(lg - lw).max() / np.abs(lw).max())
+    check(err <= 1e-3, f"{label}: prefill logits differ by {err:.3g} of "
+                       "max |logit|")
+    tie = same_until_tie(label, got, want, margins)
+    log(f"{label}: {tie}, prefill logits rel err {err:.2e}")
+    return dict(stats=stats, prefill_rel_err=err, **tie)
+
+
+def parallel_dense(card: str, timer, peaks: dict, gguf: str):
+    """20a: TinyLlama-1.1B at tp=2. Returns (measurements, launches)."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+
+    label = "TinyLlama-1.1B tp=2 (20a)"
+    one = Engine.load(gguf, EngineConfig(), device="cuda")
+    t0 = time.perf_counter()
+    eng = Engine.load(gguf, EngineConfig(mesh_model=2), device="cuda")
+    load_s = time.perf_counter() - t0
+    try:
+        r = eng.runner
+        check(r.mesh.backend == "gloo" and not r.graphs_ok,
+              f"{label}: backend {r.mesh.backend}")
+        params = r.params
+        layer = params["layers"][0]
+        shapes = (layer["attn"]["wqkv"].splits, layer["attn"]["wo"].base.k,
+                  layer["ffn"]["gate_up"].splits, layer["ffn"]["down"].base.k,
+                  params["output"].base.n)
+        check(shapes == ((1024, 128, 128), 1024, (2816, 2816), 2816, 16000),
+              f"{label}: rank 0's shard shapes {shapes}")
+        measurements = projection_checks([
+            ("qmatmul_q4", "qkv rank 0 of 2", layer["attn"]["wqkv"]),
+            ("qmatmul_q4", "o_proj rows, rank 0 of 2",
+             layer["attn"]["wo"].base),
+            ("qmatmul_glu", "gate|up rank 0 of 2", layer["ffn"]["gate_up"]),
+            ("qmatmul_q8", "ffn_down rows, rank 0 of 2",
+             layer["ffn"]["down"].base),
+            ("qmatmul_q8", "lm_head vocab, rank 0 of 2",
+             params["output"].base),
+        ], MOE_ROWS, timer, peaks, label)
+        ids = eng.tokenizer.encode(PROMPT)
+        res = mesh_tokens(label, r, one.runner, ids, PARALLEL_TOKENS)
+        for st in res["stats"]:
+            for name, per in PER_STEP.items():
+                check(st["launches"][name] == per * PARALLEL_TOKENS,
+                      f"{label} rank {st['rank']} {name}: "
+                      f"{st['launches'][name]} launches, expected {per} x "
+                      f"{PARALLEL_TOKENS}")
+        ranks = rank_lines(label, res.pop("stats"))
+    finally:
+        eng.close()
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "llama_gguf_tpu_torch", "run", gguf, "--tp",
+         "2", "-p", PROMPT, "-n", "8", "-t", "0"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"run --tp 2 exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+    print(json.dumps({"phase_20a": dict(
+        load_s=load_s, cli_run_s=time.perf_counter() - t0, ranks=ranks,
+        card=card, **res)}), flush=True)
+    return measurements, summed_launches(ranks)
+
+
+def summed_launches(ranks: list[dict]) -> dict:
+    """The ranks' launch counts added up."""
+    out: dict[str, int] = {}
+    for rk in ranks:
+        for k, v in rk["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def ep_launches(routes, rank: int, e_local: int) -> dict:
+    """The MoE kernels' launches of expert-parallel ``rank`` (experts
+    [rank * e_local, (rank + 1) * e_local)) over ``routes``, each MoE
+    layer call's expert ids: none where no slot is local; else, by
+    ops/qmatmul.moe_dims on the local slots, the grouped GLU and the
+    grouped kernel, or kernel 4 for gate, up and down."""
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+
+    want = {"moe_slot": 0, "moe_grouped": 0, "moe_glu_grouped": 0}
+    for idx in routes:
+        n = int(((idx >= rank * e_local)
+                 & (idx < (rank + 1) * e_local)).sum())
+        if n and Q.moe_dims(n, e_local)[2]:
+            want["moe_glu_grouped"] += 1
+            want["moe_grouped"] += 1
+        elif n:
+            want["moe_slot"] += 3
+    return want
+
+
+def parallel_moe(card: str, timer, peaks: dict, gguf: str):
+    """20b: mixtral-8x7b-l2 at tp=2, expert parallel. Returns
+    (measurements, launches)."""
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.models import transformer as T
+
+    label = f"{MOE_LABEL} tp=2 (20b)"
+    one = Engine.load(gguf, EngineConfig(), device="cuda")
+    t0 = time.perf_counter()
+    eng = Engine.load(gguf, EngineConfig(mesh_model=2), device="cuda")
+    load_s = time.perf_counter() - t0
+    try:
+        r = eng.runner
+        layer = r.params["layers"][0]
+        ffn = layer["ffn"]
+        ex = ffn["experts"]
+        check(ffn["expert_range"] == (0, 4) and ex["gate"].packed.shape[0]
+              == 4, f"{label}: rank 0 keeps experts {ffn['expert_range']}")
+        check(not r.graphs_ok, f"{label}: expert-parallel steps must run "
+                               "eagerly")
+        measurements = projection_checks([
+            ("qmatmul_q4", "qkv rank 0 of 2", layer["attn"]["wqkv"]),
+            ("qmatmul_q4", "o_proj rows, rank 0 of 2",
+             layer["attn"]["wo"].base),
+            ("qmatmul_q8", "lm_head vocab, rank 0 of 2",
+             r.params["output"].base),
+        ], MOE_ROWS, timer, peaks, label)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        xr = torch.randn(256, MOE_SHAPE["hidden_size"], device="cuda",
+                         generator=gen)
+        idx = torch.randint(0, 4, (256,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        measurements += moe_kernel_checks(ex, {
+            "decode, rank 0's 2 slots": (idx[:2].contiguous(), xr[:2]),
+            "prefill, rank 0's 256 slots": (idx, xr),
+        }, timer, peaks, label)
+        ids = eng.tokenizer.encode(PROMPT)
+        # rank 0's routing of the mesh's run (the router and its input are
+        # the same on every rank): each rank's MoE launches follow from it
+        routes = []
+        route = T.route
+
+        @contextlib.contextmanager
+        def watch():
+            def record(ffn_, cfg_, xf):
+                topv, topi = route(ffn_, cfg_, xf)
+                routes.append(topi.reshape(-1).cpu())
+                return topv, topi
+
+            T.route = record
+            try:
+                yield
+            finally:
+                T.route = route
+
+        res = mesh_tokens(label, r, one.runner, ids, PARALLEL_TOKENS, watch)
+        n_layers = MOE_SHAPE["num_layers"]
+        check(len(routes) == n_layers * PARALLEL_TOKENS,
+              f"{label}: {len(routes)} routings recorded")
+        for st in res["stats"]:
+            got = st["launches"]
+            want = dict(ep_launches(routes, st["model_index"], 4),
+                        qmatmul_q4=2 * n_layers * PARALLEL_TOKENS,
+                        qmatmul_q8=PARALLEL_TOKENS)
+            check({k: got[k] for k in want} == want,
+                  f"{label} rank {st['rank']}: launches {got}, expected "
+                  f"{want}")
+        ranks = rank_lines(label, res.pop("stats"))
+    finally:
+        eng.close()
+    del one
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_20b": dict(load_s=load_s, ranks=ranks,
+                                        card=card, **res)}), flush=True)
+    return measurements, summed_launches(ranks)
+
+
+def parallel_dp_tp(card: str, gguf: str) -> dict:
+    """20c: a ragged B = 4 batch through BatchedEngine over dp=2 x tp=2 on
+    tinyllama-1.1b-l2. Returns the launches."""
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.engine.batched import BatchedEngine
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+
+    label = "tinyllama-1.1b-l2 dp=2 x tp=2 (20c)"
+    greedy = SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    rng = np.random.default_rng(SEED)
+    one = Engine.load(gguf, EngineConfig(), device="cuda")
+    prompts = [rng.integers(3, one.runner.cfg.vocab_size, n).tolist()
+               for n in PARALLEL_REQUESTS]
+    singles = [single_stream(one.runner, p, PARALLEL_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    eng = Engine.load(gguf, EngineConfig(max_batch=4, mesh_data=2,
+                                         mesh_model=2), device="cuda")
+    load_s = time.perf_counter() - t0
+    r = eng.runner
+    bounds = []
+    step = r.step
+
+    def recording(*a, **kw):
+        bounds.append(kw.get("read_bound"))
+        return step(*a, **kw)
+
+    r.step = recording
+    be = BatchedEngine(r, eng.tokenizer, max_queue=8)
+    try:
+        check(r.tier_shards == 2, f"{label}: tier shards {r.tier_shards}")
+        r.reset_rank_stats()
+        bounds.clear()
+        handles = [be.submit(p, max_tokens=PARALLEL_NEW, sampler=greedy)
+                   for p in prompts]
+        for h in handles:
+            h.text(timeout=600)
+        stats = r.rank_stats()
+        ties = [same_until_tie(f"{label} request {i}", h.token_ids, want,
+                               margins)
+                for i, (h, (want, margins)) in enumerate(zip(handles,
+                                                             singles))]
+        tiers = [b for b in bounds if isinstance(b, tuple)]
+        check(bool(tiers), f"{label}: no step took a tier ({bounds})")
+        for st in stats:
+            for name, per in PER_STEP_L2.items():
+                check(st["launches"][name] == per * len(bounds),
+                      f"{label} rank {st['rank']} {name}: "
+                      f"{st['launches'][name]} launches, expected {per} x "
+                      f"{len(bounds)} steps")
+        ranks = rank_lines(label, stats)
+    finally:
+        be.shutdown()
+        eng.close()
+    del one
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_20c": dict(
+        load_s=load_s, steps=len(bounds), tiers=sorted(set(tiers)),
+        requests=ties, ranks=ranks, card=card)}), flush=True)
+    return summed_launches(ranks)
+
+
+def parallel_cluster(card: str, gguf: str, l2: str) -> dict:
+    """20d: the CLI's shard (two processes) and cluster, the health probe,
+    a world-size-1 NCCL group. Returns its results."""
+    import io
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from llama_gguf_tpu_torch import cli
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.parallel.multihost import (HealthMonitor,
+                                                         HealthState)
+
+    out = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["cluster", "--model-bytes",
+                        str(os.path.getsize(gguf))]) == 0, "cluster failed")
+    topo = json.loads(buf.getvalue())
+    check(topo["platform"] == "gpu" and topo["local_devices"] ==
+          torch.cuda.device_count() and topo["auto_mesh"] == {
+              "data": torch.cuda.device_count(), "model": 1},
+          f"cluster: {topo}")
+    out["cluster"] = topo
+    state = HealthMonitor().check_once()
+    check(state is HealthState.HEALTHY, f"health probe: {state}")
+    out["health"] = state.value
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    store = "file://" + os.path.join(tmp, "store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "llama_gguf_tpu_torch", "shard", l2,
+         "--coordinator", store, "--num-processes", "2", "--process-id",
+         str(pid), "--tp", "2", "--prompt", PROMPT, "-n",
+         str(PARALLEL_NEW)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    texts = []
+    for p in procs:
+        try:
+            texts.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            check(False, "shard: timed out")
+    for pid, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0 and "served 1 request(s)" in text,
+              f"shard {pid} exited {p.returncode}: {text[-2000:]}")
+    out["shard_s"] = time.perf_counter() - t0
+
+    # a world-size-1 NCCL group: Engine.load inside it loads this rank's
+    # (whole) shard onto a MeshRunner whose steps capture the collectives
+    one = Engine.load(l2, EngineConfig(), device="cuda")
+    ids = one.tokenizer.encode(PROMPT)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "nccl"), world_size=1, rank=0)
+    try:
+        eng = Engine.load(l2, EngineConfig(), device="cuda")
+        r = eng.runner
+        check(r.mesh is not None and r.mesh.backend == "nccl" and
+              r.graphs_ok, "NCCL world 1: not a graphed mesh runner")
+        res = mesh_tokens("NCCL world size 1 (20d)", r, one.runner, ids,
+                          PARALLEL_NEW)
+        st = res.pop("stats")[0]
+        check(r.captures > 0 and st["eager_steps"] == 0,
+              f"NCCL world 1: {r.captures} captures, {st['eager_steps']} "
+              "eager steps")
+        toks, graphed = step_logits(r, ids, 8)
+        _, eager = step_logits(r, ids, 8, tokens=toks, eager=True)
+        err = max(float((g - e).abs().max() / e.abs().max())
+                  for g, e in zip(graphed, eager))
+        check(err <= REL_LIMIT, f"NCCL world 1: graphed steps differ from "
+                                f"eager by {err:.3g}")
+        out["nccl"] = dict(captures=r.captures,
+                           replays=sum(r.replays.values()),
+                           graphed_vs_eager_rel=err,
+                           collective_calls=st["collectives"], **res)
+        log(f"NCCL world size 1: {out['nccl']}")
+    finally:
+        dist.destroy_process_group()
+    del one
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_20d": dict(card=card, **out)}), flush=True)
+    return out
+
+
+def parallel_path(card: str, timer, peaks: dict, tinyllama: str,
+                  moe_gguf: str, l2: str):
+    """Phase 20. Returns (measurements, {path label: launches})."""
+    t20 = time.perf_counter()
+    secs = {}
+    t0 = time.perf_counter()
+    dense, dense_l = parallel_dense(card, timer, peaks, tinyllama)
+    secs["20a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe, moe_l = parallel_moe(card, timer, peaks, moe_gguf)
+    secs["20b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp_l = parallel_dp_tp(card, l2)
+    secs["20c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parallel_cluster(card, tinyllama, l2)
+    secs["20d"] = time.perf_counter() - t0
+    print(json.dumps({"phase_20": dict(
+        seconds=time.perf_counter() - t20, parts_s=secs,
+        script_s=time.perf_counter() - T_START, card=card)}), flush=True)
+    log(f"phase 20 done in {time.perf_counter() - t20:.1f}s")
+    return dense + moe, {"TinyLlama-1.1B tp=2 (20a)": dense_l,
+                         f"{MOE_LABEL} tp=2 (20b)": moe_l,
+                         "tinyllama-1.1b-l2 dp=2 x tp=2 (20c)": dp_l}
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -5317,12 +5745,17 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
         seconds=time.perf_counter() - t18, native_calls=counts["native"],
         loads=LOADS, script_s=time.perf_counter() - T_START, card=card)}),
         flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 20. the parallel plans: ranks sharing the card -----------------------
+    par, par_launches = parallel_path(card, timer, peaks, tinyllama,
+                                      moe_gguf.result(), load_gguf.result())
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [m for m in (dense + lora + moe + probe + fmts + hybrid
                             + mamba + tiny + mla + mla_tiny + gemma + enc
-                            + oss + routing_tiny)
+                            + oss + routing_tiny + par)
                 if m["name"] == name]
         head = mine[0]  # the first path's first shape (decode, or prefill)
         by_path = {path: launched.get(name, 0) for path, launched in (
@@ -5347,7 +5780,8 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
             (f"{GEMMA_LABEL} batched", ring_batched_launches),
             *enc_launches.items(), (OSS_LABEL, oss_launches),
             (f"{OSS_LABEL} batched", oss_batched_launches),
-            ("routing tiny presets (18c)", routing_tiny_launches))
+            ("routing tiny presets (18c)", routing_tiny_launches),
+            *par_launches.items())
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

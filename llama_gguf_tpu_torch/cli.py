@@ -20,14 +20,19 @@
         [--all-tensors] [--min-elements N]
     python -m llama_gguf_tpu_torch sysinfo | models [--dir D] |
         init-config [PATH] | manpages [--dir D]
+    python -m llama_gguf_tpu_torch shard MODEL.gguf --coordinator HOST:PORT
+        --num-processes N --process-id I [--tp T] [--dp D] [--prompt TEXT]
+    python -m llama_gguf_tpu_torch cluster [--model-bytes N]
 
 Every subcommand takes ``--config FILE`` (TOML, config.py); each option is
 taken from its flag, else its LLAMA_GGUF_* variable, else the file, else the
 default. Every subcommand that loads a model loads it onto CUDA unless
-``--device cpu`` is given, and raises when CUDA is absent. ``download``
-(network), ``rag`` (ROADMAP queue 1 item 13), ``shard`` and ``cluster`` and
-the mesh flags (item 12) are not ported; a config naming a mesh raises
-where it is used.
+``--device cpu`` is given, and raises when CUDA is absent. ``--tp``/``--dp``
+(or ``[parallel]``) serve one model over a (data, model) mesh, one process
+per rank: this process is rank 0 and spawns the others
+(parallel/service.py); ``shard`` runs one rank of a group that every
+process joins itself. ``download`` (network) and ``rag`` (ROADMAP queue 1
+item 13) are not ported.
 """
 
 from __future__ import annotations
@@ -167,6 +172,32 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("manpages", help="generate man pages")
     p.add_argument("--dir", default="man")
     _add_common(p)
+
+    p = sub.add_parser(
+        "shard", help="join a process group and serve one rank of a mesh "
+        "(every process loads its own shard of the GGUF)")
+    p.add_argument("model", nargs="?", help="GGUF model path")
+    p.add_argument("--coordinator", required=True,
+                   help="coordinator address host:port")
+    p.add_argument("--num-processes", type=int, required=True)
+    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument("--tp", type=int, default=0,
+                   help="model-axis size (0 = every process)")
+    p.add_argument("--dp", type=int, default=1, help="data-axis size")
+    p.add_argument("--prompt", default=None,
+                   help="rank 0 only: generate for this prompt then stop")
+    p.add_argument("-n", "--max-tokens", type=int, default=32)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: card rank %% count) or cpu")
+    _add_common(p)
+
+    p = sub.add_parser(
+        "cluster", help="show distributed cluster topology/status")
+    p.add_argument("--cluster-config", default=None,
+                   help="cluster TOML file")
+    p.add_argument("--model-bytes", type=int, default=0,
+                   help="planned model size for auto mesh sizing")
+    _add_common(p)
     return ap
 
 
@@ -198,6 +229,11 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prompt-cache", default=None, metavar="FILE",
                    help="session file: load cached KV prefixes at start, "
                         "save back after generation (llama.cpp parity)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel mesh axis (0 = auto-fit the cards' "
+                   "memory)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel mesh axis")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch path)")
 
@@ -217,17 +253,9 @@ def _pick(args, flag: str, default):
     return v if v is not None else default
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if (cfg.parallel.data, cfg.parallel.model) != (1, 1):
-        raise NotImplementedError(
-            "mesh axes ([parallel]) are not ported yet (ROADMAP queue 1 item "
-            "12)")
-
-
 def _engine_config(cfg: Config, args):
     from .engine.engine import EngineConfig
 
-    _refuse_unported(cfg)
     return EngineConfig(
         max_context_len=_pick(args, "ctx", cfg.model.max_context_len),
         weight_mode=_pick(args, "weight_mode", cfg.model.weight_mode),
@@ -238,7 +266,9 @@ def _engine_config(cfg: Config, args):
         seed=_pick(args, "seed", cfg.generation.seed),
         prompt_cache_file=args.prompt_cache,
         lora=_pick(args, "lora", cfg.model.lora),
-        lora_scale=args.lora_scale)
+        lora_scale=args.lora_scale,
+        mesh_model=_pick(args, "tp", cfg.parallel.model),
+        mesh_data=_pick(args, "dp", cfg.parallel.data))
 
 
 def _sampler(cfg: Config, args):
@@ -267,11 +297,18 @@ def _model_path(cfg: Config, args) -> str:
     return path
 
 
+_LOADED: list = []  # engines of the running command, closed by main
+
+
 def _load_engine(cfg: Config, args):
+    """The engine of the model flags; ``main`` closes it when the command
+    ends (a mesh's follower ranks stop)."""
     from .engine.engine import Engine
 
-    return Engine.load(_model_path(cfg, args), _engine_config(cfg, args),
-                       device=args.device)
+    engine = Engine.load(_model_path(cfg, args), _engine_config(cfg, args),
+                         device=args.device)
+    _LOADED.append(engine)
+    return engine
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +395,10 @@ def _run_speculative(cfg, args, engine, prompt, sampler, max_tokens) -> int:
     import time
 
     from .engine.engine import Engine
-    from .engine.speculative import PromptLookupDecoder, SpeculativeDecoder
+    from .engine.speculative import (PromptLookupDecoder, SpeculativeDecoder,
+                                     refuse_unrollable)
 
+    refuse_unrollable(engine.runner, "target")
     if args.prompt_lookup:
         dec = PromptLookupDecoder(engine.runner,
                                   num_draft=args.prompt_lookup)
@@ -438,7 +477,6 @@ def serve_config(args, cfg: Config | None = None):
     from .server.app import ServerConfig
 
     cfg = cfg or _load_config(args)
-    _refuse_unported(cfg)
     return ServerConfig(
         host=_pick(args, "host", cfg.server.host),
         port=_pick(args, "port", cfg.server.port),
@@ -453,7 +491,9 @@ def serve_config(args, cfg: Config | None = None):
         rag_db=args.rag_db, device=args.device,
         max_context_len=_pick(args, "ctx", cfg.model.max_context_len),
         kv_format=_pick(args, "kv_cache_type", cfg.model.kv_cache_type),
-        lora=_pick(args, "lora", cfg.model.lora))
+        lora=_pick(args, "lora", cfg.model.lora),
+        mesh_model=_pick(args, "tp", cfg.parallel.model),
+        mesh_data=_pick(args, "dp", cfg.parallel.data))
 
 
 def cmd_serve(args) -> int:
@@ -671,12 +711,93 @@ def cmd_manpages(args) -> int:
     return 0
 
 
+def cmd_shard(args) -> int:
+    """Join a process group and run the lock-step serve loop
+    (parallel/service.serve_spmd): every process loads its own shard of the
+    GGUF; rank 0 serves ``--prompt`` and the loop ends."""
+    import torch.distributed as dist
+
+    from .parallel.multihost import ClusterConfig, initialize_cluster
+    from .parallel.service import serve_spmd
+
+    info = initialize_cluster(ClusterConfig(
+        coordinator_address=args.coordinator,
+        num_processes=args.num_processes,
+        process_id=args.process_id, device=args.device))
+    print(f"[shard {args.process_id}/{args.num_processes}] cluster up: "
+          f"{info}", file=sys.stderr)
+    try:
+        if not args.model:
+            return 0
+        from .engine.engine import Engine
+
+        from .engine.engine import EngineConfig
+
+        m = _load_config(args).model
+        engine = Engine.load(args.model, EngineConfig(
+            max_context_len=m.max_context_len, weight_mode=m.weight_mode,
+            kv_format=m.kv_cache_type, matmul_precision=m.matmul_precision,
+            lora=m.lora,
+            mesh_model=args.tp or args.num_processes // max(args.dp, 1),
+            mesh_data=args.dp), device=args.device)
+        reqs = []
+        if args.process_id == 0 and args.prompt is not None:
+            reqs = [(engine.tokenizer.encode(args.prompt), args.max_tokens)]
+        outs = serve_spmd(engine.runner, engine.tokenizer, reqs,
+                          on_text=lambda txt: print(txt, flush=True))
+        print(f"[shard {args.process_id}] served {len(outs)} request(s)",
+              file=sys.stderr)
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def cmd_cluster(args) -> int:
+    """The cluster's topology as JSON: the ClusterConfig of the environment
+    or a TOML file's [cluster] table, this host's cards, and with
+    ``--model-bytes`` the auto-mesh plan."""
+    import torch
+
+    from .parallel.multihost import ClusterConfig, auto_mesh
+
+    cc = ClusterConfig.from_env()
+    if args.cluster_config:
+        import tomllib
+
+        with open(args.cluster_config, "rb") as f:
+            t = tomllib.load(f).get("cluster", {})
+        cc = ClusterConfig(
+            coordinator_address=t.get("coordinator_address",
+                                      cc.coordinator_address),
+            num_processes=t.get("num_processes", cc.num_processes),
+            process_id=t.get("process_id", cc.process_id),
+            data=t.get("data", 0), model=t.get("model", 0))
+    cuda = torch.cuda.is_available()
+    out = {
+        "coordinator": cc.coordinator_address,
+        "num_processes": cc.num_processes,
+        "local_devices": torch.cuda.device_count() if cuda else 1,
+        "platform": "gpu" if cuda else "cpu",
+    }
+    if cuda:
+        out["devices"] = [torch.cuda.get_device_name(i)
+                          for i in range(torch.cuda.device_count())]
+    if args.model_bytes:
+        data, model = auto_mesh(args.model_bytes,
+                                n_devices=out["local_devices"])
+        out["auto_mesh"] = {"data": data, "model": model}
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 COMMANDS = {"info": cmd_info, "run": cmd_run, "chat": cmd_chat,
             "serve": cmd_serve, "bench": cmd_bench, "quantize": cmd_quantize,
             "perplexity": cmd_perplexity, "embed": cmd_embed,
             "tokenize": cmd_tokenize, "sysinfo": cmd_sysinfo,
             "models": cmd_models, "init-config": cmd_init_config,
-            "manpages": cmd_manpages}
+            "manpages": cmd_manpages, "shard": cmd_shard,
+            "cluster": cmd_cluster}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -688,6 +809,9 @@ def main(argv: list[str] | None = None) -> int:
         return COMMANDS[args.command](args)
     except KeyboardInterrupt:
         return 130
+    finally:
+        while _LOADED:
+            _LOADED.pop().close()
 
 
 if __name__ == "__main__":

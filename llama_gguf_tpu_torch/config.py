@@ -3,8 +3,9 @@ llama_gguf_tpu/config.py: the same sections, keys, LLAMA_GGUF_* variables
 and example text).
 
 Precedence: CLI > env > TOML > defaults. TOML parsing uses the stdlib
-tomllib. Values that name features the port does not have yet (``[rag]``,
-``[parallel]``) load here and raise where they are used.
+tomllib. ``[parallel]`` data and model are the mesh axes of every model
+command (the CLI's --dp and --tp). Values that name a feature the port does
+not have yet (``[rag]``) load here and raise where they are used.
 """
 
 from __future__ import annotations

@@ -67,22 +67,49 @@ class EngineConfig:
     # GGUF LoRA adapter applied at load (models/lora.py); None = base
     lora: str | None = None
     lora_scale: float | None = None  # override adapter alpha/rank scaling
+    # tensor/data-parallel mesh axes (parallel/sharding.py; 1, 1 = one
+    # device, one process); mesh_model=0 picks the smallest model axis that
+    # fits the cards' memory (multihost.auto_mesh)
+    mesh_data: int = 1
+    mesh_model: int = 1
+
+
+def runner_kwargs(cfg, config: EngineConfig) -> dict:
+    """The runner's settings for loaded weights: the context window capped
+    at max_context_len, the config's batch, precision and KV format, and
+    the sliding-window ring unless the context shift is on (the ring
+    cannot shift)."""
+    max_seq = cfg.max_seq_len
+    if config.max_context_len:
+        max_seq = min(max_seq, config.max_context_len)
+    return dict(max_batch=config.max_batch, max_seq=max_seq,
+                matmul_precision=config.matmul_precision,
+                kv_format=config.kv_format,
+                swa_ring=not config.context_shift)
 
 
 def make_runner(params: dict, cfg, config: EngineConfig,
                 device="cuda") -> ModelRunner:
-    """The runner ``Engine.load`` makes for loaded weights: the context
-    window capped at max_context_len, the config's batch, precision and KV
-    format, and the sliding-window ring unless the context shift is on
-    (the ring cannot shift)."""
-    max_seq = cfg.max_seq_len
-    if config.max_context_len:
-        max_seq = min(max_seq, config.max_context_len)
-    return ModelRunner(
-        params, cfg, max_batch=config.max_batch, max_seq=max_seq,
-        matmul_precision=config.matmul_precision,
-        kv_format=config.kv_format, device=device,
-        swa_ring=not config.context_shift)
+    """The runner ``Engine.load`` makes for loaded weights
+    (``runner_kwargs``)."""
+    return ModelRunner(params, cfg, device=device,
+                       **runner_kwargs(cfg, config))
+
+
+def mesh_axes(config: EngineConfig, gguf: GGUFFile, device) -> tuple:
+    """(data, model) of ``config``'s mesh; model 0 asks ``auto_mesh`` over
+    the cards of this host (one for the CPU), as the JAX engine does."""
+    n_data, n_model = config.mesh_data, config.mesh_model
+    if n_model == 0:
+        import torch
+
+        from ..parallel.multihost import auto_mesh
+
+        weight_bytes = sum(i.nbytes for i in gguf.tensors.values())
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_data, n_model = auto_mesh(int(weight_bytes * 1.5),
+                                    n_devices=max(n, 1))
+    return n_data, n_model
 
 
 @dataclass
@@ -169,6 +196,12 @@ class Engine:
             return cls(None, tokenizer, config, gguf, encoder=BertEncoder(
                 params, cfg, device=dev,
                 matmul_precision=config.matmul_precision))
+        n_data, n_model = mesh_axes(config, gguf, dev)
+        import torch.distributed as dist
+
+        if n_data * n_model > 1 or dist.is_initialized():
+            return cls._load_mesh(path, gguf, tokenizer, config, dev,
+                                  n_data, n_model, t0)
         params, cfg = loader.build()
         if config.lora:
             # before the runner: it captures its graphs on the adapted
@@ -184,6 +217,38 @@ class Engine:
                  cfg.arch, cfg.num_layers, cfg.vocab_size, dev,
                  time.time() - t0)
         return cls(runner, tokenizer, config, gguf)
+
+    @classmethod
+    def _load_mesh(cls, path: str, gguf: GGUFFile, tokenizer,
+                   config: EngineConfig, dev, n_data: int, n_model: int,
+                   t0: float) -> "Engine":
+        """A decoder over a (data, model) mesh, one process per rank
+        (parallel/service.load_mesh): inside a process group (the CLI's
+        ``shard``) this process's shard of it; else rank 0 here, with ranks
+        1..N-1 spawned as follower processes that ``close`` stops. The
+        LoRA adapter is attached to the whole model and cut along each
+        base's split. T5 and encoder-only models never get here: they
+        ignore the mesh, as in the JAX engine."""
+        from ..parallel.service import load_mesh
+
+        if config.prompt_cache or config.prompt_cache_file:
+            raise NotImplementedError(
+                "the prompt cache is not supported under a mesh: each "
+                "rank's cache holds its own heads and rows (ROADMAP queue 3)")
+        runner = load_mesh(path, config, dev, n_data, n_model)
+        log.info("loaded %s (%s, %d layers, vocab %d) over mesh (data=%d, "
+                 "model=%d) in %.1fs", path, runner.cfg.arch,
+                 runner.cfg.num_layers, runner.cfg.vocab_size, n_data,
+                 n_model, time.time() - t0)
+        return cls(runner, tokenizer, config, gguf)
+
+    def close(self) -> None:
+        """Stop the follower ranks of a mesh this engine spawned and leave
+        their process group (nothing to do on one device)."""
+        if self.runner is not None and self.runner.mesh is not None:
+            from ..parallel.service import close_mesh
+
+            close_mesh(self.runner)
 
     @classmethod
     def _load_onnx(cls, path: str, config: EngineConfig, dev,

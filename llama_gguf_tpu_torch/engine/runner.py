@@ -46,10 +46,15 @@ self-draft of engine/speculative.py) is tied to this one by
 ``share_params``, and the reset drops its graphs too. With LLAMA_DEBUG set (utils/debug.py) the
 forward prints each layer's activation RMS, which a graph cannot do: every
 step then runs eagerly and counts in ``eager_steps``.
+
+``MeshRunner`` is one rank's runner under a (data, model) mesh
+(parallel/): its params are the rank's shard, its caches the rank's heads
+and rows, and rank 0 sends each of its device calls to the other ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -226,7 +231,9 @@ class ModelRunner:
                 self.ring_slots = want
         self.swa_ring, self.swa_ring_extra = swa_ring, swa_ring_extra
         self._lock = _device_lock(self.device)
+        self.mesh = None  # parallel.sharding.Mesh of a MeshRunner
         self.tier_shards = 1  # batch groups of a tiered read (one device)
+        self.cache_kv_heads = cfg.cache_kv_heads  # a rank's under a mesh
         # the runner's own caches, by (batch, owner)
         self._kv: dict[tuple[int, str | None], dict] = {}
         self._graphs: dict[tuple, _Graph] = {}
@@ -270,7 +277,7 @@ class ModelRunner:
         against)."""
         cache = KV.init_cache(
             self.cfg.num_layers, batch, self.max_seq,
-            self.cfg.cache_kv_heads, self.cfg.cache_k_dim,
+            self.cache_kv_heads, self.cfg.cache_k_dim,
             v_head_dim=self.cfg.cache_v_dim, fmt=self.kv_format,
             device=self.device, swa_layers=self.swa_layers,
             ring_slots=self.ring_slots)
@@ -456,6 +463,25 @@ class ModelRunner:
                             precision=self.matmul_precision)
         return logits
 
+    def _step_logits(self, b: int, t: int, read_bound, gather: bool,
+                     kv: dict, parts: tuple, copy: bool) -> torch.Tensor:
+        """The logits of one step on ``kv``: eagerly, or by replaying the
+        graph of its key (``copy``: the caller's own copy of the graph's
+        output, else the output buffer itself)."""
+        cache = self._graphed(kv)
+        if cache is None:
+            return self._forward(kv, read_bound,
+                                 *(self._tensor(p) for p in parts))
+        g = self._step_graph(b, t, read_bound, gather, kv, cache)
+        if any(torch.is_tensor(p) and p.device.type != "cpu" for p in parts):
+            g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
+                                      for p in parts]))
+        else:  # one copy from the host
+            g.inputs.copy_(torch.from_numpy(np.concatenate(
+                [np.asarray(p, np.int32).reshape(-1) for p in parts])))
+        self._replay(g)
+        return g.out.clone() if copy else g.out
+
     def _step_graph(self, b: int, t: int, read_bound, gather: bool,
                     kv: dict, cache: tuple) -> _Graph:
         key = self._graph_key((b, t, read_bound, gather), cache)
@@ -502,22 +528,8 @@ class ModelRunner:
         parts = (tokens, positions, lengths) + (
             (logit_positions,) if gather else ())
         with self._lock:
-            cache = self._graphed(kv)
-            if cache is None:
-                out = self._forward(kv, read_bound,
-                                    *(self._tensor(p) for p in parts))
-            else:
-                g = self._step_graph(b, t, read_bound, gather, kv, cache)
-                if any(torch.is_tensor(p) and p.device.type != "cpu"
-                       for p in parts):
-                    g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
-                                              for p in parts]))
-                else:  # one copy from the host
-                    g.inputs.copy_(torch.from_numpy(np.concatenate(
-                        [np.asarray(p, np.int32).reshape(-1)
-                         for p in parts])))
-                self._replay(g)
-                out = g.out if host_rows is not None else g.out.clone()
+            out = self._step_logits(b, t, read_bound, gather, kv, parts,
+                                    copy=host_rows is None)
             if host_rows is None:
                 return out, kv
             if not len(host_rows):
@@ -586,9 +598,26 @@ class ModelRunner:
         with self._lock:
             return self._greedy_decode(tokens0, pos0, kv, steps)
 
+    def _local_rows(self, b: int) -> slice:
+        """The rows of a B-row batch this runner computes (all of them on
+        one device)."""
+        return slice(0, b)
+
+    def _gather_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """Every row of a B-row result of which this runner computed
+        ``_local_rows`` (on one device, ``t`` itself)."""
+        return t
+
+    def batch_of(self, kv: dict) -> int:
+        """The rows of ``kv`` as its callers index them."""
+        return KV.cache_shape(kv)[1]
+
     def _greedy_decode(self, tokens0, pos0, kv, steps: int):
-        lens0 = np.asarray(pos0.cpu() if torch.is_tensor(pos0) else pos0,
-                           np.int64).reshape(-1)
+        lens_all = np.asarray(pos0.cpu() if torch.is_tensor(pos0) else pos0,
+                              np.int64).reshape(-1)
+        b_all = lens_all.shape[0]
+        rows = self._local_rows(b_all)
+        lens0 = lens_all[rows]
         b = lens0.shape[0]
         cache = self._graphed(kv, steps)
         graphed = cache is not None
@@ -598,18 +627,22 @@ class ModelRunner:
                     torch.zeros(b, dtype=torch.int32, device=self.device),
                     torch.zeros(b, dtype=torch.int32, device=self.device))
             tok, pos = self._greedy_io[cache]
-            tok.copy_(self._tensor(tokens0))
+            tok.copy_(self._tensor(tokens0)[rows])
             pos.copy_(torch.from_numpy(lens0.astype(np.int32)))
         else:
-            tok, pos = self._tensor(tokens0).clone(), self._tensor(lens0)
+            tok = self._tensor(tokens0)[rows].clone()
+            pos = self._tensor(lens0)
         out = torch.empty((b, steps), dtype=torch.int32, device=self.device)
         done = 0
-        for chunk, bound in self.plan_segments(int(lens0.max()), steps,
+        for chunk, bound in self.plan_segments(int(lens_all.max()), steps,
                                                self.max_seq):
-            if b > 1:
+            if b_all > 1:
                 # ragged batch: the bound of the segment-END lengths (each
-                # row's context grows by ``chunk`` in the segment)
-                bound = pick_read_bound(lens0 + done + chunk, self.max_seq)
+                # row's context grows by ``chunk`` in the segment), over
+                # every row, so that each data shard picks the same one
+                bound = pick_read_bound(lens_all + done + chunk,
+                                        self.max_seq,
+                                        shards=self.tier_shards)
             bound = self._norm_bound(bound)
             g = self._greedy_graph(b, bound, kv, cache) if graphed else None
             for _ in range(chunk):
@@ -619,7 +652,7 @@ class ModelRunner:
                     self._decode_body(tok, pos, kv, bound)
                 out[:, done].copy_(tok)
                 done += 1
-        return out, kv
+        return self._gather_rows(out, b_all), kv
 
     # -- single-sequence prefill + decode ------------------------------------
 
@@ -641,7 +674,7 @@ class ModelRunner:
             return out, kv, start_pos
         t = len(token_ids)
         bt = bucket_len(t)
-        b = KV.cache_shape(kv)[1]
+        b = self.batch_of(kv)
         toks = np.zeros((b, bt), np.int32)
         toks[batch_idx, :t] = token_ids
         pos = np.full((b, bt), self.max_seq, np.int32)  # dropped
@@ -661,7 +694,7 @@ class ModelRunner:
                    batch_idx: int = 0, host: bool = False):
         """Single-token decode for one sequence. Returns (logits [V], kv);
         ``host`` as in prefill."""
-        b = KV.cache_shape(kv)[1]
+        b = self.batch_of(kv)
         toks = np.zeros((b, 1), np.int32)
         toks[batch_idx, 0] = token_id
         posa = np.full((b, 1), self.max_seq, np.int32)
@@ -710,3 +743,269 @@ class ModelRunner:
             x = apply_norm(x, self.params["final_norm"], cfg.norm_eps,
                            cfg.uses_layer_norm, gemma)
             return x[0].float().cpu().numpy()
+
+
+class MeshRunner(ModelRunner):
+    """One rank's runner under a (data, model) mesh (parallel/sharding.py),
+    one process per rank. ``params`` are this rank's shard; its caches hold
+    its heads and, for a batch the data axis divides, its B/data rows. A
+    step runs the rank's rows and gathers the logits over the data axis, so
+    every rank returns the whole batch; the tier of a ragged batch is picked
+    over every row with ``shards`` = data and selected over the rank's own
+    rows, which is the JAX package's tier grouped per data shard.
+
+    Every rank must make the same calls in the same order, as the same
+    tensors pass through each collective. Under ``parallel/service.serve_spmd``
+    each process drives its own runner. Under ``Engine.load`` with a mesh,
+    rank 0 drives and ``followers`` (parallel/service.Followers) carry each
+    of its calls that reach the device (those made under ``_call``) to the
+    other ranks, which make the same call (``parallel/service.follow``): an
+    Engine, a
+    BatchedEngine or the server then run over the mesh unchanged. A cache
+    crosses as a handle: an owned cache by its key, one made by a direct
+    ``_make_kv`` call by its number.
+
+    Steps run eagerly under gloo (a CUDA graph cannot hold a gloo
+    collective) and with expert-parallel layers (the count of a rank's
+    routed slots reaches the host), counted in ``eager_steps``; under NCCL
+    they replay graphs as on one device. The prompt cache is refused."""
+
+    MADE_KEPT = 16  # caches made by _make_kv that a handle can still name
+
+    def __init__(self, params: dict, cfg: ModelConfig, mesh, followers=None,
+                 **kw):
+        from ..parallel.sharding import expert_parallel, local_kv_heads
+
+        super().__init__(params, cfg, **kw)
+        self.mesh = mesh
+        self.tier_shards = mesh.data
+        self.cache_kv_heads = local_kv_heads(params, cfg)
+        self.followers = followers
+        self.graphs_ok = mesh.backend == "nccl" and not expert_parallel(
+            params)
+        self._depth = 0
+        # steps run (a greedy decode's each count) and their host wall time
+        self.steps, self.step_seconds = 0, 0.0
+        self._made: dict[int, tuple[dict, int]] = {}  # handle -> (kv, rows)
+        self._made_next = 0
+        self._eager_logged = False
+        log.info("mesh rank %d (data %d/%d, model %d/%d) on %s over %s; %s",
+                 mesh.rank, mesh.data_axis.index, mesh.data,
+                 mesh.model_axis.index, mesh.model, self.device, mesh.backend,
+                 "steps replay CUDA graphs" if self.graphs_ok
+                 else "steps run eagerly")
+
+    # -- mirroring ------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _call(self, name: str, args: tuple, kw: dict):
+        """Context of a call that reaches the device: rank 0 sends it to
+        the followers first, once (not the calls it makes itself), under
+        the lock."""
+        with self._lock:
+            if self.followers is not None and self._depth == 0:
+                self.followers.send((name, self._encode(args),
+                                     self._encode(kw)))
+            self._depth += 1
+            try:
+                yield
+            finally:
+                self._depth -= 1
+
+    def _handle(self, kv: dict):
+        """("own", key) or ("made", number) of one of this runner's caches,
+        else None."""
+        for key, own in self._kv.items():
+            if own is kv:
+                return ("own", key)
+        for n, (made, _) in self._made.items():
+            if made is kv:
+                return ("made", n)
+        return None
+
+    def _encode(self, obj):
+        if isinstance(obj, dict) and "k" in obj and "v" in obj:
+            handle = self._handle(obj)
+            if handle is None:
+                raise ValueError("this cache is not one of the mesh "
+                                 "runner's: make it with init_kv or _make_kv")
+            return ("__kv__", handle)
+        if torch.is_tensor(obj):
+            return ("__tensor__", obj.detach().cpu().numpy())
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._encode(v) for v in obj)
+        if isinstance(obj, dict):
+            return {k: self._encode(v) for k, v in obj.items()}
+        return obj
+
+    def decode(self, obj):
+        """A follower's arguments from rank 0's ``_encode``d ones."""
+        if isinstance(obj, tuple) and len(obj) == 2 and \
+                obj[0] in ("__kv__", "__tensor__"):
+            if obj[0] == "__tensor__":
+                return torch.from_numpy(obj[1])
+            kind, key = obj[1]
+            return self._kv[key] if kind == "own" else self._made[key][0]
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self.decode(v) for v in obj)
+        if isinstance(obj, dict):
+            return {k: self.decode(v) for k, v in obj.items()}
+        return obj
+
+    # -- rows -----------------------------------------------------------------
+
+    def _split_rows(self, b: int) -> bool:
+        return self.mesh.data > 1 and b % self.mesh.data == 0
+
+    def _local_rows(self, b: int) -> slice:
+        if not self._split_rows(b):
+            return slice(0, b)
+        bl = b // self.mesh.data
+        d = self.mesh.data_axis.index
+        return slice(d * bl, (d + 1) * bl)
+
+    def _gather_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        if not self._split_rows(b):
+            return t
+        return self.mesh.data_axis.all_gather(t, dim=0)
+
+    def batch_of(self, kv: dict) -> int:
+        handle = self._handle(kv)
+        if handle is None:
+            return super().batch_of(kv)
+        kind, key = handle
+        return key[0] if kind == "own" else self._made[key][1]
+
+    def _row_of(self, kv: dict, row: int | None) -> int | None | bool:
+        """Batch row ``row`` of ``kv`` as this rank holds it: the same row,
+        its local index, or False when another data shard holds it."""
+        b = self.batch_of(kv)
+        if row is None or not self._split_rows(b):
+            return row
+        rows = self._local_rows(b)
+        return row - rows.start if rows.start <= row < rows.stop else False
+
+    # -- graphs ---------------------------------------------------------------
+
+    def _graphed(self, kv: dict, steps: int = 1):
+        if self.device.type == "cuda" and not self.graphs_ok:
+            if not self._eager_logged:
+                self._eager_logged = True
+                log.warning("mesh rank %d: steps run eagerly (%s)",
+                            self.mesh.rank,
+                            "a CUDA graph cannot hold a gloo collective"
+                            if self.mesh.backend != "nccl" else
+                            "expert-parallel slot counts reach the host")
+            self.eager_steps += steps
+            return None
+        return super()._graphed(kv, steps)
+
+    # -- the mirrored calls ---------------------------------------------------
+
+    def _make_kv(self, batch: int) -> dict:
+        with self._call("_make_kv", (batch,), {}):
+            rows = self._local_rows(batch)
+            cache = super()._make_kv(rows.stop - rows.start)
+            if self._depth == 1:  # made for a caller: give it a handle
+                self._made[self._made_next] = (cache, batch)
+                self._made.pop(self._made_next - self.MADE_KEPT, None)
+                self._made_next += 1
+            return cache
+
+    def init_kv(self, batch: int | None = None,
+                owner: str | None = None) -> dict:
+        with self._call("init_kv", (batch, owner), {}):
+            return super().init_kv(batch, owner)
+
+    def clear_state(self, kv: dict, row: int) -> None:
+        with self._call("clear_state", (kv, row), {}):
+            local = self._row_of(kv, row)
+            if local is not False:
+                super().clear_state(kv, local)
+
+    def shift_left(self, kv: dict, n: int, batch_idx: int | None = None
+                   ) -> None:
+        with self._call("shift_left", (kv, n, batch_idx), {}):
+            local = self._row_of(kv, batch_idx)
+            if local is not False:
+                super().shift_left(kv, n, local)
+
+    def restore_prefix(self, cache, token_ids, kv, batch_idx=0) -> int:
+        raise NotImplementedError(
+            "the prompt cache is not supported under a mesh: each rank's "
+            "cache holds its own heads and rows (ROADMAP queue 3)")
+
+    store_prefix = restore_prefix
+
+    def release_kv(self, owner: str) -> None:
+        with self._call("release_kv", (owner,), {}):
+            super().release_kv(owner)
+
+    def reset_graphs(self) -> None:
+        with self._call("reset_graphs", (), {}):
+            super().reset_graphs()
+
+    def step(self, tokens, positions, lengths, kv: dict, read_bound=None,
+             logit_positions=None, host_rows=None):
+        with self._call("step", (tokens, positions, lengths, kv),
+                        dict(read_bound=read_bound,
+                             logit_positions=logit_positions,
+                             host_rows=host_rows)):
+            t0 = time.perf_counter()
+            out = super().step(tokens, positions, lengths, kv, read_bound,
+                               logit_positions, host_rows)
+            self.steps += 1
+            self.step_seconds += time.perf_counter() - t0
+            return out
+
+    def _step_logits(self, b, t, read_bound, gather, kv, parts, copy):
+        rows = self._local_rows(b)
+        local = tuple(p[rows] for p in parts)
+        out = super()._step_logits(rows.stop - rows.start, t, read_bound,
+                                   gather, kv, local, copy)
+        return self._gather_rows(out, b)
+
+    def greedy_decode(self, tokens0, pos0, kv, steps: int):
+        with self._call("greedy_decode", (tokens0, pos0, kv, steps), {}):
+            t0 = time.perf_counter()
+            out = super().greedy_decode(tokens0, pos0, kv, steps)
+            self.steps += steps
+            self.step_seconds += time.perf_counter() - t0
+            return out
+
+    def hidden_states(self, token_ids: list[int], owner: str) -> np.ndarray:
+        with self._call("hidden_states", (token_ids, owner), {}):
+            return super().hidden_states(token_ids, owner)
+
+    def rank_stats(self) -> list[dict]:
+        """Every rank's placement and counters, in rank order: device,
+        backend, kernel launches (ops/qmatmul.launch_counts), eager steps,
+        the steps and their host wall seconds (under gloo the host waits
+        for each collective, so this is the steps' time), and the
+        collectives' calls and host wall seconds per axis."""
+        import torch.distributed as dist
+
+        with self._call("rank_stats", (), {}):
+            m = self.mesh
+            launches, by_path = Q.launch_counts()
+            mine = {"rank": m.rank, "device": str(self.device),
+                    "backend": m.backend,
+                    "data_index": m.data_axis.index,
+                    "model_index": m.model_axis.index,
+                    "launches": launches, "launches_by_path": by_path,
+                    "eager_steps": self.eager_steps,
+                    "steps": self.steps, "step_seconds": self.step_seconds,
+                    "collectives": {a.name: {"calls": a.calls,
+                                             "seconds": a.seconds}
+                                    for a in (m.model_axis, m.data_axis)}}
+            out: list = [None] * m.size
+            dist.all_gather_object(out, mine, group=m.cpu_group)
+            return out
+
+    def reset_rank_stats(self) -> None:
+        """Zero every rank's launch, step and collective counters."""
+        with self._call("reset_rank_stats", (), {}):
+            Q.reset_launches()
+            self.steps, self.step_seconds, self.eager_steps = 0, 0.0, 0
+            for a in (self.mesh.model_axis, self.mesh.data_axis):
+                a.calls, a.seconds = 0, 0.0

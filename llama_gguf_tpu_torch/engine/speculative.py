@@ -69,6 +69,11 @@ def refuse_unrollable(runner: ModelRunner | None, role: str) -> None:
             f"speculative decoding needs a decoder model: the {role} is an "
             "encoder-only or encoder-decoder (T5) model, which has no "
             "decoder runner")
+    if getattr(runner, "mesh", None) is not None:
+        raise NotImplementedError(
+            f"speculative decoding over a mesh is not supported (the {role} "
+            "runs on a mesh): the draft's runner would make device calls "
+            "the mesh's other ranks do not make (ROADMAP queue 3)")
     kinds = sorted(set(runner.cfg.layer_kinds or ()) & RECURRENT_KINDS)
     if kinds:
         raise NotImplementedError(

@@ -152,7 +152,14 @@ def apply_lora(params: dict, adapter: LoraAdapter,
     """Wrap matching linears in the params tree with LoraLinear (in place);
     an existing adapter on a linear is replaced. Returns the number of
     attached tensors. ``runner``: the ModelRunner serving ``params``, whose
-    captured graphs are dropped."""
+    captured graphs are dropped. A runner over a mesh is refused: its
+    ranks' params are shards, which ``EngineConfig.lora`` cuts the adapter
+    for at load (parallel/sharding.py)."""
+    if getattr(runner, "mesh", None) is not None:
+        raise NotImplementedError(
+            "attaching a LoRA adapter to a model served over a mesh: give it "
+            "at load (EngineConfig.lora), where each rank cuts it along its "
+            "shard (ROADMAP queue 3)")
     s = adapter.scale if scale is None else scale
     try:
         return _attach(params, adapter, s)
@@ -195,6 +202,10 @@ def _attach(params: dict, adapter: LoraAdapter, s: float) -> int:
 def remove_lora(params: dict, runner=None) -> int:
     """Detach all adapters (in place); returns the number removed. A split
     projection stays split. ``runner`` as in apply_lora."""
+    if getattr(runner, "mesh", None) is not None:
+        raise NotImplementedError(
+            "detaching a LoRA adapter from a model served over a mesh "
+            "(ROADMAP queue 3)")
     removed = 0
     for path in _param_paths(len(params["layers"])).values():
         leaf = _get(params, path)

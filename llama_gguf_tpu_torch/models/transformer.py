@@ -23,8 +23,11 @@ cache) and DeepSeek-V3's sigmoid routing with its bias and group limit
 gpt-oss's per-expert biases (moe_layer), parallel residual, post norms, tied
 embeddings, and the two-tier ragged read bound on one device, over every
 KV-cache format of models/kv.py (the qjl format through
-ops/attention.qjl_attention) and the sliding-window ring. The tier over data
-shards is ROADMAP queue 1.
+ops/attention.qjl_attention) and the sliding-window ring, and the tier
+grouped per data shard. Under a mesh (parallel/sharding.py) an attention
+block runs its rank's heads (``layer["heads"]``), a row-parallel product sums
+over the model axis inside ops/linear.apply, and an expert-parallel MoE
+layer runs its rank's experts and sums once over the model axis.
 
 Nothing here reads a device value on the host, so engine/runner.py can
 capture a whole step in a CUDA graph.
@@ -148,8 +151,12 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         return mla_attention(layer, cfg, x, positions, kv, layer_idx,
                              lengths, read_bound, precision)
     b, t, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     vd = cfg.value_length or hd
+    # a rank's share of the heads under a mesh (parallel/sharding.py):
+    # (local heads, local KV heads, first global head, all heads)
+    heads = layer.get("heads")
+    nh, nkv = heads[:2] if heads else (cfg.num_heads, cfg.num_kv_heads)
 
     if "wqkv" in layer:  # fused projection (loader._fuse_attn)
         nq, nk, _ = layer["wqkv"].splits
@@ -166,7 +173,7 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         c = cfg.clamp_kqv
         q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
 
-    if "q_norm" in layer and layer["q_norm"].shape[-1] == nh * hd:
+    if "q_norm" in layer and layer["q_norm"].shape[-1] == cfg.num_heads * hd:
         # olmo2: QK RMSNorm over the flat projection (all heads at once)
         q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
         k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
@@ -246,8 +253,10 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
             positions, lengths, scale=scale, v_head_dim=vd,
             softcap=cfg.attn_logit_softcap, sliding_window=window)
     else:
+        alibi = (heads[3], heads[2]) if heads and cfg.uses_alibi \
+            else cfg.uses_alibi
         akw = dict(scale=scale, softcap=cfg.attn_logit_softcap,
-                   sliding_window=window, sinks=sinks, alibi=cfg.uses_alibi)
+                   sliding_window=window, sinks=sinks, alibi=alibi)
 
         def read_fn(bound, rows):
             return KV.read(kv, cache_idx, head_dim=hd, v_head_dim=vd,
@@ -402,29 +411,17 @@ def _expert_mm(x_rows: torch.Tensor, stack, idx: torch.Tensor,
     return expert_matmul(x_rows, stack, idx)
 
 
-def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
-              precision: str | None = None) -> torch.Tensor:
-    """Mixture-of-experts FFN. Slots are token-major (slot s = token * k +
-    j). llama4 (``moe_weight_before_ffn``) scales each slot's input row by
-    its routing weight and sums the down outputs unweighted. When gate and
-    up are both quantized and carry no bias the grouped gate|up GLU kernel
-    is tried first; else, or below its threshold, the two products, each
-    expert's gate and up bias (gpt-oss) added per slot in f32, and the GLU;
-    then the down product, its bias per slot, and the routing-weighted sum.
-    Each product is dispatched on its own stack (``_expert_mm``). Where the
-    slots are many enough for the grouped kernels (``moe_dims``), the
-    dispatch plan is made once here and shared by the layer's quantized
-    products."""
-    b, t, h = x.shape
-    xf = x.reshape(b * t, h)
-    topv, topi = route(ffn, cfg, xf)
-    nt, k = topi.shape
-    ex = ffn["experts"]
-    idx = topi.reshape(-1).to(torch.int32)  # [N*k]
-    xr = xf.float()[:, None, :].expand(nt, k, h)
-    if cfg.moe_weight_before_ffn:  # llama4: the weight scales the input
-        xr = xr * topv[:, :, None]
-    xr = xr.reshape(-1, h)
+def _expert_ffn(ex: dict, cfg: ModelConfig, xr: torch.Tensor,
+                idx: torch.Tensor, precision: str | None) -> torch.Tensor:
+    """The routed experts' FFN of slots xr [S, H] on experts idx [S] ->
+    [S, H] f32, each slot's down bias added, before the routing weight.
+    When gate and up are both quantized and carry no bias the grouped
+    gate|up GLU kernel is tried first; else, or below its threshold, the
+    two products, each expert's gate and up bias (gpt-oss) added per slot
+    in f32, and the GLU; then the down product. Each product is dispatched
+    on its own stack (``_expert_mm``). Where the slots are many enough for
+    the grouped kernels (``moe_dims``), the dispatch plan is made once here
+    and shared by the quantized products."""
     quant = {key: isinstance(ex[key], L.QuantExpertStack)
              for key in ("gate", "up", "down")}
     plan = None
@@ -447,14 +444,60 @@ def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
     dn = _expert_mm(act.float(), ex["down"], idx, precision, plan)
     if "down_bias" in ex:  # per expert, before the routing weight
         dn = dn + ex["down_bias"].float()[idx]
-    dn = dn.reshape(nt, k, h)
-    y = (dn.sum(dim=1) if cfg.moe_weight_before_ffn
-         else (dn * topv[:, :, None]).sum(dim=1))
+    return dn
+
+
+def moe_layer(ffn: dict, cfg: ModelConfig, x: torch.Tensor,
+              precision: str | None = None) -> torch.Tensor:
+    """Mixture-of-experts FFN. Slots are token-major (slot s = token * k +
+    j). llama4 (``moe_weight_before_ffn``) scales each slot's input row by
+    its routing weight and sums the down outputs unweighted. The routed
+    products are ``_expert_ffn``'s; then the routing-weighted sum and the
+    optional shared expert behind its gate."""
+    b, t, h = x.shape
+    xf = x.reshape(b * t, h)
+    topv, topi = route(ffn, cfg, xf)
+    nt, k = topi.shape
+    ex = ffn["experts"]
+    idx = topi.reshape(-1).to(torch.int32)  # [N*k]
+    xr = xf.float()[:, None, :].expand(nt, k, h)
+    if cfg.moe_weight_before_ffn:  # llama4: the weight scales the input
+        xr = xr * topv[:, :, None]
+    xr = xr.reshape(-1, h)
+    weights = topv.reshape(-1)
+    if "expert_range" in ffn:
+        # expert parallel (parallel/sharding.py): this rank runs only the
+        # slots routed to its experts, renumbered from 0; the others are
+        # dropped here, and the routed sum is completed over the model
+        # axis. Their count reaches the host, so such a step runs eagerly
+        e0, e1 = ffn["expert_range"]
+        keep = torch.nonzero((idx >= e0) & (idx < e1))[:, 0]
+        idx = (idx[keep] - e0).contiguous()
+        xr, weights = xr[keep], weights[keep]
+    if idx.shape[0]:
+        dn = _expert_ffn(ex, cfg, xr, idx, precision)
+    else:  # no slot routed to this rank's experts
+        dn = xr.new_zeros((0, h))
+    if "expert_range" in ffn:
+        if not cfg.moe_weight_before_ffn:
+            dn = dn * weights[:, None]
+        y = torch.zeros((nt, h), dtype=dn.dtype, device=dn.device)
+        y.index_add_(0, torch.div(keep, k, rounding_mode="floor"), dn)
+    else:
+        dn = dn.reshape(nt, k, h)
+        y = (dn.sum(dim=1) if cfg.moe_weight_before_ffn
+             else (dn * topv[:, :, None]).sum(dim=1))
+    sh = None
     if "shared" in ffn:  # Qwen2Moe/Qwen3Next shared expert (+ its gate)
         sh = feed_forward(ffn["shared"], cfg, xf[None], precision)[0]
         if "shared_gate" in ffn:
             sh = sh * torch.sigmoid(
                 L.apply(ffn["shared_gate"], xf, precision).float())
+    if "reduce" in ffn:  # one sum over the model axis, after the combine
+        if sh is not None and ffn.get("shared_split"):
+            y, sh = y + sh.to(y.dtype), None
+        y = ffn["reduce"].all_reduce(y)
+    if sh is not None:
         y = y + sh.to(y.dtype)
     return y.reshape(b, t, h).to(x.dtype)
 
@@ -591,21 +634,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     exceeds ``lo`` re-run against ``hi``; the caller guarantees that no
     more than ``cap`` rows do (engine/runner.pick_read_bound). The tier's
     rows are selected here on the device, with one top-k over ``lengths``.
-    ``shards`` > 1 (a tier grouped per data shard) raises."""
+    ``shards`` > 1 groups the selection into that many contiguous batch
+    groups of B/shards rows (where it divides B), each with its own top-k
+    of ``cap`` rows, as the JAX package selects the tier per data shard."""
     if isinstance(read_bound, tuple):
         lo, hi, cap, *rest = read_bound
         shards = rest[0] if rest else 1
         b = tokens.shape[0]
-        if shards > 1 and b % shards == 0:
-            raise NotImplementedError(
-                "a tiered read bound over data shards (shards > 1) is not "
-                "ported yet (ROADMAP queue 1 item 12)")
+        g = shards if shards > 1 and b % shards == 0 else 1
+        bl = b // g
         # torch.topk may order tied lengths unlike jax.lax.top_k, but cap
         # covers every row longer than lo, so the same rows get the hi
-        # bucket and the result is the same; the others are padding (b)
-        top, idx = torch.topk(lengths.reshape(1, b), min(cap, b), dim=1)
+        # bucket and the result is the same; the others are padding (B/G)
+        top, idx = torch.topk(lengths.reshape(g, bl), min(cap, bl), dim=1)
         read_bound = (lo, hi, torch.where(top > lo, idx,
-                                          torch.full_like(idx, b)))
+                                          torch.full_like(idx, bl)))
     x = embed(params, cfg, tokens, positions)
     trace_activation("embed", -1, x)
     for i, layer in enumerate(params["layers"]):

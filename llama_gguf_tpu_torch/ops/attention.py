@@ -39,10 +39,15 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
 
 
 def alibi_bias(positions: torch.Tensor, s_idx: torch.Tensor,
-               num_kv_heads: int, rep: int) -> torch.Tensor:
+               num_kv_heads: int, rep: int, heads=True) -> torch.Tensor:
     """[B, T, K, R, S] bias: -slope_h * (q_pos - key_pos), clamped at 0 for
-    future keys (masked anyway). s_idx: key positions [S] or [B, S]."""
-    slopes = alibi_slopes(num_kv_heads * rep, positions.device).reshape(
+    future keys (masked anyway). s_idx: key positions [S] or [B, S].
+    ``heads``: True, or (total heads, first head) when these K * R heads
+    are a rank's share of the model's (parallel/sharding.py): the slopes
+    are those of their global indices."""
+    n = num_kv_heads * rep
+    total, first = heads if isinstance(heads, tuple) else (n, 0)
+    slopes = alibi_slopes(total, positions.device)[first:first + n].reshape(
         num_kv_heads, rep)
     si = s_idx[None, None, :] if s_idx.dim() == 1 else s_idx[:, None, :]
     dist = torch.clamp(positions[:, :, None] - si, min=0).float()
@@ -68,8 +73,9 @@ def _mask_block(positions, lengths, s_idx, sliding_window: int):
 
 def dense_attention(qg, keys, vals, positions, lengths, *, scale: float,
                     softcap: float = 0.0, sliding_window: int = 0,
-                    sinks=None, alibi: bool = False, key_positions=None):
+                    sinks=None, alibi=False, key_positions=None):
     """qg [B,T,K,R,D]; keys [B,S,K,D]; vals [B,S,K,Dv] -> [B,T,K,R,Dv].
+    ``alibi``: False, True, or (total heads, first head) (alibi_bias).
 
     ``key_positions`` [B,S]: per-slot absolute positions for ring-buffer
     caches where slot index != position; None = contiguous cache."""
@@ -79,7 +85,7 @@ def dense_attention(qg, keys, vals, positions, lengths, *, scale: float,
     scores = torch.einsum("btkrd,bskd->btkrs", qg, keys) * scale
     if alibi:
         scores = scores + alibi_bias(positions, s_idx, qg.shape[2],
-                                     qg.shape[3])
+                                     qg.shape[3], alibi)
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap
     valid = _mask_block(positions, lengths, s_idx, sliding_window)
@@ -99,7 +105,7 @@ def dense_attention(qg, keys, vals, positions, lengths, *, scale: float,
 
 def chunked_attention(qg, keys, vals, positions, lengths, *, scale: float,
                       softcap: float = 0.0, sliding_window: int = 0,
-                      alibi: bool = False, sinks=None,
+                      alibi=False, sinks=None,
                       block: int = DEFAULT_BLOCK):
     """Flash-style attention over KV blocks with online softmax; same result
     as dense_attention with peak intermediate [B,T,K,R,block]."""
@@ -117,7 +123,7 @@ def chunked_attention(qg, keys, vals, positions, lengths, *, scale: float,
         s_idx = torch.arange(start, start + ks.shape[1], device=qg.device)
         scores = torch.einsum("btkrd,bskd->btkrs", qg, ks) * scale
         if alibi:
-            scores = scores + alibi_bias(positions, s_idx, k, r)
+            scores = scores + alibi_bias(positions, s_idx, k, r, alibi)
         if softcap > 0.0:
             scores = torch.tanh(scores / softcap) * softcap
         valid = _mask_block(positions, lengths, s_idx, sliding_window)
@@ -220,7 +226,7 @@ def tiered_attention(read_fn, qg, positions, lengths, lo: int, hi: int,
 
 def attention_scores(qg, keys, vals, positions, lengths, *, scale: float,
                      softcap: float = 0.0, sliding_window: int = 0,
-                     sinks=None, alibi: bool = False, key_positions=None):
+                     sinks=None, alibi=False, key_positions=None):
     """Pick dense vs chunked by the dense score-tensor size. Ring caches
     (key_positions given) are window-sized, so always dense."""
     b, t, k, r, _ = qg.shape

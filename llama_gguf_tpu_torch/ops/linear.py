@@ -16,7 +16,10 @@ bfloat16 (``ModelLoader(scale_dtype=)``; the dequantization upcasts them):
 An MoE FFN's experts stack the same layout along a leading expert axis
 (``QuantExpertStack``). A LoRA adapter wraps a dense or quantized linear
 (``LoraLinear``, models/lora.py): the base keeps its kernel and the low-rank
-term is added in float32.
+term is added in float32. Under a mesh (parallel/sharding.py) a row-parallel
+shard sums its partial product over the model axis before its bias
+(``RowParallelLinear``), and the LM head's vocab shards are gathered
+(``GatheredLinear``).
 
 ``apply`` sends a QuantLinear to ops.qmatmul.qmatmul, which launches the
 hand-written CUDA kernel for a CUDA tensor and runs the plain dequantize-then-
@@ -73,6 +76,34 @@ class LoraLinear:
     a: torch.Tensor  # [K, r] float32
     b: torch.Tensor  # [r, N] float32
     scale: float
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+
+@dataclass
+class RowParallelLinear:
+    """A row-parallel shard under a mesh (parallel/sharding.py): this
+    rank's input rows of a linear, its partial product summed over the
+    model axis, then the bias added once."""
+
+    base: object  # DenseLinear | QuantLinear | LoraLinear, without bias
+    bias: torch.Tensor | None
+    axis: object  # parallel.sharding.Axis
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+
+@dataclass
+class GatheredLinear:
+    """A column-parallel shard whose output columns are gathered over the
+    model axis in rank order (the LM head's vocab shards)."""
+
+    base: object
+    axis: object
 
     @property
     def shape(self):
@@ -259,6 +290,13 @@ def apply(lin, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
         if lin.bias is not None:
             y = y + lin.bias.to(y.dtype)
         return y
+    if isinstance(lin, RowParallelLinear):
+        y = lin.axis.all_reduce(apply(lin.base, x, precision))
+        if lin.bias is not None:
+            y = y + lin.bias.to(y.dtype)
+        return y
+    if isinstance(lin, GatheredLinear):
+        return lin.axis.all_gather(apply(lin.base, x, precision), dim=-1)
     if not isinstance(lin, QuantLinear):
         raise TypeError(f"apply: unsupported linear {type(lin).__name__}")
     from .qmatmul import qmatmul

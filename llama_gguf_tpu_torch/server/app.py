@@ -69,12 +69,21 @@ class ServerConfig:
     # any of models/kv.FORMATS; Gemma-2/3 keep their sliding-window layers
     # in the ring cache (the server makes no context shift)
     kv_format: str = "f32"
+    # mesh axes (EngineConfig.mesh_data / mesh_model): rank 0 serves here
+    # and spawns the other ranks (parallel/service.py)
+    mesh_data: int = 1
+    mesh_model: int = 1
 
 
 def _refuse_unported(config: ServerConfig) -> None:
     if config.rag_db:
         raise NotImplementedError(
             "RAG (rag_db) is not ported yet (ROADMAP queue 1 item 13)")
+    if config.prompt_cache_bytes > 0 and \
+            (config.mesh_data, config.mesh_model) != (1, 1):
+        raise NotImplementedError(
+            "the prompt cache is not supported under a mesh: each rank's "
+            "cache holds its own heads and rows (ROADMAP queue 3)")
 
 
 class ServerState:
@@ -105,11 +114,25 @@ class ServerState:
         up and serve it. A failed warm-up raises and leaves no model
         loaded."""
         c = self.config
+        if (c.mesh_data, c.mesh_model) != (1, 1):
+            # one mesh at a time: its process group and its ranks go first
+            self._close_engine()
         engine = Engine.load(path, EngineConfig(
             max_context_len=c.max_context_len, max_batch=c.max_batch,
             weight_mode=c.weight_mode, kv_format=c.kv_format,
-            lora=c.lora), device=c.device)
+            lora=c.lora, mesh_data=c.mesh_data, mesh_model=c.mesh_model),
+            device=c.device)
         self.serve_engine(engine, path)
+
+    def _close_engine(self) -> None:
+        """Stop the scheduler and close the engine (a mesh's ranks)."""
+        with self.lock:
+            engine, batched = self.engine, self.batched
+            self.engine = self.batched = None
+        if batched is not None:
+            batched.shutdown()
+        if engine is not None:
+            engine.close()
 
     def serve_engine(self, engine: Engine, path: str) -> None:
         """Serve ``engine``, loaded from ``path``: stop the old scheduler,
@@ -171,9 +194,11 @@ class ServerState:
         the scheduler."""
         if self.httpd is not None:
             self.httpd.shutdown()
-        _, batched = self.current()
+        engine, batched = self.current()
         if batched is not None:
             batched.shutdown()
+        if engine is not None:
+            engine.close()  # a mesh's ranks
 
 
 # ---------------------------------------------------------------------------

@@ -124,16 +124,19 @@ def test_flags_beat_env_beat_toml(tmp_path, monkeypatch, model_path):
 
 
 def test_unported_config_values_raise(tmp_path, model_path, capsys):
-    """A mesh ([parallel], ROADMAP queue 1 item 12) still raises; the
-    TOML's [model].lora, which raised until item 12 ported LoRA, runs as the
-    JAX CLI runs it."""
+    """Two config values that raised until item 12 ported them now run as
+    the JAX CLI runs them: a mesh ([parallel] model = 2: two ranks, two
+    processes here, over gloo on the CPU) and the TOML's [model].lora."""
     from test_torch_lora import shapes_of, write_lora
 
     p = tmp_path / "c.toml"
     p.write_text("[parallel]\nmodel = 2\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        cli.main(["run", model_path, "--config", str(p), "--device",
-                  "cpu", "-p", "hi", "-n", "2"])
+    argv = ["run", model_path, "--config", str(p), "-p", "hi", "-n", "4",
+            "-t", "0", "--weight-mode", "dequant"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    assert got == capsys.readouterr().out
     adapter = write_lora(str(tmp_path / "a.gguf"), alpha=32.0, seed=3,
                          layers=2, shapes=shapes_of(64, 128))
     p.write_text(f'[model]\nlora = "{adapter}"\n')
@@ -232,7 +235,7 @@ def test_manpages(tmp_path, capsys):
     subs = cli.build_parser()._subparsers._group_actions[0].choices
     assert pages == sorted(["llama-gguf-tpu-torch.1"] + [
         f"llama-gguf-tpu-torch-{c}.1" for c in subs])
-    assert len(subs) == 13
+    assert len(subs) == 15  # with shard and cluster
     text = open(os.path.join(out, "man1", "llama-gguf-tpu-torch.1")).read()
     assert ".TH" in text and ".SH NAME" in text and "perplexity" in text
 

@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax():
     for new in ("engine.perplexity", "engine.prompt_cache", "config",
                 "manpages", "hub", "models.mamba", "models.bert",
                 "models.t5", "onnx.wire", "onnx.loader", "onnx.export",
-                "tokenizer.hf_json"):
+                "tokenizer.hf_json", "parallel.sharding", "parallel.service",
+                "parallel.multihost", "parallel.follower"):
         assert f"llama_gguf_tpu_torch.{new}" in mods
     code = ("import sys\n"
             f"for m in {ABSENT!r}:\n"

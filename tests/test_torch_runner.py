@@ -152,12 +152,33 @@ def test_tiered_forward_matches_jax_and_single_bound(models):
 
 
 def test_tier_over_shards_raises(models):
-    _, _, tr = models
-    kv = tr._make_kv(4)
-    one = torch.ones((4, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        forward(tr.params, tr.cfg, one, one, kv, one[:, 0] + 1,
-                read_bound=(256, 512, 1, 2))
+    """The tier grouped per data shard, read_bound (lo, hi, cap, shards),
+    which the port's forward once refused, against the JAX forward: rows
+    0-1 and 2-3 each select their own cap rows (row 2 takes the hi
+    bucket), and the logits equal the single-bound step's."""
+    from llama_gguf_tpu.models.transformer import forward as jforward
+
+    _, jr, tr = models
+    vocab = tr.cfg.vocab_size
+    jtok, jkv = _ragged_prefill(jr, jr.init_kv(), vocab)
+    ttok, tkv = _ragged_prefill(tr, tr.init_kv(), vocab)
+    assert (jtok == ttok).all()
+    lens = np.asarray(RAGGED, np.int32)
+    bound = (256, 512, 1, 2)  # one row of each pair may pass 256
+    args = (jtok[:, None], lens[:, None], lens + 1)
+    want, _ = jforward(jr.params, jr.cfg, *(jnp.asarray(a) for a in args[:2]),
+                       jkv, jnp.asarray(args[2]), read_bound=bound)
+    got, _ = forward(tr.params, tr.cfg,
+                     *(torch.from_numpy(a) for a in args[:2]), tkv,
+                     torch.from_numpy(args[2]), read_bound=bound)
+    single = _decode_step(tr, tkv, jtok, 512)
+    want = np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=LOGIT_ATOL * scale)
+    np.testing.assert_allclose(got.numpy(), single, rtol=0,
+                               atol=LOGIT_ATOL * scale)
 
 
 @pytest.mark.parametrize("rows", [[2, 0, 3], [[1, 2], [0, 2]]],
