@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed). They run
 in the order 1-5, 7, 13, 16a, 19, 10a, 8, 6, 10b, 11, 12, 14, 15, 16b-c, 17,
-18, 20:
+18, 20, 21:
 phases 7, 13, 16a, 10a and 8 run while phase 6's GGUF, phase 11's inputs,
 phase 12's, phase 14's, phase 15's, phase 16b's, phase 17's and phase 18's
 GGUFs build in nine child processes. Phase 9 runs inside each of phases 4,
@@ -456,6 +456,32 @@ plain version the graphs are held against.
    wall ms (host clock: under gloo the host waits for each collective; a
    shared card's gloo is no figure of NCCL over NVLink), phase 20's
    seconds and the script's.
+21. RAG (rag/: chunkers, HNSW, the sqlite store, the knowledge base), last,
+   on phase 17's bge-base-en-v1.5 and phase 2's TinyLlama-1.1B. 21a: the
+   CLI's ``rag ingest --model BGE`` over a corpus that never changes (the
+   JAX package's .py files, VERDICT.md, docs/*.md), then ``rag search`` in
+   each mode and ``rag ask``, in this process through cli.main: the chunk
+   count equals the port's chunkers' on the same files; each stored blob
+   768 float32 values of unit norm (1e-5); 32 sampled blobs equal
+   Engine.embed of their text on a fresh quant engine (1e-5) and a dequant
+   one (1e-3 of max |value|); kernels 1-2 launch exactly the embed forwards
+   times the per-forward counts derived from the loaded model; each
+   semantic hit's score is the cosine of the query with its stored vector
+   (1e-5); the ann_index blob read back gives the live index's hits.
+   Printed: ingest chunks/s, the embed forward's device ms (CUDA events,
+   median) and host ms, the index build's seconds, HNSW recall@5 against
+   brute force over 64 queries (random weights: a fact, not a gate), p50
+   ms per query by mode, whether sqlite has FTS5, the embedder model's
+   bytes. 21b: ``serve TINYLLAMA --rag-db FILE`` (the feature-hashing
+   embedder, as JAX's server): SURVEY.md ingested over HTTP, /search and
+   /query (32 tokens) in each mode (citations = /search's hits), JAX's 400
+   and 503 bodies, a greedy KnowledgeBase answer equal to Engine.generate
+   over the template filled from the same hits, its launches all graph
+   replays (exact per step, no eager step, no capture), a chat completion
+   beside a query, a hot reload after which the knowledge base generates
+   with the new engine. 21c: ``download`` of a cached file prints its path
+   and makes no request; ``models`` lists it. Prints phase 21's seconds and
+   the script's.
 
 Prints, on lines before the last: the card's name and power limit, each
 path's prefill and decode rates, the decode profiles, phase 9's results,
@@ -5566,6 +5592,522 @@ def parallel_path(card: str, timer, peaks: dict, tinyllama: str,
                          "tinyllama-1.1b-l2 dp=2 x tp=2 (20c)": dp_l}
 
 
+# Phase 21: RAG (rag/) through the CLI's `rag` on bge-base-en-v1.5 (21a),
+# the server's /v1/rag/* beside TinyLlama-1.1B (21b), and the Hub client's
+# cached `download` (21c)
+RAG_QUERY = "how does the quantized matmul kernel read its scales"
+RAG_SAMPLES = 32  # 21a: stored embeddings held against Engine.embed
+RAG_RECALL_QUERIES = 64  # 21a: HNSW against brute force, recall@5
+RAG_MODE_QUERIES = 16  # 21a: queries timed per search mode
+RAG_SERVER_K = 2  # 21b: k of /search and /query (SURVEY.md's chunks are up
+# to ~600 characters, one TinyLlama token each: the prompt stays in 2,048)
+RAG_TOKENS = 32  # 21b: max_tokens of /v1/rag/query
+RAG_MODES = ("semantic", "keyword", "hybrid")
+RAG_EMBED_REL = 1e-5  # 21a: a stored vector against Engine.embed of its text
+
+
+def rag_corpus() -> list[str]:
+    """21a's corpus, files that never change: the JAX package's sources (its
+    .py files, no byte code), VERDICT.md and docs/*.md. SURVEY.md is 21b's:
+    19 of its markdown chunks (headers prefixed) spell more than bge's 512
+    positions under the synthetic WordPiece vocabulary (each punctuation
+    mark a token), and both packages' BERT then raise."""
+    files = []
+    for top, dirs, names in os.walk(os.path.join(ROOT, "llama_gguf_tpu")):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        files += [os.path.join(top, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    docs = os.path.join(ROOT, "docs")
+    files.append(os.path.join(ROOT, "VERDICT.md"))
+    files += [os.path.join(docs, n) for n in sorted(os.listdir(docs))
+              if n.endswith(".md")]
+    return files
+
+
+def cli_out(argv: list[str]) -> tuple[str, float]:
+    """The port's CLI run in this process (so its launches count here): its
+    standard output and seconds; a non-zero exit fails the phase."""
+    import io
+
+    from llama_gguf_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(argv[:2])}: exit {rc}: {buf.getvalue()}")
+    return buf.getvalue(), seconds
+
+
+def post(base: str, path: str, body: dict) -> tuple[int, dict]:
+    """(status, JSON body) of one POST (the card's machine has no
+    requests)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def rag_cli_path(card: str, gguf: str, tmp: str) -> dict:
+    """21a: `rag ingest` of the corpus with bge-base-en-v1.5 on the card, then
+    `rag search` in each mode and `rag ask`, each through cli.main; then the
+    knowledge base's file read back in this process. Returns its launches."""
+    import sqlite3
+
+    import numpy as np
+    import torch
+    from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+    from llama_gguf_tpu_torch.engine.runner import bucket_len
+    from llama_gguf_tpu_torch.models.bert import bert_forward
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.rag import (EngineEmbedder, HNSWIndex,
+                                          KnowledgeBase, SqliteVectorStore,
+                                          chunk_text, get_chunker)
+    from llama_gguf_tpu_torch.rag.knowledge_base import ContentKind
+    from llama_gguf_tpu_torch.utils.timing import Timer, median
+
+    t_part = time.perf_counter()
+    files = rag_corpus()
+    want = {}
+    for f in files:
+        md = ContentKind.from_path(f) == ContentKind.MARKDOWN
+        with open(f, errors="replace") as fh:
+            want[f] = len(chunk_text(fh.read(), get_chunker(
+                "markdown" if md else "recursive", 512, 64)))
+    total = sum(want.values())
+    # the embedder's model as the CLI loads it (EngineEmbedder:
+    # EngineConfig()), and the dequant oracle
+    mem0 = torch.cuda.memory_allocated()
+    fresh = Engine.load(gguf, EngineConfig(), device="cuda")
+    embedder_bytes = torch.cuda.memory_allocated() - mem0
+    deq = Engine.load(gguf, EngineConfig(weight_mode="dequant"),
+                      device="cuda")
+    per = encoder_launches(fresh.encoder.params, t5=False)["encode"]
+    db = os.path.join(tmp, "kb.db")
+    model = ["--db", db, "--model", gguf]
+
+    launches: dict[str, int] = {}
+    Q.reset_launches()
+    out, ingest_s = cli_out(["rag", "ingest"] + model + files)
+    got = dict(Q.LAUNCHES)
+    exact_kernels("21a rag ingest", got, scaled(per, total))
+    launches = added(launches, got)
+    check(out.splitlines() == [f"{f}: {want[f]} chunks" for f in files]
+          + [f"ingested {total} chunks into {db}"],
+          f"21a: rag ingest printed {out[-400:]!r}")
+    searched = {}
+    for argv, forwards in (
+            *((["search", RAG_QUERY, "-k", "5", "--search", mode],
+              int(mode != "keyword")) for mode in RAG_MODES),
+            (["ask", RAG_QUERY], 1)):
+        Q.reset_launches()
+        out, secs = cli_out(["rag"] + argv + model)
+        got = dict(Q.LAUNCHES)
+        exact_kernels(f"21a rag {argv[0]}", got, scaled(per, forwards))
+        launches = added(launches, got)
+        lines = out.splitlines()
+        name = argv[0] if argv[0] == "ask" else f"search {argv[-1]}"
+        if argv[0] == "search":
+            check(len(lines) == 5 and all(ln.startswith("[") for ln in lines),
+                  f"21a: rag {name} printed {out!r}")
+        else:
+            check(sum(ln.startswith("  [") for ln in lines) == 5,
+                  f"21a: rag ask printed {out[-400:]!r}")
+        searched[name] = dict(seconds=secs, lines=len(lines))
+
+    # the file: every row a unit vector of 768 float32
+    con = sqlite3.connect(db)
+    rows = con.execute("SELECT id, text, embedding FROM chunks ORDER BY id"
+                       ).fetchall()
+    fts = bool(con.execute("SELECT count(*) FROM sqlite_master WHERE "
+                           "name='chunks_fts'").fetchone()[0])
+    blob, row_count = con.execute("SELECT data, row_count FROM ann_index "
+                                  "WHERE name='hnsw'").fetchone()
+    con.close()
+    check(len(rows) == total == row_count,
+          f"21a: {len(rows)} rows, {row_count} indexed, {total} chunks")
+    check(all(len(r[2]) == 768 * 4 for r in rows), "21a: a blob is not 768 "
+                                                   "float32 values")
+    ids = [r[0] for r in rows]
+    vecs = np.stack([np.frombuffer(r[2], np.float32) for r in rows])
+    norms = np.linalg.norm(vecs, axis=1)
+    check(float(np.abs(norms - 1).max()) <= 1e-5,
+          f"21a: stored norms {norms.min()}..{norms.max()}")
+    # sampled rows against Engine.embed of their text: a fresh quant engine
+    # (the same kernels) and the dequant one. Timed: Engine.embed's wall ms
+    # and its forward's device ms, bert_forward on the padded inputs
+    # already on the card (encode's pageable copies would wait for the
+    # timer's sleep, and the host's launches would fall in the window)
+    rng = np.random.default_rng(SEED)
+    pick = rng.choice(len(rows), RAG_SAMPLES, replace=False)
+    timer = Timer(sleep_cycles=40_000_000)  # ~20 ms at 1.98 GHz: longer
+    # than the host takes to enqueue one eager forward
+    enc = fresh.encoder
+    worst_quant = worst_deq = 0.0
+    device_ms, wall_ms, tokens = [], [], []
+    for i in pick:
+        text, stored = rows[i][1], vecs[i]
+        t0 = time.perf_counter()
+        v = fresh.embed(text)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        worst_quant = max(worst_quant, float(np.abs(v - stored).max()))
+        worst_deq = max(worst_deq, rel_diff(deq.embed(text), stored))
+        ids_ = fresh.tokenizer.encode(text)
+        tokens.append(len(ids_))
+        toks = torch.zeros((1, bucket_len(len(ids_))), dtype=torch.int32,
+                           device="cuda")
+        toks[0, :len(ids_)] = torch.tensor(ids_, device="cuda")
+        mask = torch.zeros(toks.shape, dtype=torch.bool, device="cuda")
+        mask[0, :len(ids_)] = True
+        with torch.no_grad():
+            device_ms.append(timer.once(lambda: bert_forward(
+                enc.params, enc.cfg, toks, mask,
+                precision=enc.matmul_precision)))
+    check(worst_quant <= RAG_EMBED_REL, f"21a: stored vectors differ from "
+                                        f"Engine.embed by {worst_quant:.3g}")
+    check(worst_deq <= QUANT_REL, f"21a: stored vectors differ from the "
+                                  f"dequant engine's by {worst_deq:.3g}")
+    del timer
+
+    # the index: built from the file's rows, its blob read back, the
+    # semantic scores, recall against brute force, each mode's query time
+    store = SqliteVectorStore(db)
+    t0 = time.perf_counter()
+    live = store._ensure_index()
+    build_s = time.perf_counter() - t0
+    check(live.to_bytes() == blob, "21a: the rebuilt index differs from "
+                                   "the stored ann_index blob")
+    read = HNSWIndex.from_bytes(blob)
+    kb = KnowledgeBase(store, embedder=EngineEmbedder(engine=fresh))
+    queries = [rows[i][1][:200] for i in rng.choice(len(rows),
+                                                    RAG_RECALL_QUERIES,
+                                                    replace=False)]
+    found = score_err = 0.0
+    search_ms = []
+    for q in queries:
+        qv = fresh.embed(q)
+        t0 = time.perf_counter()
+        hits = live.search(qv, 5)
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+        check(read.search(qv, 5) == hits, "21a: the ann_index blob's hits "
+                                          "differ from the live index's")
+        truth = {ids[j] for j in np.argsort(-(vecs @ qv))[:5]}
+        found += len(truth & {cid for cid, _ in hits})
+        for h in store.semantic_search(qv, 5):
+            score_err = max(score_err, abs(h.score - float(
+                vecs[ids.index(h.chunk_id)] @ qv)))
+    check(score_err <= 1e-5, f"21a: semantic scores differ from the cosine "
+                             f"by {score_err:.3g}")
+    mode_ms = {}
+    for mode in RAG_MODES:
+        ms = []
+        for q in queries[:RAG_MODE_QUERIES]:
+            t0 = time.perf_counter()
+            check(len(kb.retrieve(q, 5, mode)) == 5, f"21a: {mode} search")
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mode_ms[mode] = median(ms)
+    store.close()
+    print(json.dumps({"rag_21a": dict(
+        model=BGE_PRESET, files=len(files), chunks=total,
+        db_bytes=os.path.getsize(db), ingest_s=ingest_s,
+        ingest_chunks_per_s=total / ingest_s,
+        embed_device_ms_median=median(device_ms),
+        embed_wall_ms_median=median(wall_ms),
+        embed_host_ms_median=median(wall_ms) - median(device_ms),
+        embed_tokens_median=median(tokens), cli=searched,
+        index_build_s=build_s, hnsw_search_ms_median=median(search_ms),
+        query_ms_p50=mode_ms, recall_at_5=found / (5 * len(queries)),
+        stored_vs_quant_embed=worst_quant, stored_vs_dequant_rel=worst_deq,
+        semantic_score_vs_cosine=score_err, fts5=fts,
+        embedder_model_bytes=embedder_bytes, launches=launches,
+        launches_per_forward=per, seconds=time.perf_counter() - t_part,
+        card=card)}), flush=True)
+    del fresh, deq, kb
+    return launches
+
+
+def rag_server_path(card: str, gguf: str, l2: str, tmp: str) -> dict:
+    """21b: `serve MODEL --rag-db FILE` on TinyLlama-1.1B: SURVEY.md ingested
+    over HTTP, /search and /query in each mode, JAX's 400 and 503 bodies,
+    the greedy answer against Engine.generate (its launches all replays),
+    a chat completion beside a query, a hot reload. Returns the greedy
+    query's launches."""
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+    from llama_gguf_tpu_torch.cli import build_parser, serve_config
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.rag import KnowledgeBase, chunk_text, get_chunker
+    from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+    from llama_gguf_tpu_torch.server.app import (ServerConfig, ServerState,
+                                                 run_server)
+
+    def serve(config, state):
+        thread = threading.Thread(target=run_server, args=(config, state),
+                                  daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{config.port}"
+        for _ in range(100):
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.1)
+        return thread, base
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    t_part = time.perf_counter()
+    db = os.path.join(tmp, "server_kb.db")
+    config = serve_config(build_parser().parse_args([
+        "serve", gguf, "--port", str(free_port()), "--max-batch", "4",
+        "--rag-db", db]))
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = ServerState(config)
+    load_s = time.perf_counter() - t0
+    server_bytes = torch.cuda.memory_allocated() - mem0
+    check(state.kb is not None and state.kb.engine is state.engine,
+          "21b: the knowledge base does not generate with the served engine")
+    thread, base = serve(config, state)
+    out: dict = dict(load_s=load_s, server_model_bytes=server_bytes)
+    try:
+        with open(os.path.join(ROOT, "SURVEY.md"), encoding="utf-8") as f:
+            survey = f.read()
+        want = len(chunk_text(survey, get_chunker("markdown", 512, 64)))
+        t0 = time.perf_counter()
+        status, body = post(base, "/v1/rag/ingest", {
+            "text": survey, "source": "SURVEY.md", "chunker": "markdown"})
+        out["ingest_s"] = time.perf_counter() - t0
+        check((status, body) == (200, {"chunks": want, "skipped": False}),
+              f"21b: ingest answered {status} {body}")
+        hits = {}
+        for mode in RAG_MODES:
+            status, body = post(base, "/v1/rag/search", {
+                "query": RAG_QUERY, "k": RAG_SERVER_K, "search": mode})
+            check(status == 200 and len(body["results"]) == RAG_SERVER_K,
+                  f"21b: search {mode} answered {status} {body}")
+            hits[mode] = [(h["source"], h["doc_id"], h["score"])
+                          for h in body["results"]]
+        queried = {}
+        for mode in RAG_MODES:
+            captures = state.engine.runner.captures
+            t0 = time.perf_counter()
+            status, body = post(base, "/v1/rag/query", {
+                "query": RAG_QUERY, "k": RAG_SERVER_K, "search": mode,
+                "max_tokens": RAG_TOKENS})
+            wall = time.perf_counter() - t0
+            check(status == 200 and [(c["source"], c["doc_id"], c["score"])
+                                     for c in body["citations"]]
+                  == hits[mode], f"21b: query {mode} answered {status} "
+                                 f"{body}, /search's hits {hits[mode]}")
+            stats = state.engine.stats
+            queried[mode] = dict(
+                wall_ms=wall * 1e3,
+                captures=state.engine.runner.captures - captures,
+                prompt_tokens=stats.prompt_tokens,
+                generated_tokens=stats.generated_tokens,
+                tok_per_s=stats.generated_tokens / wall,
+                decode_tps=stats.decode_tps)
+        out["query"] = queried
+        for path, field_name, body in (
+                ("/v1/rag/ingest", "text", {"source": "x"}),
+                ("/v1/rag/search", "query", {}),
+                ("/v1/rag/query", "query", {"k": 2})):
+            got = post(base, path, body)
+            check(got == (400, {"error": {
+                "message": f"missing '{field_name}'",
+                "type": "invalid_request_error"}}),
+                f"21b: {path} without {field_name} answered {got}")
+        bare = ServerConfig(port=free_port(), device="cuda")
+        bare_state = ServerState(bare)
+        bare_thread, bare_base = serve(bare, bare_state)
+        try:
+            got = post(bare_base, "/v1/rag/query", {"query": "x"})
+        finally:
+            bare_state.shutdown()
+            bare_thread.join(timeout=30)
+        check(got == (503, {"error": {"message": "RAG not enabled (set "
+                                                 "rag_db)",
+                                      "type": "service_unavailable"}}),
+              f"21b: a server without rag_db answered {got}")
+
+        # greedy: the knowledge base's answer is Engine.generate's over the
+        # template filled from the same hits; the second run replays graphs
+        engine = state.engine
+        r = engine.runner
+        kb = KnowledgeBase(state.kb.store, engine=engine)
+        greedy = SamplerConfig(temperature=0.0)
+        kb.retrieve_and_generate(RAG_QUERY, RAG_SERVER_K, "hybrid",
+                                 max_tokens=RAG_TOKENS, sampler=greedy)
+        replays0, keys0 = dict(r.replays), set(r.capture_seconds)
+        eager0 = r.eager_steps
+        Q.reset_launches()
+        t0 = time.perf_counter()
+        res = kb.retrieve_and_generate(RAG_QUERY, RAG_SERVER_K, "hybrid",
+                                       max_tokens=RAG_TOKENS, sampler=greedy)
+        greedy_s = time.perf_counter() - t0
+        launches = dict(Q.LAUNCHES)
+        steps = sum(r.replays.values()) - sum(replays0.values())
+        replayed: dict[str, int] = {}
+        for key, n in r.replays.items():
+            for name, k in r._graphs[key].launches[0].items():
+                replayed[name] = replayed.get(name, 0) + (
+                    n - replays0.get(key, 0)) * k
+        check(r.eager_steps == eager0 and set(r.capture_seconds) == keys0,
+              f"21b: {r.eager_steps - eager0} eager steps, captures "
+              f"{set(r.capture_seconds) - keys0}")
+        exact_kernels("21b greedy query", launches, replayed)
+        exact_kernels("21b greedy query", launches, scaled(PER_STEP, steps))
+        context = "".join(f"[{i + 1}] {h.text}\n"
+                          for i, h in enumerate(res.hits))
+        prompt = kb.PROMPT_TEMPLATE.format(context=context,
+                                           question=RAG_QUERY)
+        text = engine.generate(prompt, max_tokens=RAG_TOKENS, sampler=greedy)
+        check(res.answer == text, f"21b: the greedy answer {res.answer!r} "
+                                  f"is not Engine.generate's {text!r}")
+        out["greedy"] = dict(seconds=greedy_s, steps=steps,
+                             prompt_tokens=engine.stats.prompt_tokens,
+                             generated_tokens=engine.stats.generated_tokens,
+                             decode_tps=engine.stats.decode_tps,
+                             launches=launches)
+
+        # a chat completion sent while a query runs: both finish
+        done = {}
+
+        def send(name, path, body):
+            t0 = time.perf_counter()
+            done[name] = post(base, path, body)[0], t0, time.perf_counter()
+
+        threads = [threading.Thread(target=send, args=(
+            "query", "/v1/rag/query", {"query": RAG_QUERY, "k": RAG_SERVER_K,
+                                       "max_tokens": RAG_TOKENS}))]
+        threads.append(threading.Thread(target=send, args=(
+            "chat", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "hello"}],
+                "max_tokens": 16, "temperature": 0.0})))
+        for t in threads:
+            t.start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=600)
+        check(done.get("query", (0,))[0] == 200
+              and done.get("chat", (0,))[0] == 200,
+              f"21b: a query beside a chat completion: {done}")
+        out["beside_chat"] = dict(
+            overlapped=done["chat"][1] < done["query"][2],
+            query_ms=(done["query"][2] - done["query"][1]) * 1e3,
+            chat_ms=(done["chat"][2] - done["chat"][1]) * 1e3)
+
+        # a hot reload: the knowledge base follows the served engine
+        t0 = time.perf_counter()
+        got = post(base, "/v1/internal/load_model", {"model_path": l2})
+        check(got[0] == 200 and state.engine is not engine
+              and state.kb.engine is state.engine,
+              f"21b: reload {got}; the knowledge base kept the old engine")
+        calls = []
+        served = state.engine.generate
+
+        def generate(prompt, **kw):
+            calls.append(len(prompt))
+            return served(prompt, **kw)
+
+        state.engine.generate = generate
+        status, _ = post(base, "/v1/rag/query", {
+            "query": RAG_QUERY, "k": RAG_SERVER_K, "max_tokens": 8})
+        check(status == 200 and len(calls) == 1,
+              f"21b: after the reload the query answered {status} with "
+              f"{len(calls)} calls of the new engine")
+        out["reload"] = dict(seconds=time.perf_counter() - t0,
+                             kb_follows_engine=True,
+                             model_bytes=torch.cuda.memory_allocated() - mem0)
+        del engine, r, kb
+    finally:
+        state.shutdown()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "21b: the server did not stop")
+    out.update(seconds=time.perf_counter() - t_part, card=card)
+    print(json.dumps({"rag_21b": out}), flush=True)
+    return launches
+
+
+def hub_cached_path(card: str, gguf: str, tmp: str) -> None:
+    """21c: `download` of a file already in the cache prints its path and
+    makes no request; `models` lists it."""
+    import urllib.request
+
+    cache = os.path.join(tmp, "hub")
+    target = os.path.join(cache, "org--repo", "model.gguf")
+    os.makedirs(os.path.dirname(target))
+    os.symlink(gguf, target)
+    requests = []
+
+    def refuse(req, *args, **kwargs):
+        requests.append(getattr(req, "full_url", req))
+        raise OSError("21c: no request may be made")
+
+    real, hub_mod = urllib.request.urlopen, sys.modules.get("huggingface_hub")
+    urllib.request.urlopen = refuse
+    sys.modules["huggingface_hub"] = None
+    try:
+        got, _ = cli_out(["download", "org/repo", "model.gguf", "--dir",
+                          cache])
+        listed, _ = cli_out(["models", "--dir", cache])
+    finally:
+        urllib.request.urlopen = real
+        if hub_mod is None:
+            sys.modules.pop("huggingface_hub", None)
+        else:
+            sys.modules["huggingface_hub"] = hub_mod
+    check(got == f"{target}\n" and not requests,
+          f"21c: download printed {got!r}, requests {requests}")
+    check(listed.split() == [f"{os.path.getsize(gguf) / 1e6:.1f}", "MB",
+                             target], f"21c: models printed {listed!r}")
+    print(json.dumps({"rag_21c": dict(download=got.strip(),
+                                      models=listed.strip(), card=card)}),
+          flush=True)
+
+
+def rag_path(card: str, bge: str, tinyllama: str, l2: str) -> dict:
+    """Phase 21. Returns {path label: launches}."""
+    import tempfile
+
+    import torch
+
+    t21 = time.perf_counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_l = rag_cli_path(card, bge, tmp)
+        secs["21a"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        server_l = rag_server_path(card, tinyllama, l2, tmp)
+        secs["21b"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        hub_cached_path(card, l2, tmp)
+        secs["21c"] = time.perf_counter() - t0
+    print(json.dumps({"phase_21": dict(
+        seconds=time.perf_counter() - t21, parts_s=secs,
+        script_s=time.perf_counter() - T_START, card=card)}), flush=True)
+    log(f"phase 21 done in {time.perf_counter() - t21:.1f}s")
+    return {f"{BGE_PRESET} rag CLI (21a)": cli_l,
+            "TinyLlama-1.1B rag server greedy query (21b)": server_l}
+
+
 def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -5750,6 +6292,11 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
     # -- 20. the parallel plans: ranks sharing the card -----------------------
     par, par_launches = parallel_path(card, timer, peaks, tinyllama,
                                       moe_gguf.result(), load_gguf.result())
+    torch.cuda.empty_cache()
+
+    # -- 21. RAG: the CLI on bge-base, the server on TinyLlama, download ------
+    rag_launches = rag_path(card, builds[BGE_PRESET], tinyllama,
+                            load_gguf.result())
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -5781,7 +6328,7 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
             *enc_launches.items(), (OSS_LABEL, oss_launches),
             (f"{OSS_LABEL} batched", oss_batched_launches),
             ("routing tiny presets (18c)", routing_tiny_launches),
-            *par_launches.items())
+            *par_launches.items(), *rag_launches.items())
             if launched.get(name, 0)}
         check(bool(by_path), f"{name}: launched on no path")
         kpaths: dict[str, int] = {}  # the kernel's own paths, by case count

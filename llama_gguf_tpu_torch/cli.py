@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch port (port of llama_gguf_tpu/cli.py):
 ``info``, ``run``, ``chat``, ``serve``, ``bench``, ``quantize``,
-``perplexity``, ``embed``, ``tokenize``, ``sysinfo``, ``models``,
-``init-config`` and ``manpages``.
+``perplexity``, ``embed``, ``tokenize``, ``sysinfo``, ``download``,
+``models``, ``rag``, ``init-config``, ``manpages``, ``shard`` and
+``cluster``.
 
     python -m llama_gguf_tpu_torch run MODEL.gguf -p "Hello" -n 32
         [--prompt-cache FILE] [--context-shift] [--lora ADAPTER.gguf]
@@ -9,7 +10,7 @@
         [--num-draft K]
     python -m llama_gguf_tpu_torch chat MODEL.gguf [--system TEXT]
     python -m llama_gguf_tpu_torch serve MODEL.gguf [--port N] [--max-batch B]
-        [--prefill-chunk T]
+        [--prefill-chunk T] [--rag-db KB.db]
     python -m llama_gguf_tpu_torch perplexity MODEL.gguf -f TEXT [--chunk 512]
         [--json]
     python -m llama_gguf_tpu_torch embed MODEL.gguf -p TEXT [-p TEXT] [--json]
@@ -20,6 +21,11 @@
         [--all-tensors] [--min-elements N]
     python -m llama_gguf_tpu_torch sysinfo | models [--dir D] |
         init-config [PATH] | manpages [--dir D]
+    python -m llama_gguf_tpu_torch download REPO_ID [FILE] [--list] [--dir D]
+    python -m llama_gguf_tpu_torch rag ingest PATH... [--db KB.db]
+        [--model EMBED.gguf] [--chunker markdown]
+    python -m llama_gguf_tpu_torch rag search|ask QUERY [--db KB.db]
+        [--model EMBED.gguf] [-k 5] [--search semantic|keyword|hybrid]
     python -m llama_gguf_tpu_torch shard MODEL.gguf --coordinator HOST:PORT
         --num-processes N --process-id I [--tp T] [--dp D] [--prompt TEXT]
     python -m llama_gguf_tpu_torch cluster [--model-bytes N]
@@ -31,8 +37,9 @@ default. Every subcommand that loads a model loads it onto CUDA unless
 (or ``[parallel]``) serve one model over a (data, model) mesh, one process
 per rank: this process is rank 0 and spawns the others
 (parallel/service.py); ``shard`` runs one rank of a group that every
-process joins itself. ``download`` (network) and ``rag`` (ROADMAP queue 1
-item 13) are not ported.
+process joins itself. ``rag`` embeds with ``--model`` on ``--device`` (with
+no model: the feature-hashing embedder, no device); ``ask`` is
+retrieval-only, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -104,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "decoding rows (smaller: shorter stalls for them)")
     p.add_argument("--api-key", action="append", default=None)
     p.add_argument("--rag-db", default=None,
-                   help="not ported yet (ROADMAP queue 1 item 13): raises")
+                   help="sqlite path enabling /v1/rag/* endpoints")
     _add_common(p)
 
     p = sub.add_parser("bench", help="benchmark prefill/decode throughput")
@@ -161,9 +168,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", dest="json_out", action="store_true")
     _add_common(p)
 
+    p = sub.add_parser("download", help="download a GGUF from HuggingFace Hub")
+    p.add_argument("repo_id", help="e.g. Qwen/Qwen2.5-0.5B-Instruct-GGUF")
+    p.add_argument("filename", nargs="?", help="file within the repo")
+    p.add_argument("--list", action="store_true", dest="list_files",
+                   help="list GGUF files in the repo")
+    p.add_argument("--dir", default=None, help="download directory")
+    _add_common(p)
+
     p = sub.add_parser("models", help="list locally cached models")
     p.add_argument("--dir", default=None)
     _add_common(p)
+
+    p = sub.add_parser("rag", help="RAG knowledge-base operations")
+    rag_sub = p.add_subparsers(dest="rag_command", required=True)
+    for name, help_ in (("ingest", "ingest documents"),
+                        ("search", "search the knowledge base"),
+                        ("ask", "retrieve-and-generate with citations")):
+        rp = rag_sub.add_parser(name, help=help_)
+        rp.add_argument("--db", default=None,
+                        help="sqlite database path (default: [rag].db)")
+        rp.add_argument("--model", help="embedding model gguf", default=None)
+        rp.add_argument("--device", default="cuda",
+                        help="the embedding model's device: cuda (default) "
+                        "or cpu")
+        if name == "ingest":
+            rp.add_argument("paths", nargs="+")
+            rp.add_argument("--chunker", default=None,
+                            choices=["recursive", "markdown", "sliding",
+                                     "sentence", "paragraph"])
+        else:
+            rp.add_argument("query")
+            rp.add_argument("-k", type=int, default=None)
+            rp.add_argument("--search", default=None,
+                            choices=["semantic", "keyword", "hybrid"])
+        _add_common(rp)
 
     p = sub.add_parser("init-config", help="write an example config file")
     p.add_argument("path", nargs="?", default="llama-gguf.toml")
@@ -686,12 +725,33 @@ def cmd_sysinfo(args) -> int:
     return 0
 
 
-def cmd_models(args) -> int:
-    from .hub import list_local_models
+def cmd_download(args) -> int:
+    from .hub import HubClient
 
-    for path, size in list_local_models(args.dir):
+    client = HubClient(cache_dir=args.dir)
+    if args.list_files or not args.filename:
+        files = client.list_gguf_files(args.repo_id)
+        for f in files:
+            print(f)
+        if not args.list_files and len(files) == 1:
+            print(client.download(args.repo_id, files[0]))
+        return 0
+    print(client.download(args.repo_id, args.filename))
+    return 0
+
+
+def cmd_models(args) -> int:
+    from .hub import HubClient
+
+    for path, size in HubClient(cache_dir=args.dir).list_local_models():
         print(f"{size / 1e6:10.1f} MB  {path}")
     return 0
+
+
+def cmd_rag(args) -> int:
+    from .rag.cli import run_rag_command
+
+    return run_rag_command(args)
 
 
 def cmd_init_config(args) -> int:
@@ -795,7 +855,8 @@ COMMANDS = {"info": cmd_info, "run": cmd_run, "chat": cmd_chat,
             "serve": cmd_serve, "bench": cmd_bench, "quantize": cmd_quantize,
             "perplexity": cmd_perplexity, "embed": cmd_embed,
             "tokenize": cmd_tokenize, "sysinfo": cmd_sysinfo,
-            "models": cmd_models, "init-config": cmd_init_config,
+            "download": cmd_download, "models": cmd_models,
+            "rag": cmd_rag, "init-config": cmd_init_config,
             "manpages": cmd_manpages, "shard": cmd_shard,
             "cluster": cmd_cluster}
 

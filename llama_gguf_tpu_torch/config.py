@@ -4,8 +4,8 @@ and example text).
 
 Precedence: CLI > env > TOML > defaults. TOML parsing uses the stdlib
 tomllib. ``[parallel]`` data and model are the mesh axes of every model
-command (the CLI's --dp and --tp). Values that name a feature the port does
-not have yet (``[rag]``) load here and raise where they are used.
+command (the CLI's --dp and --tp); ``[rag]`` holds the ``rag`` subcommand's
+defaults.
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ llama_gguf_tpu/server/app.py on the standard library's
 Routes: /health, /metrics (Prometheus text), /props, /v1/models, /v1/queue,
 /v1/completions, /v1/chat/completions (SSE streaming, ``n``, ``logprobs``,
 ``logit_bias``, ``echo``, tools, ``response_format``), /v1/embeddings,
-/v1/internal/load_model (hot reload; SIGHUP reloads too) and /v1/rag/* (503
-until RAG is ported, ROADMAP queue 1 item 13). The JSON bodies, status codes,
-error types and SSE frames (``data: {json}\\n\\n``, then ``data:
-[DONE]\\n\\n``) are the JAX server's.
+/v1/internal/load_model (hot reload; SIGHUP reloads too) and
+/v1/rag/ingest|search|query (with ``rag_db``: a knowledge base on a sqlite
+file, embedding with the feature-hashing embedder; 503 without). The JSON
+bodies, status codes, error types and SSE frames (``data: {json}\\n\\n``,
+then ``data: [DONE]\\n\\n``) are the JAX server's.
 
 Threads: one handler thread per connection does host work only (parse,
 tokenize, build grammar tries, write frames); it streams straight from the
@@ -17,7 +18,10 @@ CUDA calls of the served model (the scheduler's steps, embeddings, the
 warm-up) go through the runner, which serializes them and hands back host
 arrays (engine/runner.py). A reload loads the new model while the old
 scheduler serves on, stops it, then warms up the new engine; requests that
-arrive during the warm-up wait for it.
+arrive during the warm-up wait for it. The knowledge base generates with
+the serving engine and follows it at every reload (the JAX server keeps
+the engine it started with); its store serializes the handler threads'
+calls (rag/sqlite_store.py).
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ class ServerConfig:
     weight_mode: str = "quant"
     api_keys: list[str] = field(default_factory=list)
     served_model_name: str | None = None
-    rag_db: str | None = None  # ROADMAP queue 1 item 13: raises
+    rag_db: str | None = None  # sqlite path enabling /v1/rag/* endpoints
     prompt_cache_bytes: int = 0  # > 0: the scheduler's prompt cache budget
     lora: str | None = None  # GGUF LoRA adapter applied at model load
     # capture the first request's graph keys (the 8-token prefill and the
@@ -76,9 +80,6 @@ class ServerConfig:
 
 
 def _refuse_unported(config: ServerConfig) -> None:
-    if config.rag_db:
-        raise NotImplementedError(
-            "RAG (rag_db) is not ported yet (ROADMAP queue 1 item 13)")
     if config.prompt_cache_bytes > 0 and \
             (config.mesh_data, config.mesh_model) != (1, 1):
         raise NotImplementedError(
@@ -97,7 +98,12 @@ class ServerState:
         self.model_name = config.served_model_name or "unloaded"
         self.loaded_at = 0.0
         self.lock = threading.RLock()
-        self.kb = None  # RAG is not ported: /v1/rag/* answers 503
+        self.kb = None  # /v1/rag/* answers 503 without rag_db
+        if config.rag_db:
+            from ..rag.knowledge_base import KnowledgeBase
+            from ..rag.sqlite_store import SqliteVectorStore
+
+            self.kb = KnowledgeBase(SqliteVectorStore(config.rag_db))
         self.httpd: ThreadingHTTPServer | None = None
         if config.model_path:
             self.load_model(config.model_path)
@@ -129,6 +135,8 @@ class ServerState:
         with self.lock:
             engine, batched = self.engine, self.batched
             self.engine = self.batched = None
+            if self.kb is not None:
+                self.kb.engine = None
         if batched is not None:
             batched.shutdown()
         if engine is not None:
@@ -161,6 +169,9 @@ class ServerState:
                         batched.shutdown()
                         raise
             self.engine, self.batched = engine, batched
+            if self.kb is not None:
+                # the knowledge base generates with the serving engine
+                self.kb.engine = engine
             self.model_name = c.served_model_name or path.rsplit("/", 1)[-1]
             c.model_path = path
             self.loaded_at = time.time()
@@ -728,10 +739,53 @@ def _load_model(st: ServerState, req: _Request):
     return _json({"status": "loaded", "model": st.model_name})
 
 
-def _rag(st: ServerState, req: _Request):
-    if not _check_auth(st, req.headers):
-        return _err(401, "invalid API key", "authentication_error")
-    return _err(503, "RAG not enabled (set rag_db)", "service_unavailable")
+def _require_kb(field_name: str):
+    """Auth, then 503 without a knowledge base, then the body with its
+    required field (else the JAX server's 400) to the route."""
+    def wrap(route):
+        def wrapped(st: ServerState, req: _Request):
+            if not _check_auth(st, req.headers):
+                return _err(401, "invalid API key", "authentication_error")
+            if st.kb is None:
+                return _err(503, "RAG not enabled (set rag_db)",
+                            "service_unavailable")
+            try:
+                body = req.json()
+                value = body[field_name]
+            except (ValueError, KeyError, TypeError):
+                return _err(400, f"missing '{field_name}'")
+            return route(st.kb, body, value)
+        return wrapped
+    return wrap
+
+
+@_require_kb("text")
+def _rag_ingest(kb, body: dict, text):
+    n = kb.ingest_text(text, body.get("source", ""), body.get("doc_id"),
+                       body.get("chunker"), body.get("metadata"))
+    return _json({"chunks": n, "skipped": n == 0})
+
+
+@_require_kb("query")
+def _rag_search(kb, body: dict, query):
+    hits = kb.retrieve(query, int(body.get("k", 5)),
+                       body.get("search", "hybrid"), body.get("filters"))
+    return _json({"results": [
+        {"text": h.text, "score": h.score, "source": h.source,
+         "doc_id": h.doc_id, "chunk_index": h.chunk_index,
+         "metadata": h.metadata} for h in hits]})
+
+
+@_require_kb("query")
+def _rag_query(kb, body: dict, query):
+    result = kb.retrieve_and_generate(
+        query, int(body.get("k", 5)), body.get("search", "hybrid"),
+        body.get("filters"), int(body.get("max_tokens", 256)))
+    return _json({
+        "answer": result.answer,
+        "citations": [{"index": c.index, "source": c.source,
+                       "doc_id": c.doc_id, "score": c.score}
+                      for c in result.citations]})
 
 
 def _require_model(route):
@@ -773,8 +827,8 @@ ROUTES = {
              "/v1/chat/completions": _require_generation(_chat_completions),
              "/v1/embeddings": _require_model(_embeddings),
              "/v1/internal/load_model": _load_model,
-             "/v1/rag/ingest": _rag, "/v1/rag/search": _rag,
-             "/v1/rag/query": _rag},
+             "/v1/rag/ingest": _rag_ingest, "/v1/rag/search": _rag_search,
+             "/v1/rag/query": _rag_query},
 }
 
 

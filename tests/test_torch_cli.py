@@ -128,10 +128,22 @@ def test_commands_raise_without_cuda(model_path, command):
         cli.main([command[0], model_path] + command[1:])
 
 
-def test_serve_rag_db_is_not_ported(model_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        cli.main(["serve", model_path, "--device", "cpu", "--rag-db",
-                  "kb.sqlite"])
+def test_serve_rag_db_is_not_ported(model_path, tmp_path):
+    """``serve --rag-db`` raised until ROADMAP item 13 ported RAG; now its
+    ServerConfig carries the file and the server opens a knowledge base on
+    it that generates with the served model."""
+    db = str(tmp_path / "kb.sqlite")
+    args = cli.build_parser().parse_args(
+        ["serve", model_path, "--device", "cpu", "--max-batch", "2",
+         "--rag-db", db])
+    config = cli.serve_config(args)
+    assert config.rag_db == db
+    state = app.ServerState(config)
+    try:
+        assert state.kb is not None and state.kb.store.path == db
+        assert state.kb.engine is state.engine
+    finally:
+        state.shutdown()
 
 
 def test_run_on_t5(tmp_path, capsys):

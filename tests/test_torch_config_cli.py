@@ -235,7 +235,7 @@ def test_manpages(tmp_path, capsys):
     subs = cli.build_parser()._subparsers._group_actions[0].choices
     assert pages == sorted(["llama-gguf-tpu-torch.1"] + [
         f"llama-gguf-tpu-torch-{c}.1" for c in subs])
-    assert len(subs) == 15  # with shard and cluster
+    assert len(subs) == 17  # with shard, cluster, download and rag
     text = open(os.path.join(out, "man1", "llama-gguf-tpu-torch.1")).read()
     assert ".TH" in text and ".SH NAME" in text and "perplexity" in text
 
@@ -253,8 +253,8 @@ def test_models_lists_as_jax(tmp_path, capsys, model_path):
     got, want = both(capsys, ["models", "--dir", str(tmp_path / "cache")], ())
     assert got == want and got.count("\n") == 2
     assert got.index("b.gguf") < got.index("a.gguf")  # newest first
-    assert [p for p, _ in hub.list_local_models(str(tmp_path / "cache"))] \
-        == [str(d / "b.gguf"), str(d / "a.gguf")]
+    assert [p for p, _ in hub.HubClient(str(tmp_path / "cache"))
+            .list_local_models()] == [str(d / "b.gguf"), str(d / "a.gguf")]
 
 
 def test_sysinfo(capsys):

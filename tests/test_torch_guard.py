@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax():
                 "manpages", "hub", "models.mamba", "models.bert",
                 "models.t5", "onnx.wire", "onnx.loader", "onnx.export",
                 "tokenizer.hf_json", "parallel.sharding", "parallel.service",
-                "parallel.multihost", "parallel.follower"):
+                "parallel.multihost", "parallel.follower", "rag",
+                "rag.chunking", "rag.multimodal", "rag.hnsw",
+                "rag.sqlite_store", "rag.pgvector_store", "rag.embeddings",
+                "rag.sync", "rag.knowledge_base", "rag.cli"):
         assert f"llama_gguf_tpu_torch.{new}" in mods
     code = ("import sys\n"
             f"for m in {ABSENT!r}:\n"

@@ -9,12 +9,14 @@ order of summation). The model is the qwen2 tiny model of
 tests/test_server.py with Q8_0 weights: the port serves it in "quant" mode
 (the q8 kernel's plain version), the JAX server in "dequant" mode (the same
 dequantized weights). Also the port's client against both servers, the
-setting that raises until it is ported (RAG) and the LoRA adapter, which
-loads, and both servers on encoder models (BERT, T5, t5encoder:
-embeddings only)."""
+two settings that raised until they were ported (RAG's ``rag_db`` and the
+LoRA adapter), which now load, and both servers on encoder models (BERT,
+T5, t5encoder: embeddings only). The /v1/rag/* routes with a knowledge
+base: tests/test_torch_rag_server.py."""
 
 import asyncio
 import json
+import os
 import socket
 import threading
 import time
@@ -353,14 +355,26 @@ def test_load_model_matches_jax(servers, model_path):
     ({"lora": "adapter.gguf"}, "12"),
 ])
 def test_unported_settings_raise(setting, item, model_path, tmp_path):
-    """RAG (ROADMAP queue 1 item 13) still raises. LoRA, which raised until
-    item 12 ported it, now loads: the server attaches the adapter to its
-    model, and a greedy chat completion over HTTP equals the JAX engine's
-    with the same adapter."""
+    """Both settings raised until ROADMAP items 12 (LoRA) and 13 (RAG)
+    ported them; now they load. ``rag_db``: the server opens a knowledge
+    base on that sqlite file, with the JAX server's feature-hashing
+    embedder, and generates with the model it serves. LoRA: the server
+    attaches the adapter to its model, and a greedy chat completion over
+    HTTP equals the JAX engine's with the same adapter."""
     if "rag_db" in setting:
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
-            ServerState(ServerConfig(device="cpu", **setting))
+        from llama_gguf_tpu_torch.rag import HashEmbedder
+
+        db = str(tmp_path / setting["rag_db"])
+        state = ServerState(ServerConfig(device="cpu", rag_db=db))
+        assert state.kb.store.path == db and state.kb.engine is None
+        assert isinstance(state.kb.embedder, HashEmbedder)
+        state = ServerState(ServerConfig(model_path=model_path, device="cpu",
+                                         max_batch=2, rag_db=db))
+        try:
+            assert state.kb.engine is state.engine is not None
+            assert os.path.exists(db)
+        finally:
+            state.shutdown()
         return
     from test_torch_lora import shapes_of, write_lora
 
