@@ -107,7 +107,9 @@ plain version the graphs are held against.
    (its gates and its interleaved times), counts read; then every variant's
    kernel against its plain version on the same inputs (v7, v9, v10 exactly:
    integers written as f32; the others within 2e-4 * max |y_plain|, and v0,
-   v1 as phase 3's bf16 limit) with kernel, plain and library times.
+   v1 as phase 3's bf16 limit) with kernel, plain and library times, each
+   beside its kernel path and its split of K. The probe's launches are exact
+   (136 / 92 / 176 / 46 for variant_f32 / _bf16 / _int8 / _w4a8).
 9. Graphs against eager, on each of the three paths (phases 4, 6, 7): the
    prefill and 32 decode steps replayed as graphs against the same steps
    eager, greedy on each side's own logits (tokens equal, logits within
@@ -2075,20 +2077,31 @@ def variant_path(card: str, timer, peaks: dict):
     torch.cuda.synchronize()
     launches = dict(V.LAUNCHES)
     log(f"probe launches: {launches}")
+    # each variant runs 2 warm-ups and ROUNDS x PER_ROUND timed launches a
+    # shape, v5, v6 and v8 one more for the gates: q4 has v5, v6, v7, v8,
+    # v9, v10, q8 v2, v5, v6, v7, each at the 2 shapes
+    per = 2 + P.ROUNDS * P.PER_ROUND
+    want = {"variant_f32": 2 * ((per + 1) * 2 + per),
+            "variant_bf16": 2 * 2 * (per + 1),
+            "variant_int8": 2 * (3 * per + per),
+            "variant_w4a8": 2 * (per + 1)}
+    check(launches == want, f"probe launches {launches}, not {want}")
     measurements = []
     for fmt in ("q4", "q8"):
         rng = np.random.default_rng(0)  # the probe's inputs, in its order
         for k, n in P.SHAPES:
             variants = P.build_variants(P.make_inputs(fmt, k, n, rng, "cuda"))
             for tag, v in variants.items():
-                kpath = (Q.qmatmul_plan(P.B, k, n, P.GROUP, fmt).path
-                         if v.kernel.startswith("qmatmul") else "cuda cores")
+                plan = (Q.qmatmul_plan(P.B, k, n, P.GROUP, fmt)
+                        if v.kernel.startswith("qmatmul") else
+                        V.variant_plan(P.B, k, n, P.GROUP, fmt))
                 measurements.append(compare(
                     v.kernel, f"{tag} {fmt} {k}x{n}", v.call(), v.plain(),
                     timer, v.call, v.plain, v.library, v.nbytes, v.ops, peaks,
                     op_type=v.op_type, exact=v.exact, path="probe",
                     variant=tag, fmt=fmt, rows=P.B, k=k, n=n,
-                    kernel_path=kpath))
+                    kernel_path=plan.path,
+                    splits=plan.splits))
             del variants
             torch.cuda.empty_cache()
     return measurements, launches

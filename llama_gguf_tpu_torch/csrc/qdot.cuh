@@ -1,7 +1,6 @@
 // Dequant-dot body of the CUDA-core MoE kernels (csrc/moe_qmatmul.cu): the
 // grouped kernels 5 and 6 for the layouts their tensor-core path
-// (csrc/qgemm.cu) does not take; and of the probe's kernels
-// (csrc/qmatmul_variants.cu), which share its block layout and helpers.
+// (csrc/qgemm.cu) does not take.
 //
 // Layouts (quant/repack.py):
 //   q4: packed uint8 [K/2, ldw]; packed row r belongs to scale group

@@ -1,6 +1,6 @@
-// Device helpers of csrc/qgemm.cu: cp.async, the bf16 tensor-core product,
-// the integer-to-bf16 conversions of the weight fragments, and the
-// fixed-order sum of split-K partials.
+// Device helpers of csrc/qgemm.cu and csrc/qmatmul_variants.cu: cp.async,
+// the bf16 and s8 tensor-core products, the integer-to-bf16 conversions of
+// the weight fragments, and the fixed-order sum of split-K partials.
 
 #pragma once
 
@@ -51,6 +51,18 @@ __device__ __forceinline__ void mma_bf16_first(float (&d)[4], uint32_t a0, uint3
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(z));
 }
 
+// d += a @ b for one m16n8k32 tile of int8: a row-major 16x32 (4 registers
+// of 4 bytes: rows g, g + 8 at k 4t..4t+3, then at k 16+4t..16+4t+3), b
+// column-major 32x8 (2 registers), d 16x8 int32 (exact).
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // Two nibbles (bits 0-3 and 16-19 of v) as a bf16 pair, exactly: 0x4300 | q
 // is the bf16 of 128 + q, and 128 is then subtracted in bf16 (exact).
 __device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
@@ -92,6 +104,12 @@ __device__ __forceinline__ void load8(const bf16* p, float (&out)[8]) {
     }
 }
 
+// Four partials in one 16-byte access: float4, or int4 for the exact int32
+// partials of kernel 7's integer variants.
+template <class T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+
 // The split-K sum. The `splits` blocks of one output tile (grid x = the K
 // slice) each hold a partial tile part[0, count) in shared memory (count a
 // multiple of 4, part 16-byte aligned). Each writes it to its own slot of
@@ -101,12 +119,13 @@ __device__ __forceinline__ void load8(const bf16* p, float (&out)[8]) {
 // last), hands each sum to emit(e, sum), and sets the counter back to 0 for
 // the next launch. With one slice, emit takes part directly. All threads of
 // the block call this; it returns true (to all of them) in the block that
-// emitted the sums.
-template <class Emit>
-__device__ __forceinline__ bool split_sum(const float* part, int count, float* ws, int* counters,
+// emitted the sums. T: float, or int (summed exactly).
+template <class T, class Emit>
+__device__ __forceinline__ bool split_sum(const T* part, int count, T* ws, int* counters,
                                           int splits, Emit emit) {
-    const float4* p4 = reinterpret_cast<const float4*>(part);
-    auto emit4 = [&](int e4, float4 v) {
+    using V4 = typename Vec4<T>::type;
+    const V4* p4 = reinterpret_cast<const V4*>(part);
+    auto emit4 = [&](int e4, V4 v) {
         emit(4 * e4, v.x); emit(4 * e4 + 1, v.y); emit(4 * e4 + 2, v.z); emit(4 * e4 + 3, v.w);
     };
     const int n4 = count / 4;
@@ -116,7 +135,7 @@ __device__ __forceinline__ bool split_sum(const float* part, int count, float* w
     }
     __shared__ int last;
     const int tile = blockIdx.y * gridDim.z + blockIdx.z;
-    float4* slots = reinterpret_cast<float4*>(ws) + size_t(tile) * splits * n4;
+    V4* slots = reinterpret_cast<V4*>(ws) + size_t(tile) * splits * n4;
     for (int e = threadIdx.x; e < n4; e += blockDim.x)
         __stcg(slots + size_t(blockIdx.x) * n4 + e, p4[e]);
     __threadfence();
@@ -126,9 +145,9 @@ __device__ __forceinline__ bool split_sum(const float* part, int count, float* w
     if (!last) return false;
     __threadfence();
     for (int e = threadIdx.x; e < n4; e += blockDim.x) {
-        float4 v = __ldcg(slots + e);
+        V4 v = __ldcg(slots + e);
         for (int q = 1; q < splits; ++q) {
-            const float4 w = __ldcg(slots + size_t(q) * n4 + e);
+            const V4 w = __ldcg(slots + size_t(q) * n4 + e);
             v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
         }
         emit4(e, v);

@@ -19,34 +19,90 @@ precision), so that its time on the card says what that piece costs:
                                     s_col * [sum_g u * (xi @ q)_g - xg2^T @ m2]
 
 Kernels (counted in ``LAUNCHES``): "variant_f32" (v2, v5), "variant_bf16"
-(v6), "variant_int8" (v7, v9, v10), "variant_w4a8" (v8). ``lin`` is a
+(v6), "variant_int8" (v7, v9, v10), "variant_w4a8" (v8), all on the tensor
+cores (bf16 or s8 ``mma.sync``), one launch a call, K cut into slices as
+``variant_plan`` says (the partials summed in slice order inside the launch,
+through the per-device workspace of ``ops.qmatmul._scratch``). ``lin`` is a
 ``QuantLinear`` with bf16 panels (the probe's); ``xg`` and ``xg2`` are
 per-group sums of x, [K/group, B] (``group_sums``), computed outside the
 kernels as the probe computed them outside its Pallas calls. Each nibble
 meets its own element of x. As in ops/qmatmul.py, a wrapper runs the plain
 version only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises.
+raises, also on a layout the kernels do not take (``check_layout``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .linear import QuantLinear, unpack_q4
+from .qmatmul import H100_SMS, QmatmulPlan, _scratch, _sms
 
 LAUNCHES = {"variant_f32": 0, "variant_bf16": 0, "variant_int8": 0,
             "variant_w4a8": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "variant_f32_launch": [_P] * 6 + [_I] * 7 + [_P],
-    "variant_bf16_launch": [_P] * 6 + [_I] * 6 + [_P],
-    "variant_int8_launch": [_P] * 4 + [_I] * 7 + [_P],
-    "variant_w4a8_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "variant_f32_launch": [_P] * 8 + [_I] * 8 + [_P],
+    "variant_bf16_launch": [_P] * 8 + [_I] * 7 + [_P],
+    "variant_int8_launch": [_P] * 6 + [_I] * 8 + [_P],
+    "variant_w4a8_launch": [_P] * 9 + [_I] * 6 + [_P],
 }
 INT8_MODES = {"v7": 0, "v9": 1, "v10": 2}
+
+# The kernels' tiles (csrc/qmatmul_variants.cu): a block owns TILE_ROWS rows
+# x TILE_COLS weight columns x one K slice of whole units of max(group,
+# STAGE_K) elements, no slice longer than SLICE_MAX_K (the block stages the
+# slice's group sums whole).
+TILE_ROWS = 8
+TILE_COLS = 128
+STAGE_K = 64
+SLICE_MAX_K = 1024
+MIN_SLICE_K = 256      # shorter slices only where SLICE_MAX_K forces them
+BLOCKS_PER_SM = 3      # the grid the split of K aims for
+
+
+def check_layout(fmt: str, k: int, group: int) -> None:
+    """Raises ValueError on a weight layout the kernels do not take: q4 or
+    q8 with a group of 16 to SLICE_MAX_K that is a power of two, k a
+    multiple of max(group, STAGE_K) (csrc/qmatmul_variants.cu's header says
+    why)."""
+    if fmt not in ("q4", "q8") or group < 16 or group > SLICE_MAX_K \
+            or group & (group - 1) or k <= 0 or k % max(group, STAGE_K):
+        raise ValueError(f"unsupported layout fmt={fmt} k={k} group={group} "
+                         f"(groups: powers of two 16..{SLICE_MAX_K}; k a "
+                         f"multiple of max(group, {STAGE_K}))")
+
+
+@functools.lru_cache(maxsize=256)
+def variant_plan(b: int, k: int, n: int, group: int, fmt: str,
+                 sms: int = H100_SMS, aligned: bool = True) -> QmatmulPlan:
+    """The launch of a variant kernel for x [b, k] @ W [k, n]: a
+    tensor-core plan of TILE_ROWS x TILE_COLS tiles, its grid (splits, row
+    tiles, column tiles), K cut into slices of whole units of max(group,
+    STAGE_K) elements (whole scale groups, as the kernel cuts them) until
+    the grid holds BLOCKS_PER_SM blocks per SM, no slice shorter than
+    MIN_SLICE_K unless SLICE_MAX_K forces it, none longer than SLICE_MAX_K.
+    With splits > 1 the partials are float32, or int32 for the integer
+    variants: 4 bytes each, as ``scratch_bytes`` counts them. Raises
+    ValueError on a layout ``check_layout`` refuses."""
+    check_layout(fmt, k, group)
+    if n <= 0 or b < 1:
+        raise ValueError(f"variant_plan: empty product {b} x {k} x {n}")
+    unit_k = max(group, STAGE_K)
+    units = k // unit_k
+    fewest = -(-units // (SLICE_MAX_K // unit_k))
+    row_tiles, col_tiles = -(-b // TILE_ROWS), -(-n // TILE_COLS)
+    want = -(-BLOCKS_PER_SM * sms // (row_tiles * col_tiles))
+    splits = min(units, max(fewest, min(want, k // max(MIN_SLICE_K, unit_k))))
+    if row_tiles > 65535 or col_tiles > 65535:
+        raise ValueError(f"variant_plan: {b} x {n} exceeds the grid")
+    return QmatmulPlan("tc", TILE_ROWS, TILE_COLS, splits,
+                       (splits, row_tiles, col_tiles),
+                       aligned and n % 16 == 0)
 
 
 def reset_launches() -> None:
@@ -189,9 +245,10 @@ def _need(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple,
 def _check_weight(lin: QuantLinear, device: torch.device, panels: bool,
                   what: str) -> None:
     """The packed weight (and, with ``panels``, its bf16 panels)."""
-    if lin.fmt not in ("q4", "q8") or lin.k % lin.group or lin.group % 16:
-        raise ValueError(f"{what}: unsupported layout fmt={lin.fmt} "
-                         f"k={lin.k} group={lin.group}")
+    try:
+        check_layout(lin.fmt, lin.k, lin.group)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
     packed = ((torch.uint8, (lin.k // 2, lin.n)) if lin.fmt == "q4"
               else (torch.int8, (lin.k, lin.n)))
     _need(lin.packed, *packed, device, f"{what} packed")
@@ -202,8 +259,30 @@ def _check_weight(lin: QuantLinear, device: torch.device, panels: bool,
             _need(lin.mins, torch.bfloat16, panel, device, f"{what} mins")
 
 
-def _launch(fn: str, kernel: str, *args) -> None:
-    rc = getattr(_lib(), fn)(*args)
+def _plan(x: torch.Tensor, lin: QuantLinear, what: str,
+          *tensors: torch.Tensor | None) -> QmatmulPlan:
+    """The call's plan: x (f32 or int8 rows) must be 16-byte aligned; the
+    packed data and ``tensors`` (panels) decide the 16-byte copies."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (lin.packed, *tensors)
+                  if t is not None)
+    try:
+        return variant_plan(x.shape[0], lin.k, lin.n, lin.group, lin.fmt,
+                            _sms(x.device), aligned)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+
+
+def _launch(fn: str, kernel: str, x: torch.Tensor, plan: QmatmulPlan,
+            *args) -> None:
+    """One launch of ``fn``; ``args`` up to the workspace, then the plan's
+    workspace, counters, shape, the kernel's own ints, splits, vec and the
+    stream."""
+    *ptrs, ints = args
+    ws, counters = _scratch(x.device, plan)
+    rc = getattr(_lib(), fn)(*ptrs, ws, counters, *ints, plan.splits,
+                             int(plan.vec), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
@@ -215,12 +294,6 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _vec(lin: QuantLinear, *tensors) -> int:
-    from .qmatmul import vec_ok
-
-    return vec_ok(lin.n, lin.packed, *tensors)
 
 
 def _float_variant(x, xg, lin, what: str) -> torch.Tensor:
@@ -239,16 +312,16 @@ def _float_variant(x, xg, lin, what: str) -> torch.Tensor:
         return y
     scales = lin.scales if panels else None
     mins = lin.mins if with_mins else None
-    common = (x.data_ptr(), _ptr(xg if with_mins else None),
-              lin.packed.data_ptr(), _ptr(scales), _ptr(mins), y.data_ptr(),
-              b, lin.k, lin.n, lin.group, 0 if lin.fmt == "q4" else 1)
-    vec = _vec(lin, scales, mins)
-    if what == "v6_bf16":
-        _launch("variant_bf16_launch", "variant_bf16", *common, vec,
-                _stream(x))
+    kernel = "variant_bf16" if what == "v6_bf16" else "variant_f32"
+    plan = _plan(x, lin, what, scales, mins)
+    ptrs = (x.data_ptr(), _ptr(xg if with_mins else None),
+            lin.packed.data_ptr(), _ptr(scales), _ptr(mins), y.data_ptr())
+    shape = (b, lin.k, lin.n, lin.group, 0 if lin.fmt == "q4" else 1)
+    if kernel == "variant_bf16":
+        _launch("variant_bf16_launch", kernel, x, plan, *ptrs, shape)
     else:
-        _launch("variant_f32_launch", "variant_f32", *common,
-                int(what == "v5_minfold"), vec, _stream(x))
+        _launch("variant_f32_launch", kernel, x, plan, *ptrs,
+                (*shape, int(what == "v5_minfold")))
     return y
 
 
@@ -276,8 +349,6 @@ def _int8_variant(xi, lin, u, mode: str) -> torch.Tensor:
     b = xi.shape[0]
     what = {"v7": "v7_int8", "v9": "v9_mulcost", "v10": "v10_4dot"}[mode]
     _need(xi, torch.int8, (b, lin.k), xi.device, f"{what} xi")
-    if xi.data_ptr() % 4:
-        raise ValueError(f"{what}: xi must be 4-byte aligned")
     _check_weight(lin, xi.device, False, what)
     if mode != "v7" and lin.fmt != "q4":
         raise ValueError(f"{what}: q4 only, as in the probe")
@@ -288,10 +359,11 @@ def _int8_variant(xi, lin, u, mode: str) -> torch.Tensor:
     if b == 0:
         return y
     uu = u if mode == "v9" else None
-    _launch("variant_int8_launch", "variant_int8", xi.data_ptr(),
-            lin.packed.data_ptr(), _ptr(uu), y.data_ptr(), b, lin.k, lin.n,
-            lin.group, 0 if lin.fmt == "q4" else 1, INT8_MODES[mode],
-            _vec(lin, uu), _stream(xi))
+    plan = _plan(xi, lin, what, uu)
+    _launch("variant_int8_launch", "variant_int8", xi, plan, xi.data_ptr(),
+            lin.packed.data_ptr(), _ptr(uu), y.data_ptr(),
+            (b, lin.k, lin.n, lin.group, 0 if lin.fmt == "q4" else 1,
+             INT8_MODES[mode]))
     return y
 
 
@@ -325,8 +397,8 @@ def v8_w4a8(xi: torch.Tensor, xg2: torch.Tensor, lin: QuantLinear,
     b = xi.shape[0]
     panel = (lin.k // lin.group, lin.n)
     _need(xi, torch.int8, (b, lin.k), xi.device, f"{what} xi")
-    if xi.data_ptr() % 4 or lin.fmt != "q4":
-        raise ValueError(f"{what}: q4 only, xi 4-byte aligned")
+    if lin.fmt != "q4":
+        raise ValueError(f"{what}: q4 only")
     _check_weight(lin, xi.device, False, what)
     _need(xg2, torch.float32, (lin.k // lin.group, b), xi.device,
           f"{what} xg2")
@@ -336,8 +408,9 @@ def v8_w4a8(xi: torch.Tensor, xg2: torch.Tensor, lin: QuantLinear,
     y = torch.empty((b, lin.n), dtype=torch.float32, device=xi.device)
     if b == 0:
         return y
-    _launch("variant_w4a8_launch", "variant_w4a8", xi.data_ptr(),
+    plan = _plan(xi, lin, what, u, m2)
+    _launch("variant_w4a8_launch", "variant_w4a8", xi, plan, xi.data_ptr(),
             xg2.data_ptr(), lin.packed.data_ptr(), u.data_ptr(),
-            m2.data_ptr(), s_col.data_ptr(), y.data_ptr(), b, lin.k, lin.n,
-            lin.group, _vec(lin, u, m2), _stream(xi))
+            m2.data_ptr(), s_col.data_ptr(), y.data_ptr(),
+            (b, lin.k, lin.n, lin.group))
     return y

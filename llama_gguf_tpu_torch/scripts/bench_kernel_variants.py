@@ -22,7 +22,9 @@ bf16 scale and min panels):
               panels
 
 The kernels of v2 and v5-v10 are in csrc/qmatmul_variants.cu
-(ops/qmatmul_variants.py). Gates, as in the JAX script: v5 must equal v0 (to
+(ops/qmatmul_variants.py), all on the tensor cores: v2 and v5 three bf16
+passes (their bound is reckoned as "bf16x3", as kernels 1-2's tensor-core
+path), v6 one, the integer variants s8 products. Gates, as in the JAX script: v5 must equal v0 (to
 v0's bf16 rounding plus f32 summation order); the relative errors of v6 and
 v8 against v0 are printed. Times: CUDA events around one launch at a time,
 each after a write that evicts L2 (utils/timing.Timer), the variants
@@ -162,7 +164,7 @@ def build_variants(inp: dict) -> dict:
             plain=lambda: V.v2_noscale_plain(x, full),
             library=lambda: torch.matmul(x, qf),
             kernel="variant_f32", nbytes=_nbytes(full.packed, x) + y32,
-            ops=fma, op_type="f32")
+            ops=fma, op_type="bf16x3")
     out["v5_minfold"] = Variant(
         run=lambda: V.v5_minfold(x, V.group_sums(x, GROUP), full),
         call=lambda: V.v5_minfold(x, xg, full),
@@ -170,7 +172,7 @@ def build_variants(inp: dict) -> dict:
         library=lambda: torch.matmul(x, w_full),
         kernel="variant_f32",
         nbytes=_nbytes(full.packed, *panels, x, xg) + y32, ops=fma,
-        op_type="f32")
+        op_type="bf16x3")
     w6 = w_full.to(torch.bfloat16)
     out["v6_bf16"] = Variant(
         run=lambda: V.v6_bf16(x, V.group_sums(x, GROUP), full),

@@ -277,7 +277,7 @@ def test_moe_kernels_default_precision(cuda, t, n, s):
         assert glu is None
 
 
-def make_probe_weight(fmt, k, n, seed, dev, mins=True):
+def make_probe_weight(fmt, k, n, seed, dev, mins=True, group=32):
     """A QuantLinear with random packed bytes and bf16 panels, as the probe
     draws them."""
     rng = np.random.default_rng(seed)
@@ -285,30 +285,36 @@ def make_probe_weight(fmt, k, n, seed, dev, mins=True):
         packed = rng.integers(-127, 127, size=(k, n), dtype=np.int8)
     else:
         packed = rng.integers(0, 255, size=(k // 2, n), dtype=np.uint8)
-    s = (rng.normal(size=(k // 32, n)) * 0.01).astype(np.float32)
-    m = np.abs(rng.normal(size=(k // 32, n)) * 0.01).astype(np.float32)
+    s = (rng.normal(size=(k // group, n)) * 0.01).astype(np.float32)
+    m = np.abs(rng.normal(size=(k // group, n)) * 0.01).astype(np.float32)
     put = lambda a: torch.from_numpy(a).to(dev)
     return QuantLinear(put(packed), put(s).to(torch.bfloat16),
                        put(m).to(torch.bfloat16) if mins else None, None,
-                       fmt, 32, k, n, "probe")
+                       fmt, group, k, n, "probe")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [3, 8])
+@pytest.mark.parametrize("group", [16, 32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 17])
 @pytest.mark.parametrize("n", [256, 200])
 @pytest.mark.parametrize("fmt", ["q4", "q8"])
-def test_variant_kernels_match_plain(cuda, fmt, n, b):
+def test_variant_kernels_match_plain(cuda, fmt, n, b, group):
     """Every variant kernel against its plain version: the integer variants
-    exactly, the float ones to f32 summation order."""
+    exactly, the float ones to f32 summation order; one row tile and
+    several (b 9, 17), ragged N (200: byte copies, not cp.async), every
+    group the kernels take (16-64: several groups a stage; 128 and up: a
+    group over several stages, 256 the Q8_K layout), K cut into several
+    slices (at least 4 groups); a second call gives the same bits."""
     from llama_gguf_tpu_torch.scripts.bench_kernel_variants import (
         quantize_rows, w4a8_panels)
 
-    k = 512
-    lin = make_probe_weight(fmt, k, n, 15, cuda)
+    k = max(1024, 4 * group)
+    assert V.variant_plan(b, k, n, group, fmt).splits > 1
+    lin = make_probe_weight(fmt, k, n, 15, cuda, group=group)
     x = make_x(b, k, 15, cuda)
     xi = torch.from_numpy(np.random.default_rng(16).integers(
         -127, 127, size=(b, k), dtype=np.int8)).to(cuda)
-    xg = V.group_sums(x, 32)
+    xg = V.group_sums(x, group)
     V.reset_launches()
     cases = {  # name: (kernel, plain, exact)
         "v5": (lambda: V.v5_minfold(x, xg, lin),
@@ -323,7 +329,7 @@ def test_variant_kernels_match_plain(cuda, fmt, n, b):
                        lambda: V.v2_noscale_plain(x, lin), False)
     else:
         s_col, u, m2 = w4a8_panels(lin)
-        _, xq, xg2 = quantize_rows(x)
+        _, xq, xg2 = quantize_rows(x, group)
         cases["v8"] = (lambda: V.v8_w4a8(xq, xg2, lin, u, m2, s_col),
                        lambda: V.v8_w4a8_plain(xq, xg2, lin, u, m2, s_col),
                        False)
@@ -332,9 +338,10 @@ def test_variant_kernels_match_plain(cuda, fmt, n, b):
         cases["v10"] = (lambda: V.v10_4dot(xi, lin),
                         lambda: V.v10_4dot_plain(xi, lin), True)
     for name, (kern, plain, exact) in cases.items():
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == (b, n) and got.dtype == torch.float32, name
+        assert torch.equal(got, again), name
         if exact:
             assert torch.equal(got, want), name
         else:
@@ -343,7 +350,34 @@ def test_variant_kernels_match_plain(cuda, fmt, n, b):
                        "variant_int8": 3, "variant_w4a8": 1},
                 "q8": {"variant_f32": 2, "variant_bf16": 1,
                        "variant_int8": 1, "variant_w4a8": 0}}[fmt]
-    assert V.LAUNCHES == launched
+    assert V.LAUNCHES == {kern: 2 * c for kern, c in launched.items()}
+
+
+@pytest.mark.cuda
+def test_variant_int_kernels_exact_at_extremes(cuda):
+    """v7, v9 and v10 at K = 14336 with every nibble 15 and xi = +-127: the
+    sums pass 2^24 (v7: 127 * 15 * 14336), so only an exact integer sum,
+    converted once, equals the plain version."""
+    k, n = 14336, 256
+    lin = make_probe_weight("q4", k, n, 18, cuda)
+    lin = QuantLinear(torch.full_like(lin.packed, 0xFF), lin.scales,
+                      lin.mins, None, "q4", 32, k, n, "probe")
+    sign = torch.tensor([1, -1, 1, 1, -1, 1, -1, -1, 1], dtype=torch.int8)
+    xi = (127 * sign[:, None]).expand(-1, k).contiguous().to(cuda)
+    xi[2, ::3] = -127  # a row of mixed signs
+    u = torch.from_numpy(np.random.default_rng(19).integers(
+        -127, 127, size=(k // 32, n), dtype=np.int8)).to(cuda)
+    assert V.variant_plan(9, k, n, 32, "q4").splits > 1
+    for name, kern, plain in (
+            ("v7", lambda: V.v7_int8(xi, lin), lambda: V.v7_int8_plain(xi, lin)),
+            ("v9", lambda: V.v9_mulcost(xi, lin, u),
+             lambda: V.v9_mulcost_plain(xi, lin, u)),
+            ("v10", lambda: V.v10_4dot(xi, lin),
+             lambda: V.v10_4dot_plain(xi, lin))):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+    assert V.v7_int8_plain(xi, lin)[0, 0].item() == 127 * 15 * k
 
 
 @pytest.mark.cuda

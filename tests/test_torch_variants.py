@@ -325,3 +325,90 @@ def test_variant_wrappers_refuse_other_devices():
         V.v7_int8(torch.zeros(1, 32, dtype=torch.int8, device="meta"), lin)
     with pytest.raises(RuntimeError, match="no kernel"):
         V.v5_minfold(torch.zeros(1, 32, device="meta"), None, lin)
+
+
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+@pytest.mark.parametrize("k, n", P.SHAPES)
+def test_variant_plan_fills_the_card_at_the_probe_shapes(fmt, k, n):
+    """Both probe shapes launch at least 2 blocks per SM of the H100, and
+    the workspace holds every block's partial tile."""
+    plan = V.variant_plan(P.B, k, n, P.GROUP, fmt)
+    blocks = plan.splits * plan.tiles
+    assert blocks >= 2 * V.H100_SMS
+    assert plan.path == "tc" and plan.grid == (plan.splits, 1,
+                                                n // V.TILE_COLS)
+    assert -(-k // plan.splits) <= V.SLICE_MAX_K
+    assert plan.scratch_bytes == 4 * blocks * V.TILE_ROWS * V.TILE_COLS
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("fmt", ["q4", "q8"])
+@pytest.mark.parametrize("b, k, n", [(1, 1024, 256), (8, 4096, 14336),
+                                     (8, 14336, 4096), (17, 2048, 200),
+                                     (3, 256, 8192)])
+def test_variant_plan_slices_hold_whole_groups(group, fmt, b, k, n):
+    """The kernels' cut of K (slice i: units [i * units // splits, (i + 1)
+    * units // splits)) gives every block whole groups and whole stages, no
+    slice longer than the staged x holds; a ragged N takes byte copies."""
+    plan = V.variant_plan(b, k, n, group, fmt)
+    unit_k = max(group, V.STAGE_K)
+    units = k // unit_k
+    bounds = [i * units // plan.splits * unit_k
+              for i in range(plan.splits + 1)]
+    lengths = np.diff(bounds)
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(s > 0 and s % group == 0 and s % V.STAGE_K == 0
+               for s in lengths)
+    assert lengths.max() <= V.SLICE_MAX_K
+    assert plan.grid == (plan.splits, -(-b // 8), -(-n // 128))
+    assert plan.vec == (n % 16 == 0)
+    assert plan.scratch_bytes == (0 if plan.splits == 1 else
+                                  4 * plan.splits * plan.tiles * 8 * 128)
+    assert not V.variant_plan(b, k, n, group, fmt, aligned=False).vec
+
+
+@pytest.mark.parametrize("fmt, k, group", [("q4", 512, 48), ("q8", 480, 16),
+                                           ("q8", 4096, 2048),
+                                           ("q5", 512, 32)])
+def test_variant_plan_refuses_layouts_the_kernels_do_not_take(fmt, k, group):
+    with pytest.raises(ValueError, match="unsupported layout"):
+        V.variant_plan(8, k, 256, group, fmt)
+
+
+@pytest.mark.parametrize("fmt, k, group", [
+    ("q4", 512, 48), ("q8", 480, 16), ("q8", 4096, 2048), ("q4", 96, 32),
+    ("q4", 512, 16), ("q4", 1024, 1024), ("q8", 256, 256), ("q8", 64, 32)])
+def test_weight_check_and_plan_agree_on_the_layout(fmt, k, group):
+    """The wrappers' weight check and the plan take the same layouts (one
+    function, ``check_layout``, decides)."""
+    n = 16
+    shape = (k // 2, n) if fmt == "q4" else (k, n)
+    lin = QuantLinear(torch.zeros(shape, dtype=torch.uint8 if fmt == "q4"
+                                  else torch.int8),
+                      torch.zeros(k // group, n, dtype=torch.bfloat16), None,
+                      None, fmt, group, k, n, "probe")
+    try:
+        V.variant_plan(8, k, n, group, fmt)
+        planned = True
+    except ValueError:
+        planned = False
+    try:
+        V._check_weight(lin, torch.device("cpu"), True, "w")
+        checked = True
+    except ValueError as e:
+        assert "unsupported layout" in str(e)
+        checked = False
+    assert planned == checked
+
+
+def test_probe_reckons_v2_and_v5_on_the_tensor_cores():
+    """v2 and v5 run three bf16 passes, so their bound is "bf16x3" (kernels
+    1-2's tensor-core path); v6 one bf16 pass; the integer variants int8."""
+    for fmt in ("q4", "q8"):
+        variants = P.build_variants(inputs(fmt)[0])
+        want = {"v2_noscale": "bf16x3", "v5_minfold": "bf16x3",
+                "v6_bf16": "bf16", "v7_int8": "int8", "v8_w4a8": "int8",
+                "v9_mulcost": "int8", "v10_4dot": "int8"}
+        for tag, v in variants.items():
+            if tag in want:
+                assert v.op_type == want[tag], (fmt, tag)
