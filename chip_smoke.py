@@ -977,7 +977,7 @@ def graph_against_eager(label: str, engine, ids, card: str,
         card=card)}), flush=True)
     print(json.dumps({"graphs": dict(
         path=label, keys=len(r._graphs), pool_bytes=r.pool_bytes,
-        capture_seconds={str(k): v for k, v in r.capture_seconds.items()},
+        capture_seconds=capture_times(r),
         card=card)}), flush=True)
 
 
@@ -1055,7 +1055,7 @@ def tiered_batch(quant, ids, card: str) -> None:
     print(json.dumps({"tiered_batch": dict(
         path="TinyLlama-1.1B", batch=8, bound=list(bound),
         steps=NEW_TOKENS, rows=report,
-        capture_seconds={str(k): v for k, v in r.capture_seconds.items()},
+        capture_seconds=capture_times(r),
         card=card)}), flush=True)
     del r, kv
 
@@ -1704,11 +1704,18 @@ def graph_launches(r, replays0: dict, batch: int, t: int | None = None
     return out
 
 
+def capture_times(r, keys0=()) -> dict:
+    """Seconds of warm-up and capture of each of ``r``'s graphs, by key,
+    leaving out the keys in ``keys0``."""
+    return {str(k): g.capture_s for k, g in r._graphs.items()
+            if k not in keys0}
+
+
 def capture_launches(r, keys0, batch: int, t: int | None = None) -> dict:
     """The kernel launches of the eager run each capture of ``r``'s graphs
     of ``batch`` rows (and ``t`` tokens) after ``keys0`` made before it."""
     out: dict[str, int] = {}
-    for key in r.capture_seconds:
+    for key in r._graphs:
         if key in keys0 or key[0] != batch or (t is not None
                                                and key[1] != t):
             continue
@@ -1813,7 +1820,7 @@ def server_path(card: str, gguf: str) -> dict:
     load_s = time.perf_counter() - t0
     engine, batched = state.current()
     r = engine.runner
-    warm = {str(k): v for k, v in r.capture_seconds.items()}
+    warm = capture_times(r)
     check(len(warm) == 2, f"server: the warm-up captured {list(warm)}")
     server = threading.Thread(target=run_server, args=(config, state),
                               daemon=True, name="server")
@@ -1867,7 +1874,7 @@ def server_path(card: str, gguf: str) -> dict:
     Q.reset_launches()
     r.eager_steps = 0
     replays0 = dict(r.replays)
-    keys0 = set(r.capture_seconds)
+    keys0 = set(r._graphs)
     t0 = time.perf_counter()
     threads = [threading.Thread(target=job, args=j) for j in jobs]
     for th in threads:
@@ -1879,8 +1886,7 @@ def server_path(card: str, gguf: str) -> dict:
     launches, by_path = Q.launch_counts()
     eager = r.eager_steps
     b8 = graph_launches(r, replays0, SERVE_BATCH)
-    served = {str(k): v for k, v in r.capture_seconds.items()
-              if k not in keys0}
+    served = capture_times(r, keys0)
     warm_runs = capture_launches(r, keys0, SERVE_BATCH)
     stats = dataclasses.asdict(batched.stats)
     decode_tps = batched.stats.decode_tps
@@ -2016,7 +2022,7 @@ def moe_batched(quant, card: str) -> dict:
     dec = graph_launches(r, {}, 4, t=1)
     dec_warm = capture_launches(r, set(), 4, t=1)
     stats = dataclasses.asdict(be.stats)
-    keys = {str(k): v for k, v in r.capture_seconds.items()}
+    keys = capture_times(r)
     mixed_run = dict(mixed)
     steady = steady_passes(be, [
         lambda p=p: be.submit(p, max_tokens=STEADY_MOE_TOKENS,
@@ -2639,7 +2645,7 @@ def hybrid_batched(quant, card: str, label: str = HYBRID_LABEL,
         decode_tps_run=stats["decode_tokens_pure"] / stats["decode_time"]
         if stats["decode_time"] else None, steady=steady,
         launches=launches, launches_by_path=by_path,
-        capture_seconds={str(k): v for k, v in r.capture_seconds.items()},
+        capture_seconds=capture_times(r),
         rows=report, phase_s=time.perf_counter() - t_phase, card=card)}),
         flush=True)
     del r
@@ -2708,10 +2714,9 @@ def ppl_checks(quant, deq, serving, card: str) -> dict:
     for label, engine in (("quant", quant), ("dequant", deq),
                           ("serving", serving)):
         r = engine.runner
-        keys0 = set(r.capture_seconds)
+        keys0 = set(r._graphs)
         perplexity(r, ids, chunk=PPL_CHUNK)  # warm-up: the captures
-        captured = {str(k): v for k, v in r.capture_seconds.items()
-                    if k not in keys0}
+        captured = capture_times(r, keys0)
         sync()
         before = Q.launch_counts()
         r.eager_steps = 0
@@ -2950,8 +2955,7 @@ def shift_checks(quant, deq, card: str, path: str = "13c",
                             f"fresh prefill by {err:.4g} > {limit:.4g}")
         got[label] = dict(picks=picks, margins=margins, shifts=shifts,
                           key_err=err, key_scale=scale,
-                          captures={str(k): v for k, v in
-                                    r.capture_seconds.items()})
+                          captures=capture_times(r))
         del r.shift_left
     near = None
     picks = got["quant"]["picks"], got["dequant"]["picks"]
@@ -3063,7 +3067,7 @@ def graph_cost(r, key) -> dict:
     replay)."""
     g = r._graphs[key]
     prof = summarize(lambda: r._replay(g), 1)
-    return dict(capture_s=r.capture_seconds[key],
+    return dict(capture_s=g.capture_s,
                 kernels_per_replay=prof["kernels_launched_per_step"],
                 device_ms_per_replay=prof["device_ms_per_step"])
 
@@ -3589,7 +3593,7 @@ def kv_formats_path(quant, deq, card: str, peaks: dict):
             cache_bytes_read=cache_read, mean_keys=keys,
             read_bound_positions=bound_pos, step_bound_ms=bound,
             memory_bytes=mem, memory_ratio_to_f32=mem / f32_bytes,
-            capture_s=sum(r.capture_seconds.values()),
+            capture_s=r.capture_seconds,
             seconds=time.perf_counter() - t0)
         log(f"16a {fmt}: parts from f32 at {parts}, prefill dlogit "
             f"{d_f32:.3g}, {prof['device_ms_per_step']} device ms a step "
@@ -4260,7 +4264,8 @@ def t5_path(card: str, timer, peaks: dict, gguf: str, enc_gguf: str):
         step_byte_bound_ms=bound, step_bytes=nbytes, cache_bytes=caches,
         bound_share=(bound / device if isinstance(device, float)
                      else "not measured"),
-        capture_s=t5.capture_seconds.get(key), graphs=len(t5._graphs),
+        capture_s=t5._graphs[key].capture_s if key in t5._graphs else None,
+        graphs=len(t5._graphs),
         pool_bytes=t5.pool_bytes, launches=launches,
         launches_per_step=per["step"], launches_per_request=added(
             per["encode"], per["cross"]), graph_vs_eager=graph_err,
@@ -4815,12 +4820,12 @@ def spec_mode(label: str, dec, ids, plain, margins, sampler=None) -> dict:
             return dec.generate_greedy(ids, SPEC_TOKENS)
         return dec.generate_sampled(ids, SPEC_TOKENS, sampler, seed=SEED)
 
-    keys0 = [set(r.capture_seconds) for r in runners]
+    keys0 = [set(r._graphs) for r in runners]
     eager0 = [r.eager_steps for r in runners]
     first = go()
-    captured = {f"{'draft ' if i else ''}{key}": r.capture_seconds[key]
+    captured = {f"{'draft ' if i else ''}{key}": sec
                 for i, (r, k0) in enumerate(zip(runners, keys0))
-                for key in r.capture_seconds if key not in k0}
+                for key, sec in capture_times(r, k0).items()}
     caps = [r.captures for r in runners]
     replays0 = [dict(r.replays) for r in runners]
     sync()
@@ -5965,7 +5970,7 @@ def rag_server_path(card: str, gguf: str, l2: str, tmp: str) -> dict:
         greedy = SamplerConfig(temperature=0.0)
         kb.retrieve_and_generate(RAG_QUERY, RAG_SERVER_K, "hybrid",
                                  max_tokens=RAG_TOKENS, sampler=greedy)
-        replays0, keys0 = dict(r.replays), set(r.capture_seconds)
+        replays0, keys0 = dict(r.replays), set(r._graphs)
         eager0 = r.eager_steps
         Q.reset_launches()
         t0 = time.perf_counter()
@@ -5979,9 +5984,9 @@ def rag_server_path(card: str, gguf: str, l2: str, tmp: str) -> dict:
             for name, k in r._graphs[key].launches[0].items():
                 replayed[name] = replayed.get(name, 0) + (
                     n - replays0.get(key, 0)) * k
-        check(r.eager_steps == eager0 and set(r.capture_seconds) == keys0,
+        check(r.eager_steps == eager0 and set(r._graphs) == keys0,
               f"21b: {r.eager_steps - eager0} eager steps, captures "
-              f"{set(r.capture_seconds) - keys0}")
+              f"{set(r._graphs) - keys0}")
         exact_kernels("21b greedy query", launches, replayed)
         exact_kernels("21b greedy query", launches, scaled(PER_STEP, steps))
         context = "".join(f"[{i + 1}] {h.text}\n"

@@ -20,6 +20,22 @@ llama_gguf_tpu/engine/batched.py).
 The scheduler thread makes every CUDA call of a step through one
 ``runner.step(..., host_rows=)``, which hands back the picked rows' logits
 on the host (engine/runner.py serializes the device's work).
+
+Spans (utils/debug.py): each scheduler iteration that finds a request
+queued or live records one ``batched.step`` (its index ``step``; counters
+``rows_real``, the tokens of live rows, ``rows_launched``, the rows the step
+launched, padding included, and ``prefill_rows``, the tokens of prefill
+chunks; none when admission only reaped cancelled requests and nothing was
+launched) whose children are ``batched.admit``, ``batched.build`` (the
+step's arrays and read bound), the runner's spans of its step,
+``batched.sample`` (every row's sampler call and logprobs) and
+``batched.emit`` (detokenizing, stop strings, the handles' events,
+finishing and its callbacks). A request records ``request.queued`` (submit
+to admission) when admitted, ``request.prefill`` (admission to its first
+sampled token) at that token and ``request.decode`` (to its finish) at its
+finish, each with its ``request_id`` and the step indices at its ends; an
+abort closes the span it is in. ``BatchedStats`` sums the step phases and
+the request spans, and the server's /metrics exports the sums.
 """
 
 from __future__ import annotations
@@ -35,9 +51,13 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..sampling.sampler import Sampler, SamplerConfig
+from ..utils.debug import current_span, record, span
 from .runner import ModelRunner, bucket_len, pick_read_bound
 
 log = logging.getLogger(__name__)
+
+# a request's spans, in the order it passes them
+REQUEST_SPANS = ("request.queued", "request.prefill", "request.decode")
 
 
 @dataclass
@@ -59,6 +79,26 @@ class BatchedStats:
     decode_time: float = 0.0
     capture_steps: int = 0
     capture_time: float = 0.0
+    # token rows of the steps: those of live requests, and those launched
+    # (the step's grid, padding included)
+    rows_real: int = 0
+    rows_launched: int = 0
+    # the request spans: seconds summed, and how many ended (queued: submit
+    # to admission or abort; prefill: to the first sampled token or abort;
+    # decode: to the finish)
+    queue_wait_time: float = 0.0
+    queue_waits: int = 0
+    request_prefill_time: float = 0.0
+    request_prefills: int = 0
+    request_decode_time: float = 0.0
+    request_decodes: int = 0
+    # seconds of the steps' phases: admission, the step's arrays, the
+    # runner's step, sampling, emission
+    admit_time: float = 0.0
+    build_time: float = 0.0
+    runner_time: float = 0.0
+    sample_time: float = 0.0
+    emit_time: float = 0.0
 
     @property
     def decode_tps(self) -> float:
@@ -119,6 +159,10 @@ class _Sequence:
     decoder: Any = None
     prefilled: int = 0    # prompt tokens already written to the KV cache
     prompt_len: int = 0
+    # the request span it is in (an index of REQUEST_SPANS) and its start,
+    # (time.monotonic_ns(), step index)
+    phase: int = 0
+    since: tuple = (0, 0)
 
     @property
     def decoding(self) -> bool:
@@ -135,7 +179,7 @@ class RequestHandle:
     def __init__(self, request_id: str, prompt_tokens: int = 0):
         self.request_id = request_id
         self.prompt_tokens = prompt_tokens
-        self.created = time.time()
+        self.created = time.monotonic()
         self.first_token_at: float | None = None
         self.finished_at: float | None = None
         self._q: queue.Queue = queue.Queue()
@@ -158,7 +202,7 @@ class RequestHandle:
     @property
     def timings(self) -> dict:
         """Per-request latency metrics."""
-        now = self.finished_at or time.time()
+        now = self.finished_at or time.monotonic()
         # rate over the decode window, floored at 1 ms so a stop string
         # hitting in the first piece can't report absurd throughput
         window = max(now - (self.first_token_at or self.created), 1e-3)
@@ -174,13 +218,13 @@ class RequestHandle:
     def _emit(self, piece: str) -> None:
         if piece:
             if self.first_token_at is None:
-                self.first_token_at = time.time()
+                self.first_token_at = time.monotonic()
             self._text_parts.append(piece)
             self._q.put(("piece", piece))
 
     def _finish(self, reason: str) -> None:
         self.finish_reason = reason
-        self.finished_at = time.time()
+        self.finished_at = time.monotonic()
         self._q.put(("done", reason))
 
     def _fail(self, exc: Exception) -> None:
@@ -245,6 +289,7 @@ class BatchedEngine:
         self._owner = f"batched-{id(self):x}"
         self._kv = runner.init_kv(runner.max_batch, owner=self._owner)
         self._last_rb = None
+        self._step = 0  # the next batched.step's index
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._running = True
@@ -287,6 +332,7 @@ class BatchedEngine:
             grammar=grammar,
             logprobs=logprobs,
             decoder=self.tokenizer.streaming_decoder(),
+            since=(time.monotonic_ns(), self._step),
         )
         with self._lock:  # submit runs on many threads
             self.stats.submitted += 1
@@ -323,23 +369,33 @@ class BatchedEngine:
 
     def _loop(self) -> None:
         while self._running:
+            if self._pending.empty() and not self.active_count:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
             try:
-                did_work = self._admit()
-                did_work |= self._mixed_step()
+                self._iteration()
             except Exception:
                 log.exception("batched engine step failed")
                 self._abort_all()
-                continue
-            if not did_work:
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
         self._abort_all()
         self.runner.release_kv(self._owner)
+
+    def _iteration(self) -> None:
+        """One scheduler iteration: admission, then one batched step; the
+        span ``batched.step`` and its children."""
+        with span("batched.step", step=self._step):
+            with span("batched.admit") as sp:
+                self._admit()
+            self.stats.admit_time += sp.seconds
+            self._mixed_step()
+        self._step += 1
 
     def _abort_all(self) -> None:
         for i, seq in enumerate(self._slots):
             if seq is not None:
                 seq.handle._finish("aborted")
+                self._end_span(seq)
                 self._slots[i] = None
         while True:
             try:
@@ -349,15 +405,33 @@ class BatchedEngine:
             with self._lock:
                 self._pending_count -= 1
             seq.handle._finish("aborted")
+            self._end_span(seq)
 
-    def _admit(self) -> bool:
+    def _end_span(self, seq: _Sequence) -> None:
+        """Record the request span ``seq`` is in, from its start to now, and
+        add it to the stats' sums; the next span starts here."""
+        t0, s0 = seq.since
+        t1, s1 = time.monotonic_ns(), self._step
+        record(REQUEST_SPANS[seq.phase], t0, t1, s0, s1, seq.request_id)
+        st, dt = self.stats, (t1 - t0) / 1e9
+        if seq.phase == 0:
+            st.queue_wait_time += dt
+            st.queue_waits += 1
+        elif seq.phase == 1:
+            st.request_prefill_time += dt
+            st.request_prefills += 1
+        else:
+            st.request_decode_time += dt
+            st.request_decodes += 1
+        seq.phase, seq.since = seq.phase + 1, (t1, s1)
+
+    def _admit(self) -> None:
         """Assign queued sequences to free slots (prefill happens in chunks
         via _mixed_step, decode rows riding in the same step). A hybrid
         model's recurrent state in the slot's row is zeroed first, so the
         sequence does not start from the previous one's (the JAX engine
         leaves it: ROADMAP queue 3). Its K/V rows, scales and ring slots
         need no clearing, as in the JAX engine (models/kv.clear_state)."""
-        admitted = False
         for slot, cur in enumerate(self._slots):
             if cur is not None:
                 continue
@@ -369,7 +443,9 @@ class BatchedEngine:
                 self._pending_count -= 1
             if seq.handle.cancelled:  # reaped before admission
                 seq.handle._finish("aborted")
+                self._end_span(seq)
                 continue
+            self._end_span(seq)  # request.queued
             self.runner.clear_state(self._kv, slot)
             seq.slot = slot
             if self.prompt_cache is not None:
@@ -377,58 +453,69 @@ class BatchedEngine:
                     self.prompt_cache, seq.token_ids, self._kv,
                     batch_idx=slot)
             self._slots[slot] = seq
-            admitted = True
-        return admitted
 
     def _mixed_step(self) -> bool:
         """ONE batched forward carrying every live row: sequences mid-
         prefill contribute their next chunk (at their own prompt offset)
         and decoding sequences their single next token, so a prefill
         admission costs in-flight decodes no extra step."""
-        pre = [s for s in self._slots if s is not None and not s.decoding]
-        dec = [s for s in self._slots if s is not None and s.decoding]
-        if not pre and not dec:
-            return False
-        chunks = {
-            s.slot: s.token_ids[s.prefilled: s.prefilled + self.prefill_chunk]
-            for s in pre
-        }
-        bt = bucket_len(max(len(c) for c in chunks.values())) if pre else 1
-        b = len(self._slots)
-        toks = np.zeros((b, bt), np.int32)
-        pos = np.full((b, bt), self.runner.max_seq, np.int32)  # dropped
-        lengths = np.zeros((b,), np.int32)
-        for s in pre:
-            c = chunks[s.slot]
-            toks[s.slot, : len(c)] = c
-            pos[s.slot, : len(c)] = s.prefilled + np.arange(len(c))
-            lengths[s.slot] = s.prefilled + len(c)
-        for s in dec:
-            toks[s.slot, 0] = s.last_token
-            pos[s.slot, 0] = s.pos
-            lengths[s.slot] = s.pos + 1
+        step = current_span()  # batched.step, when the scheduler's
+        with span("batched.build") as sp:
+            pre = [s for s in self._slots if s is not None and not s.decoding]
+            dec = [s for s in self._slots if s is not None and s.decoding]
+            if not pre and not dec:
+                return False
+            chunks = {
+                s.slot: s.token_ids[s.prefilled:
+                                    s.prefilled + self.prefill_chunk]
+                for s in pre
+            }
+            bt = bucket_len(max(len(c) for c in chunks.values())) if pre \
+                else 1
+            b = len(self._slots)
+            toks = np.zeros((b, bt), np.int32)
+            pos = np.full((b, bt), self.runner.max_seq, np.int32)  # dropped
+            lengths = np.zeros((b,), np.int32)
+            for s in pre:
+                c = chunks[s.slot]
+                toks[s.slot, : len(c)] = c
+                pos[s.slot, : len(c)] = s.prefilled + np.arange(len(c))
+                lengths[s.slot] = s.prefilled + len(c)
+            for s in dec:
+                toks[s.slot, 0] = s.last_token
+                pos[s.slot, 0] = s.pos
+                lengths[s.slot] = s.pos + 1
 
-        # the LM head runs on ONE column per row (decode rows column 0,
-        # prefill rows their chunk end)
-        lp = np.zeros((b,), np.int32)
-        for s in pre:
-            lp[s.slot] = len(chunks[s.slot]) - 1
-        t0 = time.time()
+            # the LM head runs on ONE column per row (decode rows column 0,
+            # prefill rows their chunk end)
+            lp = np.zeros((b,), np.int32)
+            for s in pre:
+                lp[s.slot] = len(chunks[s.slot]) - 1
+            # two-tier ragged read; prev= keeps the last pick (a graph key)
+            # while it stays within TIER_HYSTERESIS of the modelled optimum
+            rb = pick_read_bound(lengths, self.runner.max_seq,
+                                 shards=self.runner.tier_shards,
+                                 prev=self._last_rb)
+            self._last_rb = rb
+            done_pre = [s for s in pre
+                        if s.prefilled + len(chunks[s.slot]) >= s.prompt_len]
+            need = dec + done_pre
+            prefill_rows = sum(len(c) for c in chunks.values())
+            real = prefill_rows + len(dec)
+            self.stats.rows_real += real
+            self.stats.rows_launched += b * bt
+            if step is not None:
+                step.counters = {"rows_real": real, "rows_launched": b * bt,
+                                 "prefill_rows": prefill_rows}
+        self.stats.build_time += sp.seconds
+        t0 = time.monotonic()
         captures = self.runner.captures
-        # two-tier ragged read; prev= keeps the last pick (a graph key)
-        # while it stays within TIER_HYSTERESIS of the modelled optimum
-        rb = pick_read_bound(lengths, self.runner.max_seq,
-                             shards=self.runner.tier_shards,
-                             prev=self._last_rb)
-        self._last_rb = rb
-        done_pre = [s for s in pre
-                    if s.prefilled + len(chunks[s.slot]) >= s.prompt_len]
-        need = dec + done_pre
         # the one copy to the host: [len(need), V]
         picked, self._kv = self.runner.step(
             toks, pos, lengths, self._kv, read_bound=rb,
             logit_positions=lp, host_rows=[s.slot for s in need])
-        dt = time.time() - t0
+        dt = time.monotonic() - t0
+        self.stats.runner_time += dt
         if self.runner.captures > captures:
             self.stats.capture_steps += 1
             self.stats.capture_time += dt
@@ -443,47 +530,67 @@ class BatchedEngine:
                 self.stats.decode_time += dt
                 self.stats.decode_tokens_pure += len(dec)
             self.stats.decode_steps += 1
-        for idx, s in enumerate(dec):
+        for s in dec:
             s.pos += 1
-            self._sample_and_emit(s, picked[idx])
-        for s in pre:
-            n = len(chunks[s.slot])
-            s.prefilled += n
-            self.stats.prefill_tokens += n
-        for j, s in enumerate(done_pre):
-            if self.prompt_cache is not None:
-                self.runner.store_prefix(
-                    self.prompt_cache, s.token_ids[:s.prompt_len], self._kv,
-                    batch_idx=s.slot)
+        for s in done_pre:
             s.pos = s.prompt_len
-            self._sample_and_emit(s, picked[len(dec) + j])
+        with span("batched.sample") as sp:
+            sampled = [self._sample(s, picked[i])
+                       for i, s in enumerate(need)]
+        self.stats.sample_time += sp.seconds
+        with span("batched.emit") as sp:
+            for s in pre:
+                n = len(chunks[s.slot])
+                s.prefilled += n
+                self.stats.prefill_tokens += n
+            if self.prompt_cache is not None:
+                for s in done_pre:
+                    self.runner.store_prefix(
+                        self.prompt_cache, s.token_ids[:s.prompt_len],
+                        self._kv, batch_idx=s.slot)
+            for s, (tok, entry) in zip(need, sampled):
+                self._emit_token(s, tok, entry)
+        self.stats.emit_time += sp.seconds
         return True
 
-    def _sample_and_emit(self, seq: _Sequence, logits: np.ndarray) -> None:
-        """Sample the next token for one sequence and emit text / finish."""
+    def _sample(self, seq: _Sequence, logits: np.ndarray):
+        """Sample the next token for one sequence: (token, logprob entry or
+        None); (None, None) for a cancelled request."""
         if seq.handle.cancelled:
-            self._finish(seq, "aborted")
-            return
-        mask = seq.grammar.get_token_mask() if seq.grammar is not None else None
+            return None, None
+        mask = (seq.grammar.get_token_mask() if seq.grammar is not None
+                else None)
         tok = seq.sampler.sample(logits, seq.token_ids, mask=mask)
-        if self.tokenizer.is_eog(tok):
+        if seq.logprobs < 0 or self.tokenizer.is_eog(tok):
             # no logprob entry for the EOG token: OpenAI aligns
             # logprobs.content 1:1 with the returned completion tokens
+            return tok, None
+        # OpenAI logprobs: log-softmax of RAW logits
+        lf = logits.astype(np.float64)
+        lse = np.logaddexp.reduce(lf)
+        entry = {"token": self.tokenizer.decode([tok]), "id": int(tok),
+                 "logprob": float(lf[tok] - lse)}
+        k = min(seq.logprobs, lf.size - 1)  # clamp: kth must be in range
+        if k > 0:
+            top = np.argpartition(-lf, k)[:k]
+            top = top[np.argsort(-lf[top])]
+            entry["top_logprobs"] = [
+                {"token": self.tokenizer.decode([int(t)]),
+                 "id": int(t), "logprob": float(lf[t] - lse)}
+                for t in top]
+        return tok, entry
+
+    def _emit_token(self, seq: _Sequence, tok, entry) -> None:
+        """Emit one sequence's sampled token: text, stop strings, finish."""
+        if tok is None:
+            self._finish(seq, "aborted")
+            return
+        if seq.phase == 1:  # its first sampled token
+            self._end_span(seq)  # request.prefill
+        if self.tokenizer.is_eog(tok):
             self._finish(seq, "stop")
             return
-        if seq.logprobs >= 0:  # OpenAI logprobs: log-softmax of RAW logits
-            lf = logits.astype(np.float64)
-            lse = np.logaddexp.reduce(lf)
-            entry = {"token": self.tokenizer.decode([tok]), "id": int(tok),
-                     "logprob": float(lf[tok] - lse)}
-            k = min(seq.logprobs, lf.size - 1)  # clamp: kth must be in range
-            if k > 0:
-                top = np.argpartition(-lf, k)[:k]
-                top = top[np.argsort(-lf[top])]
-                entry["top_logprobs"] = [
-                    {"token": self.tokenizer.decode([int(t)]),
-                     "id": int(t), "logprob": float(lf[t] - lse)}
-                    for t in top]
+        if entry is not None:
             seq.handle.logprobs.append(entry)
         seq.token_ids.append(tok)
         seq.handle.token_ids.append(int(tok))
@@ -516,3 +623,4 @@ class BatchedEngine:
         self._slots[seq.slot] = None
         self.stats.completed += 1
         seq.handle._finish(reason)
+        self._end_span(seq)

@@ -47,6 +47,13 @@ self-draft of engine/speculative.py) is tied to this one by
 forward prints each layer's activation RMS, which a graph cannot do: every
 step then runs eagerly and counts in ``eager_steps``.
 
+Spans (utils/debug.py): a ``step`` records ``runner.inputs`` (its int32
+inputs packed and copied), then ``runner.replay`` (preceded by
+``runner.capture`` at a key's first step) or, on the eager path,
+``runner.forward``, then ``runner.fetch`` (the picked rows' logits copied to
+the host, with ``host_rows``). Counters: ``captures``, ``capture_seconds``
+(their total), ``pool_bytes``, ``replays`` per key, ``eager_steps``.
+
 ``MeshRunner`` is one rank's runner under a (data, model) mesh
 (parallel/): its params are the rank's shard, its caches the rank's heads
 and rows, and rank 0 sends each of its device calls to the other ranks.
@@ -73,7 +80,7 @@ from ..models.loader import resolve_device
 from ..models.transformer import embed, forward, layer_forward
 from ..ops import qmatmul as Q
 from ..ops.norms import apply_norm
-from ..utils.debug import debug_activations_enabled
+from ..utils.debug import debug_activations_enabled, span
 
 log = logging.getLogger(__name__)
 
@@ -176,6 +183,7 @@ class _Graph:
     inputs: torch.Tensor | None
     out: torch.Tensor | None
     launches: tuple[dict, dict]
+    capture_s: float  # its warm-up and capture
 
 
 class ModelRunner:
@@ -241,10 +249,10 @@ class ModelRunner:
         self._pool = None  # the graphs' shared memory pool
         self.eager_steps = 0  # CUDA steps run eagerly (a foreign cache)
         self.replays: dict[tuple, int] = {}  # per graph key
-        # per graph key: seconds of its warm-up and capture; the captures
-        # made; and the device memory they reserved (the pool's growth)
-        self.capture_seconds: dict[tuple, float] = {}
+        # the captures made, their seconds of warm-up and capture, and the
+        # device memory they reserved (the pool's growth)
         self.captures = 0
+        self.capture_seconds = 0.0
         self.pool_bytes = 0
         self._debug_logged = False
         # the runners whose params alias this one's (share_params), itself
@@ -436,9 +444,10 @@ class ModelRunner:
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         launches = Q.launch_counts(since=before)
         Q.credit(launches, -1)
-        self.capture_seconds[key] = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.capture_seconds += seconds
         self.captures += 1
-        return _Graph(key, graph, inputs, out, launches)
+        return _Graph(key, graph, inputs, out, launches, seconds)
 
     def _replay(self, g: _Graph) -> None:
         g.graph.replay()
@@ -470,16 +479,21 @@ class ModelRunner:
         output, else the output buffer itself)."""
         cache = self._graphed(kv)
         if cache is None:
-            return self._forward(kv, read_bound,
-                                 *(self._tensor(p) for p in parts))
+            with span("runner.inputs"):
+                inputs = [self._tensor(p) for p in parts]
+            with span("runner.forward"):
+                return self._forward(kv, read_bound, *inputs)
         g = self._step_graph(b, t, read_bound, gather, kv, cache)
-        if any(torch.is_tensor(p) and p.device.type != "cpu" for p in parts):
-            g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
-                                      for p in parts]))
-        else:  # one copy from the host
-            g.inputs.copy_(torch.from_numpy(np.concatenate(
-                [np.asarray(p, np.int32).reshape(-1) for p in parts])))
-        self._replay(g)
+        with span("runner.inputs"):
+            if any(torch.is_tensor(p) and p.device.type != "cpu"
+                   for p in parts):
+                g.inputs.copy_(torch.cat([self._tensor(p).reshape(-1)
+                                          for p in parts]))
+            else:  # one copy from the host
+                g.inputs.copy_(torch.from_numpy(np.concatenate(
+                    [np.asarray(p, np.int32).reshape(-1) for p in parts])))
+        with span("runner.replay"):
+            self._replay(g)
         return g.out.clone() if copy else g.out
 
     def _step_graph(self, b: int, t: int, read_bound, gather: bool,
@@ -499,9 +513,11 @@ class ModelRunner:
         dummy = torch.zeros(n, dtype=torch.int32, device=dev)
         dummy[b * t: 2 * b * t] = self.max_seq  # every write dropped
         inputs = dummy.clone()
-        g = self._graphs[key] = self._capture(
-            key, lambda: self._forward(kv, read_bound, *unpack(dummy)),
-            lambda: self._forward(kv, read_bound, *unpack(inputs)), inputs)
+        with span("runner.capture"):
+            g = self._graphs[key] = self._capture(
+                key, lambda: self._forward(kv, read_bound, *unpack(dummy)),
+                lambda: self._forward(kv, read_bound, *unpack(inputs)),
+                inputs)
         return g
 
     # -- steps ---------------------------------------------------------------
@@ -532,9 +548,10 @@ class ModelRunner:
                                     copy=host_rows is None)
             if host_rows is None:
                 return out, kv
-            if not len(host_rows):
-                return np.zeros((0, out.shape[-1]), np.float32), kv
-            return out[list(host_rows), -1].float().cpu().numpy(), kv
+            with span("runner.fetch"):
+                if not len(host_rows):
+                    return np.zeros((0, out.shape[-1]), np.float32), kv
+                return out[list(host_rows), -1].float().cpu().numpy(), kv
 
     @staticmethod
     def plan_segments(start: int, steps: int,

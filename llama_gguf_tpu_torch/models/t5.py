@@ -329,7 +329,8 @@ class T5Runner:
     ("t5", enc_capacity)); the ``_lock`` of the device serializes every
     CUDA call with the other runners' on it, and ``stream`` (a lock) keeps
     one request at a time on the own cache. Counters as ModelRunner's:
-    ``replays``, ``captures``, ``capture_seconds``, ``eager_steps``."""
+    ``replays``, ``captures``, ``capture_seconds`` (their total),
+    ``pool_bytes``, ``eager_steps``."""
 
     def __init__(self, params: dict, cfg, max_seq: int = 0, device="cuda",
                  matmul_precision: str = "highest"):
@@ -352,8 +353,8 @@ class T5Runner:
         self._pool = None
         self.eager_steps = 0
         self.replays: dict[tuple, int] = {}
-        self.capture_seconds: dict[tuple, float] = {}
         self.captures = 0
+        self.capture_seconds = 0.0
         self.pool_bytes = 0
 
     # the decoder runner's capture and replay (warm-up on a side stream,

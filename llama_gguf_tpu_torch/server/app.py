@@ -479,6 +479,24 @@ def _props(st: ServerState, req: _Request):
     })
 
 
+PHASES = ("admit", "build", "runner", "sample", "emit")  # BatchedStats
+# (metric, what it times, BatchedStats' sum and count) of each request span
+REQUEST_PHASES = (
+    ("queue_wait", "submit to admission", "queue_wait_time", "queue_waits"),
+    ("request_prefill", "admission to the first sampled token",
+     "request_prefill_time", "request_prefills"),
+    ("request_decode", "the first sampled token to the finish",
+     "request_decode_time", "request_decodes"))
+
+
+def _graph_runner(engine):
+    """The runner whose CUDA graphs serve ``engine``: the decoder's, or an
+    encoder-decoder's T5 runner; None without either."""
+    if engine is None:
+        return None
+    return engine.runner if engine.runner is not None else engine.t5
+
+
 def _metrics(st: ServerState, req: _Request):
     """Prometheus text exposition (llama-server /metrics analogue)."""
     engine, b = st.current()
@@ -515,6 +533,37 @@ def _metrics(st: ServerState, req: _Request):
           round(s.decode_tps, 3) if s else 0.0, "gauge")
     gauge("llamagguf_model_loaded", "1 when a model is serving",
           int(engine is not None), "gauge")
+    # the port's own, after the JAX server's
+    gauge("llamagguf_step_rows_real_total",
+          "Token rows of live requests in the batched steps",
+          s.rows_real if s else 0)
+    gauge("llamagguf_step_rows_launched_total",
+          "Token rows the batched steps launched, padding included",
+          s.rows_launched if s else 0)
+    # the request spans (engine/batched.py): a sum and a count each
+    for name, what, total, count in REQUEST_PHASES:
+        gauge(f"llamagguf_{name}_seconds_sum",
+              f"Seconds requests spent from {what}",
+              round(getattr(s, total), 6) if s else 0.0)
+        gauge(f"llamagguf_{name}_seconds_count",
+              f"Requests whose time from {what} ended (an abort ends it)",
+              getattr(s, count) if s else 0)
+    lines.append("# HELP llamagguf_step_phase_seconds_total Seconds of the "
+                 "batched steps by phase")
+    lines.append("# TYPE llamagguf_step_phase_seconds_total counter")
+    for phase in PHASES:
+        value = round(getattr(s, f"{phase}_time"), 6) if s else 0.0
+        lines.append(f'llamagguf_step_phase_seconds_total{{phase="{phase}"}}'
+                     f" {value}")
+    r = _graph_runner(engine)
+    gauge("llamagguf_graph_captures_total", "CUDA graphs captured",
+          r.captures if r else 0)
+    gauge("llamagguf_graph_capture_seconds_total",
+          "Seconds of CUDA graph warm-up and capture",
+          round(r.capture_seconds, 6) if r else 0.0)
+    gauge("llamagguf_graph_pool_bytes",
+          "Device memory the CUDA graphs' pool reserved",
+          r.pool_bytes if r else 0, "gauge")
     return _Reply(200, ("\n".join(lines) + "\n").encode(),
                   "text/plain; charset=utf-8")
 

@@ -7,7 +7,8 @@ relative (f32, another order of summation; JAX's prints may come in any
 order). The switch makes a CUDA runner run every step eagerly, which is
 checked here on a runner that only believes it is on CUDA (its _graphed
 decision makes no CUDA call). profile() and bench --profile write a chrome
-trace."""
+trace, in which a span is a record_function region (the spans themselves:
+tests/test_torch_trace.py)."""
 
 import json
 import os
@@ -134,7 +135,7 @@ def test_switch_runs_cuda_steps_eagerly(path, caplog):
 def test_profile_writes_a_trace(path, tmp_path):
     logdir = str(tmp_path / "prof")
     with debug.profile(logdir) as d:
-        with debug.annotate("matmul"):
+        with debug.span("matmul"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     assert d == logdir
     with open(os.path.join(logdir, "trace.json")) as f:

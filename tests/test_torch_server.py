@@ -235,25 +235,68 @@ def test_bad_json_matches_jax(servers):
             "type": "invalid_request_error"}})
 
 
+PORT_METRICS = [  # the port's own, after the JAX server's
+    "llamagguf_step_rows_real_total", "llamagguf_step_rows_launched_total",
+    *(f"llamagguf_{span}_seconds_{part}"
+      for span in ("queue_wait", "request_prefill", "request_decode")
+      for part in ("sum", "count")),
+    *(f'llamagguf_step_phase_seconds_total{{phase="{p}"}}'
+      for p in ("admit", "build", "runner", "sample", "emit")),
+    "llamagguf_graph_captures_total",
+    "llamagguf_graph_capture_seconds_total", "llamagguf_graph_pool_bytes"]
+
+
+def _metric_lines(text):
+    return [line.split(" ", 1) for line in text.splitlines()
+            if line and not line.startswith("#")]
+
+
 def test_metrics_match_jax(servers):
+    """The JAX server's keys and comment lines, in its order and with its
+    values; then exactly the port's own (PORT_METRICS)."""
     (gs, got), (ws, want) = _both(servers, "GET", "/metrics")
     assert gs == ws == 200
-
-    def parse(text):
-        return dict(line.split(" ", 1) for line in text.splitlines()
-                    if line and not line.startswith("#"))
-
-    g, w = parse(got), parse(want)
-    assert g.keys() == w.keys()
-    assert [x for x in got.splitlines() if x.startswith("#")] == \
-        [x for x in want.splitlines() if x.startswith("#")]
+    g, w = dict(_metric_lines(got)), dict(_metric_lines(want))
+    assert list(g)[:len(w)] == list(w)
+    assert list(g)[len(w):] == PORT_METRICS
+    want_comments = [x for x in want.splitlines() if x.startswith("#")]
+    assert [x for x in got.splitlines()
+            if x.startswith("#")][:len(want_comments)] == want_comments
     # the counters of requests and tokens agree; how many steps carried
     # them depends on when each request reached its scheduler, and the
     # rate is a time
     timing = {"llamagguf_decode_steps_total", "llamagguf_mixed_steps_total",
               "llamagguf_decode_tokens_per_second"}
-    for key in g.keys() - timing:
+    for key in w.keys() - timing:
         assert g[key] == w[key], key
+
+
+def test_metrics_counters_move_with_traffic(servers):
+    """A completion moves the port's rows, request-span and phase counters;
+    on the CPU no graph is captured."""
+    (_, _), (tbase, _) = servers
+
+    def read():
+        text = requests.get(tbase + "/metrics", timeout=30).text
+        return {k: float(v) for k, v in _metric_lines(text)}
+
+    before = read()
+    got = _call(tbase, "POST", "/v1/completions", {"prompt": PROMPT, **GEN})
+    assert got[0] == 200
+    after = read()
+    moved = [k for k in PORT_METRICS if after[k] > before[k]]
+    assert moved == PORT_METRICS[:-3]
+    # the step's grid: 8 tokens decoded and a prompt prefilled, padded
+    rows = (after["llamagguf_step_rows_real_total"]
+            - before["llamagguf_step_rows_real_total"])
+    launched = (after["llamagguf_step_rows_launched_total"]
+                - before["llamagguf_step_rows_launched_total"])
+    assert GEN["max_tokens"] <= rows < launched
+    for span in ("queue_wait", "request_prefill", "request_decode"):
+        key = f"llamagguf_{span}_seconds_count"
+        assert after[key] == before[key] + 1, key
+    for key in PORT_METRICS[-3:]:
+        assert after[key] == before[key] == 0, key
 
 
 def test_api_keys_match_jax(servers):
