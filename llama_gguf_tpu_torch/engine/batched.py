@@ -8,7 +8,9 @@ llama_gguf_tpu/engine/batched.py).
     ``prefill_chunk`` tokens ride beside decode rows, free rows get position
     ``max_seq`` (the cache's drop slot, models/kv.py), and the LM head runs
     on one position per row. On CUDA each step replays the runner's graph
-    of (max_batch, T bucket, read bound, gathered logits),
+    of (max_batch, T bucket, read bound, gathered logits), or, for a grid
+    wider than one launch, its launch plan: the chunk rows by a row map,
+    the rest in the decode graph (engine/runner.py ``step``),
   * a hybrid model's recurrent state carried across a row's prefill chunks
     (padding freezes it) and zeroed when a new sequence takes the row,
   * an optional prompt cache (engine/prompt_cache.py): a new row's longest
@@ -23,9 +25,10 @@ on the host (engine/runner.py serializes the device's work).
 
 Spans (utils/debug.py): each scheduler iteration that finds a request
 queued or live records one ``batched.step`` (its index ``step``; counters
-``rows_real``, the tokens of live rows, ``rows_launched``, the rows the step
-launched, padding included, and ``prefill_rows``, the tokens of prefill
-chunks; none when admission only reaped cancelled requests and nothing was
+``rows_real``, the tokens of live rows, ``rows_launched``, the rows the
+runner launched, padding included, ``prefill_rows``, the tokens of prefill
+chunks, and ``prefill_launches``, the runner's launches that carried them;
+none when admission only reaped cancelled requests and nothing was
 launched) whose children are ``batched.admit``, ``batched.build`` (the
 step's arrays and read bound), the runner's spans of its step,
 ``batched.sample`` (every row's sampler call and logprobs) and
@@ -79,10 +82,12 @@ class BatchedStats:
     decode_time: float = 0.0
     capture_steps: int = 0
     capture_time: float = 0.0
-    # token rows of the steps: those of live requests, and those launched
-    # (the step's grid, padding included)
+    # token rows of the steps: those of live requests, and those the
+    # runner launched, padding included (runner.last_launch); the prefill
+    # launches among its launches
     rows_real: int = 0
     rows_launched: int = 0
+    prefill_launches: int = 0
     # the request spans: seconds summed, and how many ended (queued: submit
     # to admission or abort; prefill: to the first sampled token or abort;
     # decode: to the finish)
@@ -502,11 +507,6 @@ class BatchedEngine:
             need = dec + done_pre
             prefill_rows = sum(len(c) for c in chunks.values())
             real = prefill_rows + len(dec)
-            self.stats.rows_real += real
-            self.stats.rows_launched += b * bt
-            if step is not None:
-                step.counters = {"rows_real": real, "rows_launched": b * bt,
-                                 "prefill_rows": prefill_rows}
         self.stats.build_time += sp.seconds
         t0 = time.monotonic()
         captures = self.runner.captures
@@ -516,6 +516,17 @@ class BatchedEngine:
             logit_positions=lp, host_rows=[s.slot for s in need])
         dt = time.monotonic() - t0
         self.stats.runner_time += dt
+        # what the runner launched: its plan's launches, or the whole grid
+        # (a stand-in runner that reports nothing)
+        launches, launched = self.runner.last_launch or (int(bt > 1),
+                                                         b * bt)
+        self.stats.rows_real += real
+        self.stats.rows_launched += launched
+        self.stats.prefill_launches += launches
+        if step is not None:
+            step.counters = {"rows_real": real, "rows_launched": launched,
+                             "prefill_rows": prefill_rows,
+                             "prefill_launches": launches}
         if self.runner.captures > captures:
             self.stats.capture_steps += 1
             self.stats.capture_time += dt

@@ -22,6 +22,14 @@ owns one, the single-stream paths use the unowned one). A cache it did not
 make runs eagerly and is counted in ``eager_steps``. On the CPU every step
 runs eagerly (the plain path).
 
+A step whose grid is wider than one launch of ``LAUNCH_TOKENS`` token rows
+runs as a launch plan (``step``): the rows that carry a prefill chunk go G
+at a time through a (G, T) forward that scatters and gathers their cache
+rows by a row map, and every other row rides the (B, 1) decode graph, so
+the padding of a continuous batch's mixed step is not computed. The plan
+follows from the step's key and the cache's kinds alone, so a key's first
+step, whatever its inputs, captures every graph of its plan.
+
 Threads: the runner is the one module that makes a served model's CUDA
 calls, and it serializes them itself. Every step, capture, greedy loop and
 embedding forward holds one re-entrant lock per device, and the forms a
@@ -51,8 +59,11 @@ Spans (utils/debug.py): a ``step`` records ``runner.inputs`` (its int32
 inputs packed and copied), then ``runner.replay`` (preceded by
 ``runner.capture`` at a key's first step) or, on the eager path,
 ``runner.forward``, then ``runner.fetch`` (the picked rows' logits copied to
-the host, with ``host_rows``). Counters: ``captures``, ``capture_seconds``
-(their total), ``pool_bytes``, ``replays`` per key, ``eager_steps``.
+the host, with ``host_rows``); a plan's launches run inside the one
+``runner.replay`` or ``runner.forward``. Counters: ``captures``,
+``capture_seconds`` (their total), ``pool_bytes``, ``replays`` per key,
+``eager_steps``, and ``last_launch``, the prefill launches and token rows
+of the calling thread's last step.
 
 ``MeshRunner`` is one rank's runner under a (data, model) mesh
 (parallel/): its params are the rank's shard, its caches the rank's heads
@@ -118,6 +129,22 @@ def read_bucket(n: int, max_seq: int) -> int:
     while b < n:
         b *= 2
     return min(b, max_seq)
+
+
+# the most token rows one prefill launch of a step's launch plan carries
+LAUNCH_TOKENS = 512
+# the cache formats a launch plan's row map covers (models/kv.write and read
+# scatter and gather them by row); tq and qjl steps run the whole grid
+PLAN_FORMATS = ("f32", "bf16", "i8", "f8_e4m3", "f8_e5m2")
+
+
+def launch_rows(t: int) -> int:
+    """G, the rows of one prefill launch of a T = ``t`` step's plan: the
+    largest power of two with G * t <= max(t, LAUNCH_TOKENS)."""
+    g = 1
+    while 2 * g * t <= max(t, LAUNCH_TOKENS):
+        g *= 2
+    return g
 
 
 TIER_CAP_MAX = 8  # most rows the high tier will carry
@@ -254,6 +281,8 @@ class ModelRunner:
         self.captures = 0
         self.capture_seconds = 0.0
         self.pool_bytes = 0
+        # (prefill launches, rows launched) of each thread's last step
+        self._launched = threading.local()
         self._debug_logged = False
         # the runners whose params alias this one's (share_params), itself
         # included: reset_graphs drops the graphs of them all
@@ -465,18 +494,19 @@ class ModelRunner:
             return min(read_bound, self.max_seq)
         return None
 
-    def _forward(self, kv, read_bound, tokens, positions, lengths, lp=None):
+    def _forward(self, kv, read_bound, tokens, positions, lengths, lp=None,
+                 rows=None):
         logits, _ = forward(self.params, self.cfg, tokens, positions, kv,
                             lengths, read_bound=read_bound,
                             logit_positions=lp,
-                            precision=self.matmul_precision)
+                            precision=self.matmul_precision, rows=rows)
         return logits
 
     def _step_logits(self, b: int, t: int, read_bound, gather: bool,
                      kv: dict, parts: tuple, copy: bool) -> torch.Tensor:
-        """The logits of one step on ``kv``: eagerly, or by replaying the
-        graph of its key (``copy``: the caller's own copy of the graph's
-        output, else the output buffer itself)."""
+        """The logits of one step on ``kv`` over its whole grid: eagerly, or
+        by replaying the graph of its key (``copy``: the caller's own copy
+        of the graph's output, else the output buffer itself)."""
         cache = self._graphed(kv)
         if cache is None:
             with span("runner.inputs"):
@@ -496,34 +526,150 @@ class ModelRunner:
             self._replay(g)
         return g.out.clone() if copy else g.out
 
-    def _step_graph(self, b: int, t: int, read_bound, gather: bool,
-                    kv: dict, cache: tuple) -> _Graph:
-        key = self._graph_key((b, t, read_bound, gather), cache)
+    def _packed_graph(self, key: tuple, m: int, t: int, n: int,
+                      run) -> _Graph:
+        """The graph of ``key``, captured at its first use: ``run(buf)``
+        is the step on a packed int32 buffer of ``n`` values whose
+        [m * t, 2 * m * t) part is the positions; the warm-up's buffer is
+        all padding (every position the drop slot, every other value 0)."""
         g = self._graphs.get(key)
         if g is not None:
             return g
-        n = 2 * b * t + b + (b if gather else 0)
-        dev = self.device
+        dummy = torch.zeros(n, dtype=torch.int32, device=self.device)
+        dummy[m * t: 2 * m * t] = self.max_seq  # every write dropped
+        inputs = dummy.clone()
+        with span("runner.capture"):
+            g = self._graphs[key] = self._capture(
+                key, lambda: run(dummy), lambda: run(inputs), inputs)
+        return g
 
+    def _step_graph(self, b: int, t: int, read_bound, gather: bool,
+                    kv: dict, cache: tuple) -> _Graph:
         def unpack(buf):
             lp = buf[2 * b * t + b:].view(b) if gather else None
             return (buf[:b * t].view(b, t), buf[b * t: 2 * b * t].view(b, t),
                     buf[2 * b * t: 2 * b * t + b].view(b), lp)
 
-        dummy = torch.zeros(n, dtype=torch.int32, device=dev)
-        dummy[b * t: 2 * b * t] = self.max_seq  # every write dropped
-        inputs = dummy.clone()
-        with span("runner.capture"):
-            g = self._graphs[key] = self._capture(
-                key, lambda: self._forward(kv, read_bound, *unpack(dummy)),
-                lambda: self._forward(kv, read_bound, *unpack(inputs)),
-                inputs)
-        return g
+        return self._packed_graph(
+            self._graph_key((b, t, read_bound, gather), cache), b, t,
+            2 * b * t + b + (b if gather else 0),
+            lambda buf: self._forward(kv, read_bound, *unpack(buf)))
+
+    @staticmethod
+    def _unpack_rows(buf: torch.Tensor, g: int, t: int) -> tuple:
+        """A prefill launch's packed inputs: tokens and positions [G, T],
+        lengths, logit positions and the row map [G]."""
+        n = g * t
+        return (buf[:n].view(g, t), buf[n: 2 * n].view(g, t),
+                buf[2 * n: 2 * n + g], buf[2 * n + g: 2 * n + 2 * g],
+                buf[2 * n + 2 * g: 2 * n + 3 * g])
+
+    def _rows_graph(self, b: int, t: int, bound, kv: dict,
+                    cache: tuple) -> _Graph:
+        """The prefill launch's graph of a (b, t) step's plan at read bound
+        ``bound``: G = launch_rows(t) rows of ``kv`` by its row map."""
+        g = launch_rows(t)
+        return self._packed_graph(
+            self._graph_key((b, t, bound, "rows"), cache), g, t,
+            2 * g * t + 3 * g,
+            lambda buf: self._forward(kv, bound,
+                                      *self._unpack_rows(buf, g, t)))
+
+    def _plan_rows(self, b: int, t: int, gather: bool, kv: dict) -> int:
+        """G when a step of key (b, t, gathered logits) on ``kv`` runs as a
+        launch plan, else 0 (one launch over the whole grid). From the key
+        and the cache's kinds alone: gathered logits, G < b, a cache the
+        row map covers, one device."""
+        if not gather or self.mesh is not None or "k_swa" in kv \
+                or "deltanet" in kv or "mamba" in kv \
+                or self.kv_format not in PLAN_FORMATS:
+            return 0
+        g = launch_rows(t)
+        return g if g < b else 0
+
+    def _planned_logits(self, b: int, t: int, g: int, read_bound,
+                        kv: dict, parts: tuple, host_rows) -> torch.Tensor:
+        """The logits [b, 1, V] of a step run as its launch plan (``step``),
+        the caller's own, the picked rows' set (a row no launch ran holds
+        zeros); records the launches that ran in ``last_launch``.
+
+        Each launch's rows are copied out of its graph's output before the
+        next launch replays: the graphs share one memory pool, in which a
+        graph captured before another may keep its scratch where the other
+        keeps its output."""
+        tokens, positions, lengths, lp = (
+            np.asarray(p.cpu() if torch.is_tensor(p) else p, np.int32)
+            for p in parts)
+        drop = self.max_seq
+        live = (positions >= 0) & (positions < drop)
+        # a chunk row: a live column past the first, or its logits at one
+        chunk = live[:, 1:].any(1) | (live[:, 0] & (lp != 0))
+        pre = np.flatnonzero(chunk)
+        picked = range(b) if host_rows is None else host_rows
+        decode = bool(live[~chunk, 0].any()) or \
+            not all(chunk[r] for r in picked)
+        bound = read_bound[1] if isinstance(read_bound, tuple) \
+            else read_bound
+        packed = [np.where(chunk, 0, tokens[:, 0]),
+                  np.where(chunk, drop, positions[:, 0]),
+                  np.where(chunk, 0, lengths)]
+        launches = []  # (offset in the packed inputs, real rows)
+        off = 3 * b
+        for i in range(0, len(pre), g):
+            rows = pre[i: i + g]
+            sel = np.concatenate([rows, np.full(g - len(rows), rows[0])])
+            tk, ps, ln, lq = tokens[sel], positions[sel], lengths[sel], \
+                lp[sel]
+            n = len(rows)  # spare places: all padding, writes dropped
+            tk[n:], ps[n:], ln[n:], lq[n:] = 0, drop, 0, 0
+            packed += [tk.reshape(-1), ps.reshape(-1), ln, lq, sel]
+            launches.append((off, n))
+            off += 2 * g * t + 3 * g
+        cache = self._graphed(kv)
+        if cache is not None:  # the whole plan, at the key's first use
+            dg = self._step_graph(b, 1, read_bound, False, kv, cache)
+            pg = self._rows_graph(b, t, bound, kv, cache)
+        with span("runner.inputs"):
+            buf = torch.from_numpy(np.concatenate(packed).astype(
+                np.int32)).to(self.device)
+        m = 2 * g * t + 3 * g
+        with span("runner.replay" if cache is not None else
+                  "runner.forward"):
+            out = None
+            if decode and cache is not None:
+                dg.inputs.copy_(buf[:3 * b])
+                self._replay(dg)
+                out = dg.out.clone()
+            elif decode:
+                out = self._forward(kv, read_bound, buf[:b].view(b, 1),
+                                    buf[b: 2 * b].view(b, 1),
+                                    buf[2 * b: 3 * b])
+            for o, n in launches:
+                if cache is not None:
+                    pg.inputs.copy_(buf[o: o + m])
+                    self._replay(pg)
+                    res, rows = pg.out, pg.inputs[m - g: m]
+                else:
+                    inputs = self._unpack_rows(buf[o: o + m], g, t)
+                    res, rows = self._forward(kv, bound, *inputs), inputs[4]
+                if out is None:
+                    out = res.new_zeros((b, *res.shape[1:]))
+                out.index_copy_(0, rows[:n].long(), res[:n])
+        self._launched.value = (len(launches), len(launches) * g * t
+                                + (b if decode else 0))
+        return out
 
     # -- steps ---------------------------------------------------------------
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.int32).to(self.device)
+
+    @property
+    def last_launch(self) -> tuple[int, int] | None:
+        """(prefill launches, token rows launched) of this thread's last
+        ``step`` on this runner, padding included; None before its
+        first."""
+        return getattr(self._launched, "value", None)
 
     @torch.no_grad()
     def step(self, tokens, positions, lengths, kv: dict,
@@ -537,15 +683,34 @@ class ModelRunner:
         kv): the logits are the caller's own (a copy of a graph's output).
         ``host_rows``: a list of batch rows; the logits are then those rows'
         last column, copied to the host as one f32 [len(host_rows), V]
-        array under the runner's lock (none copied for an empty list)."""
+        array under the runner's lock (none copied for an empty list).
+
+        A step with gathered logits whose grid is wider than one launch of
+        ``LAUNCH_TOKENS`` rows (G = launch_rows(T) < B) runs as a launch
+        plan, on a cache the row map covers (PLAN_FORMATS, no SWA ring, no
+        recurrent state, one device): the chunk rows (a live column past
+        the first, or logits at one) run G at a time through the prefill
+        launch, a (G, T) forward over their cache rows by a row map at the
+        read bound (a tier's hi), its spare places all padding; every other
+        row rides the decode launch, the (B, 1) step at the same read
+        bound from column 0, with the chunk rows' position the drop slot
+        and length 0. The picked rows' logits are put together on the
+        device. On CUDA the key's first step captures both launches'
+        graphs, whatever its inputs. ``last_launch`` reads what ran."""
         b, t = np.shape(tokens)
         read_bound = self._norm_bound(read_bound)
         gather = logit_positions is not None and t > 1
         parts = (tokens, positions, lengths) + (
             (logit_positions,) if gather else ())
         with self._lock:
-            out = self._step_logits(b, t, read_bound, gather, kv, parts,
-                                    copy=host_rows is None)
+            g = self._plan_rows(b, t, gather, kv)
+            if g:
+                out = self._planned_logits(b, t, g, read_bound, kv, parts,
+                                           host_rows)
+            else:
+                out = self._step_logits(b, t, read_bound, gather, kv, parts,
+                                        copy=host_rows is None)
+                self._launched.value = (int(t > 1), b * t)
             if host_rows is None:
                 return out, kv
             with span("runner.fetch"):
@@ -766,10 +931,11 @@ class MeshRunner(ModelRunner):
     """One rank's runner under a (data, model) mesh (parallel/sharding.py),
     one process per rank. ``params`` are this rank's shard; its caches hold
     its heads and, for a batch the data axis divides, its B/data rows. A
-    step runs the rank's rows and gathers the logits over the data axis, so
-    every rank returns the whole batch; the tier of a ragged batch is picked
-    over every row with ``shards`` = data and selected over the rank's own
-    rows, which is the JAX package's tier grouped per data shard.
+    step runs the rank's rows over the whole grid (no launch plan) and
+    gathers the logits over the data axis, so every rank returns the whole
+    batch; the tier of a ragged batch is picked over every row with
+    ``shards`` = data and selected over the rank's own rows, which is the
+    JAX package's tier grouped per data shard.
 
     Every rank must make the same calls in the same order, as the same
     tensors pass through each collective. Under ``parallel/service.serve_spmd``

@@ -195,14 +195,17 @@ def _quantize_i8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _set_at_positions(cache: torch.Tensor, value: torch.Tensor,
-                      positions: torch.Tensor) -> None:
-    """cache [B, S+1, ...] <- value [B, T, ...] at positions [B, T], in
-    place; positions outside [0, S) go to the drop slot S, so they never
-    clobber live entries."""
+                      positions: torch.Tensor,
+                      rows: torch.Tensor | None = None) -> None:
+    """cache [B, S+1, ...] <- value [b, T, ...] at positions [b, T], in
+    place, into batch rows ``rows`` [b] (default: rows 0..b-1); positions
+    outside [0, S) go to the drop slot S, so they never clobber live
+    entries."""
     s = cache.shape[1] - 1
     pos = torch.where((positions >= 0) & (positions < s), positions,
                       torch.full_like(positions, s)).long()
-    b_idx = torch.arange(value.shape[0], device=cache.device)[:, None]
+    b_idx = (torch.arange(value.shape[0], device=cache.device)
+             if rows is None else rows.long())[:, None]
     byte_view(cache).index_put_((b_idx.expand_as(pos), pos),
                            byte_view(_cast(value, cache.dtype)))
 
@@ -228,12 +231,15 @@ def _encode(kv: dict[str, Any], k: torch.Tensor, v: torch.Tensor
 
 
 def write(kv: dict[str, Any], layer: int, k: torch.Tensor, v: torch.Tensor,
-          positions: torch.Tensor) -> dict[str, Any]:
+          positions: torch.Tensor, rows: torch.Tensor | None = None
+          ) -> dict[str, Any]:
     """Scatter new K/V [B, T, H_kv, D] at per-token positions [B, T], in
     place, quantized to the cache's format (and its scales). Padding tokens
-    carry positions >= max_seq and are dropped."""
+    carry positions >= max_seq and are dropped. ``rows``: optional [B]
+    cache batch row of each input row (the runner's row map), as ``read``
+    gathers them; default the input rows themselves."""
     for key, value in _encode(kv, k, v).items():
-        _set_at_positions(kv[key][layer], value, positions)
+        _set_at_positions(kv[key][layer], value, positions, rows)
     return kv
 
 

@@ -74,7 +74,9 @@ def _glu(g: torch.Tensor, u: torch.Tensor, act: Activation) -> torch.Tensor:
 def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv: dict, layer_idx: int,
                   lengths: torch.Tensor, read_bound=None,
-                  precision: str | None = None) -> tuple[torch.Tensor, dict]:
+                  precision: str | None = None,
+                  rows: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, dict]:
     """Multi-head latent attention (DeepSeek-V2/V3) in the JAX package's
     absorbed form: queries move into the latent's rank space,
 
@@ -114,7 +116,7 @@ def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                           layer["w_uk"].float())
     q_eff = torch.cat([q_rank, q_rope.float()], dim=-1)
     k_eff = torch.cat([c_kv[:, :, None, :], k_rope.float()], dim=-1)
-    KV.write(kv, layer_idx, k_eff, c_kv[:, :, None, :], positions)
+    KV.write(kv, layer_idx, k_eff, c_kv[:, :, None, :], positions, rows)
 
     qg = q_eff.reshape(b, t, 1, nh, rank + rope_dim)  # one KV head, R = nh
     akw = dict(scale=cfg.attention_scale or cfg.head_dim ** -0.5,
@@ -129,7 +131,7 @@ def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         ctx = tiered_attention(read_fn, qg, positions, lengths, lo, hi,
                                tier_idx, **akw)
     else:
-        keys, vals = read_fn(read_bound, None)
+        keys, vals = read_fn(read_bound, rows)
         ctx = attention_scores(qg, keys, vals, positions, lengths, **akw)
     out_v = torch.einsum("bthr,hvr->bthv", ctx[:, :, 0],
                          layer["w_uv"].float())  # [B, T, nh, v]
@@ -141,15 +143,16 @@ def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, kv: dict, layer_idx: int,
               lengths: torch.Tensor, read_bound: int | None = None,
-              precision: str | None = None) -> tuple[torch.Tensor, dict]:
+              precision: str | None = None,
+              rows: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Attention with KV cache. x [B, T, H]; positions [B, T]; lengths [B]
     (valid cache length AFTER this step's tokens are written);
     ``read_bound``: cap on cache positions to read (every valid position <
     read_bound), or ``(lo, hi, tier_idx)`` for two-tier ragged decode
-    (``forward`` selects ``tier_idx``)."""
+    (``forward`` selects ``tier_idx``); ``rows``: ``forward``'s row map."""
     if "kv_a" in layer:  # MLA (DeepSeek-V2/V3)
         return mla_attention(layer, cfg, x, positions, kv, layer_idx,
-                             lengths, read_bound, precision)
+                             lengths, read_bound, precision, rows)
     b, t, _ = x.shape
     hd = cfg.head_dim
     vd = cfg.value_length or hd
@@ -214,13 +217,16 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     # whole, masked by stored position), full layers the plain stack; with
     # no ring every layer indexes the plain stack directly
     ring = "k_swa" in kv and cfg.layer_is_swa(layer_idx)
+    if rows is not None and (ring or cfg.kv_format == "qjl"):
+        raise ValueError("a row map needs the plain or MLA cache, not the "
+                         "SWA ring or qjl")
     cache_idx = (cfg.swa_index(layer_idx) if ring
                  else cfg.full_index(layer_idx) if "k_swa" in kv
                  else layer_idx)
     if ring:
         KV.write_swa(kv, cache_idx, k, v, positions, window)
     else:
-        KV.write(kv, cache_idx, k, v, positions)
+        KV.write(kv, cache_idx, k, v, positions, rows)
 
     rep = nh // nkv
     qg = q.reshape(b, t, nkv, rep, hd).float()
@@ -267,7 +273,7 @@ def attention(layer: dict, cfg: ModelConfig, x: torch.Tensor,
             ctx = tiered_attention(read_fn, qg, positions, lengths, lo, hi,
                                    tier_idx, **akw)
         else:
-            keys, vals = read_fn(read_bound, None)
+            keys, vals = read_fn(read_bound, rows)
             ctx = attention_scores(qg, keys, vals, positions, lengths,
                                    **akw)
     ctx = ctx.reshape(b, t, nh * vd).to(x.dtype)
@@ -513,14 +519,15 @@ def transformer_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, kv: dict, layer_idx: int,
                       lengths: torch.Tensor,
                       read_bound: int | None = None,
-                      precision: str | None = None
+                      precision: str | None = None,
+                      rows: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, dict]:
     def norm(p, xx):
         return apply_norm(xx, p, cfg.norm_eps, cfg.uses_layer_norm)
 
     h = norm(layer["attn_norm"], x) if layer.get("attn_norm") else x
     attn_out, kv = attention(layer["attn"], cfg, h, positions, kv, layer_idx,
-                             lengths, read_bound, precision)
+                             lengths, read_bound, precision, rows)
     if "post_attn_norm" in layer:  # Gemma2/3: norm applied to attn output
         attn_out = norm(layer["post_attn_norm"], attn_out)
 
@@ -567,11 +574,17 @@ RECURRENT_LAYERS = {**deltanet.LAYERS, **mamba.LAYERS}
 def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv: dict, layer_idx: int,
                   lengths: torch.Tensor, read_bound=None,
-                  precision: str | None = None) -> tuple[torch.Tensor, dict]:
+                  precision: str | None = None,
+                  rows: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, dict]:
     """Layer ``layer_idx`` by its kind (cfg.layer_kinds): an attention
     block, a Falcon-H1 parallel hybrid, or a recurrent block (DeltaNet,
-    Mamba-1, Mamba-2, LFM2's short conv; these ignore the read bound)."""
+    Mamba-1, Mamba-2, LFM2's short conv; these ignore the read bound).
+    ``rows`` (``forward``'s row map) reaches attention blocks alone."""
     kind = cfg.layer_kinds[layer_idx] if cfg.layer_kinds else "attn"
+    if rows is not None and kind != "attn":
+        raise ValueError(f"a row map does not cover {kind!r} layers: their "
+                         "recurrent state is indexed by input row")
     if kind in RECURRENT_LAYERS:
         return RECURRENT_LAYERS[kind][1](layer, cfg, x, positions, kv,
                                          layer_idx, lengths, precision)
@@ -581,7 +594,7 @@ def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     if kind != "attn":
         raise ValueError(f"unknown layer kind {kind!r}")
     return transformer_layer(layer, cfg, x, positions, kv, layer_idx,
-                             lengths, read_bound, precision)
+                             lengths, read_bound, precision, rows)
 
 
 def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -620,7 +633,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, kv: dict, lengths: torch.Tensor,
             read_bound: int | None = None,
             logit_positions: torch.Tensor | None = None,
-            precision: str | None = None) -> tuple[torch.Tensor, dict]:
+            precision: str | None = None,
+            rows: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Full forward. tokens/positions: [B, T]; lengths: [B] valid KV length
     after writing this step. ``read_bound``: cap on KV positions attention
     reads; None reads the whole cache. ``logit_positions``: optional [B]
@@ -636,7 +650,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     rows are selected here on the device, with one top-k over ``lengths``.
     ``shards`` > 1 groups the selection into that many contiguous batch
     groups of B/shards rows (where it divides B), each with its own top-k
-    of ``cap`` rows, as the JAX package selects the tier per data shard."""
+    of ``cap`` rows, as the JAX package selects the tier per data shard.
+
+    ``rows``: an optional row map, [B] int: input row i is the cache's batch
+    row ``rows[i]``, which its K/V writes scatter to and its attention
+    reads gather from, so a step can run a few rows of a larger cache
+    (engine/runner.py's launch plan). It takes a single read bound, and
+    attention layers over the plain or MLA cache (not the SWA ring, qjl or
+    a recurrent state)."""
+    if rows is not None and isinstance(read_bound, tuple):
+        raise ValueError("a row map takes a single read bound, not a tier")
     if isinstance(read_bound, tuple):
         lo, hi, cap, *rest = read_bound
         shards = rest[0] if rest else 1
@@ -653,7 +676,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     trace_activation("embed", -1, x)
     for i, layer in enumerate(params["layers"]):
         x, kv = layer_forward(layer, cfg, x, positions, kv, i, lengths,
-                              read_bound, precision)
+                              read_bound, precision, rows)
         trace_activation("out", i, x)
     if logit_positions is not None and x.shape[1] > 1:
         idx = logit_positions.long()[:, None, None].expand(-1, 1, x.shape[-1])

@@ -16,6 +16,7 @@ import torch
 
 from llama_gguf_tpu_torch.engine.batched import BatchedEngine
 from llama_gguf_tpu_torch.engine.engine import Engine, EngineConfig
+from llama_gguf_tpu_torch.engine.runner import ModelRunner, launch_rows
 from llama_gguf_tpu_torch.gguf.constants import GGMLType
 from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
 from llama_gguf_tpu_torch.utils.synthetic import build_synthetic_gguf
@@ -167,3 +168,62 @@ def test_batched_graph_keys_are_reused(engine):
         be.shutdown()
     # the engine's graphs and cache go back to the runner with it
     assert not [k for k in r._graphs if k[-1] == be._owner]
+
+
+@pytest.mark.cuda
+def test_a_plan_captured_on_padding_serves_live_chunk_rows(engine):
+    """Keys wider than one launch (B = 8, T = 256: prefill launches of G = 2
+    rows beside the decode graph) captured once on all-padding inputs, as a
+    warm-up captures them, then stepped with live chunk rows: no capture
+    more, the eager plan's logits and cache rows on an equal cache, and
+    release_kv drops the plans' graphs. The second key's decode graph is
+    captured after the prefill graph it shares with the first (a tier's hi
+    is the first key's bound), so the pool may hold that graph's scratch
+    where the decode graph keeps its output."""
+    r = ModelRunner(engine.runner.params, engine.runner.cfg, max_batch=B,
+                    max_seq=1024, device="cuda")
+    bt, drop, owner, tier = 256, 1024, "plan-card", (256, 512, 1)
+    assert launch_rows(bt) < B
+    kv = r.init_kv(B, owner=owner)
+    for rb in (512, tier):
+        r.step(np.zeros((B, bt), np.int32), np.full((B, bt), drop, np.int32),
+               np.zeros((B,), np.int32), kv, read_bound=rb,
+               logit_positions=np.zeros((B,), np.int32), host_rows=[0])
+    assert {(B, bt, 512, "rows", owner), (B, 1, 512, False, owner),
+            (B, 1, (256, 512, 1, 1), False, owner)} <= set(r._graphs)
+    captures = r.captures
+    ekv = r._make_kv(B)  # not the runner's: the eager plan
+    rng = np.random.default_rng(4)
+    vocab = r.cfg.vocab_size
+    # (read bound, row -> (start, tokens) of a chunk); every other row
+    # decodes at 40 + row
+    for rb, chunks in ((512, {0: (0, 200)}),  # one chunk row
+                       (512, {1: (0, 180), 2: (10, 100), 4: (0, 256),
+                              5: (50, 2), 7: (0, 90)}),  # three launches
+                       (tier, {3: (300, 150), 6: (60, 1)})):  # one token
+        gen = torch.Generator(device="cuda").manual_seed(len(chunks))
+        for key in ("k", "v"):
+            for a, b in zip(kv[key], ekv[key]):
+                a.copy_(torch.randn(a.shape, generator=gen, device="cuda")
+                        .to(a.dtype) * 0.5)
+                b.copy_(a)
+        toks = rng.integers(3, vocab, size=(B, bt)).astype(np.int32)
+        pos = np.full((B, bt), drop, np.int32)
+        lens, lp = np.zeros((B,), np.int32), np.zeros((B,), np.int32)
+        for i in range(B):
+            start, n = chunks.get(i, (40 + i, 1))
+            pos[i, :n] = start + np.arange(n)
+            lens[i], lp[i] = start + n, n - 1 if i in chunks else 0
+        rows = list(range(B))
+        got, _ = r.step(toks, pos, lens, kv, read_bound=rb,
+                        logit_positions=lp, host_rows=rows)
+        want, _ = r.step(toks, pos, lens, ekv, read_bound=rb,
+                         logit_positions=lp, host_rows=rows)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+        for key in ("k", "v"):
+            for a, b in zip(kv[key], ekv[key]):
+                a, b = a[:, :drop].float(), b[:, :drop].float()
+                assert ((a - b).abs().max() <= 1e-4 * b.abs().max()).item()
+    assert r.captures == captures and r.eager_steps == 3
+    r.release_kv(owner)
+    assert not [k for k in r._graphs if k[-1] == owner]

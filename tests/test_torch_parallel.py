@@ -276,6 +276,43 @@ def test_batched_engine_over_mesh_matches_one_device(gguf):
         eng.close()
 
 
+def test_mesh_step_keeps_the_whole_grid(gguf):
+    """A step wider than one launch of the runner's launch plan runs over
+    its whole grid on a mesh, its rows split over the data axis: one
+    launch, equal to the grid's forward on one device."""
+    from llama_gguf_tpu_torch.engine.runner import launch_rows
+    from llama_gguf_tpu_torch.models.transformer import forward
+
+    path = gguf("tiny", "F32")
+    b, t, max_seq = 2, 512, 1024
+    assert launch_rows(t) < b
+    rng = np.random.default_rng(2)
+    toks = rng.integers(3, 500, size=(b, t)).astype(np.int32)
+    pos = np.full((b, t), max_seq, np.int32)
+    pos[0, :300], pos[1, 0] = np.arange(300), 5
+    lens, lp = np.asarray([300, 6], np.int32), np.asarray([299, 0], np.int32)
+    eng = Engine.load(path, EngineConfig(
+        weight_mode="dequant", max_batch=b, max_context_len=max_seq,
+        mesh_data=2, mesh_model=1), device="cpu")
+    try:
+        r = eng.runner
+        got, _ = r.step(toks, pos, lens, r.init_kv(b), read_bound=512,
+                        logit_positions=lp)
+        assert r.last_launch == (1, b * t)
+    finally:
+        eng.close()
+    one = Engine.load(path, EngineConfig(
+        weight_mode="dequant", max_batch=b, max_context_len=max_seq),
+        device="cpu").runner
+    with torch.no_grad():
+        want, _ = forward(one.params, one.cfg, torch.from_numpy(toks),
+                          torch.from_numpy(pos), one.init_kv(),
+                          torch.from_numpy(lens), read_bound=512,
+                          logit_positions=torch.from_numpy(lp),
+                          precision=one.matmul_precision)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
 def test_server_over_mesh_matches_jax(tmp_path):
     """``serve --tp 2 --dp 2``: the server's ServerState over a (2, 2)
     mesh (its warm-up and scheduler on MeshRunner) answers a greedy chat

@@ -3,6 +3,7 @@ ragged read bound (pick_read_bound, the tuple read bound of forward,
 tiered attention and kv.read's row gather), ragged greedy_decode, the
 runner-owned KV cache and the CLI's bench."""
 
+import copy
 import json
 
 import numpy as np
@@ -28,6 +29,8 @@ from llama_gguf_tpu_torch.models.loader import load_model as tload
 from llama_gguf_tpu_torch.models.transformer import forward
 from llama_gguf_tpu_torch.ops import qmatmul as Q
 from llama_gguf_tpu_torch.sampling.sampler import SamplerConfig
+from llama_gguf_tpu_torch.utils.synthetic import (
+    build_synthetic_gguf as tbuild)
 
 torch.set_num_threads(1)
 
@@ -296,3 +299,208 @@ def test_cli_bench_defaults():
             cli._pick(args, "gen_tokens", bench.gen_tokens),
             args.device) == (32, 64, "cuda")
     assert args.batch == 2 and args.profile
+
+
+# -- the launch plan ---------------------------------------------------------
+
+def _fill(kv, seed):
+    """Random values in every K/V row of ``kv``, so attention reads
+    context."""
+    gen = torch.Generator().manual_seed(seed)
+    for key in ("k", "v"):
+        for t in kv[key]:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+    return kv
+
+
+@pytest.fixture(scope="module", params=["tiny", "tiny-moonlight"],
+                ids=["gqa", "mla"])
+def plan_runner(request, tmp_path_factory):
+    """A B = 4 runner of 1024 positions over a GQA (qwen2) or an MLA
+    (deepseek2) model."""
+    path = str(tmp_path_factory.mktemp("plan") / f"{request.param}.gguf")
+    tbuild(path, preset=request.param, quant=GGMLType.Q4_K)
+    tp, tcfg, _ = tload(path, device="cpu")
+    return trunner.ModelRunner(tp, tcfg, max_batch=4, max_seq=MAX_SEQ,
+                               device="cpu")
+
+
+# each row: ("chunk", start, n) a prefill chunk, ("one", pos) a chunk of one
+# token, ("decode", pos), or None (a free row); then the T bucket, the read
+# bound (None: pick_read_bound's) and the launches expected: (prefill
+# launches, rows launched)
+PLANS = {
+    "one_chunk": ([("chunk", 0, 200), ("decode", 300), None,
+                   ("decode", 40)], 256, 512, (1, 2 * 256 + 4)),
+    "several_launches": ([("chunk", 0, 500), ("chunk", 100, 300),
+                          ("decode", 20), ("chunk", 600, 64)], 512, 1024,
+                         (3, 3 * 512 + 4)),
+    "tier": ([("chunk", 300, 200), ("decode", 10), ("chunk", 0, 256),
+              ("decode", 20)], 256, None, (1, 2 * 256 + 4)),
+    "one_token_chunk": ([("chunk", 0, 200), ("one", 50), ("decode", 30),
+                         None], 256, 512, (1, 2 * 256 + 4)),
+    "all_padding": ([None] * 4, 512, 512, (0, 4)),
+}
+
+
+def _plan_inputs(rows, bt, vocab):
+    rng = np.random.default_rng(7)
+    b = len(rows)
+    toks = rng.integers(3, vocab, size=(b, bt)).astype(np.int32)
+    pos = np.full((b, bt), MAX_SEQ, np.int32)
+    lens = np.zeros((b,), np.int32)
+    lp = np.zeros((b,), np.int32)
+    for i, row in enumerate(rows):
+        if row is None:
+            continue
+        if row[0] == "chunk":
+            _, start, n = row
+            pos[i, :n] = start + np.arange(n)
+            lens[i], lp[i] = start + n, n - 1
+        else:
+            pos[i, 0] = row[1]
+            lens[i] = row[1] + 1
+    return toks, pos, lens, lp
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_planned_step_matches_the_full_grid(plan_runner, case):
+    """A step wider than one launch runs as its plan: the picked rows'
+    logits and the rows it writes equal the whole grid's forward, and
+    every other row of the cache is left bit for bit."""
+    r = plan_runner
+    rows, bt, rb, launches = PLANS[case]
+    toks, pos, lens, lp = _plan_inputs(rows, bt, r.cfg.vocab_size)
+    if rb is None:
+        rb = trunner.pick_read_bound(lens, MAX_SEQ)
+        assert isinstance(rb, tuple)
+    assert trunner.launch_rows(bt) < len(rows)
+    kv = _fill(r.init_kv(), 11)
+    before = {key: [t.clone() for t in kv[key]] for key in ("k", "v")}
+    ref = {key: [t.clone() for t in kv[key]] for key in ("k", "v")}
+    with torch.no_grad():
+        want, _ = forward(r.params, r.cfg, torch.from_numpy(toks),
+                          torch.from_numpy(pos), ref, torch.from_numpy(lens),
+                          read_bound=rb, logit_positions=torch.from_numpy(lp),
+                          precision=r.matmul_precision)
+    live = [i for i, row in enumerate(rows) if row is not None]
+    picked = live or [0]
+    got, kv = r.step(toks, pos, lens, kv, read_bound=rb, logit_positions=lp,
+                     host_rows=picked)
+    assert r.last_launch == launches
+    want = want[picked, 0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=LOGIT_ATOL * np.abs(want).max())
+    for key in ("k", "v"):
+        for t, w, b0 in zip(kv[key], ref[key], before[key]):
+            for i in range(len(rows)):
+                g = t[i, :MAX_SEQ]
+                if i in live:
+                    np.testing.assert_allclose(
+                        g.numpy(), w[i, :MAX_SEQ].numpy(), rtol=0,
+                        atol=1e-5 * float(w[i, :MAX_SEQ].abs().max()))
+                else:
+                    assert torch.equal(g, b0[i, :MAX_SEQ])
+
+
+def test_small_grids_run_whole(plan_runner):
+    """A grid one launch holds (G >= B), or a step without gathered
+    logits, is one launch, as before the plan."""
+    r = plan_runner
+    toks, pos, lens, lp = _plan_inputs(
+        [("chunk", 0, 100), ("decode", 7), None, ("chunk", 5, 60)], 128,
+        r.cfg.vocab_size)
+    assert trunner.launch_rows(128) == 4
+    r.step(toks, pos, lens, r.init_kv(), read_bound=256, logit_positions=lp)
+    assert r.last_launch == (1, 4 * 128)
+    toks, pos, lens, _ = _plan_inputs(
+        [("chunk", 0, 200), ("decode", 7), None, None], 256,
+        r.cfg.vocab_size)
+    r.step(toks, pos, lens, r.init_kv(), read_bound=256)
+    assert r.last_launch == (1, 4 * 256)
+    r.step(toks[:, :1], pos[:, :1], lens, r.init_kv(), read_bound=256)
+    assert r.last_launch == (0, 4)
+
+
+@pytest.mark.parametrize("preset,kw", [
+    ("tiny-qwen3next", {}),  # DeltaNet layers' recurrent state
+    ("tiny-gemma3", {"swa_ring_extra": 256}),  # the sliding-window ring
+], ids=["hybrid", "swa_ring"])
+def test_caches_the_row_map_skips_run_whole(tmp_path, preset, kw):
+    """A cache the row map does not cover keeps the whole grid: the step
+    is one launch and equals the forward over the grid, bit for bit."""
+    path = str(tmp_path / f"{preset}.gguf")
+    tbuild(path, preset=preset, quant=GGMLType.Q4_K)
+    tp, tcfg, _ = tload(path, device="cpu")
+    r = trunner.ModelRunner(tp, tcfg, max_batch=4, max_seq=MAX_SEQ,
+                            device="cpu", **kw)
+    kv = r.init_kv()
+    assert ("k_swa" in kv) == (preset == "tiny-gemma3")
+    toks, pos, lens, lp = _plan_inputs(
+        [("chunk", 0, 200), ("decode", 3), None, ("chunk", 0, 150)], 256,
+        r.cfg.vocab_size)
+    assert trunner.launch_rows(256) < 4
+    ref = copy.deepcopy(kv)
+    with torch.no_grad():
+        want, _ = forward(r.params, r.cfg, torch.from_numpy(toks),
+                          torch.from_numpy(pos), ref, torch.from_numpy(lens),
+                          read_bound=512, logit_positions=torch.from_numpy(lp),
+                          precision=r.matmul_precision)
+    got, kv = r.step(toks, pos, lens, kv, read_bound=512, logit_positions=lp)
+    assert r.last_launch == (1, 4 * 256)
+    assert torch.equal(got, want)
+    for key in TKV.POSITIONAL:
+        for x, y in zip(kv.get(key, ()), ref.get(key, ())):
+            assert torch.equal(x, y)
+    for x, y in zip(TKV._state_tensors(kv), TKV._state_tensors(ref)):
+        assert torch.equal(x, y)
+
+
+# one step of each storage format at its largest value: a launch's f32
+# products differ from the grid's in their last bits (another row count),
+# so a stored value may round one step the other way
+STORE_STEP = {"bf16": 2.0 ** -8, "i8": 1 / 127, "f8_e4m3": 2.0 ** -3,
+              "f8_e5m2": 2.0 ** -2}
+
+
+@pytest.mark.parametrize("fmt", list(STORE_STEP))
+def test_planned_step_in_each_plain_format(tmp_path, fmt):
+    """The launch plan on every cache format its row map covers: over a
+    context the grid's forward wrote, three chunk rows in launches of one
+    and a decode row give the grid's logits, and its cache to within one
+    step of the format."""
+    path = str(tmp_path / "tiny.gguf")
+    tbuild(path, preset="tiny", quant=GGMLType.Q4_K)
+    tp, tcfg, _ = tload(path, device="cpu")
+    r = trunner.ModelRunner(tp, tcfg, max_batch=4, max_seq=MAX_SEQ,
+                            kv_format=fmt, device="cpu")
+    kv = r.init_kv()
+    rng = np.random.default_rng(9)
+    ctx = rng.integers(3, r.cfg.vocab_size, size=(4, 512)).astype(np.int32)
+    with torch.no_grad():
+        forward(r.params, r.cfg, torch.from_numpy(ctx),
+                torch.arange(512, dtype=torch.int32).expand(4, 512), kv,
+                torch.full((4,), 512, dtype=torch.int32), read_bound=512,
+                precision=r.matmul_precision)
+    rows = [("chunk", 512, 300), ("decode", 512), ("chunk", 400, 112),
+            ("chunk", 512, 5)]
+    toks, pos, lens, lp = _plan_inputs(rows, 512, r.cfg.vocab_size)
+    ref = copy.deepcopy(kv)
+    with torch.no_grad():
+        want, _ = forward(r.params, r.cfg, torch.from_numpy(toks),
+                          torch.from_numpy(pos), ref, torch.from_numpy(lens),
+                          read_bound=1024,
+                          logit_positions=torch.from_numpy(lp),
+                          precision=r.matmul_precision)
+    got, kv = r.step(toks, pos, lens, kv, read_bound=1024,
+                     logit_positions=lp, host_rows=[0, 1, 2, 3])
+    assert r.last_launch == (3, 3 * 512 + 4)
+    want = want[:, 0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=LOGIT_ATOL * np.abs(want).max())
+    for layer in range(len(kv["k"])):
+        for a, b in zip(TKV.read(kv, layer, bound=MAX_SEQ),
+                        TKV.read(ref, layer, bound=MAX_SEQ)):
+            np.testing.assert_allclose(
+                a.numpy(), b.numpy(), rtol=0,
+                atol=STORE_STEP[fmt] * float(b.abs().max()))

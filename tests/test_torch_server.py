@@ -237,6 +237,7 @@ def test_bad_json_matches_jax(servers):
 
 PORT_METRICS = [  # the port's own, after the JAX server's
     "llamagguf_step_rows_real_total", "llamagguf_step_rows_launched_total",
+    "llamagguf_step_prefill_launches_total",
     *(f"llamagguf_{span}_seconds_{part}"
       for span in ("queue_wait", "request_prefill", "request_decode")
       for part in ("sum", "count")),
@@ -286,12 +287,14 @@ def test_metrics_counters_move_with_traffic(servers):
     after = read()
     moved = [k for k in PORT_METRICS if after[k] > before[k]]
     assert moved == PORT_METRICS[:-3]
-    # the step's grid: 8 tokens decoded and a prompt prefilled, padded
-    rows = (after["llamagguf_step_rows_real_total"]
-            - before["llamagguf_step_rows_real_total"])
-    launched = (after["llamagguf_step_rows_launched_total"]
-                - before["llamagguf_step_rows_launched_total"])
+    # the rows the runner launched: 8 tokens decoded and a prompt
+    # prefilled, padding included; the prompt's prefill in one launch
+    rows, launched, launches = (
+        after[f"llamagguf_step_{k}_total"]
+        - before[f"llamagguf_step_{k}_total"]
+        for k in ("rows_real", "rows_launched", "prefill_launches"))
     assert GEN["max_tokens"] <= rows < launched
+    assert launches == 1
     for span in ("queue_wait", "request_prefill", "request_decode"):
         key = f"llamagguf_{span}_seconds_count"
         assert after[key] == before[key] + 1, key

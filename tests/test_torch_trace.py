@@ -61,24 +61,34 @@ def engines(tmp_path_factory):
     return out
 
 
-def _serve(engine, prompts, max_tokens=6, chunk=8):
-    """Serve ``prompts`` at once through a fresh BatchedEngine, logging the
-    arrays of every runner step. Returns (engine, handles, steps' (tokens,
-    positions)), the ring holding this run's spans alone."""
+def _serve(engine, prompts, max_tokens=6, chunk=8, later=()):
+    """Serve ``prompts`` at once through a fresh BatchedEngine, then
+    ``later`` once each of those has a sampled token, logging the arrays of
+    every runner step and what the runner launched. Returns (engine,
+    handles, steps' (tokens, positions, runner.last_launch)), the ring
+    holding this run's spans alone."""
     r = engine.runner
     be = BatchedEngine(r, engine.tokenizer, max_queue=16,
                        prefill_chunk=chunk)
     step, arrays = r.step, []
 
     def logged(tokens, positions, *a, **kw):
-        arrays.append((np.array(tokens), np.array(positions)))
-        return step(tokens, positions, *a, **kw)
+        out = step(tokens, positions, *a, **kw)
+        arrays.append((np.array(tokens), np.array(positions),
+                       r.last_launch))
+        return out
 
     debug.clear_spans()
     r.step = logged
     try:
         handles = [be.submit(p, max_tokens=max_tokens, sampler=GREEDY)
                    for p in prompts]
+        deadline = time.monotonic() + 240
+        while later and not all(h.token_ids or h.done for h in handles):
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        handles += [be.submit(p, max_tokens=max_tokens, sampler=GREEDY)
+                    for p in later]
         for h in handles:
             h.text(timeout=240)
     finally:
@@ -109,27 +119,68 @@ def test_each_iteration_is_one_step_tree(engines, model):
     assert len(spans) == len(steps) * (1 + len(CHILDREN)) + 3 * len(handles)
 
 
+def _check_counters(be, handles, arrays, max_seq):
+    """Each batched.step's counters are the runner's launches and the live
+    rows of the arrays it was handed; BatchedStats sums them."""
+    steps = sorted((s for s in debug.spans() if s.name == "batched.step"),
+                   key=lambda s: s.step)
+    launches = [n for _, _, (n, _) in arrays]
+    launched = [rows for _, _, (_, rows) in arrays]
+    live = [int((p < max_seq).sum()) for _, p, _ in arrays]
+    assert [s.counters["rows_launched"] for s in steps] == launched
+    assert [s.counters["prefill_launches"] for s in steps] == launches
+    assert [s.counters["rows_real"] for s in steps] == live
+    assert sum(launched) == be.stats.rows_launched
+    assert sum(launches) == be.stats.prefill_launches
+    assert sum(live) == be.stats.rows_real
+    assert all(n <= rows for n, rows in zip(live, launched))
+    # a step carries prefill tokens exactly when its bucket is wider than
+    # 1, and a launch of them when one of its chunks is
+    assert all(s.counters["prefill_rows"] > 0 for s, (t, _, _)
+               in zip(steps, arrays) if t.shape[1] > 1)
+    assert all(s.counters["prefill_rows"] == 0
+               and s.counters["prefill_launches"] == 0
+               for s, (t, _, _) in zip(steps, arrays) if t.shape[1] == 1)
+    assert all(s.counters["prefill_launches"] > 0 for s, (_, p, _)
+               in zip(steps, arrays) if (p[:, 1:] < max_seq).any())
+    assert sum(s.counters["prefill_rows"] for s in steps) == \
+        be.stats.prefill_tokens == sum(h.prompt_tokens for h in handles)
+    assert any(t.shape[1] > 1 for t, _, _ in arrays) and \
+        any(t.shape[1] == 1 for t, _, _ in arrays)
+    return steps
+
+
 @pytest.mark.parametrize("model", list(MODELS))
 def test_step_counters_match_the_runners_arrays(engines, model):
     be, handles, arrays = _serve(engines[model], PROMPTS)
-    steps = sorted((s for s in debug.spans() if s.name == "batched.step"),
-                   key=lambda s: s.step)
-    max_seq = engines[model].runner.max_seq
-    launched = [t.size for t, _ in arrays]  # b x bt
-    live = [int((p < max_seq).sum()) for _, p in arrays]
-    assert [s.counters["rows_launched"] for s in steps] == launched
-    assert [s.counters["rows_real"] for s in steps] == live
-    assert sum(launched) == be.stats.rows_launched
-    assert sum(live) == be.stats.rows_real
-    # a step carries prefill tokens exactly when its bucket is wider than 1
-    assert all(s.counters["prefill_rows"] > 0 for s, (t, _)
-               in zip(steps, arrays) if t.shape[1] > 1)
-    assert all(s.counters["prefill_rows"] == 0 for s, (t, _)
-               in zip(steps, arrays) if t.shape[1] == 1)
-    assert sum(s.counters["prefill_rows"] for s in steps) == \
-        be.stats.prefill_tokens == sum(h.prompt_tokens for h in handles)
-    assert any(t.shape[1] > 1 for t, _ in arrays) and \
-        any(t.shape[1] == 1 for t, _ in arrays)
+    _check_counters(be, handles, arrays, engines[model].runner.max_seq)
+    # grids one launch holds: the whole b x bt
+    assert all(launch == (int(t.shape[1] > 1), t.size)
+               for t, _, launch in arrays)
+
+
+def test_step_counters_read_the_launch_plan(engines):
+    """Chunks of 256 beside decode rows at B = 4: the runner launches the
+    chunk rows two at a time and the decode step for the rest, and the
+    counters read those rows, not the 4 x 256 grid."""
+    eng = engines["tiny-moe"]
+    rng = np.random.default_rng(5)
+    vocab = eng.runner.cfg.vocab_size
+
+    def ids(n):
+        return rng.integers(3, vocab, size=n).tolist()
+
+    be, handles, arrays = _serve(eng, [ids(5), ids(9)], max_tokens=12,
+                                 chunk=256, later=[ids(150), ids(200)])
+    steps = _check_counters(be, handles, arrays, eng.runner.max_seq)
+    planned = [(s, t) for s, (t, _, _) in zip(steps, arrays)
+               if s.counters["rows_launched"] < t.size]
+    assert planned and all(t.shape == (4, 256) for _, t in planned)
+    # the two chunk rows in one prefill launch of 2 x 256, and the decode
+    # launch's 4 rows
+    assert any(s.counters["prefill_launches"] == 1
+               and s.counters["rows_launched"] == 2 * 256 + 4
+               for s, _ in planned)
 
 
 def test_request_spans_tile_each_request(engines):
