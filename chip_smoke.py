@@ -260,7 +260,10 @@ plain version the graphs are held against.
    keys' capture seconds and nodes (kernels one replay launches); a
    greedy decode profile, against the byte bound, beside the scan's time
    (CUDA events) launched alone at a step's shapes, so its share of the
-   profiled step is an estimate from a separate timing; the CLI's bench.
+   profiled step is an estimate from a separate timing; the CLI's bench;
+   kernel 8 (the short conv) at its convs against its plain version, bit
+   for bit with the windows (shortconv_checks: a decode step's identity
+   map, the prefill bucket, a launch plan's row map with a spare place).
    14b: a BatchedEngine at max_batch 4 over 14a's quant weights, the
    HYBRID_REQUESTS prompts, prefill_chunk SERVE_CHUNK: every admission
    clears its row's state (recorded with no host sync; that the clear
@@ -270,9 +273,11 @@ plain version the graphs are held against.
    tiny-lfm2 and tiny-jamba (its MoE half on kernels 4-6) at the Q4_K_M
    mix: the main path as in 14a; every kernel it launched against its
    plain version on the preset's own weights, as in phases 3 and 6, at
-   TINY_ROWS rows (kernels 1-3, each distinct projection shape) and at the
-   prompt's routing (kernels 4-6); phase 9 with TINY_GREEDY_STEPS greedy
-   steps.
+   TINY_ROWS rows (kernels 1-3, each distinct projection shape), at the
+   prompt's routing (kernels 4-6) and at each distinct conv (kernel 8, as
+   in 14a); phase 9 with TINY_GREEDY_STEPS greedy steps; then kernel 8 at
+   LFM2-24B-A2B's width over 48 cache rows (LFM2MOE_CONV: decode 48x1, a
+   512-token row, plans of 4x128 and 2x512 with a spare place).
 
 15. The DeepSeek family (multi-head latent attention over a one-head
    latent cache, DeepSeek-V3's sigmoid routing with its bias, leading
@@ -607,6 +612,11 @@ KERNELS = {
     "variant_w4a8": dict(
         source=VARIANTS_SOURCE,
         replaces=VARIANTS_HELPER + " with the body v8_w4a8 :311-387)"),
+    "short_conv": dict(
+        source="llama_gguf_tpu_torch/csrc/shortconv.cu",
+        replaces="none: the JAX package's conv is XLA ops "
+                 "(llama_gguf_tpu/models/mamba.py:84-97, shortconv_layer "
+                 ":380)"),
 }
 
 
@@ -2283,7 +2293,8 @@ def hybrid_launches_per_step(params, cfg, prefill_rows: int = 128
                              ) -> dict[str, dict[str, int]]:
     """Phases 12, 14, 15 and 18's launches per step, derived from the
     loaded model: every QuantLinear runs once per step (a fused gate|up on
-    the GLU kernel, the others on the q4 or q8 kernel by format); each MoE
+    the GLU kernel, the others on the q4 or q8 kernel by format), and so
+    does every layer's conv (the short-conv kernel); each MoE
     layer's routed experts run kernel 4 three times (gate, up, down) at a
     decode step's num_experts_per_token slots, below the grouped rule, and
     at the prefill bucket's ``prefill_rows`` x num_experts_per_token slots
@@ -2312,6 +2323,12 @@ def hybrid_launches_per_step(params, cfg, prefill_rows: int = 128
             per[name] = per.get(name, 0) + 1
 
     walk(params)
+    # every conv of a Mamba-family or short-conv layer: one kernel launch
+    # (ops/shortconv.py) a step
+    conv = sum("conv_w" in layer or "conv_w" in layer.get("mamba", {})
+               for layer in params["layers"])
+    if conv:
+        per["short_conv"] = conv
     moe = sum("router" in layer.get("ffn", {}) for layer in params["layers"])
     k, e = cfg.num_experts_per_token, cfg.num_experts
     s = prefill_rows * k
@@ -3120,6 +3137,11 @@ def mamba_path(card: str, timer, peaks: dict, gguf: str):
         ("qmatmul_q8", "ffn_down", m0["ffn"]["down"]),
         ("qmatmul_q8", "lm_head (tied)", params["output"]),
     ], ROWS, timer, peaks, GRANITE_LABEL)
+    # kernel 8 at its convs (conv_cases over 8 cache rows, bucket 128)
+    measurements += shortconv_checks(
+        [case for w, b in conv_layers(params)
+         for case in conv_cases(w, b, 8, ROWS[2], GRANITE_LABEL)],
+        timer, peaks, GRANITE_LABEL)
 
     # the main path: exact launch counts, quant against dequant
     per = hybrid_launches_per_step(params, cfg)
@@ -3200,6 +3222,104 @@ def distinct_projections(params) -> list[tuple[str, str, object]]:
     return list(seen.values())
 
 
+# Phase 14c's short conv at LFM2-24B-A2B's width (2,048 channels, 3 taps)
+# over the multiturn cell's 48 cache rows: a decode step and a launch plan
+# of 512-token rows with a spare place
+LFM2MOE_CONV = dict(channels=2048, taps=3, batch=48, bucket=512)
+
+
+def conv_layers(params) -> list[tuple[object, object]]:
+    """(taps [K, C], bias or None) of each layer's conv (LFM2's short conv,
+    a Mamba-family mixer's, Falcon-H1's under "mamba"), one per distinct
+    (K, C, bias)."""
+    seen = {}
+    for layer in params["layers"]:
+        for d in (layer, layer.get("mamba", {})):
+            if "conv_w" in d:
+                w, b = d["conv_w"], d.get("conv_b")
+                seen.setdefault((tuple(w.shape), b is None), (w, b))
+    return list(seen.values())
+
+
+def conv_cases(w, bias, batch: int, bucket: int, label: str) -> list[tuple]:
+    """shortconv_checks' cases of one conv: a decode step's identity map
+    over ``batch`` rows, the prefill bucket's row, and a launch plan's four
+    rows of bucket / 4 tokens by a row map over ``batch`` cache rows, the
+    last a spare place repeating the first's cache row."""
+    return [(f"{label} decode {batch}x1", w, bias, batch, batch, 1, None),
+            (f"{label} prefill 1x{bucket}", w, bias, 1, 1, bucket, None),
+            (f"{label} plan 4x{bucket // 4} of {batch} rows, 1 spare", w,
+             bias, batch, 4, bucket // 4, 3)]
+
+
+def shortconv_checks(cases, timer, peaks: dict, path: str) -> list[dict]:
+    """Kernel 8 (ops/shortconv.causal_conv) against its plain version on
+    random windows and inputs, each case (label, taps, bias, cache rows B,
+    input rows G, tokens T, real rows): with real None the identity map (G
+    = B; with G > 1 a third of the rows empty), else a row map whose first
+    ``real`` rows take distinct cache rows and the rest repeat the first's
+    with no valid token. The outputs of the real rows and every window bit
+    for bit; the cache rows no real row maps to keep their windows; one
+    launch. Timed against the plain version and PyTorch's depthwise conv1d
+    over the same windows and inputs; the bound: the float32 bytes it moves
+    (x in, y out, each real row's window read and written, the taps)."""
+    import torch
+    from llama_gguf_tpu_torch.ops import qmatmul as Q
+    from llama_gguf_tpu_torch.ops import shortconv as SC
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda")
+    out = []
+    for case, w, bias, b, g, t, real in cases:
+        k, c = w.shape
+        state = torch.randn(b, k - 1, c, device=dev, generator=gen)
+        x = torch.randn(g, t, c, device=dev, generator=gen)
+        n_valid = torch.randint(1, t + 1, (g,), device=dev, generator=gen,
+                                dtype=torch.int32)
+        if real is None:
+            rows, live = None, g
+            if g > 1:
+                n_valid[::3] = 0
+        else:
+            rows = torch.randperm(b, device=dev, generator=gen)[:real]
+            rows = torch.cat([rows, rows[:1].expand(g - real)]).int()
+            n_valid[real:] = 0
+            live = real
+        x[torch.arange(t, device=dev)[None] >= n_valid[:, None]] = 0.0
+        want_state = state.clone()
+        want = SC.causal_conv_plain(x, want_state, w, bias, n_valid, rows)
+        got_state = state.clone()
+        before = Q.LAUNCHES["short_conv"]
+        got = SC.causal_conv(x, got_state, w, bias, n_valid, rows)
+        torch.cuda.synchronize()
+        check(Q.LAUNCHES["short_conv"] == before + 1,
+              f"short_conv {case}: not one launch")
+        check(torch.equal(got_state, want_state),
+              f"short_conv {case}: the windows differ from the plain "
+              "version's")
+        wrote = (set(rows[:real].tolist()) if rows is not None else
+                 {i for i in range(g) if n_valid[i] > 0})
+        kept = [i for i in range(b) if i not in wrote]
+        check(torch.equal(got_state[kept], state[kept]),
+              f"short_conv {case}: a row with no valid token wrote")
+        work = state.clone()
+        seq = torch.cat([SC.read_windows(state, rows), x], 1)
+        seq = seq.transpose(1, 2).contiguous()
+        taps = w.float().t().contiguous()[:, None, :]  # [C, 1, K]
+        real_rows = int((n_valid > 0).sum())
+        nbytes = 4 * (2 * g * t * c + 2 * real_rows * (k - 1) * c + k * c
+                      + (c if bias is not None else 0))
+        out.append(compare(
+            "short_conv", case, got[:live], want[:live], timer,
+            lambda: SC.causal_conv(x, work, w, bias, n_valid, rows),
+            lambda: SC.causal_conv_plain(x, work, w, bias, n_valid, rows),
+            lambda: torch.nn.functional.conv1d(seq, taps, groups=c), nbytes,
+            2 * k * g * t * c, peaks, exact=True, path=path,
+            kernel_path="cuda cores", taps=k, channels=c, cache_rows=b,
+            rows=g, tokens=t, spare=g - live))
+    return out
+
+
 def tiny_kernel_checks(quant, label: str, by_path: dict, timer,
                        peaks: dict) -> list[dict]:
     """Phase 14c's kernel checks on a tiny preset's own weights: kernels
@@ -3207,13 +3327,19 @@ def tiny_kernel_checks(quant, label: str, by_path: dict, timer,
     step's row and the prefill bucket's TINY_ROWS[-1]; with MoE layers,
     kernels 4-6 on the first MoE layer's stacks at the prompt's own
     routing (a decode step's slots and the prompt's), each on a path the
-    main path took (``by_path``, run_main_path's)."""
+    main path took (``by_path``, run_main_path's); with conv layers, kernel
+    8 on each distinct conv's taps (conv_cases over 8 cache rows and the
+    prefill bucket)."""
     import torch
     from llama_gguf_tpu_torch.models import transformer as T
 
     r = quant.runner
     out = projection_checks(distinct_projections(r.params), TINY_ROWS, timer,
                             peaks, label)
+    out += shortconv_checks([case for w, b in conv_layers(r.params)
+                             for case in conv_cases(w, b, 8, TINY_ROWS[-1],
+                                                    label)],
+                            timer, peaks, label)
     ffn0 = next((layer["ffn"] for layer in r.params["layers"]
                  if "router" in layer.get("ffn", {})), None)
     if ffn0 is None:
@@ -3258,7 +3384,9 @@ def mamba_tiny_path(card: str, timer, peaks: dict,
     logits within 1e-3 of max |logit|; the kernels it launched against
     their plain versions on the preset's own weights (tiny_kernel_checks);
     graphed steps against eager ones (phase 9, TINY_GREEDY_STEPS greedy
-    steps). Returns (measurements, the launches of the counted runs)."""
+    steps). With tiny-lfm2 among them, kernel 8 also at LFM2-24B-A2B's
+    width (LFM2MOE_CONV). Returns (measurements, the launches of the
+    counted runs)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3285,6 +3413,17 @@ def mamba_tiny_path(card: str, timer, peaks: dict,
                             greedy_steps=TINY_GREEDY_STEPS)
         del quant, deq
         torch.cuda.empty_cache()
+    if "tiny-lfm2" in presets:  # the short conv at LFM2-24B-A2B's width
+        c, b, t = (LFM2MOE_CONV[key] for key in ("channels", "batch",
+                                                 "bucket"))
+        w = torch.randn(LFM2MOE_CONV["taps"], c, device="cuda",
+                        generator=torch.Generator(device="cuda"
+                                                  ).manual_seed(SEED))
+        label = "LFM2-24B-A2B conv"
+        measurements += shortconv_checks(
+            conv_cases(w, None, b, t, label)
+            + [(f"{label} plan 2x{t} of {b} rows, 1 spare", w, None, b, 2, t,
+                1)], timer, peaks, f"LFM2-24B-A2B (phase {phase})")
     print(json.dumps({f"phase_{phase}": dict(
         presets=presets, launches=total,
         kernel_cases=len(measurements),
@@ -6177,7 +6316,8 @@ def run(moe_gguf, formats, hybrid_gguf, granite_gguf, mla_gguf,
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         built = pool.submit(cuda_build.build_all,
-                            ["qgemm", "moe_qmatmul", "qmatmul_variants"])
+                            ["qgemm", "moe_qmatmul", "qmatmul_variants",
+                             "shortconv"])
         tinyllama = build_model("tinyllama-1.1b")
         built.result()
     log(f"kernels and the TinyLlama GGUF built in "

@@ -27,8 +27,10 @@ Spans (utils/debug.py): each scheduler iteration that finds a request
 queued or live records one ``batched.step`` (its index ``step``; counters
 ``rows_real``, the tokens of live rows, ``rows_launched``, the rows the
 runner launched, padding included, ``prefill_rows``, the tokens of prefill
-chunks, and ``prefill_launches``, the runner's launches that carried them;
-none when admission only reaped cancelled requests and nothing was
+chunks, ``prefill_launches``, the runner's launches that carried them, and
+``state_rows``, the chunk rows whose recurrent state those launches
+carried by the runner's row map; none when admission only reaped
+cancelled requests and nothing was
 launched) whose children are ``batched.admit``, ``batched.build`` (the
 step's arrays and read bound), the runner's spans of its step,
 ``batched.sample`` (every row's sampler call and logprobs) and
@@ -84,10 +86,12 @@ class BatchedStats:
     capture_time: float = 0.0
     # token rows of the steps: those of live requests, and those the
     # runner launched, padding included (runner.last_launch); the prefill
-    # launches among its launches
+    # launches among its launches; the chunk rows whose recurrent state
+    # those launches carried by the runner's row map (a hybrid cache's plan)
     rows_real: int = 0
     rows_launched: int = 0
     prefill_launches: int = 0
+    state_rows: int = 0
     # the request spans: seconds summed, and how many ended (queued: submit
     # to admission or abort; prefill: to the first sampled token or abort;
     # decode: to the finish)
@@ -518,15 +522,16 @@ class BatchedEngine:
         self.stats.runner_time += dt
         # what the runner launched: its plan's launches, or the whole grid
         # (a stand-in runner that reports nothing)
-        launches, launched = self.runner.last_launch or (int(bt > 1),
-                                                         b * bt)
+        launch = self.runner.last_launch or {
+            "prefill_launches": int(bt > 1), "rows_launched": b * bt,
+            "state_rows": 0}
         self.stats.rows_real += real
-        self.stats.rows_launched += launched
-        self.stats.prefill_launches += launches
+        self.stats.rows_launched += launch["rows_launched"]
+        self.stats.prefill_launches += launch["prefill_launches"]
+        self.stats.state_rows += launch["state_rows"]
         if step is not None:
-            step.counters = {"rows_real": real, "rows_launched": launched,
-                             "prefill_rows": prefill_rows,
-                             "prefill_launches": launches}
+            step.counters = {"rows_real": real, "prefill_rows": prefill_rows,
+                             **launch}
         if self.runner.captures > captures:
             self.stats.capture_steps += 1
             self.stats.capture_time += dt

@@ -26,7 +26,10 @@ A step whose grid is wider than one launch of ``LAUNCH_TOKENS`` token rows
 runs as a launch plan (``step``): the rows that carry a prefill chunk go G
 at a time through a (G, T) forward that scatters and gathers their cache
 rows by a row map, and every other row rides the (B, 1) decode graph, so
-the padding of a continuous batch's mixed step is not computed. The plan
+the padding of a continuous batch's mixed step is not computed. A hybrid
+cache takes the plan when its recurrent state is LFM2's short-conv window
+alone: the map gathers and writes back each chunk row's window, and a
+launch's spare places, which repeat its first row, write none. The plan
 follows from the step's key and the cache's kinds alone, so a key's first
 step, whatever its inputs, captures every graph of its plan.
 
@@ -62,8 +65,8 @@ inputs packed and copied), then ``runner.replay`` (preceded by
 the host, with ``host_rows``); a plan's launches run inside the one
 ``runner.replay`` or ``runner.forward``. Counters: ``captures``,
 ``capture_seconds`` (their total), ``pool_bytes``, ``replays`` per key,
-``eager_steps``, and ``last_launch``, the prefill launches and token rows
-of the calling thread's last step.
+``eager_steps``, and ``last_launch``, the prefill launches, token rows and
+recurrent-state rows of the calling thread's last step.
 
 ``MeshRunner`` is one rank's runner under a (data, model) mesh
 (parallel/): its params are the rank's shard, its caches the rank's heads
@@ -88,7 +91,8 @@ from ..models.config import ModelConfig
 from ..models.deltanet import init_deltanet_state
 from ..models.mamba import KINDS as MAMBA_KINDS, init_mamba_state
 from ..models.loader import resolve_device
-from ..models.transformer import embed, forward, layer_forward
+from ..models.transformer import (ROW_MAPPED_KINDS, embed, forward,
+                                  layer_forward)
 from ..ops import qmatmul as Q
 from ..ops.norms import apply_norm
 from ..utils.debug import debug_activations_enabled, span
@@ -575,14 +579,22 @@ class ModelRunner:
             lambda buf: self._forward(kv, bound,
                                       *self._unpack_rows(buf, g, t)))
 
+    def _row_mapped(self, kv: dict) -> bool:
+        """Whether the row map covers every layer of ``kv``: the plain or
+        MLA cache (PLAN_FORMATS, no SWA ring), and recurrent state only of
+        the kinds it gathers and writes back (ROW_MAPPED_KINDS: LFM2's short
+        conv)."""
+        return ("k_swa" not in kv and "deltanet" not in kv
+                and self.kv_format in PLAN_FORMATS
+                and ("mamba" not in kv or all(
+                    k in ROW_MAPPED_KINDS for k in self.cfg.layer_kinds)))
+
     def _plan_rows(self, b: int, t: int, gather: bool, kv: dict) -> int:
         """G when a step of key (b, t, gathered logits) on ``kv`` runs as a
         launch plan, else 0 (one launch over the whole grid). From the key
         and the cache's kinds alone: gathered logits, G < b, a cache the
         row map covers, one device."""
-        if not gather or self.mesh is not None or "k_swa" in kv \
-                or "deltanet" in kv or "mamba" in kv \
-                or self.kv_format not in PLAN_FORMATS:
+        if not gather or self.mesh is not None or not self._row_mapped(kv):
             return 0
         g = launch_rows(t)
         return g if g < b else 0
@@ -655,8 +667,11 @@ class ModelRunner:
                 if out is None:
                     out = res.new_zeros((b, *res.shape[1:]))
                 out.index_copy_(0, rows[:n].long(), res[:n])
-        self._launched.value = (len(launches), len(launches) * g * t
-                                + (b if decode else 0))
+        self._launched.value = {
+            "prefill_launches": len(launches),
+            "rows_launched": len(launches) * g * t + (b if decode else 0),
+            "state_rows": sum(n for _, n in launches) if "mamba" in kv
+            else 0}
         return out
 
     # -- steps ---------------------------------------------------------------
@@ -665,10 +680,12 @@ class ModelRunner:
         return torch.as_tensor(a, dtype=torch.int32).to(self.device)
 
     @property
-    def last_launch(self) -> tuple[int, int] | None:
-        """(prefill launches, token rows launched) of this thread's last
-        ``step`` on this runner, padding included; None before its
-        first."""
+    def last_launch(self) -> dict | None:
+        """What this thread's last ``step`` on this runner launched:
+        ``prefill_launches``, ``rows_launched`` (token rows, padding
+        included) and ``state_rows`` (the chunk rows whose recurrent state
+        a plan's prefill launches carried by the row map; 0 without
+        recurrent state or a plan); None before its first."""
         return getattr(self._launched, "value", None)
 
     @torch.no_grad()
@@ -687,8 +704,9 @@ class ModelRunner:
 
         A step with gathered logits whose grid is wider than one launch of
         ``LAUNCH_TOKENS`` rows (G = launch_rows(T) < B) runs as a launch
-        plan, on a cache the row map covers (PLAN_FORMATS, no SWA ring, no
-        recurrent state, one device): the chunk rows (a live column past
+        plan, on a cache the row map covers (PLAN_FORMATS, no SWA ring,
+        recurrent state only of LFM2's short conv, one device; a spare
+        place writes no state): the chunk rows (a live column past
         the first, or logits at one) run G at a time through the prefill
         launch, a (G, T) forward over their cache rows by a row map at the
         read bound (a tier's hi), its spare places all padding; every other
@@ -710,7 +728,9 @@ class ModelRunner:
             else:
                 out = self._step_logits(b, t, read_bound, gather, kv, parts,
                                         copy=host_rows is None)
-                self._launched.value = (int(t > 1), b * t)
+                self._launched.value = {"prefill_launches": int(t > 1),
+                                        "rows_launched": b * t,
+                                        "state_rows": 0}
             if host_rows is None:
                 return out, kv
             with span("runner.fetch"):

@@ -170,6 +170,9 @@ NEOX_ROPE = {
     # weights get +1), so runtime rope is rotate-half = NEOX; nemotron is
     # also partial (rope.dimension_count = head_dim/2)
     "nemotron", "dbrx",
+    # LFM2-MoE: HF rotate-half, no conversion permute (llama.cpp ropes
+    # lfm2moe NEOX)
+    "lfm2moe",
 }
 
 ATTENTION_BIAS = {

@@ -221,6 +221,21 @@ def _get_int(md: Mapping[str, Any], key: str, default: int | None = None) -> int
     return int(v)
 
 
+def _kv_heads(v, num_heads: int) -> int:
+    """head_count_kv: one count, or one a layer (LFM2's conversions write
+    0 for the conv layers and the attention layers' count for the others);
+    the attention layers' count, which must be one number."""
+    if v is None:
+        return num_heads
+    if not hasattr(v, "__iter__"):
+        return int(v)
+    counts = {int(n) for n in v} - {0}
+    if len(counts) > 1:
+        raise ValueError(f"per-layer head_count_kv {sorted(counts)}: the "
+                         "cache takes one KV head count")
+    return counts.pop() if counts else num_heads
+
+
 def _float_tuple(md: Mapping[str, Any], key: str) -> tuple:
     v = md.get(key)
     if v is None:
@@ -275,7 +290,8 @@ def parse_config(metadata: Mapping[str, Any],
     num_heads = gi("attention.head_count", 1 if is_mamba else None)
     if num_heads is None:
         raise KeyError(f"missing {arch}.attention.head_count")
-    num_kv_heads = gi("attention.head_count_kv", num_heads)
+    num_kv_heads = _kv_heads(
+        metadata.get(f"{arch}.attention.head_count_kv"), num_heads)
     head_dim = gi("attention.key_length", hidden_size // max(num_heads, 1))
 
     intermediate_size = gi(

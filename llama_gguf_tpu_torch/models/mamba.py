@@ -19,7 +19,10 @@ is updated in place: a layer copies its new state into the cache's own
 tensors, so a CUDA graph captured on the cache (engine/runner.py) carries
 it from one replay to the next. Padding tokens (positions >= lengths)
 leave it bit-unchanged: decay 1 and drive 0 in the scan, zero input to the
-conv, and the new conv window gathered at each row's valid count.
+conv, and the new conv window gathered at each row's valid count, written
+only by a row with a valid token. The conv is one kernel on CUDA
+(ops/shortconv.py). The short conv alone also runs a few rows of a larger
+cache by the runner's row map (its state is the conv window only).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import linear as L
+from ..ops import shortconv as SC
 from ..ops.norms import apply_norm, rms_norm
 
 def init_mamba_state(cfg, batch: int, num_layers: int,
@@ -63,26 +67,17 @@ def init_mamba_state(cfg, batch: int, num_layers: int,
 
 def causal_conv(inp: torch.Tensor, kv: dict, layer_idx: int,
                 w: torch.Tensor, bias: torch.Tensor | None,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, rows: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """Causal depthwise conv of ``inp`` [B, T, C] (padding rows already
     zero) with the layer's conv window in front: out[t] = sum_k w[k] *
     seq[t + k], w [K, C]. The new window, the last K-1 valid inputs, is
-    copied into the cache in place."""
-    t = inp.shape[1]
-    state = kv["mamba"]["conv"][layer_idx]
-    seq = torch.cat([state, inp], dim=1)  # [B, K-1+T, C]
-    w = w.float()
-    out = seq[:, 0:t] * w[0]
-    for k in range(1, w.shape[0]):
-        out = out + seq[:, k:k + t] * w[k]
-    if bias is not None:
-        out = out + bias.float()
-    n_valid = valid.sum(dim=1)
-    gidx = n_valid[:, None] + torch.arange(state.shape[1],
-                                           device=inp.device)[None]
-    state.copy_(torch.gather(seq, 1,
-                             gidx[..., None].expand(-1, -1, seq.shape[-1])))
-    return out
+    written into the cache in place by the rows with a valid token.
+    ``rows``: the runner's row map (input row i is cache row rows[i]), or
+    None. One kernel on CUDA, its plain version on the CPU
+    (ops/shortconv.causal_conv)."""
+    return SC.causal_conv(inp, kv["mamba"]["conv"][layer_idx], w, bias,
+                          valid.sum(dim=1, dtype=torch.int32), rows)
 
 
 def selective_scan(dt: torch.Tensor, xs: torch.Tensor, b_t: torch.Tensor,
@@ -251,11 +246,14 @@ def mamba2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 def shortconv_layer(layer: dict, cfg, x: torch.Tensor,
                     positions: torch.Tensor, kv: dict, layer_idx: int,
                     lengths: torch.Tensor,
-                    precision: str | None = None
+                    precision: str | None = None,
+                    rows: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
     """An LFM2 short-convolution block: in_proj -> [B | C | x], Bx = B x,
     causal depthwise conv over L_cache taps, y = C conv(Bx), out_proj; then
-    the SwiGLU FFN half. The state is the (L_cache-1)-tap Bx window."""
+    the SwiGLU FFN half (or MoE, LFM2-MoE). The state is the (L_cache-1)-tap
+    Bx window, of cache row rows[i] for input row i under the runner's row
+    map (``rows``), else of row i."""
     d = x.shape[-1]
     valid = positions < lengths[:, None]
     vf = valid.float()[..., None]
@@ -264,7 +262,7 @@ def shortconv_layer(layer: dict, cfg, x: torch.Tensor,
     proj = L.apply(layer["conv_in"], h, precision).float()  # [B, T, 3H]
     b_g, c_g, x_g = proj[..., :d], proj[..., d:2 * d], proj[..., 2 * d:]
     conv = causal_conv(b_g * x_g * vf, kv, layer_idx, layer["conv_w"],
-                       layer.get("conv_b"), valid)
+                       layer.get("conv_b"), valid, rows)
     x = x + L.apply(layer["conv_out"], (c_g * conv).to(x.dtype), precision)
     return _ffn_half(layer, cfg, x, precision), kv
 

@@ -569,6 +569,9 @@ def parallel_hybrid_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 # kind -> (loader, forward) of the recurrent blocks, which take no read
 # bound; models/loader.py loads through the same table
 RECURRENT_LAYERS = {**deltanet.LAYERS, **mamba.LAYERS}
+# the layer kinds a row map covers: attention over the plain or MLA cache,
+# and the short conv, whose whole state is its conv window
+ROW_MAPPED_KINDS = ("attn", "shortconv")
 
 
 def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -580,11 +583,16 @@ def layer_forward(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     """Layer ``layer_idx`` by its kind (cfg.layer_kinds): an attention
     block, a Falcon-H1 parallel hybrid, or a recurrent block (DeltaNet,
     Mamba-1, Mamba-2, LFM2's short conv; these ignore the read bound).
-    ``rows`` (``forward``'s row map) reaches attention blocks alone."""
+    ``rows`` (``forward``'s row map) reaches attention blocks and LFM2's
+    short conv, whose conv window the map gathers and writes back
+    (ROW_MAPPED_KINDS)."""
     kind = cfg.layer_kinds[layer_idx] if cfg.layer_kinds else "attn"
-    if rows is not None and kind != "attn":
+    if rows is not None and kind not in ROW_MAPPED_KINDS:
         raise ValueError(f"a row map does not cover {kind!r} layers: their "
                          "recurrent state is indexed by input row")
+    if kind == "shortconv":
+        return mamba.shortconv_layer(layer, cfg, x, positions, kv, layer_idx,
+                                     lengths, precision, rows)
     if kind in RECURRENT_LAYERS:
         return RECURRENT_LAYERS[kind][1](layer, cfg, x, positions, kv,
                                          layer_idx, lengths, precision)
@@ -656,8 +664,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     row ``rows[i]``, which its K/V writes scatter to and its attention
     reads gather from, so a step can run a few rows of a larger cache
     (engine/runner.py's launch plan). It takes a single read bound, and
-    attention layers over the plain or MLA cache (not the SWA ring, qjl or
-    a recurrent state)."""
+    attention layers over the plain or MLA cache (not the SWA ring or qjl)
+    and LFM2's short conv (its conv window gathered and written back by
+    the same map; models/mamba.causal_conv), not the other recurrent
+    states."""
     if rows is not None and isinstance(read_bound, tuple):
         raise ValueError("a row map takes a single read bound, not a tier")
     if isinstance(read_bound, tuple):

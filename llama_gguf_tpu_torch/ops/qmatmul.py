@@ -72,7 +72,10 @@ from .linear import (QuantExpertStack, QuantLinear, dequantize_expert,
 GLU_ACTS = ("silu", "gelu", "relu", "relu2", "swiglu_oai")
 
 LAUNCHES = {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0,
-            "moe_slot": 0, "moe_grouped": 0, "moe_glu_grouped": 0}
+            "moe_slot": 0, "moe_grouped": 0, "moe_glu_grouped": 0,
+            # csrc/shortconv.cu (ops/shortconv.py), counted here so that a
+            # graph's replays credit it with the others
+            "short_conv": 0}
 LAUNCHES_BY_PATH: dict[str, int] = {}
 
 # Slot-major MoE kernel below this many slots; grouped above, when its

@@ -543,6 +543,10 @@ def _metrics(st: ServerState, req: _Request):
     gauge("llamagguf_step_prefill_launches_total",
           "Launches of the batched steps that carried prefill chunks",
           s.prefill_launches if s else 0)
+    gauge("llamagguf_step_state_rows_total",
+          "Chunk rows whose recurrent state the batched steps' prefill "
+          "launches carried by the runner's row map",
+          s.state_rows if s else 0)
     # the request spans (engine/batched.py): a sum and a count each
     for name, what, total, count in REQUEST_PHASES:
         gauge(f"llamagguf_{name}_seconds_sum",

@@ -21,8 +21,10 @@
       - ``batched.step`` (engine/batched.py): one scheduler iteration, with
         the counters ``rows_real`` (tokens of live rows), ``rows_launched``
         (rows the runner launched, padding included), ``prefill_rows``
-        (tokens of prefill chunks) and ``prefill_launches`` (the runner's
-        launches that carried them); its children ``batched.admit``,
+        (tokens of prefill chunks), ``prefill_launches`` (the runner's
+        launches that carried them) and ``state_rows`` (the chunk rows whose
+        recurrent state those launches carried by the row map); its
+        children ``batched.admit``,
         ``batched.build`` (the step's arrays, the read bound),
         ``batched.sample`` (every row's sampler call and logprobs) and
         ``batched.emit`` (detokenizing, stop strings, the handles' events,

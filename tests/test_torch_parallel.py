@@ -298,7 +298,8 @@ def test_mesh_step_keeps_the_whole_grid(gguf):
         r = eng.runner
         got, _ = r.step(toks, pos, lens, r.init_kv(b), read_bound=512,
                         logit_positions=lp)
-        assert r.last_launch == (1, b * t)
+        assert r.last_launch == {"prefill_launches": 1,
+                                 "rows_launched": b * t, "state_rows": 0}
     finally:
         eng.close()
     one = Engine.load(path, EngineConfig(

@@ -19,6 +19,7 @@ from llama_gguf_tpu.quant.quantize import quantize
 from llama_gguf_tpu.quant.repack import repack as jrepack
 
 from llama_gguf_tpu_torch.ops import qmatmul as Q
+from llama_gguf_tpu_torch.ops import shortconv as SC
 from llama_gguf_tpu_torch.ops.linear import QuantLinear
 from llama_gguf_tpu_torch.quant.repack import repack
 
@@ -152,6 +153,8 @@ def test_cpu_path_does_not_count_launches():
     _, pl = make_pair(GGMLType.Q4_K, 128, 256, 7)
     Q.reset_launches()
     Q.qmatmul(torch.from_numpy(make_x(2, 256, 7)), pl)
+    SC.causal_conv(torch.zeros(2, 3, 8), torch.zeros(2, 2, 8),
+                   torch.ones(3, 8), None, torch.ones(2, dtype=torch.int32))
     assert Q.LAUNCHES == {"qmatmul_q4": 0, "qmatmul_q8": 0, "qmatmul_glu": 0,
                           "moe_slot": 0, "moe_grouped": 0,
-                          "moe_glu_grouped": 0}
+                          "moe_glu_grouped": 0, "short_conv": 0}

@@ -328,7 +328,7 @@ def plan_runner(request, tmp_path_factory):
 # each row: ("chunk", start, n) a prefill chunk, ("one", pos) a chunk of one
 # token, ("decode", pos), or None (a free row); then the T bucket, the read
 # bound (None: pick_read_bound's) and the launches expected: (prefill
-# launches, rows launched)
+# launches, rows launched), as ``launched`` gives runner.last_launch
 PLANS = {
     "one_chunk": ([("chunk", 0, 200), ("decode", 300), None,
                    ("decode", 40)], 256, 512, (1, 2 * 256 + 4)),
@@ -341,6 +341,12 @@ PLANS = {
                          None], 256, 512, (1, 2 * 256 + 4)),
     "all_padding": ([None] * 4, 512, 512, (0, 4)),
 }
+
+
+def launched(prefill_launches, rows_launched, state_rows=0):
+    """runner.last_launch of a step that launched these."""
+    return {"prefill_launches": prefill_launches,
+            "rows_launched": rows_launched, "state_rows": state_rows}
 
 
 def _plan_inputs(rows, bt, vocab):
@@ -387,7 +393,7 @@ def test_planned_step_matches_the_full_grid(plan_runner, case):
     picked = live or [0]
     got, kv = r.step(toks, pos, lens, kv, read_bound=rb, logit_positions=lp,
                      host_rows=picked)
-    assert r.last_launch == launches
+    assert r.last_launch == launched(*launches)
     want = want[picked, 0].numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=LOGIT_ATOL * np.abs(want).max())
@@ -412,14 +418,14 @@ def test_small_grids_run_whole(plan_runner):
         r.cfg.vocab_size)
     assert trunner.launch_rows(128) == 4
     r.step(toks, pos, lens, r.init_kv(), read_bound=256, logit_positions=lp)
-    assert r.last_launch == (1, 4 * 128)
+    assert r.last_launch == launched(1, 4 * 128)
     toks, pos, lens, _ = _plan_inputs(
         [("chunk", 0, 200), ("decode", 7), None, None], 256,
         r.cfg.vocab_size)
     r.step(toks, pos, lens, r.init_kv(), read_bound=256)
-    assert r.last_launch == (1, 4 * 256)
+    assert r.last_launch == launched(1, 4 * 256)
     r.step(toks[:, :1], pos[:, :1], lens, r.init_kv(), read_bound=256)
-    assert r.last_launch == (0, 4)
+    assert r.last_launch == launched(0, 4)
 
 
 @pytest.mark.parametrize("preset,kw", [
@@ -447,7 +453,7 @@ def test_caches_the_row_map_skips_run_whole(tmp_path, preset, kw):
                           read_bound=512, logit_positions=torch.from_numpy(lp),
                           precision=r.matmul_precision)
     got, kv = r.step(toks, pos, lens, kv, read_bound=512, logit_positions=lp)
-    assert r.last_launch == (1, 4 * 256)
+    assert r.last_launch == launched(1, 4 * 256)
     assert torch.equal(got, want)
     for key in TKV.POSITIONAL:
         for x, y in zip(kv.get(key, ()), ref.get(key, ())):
@@ -494,7 +500,7 @@ def test_planned_step_in_each_plain_format(tmp_path, fmt):
                           precision=r.matmul_precision)
     got, kv = r.step(toks, pos, lens, kv, read_bound=1024,
                      logit_positions=lp, host_rows=[0, 1, 2, 3])
-    assert r.last_launch == (3, 3 * 512 + 4)
+    assert r.last_launch == launched(3, 3 * 512 + 4)
     want = want[:, 0].numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=LOGIT_ATOL * np.abs(want).max())

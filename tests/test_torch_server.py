@@ -238,6 +238,7 @@ def test_bad_json_matches_jax(servers):
 PORT_METRICS = [  # the port's own, after the JAX server's
     "llamagguf_step_rows_real_total", "llamagguf_step_rows_launched_total",
     "llamagguf_step_prefill_launches_total",
+    "llamagguf_step_state_rows_total",
     *(f"llamagguf_{span}_seconds_{part}"
       for span in ("queue_wait", "request_prefill", "request_decode")
       for part in ("sum", "count")),
@@ -286,7 +287,9 @@ def test_metrics_counters_move_with_traffic(servers):
     assert got[0] == 200
     after = read()
     moved = [k for k in PORT_METRICS if after[k] > before[k]]
-    assert moved == PORT_METRICS[:-3]
+    # a model without recurrent state carries none by the row map
+    assert moved == [k for k in PORT_METRICS[:-3]
+                     if k != "llamagguf_step_state_rows_total"]
     # the rows the runner launched: 8 tokens decoded and a prompt
     # prefilled, padding included; the prompt's prefill in one launch
     rows, launched, launches = (

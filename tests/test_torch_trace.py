@@ -124,14 +124,17 @@ def _check_counters(be, handles, arrays, max_seq):
     rows of the arrays it was handed; BatchedStats sums them."""
     steps = sorted((s for s in debug.spans() if s.name == "batched.step"),
                    key=lambda s: s.step)
-    launches = [n for _, _, (n, _) in arrays]
-    launched = [rows for _, _, (_, rows) in arrays]
+    launches = [a["prefill_launches"] for _, _, a in arrays]
+    launched = [a["rows_launched"] for _, _, a in arrays]
+    state = [a["state_rows"] for _, _, a in arrays]
     live = [int((p < max_seq).sum()) for _, p, _ in arrays]
     assert [s.counters["rows_launched"] for s in steps] == launched
     assert [s.counters["prefill_launches"] for s in steps] == launches
+    assert [s.counters["state_rows"] for s in steps] == state
     assert [s.counters["rows_real"] for s in steps] == live
     assert sum(launched) == be.stats.rows_launched
     assert sum(launches) == be.stats.prefill_launches
+    assert sum(state) == be.stats.state_rows
     assert sum(live) == be.stats.rows_real
     assert all(n <= rows for n, rows in zip(live, launched))
     # a step carries prefill tokens exactly when its bucket is wider than
@@ -155,7 +158,8 @@ def test_step_counters_match_the_runners_arrays(engines, model):
     be, handles, arrays = _serve(engines[model], PROMPTS)
     _check_counters(be, handles, arrays, engines[model].runner.max_seq)
     # grids one launch holds: the whole b x bt
-    assert all(launch == (int(t.shape[1] > 1), t.size)
+    assert all(launch == {"prefill_launches": int(t.shape[1] > 1),
+                          "rows_launched": t.size, "state_rows": 0}
                for t, _, launch in arrays)
 
 
